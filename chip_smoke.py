@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on the card.
+"""Drive the PyTorch/CUDA port's three decode paths once on the card.
 
 Run ``python3 chip_smoke.py`` from the repository root on a machine with one
 NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
@@ -8,18 +8,24 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    processes in parallel) and prints the card, the toolchain and the build time;
 2. holds every kernel against its plain PyTorch version on the card at the
    flagship shapes (``[6, 5120, 512]`` messages, ``[512, 10240]`` scores,
-   k = 512) and times kernel, plain version and, where one PyTorch call
-   computes the same function, that call;
+   k = 512, layered state ``[20, 512, 512]`` / ``[60, 512, 512]``) and times
+   kernel, plain version and, where one PyTorch call computes the same
+   function, that call; the sweep kernel also on a code too wide for shared
+   memory (its totals then stay in global memory);
 3. drives ``run_point`` — keygen, exact-weight channel, syndrome, flooding BP
    decode with compaction, statistics — on the flagship quasi-cyclic code at
    its operating point and checks the statistics and the launch counts;
-4. repeats the same trials through the plain versions (``backend="xla"``) and
+   3b. the same point with ``schedule="layered"`` (the sweep kernel);
+   3c. ``run_point_continuation`` at a waterfall point (the fresh-lane kernel)
+   against ``run_point`` on the same point key: seven equal partial sums;
+4. repeats the paths through the plain versions (``backend="xla"``) and
    compares the seven partial sums.
 
 Each phase prints one JSON object on a line of its own; any failure raises.
 The last line is ``{"ok": true, "device": {...}}``.  The script exits non-zero
-without a CUDA device.  Times are this card's, labelled with its name and power
-limit; they are a smoke measurement, not a benchmark.
+without a CUDA device.  ``--profile`` adds a device-time table of each of the
+three paths.  Times are this card's, labelled with its name and
+power limit; they are a smoke measurement, not a benchmark.
 """
 
 from __future__ import annotations
@@ -45,6 +51,9 @@ OPS_PER_EDGE = {
     # sign*syn, alpha*sign*loo 2, clip 2
     "min-sum": 17,
 }
+# The layered sweep adds per edge: index add and wrap 2, delta, t += delta,
+# and the parity pass (index 2, compare, xor).
+OPS_PER_EDGE_LAYERED_EXTRA = 8
 OPS_PER_WORD_THREEFRY = 95  # 20 rounds x (add, rotate, xor) + 5 key injections
 OPS_PER_SCORE_KTH = 64  # 32 passes x (compare, add)
 
@@ -53,6 +62,17 @@ QBER, BATCH, N_BATCHES = 0.05, 512, 4
 MASTER_SEED, POINT_INDEX = 777, 0
 MEAN_ITERATIONS_GATE = (5.5, 8.0)
 SP_ITERATION_SUM_ALLOWANCE = 2  # +-1-iteration boundary frames per run
+# The layered path: same point, about 1.7 x fewer sweeps than flooding.
+LAYERED_COMPACT_AFTER = 4
+MEAN_SWEEPS_GATE = (3.2, 4.8)
+# The continuation path: a waterfall point (844 flips; about 0.28 of the frames
+# fail there at the cap of 100, the others take 21 to 100 iterations).
+WATERFALL_QBER, WATERFALL_POINT_INDEX = 0.0825, 1
+SEGMENT, REFILL_FRAC = 4, 0.125
+FRESH_THRESHOLD = 3.0  # K5's check: the Lq clip must bite where it is applied
+# A code whose frame of totals (116 x 512 floats) exceeds a block's shared
+# memory: the sweep kernel's global-memory mode, held against the plain sweep.
+WIDE_NB, WIDE_MB, WIDE_SEED, WIDE_BATCH = 116, 58, 667, 32
 
 
 def _time_ms(torch, fn, flush, repeats=20, warmup=3):
@@ -127,8 +147,61 @@ def _compare_messages(torch, got, ref, dtype_name, algorithm, scale):
     return max_err, n_diff
 
 
-def _profile_main_path(torch, step, card, untraced_ms):
-    """``--profile``: trace the main path and print the device time by kernel
+def _compare_sweep(torch, got, ref, act, dtype_name, algorithm, scale, dv):
+    """Kernel vs plain version for one layered sweep: ``(t, Lr, ok)`` each.
+    Returns (max_abs_err over t and Lr, entries differing).  Min-sum: t and Lr
+    equal, ok equal on active frames.  Sum-product: Lr by
+    :func:`_compare_messages`' rule; a total is its old value plus at most
+    ``dv`` message differences, so t agrees within ``dv`` times the largest Lr
+    difference found (plus float32 rounding of the sum, 1e-5 relative); ok is
+    equal on every active frame whose decisions ``t <= 0`` are equal.  The
+    kernel leaves an inactive frame untouched and reports its ok as False."""
+    (t_k, lr_k, ok_k), (t_p, lr_p, ok_p) = got, ref
+    lr_err, n_diff = _compare_messages(torch, lr_k, lr_p, dtype_name, algorithm, scale)
+    t_diff = (t_k - t_p).abs()
+    t_err = float(t_diff.max())
+    n_diff += int((t_diff > 0).sum())
+    if algorithm == "min-sum":
+        if t_err:
+            raise AssertionError(f"min-sum sweep: totals differ by {t_err}")
+        same = act
+    else:
+        if bool((t_diff > dv * lr_err + 1e-5 * (1.0 + t_p.abs())).any()):
+            raise AssertionError(
+                f"sum-product/{dtype_name} sweep: totals differ by {t_err}, "
+                f"messages by {lr_err}")
+        same = act & ((t_k <= 0) == (t_p <= 0)).all(dim=2).all(dim=0)
+    if not bool((ok_k[same] == ok_p[same]).all()):
+        raise AssertionError("sweep kernel's ok differs on an active frame")
+    if bool(ok_k[~act].any()):
+        raise AssertionError("sweep kernel reported ok for an inactive frame")
+    return max(t_err, lr_err), n_diff
+
+
+def _sweep_kernel_resources(build_dir, library, instance):
+    """Registers per thread of one sweep-kernel instance, from ptxas's report
+    in the build log, and the blocks of ``threads`` threads and ``shared``
+    bytes an SM then holds (64 Ki registers, 2048 threads, 227 KiB + 1 KiB per
+    block).  ``instance`` = (template argument string, threads, shared)."""
+    import re
+
+    template, threads, shared = instance
+    log = (build_dir / f"{library}.log").read_text()
+    m = re.search(r"Compiling entry function '\S*layered_sweep_kernelI" + template
+                  + r"E\S*'.*?Used (\d+) registers", log, re.S)
+    if m is None:
+        raise AssertionError(f"no ptxas report for layered_sweep_kernel<{template}>")
+    regs = int(m.group(1))
+    per_warp = -(-regs * 32 // 256) * 256  # allocated per warp in units of 256
+    limits = {"by_registers": 65536 // (per_warp * threads // 32),
+              "by_threads": 2048 // threads,
+              "by_shared_memory": (228 * 1024) // (shared + 1024)}
+    return {"registers_per_thread": regs, "blocks_per_sm": min(limits.values()),
+            **limits}
+
+
+def _profile_path(torch, path, step, card, untraced_ms):
+    """``--profile``: trace one path and print the device time by kernel
     name and the device-busy share of the UNTRACED run's wall time (tracing
     slows the host, not the kernels).  The first traced run absorbs the
     tracer's start-up; both runs do the same work, so totals are halved."""
@@ -148,11 +221,15 @@ def _profile_main_path(torch, step, card, untraced_ms):
         raise AssertionError("the profiler recorded no device time")
     table = sorted(((ms, c, k) for k, (ms, c) in rows.items()), reverse=True)
     busy_ms = sum(r[0] for r in table)
+    # Where the host's time goes: operators by their own CPU time, under tracing.
+    host = sorted(((a.self_cpu_time_total / 1e3 / 2, a.count / 2, a.key)
+                   for a in prof.key_averages()), reverse=True)
     print(json.dumps({"profile": {
-        "card": card, "untraced_wall_ms": untraced_ms, "device_busy_ms": busy_ms,
-        "device_busy_share": busy_ms / untraced_ms,
+        "path": path, "card": card, "untraced_wall_ms": untraced_ms,
+        "device_busy_ms": busy_ms, "device_busy_share": busy_ms / untraced_ms,
         "kernel_launches": sum(r[1] for r in table),
         "by_kernel_ms_count_name": [[round(m, 4), c, k[:100]] for m, c, k in table[:30]],
+        "traced_host_self_ms_count_op": [[round(m, 3), c, k[:60]] for m, c, k in host[:12]],
     }}), flush=True)
 
 
@@ -173,15 +250,17 @@ def main() -> int:
     )
     from qkd_ldpc_tpu_torch.channel.threefry import flip_sign, fold_in
     from qkd_ldpc_tpu_torch.codes import make_qc_code
-    from qkd_ldpc_tpu_torch.decoder import cuda_kernels
+    from qkd_ldpc_tpu_torch.decoder import cuda_kernels, cuda_layered, layered
     from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions
-    from qkd_ldpc_tpu_torch.decoder.reconcile import reconcile
-    from qkd_ldpc_tpu_torch.sim.runner import run_point
+    from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr, reconcile
+    from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
+    from qkd_ldpc_tpu_torch.sim import continuation, run_point, run_point_continuation
     from qkd_ldpc_tpu_torch.sim.stats import STAT_KEYS
     from qkd_ldpc_tpu_torch.utils import card_name_and_power_limit
 
     dev = torch.device("cuda")
     torch.manual_seed(0)
+    profiling = "--profile" in sys.argv[1:]
 
     # ---- phase 1: device, toolchain, build ---------------------------------
     card = card_name_and_power_limit()
@@ -201,6 +280,7 @@ def main() -> int:
     print(json.dumps({"device": {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "nvcc": nvcc_release, "build_seconds": round(_build.build_seconds, 2),
+        "libraries": len(_build.LIBRARIES),
         "copy_bytes_per_s": copy_bytes_per_s,
         "datasheet_bytes_per_s": HBM_BYTES_PER_S,
     }}), flush=True)
@@ -209,13 +289,14 @@ def main() -> int:
     code = make_qc_code(z=Z, nb=NB, mb=MB_ROWS, dv=DV, seed=CODE_SEED)
     N, M, dc = code.n_vars, code.n_checks, code.dc_max
     maps = code.to_device(dev)
+    tables = layered.layer_tables(code, dev)
+    ncells = tables.col.shape[0]
     n_err = num_errors_for(N, QBER)
     gen = torch.Generator(device=dev).manual_seed(1234)
+    point_key = derive_point_key(MASTER_SEED, POINT_INDEX)
 
     def storage(x, dtype_name, scale):
-        return cuda_kernels._store(
-            x, {"float32": torch.float32, "bfloat16": torch.bfloat16,
-                "int8": torch.int8}[dtype_name], scale)
+        return cuda_kernels._store(x, cuda_kernels.STORAGE_DTYPES[dtype_name], scale)
 
     syn_sign = torch.where(
         torch.rand((M, BATCH), device=dev, generator=gen) < 0.5, -1.0, 1.0)
@@ -224,40 +305,51 @@ def main() -> int:
     pad_mask = (torch.rand((dc, M), device=dev, generator=gen) < 0.9)
     pad_mask[0] = True
     pad_mask = pad_mask.to(torch.int32)
+    fresh = torch.rand((BATCH,), device=dev, generator=gen) < 0.4
+    # The sweep's inputs: a real batch of the flagship point, and a mixed mask.
+    alice, bob = make_trial_batch(point_key, N, BATCH, n_err, 0)
+    llr0 = apriori_llr(bob, np.float32(n_err) / np.float32(N)).T
+    syn0 = syndrome(code, alice).T
+    act_mixed = torch.rand((BATCH,), device=dev, generator=gen) < 0.7
+    act_all = torch.ones((BATCH,), dtype=torch.bool, device=dev)
 
     matrix = []
     main_entries = {}
     for algorithm in ("sum-product", "min-sum"):
         for dtype_name in ("float32", "bfloat16", "int8"):
             scale = 0.25 if dtype_name == "int8" else None
+            is_main = (algorithm, dtype_name) == ("sum-product", "bfloat16")
             tot = storage(4.0 * torch.randn((dc, M, BATCH), device=dev, generator=gen),
                           dtype_name, scale)
             lrp = storage(2.0 * torch.randn((dc, M, BATCH), device=dev, generator=gen),
                           dtype_name, scale)
             kw = dict(threshold=100.0, clip=True, algorithm=algorithm,
                       min_sum_alpha=0.8, min_sum_beta=0.0, scale=scale)
-            for first in (True, False):
-                name = (cuda_kernels.KERNEL_FIRST if first
-                        else cuda_kernels.KERNEL_FUSED)
+            # K1, K2, and K5 = K2 with a mixed fresh mask and a clip that bites.
+            for name in (cuda_kernels.KERNEL_FIRST, cuda_kernels.KERNEL_FUSED,
+                         cuda_kernels.KERNEL_FRESH):
+                first = name == cuda_kernels.KERNEL_FIRST
                 args = (tot, None if first else lrp)
+                mode = dict(kw, first=first)
+                if name == cuda_kernels.KERNEL_FRESH:
+                    mode.update(fresh=fresh, threshold=FRESH_THRESHOLD)
                 worst, n_diff = 0.0, 0
                 for mask in (maps.chk_mask_T_i32, pad_mask):
-                    got = cuda_kernels.check_update_cuda(
-                        *args, mask, syn_sign, first=first, **kw)
-                    ref = cuda_kernels.check_update_plain(
-                        *args, mask, syn_sign, first=first, **kw)
+                    got = cuda_kernels.check_update_cuda(*args, mask, syn_sign, **mode)
+                    ref = cuda_kernels.check_update_plain(*args, mask, syn_sign, **mode)
                     torch.cuda.synchronize()
                     err, nd = _compare_messages(
                         torch, got, ref, dtype_name, algorithm, scale)
                     worst, n_diff = max(worst, err), n_diff + nd
                 ms = _time_ms(torch, lambda: cuda_kernels.check_update_cuda(
-                    *args, maps.chk_mask_T_i32, syn_sign, first=first, **kw), flush)
+                    *args, maps.chk_mask_T_i32, syn_sign, **mode), flush)
                 plain_ms = _time_ms(torch, lambda: cuda_kernels.check_update_plain(
-                    *args, maps.chk_mask_T_i32, syn_sign, first=first, **kw),
+                    *args, maps.chk_mask_T_i32, syn_sign, **mode),
                     flush, repeats=5, warmup=1)
                 n_edge = dc * M * BATCH
                 n_bytes = ((2 if first else 3) * n_edge * tot.element_size()
-                           + M * BATCH * 4 + dc * M * 4)
+                           + M * BATCH * 4 + dc * M * 4
+                           + (BATCH if "fresh" in mode else 0))
                 bound_ms, bound_by = _bound(n_bytes, OPS_PER_EDGE[algorithm] * n_edge)
                 entry = {
                     "name": name, "algorithm": algorithm, "storage": dtype_name,
@@ -267,12 +359,51 @@ def main() -> int:
                     "bound_ms_at_copy_rate": n_bytes / copy_bytes_per_s * 1e3,
                 }
                 matrix.append(entry)
-                if (algorithm, dtype_name) == ("sum-product", "bfloat16"):
+                if is_main:
                     main_entries[name] = entry
             del tot, lrp
 
+            # K6: one sweep from a state two (plain) sweeps into the decode of
+            # a real batch, mixed act mask; then timed with every frame active.
+            state = layered.initial_state(
+                tables, llr0, syn0, cuda_kernels.STORAGE_DTYPES[dtype_name])
+            t_s, lr_s, syn3 = state
+            for _ in range(2):
+                t_s, lr_s, _ = layered.layered_sweep_plain(
+                    t_s, lr_s, syn3, act_all, tables, **kw)
+            ref = layered.layered_sweep_plain(t_s, lr_s, syn3, act_mixed, tables, **kw)
+            got = cuda_layered.layered_sweep_cuda(
+                t_s.clone(), lr_s.clone(), syn3, act_mixed, tables, **kw)
+            torch.cuda.synchronize()
+            worst, n_diff = _compare_sweep(
+                torch, got, ref, act_mixed, dtype_name, algorithm, scale, DV)
+            del got, ref
+            t_w, lr_w = t_s.clone(), lr_s.clone()  # the timed sweeps run in place
+            ms = _time_ms(torch, lambda: cuda_layered.layered_sweep_cuda(
+                t_w, lr_w, syn3, act_all, tables, **kw), flush)
+            plain_ms = _time_ms(torch, lambda: layered.layered_sweep_plain(
+                t_s, lr_s, syn3, act_all, tables, **kw), flush, repeats=3, warmup=1)
+            n_edge = ncells * Z * BATCH
+            # per frame: t read and written, Lr read and written, syn read;
+            # act and ok one byte each
+            n_bytes = BATCH * (2 * NB * Z * 4 + 2 * ncells * Z * lr_s.element_size()
+                               + MB_ROWS * Z * 4 + 2)
+            bound_ms, bound_by = _bound(
+                n_bytes, (OPS_PER_EDGE[algorithm] + OPS_PER_EDGE_LAYERED_EXTRA) * n_edge)
+            entry = {
+                "name": cuda_layered.KERNEL_NAME, "algorithm": algorithm,
+                "storage": dtype_name, "max_abs_err": worst,
+                "entries_differing": n_diff, "active_frames": int(act_mixed.sum()),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "bound_ms_at_copy_rate": n_bytes / copy_bytes_per_s * 1e3,
+            }
+            matrix.append(entry)
+            if is_main:
+                main_entries[cuda_layered.KERNEL_NAME] = entry
+            del state, t_s, lr_s, syn3, t_w, lr_w
+
     # K4: the trial bit blocks, from real per-trial keys.
-    point_key = derive_point_key(MASTER_SEED, POINT_INDEX)
     trial_keys = fold_in(point_key.to(dev), torch.arange(BATCH, device=dev))
     keys = torch.stack([fold_in(trial_keys, 0), fold_in(trial_keys, 1)], dim=1)
     words = cuda_prng.trial_words_cuda(keys, N)
@@ -322,58 +453,127 @@ def main() -> int:
             torch, lambda: torch.kthvalue(flipped, n_err, dim=-1), flush,
             repeats=5, warmup=1),
     }
+    # K6 again on the wide code (all six cells): the frame's totals do not fit
+    # shared memory, so the kernel updates them in global memory.
+    wide = make_qc_code(z=Z, nb=WIDE_NB, mb=WIDE_MB, dv=DV, seed=WIDE_SEED)
+    wide_tables = layered.layer_tables(wide, dev)
+    if not cuda_layered.totals_in_shared_memory(NB, Z) or (
+            cuda_layered.totals_in_shared_memory(WIDE_NB, Z)):
+        raise AssertionError("the wide code does not reach the global-memory mode")
+    wide_err = num_errors_for(wide.n_vars, QBER)
+    a_w, b_w = make_trial_batch(point_key, wide.n_vars, WIDE_BATCH, wide_err, 0)
+    llr_w = apriori_llr(b_w, np.float32(wide_err) / np.float32(wide.n_vars)).T
+    syn_w = syndrome(wide, a_w).T
+    act_w = torch.rand((WIDE_BATCH,), device=dev, generator=gen) < 0.7
+    act_all_w = torch.ones_like(act_w)
+    wide_cells = []
+    for algorithm in ("sum-product", "min-sum"):
+        for dtype_name in ("float32", "bfloat16", "int8"):
+            scale = 0.25 if dtype_name == "int8" else None
+            kw = dict(threshold=100.0, clip=True, algorithm=algorithm,
+                      min_sum_alpha=0.8, min_sum_beta=0.0, scale=scale)
+            t_s, lr_s, syn3 = layered.initial_state(
+                wide_tables, llr_w, syn_w, cuda_kernels.STORAGE_DTYPES[dtype_name])
+            t_s, lr_s, _ = layered.layered_sweep_plain(
+                t_s, lr_s, syn3, act_all_w, wide_tables, **kw)
+            ref = layered.layered_sweep_plain(t_s, lr_s, syn3, act_w, wide_tables, **kw)
+            got = cuda_layered.layered_sweep_cuda(
+                t_s.clone(), lr_s.clone(), syn3, act_w, wide_tables, **kw)
+            torch.cuda.synchronize()
+            worst, n_diff = _compare_sweep(
+                torch, got, ref, act_w, dtype_name, algorithm, scale, DV)
+            t_w = t_s.clone()
+            wide_cells.append({
+                "algorithm": algorithm, "storage": dtype_name, "max_abs_err": worst,
+                "entries_differing": n_diff,
+                "ms": _time_ms(torch, lambda: cuda_layered.layered_sweep_cuda(
+                    t_w, lr_s, syn3, act_all_w, wide_tables, **kw),
+                    flush, repeats=5, warmup=1),
+            })
+            del t_s, lr_s, syn3, ref, got, t_w
+    flagship_instance = ("Li0ELb1ELi6ELb1E", Z, NB * Z * 4)  # SP, clip, dc 6, shared
     print(json.dumps({"kernel_matrix": matrix}), flush=True)
-    del words, words_ref, scores, flipped
+    print(json.dumps({"layered_sweep_global_memory_mode": {
+        "card": card, "code": wide.name, "n_vars": wide.n_vars,
+        "batch": WIDE_BATCH, "active_frames": int(act_w.sum()),
+        "totals_bytes_per_frame": WIDE_NB * Z * 4, "cells": wide_cells}}), flush=True)
+    print(json.dumps({"layered_sweep_resources": dict(
+        card=card, instance="sum-product, clip, row degree 6, bfloat16, shared totals",
+        threads=Z, shared_bytes=NB * Z * 4,
+        **_sweep_kernel_resources(_build.build_dir(), "layered_sweep_bfloat16",
+                                  flagship_instance))}), flush=True)
+    del wide, wide_tables, a_w, b_w, llr_w, syn_w
+    del words, words_ref, scores, flipped, alice, bob, llr0, syn0
 
-    # ---- phase 3: the main path -------------------------------------------
-    opts = DecodeOptions(
-        max_iterations=100, clip_messages=True, message_threshold=100.0,
-        algorithm="sum-product", message_dtype="bfloat16", backend="auto",
-        compact_after=8, compact_lanes=BATCH // 4,
-    )
+    # ---- phase 3: the main path (flooding) ---------------------------------
+    base = dict(max_iterations=100, clip_messages=True, message_threshold=100.0,
+                message_dtype="bfloat16")
+    opts = DecodeOptions(algorithm="sum-product", backend="auto", compact_after=8,
+                         compact_lanes=BATCH // 4, **base)
     trials = N_BATCHES * BATCH
-    run_point(code, point_key, QBER, BATCH, BATCH, opts, prng="pallas")  # warm-up
-    torch.cuda.synchronize()
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    partials, actual_qber = run_point(
-        code, point_key, QBER, trials, BATCH, opts, prng="pallas")
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = _build.launch_counts()
+    names = (cuda_kernels.KERNEL_FIRST, cuda_kernels.KERNEL_FUSED,
+             cuda_select.KERNEL_NAME, cuda_prng.KERNEL_NAME,
+             cuda_kernels.KERNEL_FRESH, cuda_layered.KERNEL_NAME)
+    K1, K2, K3, K4, K5, K6 = names
 
-    stats = {k: getattr(partials, k) for k in STAT_KEYS}
+    def counted(step):
+        """Drive one path with the launch counts set to 0 just before it and
+        read just after; returns (result, seconds, counts)."""
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = step()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return result, seconds, _build.launch_counts()
+
+
+    def as_stats(p):
+        return {k: getattr(p, k) for k in STAT_KEYS}
+
+    def replay_batches(o):
+        """Decode the point's batches again (outside any counted run) to read
+        each batch's iteration counts: (max iterations per batch, whether a
+        batch overflowed its compaction lanes, [sum_it, n_sp, n_ldpc])."""
+        worst, overflowed, total = [], False, None
+        for i in range(N_BATCHES):
+            a, b = make_trial_batch(point_key, N, BATCH, n_err, i * BATCH)
+            # the float32 QBER the runner decodes with
+            res = reconcile(code, a, b, np.float32(n_err) / np.float32(N), o)
+            worst.append(int(res.iterations.max()))
+            overflowed |= int((res.iterations > o.compact_after).sum()) > o.compact_lanes
+            part = torch.stack([res.iterations.sum(), res.syndromes_match.sum(),
+                                res.keys_match.sum()]).cpu()
+            total = part if total is None else total + part
+        return worst, overflowed, [int(x) for x in total]
+
+    def flooding_step():
+        return run_point(code, point_key, QBER, trials, BATCH, opts, prng="pallas")
+
+    run_point(code, point_key, QBER, BATCH, BATCH, opts, prng="pallas")  # warm-up
+    (partials, actual_qber), seconds, launches = counted(flooding_step)
+
+    stats = as_stats(partials)
     mean_it = partials.sum_it / max(partials.n_sp, 1)
     if not (partials.n_sp == partials.n_trials == partials.n_ldpc == trials):
         raise AssertionError(f"main path: not every trial decoded: {stats}")
     if not MEAN_ITERATIONS_GATE[0] <= mean_it <= MEAN_ITERATIONS_GATE[1]:
         raise AssertionError(f"main path: implausible mean iterations {mean_it}")
-    kernel_names = (cuda_kernels.KERNEL_FIRST, cuda_kernels.KERNEL_FUSED,
-                    cuda_select.KERNEL_NAME, cuda_prng.KERNEL_NAME)
-    for name in kernel_names:
+    for name in (K1, K2, K3, K4):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"main path never launched kernel {name}")
-    for name in kernel_names[:1] + kernel_names[2:]:
+    for name in (K1, K3, K4):
         if launches[name] != N_BATCHES:
             raise AssertionError(f"{name}: {launches[name]} launches, "
                                  f"expected one per batch ({N_BATCHES})")
 
-    # K2 runs once per iteration after the first.  Decode the same batches
-    # again (outside the counted run) to read each batch's iteration counts:
-    # without compaction overflow a batch costs max(iterations) - 1 launches.
-    expected_fused, overflowed, replay = 0, False, None
-    for i in range(N_BATCHES):
-        alice, bob = make_trial_batch(point_key, N, BATCH, n_err, i * BATCH)
-        # the float32 QBER the runner decodes with
-        res = reconcile(code, alice, bob, np.float32(n_err) / np.float32(N), opts)
-        expected_fused += int(res.iterations.max()) - 1
-        overflowed |= int((res.iterations > opts.compact_after).sum()) > opts.compact_lanes
-        part = torch.stack([res.iterations.sum(), res.syndromes_match.sum(),
-                            res.keys_match.sum()]).cpu()
-        replay = part if replay is None else replay + part
-    if [int(x) for x in replay] != [int(partials.sum_it), trials, trials]:
+    # K2 runs once per iteration after the first: without compaction overflow
+    # a batch costs max(iterations) - 1 launches.
+    worst, overflowed, replay = replay_batches(opts)
+    expected_fused = sum(w - 1 for w in worst)
+    if replay != [int(partials.sum_it), trials, trials]:
         raise AssertionError("replayed batches disagree with run_point's partials")
-    fused = launches[cuda_kernels.KERNEL_FUSED]
+    fused = launches[K2]
     if (fused < expected_fused) or (not overflowed and fused != expected_fused):
         raise AssertionError(
             f"check_update_fused launched {fused} times, iteration counts say "
@@ -397,39 +597,171 @@ def main() -> int:
         "ms_per_decode_iteration": seconds * 1e3 / (fused + N_BATCHES),
         "idle_flag_fetch_ms": statistics.median(sync_times),
     }}), flush=True)
-    if "--profile" in sys.argv[1:]:
-        _profile_main_path(
-            torch, lambda: run_point(code, point_key, QBER, trials, BATCH, opts,
-                                     prng="pallas"), card, seconds * 1e3)
 
-    # ---- phase 4: identity against the plain versions on the card ----------
-    def seven(alg, backend):
-        o = DecodeOptions(
-            max_iterations=100, algorithm=alg, message_dtype="bfloat16",
-            backend=backend, compact_after=8, compact_lanes=BATCH // 4)
-        p, _ = run_point(code, point_key, QBER, trials, BATCH, o, prng="pallas")
-        return {k: getattr(p, k) for k in STAT_KEYS}
+    # ---- phase 3b: the layered path ------------------------------------------
+    opts_l = DecodeOptions(
+        algorithm="sum-product", backend="auto", schedule="layered",
+        compact_after=LAYERED_COMPACT_AFTER, compact_lanes=BATCH // 4, **base)
 
-    ms_kernel, ms_plain = seven("min-sum", "auto"), seven("min-sum", "xla")
-    if ms_kernel != ms_plain:
-        raise AssertionError(f"min-sum: kernels {ms_kernel} != plain {ms_plain}")
-    sp_plain = seven("sum-product", "xla")
-    sp_diff = sp_plain["sum_it"] - stats["sum_it"]
-    if (sp_plain["n_sp"], sp_plain["n_ldpc"]) != (stats["n_sp"], stats["n_ldpc"]) or (
-            abs(sp_diff) > SP_ITERATION_SUM_ALLOWANCE):
-        raise AssertionError(f"sum-product: kernels {stats} vs plain {sp_plain}")
-    print(json.dumps({"identity": {
-        "min_sum_partials": ms_kernel, "min_sum_equal": True,
-        "sum_product_plain_partials": sp_plain,
-        "sum_product_iteration_sum_difference": sp_diff,
-        "allowance": SP_ITERATION_SUM_ALLOWANCE,
+    def layered_step():
+        return run_point(code, point_key, QBER, trials, BATCH, opts_l, prng="pallas")
+
+    run_point(code, point_key, QBER, BATCH, BATCH, opts_l, prng="pallas")  # warm-up
+    (partials_l, _), seconds_l, launches_l = counted(layered_step)
+    stats_l = as_stats(partials_l)
+    mean_sweeps = partials_l.sum_it / max(partials_l.n_sp, 1)
+    if not (partials_l.n_sp == partials_l.n_trials == partials_l.n_ldpc == trials):
+        raise AssertionError(f"layered path: not every trial decoded: {stats_l}")
+    if not MEAN_SWEEPS_GATE[0] <= mean_sweeps <= MEAN_SWEEPS_GATE[1]:
+        raise AssertionError(f"layered path: implausible mean sweeps {mean_sweeps}")
+    if launches_l.get(K1, 0) or launches_l.get(K2, 0) or launches_l.get(K5, 0):
+        raise AssertionError(f"layered path launched a flooding kernel: {launches_l}")
+    # One launch per sweep: without compaction overflow a batch costs
+    # max(iterations) sweeps (phase A's plus phase B's).
+    worst_l, overflowed_l, replay_l = replay_batches(opts_l)
+    if replay_l != [int(partials_l.sum_it), trials, trials]:
+        raise AssertionError("replayed layered batches disagree with run_point")
+    sweeps = launches_l.get(K6, 0)
+    if sweeps <= 0 or sweeps < sum(worst_l) or (
+            not overflowed_l and sweeps != sum(worst_l)):
+        raise AssertionError(
+            f"layered_sweep launched {sweeps} times, iteration counts say "
+            f"{sum(worst_l)} (overflow: {overflowed_l})")
+    print(json.dumps({"layered_path": {
+        "card": card, "qber": actual_qber, "trials": trials, "batch": BATCH,
+        "compact_after": LAYERED_COMPACT_AFTER, "partials": stats_l,
+        "mean_sweeps": mean_sweeps, "launches": launches_l,
+        "expected_sweep_launches": sum(worst_l), "max_sweeps_per_batch": worst_l,
+        "compaction_overflow": overflowed_l, "seconds": seconds_l,
+        "frames_per_s": trials / seconds_l,
+        "flooding_seconds": seconds, "flooding_mean_iterations": mean_it,
     }}), flush=True)
 
+    # ---- phase 3c: the continuation path --------------------------------------
+    opts_c = DecodeOptions(algorithm="sum-product", backend="auto", **base)
+    key_c = derive_point_key(MASTER_SEED, WATERFALL_POINT_INDEX)
+
+    def continuation_step(o=opts_c, n=trials):
+        return run_point_continuation(
+            code, key_c, WATERFALL_QBER, n, BATCH, o, segment=SEGMENT,
+            refill_frac=REFILL_FRAC)
+
+    continuation_step(n=BATCH)  # warm-up
+    (partials_c, qber_c), seconds_c, launches_c = counted(continuation_step)
+    loops_c = dict(continuation.last_loop_counts)  # what the runner's loops did
+
+    def waterfall_plain_step():
+        return run_point(code, key_c, WATERFALL_QBER, trials, BATCH, opts_c)
+
+    (plain_c, qber_p), seconds_p, launches_p = counted(waterfall_plain_step)
+    stats_c, stats_p = as_stats(partials_c), as_stats(plain_c)
+    if stats_c != stats_p or qber_c != qber_p:
+        raise AssertionError(
+            f"continuation {stats_c} != plain runner {stats_p} on the same point")
+    if partials_c.n_trials != trials or not partials_c.max_it > partials_c.min_it:
+        raise AssertionError(f"continuation path: implausible statistics {stats_c}")
+    fresh_launches = launches_c.get(K5, 0)
+    # Every iteration of every outer step is one launch, and the runner counts
+    # its outer steps itself; the lanes cannot have done more work than all of
+    # them busy in every iteration.
+    lane_iterations = int(partials_c.sum_it) + (trials - partials_c.n_sp) * 100
+    if fresh_launches <= 0 or fresh_launches != SEGMENT * loops_c["outer_steps"] or (
+            fresh_launches * BATCH < lane_iterations):
+        raise AssertionError(
+            f"check_update_fresh launched {fresh_launches} times in "
+            f"{loops_c['outer_steps']} outer steps of {SEGMENT} iterations, for "
+            f"{lane_iterations} lane-iterations")
+    if loops_c["generations"] != N_BATCHES:
+        raise AssertionError(f"continuation path: {loops_c} for {N_BATCHES} batches")
+    if launches_c.get(K1, 0) or launches_c.get(K2, 0) or launches_c.get(K6, 0):
+        raise AssertionError(f"continuation path launched K1/K2/K6: {launches_c}")
+    print(json.dumps({"continuation_path": {
+        "card": card, "qber": qber_c, "trials": trials, "batch": BATCH,
+        "segment": SEGMENT, "refill_frac": REFILL_FRAC, "partials": stats_c,
+        "equal_to_plain_runner": True, "launches": launches_c,
+        "outer_steps": loops_c["outer_steps"], "refills": loops_c["refills"],
+        "staging_generations": loops_c["generations"],
+        "lane_iterations": lane_iterations,
+        "lane_occupancy": lane_iterations / (fresh_launches * BATCH),
+        "seconds": seconds_c, "frames_per_s": trials / seconds_c,
+        "plain_runner_seconds": seconds_p, "plain_runner_frames_per_s": trials / seconds_p,
+        "plain_runner_launches": launches_p,
+    }}), flush=True)
+
+    # The host's clock spreads and drifts (the machine's CPU cores are shared),
+    # so the paths are timed again in turns: each round runs all four.
+    steps = {"flooding": flooding_step, "layered": layered_step,
+             "continuation": continuation_step, "waterfall_plain": waterfall_plain_step}
+    rounds = {name: [] for name in steps}
+    for _ in range(4):
+        for name, step in steps.items():
+            rounds[name].append(counted(step)[1])
+    print(json.dumps({"wall_seconds_in_turns": dict(card=card, trials=trials, **rounds)}),
+          flush=True)
+
+    # ---- phase 4: identity against the plain versions on the card ----------
+    def seven(alg, backend, path):
+        if path == "continuation":
+            o = DecodeOptions(algorithm=alg, backend=backend, **base)
+            p, _ = continuation_step(o)
+        else:
+            o = DecodeOptions(
+                algorithm=alg, backend=backend, schedule=path, **base,
+                compact_after=opts.compact_after if path == "flooding"
+                else LAYERED_COMPACT_AFTER, compact_lanes=BATCH // 4)
+            p, _ = run_point(code, point_key, QBER, trials, BATCH, o, prng="pallas")
+        return as_stats(p)
+
+    identity = {"allowance": SP_ITERATION_SUM_ALLOWANCE, "trials_per_leg": trials}
+    for path, sp_kernel in (("flooding", stats), ("layered", stats_l),
+                            ("continuation", stats_c)):
+        ms_kernel, ms_plain = seven("min-sum", "auto", path), seven("min-sum", "xla", path)
+        if ms_kernel != ms_plain:
+            raise AssertionError(
+                f"{path} min-sum: kernels {ms_kernel} != plain {ms_plain}")
+        sp_plain = seven("sum-product", "xla", path)
+        sp_diff = sp_plain["sum_it"] - sp_kernel["sum_it"]
+        if (sp_plain["n_sp"], sp_plain["n_ldpc"]) != (
+                sp_kernel["n_sp"], sp_kernel["n_ldpc"]) or (
+                abs(sp_diff) > SP_ITERATION_SUM_ALLOWANCE):
+            raise AssertionError(
+                f"{path} sum-product: kernels {sp_kernel} vs plain {sp_plain}")
+        identity[path] = {
+            "min_sum_partials": ms_kernel, "min_sum_equal": True,
+            "sum_product_plain_partials": sp_plain,
+            "sum_product_iteration_sum_difference": sp_diff,
+        }
+    print(json.dumps({"identity": identity}), flush=True)
+
+    # Tracing comes last: once the tracer has been attached, every later
+    # launch of the process costs the host more, which would fall on the
+    # walls timed above.
+    if profiling:
+        # One batch stage by stage, each ending in a synchronise (which the
+        # runner does not do): what keygen and each schedule's decode cost.
+        a, b = make_trial_batch(point_key, N, BATCH, n_err, 0)
+        q32 = np.float32(n_err) / np.float32(N)
+
+        def stage_ms(fn, n=10):
+            return statistics.median(
+                [counted(fn)[1] * 1e3 for _ in range(n + 1)][1:])
+
+        print(json.dumps({"stages_ms_per_batch": {
+            "card": card,
+            "make_trial_batch": stage_ms(
+                lambda: make_trial_batch(point_key, N, BATCH, n_err, 0)),
+            "reconcile_flooding": stage_ms(lambda: reconcile(code, a, b, q32, opts)),
+            "reconcile_layered": stage_ms(lambda: reconcile(code, a, b, q32, opts_l)),
+        }}), flush=True)
+        _profile_path(torch, "flooding", flooding_step, card, seconds * 1e3)
+        _profile_path(torch, "layered", layered_step, card, seconds_l * 1e3)
+        _profile_path(torch, "continuation", continuation_step, card, seconds_c * 1e3)
+
     # ---- the contract's lines ----------------------------------------------
-    def kernel_line(name, source, replaces, meas):
+    def kernel_line(name, source, replaces, meas, counts):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": meas["max_abs_err"],
+            "launches": counts[name], "max_abs_err": meas["max_abs_err"],
             "ms": meas["ms"], "plain_ms": meas["plain_ms"],
             "bound_ms": meas["bound_ms"], "bound_by": meas["bound_by"],
             "library_ms": meas.get("library_ms"),
@@ -438,16 +770,22 @@ def main() -> int:
     csrc = "qkd_ldpc_tpu_torch/csrc/"
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        kernel_line(cuda_kernels.KERNEL_FIRST, csrc + "check_update.cu",
+        kernel_line(K1, csrc + "check_update.cu",
                     "qkd_ldpc_tpu/decoder/pallas_kernels.py:210",
-                    main_entries[cuda_kernels.KERNEL_FIRST]),
-        kernel_line(cuda_kernels.KERNEL_FUSED, csrc + "check_update.cu",
+                    main_entries[K1], launches),
+        kernel_line(K2, csrc + "check_update.cu",
                     "qkd_ldpc_tpu/decoder/pallas_kernels.py:245",
-                    main_entries[cuda_kernels.KERNEL_FUSED]),
-        kernel_line(cuda_select.KERNEL_NAME, csrc + "kth_smallest.cu",
-                    "qkd_ldpc_tpu/channel/pallas_select.py:66", k3),
-        kernel_line(cuda_prng.KERNEL_NAME, csrc + "threefry_words.cu",
-                    "qkd_ldpc_tpu/channel/pallas_prng.py:38", k4),
+                    main_entries[K2], launches),
+        kernel_line(K3, csrc + "kth_smallest.cu",
+                    "qkd_ldpc_tpu/channel/pallas_select.py:66", k3, launches),
+        kernel_line(K4, csrc + "threefry_words.cu",
+                    "qkd_ldpc_tpu/channel/pallas_prng.py:38", k4, launches),
+        kernel_line(K5, csrc + "check_update.cu",
+                    "qkd_ldpc_tpu/decoder/pallas_kernels.py:310",
+                    main_entries[K5], launches_c),
+        kernel_line(K6, csrc + "layered_sweep.cu",
+                    "qkd_ldpc_tpu/decoder/pallas_layered.py:266",
+                    main_entries[K6], launches_l),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

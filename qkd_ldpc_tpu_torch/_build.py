@@ -32,14 +32,17 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# library name -> (source file, extra defines).  check_update.cu is built
-# once per message storage type so the three builds run side by side.
+# library name -> (source file, extra defines).  The two decoder sources are
+# built once per message storage type so their builds run side by side.
+STORAGE_DEFINES = {"float32": "-DSTORAGE=0", "bfloat16": "-DSTORAGE=1", "int8": "-DSTORAGE=2"}
 LIBRARIES = {
     "threefry_words": ("threefry_words.cu", ()),
     "kth_smallest": ("kth_smallest.cu", ()),
-    "check_update_float32": ("check_update.cu", ("-DSTORAGE=0",)),
-    "check_update_bfloat16": ("check_update.cu", ("-DSTORAGE=1",)),
-    "check_update_int8": ("check_update.cu", ("-DSTORAGE=2",)),
+    **{
+        f"{stem}_{storage}": (f"{stem}.cu", (define,))
+        for stem in ("check_update", "layered_sweep")
+        for storage, define in STORAGE_DEFINES.items()
+    },
 }
 
 _loaded: dict[tuple[str, str], object] = {}

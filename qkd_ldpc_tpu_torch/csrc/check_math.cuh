@@ -1,0 +1,124 @@
+// What the check-node kernels share: the message storage type with its two
+// rounding points, the clip, and the leave-one-out check update on a row held in
+// registers.  Included by check_update.cu (flooding) and layered_sweep.cu
+// (layered), so both schedules round exactly alike.
+//
+// Sum-product: t_j = tanh(Lq_j / 2) (1 on padded slots), leave-one-out by
+// exclusive prefix and suffix products times the syndrome sign,
+// 2 atanh(x) = log1p(2x / (1 - x)); a saturated product x = +-1 gives +-inf,
+// which the clip then bounds — x is not clamped early.  Min-sum: top-2 minima
+// with the first occurrence of the row minimum excluded (strict <), sign parity
+// by an integer count, offset beta and scale alpha.  A padded slot multiplies by
+// exactly 1 (sum-product) or carries +inf and no sign (min-sum), so a row of
+// degree d < DC gives the results of a DC = d instance bit for bit.
+//
+// Arithmetic is float32; compiled without fast-math and without fma contraction.
+// The including file is built once per storage type (-DSTORAGE=0|1|2).
+#pragma once
+
+#include <cmath>
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#ifndef STORAGE
+#define STORAGE 0
+#endif
+
+namespace {
+
+#if STORAGE == 0
+using storage_t = float;
+__device__ __forceinline__ float from_storage(storage_t q, float) { return q; }
+__device__ __forceinline__ storage_t to_storage(float x, float) { return x; }
+#elif STORAGE == 1
+using storage_t = __nv_bfloat16;
+__device__ __forceinline__ float from_storage(storage_t q, float) {
+    return __bfloat162float(q);
+}
+__device__ __forceinline__ storage_t to_storage(float x, float) {
+    return __float2bfloat16_rn(x);
+}
+#else
+using storage_t = int8_t;
+__device__ __forceinline__ float from_storage(storage_t q, float scale) {
+    return static_cast<float>(q) * scale;
+}
+__device__ __forceinline__ storage_t to_storage(float x, float scale) {
+    float q = rintf(x / scale);  // round half to even, as the plain version
+    q = q < -127.0f ? -127.0f : (q > 127.0f ? 127.0f : q);
+    return static_cast<int8_t>(q);
+}
+#endif
+
+constexpr int kSumProduct = 0;
+constexpr int kMinSum = 1;
+
+// min(max(x, -t), t) that lets a NaN through, as the plain version's clamp.
+__device__ __forceinline__ float clipf(float x, float t) {
+    return x < -t ? -t : (x > t ? t : x);
+}
+
+// Check-to-bit messages of one check from its DC bit-to-check inputs (clipped to
+// +-threshold when CLIP), not yet rounded to storage.
+template <int ALG, bool CLIP, int DC>
+__device__ __forceinline__ void check_messages(const float (&lq)[DC],
+                                               const bool (&valid)[DC], float syn,
+                                               float threshold, float alpha,
+                                               float beta, float (&out)[DC]) {
+    if (ALG == kSumProduct) {
+        float t[DC], pre[DC];
+#pragma unroll
+        for (int j = 0; j < DC; ++j) t[j] = valid[j] ? tanhf(lq[j] * 0.5f) : 1.0f;
+        float acc = 1.0f;
+#pragma unroll
+        for (int j = 0; j < DC; ++j) {
+            pre[j] = acc;
+            acc = acc * t[j];
+        }
+        acc = 1.0f;  // running suffix product
+#pragma unroll
+        for (int j = DC - 1; j >= 0; --j) {
+            const float x = pre[j] * acc * syn;
+            float lr = log1pf(2.0f * x / (1.0f - x));
+            if (CLIP) lr = clipf(lr, threshold);
+            out[j] = lr;
+            acc = acc * t[j];
+        }
+    } else {
+        float absl[DC];
+        int neg[DC];
+#pragma unroll
+        for (int j = 0; j < DC; ++j) {
+            absl[j] = valid[j] ? fabsf(lq[j]) : INFINITY;
+            neg[j] = (valid[j] && lq[j] < 0.0f) ? 1 : 0;
+        }
+        float m1 = absl[0];
+        int s1 = 0, tot_neg = neg[0];
+#pragma unroll
+        for (int j = 1; j < DC; ++j) {
+            if (absl[j] < m1) {  // strict: keeps the first occurrence
+                s1 = j;
+                m1 = absl[j];
+            }
+            tot_neg += neg[j];
+        }
+        float m2 = INFINITY;
+#pragma unroll
+        for (int j = 0; j < DC; ++j) {
+            const float c = (s1 == j) ? INFINITY : absl[j];
+            m2 = c < m2 ? c : m2;
+        }
+#pragma unroll
+        for (int j = 0; j < DC; ++j) {
+            float loo = (s1 == j) ? m2 : m1;
+            if (beta != 0.0f) loo = fmaxf(loo - beta, 0.0f);
+            const float sign = (((tot_neg - neg[j]) & 1) ? -1.0f : 1.0f) * syn;
+            float lr = alpha * sign * loo;
+            if (CLIP) lr = clipf(lr, threshold);
+            out[j] = lr;
+        }
+    }
+}
+
+}  // namespace

@@ -6,6 +6,7 @@ from qkd_ldpc_tpu_torch.decoder.bp import (
     bp_decode_batch_last,
     decode,
 )
+from qkd_ldpc_tpu_torch.decoder.layered import layered_decode_batch_last
 from qkd_ldpc_tpu_torch.decoder.reconcile import (
     ReconcileResult,
     apriori_llr,
@@ -19,6 +20,7 @@ __all__ = [
     "DecodeResult",
     "decode",
     "bp_decode_batch_last",
+    "layered_decode_batch_last",
     "syndrome",
     "apriori_llr",
     "reconcile",

@@ -1,4 +1,5 @@
-"""Batched syndrome-target belief-propagation decoding (flooding schedule).
+"""Batched syndrome-target belief-propagation decoding (flooding schedule;
+``schedule="layered"`` dispatches to ``decoder/layered.py``).
 
 Counterpart of ``qkd_ldpc_tpu/decoder/bp.py``; the design is the JAX
 package's, restated for PyTorch:
@@ -33,6 +34,7 @@ import torch
 from qkd_ldpc_tpu_torch import _build
 from qkd_ldpc_tpu_torch.codes.ldpc_code import LDPCCode
 from qkd_ldpc_tpu_torch.decoder import cuda_kernels
+from qkd_ldpc_tpu_torch.decoder.layered import layered_decode_batch_last
 from qkd_ldpc_tpu_torch.utils import resolve_device
 
 
@@ -58,7 +60,11 @@ class DecodeOptions:
       block-roll path of the JAX package exists for the TPU's gather cost
       and is bit-identical to the gather there.  ``"roll"`` still requires
       a QC code.
-    - ``schedule="layered"`` is validated but not decoded yet.
+    - ``schedule="layered"`` (QC codes only) runs ``decoder/layered.py``;
+      under it ``backend`` chooses between the CUDA sweep kernel and the
+      plain loop by the same rule; a base-row degree the kernel has no
+      instance for raises (``cuda_layered.refusal``), as ``dc_max`` does
+      for the flooding kernels.
     """
 
     max_iterations: int = 100
@@ -115,9 +121,6 @@ class DecodeOptions:
         return "pallas" if use else "xla"
 
 
-_STORAGE = {"bfloat16": torch.bfloat16, "int8": torch.int8, "float32": torch.float32}
-
-
 class _DecodeCore:
     """The pieces of one dc-first decode iteration for a batch of width B."""
 
@@ -127,7 +130,7 @@ class _DecodeCore:
         self.dv, self.dc = code.dv_max, code.dc_max
         self.device = torch.device(device)
         self.backend = opts.resolve_backend(self.device)
-        self.mdt = _STORAGE[opts.message_dtype]
+        self.mdt = cuda_kernels.STORAGE_DTYPES[opts.message_dtype]
         self.scale = opts.int8_scale if opts.message_dtype == "int8" else None
         if opts.routing == "roll" and code.qc is None:
             raise ValueError("routing='roll' requires a QC code (codes.qc)")
@@ -167,10 +170,17 @@ class _DecodeCore:
             Lq, self.maps.chk_mask_T_i32, syn_sign, **self.kernel_args
         )
 
-    def check_update_fused(self, tot_chk, Lr_prev, syn_sign):
-        """Bit-node update (Lq = clip(tot - Lr), in registers) + check update."""
+    def check_update_fused(self, tot_chk, Lr_prev, syn_sign, fresh=None):
+        """Bit-node update (Lq = clip(tot - Lr), in registers) + check update.
+
+        ``fresh`` ([B] bool, optional) marks lanes whose (tot, Lr=0) state
+        encodes a FIRST iteration: their recomputed Lq skips the clip, so a
+        fresh lane's trajectory is identical to the peeled first iteration
+        (the a-priori LLRs are never clipped).  Used by the continuation
+        runner, where refilled lanes restart mid-batch.
+        """
         return cuda_kernels.check_update_fused(
-            tot_chk, Lr_prev, self.maps.chk_mask_T_i32, syn_sign,
+            tot_chk, Lr_prev, self.maps.chk_mask_T_i32, syn_sign, fresh=fresh,
             **self.kernel_args,
         )
 
@@ -225,10 +235,7 @@ def bp_decode_batch_last(
     """Core batched decode loop on the tensors' device; returns
     (z [N,B] int8, iters [B] int32, ok [B] bool)."""
     if opts.schedule == "layered":
-        raise NotImplementedError(
-            "schedule='layered' is not ported yet: decoder/layered.py and the "
-            "layered sweep kernel belong to a later slice of the port"
-        )
+        return layered_decode_batch_last(code, llr, syndrome, opts)
     if llr.dtype != torch.float32 or llr.ndim != 2:
         raise ValueError("llr must be float32 [N, B]")
     B = llr.shape[1]

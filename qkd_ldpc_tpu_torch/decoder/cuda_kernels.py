@@ -6,10 +6,14 @@ Replaces ``qkd_ldpc_tpu/decoder/pallas_kernels.py``:
   update on the gathered, never clipped a-priori LLRs;
 - :func:`check_update_fused` — ``fused_update_pallas``: every later
   iteration, with the bit-node update ``Lq = clip(tot_chk - Lr_prev)``
-  recomputed inside the kernel.
+  recomputed inside the kernel;
+- :func:`check_update_fused` with ``fresh`` — ``fused_update_fresh_pallas``:
+  the same with a per-frame flag; a fresh frame's ``Lq`` skips the clip, so
+  its ``(tot_chk, Lr = 0)`` state replays iteration 1 exactly (the
+  continuation runner restarts lanes in the middle of a batch).
 
-Both are one CUDA source (``csrc/check_update.cu``) and one plain PyTorch
-function with a ``first`` switch.  All tensors are in the message storage
+All are one CUDA source (``csrc/check_update.cu``) and one plain PyTorch
+function with a ``first`` switch and an optional ``fresh`` mask.  All tensors are in the message storage
 type (float32, bfloat16, or int8 fixed point with ``scale`` LLR units per
 LSB) and dc-first, ``[dc, M, B]`` with the frame axis last.  Arithmetic is
 float32; the rounding points are the JAX package's: bfloat16
@@ -29,11 +33,14 @@ from qkd_ldpc_tpu_torch import _build
 
 KERNEL_FIRST = "check_update_first"
 KERNEL_FUSED = "check_update_fused"
+KERNEL_FRESH = "check_update_fresh"
 _ALGORITHMS = {"sum-product": 0, "min-sum": 1}
 _DC_INSTANCES = range(2, 9)  # template instances compiled in check_update.cu
-_STORAGE_NAMES = {
-    torch.float32: "float32", torch.bfloat16: "bfloat16", torch.int8: "int8",
+# DecodeOptions.message_dtype -> the torch type of the stored messages
+STORAGE_DTYPES = {
+    "float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8,
 }
+_STORAGE_NAMES = {dtype: name for name, dtype in STORAGE_DTYPES.items()}
 
 
 def _load(q: torch.Tensor, scale) -> torch.Tensor:
@@ -110,8 +117,10 @@ def _ms_messages(lq, masks, syn, threshold, clip, alpha, beta):
 
 
 def check_update_plain(a, lr_prev, chk_mask_i32, syn_sign, *, first, threshold,
-                       clip, algorithm, min_sum_alpha, min_sum_beta, scale):
-    """Plain PyTorch version of both kernels (``first`` selects which)."""
+                       clip, algorithm, min_sum_alpha, min_sum_beta, scale,
+                       fresh=None):
+    """Plain PyTorch version of the kernels (``first`` and ``fresh`` select
+    which; ``fresh`` is a [B] bool mask of frames whose ``Lq`` is not clipped)."""
     dc = a.shape[0]
     masks = [chk_mask_i32[j][:, None] != 0 for j in range(dc)]
     lq = []
@@ -120,7 +129,8 @@ def check_update_plain(a, lr_prev, chk_mask_i32, syn_sign, *, first, threshold,
         if not first:
             v = v - _load(lr_prev[j], scale)
             if clip:
-                v = torch.clamp(v, -threshold, threshold)
+                clipped = torch.clamp(v, -threshold, threshold)
+                v = clipped if fresh is None else torch.where(fresh[None, :], v, clipped)
         lq.append(v)
     if algorithm == "min-sum":
         out = _ms_messages(lq, masks, syn_sign, threshold, clip,
@@ -131,7 +141,8 @@ def check_update_plain(a, lr_prev, chk_mask_i32, syn_sign, *, first, threshold,
 
 
 def check_update_cuda(a, lr_prev, chk_mask_i32, syn_sign, *, first, threshold,
-                      clip, algorithm, min_sum_alpha, min_sum_beta, scale):
+                      clip, algorithm, min_sum_alpha, min_sum_beta, scale,
+                      fresh=None):
     """Launch the kernel on the current stream (no synchronisation)."""
     if a.device.type != "cuda":
         raise ValueError("check_update_cuda needs CUDA tensors")
@@ -149,7 +160,10 @@ def check_update_cuda(a, lr_prev, chk_mask_i32, syn_sign, *, first, threshold,
         )
     if M * B == 0:
         raise ValueError("empty message tensor")
+    if first and fresh is not None:
+        raise ValueError("fresh belongs to the fused update, not to iteration 1")
     tensors = [a, chk_mask_i32, syn_sign] + ([] if first else [lr_prev])
+    tensors += [] if fresh is None else [fresh]
     if any(t.device != a.device or not t.is_contiguous() for t in tensors):
         raise ValueError("inputs must be contiguous and on one device")
     if not first and (lr_prev.shape != a.shape or lr_prev.dtype != a.dtype):
@@ -158,22 +172,26 @@ def check_update_cuda(a, lr_prev, chk_mask_i32, syn_sign, *, first, threshold,
         raise ValueError("mask must be int32 [dc, M]")
     if syn_sign.shape != (M, B) or syn_sign.dtype != torch.float32:
         raise ValueError("syn_sign must be float32 [M, B]")
+    if fresh is not None and (fresh.shape != (B,) or fresh.dtype != torch.bool):
+        raise ValueError("fresh must be bool [B]")
     out = torch.empty_like(a)
     fn = _build.function(
         "check_update_" + _STORAGE_NAMES[a.dtype], "check_update",
-        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
         + [ctypes.c_float] * 4 + [ctypes.c_void_p],
     )
     with torch.cuda.device(a.device):
         err = fn(
             _ALGORITHMS[algorithm], int(first), int(clip), dc,
             a.data_ptr(), 0 if first else lr_prev.data_ptr(),
+            0 if fresh is None else fresh.data_ptr(),
             chk_mask_i32.data_ptr(), syn_sign.data_ptr(), out.data_ptr(), M, B,
             threshold, min_sum_alpha, min_sum_beta,
             scale if scale is not None else 1.0,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check_launch(KERNEL_FIRST if first else KERNEL_FUSED, err)
+    name = KERNEL_FIRST if first else (KERNEL_FUSED if fresh is None else KERNEL_FRESH)
+    _build.check_launch(name, err)
     return out
 
 
@@ -183,7 +201,9 @@ def check_update_first(Lq, chk_mask_i32, syn_sign, *, backend="auto", **kw):
     return fn(Lq, None, chk_mask_i32, syn_sign, first=True, **kw)
 
 
-def check_update_fused(tot_chk, Lr_prev, chk_mask_i32, syn_sign, *, backend="auto", **kw):
-    """Fused bit-node + check update: ``(tot_chk, Lr_prev)`` -> ``Lr``."""
+def check_update_fused(tot_chk, Lr_prev, chk_mask_i32, syn_sign, *, backend="auto",
+                       fresh=None, **kw):
+    """Fused bit-node + check update: ``(tot_chk, Lr_prev)`` -> ``Lr``; with
+    ``fresh`` ([B] bool) the frames it marks skip the clip of ``Lq``."""
     fn = check_update_cuda if _build.use_kernel(backend, tot_chk.device) else check_update_plain
-    return fn(tot_chk, Lr_prev, chk_mask_i32, syn_sign, first=False, **kw)
+    return fn(tot_chk, Lr_prev, chk_mask_i32, syn_sign, first=False, fresh=fresh, **kw)

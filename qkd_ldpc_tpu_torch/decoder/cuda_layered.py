@@ -1,0 +1,107 @@
+"""The layered sweep as one CUDA kernel: wrapper of ``csrc/layered_sweep.cu``.
+
+Replaces ``qkd_ldpc_tpu/decoder/pallas_layered.py`` (``_sweep_kernel``,
+launched by ``sweep`` in ``_decode``): one launch runs all ``mb`` layers of
+a sweep for every active frame and checks the decision syndrome.  A
+frame's totals live in shared memory for the sweep when they fit a thread
+block's share (``totals_in_shared_memory``), else they are updated where
+they lie in global memory: same arithmetic, same results, chosen from the
+shape alone.  Its plain version is
+``decoder.layered.layered_sweep_plain`` (same arguments, same results);
+the decode loop around both is ``decoder.layered``.
+
+State layout (z fastest): ``t [nb, B, z]`` float32, ``Lr [ncells, B, z]``
+in the message storage type, ``syn [mb, B, z]`` int32, ``act [B]`` bool.
+
+The kernel updates ``t`` and ``Lr`` **in place** and leaves an inactive
+frame (``act`` false) untouched; the plain version returns new tensors and
+multiplies an inactive frame's update by zero — the same result for finite
+state.  ``ok`` of an inactive frame is False here and is not used by the
+decode loop (it takes ``act & ok``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from qkd_ldpc_tpu_torch import _build
+from qkd_ldpc_tpu_torch.decoder.cuda_kernels import _ALGORITHMS, _STORAGE_NAMES
+
+KERNEL_NAME = "layered_sweep"
+MAX_ROW_DEGREE = 8  # template instances 2..8 compiled in layered_sweep.cu
+MIN_ROW_DEGREE = 2
+MAX_SHARED_BYTES = 232448  # what one thread block may use on Hopper (227 KB)
+
+
+def totals_in_shared_memory(nb: int, z: int) -> bool:
+    """Whether the kernel keeps a frame's totals in shared memory (the rule
+    of ``launch`` in layered_sweep.cu); larger frames stay in global memory."""
+    return nb * z * 4 <= MAX_SHARED_BYTES
+
+
+def refusal(max_row_degree: int) -> str | None:
+    """Why the kernel cannot take a code of this base-row degree, or None if
+    it can.  As with the flooding kernels' ``dc_max``, a degree with no
+    compiled instance raises under every backend that selects the kernel."""
+    if not MIN_ROW_DEGREE <= max_row_degree <= MAX_ROW_DEGREE:
+        return (
+            f"layered_sweep.cu has no instance for a base-row degree of "
+            f"{max_row_degree} (compiled: {MIN_ROW_DEGREE}..{MAX_ROW_DEGREE})"
+        )
+    return None
+
+
+def layered_sweep_cuda(t, Lr, syn, act, tables, *, threshold, clip, algorithm,
+                       min_sum_alpha, min_sum_beta, scale):
+    """Launch one sweep on the current stream (no synchronisation); updates
+    ``t`` and ``Lr`` in place and returns ``(t, Lr, ok [B] bool)``.
+
+    ``tables`` carries the code's static layer tables on the tensors' device:
+    ``nb``, ``mb``, ``z``, ``max_row_degree`` and the int32 tensors ``row_ptr
+    [mb + 1]``, ``col [ncells]``, ``shift [ncells]``.
+    """
+    if t.device.type != "cuda":
+        raise ValueError("layered_sweep_cuda needs CUDA tensors")
+    why = refusal(tables.max_row_degree)
+    if why is not None:
+        raise ValueError(why)
+    if Lr.dtype not in _STORAGE_NAMES:
+        raise ValueError(f"Lr must be float32/bfloat16/int8, got {Lr.dtype}")
+    if (Lr.dtype == torch.int8) != (scale is not None):
+        raise ValueError("scale is given exactly for int8 storage")
+    if algorithm not in _ALGORITHMS:
+        raise ValueError(f"Unknown algorithm {algorithm!r}")
+    nb, mb, z = tables.nb, tables.mb, tables.z
+    ncells = tables.col.shape[0]
+    B = t.shape[1] if t.ndim == 3 else -1
+    if t.shape != (nb, B, z) or t.dtype != torch.float32 or B < 1:
+        raise ValueError("t must be float32 [nb, B, z]")
+    if Lr.shape != (ncells, B, z):
+        raise ValueError("Lr must be [ncells, B, z]")
+    if syn.shape != (mb, B, z) or syn.dtype != torch.int32:
+        raise ValueError("syn must be int32 [mb, B, z]")
+    if act.shape != (B,) or act.dtype != torch.bool:
+        raise ValueError("act must be bool [B]")
+    tensors = (t, Lr, syn, act, tables.row_ptr, tables.col, tables.shift)
+    if any(x.device != t.device or not x.is_contiguous() for x in tensors):
+        raise ValueError("inputs must be contiguous and on one device")
+    ok = torch.empty((B,), dtype=torch.bool, device=t.device)
+    fn = _build.function(
+        "layered_sweep_" + _STORAGE_NAMES[Lr.dtype], "layered_sweep",
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+        + [ctypes.c_float] * 4 + [ctypes.c_void_p],
+    )
+    with torch.cuda.device(t.device):
+        err = fn(
+            _ALGORITHMS[algorithm], int(clip), tables.max_row_degree,
+            t.data_ptr(), Lr.data_ptr(), syn.data_ptr(), act.data_ptr(),
+            ok.data_ptr(), tables.row_ptr.data_ptr(), tables.col.data_ptr(),
+            tables.shift.data_ptr(), nb, mb, z, B,
+            threshold, min_sum_alpha, min_sum_beta,
+            scale if scale is not None else 1.0,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(KERNEL_NAME, err)
+    return t, Lr, ok

@@ -1,5 +1,10 @@
-"""Monte-Carlo simulation: statistics and the point runner."""
+"""Monte-Carlo simulation: statistics, the point runner and the
+continuation runner."""
 
+from qkd_ldpc_tpu_torch.sim.continuation import (
+    dispatch_sweep_continuation,
+    run_point_continuation,
+)
 from qkd_ldpc_tpu_torch.sim.runner import run_point
 from qkd_ldpc_tpu_torch.sim.stats import (
     PointPartials,
@@ -10,6 +15,8 @@ from qkd_ldpc_tpu_torch.sim.stats import (
 
 __all__ = [
     "run_point",
+    "run_point_continuation",
+    "dispatch_sweep_continuation",
     "PointPartials",
     "SimResult",
     "finalize_point",

@@ -252,7 +252,11 @@ def test_routing_names_and_layered_schedule():
     syn_i = np.zeros((2, ti.n_checks), np.int8)
     with pytest.raises(ValueError, match="requires a QC code"):
         tbp.decode(ti, llr_i, syn_i, tbp.DecodeOptions(routing="roll"), device="cpu")
-    with pytest.raises(NotImplementedError, match="layered"):
-        tbp.decode(tq, llr, syn, tbp.DecodeOptions(schedule="layered"), device="cpu")
+    # schedule="layered" is a decode of its own (another trajectory family):
+    # same keys here, in fewer sweeps than flooding takes iterations.
+    lay = tbp.decode(tq, llr, syn, tbp.DecodeOptions(schedule="layered", **base),
+                     device="cpu")
+    assert lay.syndromes_match.all() and torch.equal(lay.bits, ref.bits)
+    assert int(lay.iterations.sum()) < int(ref.iterations.sum())
     with pytest.raises(ValueError, match="float32"):
         tbp.decode(tq, llr.astype(np.float64), syn, tbp.DecodeOptions(), device="cpu")

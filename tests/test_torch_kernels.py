@@ -1,10 +1,11 @@
-"""Port vs JAX package: the check-node update kernels K1 / K2.
+"""Port vs JAX package: the check-node update kernels K1 / K2 / K5.
 
 The plain PyTorch versions (what the port runs for CPU tensors, and what
 ``chip_smoke.py`` holds the CUDA kernels against on the card) are compared
 with the Pallas kernels in interpret mode on the same numpy tensors, for
 {sum-product, min-sum} x {float32, bfloat16, int8} on a code with padded
-slots.
+slots.  K5 is K2 with a per-frame ``fresh`` mask (mixed here) and a
+threshold low enough for the skipped clip to matter.
 
 Tolerances.  Min-sum has no transcendentals: exact.  Sum-product float32:
 ``rtol 1e-5, atol 1e-5`` on finite entries (``tanh``/``log1p`` of PyTorch
@@ -26,6 +27,7 @@ import torch
 
 from qkd_ldpc_tpu.decoder.pallas_kernels import (
     check_update_pallas,
+    fused_update_fresh_pallas,
     fused_update_pallas,
 )
 from qkd_ldpc_tpu_torch.codes import make_code
@@ -78,15 +80,19 @@ def _values(x, scale):
     return x * scale if scale is not None else x
 
 
-@pytest.mark.parametrize("first", [True, False], ids=["K1-first", "K2-fused"])
+@pytest.mark.parametrize("mode", ["first", "fused", "fresh"],
+                         ids=["K1-first", "K2-fused", "K5-fresh"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("algorithm", ["sum-product", "min-sum"])
 @pytest.mark.parametrize("clip", [True, False], ids=["clip", "noclip"])
-def test_plain_check_update_matches_pallas(padded_code, algorithm, dtype, first, clip):
+def test_plain_check_update_matches_pallas(padded_code, algorithm, dtype, mode, clip):
     code = padded_code
+    first = mode == "first"
     t_tot, t_lrp, syn, scale = _inputs(code, dtype, seed=17)
     mask = np.ascontiguousarray(code.chk_mask.T).astype(np.int32)
-    kw = dict(threshold=100.0, clip=clip, algorithm=algorithm,
+    # K5: a threshold below most |tot - lr|, so clipped and fresh frames differ.
+    threshold = 5.0 if mode == "fresh" else 100.0
+    kw = dict(threshold=threshold, clip=clip, algorithm=algorithm,
               min_sum_alpha=0.8, min_sum_beta=0.0 if first else 0.3, scale=scale)
     if first:
         want = check_update_pallas(
@@ -94,6 +100,20 @@ def test_plain_check_update_matches_pallas(padded_code, algorithm, dtype, first,
             interpret=True, **kw)
         got = cuda_kernels.check_update_first(
             t_tot, torch.from_numpy(mask), torch.from_numpy(syn), **kw)
+    elif mode == "fresh":
+        # Frame 0 (the saturating check) is fresh; the mask is mixed.
+        fresh = np.array([1, 0, 1, 1, 0, 0, 1, 0], np.int32)
+        want = fused_update_fresh_pallas(
+            _to_jax(t_tot, dtype), _to_jax(t_lrp, dtype), jnp.asarray(mask),
+            jnp.asarray(syn), jnp.asarray(fresh[None, :]), interpret=True, **kw)
+        got = cuda_kernels.check_update_fused(
+            t_tot, t_lrp, torch.from_numpy(mask), torch.from_numpy(syn),
+            fresh=torch.from_numpy(fresh != 0), **kw)
+        if clip:  # the flag matters: without it the result is another one
+            unflagged = cuda_kernels.check_update_fused(
+                t_tot, t_lrp, torch.from_numpy(mask), torch.from_numpy(syn), **kw)
+            differs = (got != unflagged).flatten(0, 1).any(dim=0).numpy()
+            np.testing.assert_array_equal(differs, fresh != 0)
     else:
         want = fused_update_pallas(
             _to_jax(t_tot, dtype), _to_jax(t_lrp, dtype), jnp.asarray(mask),
@@ -110,7 +130,7 @@ def test_plain_check_update_matches_pallas(padded_code, algorithm, dtype, first,
         np.testing.assert_array_equal(a, b)
         return
     if clip:  # the saturated row must sit exactly on the threshold
-        top = 100.0 if dtype != "int8" else 127 * 0.25
+        top = threshold if dtype != "int8" else min(threshold, 127 * 0.25)
         assert np.abs(b).max() == top and np.abs(a).max() == top
     if dtype == "float32":
         a64, b64 = a[fin].astype(np.float64), b[fin].astype(np.float64)
@@ -156,3 +176,6 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         cuda_kernels.check_update_first(lq, mask, syn, backend="pallas", **kw)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_kernels.check_update_fused(lq, lq, mask, syn, backend="pallas", **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_kernels.check_update_fused(lq, lq, mask, syn, backend="pallas",
+                                        fresh=torch.ones(2, dtype=torch.bool), **kw)
