@@ -7,11 +7,13 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
 1. builds the CUDA kernels of ``qkd_ldpc_tpu_torch/csrc`` (all ``nvcc``
    processes in parallel) and prints the card, the toolchain and the build time;
 2. holds every kernel against its plain PyTorch version on the card at the
-   flagship shapes (``[6, 5120, 512]`` messages, ``[512, 10240]`` scores,
-   k = 512, layered state ``[20, 512, 512]`` / ``[60, 512, 512]``) and times
-   kernel, plain version and, where one PyTorch call computes the same
-   function, that call; the sweep kernel also on a code too wide for shared
-   memory (its totals then stay in global memory);
+   flagship shapes (``[10240, 512]`` totals and ``[6, 5120, 512]`` messages,
+   ``[512, 10240]`` scores, k = 512, layered state ``[20, 512, 512]`` /
+   ``[60, 512, 512]``) and times kernel, plain version and, where one PyTorch
+   call computes the same function, that call; the two flooding kernels also
+   at B = 128 (the compacted width) and at a ragged B (their scalar
+   instances); the sweep kernel also on a code too wide for shared memory
+   (its totals then stay in global memory);
 3. drives ``run_point`` — keygen, exact-weight channel, syndrome, flooding BP
    decode with compaction, statistics — on the flagship quasi-cyclic code at
    its operating point and checks the statistics and the launch counts;
@@ -24,12 +26,13 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
 Each phase prints one JSON object on a line of its own; any failure raises.
 The last line is ``{"ok": true, "device": {...}}``.  The script exits non-zero
 without a CUDA device.  ``--profile`` adds a device-time table of each of the
-three paths.  Times are this card's, labelled with its name and
+three paths and the launches per decode iteration.  Times are this card's, labelled with its name and
 power limit; they are a smoke measurement, not a benchmark.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -51,6 +54,11 @@ OPS_PER_EDGE = {
     # sign*syn, alpha*sign*loo 2, clip 2
     "min-sum": 17,
 }
+# The flooding check kernel adds per edge the decision syndrome: compare, xor.
+OPS_PER_EDGE_SYNDROME = 2
+# The variable update: one add per edge; per (variable, frame) the a-priori
+# add and the decision compare.
+OPS_PER_VARIABLE = 2
 # The layered sweep adds per edge: index add and wrap 2, delta, t += delta,
 # and the parity pass (index 2, compare, xor).
 OPS_PER_EDGE_LAYERED_EXTRA = 8
@@ -70,17 +78,23 @@ MEAN_SWEEPS_GATE = (3.2, 4.8)
 WATERFALL_QBER, WATERFALL_POINT_INDEX = 0.0825, 1
 SEGMENT, REFILL_FRAC = 4, 0.125
 FRESH_THRESHOLD = 3.0  # K5's check: the Lq clip must bite where it is applied
+# Other widths of the two flooding kernels: the compacted batch (vector
+# instances) and a width no vector divides (scalar instances).
+COMPACT_BATCH, RAGGED_BATCH = BATCH // 4, 101
 # A code whose frame of totals (116 x 512 floats) exceeds a block's shared
 # memory: the sweep kernel's global-memory mode, held against the plain sweep.
 WIDE_NB, WIDE_MB, WIDE_SEED, WIDE_BATCH = 116, 58, 667, 32
 
 
-def _time_ms(torch, fn, flush, repeats=20, warmup=3):
-    """Median time of ``fn`` in ms by CUDA events, L2 flushed before each run."""
+def _time_ms(torch, fn, flush, repeats=20, warmup=3, prepare=None):
+    """Median time of ``fn`` in ms by CUDA events, L2 flushed before each run;
+    ``prepare`` (optional) runs before the flush, outside the timed window."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(repeats):
+        if prepare is not None:
+            prepare()
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -178,15 +192,15 @@ def _compare_sweep(torch, got, ref, act, dtype_name, algorithm, scale, dv):
     return max(t_err, lr_err), n_diff
 
 
-def _sweep_kernel_resources(build_dir, library, instance):
+def _sweep_kernel_resources(log, instance):
     """Registers per thread of one sweep-kernel instance, from ptxas's report
     in the build log, and the blocks of ``threads`` threads and ``shared``
-    bytes an SM then holds (64 Ki registers, 2048 threads, 227 KiB + 1 KiB per
-    block).  ``instance`` = (template argument string, threads, shared)."""
+    bytes an SM then holds (64 Ki registers, 2048 threads, 32 blocks, 227 KiB
+    + 1 KiB per block).  ``instance`` = (template argument string, threads,
+    shared)."""
     import re
 
     template, threads, shared = instance
-    log = (build_dir / f"{library}.log").read_text()
     m = re.search(r"Compiling entry function '\S*layered_sweep_kernelI" + template
                   + r"E\S*'.*?Used (\d+) registers", log, re.S)
     if m is None:
@@ -194,43 +208,91 @@ def _sweep_kernel_resources(build_dir, library, instance):
     regs = int(m.group(1))
     per_warp = -(-regs * 32 // 256) * 256  # allocated per warp in units of 256
     limits = {"by_registers": 65536 // (per_warp * threads // 32),
-              "by_threads": 2048 // threads,
+              "by_threads": 2048 // threads, "by_block_slots": 32,
               "by_shared_memory": (228 * 1024) // (shared + 1024)}
     return {"registers_per_thread": regs, "blocks_per_sm": min(limits.values()),
             **limits}
 
 
-def _profile_path(torch, path, step, card, untraced_ms):
+def _profile_path(torch, path, step, card, untraced_ms, iteration_starts=None,
+                  keygen_launches=0):
     """``--profile``: trace one path and print the device time by kernel
     name and the device-busy share of the UNTRACED run's wall time (tracing
     slows the host, not the kernels).  The first traced run absorbs the
-    tracer's start-up; both runs do the same work, so totals are halved."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    tracer's start-up; both runs do the same work, so totals are halved.
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            step()
-            torch.cuda.synchronize()
-    rows = {}
+    ``iteration_starts`` = (class, method name) of the call that opens a
+    decode iteration: it is wrapped to leave a marker in the trace, and the
+    host's launch calls (kernels, copies and fills) are counted between one
+    marker and the next.  Most such windows hold exactly one iteration (a
+    few also hold what runs between two batches or outer steps), so their
+    median is the launches one iteration costs, counted and not derived.
+    """
+    import bisect
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    if iteration_starts is not None:
+        owner, method = iteration_starts
+        real = getattr(owner, method)
+
+        def marked(*args, **kwargs):
+            with record_function("decode_iteration_starts"):
+                pass
+            return real(*args, **kwargs)
+
+        setattr(owner, method, marked)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                step()
+                torch.cuda.synchronize()
+    finally:
+        if iteration_starts is not None:
+            setattr(owner, method, real)
+    rows, marks, calls = {}, [], []
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             ms, count = rows.get(ev.name, (0.0, 0))
             rows[ev.name] = (ms + ev.device_time / 1e3 / 2, count + 0.5)
+        elif ev.name == "decode_iteration_starts":
+            marks.append(ev.time_range.start)
+        elif ev.name.startswith(("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")):
+            calls.append(ev.time_range.start)
     if not rows:
         raise AssertionError("the profiler recorded no device time")
     table = sorted(((ms, c, k) for k, (ms, c) in rows.items()), reverse=True)
     busy_ms = sum(r[0] for r in table)
+    n_launches = sum(r[1] for r in table)
+    per_iteration = None
+    if iteration_starts is not None:
+        marks.sort()
+        calls.sort()
+        if len(marks) < 3 or not calls:
+            raise AssertionError("the trace holds no iteration markers or launch calls")
+        windows = [bisect.bisect_left(calls, hi) - bisect.bisect_left(calls, lo)
+                   for lo, hi in zip(marks, marks[1:])]
+        per_iteration = {
+            "iterations_traced": len(marks) / 2,
+            "launches_median": statistics.median(windows),
+            "launches_lowest": min(windows),
+            "share_of_windows_at_median": windows.count(
+                statistics.median(windows)) / len(windows),
+            "whole_path_less_keygen": (n_launches - keygen_launches) / (len(marks) / 2),
+        }
     # Where the host's time goes: operators by their own CPU time, under tracing.
     host = sorted(((a.self_cpu_time_total / 1e3 / 2, a.count / 2, a.key)
                    for a in prof.key_averages()), reverse=True)
     print(json.dumps({"profile": {
         "path": path, "card": card, "untraced_wall_ms": untraced_ms,
         "device_busy_ms": busy_ms, "device_busy_share": busy_ms / untraced_ms,
-        "kernel_launches": sum(r[1] for r in table),
+        "kernel_launches": n_launches, "keygen_launches": keygen_launches,
+        "launches_per_iteration": per_iteration,
         "by_kernel_ms_count_name": [[round(m, 4), c, k[:100]] for m, c, k in table[:30]],
         "traced_host_self_ms_count_op": [[round(m, 3), c, k[:60]] for m, c, k in host[:12]],
     }}), flush=True)
+    return n_launches
 
 
 def main() -> int:
@@ -298,14 +360,12 @@ def main() -> int:
     def storage(x, dtype_name, scale):
         return cuda_kernels._store(x, cuda_kernels.STORAGE_DTYPES[dtype_name], scale)
 
-    syn_sign = torch.where(
-        torch.rand((M, BATCH), device=dev, generator=gen) < 0.5, -1.0, 1.0)
     # A mask with padded slots (slot 0 always real) for the correctness matrix;
     # the timings use the flagship code's own (full) mask.
     pad_mask = (torch.rand((dc, M), device=dev, generator=gen) < 0.9)
     pad_mask[0] = True
-    pad_mask = pad_mask.to(torch.int32)
-    fresh = torch.rand((BATCH,), device=dev, generator=gen) < 0.4
+    maps_padded = dataclasses.replace(
+        maps, chk_mask_T=pad_mask, chk_mask_T_i32=pad_mask.to(torch.int32))
     # The sweep's inputs: a real batch of the flagship point, and a mixed mask.
     alice, bob = make_trial_batch(point_key, N, BATCH, n_err, 0)
     llr0 = apriori_llr(bob, np.float32(n_err) / np.float32(N)).T
@@ -313,60 +373,180 @@ def main() -> int:
     act_mixed = torch.rand((BATCH,), device=dev, generator=gen) < 0.7
     act_all = torch.ones((BATCH,), dtype=torch.bool, device=dev)
 
+    def flooding_inputs(width, dtype_name, scale):
+        """Random state of the two flooding kernels at batch ``width``."""
+        def rand(*shape):
+            return torch.randn(shape, device=dev, generator=gen)
+
+        def flags(p):
+            return torch.rand((width,), device=dev, generator=gen) < p
+
+        tot = storage(4.0 * rand(N, width), dtype_name, scale)
+        # The target of frame 0 is the syndrome of its own decisions, so its
+        # ok flag is True; the other frames' targets are random bits.
+        syn = (torch.rand((M, width), device=dev, generator=gen) < 0.5).to(torch.int8)
+        z0 = (cuda_kernels._load(tot[:, 0], scale) <= 0).to(torch.uint8)
+        syn[:, 0] = syndrome(code, z0[None, :])[0].to(torch.int8)
+        return dict(
+            tot=tot, lrp=storage(2.0 * rand(dc, M, width), dtype_name, scale),
+            syn=syn, llr=4.0 * rand(N, width), fresh=flags(0.4), active=flags(0.7),
+            z=torch.full((N, width), 7, dtype=torch.int8, device=dev),
+            count=torch.arange(width, dtype=torch.int32, device=dev))
+
+    def check_modes(kw, fresh):
+        """(kernel name, first, keyword arguments) of K1, K2 and K5 = K2 with a
+        mixed fresh mask and a clip that bites."""
+        return (
+            (cuda_kernels.KERNEL_FIRST, True, dict(kw, first=True)),
+            (cuda_kernels.KERNEL_FUSED, False, dict(kw, first=False)),
+            (cuda_kernels.KERNEL_FRESH, False,
+             dict(kw, first=False, fresh=fresh, threshold=FRESH_THRESHOLD)),
+        )
+
+    def compare_check(x, code_maps, first, mode, dtype_name, algorithm, scale):
+        """One check update, kernel against plain: messages by
+        :func:`_compare_messages`; the syndrome flag has no transcendentals
+        and must be equal."""
+        args = (x["tot"], None if first else x["lrp"], x["syn"], code_maps)
+        got, ok = cuda_kernels.check_update_cuda(*args, **mode)
+        ref, ok_ref = cuda_kernels.check_update_plain(*args, **mode)
+        if not first:  # the same with the flag buffer handed in, as the loops do
+            buf = torch.ones_like(ok)
+            got_b, ok_b = cuda_kernels.check_update_cuda(*args, ok=buf, **mode)
+            if ok_b is not buf or not bool((ok_b == ok).all() & (got_b == got).all()):
+                raise AssertionError("the check kernel differs with a flag buffer")
+        torch.cuda.synchronize()
+        if not first:
+            if not bool((ok == ok_ref).all()):
+                raise AssertionError("the check kernel's syndrome flag differs")
+            if "fresh" in mode:
+                if bool(ok[x["fresh"]].any()):
+                    raise AssertionError("ok set on a fresh frame")
+            elif code_maps is maps and (not bool(ok[0]) or bool(ok.all())):
+                raise AssertionError("the syndrome flags do not discriminate")
+        return _compare_messages(torch, got, ref, dtype_name, algorithm, scale)
+
+    def compare_variable(x, scale):
+        """The variable update, kernel against plain: totals, decisions and
+        counts, all exact (no transcendentals); inactive frames untouched."""
+        z_k, count_k = x["z"].clone(), x["count"].clone()
+        got = cuda_kernels.variable_update_cuda(
+            x["lrp"], x["llr"], z_k, count_k, x["active"], maps, scale=scale)
+        ref = cuda_kernels.variable_update_plain(
+            x["lrp"], x["llr"], x["z"], x["count"], x["active"], maps, scale=scale)
+        torch.cuda.synchronize()
+        if got[1] is not z_k or got[2] is not count_k:
+            raise AssertionError("the variable kernel does not update in place")
+        if not bool(got[3].all()):
+            raise AssertionError("the variable kernel left a flag unset")
+        n_diff = sum(int((g != r).sum()) for g, r in zip(got, ref))
+        err = float((cuda_kernels._load(got[0], scale)
+                     - cuda_kernels._load(ref[0], scale)).abs().max())
+        if n_diff or not bool((z_k[:, ~x["active"]] == 7).all()):
+            raise AssertionError(f"variable_update differs on {n_diff} entries")
+        return err, n_diff
+
     matrix = []
     main_entries = {}
+    other_widths = []
     for algorithm in ("sum-product", "min-sum"):
         for dtype_name in ("float32", "bfloat16", "int8"):
             scale = 0.25 if dtype_name == "int8" else None
+            mdt = cuda_kernels.STORAGE_DTYPES[dtype_name]
             is_main = (algorithm, dtype_name) == ("sum-product", "bfloat16")
-            tot = storage(4.0 * torch.randn((dc, M, BATCH), device=dev, generator=gen),
-                          dtype_name, scale)
-            lrp = storage(2.0 * torch.randn((dc, M, BATCH), device=dev, generator=gen),
-                          dtype_name, scale)
             kw = dict(threshold=100.0, clip=True, algorithm=algorithm,
                       min_sum_alpha=0.8, min_sum_beta=0.0, scale=scale)
-            # K1, K2, and K5 = K2 with a mixed fresh mask and a clip that bites.
-            for name in (cuda_kernels.KERNEL_FIRST, cuda_kernels.KERNEL_FUSED,
-                         cuda_kernels.KERNEL_FRESH):
-                first = name == cuda_kernels.KERNEL_FIRST
-                args = (tot, None if first else lrp)
-                mode = dict(kw, first=first)
-                if name == cuda_kernels.KERNEL_FRESH:
-                    mode.update(fresh=fresh, threshold=FRESH_THRESHOLD)
+            x = flooding_inputs(BATCH, dtype_name, scale)
+            itemsize = x["tot"].element_size()
+            if min(cuda_kernels.vector_width(k, BATCH, mdt, x["tot"])
+                   for k in ("check_update", "variable_update")) <= 1:
+                raise AssertionError("the flagship batch does not take the vector instances")
+            n_edge = dc * M * BATCH
+            for name, first, mode in check_modes(kw, x["fresh"]):
                 worst, n_diff = 0.0, 0
-                for mask in (maps.chk_mask_T_i32, pad_mask):
-                    got = cuda_kernels.check_update_cuda(*args, mask, syn_sign, **mode)
-                    ref = cuda_kernels.check_update_plain(*args, mask, syn_sign, **mode)
-                    torch.cuda.synchronize()
-                    err, nd = _compare_messages(
-                        torch, got, ref, dtype_name, algorithm, scale)
+                for code_maps in (maps, maps_padded):
+                    err, nd = compare_check(
+                        x, code_maps, first, mode, dtype_name, algorithm, scale)
                     worst, n_diff = max(worst, err), n_diff + nd
+                args = (x["tot"], None if first else x["lrp"], x["syn"], maps)
+                # timed as the loops call it: the flag buffer comes set from
+                # the variable update (here: set again before each run)
+                buf = None if first else torch.ones((BATCH,), dtype=torch.bool, device=dev)
                 ms = _time_ms(torch, lambda: cuda_kernels.check_update_cuda(
-                    *args, maps.chk_mask_T_i32, syn_sign, **mode), flush)
+                    *args, ok=buf, **mode), flush,
+                    prepare=None if first else lambda: buf.fill_(True))
                 plain_ms = _time_ms(torch, lambda: cuda_kernels.check_update_plain(
-                    *args, maps.chk_mask_T_i32, syn_sign, **mode),
-                    flush, repeats=5, warmup=1)
-                n_edge = dc * M * BATCH
-                n_bytes = ((2 if first else 3) * n_edge * tot.element_size()
-                           + M * BATCH * 4 + dc * M * 4
+                    *args, **mode), flush, repeats=5, warmup=1)
+                # total read once, Lr read (not in iteration 1) and written, one
+                # syndrome byte per (check, frame), the two index tables, ok
+                # and fresh one byte per frame
+                n_bytes = (N * BATCH * itemsize + (1 if first else 2) * n_edge * itemsize
+                           + M * BATCH + 2 * dc * M * 4 + (0 if first else BATCH)
                            + (BATCH if "fresh" in mode else 0))
-                bound_ms, bound_by = _bound(n_bytes, OPS_PER_EDGE[algorithm] * n_edge)
+                bound_ms, bound_by = _bound(
+                    n_bytes, (OPS_PER_EDGE[algorithm]
+                              + (0 if first else OPS_PER_EDGE_SYNDROME)) * n_edge)
                 entry = {
                     "name": name, "algorithm": algorithm, "storage": dtype_name,
                     "max_abs_err": worst, "entries_differing": n_diff,
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by,
+                    "bound_by": bound_by, "bytes": n_bytes,
                     "bound_ms_at_copy_rate": n_bytes / copy_bytes_per_s * 1e3,
                 }
                 matrix.append(entry)
                 if is_main:
                     main_entries[name] = entry
-            del tot, lrp
+            if algorithm == "sum-product":  # the variable update has no algorithm
+                worst, n_diff = compare_variable(x, scale)
+                z_w, count_w = x["z"].clone(), x["count"].clone()
+                ms = _time_ms(torch, lambda: cuda_kernels.variable_update_cuda(
+                    x["lrp"], x["llr"], z_w, count_w, act_all, maps, scale=scale), flush)
+                plain_ms = _time_ms(torch, lambda: cuda_kernels.variable_update_plain(
+                    x["lrp"], x["llr"], x["z"], x["count"], act_all, maps, scale=scale),
+                    flush, repeats=5, warmup=1)
+                # Lr and llr read, total and z written, the slot table, the
+                # flags, the counts read and written
+                n_bytes = (n_edge * itemsize + N * BATCH * 4 + N * BATCH * itemsize
+                           + N * BATCH + DV * N * 4 + BATCH + 2 * BATCH * 4)
+                bound_ms, bound_by = _bound(n_bytes, n_edge + OPS_PER_VARIABLE * N * BATCH)
+                entry = {
+                    "name": cuda_kernels.KERNEL_VARIABLE, "algorithm": None,
+                    "storage": dtype_name, "max_abs_err": worst,
+                    "entries_differing": n_diff, "active_frames": int(x["active"].sum()),
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bytes": n_bytes,
+                    "bound_ms_at_copy_rate": n_bytes / copy_bytes_per_s * 1e3,
+                }
+                matrix.append(entry)
+                if is_main:
+                    main_entries[cuda_kernels.KERNEL_VARIABLE] = entry
+                del z_w, count_w
+            del x
+
+            # The same kernels at the compacted width (vector instances) and at
+            # a ragged width (scalar instances), padded mask, correctness only.
+            for width in (COMPACT_BATCH, RAGGED_BATCH):
+                x = flooding_inputs(width, dtype_name, scale)
+                vec = [cuda_kernels.vector_width(k, width, mdt, x["tot"])
+                       for k in ("check_update", "variable_update")]
+                if (min(vec) <= 1) == (width == COMPACT_BATCH) or (
+                        max(vec) > 1) == (width == RAGGED_BATCH):
+                    raise AssertionError(f"B = {width} took the wrong instances ({vec})")
+                worst, n_diff = 0.0, 0
+                for name, first, mode in check_modes(kw, x["fresh"]):
+                    err, nd = compare_check(
+                        x, maps_padded, first, mode, dtype_name, algorithm, scale)
+                    worst, n_diff = max(worst, err), n_diff + nd
+                err, nd = compare_variable(x, scale)
+                other_widths.append({
+                    "batch": width, "frames_per_thread": vec, "algorithm": algorithm,
+                    "storage": dtype_name, "max_abs_err": max(worst, err),
+                    "entries_differing": n_diff + nd})
+                del x
 
             # K6: one sweep from a state two (plain) sweeps into the decode of
             # a real batch, mixed act mask; then timed with every frame active.
-            state = layered.initial_state(
-                tables, llr0, syn0, cuda_kernels.STORAGE_DTYPES[dtype_name])
+            state = layered.initial_state(tables, llr0, syn0, mdt)
             t_s, lr_s, syn3 = state
             for _ in range(2):
                 t_s, lr_s, _ = layered.layered_sweep_plain(
@@ -377,17 +557,29 @@ def main() -> int:
             torch.cuda.synchronize()
             worst, n_diff = _compare_sweep(
                 torch, got, ref, act_mixed, dtype_name, algorithm, scale, DV)
-            del got, ref
+            # again on totals one float past a 16-byte boundary: the kernel then
+            # copies them float by float
+            t_off = torch.empty(t_s.numel() + 1, dtype=t_s.dtype, device=dev)[1:]
+            t_off = t_off.view(t_s.shape).copy_(t_s)
+            if (cuda_layered.copy_width(Z, t_s), cuda_layered.copy_width(Z, t_off)) != (4, 1):
+                raise AssertionError("the sweep's copy width does not follow alignment")
+            got = cuda_layered.layered_sweep_cuda(
+                t_off, lr_s.clone(), syn3, act_mixed, tables, **kw)
+            torch.cuda.synchronize()
+            err_off, n_off = _compare_sweep(
+                torch, got, ref, act_mixed, dtype_name, algorithm, scale, DV)
+            worst, n_diff = max(worst, err_off), n_diff + n_off
+            del got, ref, t_off
             t_w, lr_w = t_s.clone(), lr_s.clone()  # the timed sweeps run in place
             ms = _time_ms(torch, lambda: cuda_layered.layered_sweep_cuda(
                 t_w, lr_w, syn3, act_all, tables, **kw), flush)
             plain_ms = _time_ms(torch, lambda: layered.layered_sweep_plain(
                 t_s, lr_s, syn3, act_all, tables, **kw), flush, repeats=3, warmup=1)
             n_edge = ncells * Z * BATCH
-            # per frame: t read and written, Lr read and written, syn read;
-            # act and ok one byte each
+            # per frame: t read and written, Lr read and written, one syndrome
+            # byte per lifted check; act and ok one byte each
             n_bytes = BATCH * (2 * NB * Z * 4 + 2 * ncells * Z * lr_s.element_size()
-                               + MB_ROWS * Z * 4 + 2)
+                               + MB_ROWS * Z + 2)
             bound_ms, bound_by = _bound(
                 n_bytes, (OPS_PER_EDGE[algorithm] + OPS_PER_EDGE_LAYERED_EXTRA) * n_edge)
             entry = {
@@ -395,7 +587,7 @@ def main() -> int:
                 "storage": dtype_name, "max_abs_err": worst,
                 "entries_differing": n_diff, "active_frames": int(act_mixed.sum()),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by,
+                "bound_by": bound_by, "bytes": n_bytes,
                 "bound_ms_at_copy_rate": n_bytes / copy_bytes_per_s * 1e3,
             }
             matrix.append(entry)
@@ -457,7 +649,7 @@ def main() -> int:
     # shared memory, so the kernel updates them in global memory.
     wide = make_qc_code(z=Z, nb=WIDE_NB, mb=WIDE_MB, dv=DV, seed=WIDE_SEED)
     wide_tables = layered.layer_tables(wide, dev)
-    if not cuda_layered.totals_in_shared_memory(NB, Z) or (
+    if not cuda_layered.totals_in_shared_memory(NB, Z, MB_ROWS, ncells) or (
             cuda_layered.totals_in_shared_memory(WIDE_NB, Z)):
         raise AssertionError("the wide code does not reach the global-memory mode")
     wide_err = num_errors_for(wide.n_vars, QBER)
@@ -491,16 +683,20 @@ def main() -> int:
                     flush, repeats=5, warmup=1),
             })
             del t_s, lr_s, syn3, ref, got, t_w
-    flagship_instance = ("Li0ELb1ELi6ELb1E", Z, NB * Z * 4)  # SP, clip, dc 6, shared
+    # SP, clip, row degree 6, shared totals: one thread per lifted check
+    sweep_threads = -(-Z // 32) * 32
+    sweep_shared = NB * Z * 4 + -(-(MB_ROWS + 1 + 2 * ncells) * 4 // 16) * 16
+    flagship_instance = ("Li0ELb1ELi6ELb1E", sweep_threads, sweep_shared)
     print(json.dumps({"kernel_matrix": matrix}), flush=True)
+    print(json.dumps({"flooding_kernels_other_widths": other_widths}), flush=True)
     print(json.dumps({"layered_sweep_global_memory_mode": {
         "card": card, "code": wide.name, "n_vars": wide.n_vars,
         "batch": WIDE_BATCH, "active_frames": int(act_w.sum()),
         "totals_bytes_per_frame": WIDE_NB * Z * 4, "cells": wide_cells}}), flush=True)
     print(json.dumps({"layered_sweep_resources": dict(
         card=card, instance="sum-product, clip, row degree 6, bfloat16, shared totals",
-        threads=Z, shared_bytes=NB * Z * 4,
-        **_sweep_kernel_resources(_build.build_dir(), "layered_sweep_bfloat16",
+        threads=sweep_threads, shared_bytes=sweep_shared,
+        **_sweep_kernel_resources(_build.build_log("layered_sweep_bfloat16"),
                                   flagship_instance))}), flush=True)
     del wide, wide_tables, a_w, b_w, llr_w, syn_w
     del words, words_ref, scores, flipped, alice, bob, llr0, syn0
@@ -513,8 +709,9 @@ def main() -> int:
     trials = N_BATCHES * BATCH
     names = (cuda_kernels.KERNEL_FIRST, cuda_kernels.KERNEL_FUSED,
              cuda_select.KERNEL_NAME, cuda_prng.KERNEL_NAME,
-             cuda_kernels.KERNEL_FRESH, cuda_layered.KERNEL_NAME)
-    K1, K2, K3, K4, K5, K6 = names
+             cuda_kernels.KERNEL_FRESH, cuda_layered.KERNEL_NAME,
+             cuda_kernels.KERNEL_VARIABLE)
+    K1, K2, K3, K4, K5, K6, KV = names
 
     def counted(step):
         """Drive one path with the launch counts set to 0 just before it and
@@ -559,7 +756,7 @@ def main() -> int:
         raise AssertionError(f"main path: not every trial decoded: {stats}")
     if not MEAN_ITERATIONS_GATE[0] <= mean_it <= MEAN_ITERATIONS_GATE[1]:
         raise AssertionError(f"main path: implausible mean iterations {mean_it}")
-    for name in (K1, K2, K3, K4):
+    for name in (K1, K2, K3, K4, KV):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"main path never launched kernel {name}")
     for name in (K1, K3, K4):
@@ -567,17 +764,21 @@ def main() -> int:
             raise AssertionError(f"{name}: {launches[name]} launches, "
                                  f"expected one per batch ({N_BATCHES})")
 
-    # K2 runs once per iteration after the first: without compaction overflow
-    # a batch costs max(iterations) - 1 launches.
+    # An iteration is one variable update and one check update (K2), whose
+    # syndrome flag belongs to that iteration and whose messages are the next
+    # one's (unused after a phase's last iteration): without compaction
+    # overflow a batch costs max(iterations) launches of each.
     worst, overflowed, replay = replay_batches(opts)
-    expected_fused = sum(w - 1 for w in worst)
+    expected_fused = sum(worst)
     if replay != [int(partials.sum_it), trials, trials]:
         raise AssertionError("replayed batches disagree with run_point's partials")
     fused = launches[K2]
-    if (fused < expected_fused) or (not overflowed and fused != expected_fused):
+    if (fused < expected_fused) or (not overflowed and fused != expected_fused) or (
+            launches[KV] != fused):
         raise AssertionError(
-            f"check_update_fused launched {fused} times, iteration counts say "
-            f"{expected_fused} (overflow: {overflowed})")
+            f"check_update_fused launched {fused} times and variable_update "
+            f"{launches[KV]} times, iteration counts say {expected_fused} "
+            f"(overflow: {overflowed})")
     # The decode loop fetches one flag per iteration; on an idle stream that
     # fetch costs this much (its floor — in the loop it also waits for the
     # iteration's kernels).
@@ -594,7 +795,7 @@ def main() -> int:
         "launches": launches, "expected_fused_launches": expected_fused,
         "compaction_overflow": overflowed, "seconds": seconds,
         "frames_per_s": trials / seconds,
-        "ms_per_decode_iteration": seconds * 1e3 / (fused + N_BATCHES),
+        "ms_per_decode_iteration": seconds * 1e3 / fused,
         "idle_flag_fetch_ms": statistics.median(sync_times),
     }}), flush=True)
 
@@ -614,7 +815,7 @@ def main() -> int:
         raise AssertionError(f"layered path: not every trial decoded: {stats_l}")
     if not MEAN_SWEEPS_GATE[0] <= mean_sweeps <= MEAN_SWEEPS_GATE[1]:
         raise AssertionError(f"layered path: implausible mean sweeps {mean_sweeps}")
-    if launches_l.get(K1, 0) or launches_l.get(K2, 0) or launches_l.get(K5, 0):
+    if any(launches_l.get(name, 0) for name in (K1, K2, K5, KV)):
         raise AssertionError(f"layered path launched a flooding kernel: {launches_l}")
     # One launch per sweep: without compaction overflow a batch costs
     # max(iterations) sweeps (phase A's plus phase B's).
@@ -661,14 +862,17 @@ def main() -> int:
     if partials_c.n_trials != trials or not partials_c.max_it > partials_c.min_it:
         raise AssertionError(f"continuation path: implausible statistics {stats_c}")
     fresh_launches = launches_c.get(K5, 0)
-    # Every iteration of every outer step is one launch, and the runner counts
-    # its outer steps itself; the lanes cannot have done more work than all of
-    # them busy in every iteration.
+    # Every pass of every outer step is one launch of each flooding kernel, and
+    # the runner counts its outer steps itself; a trial costs its iterations
+    # plus the pass that forms its a-priori totals, and the lanes cannot have
+    # done more work than all of them busy in every pass.
     lane_iterations = int(partials_c.sum_it) + (trials - partials_c.n_sp) * 100
     if fresh_launches <= 0 or fresh_launches != SEGMENT * loops_c["outer_steps"] or (
-            fresh_launches * BATCH < lane_iterations):
+            fresh_launches * BATCH < lane_iterations + trials) or (
+            launches_c.get(KV, 0) != fresh_launches):
         raise AssertionError(
-            f"check_update_fresh launched {fresh_launches} times in "
+            f"check_update_fresh launched {fresh_launches} times and variable_update "
+            f"{launches_c.get(KV, 0)} times in "
             f"{loops_c['outer_steps']} outer steps of {SEGMENT} iterations, for "
             f"{lane_iterations} lane-iterations")
     if loops_c["generations"] != N_BATCHES:
@@ -753,9 +957,21 @@ def main() -> int:
             "reconcile_flooding": stage_ms(lambda: reconcile(code, a, b, q32, opts)),
             "reconcile_layered": stage_ms(lambda: reconcile(code, a, b, q32, opts_l)),
         }}), flush=True)
-        _profile_path(torch, "flooding", flooding_step, card, seconds * 1e3)
-        _profile_path(torch, "layered", layered_step, card, seconds_l * 1e3)
-        _profile_path(torch, "continuation", continuation_step, card, seconds_c * 1e3)
+        # Keygen apart: the launches of making one batch of trials, by the
+        # number of batches (or staging blocks) a path makes.
+        keygen = _profile_path(
+            torch, "keygen_one_batch",
+            lambda: make_trial_batch(point_key, N, BATCH, n_err, 0), card,
+            stage_ms(lambda: make_trial_batch(point_key, N, BATCH, n_err, 0)))
+        from qkd_ldpc_tpu_torch.decoder.bp import _DecodeCore
+
+        starts = (_DecodeCore, "variable_update")
+        _profile_path(torch, "flooding", flooding_step, card, seconds * 1e3,
+                      starts, keygen * N_BATCHES)
+        _profile_path(torch, "layered", layered_step, card, seconds_l * 1e3,
+                      None, keygen * N_BATCHES)
+        _profile_path(torch, "continuation", continuation_step, card, seconds_c * 1e3,
+                      starts, keygen * N_BATCHES)
 
     # ---- the contract's lines ----------------------------------------------
     def kernel_line(name, source, replaces, meas, counts):
@@ -783,6 +999,9 @@ def main() -> int:
         kernel_line(K5, csrc + "check_update.cu",
                     "qkd_ldpc_tpu/decoder/pallas_kernels.py:310",
                     main_entries[K5], launches_c),
+        # the tensor passes between two check updates of the JAX decoder
+        kernel_line(KV, csrc + "check_update.cu",
+                    "qkd_ldpc_tpu/decoder/bp.py:400", main_entries[KV], launches),
         kernel_line(K6, csrc + "layered_sweep.cu",
                     "qkd_ldpc_tpu/decoder/pallas_layered.py:266",
                     main_entries[K6], launches_l),

@@ -3,8 +3,9 @@
 The sources in ``csrc/`` have a plain C interface (raw pointers, sizes,
 the stream), so each compiles in seconds with ``nvcc`` alone and is
 loaded with ``ctypes`` — no PyTorch headers.  Libraries are built at
-first use into ``_build/<hash of sources and flags>/`` beside this file
-(ignored by git), all ``nvcc`` processes started together.  A build or
+first use into ``_build/`` beside this file (ignored by git), each under a
+name that carries the hash of its source, the shared header, the flags
+and its defines, all ``nvcc`` processes started together.  A build or
 launch failure raises; nothing falls back to the plain PyTorch versions,
 which run only for tensors that lie on the CPU (or on request,
 ``backend="xla"``).
@@ -79,45 +80,52 @@ def nvcc_path() -> str:
     return exe
 
 
-def build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(_CSRC.glob("*.cu*")):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    h.update(repr(sorted(LIBRARIES.items())).encode())
-    return _OUT / h.hexdigest()[:16]
+def library_path(name: str) -> Path:
+    """Where the built library ``name`` lies: the file name carries the hash
+    of everything the build depends on, so a changed source, header, flag or
+    define is another file and never a stale one."""
+    src, defines = LIBRARIES[name]
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
+    for path in [_CSRC / src, *sorted(_CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return _OUT / f"lib{Path(src).stem}.{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> Path:
+def build_log(name: str) -> str:
+    """What ``nvcc`` (with ``ptxas -v``) said when it built library ``name``."""
+    return library_path(name).with_suffix(".log").read_text()
+
+
+def build_all() -> None:
     """Compile every missing library, all nvcc processes in parallel."""
     global build_seconds
-    out = build_dir()
-    todo = [n for n in LIBRARIES if not (out / f"lib{n}.so").exists()]
+    todo = [n for n in LIBRARIES if not library_path(n).exists()]
     if not todo:
-        return out
-    out.mkdir(parents=True, exist_ok=True)
+        return
+    _OUT.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     procs = []
     for name in todo:
         src, defines = LIBRARIES[name]
-        tmp = out / f"lib{name}.{os.getpid()}.tmp.so"
+        out = library_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp), str(_CSRC / src)]
-        procs.append((name, tmp, subprocess.Popen(
+        procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
     failed = []
-    for name, tmp, proc in procs:
+    for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
-        (out / f"{name}.log").write_text(log)
+        out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
         else:
-            os.replace(tmp, out / f"lib{name}.so")
+            os.replace(tmp, out)
     build_seconds += time.perf_counter() - t0
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return out
 
 
 def function(library: str, name: str, argtypes: list):
@@ -129,12 +137,22 @@ def function(library: str, name: str, argtypes: list):
     if fn is None:
         if library not in LIBRARIES:
             raise KeyError(library)
-        lib = ctypes.CDLL(str(build_all() / f"lib{library}.so"))
+        build_all()
+        lib = ctypes.CDLL(str(library_path(library)))
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _loaded[(library, name)] = fn
     return fn
+
+
+def constant(library: str, name: str) -> int:
+    """The value of the argument-free C function ``name`` of ``library`` (a
+    width compiled into it), asked once."""
+    key = (library, name + "()")
+    if key not in _loaded:
+        _loaded[key] = function(library, name, [])()
+    return _loaded[key]
 
 
 def check_launch(kernel: str, err: int) -> None:

@@ -54,7 +54,9 @@ class DeviceCode:
     chk_adj_T: torch.Tensor  # [dc * M] int64, dc-first flat gather index
     chk_mask_T: torch.Tensor  # [dc, M] bool
     chk_mask_T_i32: torch.Tensor  # [dc, M] int32 (the kernels' mask input)
+    chk_adj_T_i32: torch.Tensor  # [dc, M] int32 (the check kernel gathers with it)
     var_slot_T: torch.Tensor  # [dv * N] int64 into the flat [dc*M (+1)] messages
+    var_slot_T_i32: torch.Tensor  # [dv, N] int32 (the variable kernel gathers with it)
     var_has_pad: bool  # some variable has fewer than dv_max edges
 
 
@@ -144,7 +146,9 @@ class LDPCCode:
             chk_adj_T=put(chk_adj_T.reshape(-1), torch.int64),
             chk_mask_T=mask_T,
             chk_mask_T_i32=mask_T.to(torch.int32),
+            chk_adj_T_i32=put(chk_adj_T, torch.int32),
             var_slot_T=put(var_slot_T.reshape(-1), torch.int64),
+            var_slot_T_i32=put(var_slot_T, torch.int32),
             var_has_pad=not bool(self.var_mask.all()),
         )
         self._device_cache[device] = dev

@@ -1,6 +1,6 @@
 // What the check-node kernels share: the message storage type with its two
-// rounding points, the clip, and the leave-one-out check update on a row held in
-// registers.  Included by check_update.cu (flooding) and layered_sweep.cu
+// rounding points, the clip, aligned vector accesses, and the leave-one-out check
+// update on a row held in registers.  Included by check_update.cu (flooding) and layered_sweep.cu
 // (layered), so both schedules round exactly alike.
 //
 // Sum-product: t_j = tanh(Lq_j / 2) (1 on padded slots), leave-one-out by
@@ -50,6 +50,26 @@ __device__ __forceinline__ storage_t to_storage(float x, float scale) {
     return static_cast<int8_t>(q);
 }
 #endif
+
+// N adjacent elements moved as one aligned access (16 bytes is the widest a
+// thread can make): N = 1 is the plain scalar access.
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Vec {
+    T v[N];
+};
+
+template <int N, typename T>
+__device__ __forceinline__ Vec<T, N> load_vec(const T* p) {
+    return *reinterpret_cast<const Vec<T, N>*>(p);
+}
+
+template <int N, typename T>
+__device__ __forceinline__ void store_vec(T* p, const Vec<T, N>& x) {
+    *reinterpret_cast<Vec<T, N>*>(p) = x;
+}
+
+// Elements of the storage type in one 16-byte access.
+constexpr int kStorageVec = 16 / static_cast<int>(sizeof(storage_t));
 
 constexpr int kSumProduct = 0;
 constexpr int kMinSum = 1;

@@ -11,51 +11,96 @@
 // and after the last layer ok = all parities of (t <= 0) equal the target.
 //
 // State layout: t [nb, B, z] float32, Lr [ncells, B, z] storage, syn [mb, B, z]
-// int32 — z fastest, so a layer's accesses coalesce.  Both t and Lr are updated
+// int8 — z fastest, so a layer's accesses coalesce.  Both t and Lr are updated
 // IN PLACE.
 //
-// Design: one thread block per frame, threads over the z lifted checks.  Frames
-// are independent, and so are the z checks of a layer; only layers are serial,
-// through t.  The frame's t (nb * z floats, 40 KB at z = 512, nb = 20) lives in
-// dynamic shared memory for the whole sweep (SHARED = true); a frame whose t
-// exceeds what a block may have (227 KB) is updated where it lies in global
-// memory instead (SHARED = false: same arithmetic, same order, and a block's
-// barrier also orders its global writes).  Each Lr cell is read and written
-// once, by the same thread; the circulant roll is an index into t; the row's
-// <= DC Lq are registers.  Inside a layer no barrier is needed: a base
-// row has at most one cell per column j and r -> (r + s) mod z is a bijection, so
-// the thread of check r is the only one of its layer to read or write
-// t[j][(r + s) mod z].  One __syncthreads() separates layers.  The row table
-// (row_ptr, col, shift) is a small int32 input, not unrolled code.
+// What bounds it on this card is not its bytes but how little of its work overlaps:
+// a frame's layers are serial through t, so a block alternates between waiting for
+// memory and arithmetic, and registers (64 a thread at 512 threads) hold an SM to two
+// blocks.  Measured on an H100 at the flagship shape (bfloat16, sum-product): the
+// kernel without arithmetic, parity pass, Lr stores and copy-out takes 0.066 ms, the
+// check arithmetic adds 0.063 ms (min-sum: 0.024), the parity pass 0.011, the
+// copy-out and the Lr stores 0.007 to 0.02 each.  The design:
+//  - One thread block per frame, one thread per lifted check of a layer; a frame's t
+//    (nb * z floats, 40 KB at z = 512, nb = 20) lives in dynamic shared memory for
+//    the whole sweep (SHARED = true), copied in and out with 16-byte accesses where
+//    t is aligned and z a multiple of 4.  A frame whose t exceeds what a block may have is
+//    updated where it lies in global memory instead (SHARED = false: same
+//    arithmetic, same order; a block's barrier also orders its global writes).
+//  - The row tables (row_ptr, col, shift) are copied to shared memory once per
+//    block, so no layer and no parity step waits on global memory for an index.
+//  - What does not depend on t leaves the serial chain: the next step's Lr cells
+//    and syn bits are loaded into registers before this step's arithmetic starts,
+//    so only the shared-memory reads of t stay between one layer and the next.  The
+//    syn bits are one byte each and are kept (one bit a layer) for the parity pass.
+//  - One lifted check per thread.  Several adjacent checks per thread (vector
+//    loads and stores of Lr and syn, fewer and fatter threads, every frame resident
+//    in one wave) measured slower on the H100 at every width, for sum-product by
+//    24 to 120 %: fewer warps are left to hide the arithmetic's latency.
+// Inside a layer no barrier is needed: a base row has at most one cell per column
+// j and r -> (r + s) mod z is a bijection, so whichever thread owns check r is the
+// only one of its layer to read or write t[j][(r + s) mod z], and a thread takes
+// its own checks (z above 1024) one after the other.  One __syncthreads() separates
+// layers.  Any z and any alignment is taken; only the copy of t narrows.
 //
 // Gating: a frame whose act flag is 0 is left untouched (its block returns at
 // once) and its ok is written as 0; the plain version multiplies the update by
 // the flag instead, which is the same for finite state.  The caller uses ok only
 // on active frames.
 //
-// Bound on this card: memory traffic — per active frame t read and written
-// (2 * nb * z * 4), Lr read and written (2 * ncells * z * itemsize), syn read
-// (mb * z * 4); the two transcendentals per edge stay under the float rate.
-// Compiled without fast-math and without fma contraction, once per storage type.
+// Byte bound: per active frame t read and written (2 * nb * z * 4), Lr read and
+// written (2 * ncells * z * itemsize), syn read (mb * z).  Compiled without
+// fast-math and without fma contraction, once per storage type.
 #include <type_traits>
 
 #include "check_math.cuh"
 
 namespace {
 
+constexpr int kMaxThreads = 1024;
+
+__host__ __device__ constexpr size_t round_up_16(size_t n) { return (n + 15) / 16 * 16; }
+
+// One step of a thread: its check r of layer i.  A thread walks its steps layer by
+// layer; within a layer, chunk c is check threadIdx.x + c * blockDim.x.
+template <int DC>
+struct StepData {
+    storage_t lr[DC];
+    int8_t syn;
+};
+
+template <int DC>
+__device__ __forceinline__ void fetch_step(const storage_t* __restrict__ lr,
+                                           const int8_t* __restrict__ syn,
+                                           const int* __restrict__ row_ptr, int step,
+                                           int chunks, int z, size_t Bz, size_t frame,
+                                           StepData<DC>* out) {
+    const int i = step / chunks;
+    const int r = threadIdx.x + (step - i * chunks) * blockDim.x;
+    if (r >= z) return;
+    const int c0 = row_ptr[i];
+    const int d = row_ptr[i + 1] - c0;
+#pragma unroll
+    for (int k = 0; k < DC; ++k) {
+        if (k < d) out->lr[k] = lr[(c0 + k) * Bz + frame + r];
+    }
+    out->syn = syn[i * Bz + frame + r];
+}
+
 template <int ALG, bool CLIP, int DC, bool SHARED>
-__global__ void layered_sweep_kernel(float* __restrict__ t,        // [nb, B, z]
-                                     storage_t* __restrict__ lr,   // [ncells, B, z]
-                                     const int* __restrict__ syn,  // [mb, B, z]
-                                     const uint8_t* __restrict__ act,  // [B]
-                                     uint8_t* __restrict__ ok,         // [B]
-                                     const int* __restrict__ row_ptr,  // [mb + 1]
-                                     const int* __restrict__ col,      // [ncells]
-                                     const int* __restrict__ shift,    // [ncells]
-                                     int nb, int mb, int z, int B, float threshold,
-                                     float alpha, float beta, float scale) {
-    extern __shared__ float sm_t[];  // [nb, z]: this frame's totals (SHARED)
-    __shared__ int sm_bad[32];
+__global__ void __launch_bounds__(kMaxThreads, 1)
+layered_sweep_kernel(float* __restrict__ t,             // [nb, B, z]
+                     storage_t* __restrict__ lr,        // [ncells, B, z]
+                     const int8_t* __restrict__ syn,    // [mb, B, z]
+                     const uint8_t* __restrict__ act,   // [B]
+                     uint8_t* __restrict__ ok,          // [B]
+                     const int* __restrict__ row_ptr_g,  // [mb + 1]
+                     const int* __restrict__ col_g,      // [ncells]
+                     const int* __restrict__ shift_g,    // [ncells]
+                     int nb, int mb, int ncells, int z, int B, bool wide_copy,
+                     float threshold, float alpha, float beta, float scale) {
+    // [nb * z floats of t when SHARED][mb + 1 | ncells | ncells ints of tables]
+    extern __shared__ __align__(16) unsigned char smem[];
     const int b = blockIdx.x;
     if (act[b] == 0) {
         if (threadIdx.x == 0) ok[b] = 0;
@@ -63,25 +108,70 @@ __global__ void layered_sweep_kernel(float* __restrict__ t,        // [nb, B, z]
     }
     const size_t Bz = static_cast<size_t>(B) * z;
     const size_t frame = static_cast<size_t>(b) * z;
+    const size_t t_bytes = SHARED ? static_cast<size_t>(nb) * z * sizeof(float) : 0;
+    float* const sm_t = reinterpret_cast<float*>(smem);
+    int* const row_ptr = reinterpret_cast<int*>(smem + t_bytes);
+    int* const col = row_ptr + mb + 1;
+    int* const shift = col + ncells;
+    for (int e = threadIdx.x; e <= mb; e += blockDim.x) row_ptr[e] = row_ptr_g[e];
+    for (int e = threadIdx.x; e < ncells; e += blockDim.x) {
+        col[e] = col_g[e];
+        shift[e] = shift_g[e];
+    }
 
-    // The frame's totals as tt[j * tstride + position].
+    // The frame's totals as tt[j * tstride + p].
     using pos_t = typename std::conditional<SHARED, int, size_t>::type;
     float* const tt = SHARED ? sm_t : t + frame;
     const pos_t tstride = SHARED ? static_cast<pos_t>(z) : static_cast<pos_t>(Bz);
-    if (SHARED) {
-        for (int e = threadIdx.x; e < nb * z; e += blockDim.x) {
-            const int j = e / z;
-            sm_t[e] = t[j * Bz + frame + (e - j * z)];
+    // The copy of t in and out moves 16 bytes an access where t is aligned and z a
+    // multiple of 4, else one float.
+    auto copy_t = [&](auto width, bool in) {
+        constexpr int W = decltype(width)::value;
+        const int per_row = z / W;
+        for (int e = threadIdx.x; e < nb * per_row; e += blockDim.x) {
+            const int j = e / per_row;
+            const int p = (e - j * per_row) * W;
+            float* const g = t + j * Bz + frame + p;
+            float* const s = sm_t + j * z + p;
+            if (in) store_vec<W>(s, load_vec<W>(g));
+            else store_vec<W>(g, load_vec<W>(s));
         }
-        __syncthreads();
+    };
+    if (SHARED) {
+        if (wide_copy) copy_t(std::integral_constant<int, 4>{}, true);
+        else copy_t(std::integral_constant<int, 1>{}, true);
     }
+    __syncthreads();  // tables and totals are in place
 
+    const int chunks = (z + blockDim.x - 1) / blockDim.x;
+    const int steps = mb * chunks;
+    // The target bits of a thread's check, kept for the parity pass when they fit.
+    const bool keep_targets = chunks == 1 && mb <= 64;
+    unsigned long long targets = 0;
+    StepData<DC> cur, next;
+    fetch_step<DC>(lr, syn, row_ptr, 0, chunks, z, Bz, frame, &next);
     for (int i = 0; i < mb; ++i) {
         const int c0 = row_ptr[i];
         const int d = row_ptr[i + 1] - c0;
-        for (int r = threadIdx.x; r < z; r += blockDim.x) {
-            const float sgn = syn[i * Bz + frame + r] == 1 ? -1.0f : 1.0f;
-            float lq[DC], old[DC], out[DC];
+        int cj[DC], sh[DC];
+#pragma unroll
+        for (int k = 0; k < DC; ++k) {
+            cj[k] = k < d ? col[c0 + k] : 0;
+            sh[k] = k < d ? shift[c0 + k] : 0;
+        }
+        for (int c = 0; c < chunks; ++c) {
+            const int step = i * chunks + c;
+            const int r = threadIdx.x + c * blockDim.x;
+            cur = next;
+            // the next step's loads do not depend on t: start them before this
+            // step's arithmetic
+            if (step + 1 < steps) {
+                fetch_step<DC>(lr, syn, row_ptr, step + 1, chunks, z, Bz, frame, &next);
+            }
+            if (r >= z) continue;
+            const float sgn = cur.syn == 1 ? -1.0f : 1.0f;
+            if (keep_targets) targets |= static_cast<unsigned long long>(cur.syn & 1) << i;
+            float lq[DC], old[DC], was[DC], out[DC];
             bool valid[DC];
             pos_t pos[DC];
 #pragma unroll
@@ -89,14 +179,15 @@ __global__ void layered_sweep_kernel(float* __restrict__ t,        // [nb, B, z]
                 valid[k] = k < d;
                 lq[k] = 0.0f;
                 old[k] = 0.0f;
+                was[k] = 0.0f;
                 pos[k] = 0;
                 if (valid[k]) {
-                    const int ci = c0 + k;
-                    int p = r + shift[ci];
+                    int p = r + sh[k];
                     if (p >= z) p -= z;
-                    pos[k] = col[ci] * tstride + p;
-                    old[k] = from_storage(lr[ci * Bz + frame + r], scale);
-                    const float v = tt[pos[k]] - old[k];
+                    pos[k] = cj[k] * tstride + p;
+                    old[k] = from_storage(cur.lr[k], scale);
+                    was[k] = tt[pos[k]];
+                    const float v = was[k] - old[k];
                     lq[k] = CLIP ? clipf(v, threshold) : v;
                 }
             }
@@ -105,10 +196,14 @@ __global__ void layered_sweep_kernel(float* __restrict__ t,        // [nb, B, z]
             for (int k = 0; k < DC; ++k) {
                 if (valid[k]) {
                     const storage_t q = to_storage(out[k], scale);
-                    lr[(c0 + k) * Bz + frame + r] = q;
+                    cur.lr[k] = q;
                     const float delta = from_storage(q, scale) - old[k];
-                    tt[pos[k]] = tt[pos[k]] + delta;
+                    tt[pos[k]] = was[k] + delta;
                 }
+            }
+#pragma unroll
+            for (int k = 0; k < DC; ++k) {
+                if (k < d) lr[(c0 + k) * Bz + frame + r] = cur.lr[k];
             }
         }
         __syncthreads();  // the next layer reads what this one added to t
@@ -116,74 +211,83 @@ __global__ void layered_sweep_kernel(float* __restrict__ t,        // [nb, B, z]
 
     // Decision syndrome of the post-sweep totals (t <= 0 -> bit 1).
     int bad = 0;
-    for (int r = threadIdx.x; r < z; r += blockDim.x) {
+    for (int c = 0; c < chunks; ++c) {
+        const int r = threadIdx.x + c * blockDim.x;
+        if (r >= z) continue;
         for (int i = 0; i < mb; ++i) {
+            const int target = keep_targets ? static_cast<int>((targets >> i) & 1)
+                                            : syn[i * Bz + frame + r];
             int parity = 0;
             for (int ci = row_ptr[i]; ci < row_ptr[i + 1]; ++ci) {
                 int p = r + shift[ci];
                 if (p >= z) p -= z;
                 parity ^= tt[col[ci] * tstride + p] <= 0.0f ? 1 : 0;
             }
-            bad += parity ^ syn[i * Bz + frame + r];
+            bad |= parity ^ target;
         }
     }
-    for (int off = 16; off > 0; off >>= 1) bad += __shfl_down_sync(0xffffffffu, bad, off);
-    if ((threadIdx.x & 31) == 0) sm_bad[threadIdx.x >> 5] = bad;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        int total = 0;
-        for (int w = 0; w < (blockDim.x >> 5); ++w) total += sm_bad[w];
-        ok[b] = total == 0 ? 1 : 0;
-    }
+    // also the barrier between the parity reads and nothing later writing t
+    const int any_bad = __syncthreads_or(bad);
+    if (threadIdx.x == 0) ok[b] = any_bad == 0 ? 1 : 0;
 
     if (SHARED) {
-        for (int e = threadIdx.x; e < nb * z; e += blockDim.x) {
-            const int j = e / z;
-            t[j * Bz + frame + (e - j * z)] = sm_t[e];
-        }
+        if (wide_copy) copy_t(std::integral_constant<int, 4>{}, false);
+        else copy_t(std::integral_constant<int, 1>{}, false);
     }
 }
 
 struct Args {
     float* t;
     storage_t* lr;
-    const int* syn;
+    const int8_t* syn;
     const uint8_t* act;
     uint8_t* ok;
     const int* row_ptr;
     const int* col;
     const int* shift;
-    int nb, mb, z, B;
+    int nb, mb, ncells, z, B;
+    bool wide_copy;  // t starts on a 16-byte boundary and z is a multiple of 4
     float threshold, alpha, beta, scale;
     cudaStream_t stream;
 };
 
 constexpr size_t kStaticSharedLimit = 48 * 1024;
 constexpr size_t kBlockSharedLimit = 227 * 1024;  // what a block may have on sm_90
+size_t table_bytes(const Args& p) {
+    return round_up_16((static_cast<size_t>(p.mb) + 1 + 2 * p.ncells) * sizeof(int));
+}
+
+size_t totals_bytes(const Args& p) {
+    return static_cast<size_t>(p.nb) * p.z * sizeof(float);
+}
+
+// The rule is the shape's alone: totals that fit a block's shared memory beside
+// the row tables go there, larger ones stay in global memory.
+bool totals_in_shared(const Args& p) {
+    return totals_bytes(p) + table_bytes(p) <= kBlockSharedLimit;
+}
 
 template <int ALG, bool CLIP, int DC, bool SHARED>
-int launch_kernel(const Args& p, size_t shared) {
+int launch_kernel(const Args& p) {
+    const size_t shared = (SHARED ? totals_bytes(p) : 0) + table_bytes(p);
+    const auto kernel = layered_sweep_kernel<ALG, CLIP, DC, SHARED>;
     if (shared > kStaticSharedLimit) {
         const cudaError_t err = cudaFuncSetAttribute(
-            layered_sweep_kernel<ALG, CLIP, DC, SHARED>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    int threads = (p.z + 31) / 32 * 32;  // whole warps: the reduction shuffles
-    if (threads > 1024) threads = 1024;
-    layered_sweep_kernel<ALG, CLIP, DC, SHARED><<<p.B, threads, shared, p.stream>>>(
-        p.t, p.lr, p.syn, p.act, p.ok, p.row_ptr, p.col, p.shift, p.nb, p.mb, p.z,
-        p.B, p.threshold, p.alpha, p.beta, p.scale);
+    int threads = (p.z + 31) / 32 * 32;  // whole warps
+    if (threads > kMaxThreads) threads = kMaxThreads;
+    kernel<<<p.B, threads, shared, p.stream>>>(
+        p.t, p.lr, p.syn, p.act, p.ok, p.row_ptr, p.col, p.shift, p.nb, p.mb, p.ncells,
+        p.z, p.B, p.wide_copy, p.threshold, p.alpha, p.beta, p.scale);
     return static_cast<int>(cudaGetLastError());
 }
 
-// The rule is the shape's alone: totals that fit a block's shared memory go
-// there, larger ones stay in global memory.
 template <int ALG, bool CLIP, int DC>
 int launch(const Args& p) {
-    const size_t shared = static_cast<size_t>(p.nb) * p.z * sizeof(float);
-    if (shared <= kBlockSharedLimit) return launch_kernel<ALG, CLIP, DC, true>(p, shared);
-    return launch_kernel<ALG, CLIP, DC, false>(p, 0);
+    return totals_in_shared(p) ? launch_kernel<ALG, CLIP, DC, true>(p)
+                               : launch_kernel<ALG, CLIP, DC, false>(p);
 }
 
 template <int ALG, bool CLIP>
@@ -200,28 +304,33 @@ int launch_dc(int dc, const Args& p) {
     }
 }
 
+int launch_flags(int algorithm, int clip, int dc, const Args& p) {
+    if (algorithm == kMinSum) {
+        return clip ? launch_dc<kMinSum, true>(dc, p) : launch_dc<kMinSum, false>(dc, p);
+    }
+    return clip ? launch_dc<kSumProduct, true>(dc, p) : launch_dc<kSumProduct, false>(dc, p);
+}
+
 }  // namespace
 
-// Returns cudaGetLastError() (or the error of raising the shared-memory limit),
-// or -1 when the largest row degree `dc` has no compiled instance.
-extern "C" int layered_sweep(int algorithm, int clip, int dc, void* t, void* lr,
-                             const void* syn, const void* act, void* ok,
+// `aligned`: t starts on a 16-byte boundary (the 16-byte copies of t need it, and a z
+// that is a multiple of 4).  Returns cudaGetLastError() (or the error of raising the
+// shared-memory limit), or -1 when the largest row degree `dc` has no compiled
+// instance.
+extern "C" int layered_sweep(int algorithm, int clip, int dc, int aligned, void* t,
+                             void* lr, const void* syn, const void* act, void* ok,
                              const void* row_ptr, const void* col, const void* shift,
-                             int nb, int mb, int z, int B, float threshold,
+                             int nb, int mb, int ncells, int z, int B, float threshold,
                              float alpha, float beta, float scale, void* stream) {
     const Args p{static_cast<float*>(t),
                  static_cast<storage_t*>(lr),
-                 static_cast<const int*>(syn),
+                 static_cast<const int8_t*>(syn),
                  static_cast<const uint8_t*>(act),
                  static_cast<uint8_t*>(ok),
                  static_cast<const int*>(row_ptr),
                  static_cast<const int*>(col),
                  static_cast<const int*>(shift),
-                 nb, mb, z, B, threshold, alpha, beta, scale,
+                 nb, mb, ncells, z, B, aligned != 0 && z % 4 == 0, threshold, alpha, beta, scale,
                  static_cast<cudaStream_t>(stream)};
-    if (algorithm == kMinSum) {
-        return clip ? launch_dc<kMinSum, true>(dc, p) : launch_dc<kMinSum, false>(dc, p);
-    }
-    return clip ? launch_dc<kSumProduct, true>(dc, p)
-                : launch_dc<kSumProduct, false>(dc, p);
+    return launch_flags(algorithm, clip, dc, p);
 }

@@ -11,15 +11,26 @@ package's, restated for PyTorch:
 - **dc-first edge layout** ``[dc_max, M, B]`` with the frame axis last, so
   every plane of a slot is contiguous and the kernels' accesses coalesce
   along B.
-- **Fused bit-node update**: the loop carries ``(tot_chk, Lr)`` instead of
-  the bit-to-check messages; ``Lq = clip(tot_chk - Lr)`` is recomputed in
-  registers inside the check kernel.  The first iteration is peeled so its
-  check inputs are the *unclipped* a-priori LLRs.
-- **Early exit** with per-frame convergence masks: frame b records
-  ``iterations = it + 1`` on the iteration where its decision syndrome
-  first equals the target.  ``lax.while_loop`` becomes a Python ``while``
-  that fetches one flag per iteration (one host sync each; its cost is in
-  PERF.md), ``lax.cond`` a Python ``if`` on a fetched flag.
+- **An iteration is two kernels** (``decoder/cuda_kernels.py``): the
+  variable update turns the check messages ``Lr`` into the totals ``total
+  [N, B]``, the decisions and the iteration counts of the active frames;
+  the check update reads ``total`` through the check adjacency, recomputes
+  ``Lq = clip(total - Lr)`` in registers, writes the next ``Lr`` and
+  returns the decision syndrome of the totals it read.  The loop carries
+  ``Lr`` alone from one iteration to the next; no gathered ``[dc, M, B]``
+  copy of the totals is made and no tensor pass touches the messages.  The
+  JAX package orders an iteration check-then-variable; here it is
+  variable-then-check, so the syndrome flag arrives in the iteration it
+  belongs to and the launch that yields it already holds the next
+  iteration's messages (unused after the last one).  The first check
+  update is peeled so its inputs are the *unclipped* a-priori LLRs.
+- **One loop for both backends**: under ``backend="xla"`` and on the CPU
+  the same calls run the plain versions.
+- **Early exit** with per-frame convergence masks: frame b stops counting
+  on the iteration where its decision syndrome first equals the target.
+  ``lax.while_loop`` becomes a Python ``while`` that fetches one flag per
+  iteration (one host sync each; its cost is in PERF.md), ``lax.cond`` a
+  Python ``if`` on a fetched flag.
 
 The decision rule is ``total <= 0 -> bit = 1``.
 """
@@ -122,12 +133,10 @@ class DecodeOptions:
 
 
 class _DecodeCore:
-    """The pieces of one dc-first decode iteration for a batch of width B."""
+    """The pieces of one decode iteration on ``device``: the two kernels
+    (or their plain versions) bound to a code and its decode options."""
 
-    def __init__(self, code: LDPCCode, opts: DecodeOptions, B: int, device):
-        self.code, self.opts, self.B = code, opts, B
-        self.N, self.M = code.n_vars, code.n_checks
-        self.dv, self.dc = code.dv_max, code.dc_max
+    def __init__(self, code: LDPCCode, opts: DecodeOptions, device):
         self.device = torch.device(device)
         self.backend = opts.resolve_backend(self.device)
         self.mdt = cuda_kernels.STORAGE_DTYPES[opts.message_dtype]
@@ -146,84 +155,61 @@ class _DecodeCore:
         """Float compute value -> message storage dtype."""
         return cuda_kernels._store(x, self.mdt, self.scale)
 
-    def from_storage(self, q):
-        """Message storage dtype -> float compute value."""
-        return cuda_kernels._load(q, self.scale)
-
-    def gather_chk(self, x):
-        """[N, B] -> [dc, M, B] via the check adjacency."""
-        return x.index_select(0, self.maps.chk_adj_T).view(self.dc, self.M, self.B)
-
-    def route_var(self, Lr):
-        """[dc, M, B] check messages -> [dv, N, B] variable-major."""
-        flat = Lr.view(self.dc * self.M, self.B)
-        if self.maps.var_has_pad:
-            # Padded variable slots index the sentinel row dc*M: a zero.
-            flat = torch.cat([flat, flat.new_zeros((1, self.B))], dim=0)
-        return flat.index_select(0, self.maps.var_slot_T).view(
-            self.dv, self.N, self.B
-        )
-
-    def check_update_first(self, Lq, syn_sign):
-        """Iteration-1 check update on the (unclipped) a-priori gathers."""
+    def check_update_first(self, total0, syn):
+        """Iteration-1 check update on the (unclipped) a-priori LLRs, given
+        in storage type ``[N, B]``; returns ``Lr``."""
         return cuda_kernels.check_update_first(
-            Lq, self.maps.chk_mask_T_i32, syn_sign, **self.kernel_args
+            total0, syn, self.maps, **self.kernel_args
         )
 
-    def check_update_fused(self, tot_chk, Lr_prev, syn_sign, fresh=None):
-        """Bit-node update (Lq = clip(tot - Lr), in registers) + check update.
+    def check_update_fused(self, total, Lr_prev, syn, fresh=None, ok=None):
+        """Bit-node update (Lq = clip(total - Lr), in registers) + check
+        update + decision syndrome of ``total``; returns ``(Lr, ok)``.
 
-        ``fresh`` ([B] bool, optional) marks lanes whose (tot, Lr=0) state
+        ``fresh`` ([B] bool, optional) marks lanes whose (total, Lr=0) state
         encodes a FIRST iteration: their recomputed Lq skips the clip, so a
         fresh lane's trajectory is identical to the peeled first iteration
-        (the a-priori LLRs are never clipped).  Used by the continuation
-        runner, where refilled lanes restart mid-batch.
+        (the a-priori LLRs are never clipped), and their ``ok`` is False.
+        Used by the continuation runner, where refilled lanes restart
+        mid-batch.  ``ok`` is the all-True flag buffer that
+        :meth:`variable_update` returned (the kernel clears flags in it).
         """
         return cuda_kernels.check_update_fused(
-            tot_chk, Lr_prev, self.maps.chk_mask_T_i32, syn_sign, fresh=fresh,
-            **self.kernel_args,
+            total, Lr_prev, syn, self.maps, fresh=fresh, ok=ok, **self.kernel_args
         )
 
-    def after_check(self, Lr, llr, syndrome):
-        """Route -> totals -> decision -> decision syndrome -> gathered totals.
-
-        Decisions and the syndrome derive from the SAME storage-rounded
-        totals (z on the variable side, parities on the gathered check
-        side), so they are exactly consistent.
-        """
-        Lr_var = self.from_storage(self.route_var(Lr))
-        acc = Lr_var[0]
-        for k in range(1, self.dv):  # explicit adds in slot order
-            acc = acc + Lr_var[k]
-        total = self.to_storage(llr + acc)
-        z = (total <= 0).to(torch.int8)  # total <= 0 -> bit 1
-        tot_chk = self.gather_chk(total)
-        z_chk = (tot_chk <= 0) & self.maps.chk_mask_T[:, :, None]
-        syn_hat = z_chk.sum(dim=0, dtype=torch.int32) & 1
-        ok = (syn_hat == syndrome).all(dim=0)  # [B]
-        return tot_chk, z, ok
+    def variable_update(self, Lr, llr, z, count, active):
+        """Route -> totals -> decision: ``(total, z, count, ok)`` with ``z``
+        and ``count`` moved on the ``active`` frames only (in place by the
+        kernel) and ``ok`` all True, for the check update to clear.  Decisions and the syndrome that the next check update
+        returns derive from the SAME storage-rounded totals, so they are
+        exactly consistent."""
+        return cuda_kernels.variable_update(
+            Lr, llr, z, count, active, self.maps, backend=self.backend,
+            scale=self.scale,
+        )
 
 
-def _decode_loop(core, llr, syndrome, syn_sign, init, limit, frozen=None):
-    """The shared early-exit iteration loop from a prepared carry.
+def _decode_loop(core, llr, syn, init, limit, frozen=None):
+    """The shared early-exit iteration loop from a prepared carry
+    ``(Lr, z_out, iters, done, it)``: ``Lr`` holds the check messages of
+    iteration ``it + 1``, whose variable update is still to run.
 
     ``frozen`` ([B] bool, optional) marks lanes whose bookkeeping must
     never change (their z/iters/done are final) even though their stale
     message state is recomputed — the full-batch fallback phase of the
     compaction schedule runs with the compacted lanes frozen.
     """
-    tot_chk, Lr, z_out, iters, done, it = init
+    Lr, z_out, iters, done, it = init
     while it < limit:
-        active = ~done if frozen is None else ~done & ~frozen
+        active = ~done if frozen is None else ~(done | frozen)
         if not bool(active.any()):  # the per-iteration host sync
             break
-        Lr = core.check_update_fused(tot_chk, Lr, syn_sign)
-        tot_chk, z, ok = core.after_check(Lr, llr, syndrome)
-        z_out = torch.where(active[None, :], z, z_out)
-        iters = torch.where(active, it + 1, iters)
-        done = done | (active & ok)
+        total, z_out, iters, ok = core.variable_update(Lr, llr, z_out, iters, active)
+        Lr, ok = core.check_update_fused(total, Lr, syn, ok=ok)
+        done = torch.where(active, ok, done)
         it += 1
-    return tot_chk, Lr, z_out, iters, done, it
+    return Lr, z_out, iters, done, it
 
 
 def bp_decode_batch_last(
@@ -239,23 +225,23 @@ def bp_decode_batch_last(
     if llr.dtype != torch.float32 or llr.ndim != 2:
         raise ValueError("llr must be float32 [N, B]")
     B = llr.shape[1]
-    core = _DecodeCore(code, opts, B, llr.device)
+    core = _DecodeCore(code, opts, llr.device)
     llr = llr.contiguous()
-    syndrome = syndrome.to(torch.int32).contiguous()
-    syn_sign = torch.where(syndrome == 1, -1.0, 1.0)  # [M, B] float32
+    syn = syndrome.to(torch.int8).contiguous()  # [M, B] target bits
 
-    # ---- peeled iteration 1: check inputs are the raw a-priori LLRs
-    # (never clipped).
-    Lq0 = core.gather_chk(core.to_storage(llr))
-    Lr1 = core.check_update_first(Lq0, syn_sign)
-    tot1, z1, ok1 = core.after_check(Lr1, llr, syndrome)
-    ones = torch.ones((B,), dtype=torch.int32, device=llr.device)
-    init = (tot1, Lr1, z1, ones, ok1, 1)  # every frame ran iteration 1
+    # ---- peeled first check update: its inputs are the raw a-priori LLRs
+    # (never clipped).  Every frame then runs iteration 1 in the loop.
+    Lr1 = core.check_update_first(core.to_storage(llr), syn)
+    init = (
+        Lr1, torch.zeros((code.n_vars, B), dtype=torch.int8, device=llr.device),
+        torch.zeros((B,), dtype=torch.int32, device=llr.device),
+        torch.zeros((B,), dtype=torch.bool, device=llr.device), 0,
+    )
 
     B2 = opts.compact_lanes
     if not (0 < B2 < B and opts.compact_after < opts.max_iterations):
-        *_, z_out, iters, done, _ = _decode_loop(
-            core, llr, syndrome, syn_sign, init, opts.max_iterations
+        _, z_out, iters, done, _ = _decode_loop(
+            core, llr, syn, init, opts.max_iterations
         )
         # Frames that never converged report max_iterations.
         iters = torch.where(done, iters, opts.max_iterations)
@@ -268,22 +254,21 @@ def bp_decode_batch_last(
     # lanes were unconverged) continues any overflow lanes from their
     # phase-A state with the compacted lanes' bookkeeping frozen.  Every
     # lane's trajectory is the plain loop's, merely re-scheduled.
-    tot_a, Lr_a, z_a, it_a, done_a, itc_a = _decode_loop(
-        core, llr, syndrome, syn_sign, init, opts.compact_after
+    Lr_a, z_a, it_a, done_a, itc_a = _decode_loop(
+        core, llr, syn, init, opts.compact_after
     )
 
     # Unconverged lanes first (the sort is stable: ties keep lane order);
     # when fewer than compact_lanes are unconverged the tail picks
     # already-done lanes, which the loop's masks keep inert.
     idx = torch.argsort(done_a.to(torch.int32), stable=True)[:B2]
-    core_c = _DecodeCore(code, opts, B2, llr.device)
     init_c = (
-        tot_a.index_select(2, idx), Lr_a.index_select(2, idx),
-        z_a.index_select(1, idx), it_a[idx], done_a[idx], itc_a,
+        Lr_a.index_select(2, idx), z_a.index_select(1, idx), it_a[idx],
+        done_a[idx], itc_a,
     )
-    _, _, z_b, it_b, done_b, _ = _decode_loop(
-        core_c, llr.index_select(1, idx), syndrome.index_select(1, idx),
-        syn_sign.index_select(1, idx), init_c, opts.max_iterations,
+    _, z_b, it_b, done_b, _ = _decode_loop(
+        core, llr.index_select(1, idx), syn.index_select(1, idx), init_c,
+        opts.max_iterations,
     )
 
     # z_a / it_a / done_a are dead after this point: update them in place
@@ -295,10 +280,9 @@ def bp_decode_batch_last(
     frozen[idx] = True
 
     if bool((~done_full & ~frozen).any()):  # overflow: phase C
-        carry = (tot_a, Lr_a, z_full, it_full, done_full, itc_a)
-        *_, z_full, it_full, done_full, _ = _decode_loop(
-            core, llr, syndrome, syn_sign, carry, opts.max_iterations,
-            frozen=frozen,
+        carry = (Lr_a, z_full, it_full, done_full, itc_a)
+        _, z_full, it_full, done_full, _ = _decode_loop(
+            core, llr, syn, carry, opts.max_iterations, frozen=frozen,
         )
     iters = torch.where(done_full, it_full, opts.max_iterations)
     return z_full, iters, done_full

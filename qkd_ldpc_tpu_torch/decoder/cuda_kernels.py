@@ -1,26 +1,48 @@
-"""Check-node update of the BP edge sweep: CUDA kernel wrappers and plain versions.
+"""One flooding BP iteration as two kernels: CUDA wrappers and plain versions.
 
-Replaces ``qkd_ldpc_tpu/decoder/pallas_kernels.py``:
+The check-node update replaces ``qkd_ldpc_tpu/decoder/pallas_kernels.py``:
 
 - :func:`check_update_first` — ``check_update_pallas``: the iteration-1
-  update on the gathered, never clipped a-priori LLRs;
+  update on the never clipped a-priori LLRs;
 - :func:`check_update_fused` — ``fused_update_pallas``: every later
-  iteration, with the bit-node update ``Lq = clip(tot_chk - Lr_prev)``
+  iteration, with the bit-node update ``Lq = clip(total[var] - Lr_prev)``
   recomputed inside the kernel;
 - :func:`check_update_fused` with ``fresh`` — ``fused_update_fresh_pallas``:
   the same with a per-frame flag; a fresh frame's ``Lq`` skips the clip, so
-  its ``(tot_chk, Lr = 0)`` state replays iteration 1 exactly (the
+  its ``(total = a-priori, Lr = 0)`` state replays iteration 1 exactly (the
   continuation runner restarts lanes in the middle of a batch).
 
-All are one CUDA source (``csrc/check_update.cu``) and one plain PyTorch
-function with a ``first`` switch and an optional ``fresh`` mask.  All tensors are in the message storage
-type (float32, bfloat16, or int8 fixed point with ``scale`` LLR units per
-LSB) and dc-first, ``[dc, M, B]`` with the frame axis last.  Arithmetic is
-float32; the rounding points are the JAX package's: bfloat16
-round-to-nearest-even, int8 ``clip(round(x / scale), +-127)`` with round
-half to even.  (The Pallas ``_store`` multiplies by ``1/scale`` where
-``bp.to_storage`` divides; the two agree at the default 0.25, and the
-port divides everywhere.)
+All are one ``__global__`` template of ``csrc/check_update.cu`` and one
+plain PyTorch function with a ``first`` switch and an optional ``fresh``
+mask.  Unlike the TPU kernels, which are handed a gathered copy ``tot_chk
+[dc, M, B]`` of the totals, these read ``total [N, B]`` through the check
+adjacency themselves, so that copy is never made; and with a check's totals
+at hand they also return the decision syndrome: ``ok [B]``, true where the
+decisions ``total <= 0`` of the totals that went IN satisfy the target
+syndrome (false on a fresh frame, which has run no iteration yet).
+
+:func:`variable_update` (the second ``__global__`` function of the source)
+takes the place of the tensor passes between two check updates: it sums a
+variable's check messages in slot order, adds the a-priori LLR, rounds to
+storage and writes ``total [N, B]``; on the frames whose ``active`` flag is
+set it also writes the decision ``z`` and adds one to the frame's iteration
+count, and it hands the check update its flag buffer ``ok``, all True.  So the loop of ``decoder/bp.py`` carries ``(total, Lr)`` and an
+iteration is two launches with no tensor pass over the messages between.
+
+What bounds both on the card is memory traffic, and what the design does
+about it is in the header of ``csrc/check_update.cu``: each thread takes a
+vector of adjacent frames (:func:`vector_width`: 16 bytes in the variable
+update, 4 frames in the check update, whose time the width hardly moves); a
+scalar instance of the same kernels takes a ragged ``B`` or an unaligned
+tensor.
+
+Tensors are in the message storage type (float32, bfloat16, or int8 fixed
+point with ``scale`` LLR units per LSB), messages dc-first ``[dc, M, B]``
+with the frame axis last.  Arithmetic is float32; the rounding points are
+the JAX package's: bfloat16 round-to-nearest-even, int8 ``clip(round(x /
+scale), +-127)`` with round half to even.  (The Pallas ``_store``
+multiplies by ``1/scale`` where ``bp.to_storage`` divides; the two agree at
+the default 0.25, and the port divides everywhere.)
 """
 
 from __future__ import annotations
@@ -34,6 +56,7 @@ from qkd_ldpc_tpu_torch import _build
 KERNEL_FIRST = "check_update_first"
 KERNEL_FUSED = "check_update_fused"
 KERNEL_FRESH = "check_update_fresh"
+KERNEL_VARIABLE = "variable_update"
 _ALGORITHMS = {"sum-product": 0, "min-sum": 1}
 _DC_INSTANCES = range(2, 9)  # template instances compiled in check_update.cu
 # DecodeOptions.message_dtype -> the torch type of the stored messages
@@ -116,13 +139,36 @@ def _ms_messages(lq, masks, syn, threshold, clip, alpha, beta):
     return out
 
 
-def check_update_plain(a, lr_prev, chk_mask_i32, syn_sign, *, first, threshold,
-                       clip, algorithm, min_sum_alpha, min_sum_beta, scale,
-                       fresh=None):
-    """Plain PyTorch version of the kernels (``first`` and ``fresh`` select
-    which; ``fresh`` is a [B] bool mask of frames whose ``Lq`` is not clipped)."""
+def vector_width(kernel: str, B: int, dtype: torch.dtype, *tensors) -> int:
+    """Frames per thread of the instance the wrapper of ``kernel``
+    (``"check_update"`` or ``"variable_update"``) launches: the width
+    compiled into the storage type's library when ``B`` is a multiple of it
+    and every tensor is 16-byte aligned, else 1 (the scalar instance of the
+    same kernel)."""
+    vec = _build.constant(
+        "check_update_" + _STORAGE_NAMES[dtype], kernel + "_vector_width")
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    return vec if B % vec == 0 and aligned else 1
+
+
+def _gathered(total, maps):
+    """``total [N, B]`` -> ``[dc, M, B]`` through the check adjacency."""
+    dc, M = maps.chk_mask_T.shape
+    return total.index_select(0, maps.chk_adj_T).view(dc, M, total.shape[1])
+
+
+def check_update_plain(total, lr_prev, syn, maps, *, first, threshold, clip,
+                       algorithm, min_sum_alpha, min_sum_beta, scale, fresh=None,
+                       ok=None):
+    """Plain PyTorch version of the check kernel (``first`` and ``fresh``
+    select which; ``fresh`` is a [B] bool mask of frames whose ``Lq`` is not
+    clipped).  ``total`` is [N, B] in storage type, ``syn`` the [M, B] integer
+    target syndrome, ``maps`` the code's ``DeviceCode``.  Returns ``(Lr, ok)``;
+    ``ok`` is None when ``first``.  The ``ok`` argument is the kernel's (a
+    buffer to clear flags in); this version computes the flags anew."""
+    a = _gathered(total, maps)
     dc = a.shape[0]
-    masks = [chk_mask_i32[j][:, None] != 0 for j in range(dc)]
+    masks = [maps.chk_mask_T[j][:, None] for j in range(dc)]
     lq = []
     for j in range(dc):
         v = _load(a[j], scale)
@@ -132,78 +178,188 @@ def check_update_plain(a, lr_prev, chk_mask_i32, syn_sign, *, first, threshold,
                 clipped = torch.clamp(v, -threshold, threshold)
                 v = clipped if fresh is None else torch.where(fresh[None, :], v, clipped)
         lq.append(v)
+    syn_sign = torch.where(syn == 1, -1.0, 1.0)
     if algorithm == "min-sum":
         out = _ms_messages(lq, masks, syn_sign, threshold, clip,
                            min_sum_alpha, min_sum_beta)
     else:
         out = _sp_messages(lq, masks, syn_sign, threshold, clip)
-    return torch.stack([_store(o, a.dtype, scale) for o in out])
+    Lr = torch.stack([_store(o, a.dtype, scale) for o in out])
+    if first:
+        return Lr, None
+    # Decisions and their syndrome derive from the same storage-rounded totals.
+    z_chk = (a <= 0) & maps.chk_mask_T[:, :, None]
+    ok = ((z_chk.sum(dim=0, dtype=torch.int32) & 1) == syn).all(dim=0)
+    if fresh is not None:
+        ok = ok & ~fresh
+    return Lr, ok
 
 
-def check_update_cuda(a, lr_prev, chk_mask_i32, syn_sign, *, first, threshold,
-                      clip, algorithm, min_sum_alpha, min_sum_beta, scale,
-                      fresh=None):
-    """Launch the kernel on the current stream (no synchronisation)."""
-    if a.device.type != "cuda":
-        raise ValueError("check_update_cuda needs CUDA tensors")
-    if a.dtype not in _STORAGE_NAMES or a.ndim != 3:
-        raise ValueError(f"messages must be [dc, M, B] float32/bfloat16/int8, got {a.dtype}")
-    if (a.dtype == torch.int8) != (scale is not None):
+def _need_cuda(ref):
+    if ref.device.type != "cuda":
+        raise ValueError("the CUDA kernels need CUDA tensors")
+
+
+def _check_storage(total, scale, algorithm=None):
+    if total.dtype not in _STORAGE_NAMES:
+        raise ValueError(f"storage must be float32/bfloat16/int8, got {total.dtype}")
+    if (total.dtype == torch.int8) != (scale is not None):
         raise ValueError("scale is given exactly for int8 storage")
-    if algorithm not in _ALGORITHMS:
+    if algorithm is not None and algorithm not in _ALGORITHMS:
         raise ValueError(f"Unknown algorithm {algorithm!r}")
-    dc, M, B = a.shape
+
+
+def _on_device_contiguous(ref, tensors):
+    if any(t.device != ref.device or not t.is_contiguous() for t in tensors):
+        raise ValueError("inputs must be contiguous and on one device")
+
+
+def check_update_cuda(total, lr_prev, syn, maps, *, first, threshold, clip,
+                      algorithm, min_sum_alpha, min_sum_beta, scale, fresh=None,
+                      ok=None):
+    """Launch the check kernel on the current stream (no synchronisation);
+    same arguments and results as :func:`check_update_plain`, with ``syn``
+    int8.  ``ok`` ([B] bool, all True — as the variable update leaves it) is
+    cleared IN PLACE where a check objects, and returned; without it the
+    wrapper makes one."""
+    _check_storage(total, scale, algorithm)
+    dc, M = maps.chk_adj_T_i32.shape
+    N = maps.var_slot_T_i32.shape[1]
+    # the kernel reads row adj[j][m] < N of total: a shorter total is read past its end
+    if total.ndim != 2 or total.shape[0] != N or total.shape[1] < 1:
+        raise ValueError(f"total must be [N, B] with the code's N = {N}")
+    B = total.shape[1]
     if dc not in _DC_INSTANCES:
         raise ValueError(
             f"check_update.cu has no instance for dc_max={dc} "
             f"(compiled: {_DC_INSTANCES.start}..{_DC_INSTANCES.stop - 1})"
         )
-    if M * B == 0:
-        raise ValueError("empty message tensor")
     if first and fresh is not None:
         raise ValueError("fresh belongs to the fused update, not to iteration 1")
-    tensors = [a, chk_mask_i32, syn_sign] + ([] if first else [lr_prev])
+    tensors = [total, maps.chk_adj_T_i32, maps.chk_mask_T_i32, syn]
+    tensors += [] if first else [lr_prev]
     tensors += [] if fresh is None else [fresh]
-    if any(t.device != a.device or not t.is_contiguous() for t in tensors):
-        raise ValueError("inputs must be contiguous and on one device")
-    if not first and (lr_prev.shape != a.shape or lr_prev.dtype != a.dtype):
-        raise ValueError("tot_chk and Lr_prev must agree in shape and dtype")
-    if chk_mask_i32.shape != (dc, M) or chk_mask_i32.dtype != torch.int32:
-        raise ValueError("mask must be int32 [dc, M]")
-    if syn_sign.shape != (M, B) or syn_sign.dtype != torch.float32:
-        raise ValueError("syn_sign must be float32 [M, B]")
+    _on_device_contiguous(total, tensors)
+    if not first and (lr_prev.shape != (dc, M, B) or lr_prev.dtype != total.dtype):
+        raise ValueError("Lr_prev must be [dc, M, B] in the storage type of total")
+    if syn.shape != (M, B) or syn.dtype != torch.int8:
+        raise ValueError("syn must be int8 [M, B]")
     if fresh is not None and (fresh.shape != (B,) or fresh.dtype != torch.bool):
         raise ValueError("fresh must be bool [B]")
-    out = torch.empty_like(a)
+    if not first and ok is not None and (
+            ok.shape != (B,) or ok.dtype != torch.bool or ok.device != total.device
+            or not ok.is_contiguous()):
+        raise ValueError("ok must be contiguous bool [B] on the device of total")
+    _need_cuda(total)
+    if first:
+        ok = None
+    elif ok is None:
+        ok = torch.ones((B,), dtype=torch.bool, device=total.device)
+    out = torch.empty((dc, M, B), dtype=total.dtype, device=total.device)
+    # the vector instance reads and writes vectors of every tensor, ok included
+    vec = vector_width("check_update", B, total.dtype, *tensors, out,
+                       *([] if first else [ok]))
     fn = _build.function(
-        "check_update_" + _STORAGE_NAMES[a.dtype], "check_update",
-        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+        "check_update_" + _STORAGE_NAMES[total.dtype], "check_update",
+        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
         + [ctypes.c_float] * 4 + [ctypes.c_void_p],
     )
-    with torch.cuda.device(a.device):
+    with torch.cuda.device(total.device):
         err = fn(
-            _ALGORITHMS[algorithm], int(first), int(clip), dc,
-            a.data_ptr(), 0 if first else lr_prev.data_ptr(),
-            0 if fresh is None else fresh.data_ptr(),
-            chk_mask_i32.data_ptr(), syn_sign.data_ptr(), out.data_ptr(), M, B,
+            _ALGORITHMS[algorithm], int(first), int(clip), dc, vec,
+            total.data_ptr(), maps.chk_adj_T_i32.data_ptr(),
+            maps.chk_mask_T_i32.data_ptr(), 0 if first else lr_prev.data_ptr(),
+            0 if fresh is None else fresh.data_ptr(), syn.data_ptr(),
+            out.data_ptr(), 0 if first else ok.data_ptr(), M, B,
             threshold, min_sum_alpha, min_sum_beta,
             scale if scale is not None else 1.0,
             torch.cuda.current_stream().cuda_stream,
         )
     name = KERNEL_FIRST if first else (KERNEL_FUSED if fresh is None else KERNEL_FRESH)
     _build.check_launch(name, err)
-    return out
+    return out, ok
 
 
-def check_update_first(Lq, chk_mask_i32, syn_sign, *, backend="auto", **kw):
-    """Iteration-1 check update: ``Lq [dc, M, B]`` -> ``Lr [dc, M, B]``."""
-    fn = check_update_cuda if _build.use_kernel(backend, Lq.device) else check_update_plain
-    return fn(Lq, None, chk_mask_i32, syn_sign, first=True, **kw)
+def check_update_first(total0, syn, maps, *, backend="auto", **kw):
+    """Iteration-1 check update: the a-priori LLRs in storage type ``[N, B]``
+    -> ``Lr [dc, M, B]``."""
+    fn = check_update_cuda if _build.use_kernel(backend, total0.device) else check_update_plain
+    return fn(total0, None, syn, maps, first=True, **kw)[0]
 
 
-def check_update_fused(tot_chk, Lr_prev, chk_mask_i32, syn_sign, *, backend="auto",
-                       fresh=None, **kw):
-    """Fused bit-node + check update: ``(tot_chk, Lr_prev)`` -> ``Lr``; with
-    ``fresh`` ([B] bool) the frames it marks skip the clip of ``Lq``."""
-    fn = check_update_cuda if _build.use_kernel(backend, tot_chk.device) else check_update_plain
-    return fn(tot_chk, Lr_prev, chk_mask_i32, syn_sign, first=False, fresh=fresh, **kw)
+def check_update_fused(total, Lr_prev, syn, maps, *, backend="auto", fresh=None,
+                       ok=None, **kw):
+    """Fused bit-node + check update: ``(total, Lr_prev)`` -> ``(Lr, ok)``;
+    with ``fresh`` ([B] bool) the frames it marks skip the clip of ``Lq``.
+    ``ok`` is the all-True flag buffer that the variable update returned."""
+    fn = check_update_cuda if _build.use_kernel(backend, total.device) else check_update_plain
+    return fn(total, Lr_prev, syn, maps, first=False, fresh=fresh, ok=ok, **kw)
+
+
+def variable_update_plain(Lr, llr, z, count, active, maps, *, scale):
+    """Plain PyTorch version of the variable kernel.  ``Lr [dc, M, B]`` in
+    storage type, ``llr [N, B]`` float32, ``z [N, B]`` int8, ``count [B]``
+    int32, ``active [B]`` bool.  Returns new ``(total [N, B], z, count, ok)``:
+    the totals of every frame, decisions and counts moved on active frames,
+    and ``ok [B]`` all True — the flags that the check update of these totals
+    clears."""
+    dc, M, B = Lr.shape
+    dv = maps.var_slot_T.shape[0] // llr.shape[0]
+    flat = Lr.view(dc * M, B)
+    if maps.var_has_pad:
+        # Padded variable slots index the sentinel row dc*M: a zero.
+        flat = torch.cat([flat, flat.new_zeros((1, B))], dim=0)
+    Lr_var = _load(flat.index_select(0, maps.var_slot_T).view(dv, -1, B), scale)
+    acc = Lr_var[0]
+    for k in range(1, dv):  # explicit adds in slot order
+        acc = acc + Lr_var[k]
+    total = _store(llr + acc, Lr.dtype, scale)
+    z_new = (total <= 0).to(torch.int8)  # total <= 0 -> bit 1
+    z = torch.where(active[None, :], z_new, z)
+    return total, z, count + active.to(torch.int32), torch.ones_like(active)
+
+
+def variable_update_cuda(Lr, llr, z, count, active, maps, *, scale):
+    """Launch the variable kernel on the current stream (no synchronisation).
+    Same arguments as :func:`variable_update_plain`; ``z`` and ``count`` are
+    updated IN PLACE and returned beside the new ``total`` and ``ok``."""
+    _check_storage(Lr, scale)
+    dv, N = maps.var_slot_T_i32.shape
+    if Lr.ndim != 3 or Lr.shape[:2] != maps.chk_adj_T_i32.shape or Lr.shape[2] < 1:
+        raise ValueError("Lr must be [dc, M, B]")
+    dc, M, B = Lr.shape
+    tensors = [Lr, maps.var_slot_T_i32, llr, z, count, active]
+    _on_device_contiguous(Lr, tensors)
+    if llr.shape != (N, B) or llr.dtype != torch.float32:
+        raise ValueError("llr must be float32 [N, B]")
+    if z.shape != (N, B) or z.dtype != torch.int8:
+        raise ValueError("z must be int8 [N, B]")
+    if count.shape != (B,) or count.dtype != torch.int32:
+        raise ValueError("count must be int32 [B]")
+    if active.shape != (B,) or active.dtype != torch.bool:
+        raise ValueError("active must be bool [B]")
+    _need_cuda(Lr)
+    total = torch.empty((N, B), dtype=Lr.dtype, device=Lr.device)
+    ok = torch.empty((B,), dtype=torch.bool, device=Lr.device)
+    vec = vector_width("variable_update", B, Lr.dtype, *tensors, total, ok)
+    fn = _build.function(
+        "check_update_" + _STORAGE_NAMES[Lr.dtype], "variable_update",
+        [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p],
+    )
+    with torch.cuda.device(Lr.device):
+        err = fn(
+            vec, Lr.data_ptr(), maps.var_slot_T_i32.data_ptr(), llr.data_ptr(),
+            active.data_ptr(), total.data_ptr(), z.data_ptr(), count.data_ptr(),
+            ok.data_ptr(), N, B, dv, dc * M, scale if scale is not None else 1.0,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(KERNEL_VARIABLE, err)
+    return total, z, count, ok
+
+
+def variable_update(Lr, llr, z, count, active, maps, *, backend="auto", scale):
+    """Variable-node update: ``Lr`` -> ``(total, z, count, ok)`` (see the
+    plain version); the kernel updates ``z`` and ``count`` in place."""
+    fn = variable_update_cuda if _build.use_kernel(backend, Lr.device) else variable_update_plain
+    return fn(Lr, llr, z, count, active, maps, scale=scale)

@@ -6,12 +6,17 @@ a sweep for every active frame and checks the decision syndrome.  A
 frame's totals live in shared memory for the sweep when they fit a thread
 block's share (``totals_in_shared_memory``), else they are updated where
 they lie in global memory: same arithmetic, same results, chosen from the
-shape alone.  Its plain version is
+shape alone.  What bounds the kernel on the card is the latency of its ten
+serial layers, not its bytes; the header of the source says what the
+design does about it (row tables in shared memory, the next layer's
+messages and syndrome bits loaded ahead of the serial chain) and what was
+measured slower and not kept (several lifted checks per thread with vector
+accesses, a ring of bulk copies).  Its plain version is
 ``decoder.layered.layered_sweep_plain`` (same arguments, same results);
 the decode loop around both is ``decoder.layered``.
 
 State layout (z fastest): ``t [nb, B, z]`` float32, ``Lr [ncells, B, z]``
-in the message storage type, ``syn [mb, B, z]`` int32, ``act [B]`` bool.
+in the message storage type, ``syn [mb, B, z]`` int8, ``act [B]`` bool.
 
 The kernel updates ``t`` and ``Lr`` **in place** and leaves an inactive
 frame (``act`` false) untouched; the plain version returns new tensors and
@@ -35,10 +40,21 @@ MIN_ROW_DEGREE = 2
 MAX_SHARED_BYTES = 232448  # what one thread block may use on Hopper (227 KB)
 
 
-def totals_in_shared_memory(nb: int, z: int) -> bool:
+def totals_in_shared_memory(nb: int, z: int, mb: int = 0, ncells: int = 0) -> bool:
     """Whether the kernel keeps a frame's totals in shared memory (the rule
-    of ``launch`` in layered_sweep.cu); larger frames stay in global memory."""
-    return nb * z * 4 <= MAX_SHARED_BYTES
+    of ``totals_in_shared`` in layered_sweep.cu: the totals and the row tables
+    of ``mb + 1 + 2 * ncells`` ints share a block's memory); larger frames
+    stay in global memory."""
+    tables = -(-(mb + 1 + 2 * ncells) * 4 // 16) * 16
+    return nb * z * 4 + tables <= MAX_SHARED_BYTES
+
+
+def copy_width(z: int, t: torch.Tensor) -> int:
+    """Floats per access of the kernel's copy of ``t`` into and out of shared
+    memory: 4 (16 bytes) when ``z`` is a multiple of 4 and ``t`` starts on a
+    16-byte boundary, else 1.  Every other access of the kernel is one element
+    wide and takes any ``z`` and any alignment."""
+    return 4 if z % 4 == 0 and t.data_ptr() % 16 == 0 else 1
 
 
 def refusal(max_row_degree: int) -> str | None:
@@ -80,25 +96,27 @@ def layered_sweep_cuda(t, Lr, syn, act, tables, *, threshold, clip, algorithm,
         raise ValueError("t must be float32 [nb, B, z]")
     if Lr.shape != (ncells, B, z):
         raise ValueError("Lr must be [ncells, B, z]")
-    if syn.shape != (mb, B, z) or syn.dtype != torch.int32:
-        raise ValueError("syn must be int32 [mb, B, z]")
+    if syn.shape != (mb, B, z) or syn.dtype != torch.int8:
+        raise ValueError("syn must be int8 [mb, B, z]")
     if act.shape != (B,) or act.dtype != torch.bool:
         raise ValueError("act must be bool [B]")
     tensors = (t, Lr, syn, act, tables.row_ptr, tables.col, tables.shift)
     if any(x.device != t.device or not x.is_contiguous() for x in tensors):
         raise ValueError("inputs must be contiguous and on one device")
     ok = torch.empty((B,), dtype=torch.bool, device=t.device)
+    library = "layered_sweep_" + _STORAGE_NAMES[Lr.dtype]
     fn = _build.function(
-        "layered_sweep_" + _STORAGE_NAMES[Lr.dtype], "layered_sweep",
-        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+        library, "layered_sweep",
+        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
         + [ctypes.c_float] * 4 + [ctypes.c_void_p],
     )
     with torch.cuda.device(t.device):
         err = fn(
             _ALGORITHMS[algorithm], int(clip), tables.max_row_degree,
+            int(copy_width(z, t) == 4),
             t.data_ptr(), Lr.data_ptr(), syn.data_ptr(), act.data_ptr(),
             ok.data_ptr(), tables.row_ptr.data_ptr(), tables.col.data_ptr(),
-            tables.shift.data_ptr(), nb, mb, z, B,
+            tables.shift.data_ptr(), nb, mb, ncells, z, B,
             threshold, min_sum_alpha, min_sum_beta,
             scale if scale is not None else 1.0,
             torch.cuda.current_stream().cuda_stream,

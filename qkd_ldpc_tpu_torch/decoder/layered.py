@@ -22,7 +22,7 @@ A/B/C) and is bit-identical to the plain loop per lane.  Trajectories
 differ from flooding's by construction.
 
 State layout: ``t [nb, B, z]`` float32 totals, ``Lr [ncells, B, z]``
-messages in storage type, ``syn [mb, B, z]`` int32 — frames in the middle,
+messages in storage type, ``syn [mb, B, z]`` int8 — frames in the middle,
 ``z`` last.  It is the layout of the CUDA sweep kernel
 (``decoder/cuda_layered.py``), and ``llr``/``syndrome`` are converted to it
 once per decode; compaction selects along the frame axis.  Cells are
@@ -87,8 +87,11 @@ def layer_tables(code: LDPCCode, device) -> LayerTables:
     z, nb, mb, rows = _row_tables(code.qc)
     flat = [cell for row in rows for cell in row]
     # Cells are numbered row by row, and a base matrix has one entry per
-    # (i, j): the cells of a row touch distinct columns, so within a layer
-    # the updates of t never collide (the kernel relies on it).
+    # (i, j): the cells of a row touch distinct columns, and a shift below z
+    # makes r -> (r + s) mod z a bijection, so within a layer each position
+    # of t belongs to one lifted check.  The kernel relies on it: whichever
+    # thread owns a check is the only one of its layer to touch those
+    # positions, however many checks a thread owns.
     assert [ci for ci, _, _ in flat] == list(range(len(flat)))
     assert all(len({j for _, j, _ in row}) == len(row) for row in rows)
     assert all(0 <= s < z for _, _, s in flat)
@@ -163,7 +166,7 @@ def initial_state(tables: LayerTables, llr, syndrome, mdt):
     z, B = tables.z, llr.shape[1]
     t = llr.reshape(tables.nb, z, B).permute(0, 2, 1).clone(
         memory_format=torch.contiguous_format)
-    syn = syndrome.to(torch.int32).reshape(tables.mb, z, B).permute(0, 2, 1).contiguous()
+    syn = syndrome.to(torch.int8).reshape(tables.mb, z, B).permute(0, 2, 1).contiguous()
     Lr = torch.zeros((tables.col.shape[0], B, z), dtype=mdt, device=llr.device)
     return t, Lr, syn
 

@@ -15,10 +15,12 @@ keys the plain runner derives.
 - a trial's decode trajectory depends only on its own (llr, syndrome) —
   lanes are independent, so lane placement and neighbours cannot change it;
 - a refilled lane's first fused update carries a ``fresh`` flag that skips
-  the bit-update clip, making it exactly the peeled first iteration of
-  ``decoder.bp`` (a fresh lane has ``Lr = 0`` and ``tot`` = the gathered
-  a-priori LLRs, so ``tot - 0`` unclipped is the first iteration's input —
-  for sum-product as for min-sum);
+  the bit-update clip, making it exactly the peeled first check update of
+  ``decoder.bp`` (a fresh lane has ``Lr = 0``, so the variable update gives
+  it ``total`` = the a-priori LLRs in storage type, and ``total - 0``
+  unclipped is the first iteration's input — for sum-product as for
+  min-sum).  That first pass completes no iteration: the lane's count
+  starts at -1 and its syndrome flag is cleared by the check update;
 - per-trial iteration counts are banked when the trial finishes, and all
   reductions (integer sums, min/max) are order-independent.
 
@@ -28,7 +30,10 @@ step (the number of live lanes after banking); the staging block's base,
 read position and point, and the ids consumed, are functions of the refill
 count and ``trials`` alone and live on the host as Python ints.  Refills
 copy staged columns into the first empty lanes with ``index_copy_`` along
-the lane axis.
+the lane axis.  One pass of the segment loop is the two kernels of
+``decoder/cuda_kernels.py`` (variable update, then check update with the
+decision syndrome) and five small per-lane ops; the loop carries ``Lr``, and
+neither the totals nor a gathered copy of them are lane state.
 
 The continuation runner decodes with the flooding schedule only and raises
 on ``schedule="layered"``; the variants sharded over a device mesh belong
@@ -89,7 +94,7 @@ def _continuation_core(
     device = resolve_device(device)
     N, M = code.n_vars, code.n_checks
     P = len(point_keys)
-    core = _DecodeCore(code, opts, batch, device)
+    core = _DecodeCore(code, opts, device)
     mdt, dc = core.mdt, code.dc_max
     max_it = opts.max_iterations
     S = batch  # staging-block size: one key generation per `batch` trials,
@@ -103,14 +108,14 @@ def _continuation_core(
     i32 = torch.int32
     # Device state.  Dead lanes keep computing on harmless values (llr
     # pinned positive, zero messages) and are masked out of all statistics.
-    tot, Lr = zeros((dc, M, batch), mdt), zeros((dc, M, batch), mdt)
+    Lr = zeros((dc, M, batch), mdt)
     llr = torch.ones((N, batch), dtype=torch.float32, device=device)
-    syn = zeros((M, batch), i32)
-    syn_sign = torch.ones((M, batch), dtype=torch.float32, device=device)
+    syn = zeros((M, batch), torch.int8)
     alice, z = zeros((N, batch), torch.int8), zeros((N, batch), torch.int8)
-    age = zeros((batch,), i32)
+    age = zeros((batch,), i32)  # iterations completed; -1 on a fresh lane
     done = zeros((batch,), torch.bool)
     live = zeros((batch,), torch.bool)
+    run = zeros((batch,), torch.bool)  # live & ~done & (age < max_it)
     fresh = zeros((batch,), torch.bool)
     lane_p = zeros((batch,), torch.int64)  # sweep-point index of each lane's trial
     # Seven [P] per-point accumulators, in stats.STAT_KEYS order.
@@ -148,7 +153,7 @@ def _continuation_core(
                     point_keys[sp], N, ids, ne, prng, opts.backend, device)
                 aq = np.float32(ne) / np.float32(N)
                 llr_s = apriori_llr(b_new, aq).T
-                syn_s = syndrome_fn(code, a_new).T.to(i32)
+                syn_s = syndrome_fn(code, a_new).T.to(torch.int8)
                 alice_s = a_new.T.to(torch.int8)
                 pos = 0
                 counts["generations"] += 1
@@ -160,20 +165,16 @@ def _continuation_core(
             if n_new > 0:
                 lanes = torch.argsort(live.to(torch.int8), stable=True)[:n_new]
                 cols = slice(pos, pos + n_new)
-                llr_new, syn_new = llr_s[:, cols], syn_s[:, cols]
-                llr.index_copy_(1, lanes, llr_new)
-                syn.index_copy_(1, lanes, syn_new)
-                syn_sign.index_copy_(1, lanes, torch.where(syn_new == 1, -1.0, 1.0))
+                llr.index_copy_(1, lanes, llr_s[:, cols])
+                syn.index_copy_(1, lanes, syn_s[:, cols])
                 alice.index_copy_(1, lanes, alice_s[:, cols])
-                tot.index_copy_(
-                    2, lanes,
-                    core.to_storage(llr_new).index_select(
-                        0, core.maps.chk_adj_T).view(dc, M, n_new),
-                )
+                # Zero messages: the lane's next variable update makes its
+                # totals the a-priori LLRs, which completes no iteration.
                 Lr.index_fill_(2, lanes, 0)
-                age.index_fill_(0, lanes, 0)
+                age.index_fill_(0, lanes, -1)
                 done.index_fill_(0, lanes, False)
                 live.index_fill_(0, lanes, True)
+                run.index_fill_(0, lanes, True)
                 # Accumulates: several refills can run back to back in one
                 # outer step when many lanes retired at once.
                 fresh.index_fill_(0, lanes, True)
@@ -184,20 +185,21 @@ def _continuation_core(
             pos += K
 
         # 2. decode `segment` iterations (per-lane bookkeeping as in
-        # decoder.bp: frozen lanes keep computing, masked out of stats).
+        # decoder.bp: stopped lanes keep computing, masked out of stats).
+        # The variable update moves z and age on the running lanes; the
+        # check update's ok is the syndrome of those totals.
         for _ in range(segment):
-            Lr = core.check_update_fused(tot, Lr, syn_sign, fresh=fresh)
-            tot, z_new, ok = core.after_check(Lr, llr, syn)
-            act = live & ~done & (age < max_it)
-            z = torch.where(act[None, :], z_new, z)
-            age = torch.where(act, age + 1, age)
-            done = done | (ok & act)
+            total, z, age, ok = core.variable_update(Lr, llr, z, age, run)
+            Lr, ok = core.check_update_fused(total, Lr, syn, fresh=fresh, ok=ok)
+            conv = ok & run
+            done |= conv
+            run = (run ^ conv) & (age < max_it)  # conv is a subset of run
             fresh.zero_()
 
         # 3. bank statistics of finished trials into their POINT's
         # accumulators (integer scatter add/min/max: exact and
         # order-independent), mark their lanes empty.
-        finished = live & (done | (age >= max_it))
+        finished = live & ~run
         sp_r = finished & done
         keys = (z == alice).all(dim=0)  # keys_match (only used when sp_r)
         it_sp = torch.where(sp_r, age, 0)

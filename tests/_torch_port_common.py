@@ -7,15 +7,30 @@ from qkd_ldpc_tpu import codes as jcodes
 from qkd_ldpc_tpu_torch import codes as tcodes
 
 CODE_SPECS = {
+    "regular": ("make_code", dict(n=120, m=60, dv=3, seed=2)),  # rows 6, columns 3
     "irregular": ("make_code", dict(n=256, m=131, dv=3, seed=1)),
     "qc": ("make_qc_code", dict(z=32, nb=12, mb=6, dv=3, seed=5)),
 }
 _cache = {}
 
 
+def _ragged_matrix(n=48, m=24, seed=7):
+    """A dense H whose column weights (2..4) and row weights both vary, so
+    the variable side and the check side both have padded slots."""
+    rng = np.random.default_rng(seed)
+    H = np.zeros((m, n), np.uint8)
+    for v in range(n):
+        H[rng.choice(m, 2 + v % 3, replace=False), v] = 1
+    assert H.sum(axis=1).min() >= 2
+    return H
+
+
 def code_pair(which):
     """(JAX package's code, port's code) built by each package's own
     generator from the same seed."""
+    if which == "ragged" and which not in _cache:
+        H = _ragged_matrix()
+        _cache[which] = (jcodes.from_dense(H), tcodes.from_dense(H))
     if which not in _cache:
         fn, kw = CODE_SPECS[which]
         _cache[which] = (getattr(jcodes, fn)(**kw), getattr(tcodes, fn)(**kw))

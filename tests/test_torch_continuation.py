@@ -119,9 +119,12 @@ def test_continuation_loop_counts(wf_code, monkeypatch):
     calls = []
     real = _DecodeCore.check_update_fused
 
-    def spy(self, tot, Lr, syn_sign, fresh=None):
+    def spy(self, total, Lr, syn, fresh=None, ok=None):
         calls.append(int(fresh.sum()))
-        return real(self, tot, Lr, syn_sign, fresh=fresh)
+        assert ok.all()  # the variable update hands over a set flag buffer
+        Lr_new, ok = real(self, total, Lr, syn, fresh=fresh, ok=ok)
+        assert not ok[fresh].any()  # a fresh lane has completed no iteration
+        return Lr_new, ok
 
     monkeypatch.setattr(_DecodeCore, "check_update_fused", spy)
     p, _ = run_point_continuation(

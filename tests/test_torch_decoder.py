@@ -167,6 +167,59 @@ def test_compaction_with_overflow_equals_jax():
     assert int((rt.iterations > 3).sum()) > 4
 
 
+SCHEDULES = {
+    # (n_err, compact_after, compact_lanes) on the irregular code, 16 frames
+    "plain-loop": (13, 0, 0),
+    "phase-b": (13, 4, 8),  # the unconverged minority fits the compacted lanes
+    "phase-c-overflow": (22, 3, 4),  # more unconverged lanes than compact_lanes
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+def test_two_kernel_loop_equals_jax_per_lane(schedule, dtype):
+    """The port's loop runs variable update then check update and takes the
+    syndrome flag from the check update; the JAX loop runs check update then
+    ``after_check``.  Per lane the decisions, iteration counts and flags are
+    the JAX decoder's, through compaction and the frozen-lane fallback."""
+    n_err, k1, b2 = SCHEDULES[schedule]
+    _, _, llr, syn = decode_inputs("irregular", 16, n_err, seed=30)
+    rj, rt = both_decode("irregular", llr, syn, algorithm="min-sum",
+                         message_dtype=dtype, max_iterations=25,
+                         compact_after=k1, compact_lanes=b2)
+    assert_same_result(rj, rt)
+    assert rt.syndromes_match.any() and int(rt.iterations.max()) > max(k1, 1)
+    if schedule == "phase-c-overflow":
+        assert int((rt.iterations > k1).sum()) > b2
+
+
+def test_decode_loop_carries_no_gathered_totals(monkeypatch):
+    """One iteration is one variable update and one check update on
+    ``total [N, B]``; the loop makes no ``[dc, M, B]`` copy of the totals
+    and launches the check update once per iteration run."""
+    _, tc = code_pair("irregular")
+    _, _, llr, syn = decode_inputs("irregular", 8, 10, seed=21)
+    shapes, updates = [], []
+    real_c = tbp._DecodeCore.check_update_fused
+    real_v = tbp._DecodeCore.variable_update
+
+    def spy_c(self, total, Lr, syn_, fresh=None, ok=None):
+        shapes.append(tuple(total.shape))
+        return real_c(self, total, Lr, syn_, fresh=fresh, ok=ok)
+
+    def spy_v(self, Lr, llr_, z, count, active):
+        updates.append(int(active.sum()))
+        return real_v(self, Lr, llr_, z, count, active)
+
+    monkeypatch.setattr(tbp._DecodeCore, "check_update_fused", spy_c)
+    monkeypatch.setattr(tbp._DecodeCore, "variable_update", spy_v)
+    res = tbp.decode(tc, llr, syn, tbp.DecodeOptions(algorithm="min-sum",
+                                                     max_iterations=30), device="cpu")
+    worst = int(res.iterations.max())
+    assert shapes == [(tc.n_vars, 8)] * worst and len(updates) == worst
+    assert updates[0] == 8 and sum(updates) == int(res.iterations.sum())
+
+
 def test_waterfall_failed_frames_report_max_iterations():
     """Far above the code's threshold nothing converges: failed frames
     report iterations == max_iterations, in both packages."""

@@ -253,6 +253,25 @@ def test_single_sweep_gating_and_purity(dtype):
     assert new_t.dtype == torch.float32 and new_Lr.dtype == Lr_in.dtype
 
 
+def test_sweep_vector_width_follows_shape_and_alignment():
+    """The kernel copies t in vectors of 4 floats when z is a multiple of 4
+    and t is 16-byte aligned, and float by float otherwise; nothing else of
+    it depends on z or on alignment.  The state's syndrome plane is int8, one
+    byte per lifted check."""
+    tab, t, Lr, syn3, _ = _sweep_state("bfloat16")
+    assert syn3.dtype == torch.int8 and syn3.shape == (tab.mb, 6, tab.z)
+    assert tab.z % 4 == 0 and t.data_ptr() % 16 == 0
+    assert cuda_layered.copy_width(tab.z, t) == 4
+    assert cuda_layered.copy_width(30, t) == 1
+    odd = torch.zeros(65, dtype=torch.float32)[1:]  # 4 bytes past an aligned start
+    assert cuda_layered.copy_width(tab.z, odd) == 1
+    assert not hasattr(cuda_layered, "vector_width")
+    # the row tables share a block's memory with the totals
+    assert cuda_layered.totals_in_shared_memory(20, 512, 10, 60)
+    assert cuda_layered.totals_in_shared_memory(113, 512)
+    assert not cuda_layered.totals_in_shared_memory(113, 512, 57, 339)
+
+
 def test_sweep_kernel_wrapper_refuses_cpu_tensors_and_bad_shapes():
     """The CUDA wrapper raises for CPU tensors, backend='pallas' does not
     fall back to the plain loop, and no rule lets a CUDA tensor take the
