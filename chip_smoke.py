@@ -8,15 +8,21 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    processes in parallel) and prints the card, the toolchain and the build time;
 2. holds every kernel against its plain PyTorch version on the card at the
    flagship shapes (``[10240, 512]`` totals and ``[6, 5120, 512]`` messages,
-   ``[512, 10240]`` scores, k = 512, layered state ``[20, 512, 512]`` /
+   512 trials of 10240 bits, k = 512, layered state ``[20, 512, 512]`` /
    ``[60, 512, 512]``) and times kernel, plain version and, where one PyTorch
    call computes the same function, that call; the two flooding kernels also
    at B = 128 (the compacted width) and at a ragged B (their scalar
    instances); the sweep kernel also on a code too wide for shared memory
-   (its totals then stay in global memory);
-3. drives ``run_point`` — keygen, exact-weight channel, syndrome, flooding BP
-   decode with compaction, statistics — on the flagship quasi-cyclic code at
-   its operating point and checks the statistics and the launch counts;
+   (its totals then stay in global memory); the two channel kernels for both
+   forms of trial ids and all three rows, and a point key on the card (K4),
+   and on crafted tie rows, a per-row k and every instance of K3 (rows in 8 or
+   20 words a thread or re-read from device memory, each with 16-byte and with
+   single-word accesses), and the second-word tie path end to end;
+3. drives ``run_point`` — keygen (K4), exact-weight channel (K3), syndrome,
+   flooding BP decode with compaction, statistics — on the flagship
+   quasi-cyclic code at its operating point and checks the statistics and the
+   launch counts (one K4 and one K3 per batch, no plain threefry tree on the
+   card);
    3b. the same point with ``schedule="layered"`` (the sweep kernel);
    3c. ``run_point_continuation`` at a waterfall point (the fresh-lane kernel)
    against ``run_point`` on the same point key: seven equal partial sums;
@@ -26,8 +32,9 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
 Each phase prints one JSON object on a line of its own; any failure raises.
 The last line is ``{"ok": true, "device": {...}}``.  The script exits non-zero
 without a CUDA device.  ``--profile`` adds a device-time table of each of the
-three paths and the launches per decode iteration.  Times are this card's, labelled with its name and
-power limit; they are a smoke measurement, not a benchmark.
+three paths, of one batch of trials (at most ten launches) and the launches
+per decode iteration.  Times are this card's, labelled with its name and power
+limit; they are a smoke measurement, not a benchmark.
 """
 
 from __future__ import annotations
@@ -40,9 +47,15 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: 80 GB of HBM at 3.35 TB/s
-# Data-sheet float32 rate outside the tensor cores; also taken as the (generous)
-# peak for the 32-bit integer work of the two channel kernels.
+# Data-sheet float32 rate outside the tensor cores.
 FP32_OPS_PER_S = 67e12
+# 32-bit integer rate: 132 SMs x 64 INT32 lanes per SM and clock (Hopper
+# architecture white paper) x 1.98 GHz boost clock (H100 SXM data sheet).  The
+# two channel kernels do integer work only.  Their bound_ms stays at the
+# float32 rate, the one a measured time has never beaten: the compiler issues
+# part of the adds as IMAD on the float pipe, so the INT32 lanes alone are not
+# the ceiling.  The bound at this rate is printed beside it.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 # Operations per element, counted from the kernels' arithmetic with each
 # transcendental as ONE operation (so the operation bound is a lower bound):
@@ -62,8 +75,13 @@ OPS_PER_VARIABLE = 2
 # The layered sweep adds per edge: index add and wrap 2, delta, t += delta,
 # and the parity pass (index 2, compare, xor).
 OPS_PER_EDGE_LAYERED_EXTRA = 8
-OPS_PER_WORD_THREEFRY = 95  # 20 rounds x (add, rotate, xor) + 5 key injections
-OPS_PER_SCORE_KTH = 64  # 32 passes x (compare, add)
+# One threefry block: 20 rounds x (add, rotate, xor), a rotate being one funnel
+# shift; 5 key injections x 2 adds (the round constant folds into the key
+# word); 2 adds of the key to the counter; the output xor.
+OPS_PER_THREEFRY = 73
+# The radix select and the mask, per score: 4 digits x (mask-compare with the
+# prefix, shift-and for the bin, the histogram add), then compare and xor.
+OPS_PER_SCORE_SELECT = 14
 
 Z, NB, MB_ROWS, DV, CODE_SEED = 512, 20, 10, 3, 666
 QBER, BATCH, N_BATCHES = 0.05, 512, 4
@@ -81,6 +99,10 @@ FRESH_THRESHOLD = 3.0  # K5's check: the Lq clip must bite where it is applied
 # Other widths of the two flooding kernels: the compacted batch (vector
 # instances) and a width no vector divides (scalar instances).
 COMPACT_BATCH, RAGGED_BATCH = BATCH // 4, 101
+# One batch of trials on the card: K4, the flag's fill, K3, the flag's fetch.
+KEYGEN_LAUNCH_LIMIT = 10
+# Rows of the N = 4096 codes: K3's instances of 8 words a thread.
+SHORT_N = 4096
 # A code whose frame of totals (116 x 512 floats) exceeds a block's shared
 # memory: the sweep kernel's global-memory mode, held against the plain sweep.
 WIDE_NB, WIDE_MB, WIDE_SEED, WIDE_BATCH = 116, 58, 667, 32
@@ -106,9 +128,9 @@ def _time_ms(torch, fn, flush, repeats=20, warmup=3, prepare=None):
     return statistics.median(times)
 
 
-def _bound(n_bytes, n_ops):
+def _bound(n_bytes, n_ops, ops_per_s=FP32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -192,20 +214,30 @@ def _compare_sweep(torch, got, ref, act, dtype_name, algorithm, scale, dv):
     return max(t_err, lr_err), n_diff
 
 
+def _kernel_resources(log, kernel, instance):
+    """Registers, stack frame and spills of one kernel instance, from ptxas's
+    report in the build log (``instance``: a regex of its template arguments)."""
+    import re
+
+    m = re.search(r"Compiling entry function '\S*" + kernel + instance
+                  + r"\S*'(.*?)Used (\d+) registers", log, re.S)
+    if m is None:
+        raise AssertionError(f"no ptxas report for {kernel}<{instance}>")
+    frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", m.group(1))
+    return {"registers_per_thread": int(m.group(2)),
+            "stack_frame_bytes": int(frame.group(1)) if frame else None,
+            "spill_store_bytes": int(frame.group(2)) if frame else None}
+
+
 def _sweep_kernel_resources(log, instance):
     """Registers per thread of one sweep-kernel instance, from ptxas's report
     in the build log, and the blocks of ``threads`` threads and ``shared``
     bytes an SM then holds (64 Ki registers, 2048 threads, 32 blocks, 227 KiB
     + 1 KiB per block).  ``instance`` = (template argument string, threads,
     shared)."""
-    import re
-
     template, threads, shared = instance
-    m = re.search(r"Compiling entry function '\S*layered_sweep_kernelI" + template
-                  + r"E\S*'.*?Used (\d+) registers", log, re.S)
-    if m is None:
-        raise AssertionError(f"no ptxas report for layered_sweep_kernel<{template}>")
-    regs = int(m.group(1))
+    regs = _kernel_resources(log, "layered_sweep_kernel", "I" + template + "E")[
+        "registers_per_thread"]
     per_warp = -(-regs * 32 // 256) * 256  # allocated per warp in units of 256
     limits = {"by_registers": 65536 // (per_warp * threads // 32),
               "by_threads": 2048 // threads, "by_block_slots": 32,
@@ -295,6 +327,210 @@ def _profile_path(torch, path, step, card, untraced_ms, iteration_starts=None,
     return n_launches
 
 
+def _channel_kernels(torch, dev, flush, point_key, n, n_err, wide_n, wide_err, gen):
+    """K4 and K3 against their plain versions on the card, bit for bit, then
+    timed at the flagship shape.  K4: both id forms (a range, with and without
+    the wrap at 2**32, and an id tensor) and all three rows, and a point key on
+    the card.  K3: the real flagship rows, crafted tie rows (excess and not), a
+    per-row k (with and without Alice's row), and each of its six instances.
+    Returns (K4 entry, K3 entry, details)."""
+    import ctypes
+
+    from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.channel import cuda_prng, cuda_select, keys
+    from qkd_ldpc_tpu_torch.channel.cuda_prng import ALICE, SCORES, TIES
+    from qkd_ldpc_tpu_torch.channel.threefry import flip_sign
+
+    all_rows = (ALICE, SCORES, TIES)
+
+    def differ(got, ref):
+        """(max abs difference, entries differing) of two tuples of tensors."""
+        err, n_diff = 0, 0
+        for g, r in zip(got, ref):
+            if (g is None) != (r is None):
+                raise AssertionError("kernel and plain version return different outputs")
+            if g is None:
+                continue
+            if g.shape != r.shape or g.dtype != r.dtype:
+                raise AssertionError(f"shape/dtype {g.shape} {g.dtype} != {r.shape} {r.dtype}")
+            d = (g.to(torch.int64) - r.to(torch.int64)).abs()
+            err, n_diff = max(err, int(d.max())), n_diff + int((d > 0).sum())
+        return err, n_diff
+
+    # ---- K4 ---------------------------------------------------------------
+    id_forms = {
+        "range": range(0, BATCH),
+        "range_wrapping": range(2**32 - BATCH // 2, 2**32 + BATCH // 2),
+        "id_tensor": torch.randint(0, 2**32, (BATCH,), device=dev, generator=gen,
+                                   dtype=torch.int64),
+    }
+    k4_cases = {}
+    for form, ids in id_forms.items():
+        for rows in (all_rows, (ALICE, SCORES), (TIES,)):
+            got = cuda_prng.trial_words_cuda(point_key, n, ids, rows, dev)
+            ref = cuda_prng.trial_words_plain(point_key, n, ids, rows, dev)
+            torch.cuda.synchronize()
+            k4_cases[f"{form}:{'+'.join(rows)}"] = differ(got, ref)
+    # a key on the card: read with one synchronising copy, the same trials
+    got = cuda_prng.trial_words_cuda(point_key.to(dev), n, range(0, BATCH), all_rows, dev)
+    ref = cuda_prng.trial_words_plain(point_key, n, range(0, BATCH), all_rows, dev)
+    torch.cuda.synchronize()
+    k4_cases["range:point_key_on_card"] = differ(got, ref)
+    k4_err = max(e for e, _ in k4_cases.values())
+    k4_diff = sum(d for _, d in k4_cases.values())
+    if k4_err or k4_diff:
+        raise AssertionError(f"trial_words kernel differs from its plain version: {k4_cases}")
+    main = (point_key, n, range(0, BATCH), (ALICE, SCORES), dev)
+    k4_bytes = BATCH * n * (1 + 4)  # Alice's bits as bytes, the scores as words
+    k4_ops = OPS_PER_THREEFRY * (2 * BATCH * n + 3 * BATCH)  # + 3 key blocks a trial
+    k4_bound, k4_by = _bound(k4_bytes, k4_ops)
+    k4 = {
+        "max_abs_err": k4_err, "entries_differing": k4_diff, "cases": len(k4_cases),
+        "bound_ms": k4_bound, "bound_by": k4_by, "bytes": k4_bytes, "operations": k4_ops,
+        "bound_ms_at_int32_rate": _bound(k4_bytes, k4_ops, INT32_OPS_PER_S)[0],
+        "ms": _time_ms(torch, lambda: cuda_prng.trial_words_cuda(*main), flush),
+        "plain_ms": _time_ms(torch, lambda: cuda_prng.trial_words_plain(*main), flush,
+                             repeats=5, warmup=1),
+        "library_ms": None,
+    }
+
+    # ---- K3 ---------------------------------------------------------------
+    alice, scores = cuda_prng.trial_words_cuda(*main)
+    # Crafted rows at the flagship width, k = n_err: rows 0-15 as drawn (no
+    # ties), 16-31 cut to their top 12 bits (ties everywhere), 32-47 with
+    # n_at == need, 48-63 with excess ties (index order decides); a quarter of
+    # the short and of the wide rows of each of the last two kinds.
+    def craft_ties(s, k, rows_at_need, rows_excess):
+        """Copy the k-th smallest score of a row over its (k-1)-th smallest
+        (n_at == need == 2) or over its (k+1)-th smallest (n_at = 2 > need)."""
+        vals, idx = flip_sign(s).sort(dim=1)
+        for rows, j in ((rows_at_need, k - 2), (rows_excess, k)):
+            r = torch.arange(*rows, device=dev)
+            s[r, idx[r, j]] = flip_sign(vals[r, k - 1])
+        return s
+
+    tie_s = scores[:64].clone()
+    tie_s[16:32] &= -(1 << 20)
+    craft_ties(tie_s, n_err, (32, 48), (48, 64))
+    k_rows = torch.randint(1, n + 1, (BATCH,), device=dev, generator=gen, dtype=torch.int32)
+    k_rows[:2] = torch.tensor([1, n], device=dev, dtype=torch.int32)
+    wide_a, wide_s = cuda_prng.trial_words_cuda(point_key, wide_n, range(0, WIDE_BATCH),
+                                                (ALICE, SCORES), dev)
+    craft_ties(wide_s, wide_err, (0, WIDE_BATCH // 4), (WIDE_BATCH // 4, WIDE_BATCH // 2))
+    short_err = keys.num_errors_for(SHORT_N, QBER)
+    short_a, short_s = cuda_prng.trial_words_cuda(point_key, SHORT_N, range(0, 64),
+                                                  (ALICE, SCORES), dev)
+    craft_ties(short_s, short_err, (0, 16), (16, 32))
+    a_off = torch.empty(64 * n + 1, dtype=torch.uint8, device=dev)[1:].view(64, n)
+    a_off.copy_(alice[:64])
+    width_of = _build.function("kth_smallest", "select_flip_width", [ctypes.c_int])
+    vector_of = _build.function("kth_smallest", "select_flip_vector",
+                                [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_void_p])
+
+    def instance(s, a):
+        """(groups a thread holds, words a group) of the kernel instance the
+        launcher picks for these rows; 0 groups = rows re-read from memory."""
+        p = None if a is None else a.data_ptr()
+        w, v = width_of(s.shape[-1]), vector_of(s.shape[-1], s.data_ptr(), p, p)
+        return w // v, v
+
+    def odd(x):  # one word narrower: single-word accesses
+        return x[:, 1:].contiguous()
+
+    k3_inputs = {
+        "flagship": (scores, n_err, alice),
+        "crafted_ties": (tie_s, n_err, alice[:64]),
+        "per_row_k": (scores, k_rows, alice),
+        "per_row_k_threshold_only": (scores, k_rows, None),
+        "k_zero": (scores[:8], 0, alice[:8]),
+        # single-word accesses: a width not a multiple of 4, an unaligned Alice
+        "crafted_ties_odd_width": (odd(tie_s), n_err, odd(alice[:64])),
+        "crafted_ties_unaligned": (tie_s, n_err, a_off),
+        "short_rows": (short_s, short_err, short_a),
+        "short_rows_odd_width": (odd(short_s), short_err, odd(short_a)),
+        "wide_rows": (wide_s, wide_err, wide_a),
+        "wide_rows_odd_width": (odd(wide_s), wide_err, odd(wide_a)),
+        "wide_rows_per_row_k_threshold_only": (
+            wide_s, k_rows[:WIDE_BATCH] * (wide_n // n), None),
+    }
+    instances = {name: instance(s, a) for name, (s, _, a) in k3_inputs.items()}
+    if (instances["flagship"], instances["crafted_ties_odd_width"],
+            instances["crafted_ties_unaligned"], instances["short_rows"],
+            instances["short_rows_odd_width"], instances["wide_rows"],
+            instances["wide_rows_odd_width"]) != (
+            (5, 4), (20, 1), (20, 1), (2, 4), (8, 1), (0, 4), (0, 1)):
+        raise AssertionError(f"the rows did not take the expected instances: {instances}")
+    k3_cases, flags = {}, {}
+    for name, (s, k, a) in k3_inputs.items():
+        got = cuda_select.select_flip_cuda(s, k, a)
+        ref = cuda_select.select_flip_plain(s, k, a)
+        torch.cuda.synchronize()
+        k3_cases[name] = differ(got, ref)
+        if a is not None:
+            flags[name] = bool(ref[2])
+    # The second-word tie path end to end on the crafted rows: K4's tie row,
+    # K3's per-row k threshold and the plain passes between them, against the
+    # same path through the plain versions.
+    tie_words = cuda_prng.trial_words_cuda(point_key, n, range(0, 64), (TIES,), dev)[0]
+    tie_bob = keys._exact_weight_flip(tie_s, alice[:64], n_err, lambda: tie_words)
+    tie_ref = keys._exact_weight_flip(tie_s, alice[:64], n_err, lambda: tie_words, "xla")
+    index_bob = cuda_select.select_flip_cuda(tie_s, n_err, alice[:64])[1]
+    torch.cuda.synchronize()
+    k3_cases["tie_path"] = differ((tie_bob,), (tie_ref,))
+    if torch.equal(tie_bob, index_bob) or not bool(
+            ((tie_bob ^ alice[:64]).sum(dim=1) == n_err).all()):
+        raise AssertionError("the tie path did not rank the excess ties by the second word")
+    k3_err = max(e for e, _ in k3_cases.values())
+    k3_diff = sum(d for _, d in k3_cases.values())
+    if k3_err or k3_diff:
+        raise AssertionError(f"kth_smallest kernel differs from its plain version: {k3_cases}")
+    if not all(flags[c] for c in (
+            "crafted_ties", "crafted_ties_odd_width", "crafted_ties_unaligned",
+            "short_rows", "short_rows_odd_width", "wide_rows", "wide_rows_odd_width")) or (
+            flags["k_zero"]):
+        raise AssertionError(f"the crafted rows do not reach the tie branch: {flags}")
+    lib_thr = torch.kthvalue(flip_sign(scores), n_err, dim=-1, keepdim=True).values
+    thr = cuda_select.select_flip_cuda(scores, n_err, alice)[0]
+    if not bool((flip_sign(thr) == lib_thr).all()):
+        raise AssertionError("the kernel's threshold differs from torch.kthvalue")
+    flipped = flip_sign(scores)
+    k3_bytes = BATCH * n * (4 + 1 + 1) + BATCH * 4 + 4  # scores, Alice, Bob; t, flag
+    k3_ops = OPS_PER_SCORE_SELECT * BATCH * n
+    k3_bound, k3_by = _bound(k3_bytes, k3_ops)
+    k3 = {
+        "max_abs_err": k3_err, "entries_differing": k3_diff, "cases": len(k3_cases),
+        "bound_ms": k3_bound, "bound_by": k3_by, "bytes": k3_bytes, "operations": k3_ops,
+        "bound_ms_at_int32_rate": _bound(k3_bytes, k3_ops, INT32_OPS_PER_S)[0],
+        # as the path calls it: the flag's fill (about 1 us) included
+        "ms": _time_ms(torch, lambda: cuda_select.select_flip_cuda(scores, n_err, alice),
+                       flush),
+        "threshold_only_ms": _time_ms(
+            torch, lambda: cuda_select.select_flip_cuda(scores, n_err), flush),
+        "wide_rows_ms": _time_ms(
+            torch, lambda: cuda_select.select_flip_cuda(wide_s, wide_err, wide_a), flush),
+        "plain_ms": _time_ms(
+            torch, lambda: cuda_select.select_flip_plain(scores, n_err, alice), flush,
+            repeats=5, warmup=1),
+        "library_ms": _time_ms(
+            torch, lambda: torch.kthvalue(flipped, n_err, dim=-1), flush,
+            repeats=5, warmup=1),
+    }
+    log = _build.build_log("kth_smallest")
+    details = {
+        "trial_words_cases": k4_cases, "kth_smallest_cases": k3_cases,
+        "excess_ties_flag": flags,
+        "select_flip_instance_groups_words": instances,
+        "select_flip_resources": {
+            f"groups_{g}_of_{v}_words": _kernel_resources(
+                log, "select_flip_kernel", f"ILi{g}ELi{v}E")
+            for g, v in sorted(set(instances.values()), reverse=True)},
+        "trial_rows_resources": _kernel_resources(
+            _build.build_log("threefry_words"), "trial_rows_kernel", ""),
+    }
+    return k4, k3, details
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -310,7 +546,7 @@ def main() -> int:
         make_trial_batch,
         num_errors_for,
     )
-    from qkd_ldpc_tpu_torch.channel.threefry import flip_sign, fold_in
+    from qkd_ldpc_tpu_torch.channel import threefry
     from qkd_ldpc_tpu_torch.codes import make_qc_code
     from qkd_ldpc_tpu_torch.decoder import cuda_kernels, cuda_layered, layered
     from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions
@@ -595,56 +831,6 @@ def main() -> int:
                 main_entries[cuda_layered.KERNEL_NAME] = entry
             del state, t_s, lr_s, syn3, t_w, lr_w
 
-    # K4: the trial bit blocks, from real per-trial keys.
-    trial_keys = fold_in(point_key.to(dev), torch.arange(BATCH, device=dev))
-    keys = torch.stack([fold_in(trial_keys, 0), fold_in(trial_keys, 1)], dim=1)
-    words = cuda_prng.trial_words_cuda(keys, N)
-    words_ref = cuda_prng.trial_words_plain(keys, N)
-    torch.cuda.synchronize()
-    k4_err = int((words.to(torch.int64) - words_ref.to(torch.int64)).abs().max())
-    if k4_err:
-        raise AssertionError("trial_words kernel differs from its plain version")
-    k4_bound, k4_by = _bound(words.numel() * 4 + keys.numel() * 4,
-                             OPS_PER_WORD_THREEFRY * words.numel())
-    k4 = {
-        "max_abs_err": k4_err, "bound_ms": k4_bound, "bound_by": k4_by,
-        "ms": _time_ms(torch, lambda: cuda_prng.trial_words_cuda(keys, N), flush),
-        "plain_ms": _time_ms(torch, lambda: cuda_prng.trial_words_plain(keys, N),
-                             flush, repeats=5, warmup=1),
-        "library_ms": None,
-    }
-
-    # K3: the channel threshold on those scores (scalar k), plus per-row k.
-    scores = words[:, 1].contiguous()
-    thr = cuda_select.kth_smallest_cuda(scores, n_err)
-    thr_ref = cuda_select.kth_smallest_plain(scores, n_err)
-    k_rows = torch.randint(1, N + 1, (BATCH,), device=dev, generator=gen,
-                           dtype=torch.int32)
-    thr_rows = cuda_select.kth_smallest_cuda(scores, k_rows)
-    thr_rows_ref = cuda_select.kth_smallest_plain(scores, k_rows)
-    lib_thr = torch.kthvalue(flip_sign(scores), n_err, dim=-1, keepdim=True).values
-    torch.cuda.synchronize()
-    k3_err = max(
-        int((thr.to(torch.int64) - thr_ref.to(torch.int64)).abs().max()),
-        int((thr_rows.to(torch.int64) - thr_rows_ref.to(torch.int64)).abs().max()),
-        int((flip_sign(thr).to(torch.int64) - lib_thr.to(torch.int64)).abs().max()),
-    )
-    if k3_err:
-        raise AssertionError("kth_smallest kernel differs from its plain version")
-    flipped = flip_sign(scores)
-    k3_bound, k3_by = _bound(scores.numel() * 4 + BATCH * 8,
-                             OPS_PER_SCORE_KTH * scores.numel())
-    k3 = {
-        "max_abs_err": k3_err, "bound_ms": k3_bound, "bound_by": k3_by,
-        "ms": _time_ms(torch, lambda: cuda_select.kth_smallest_cuda(scores, n_err),
-                       flush),
-        "plain_ms": _time_ms(
-            torch, lambda: cuda_select.kth_smallest_plain(scores, n_err), flush,
-            repeats=5, warmup=1),
-        "library_ms": _time_ms(
-            torch, lambda: torch.kthvalue(flipped, n_err, dim=-1), flush,
-            repeats=5, warmup=1),
-    }
     # K6 again on the wide code (all six cells): the frame's totals do not fit
     # shared memory, so the kernel updates them in global memory.
     wide = make_qc_code(z=Z, nb=WIDE_NB, mb=WIDE_MB, dv=DV, seed=WIDE_SEED)
@@ -653,6 +839,8 @@ def main() -> int:
             cuda_layered.totals_in_shared_memory(WIDE_NB, Z)):
         raise AssertionError("the wide code does not reach the global-memory mode")
     wide_err = num_errors_for(wide.n_vars, QBER)
+    k4, k3, channel_details = _channel_kernels(
+        torch, dev, flush, point_key, N, n_err, wide.n_vars, wide_err, gen)
     a_w, b_w = make_trial_batch(point_key, wide.n_vars, WIDE_BATCH, wide_err, 0)
     llr_w = apriori_llr(b_w, np.float32(wide_err) / np.float32(wide.n_vars)).T
     syn_w = syndrome(wide, a_w).T
@@ -688,6 +876,8 @@ def main() -> int:
     sweep_shared = NB * Z * 4 + -(-(MB_ROWS + 1 + 2 * ncells) * 4 // 16) * 16
     flagship_instance = ("Li0ELb1ELi6ELb1E", sweep_threads, sweep_shared)
     print(json.dumps({"kernel_matrix": matrix}), flush=True)
+    print(json.dumps({"channel_kernels": dict(
+        card=card, trial_words=k4, kth_smallest=k3, **channel_details)}), flush=True)
     print(json.dumps({"flooding_kernels_other_widths": other_widths}), flush=True)
     print(json.dumps({"layered_sweep_global_memory_mode": {
         "card": card, "code": wide.name, "n_vars": wide.n_vars,
@@ -699,7 +889,7 @@ def main() -> int:
         **_sweep_kernel_resources(_build.build_log("layered_sweep_bfloat16"),
                                   flagship_instance))}), flush=True)
     del wide, wide_tables, a_w, b_w, llr_w, syn_w
-    del words, words_ref, scores, flipped, alice, bob, llr0, syn0
+    del alice, bob, llr0, syn0
 
     # ---- phase 3: the main path (flooding) ---------------------------------
     base = dict(max_iterations=100, clip_messages=True, message_threshold=100.0,
@@ -715,14 +905,40 @@ def main() -> int:
 
     def counted(step):
         """Drive one path with the launch counts set to 0 just before it and
-        read just after; returns (result, seconds, counts)."""
+        read just after; returns (result, seconds, counts).  The trial keys
+        are K4's work on the card: the plain threefry tree must not run on a
+        CUDA tensor in any counted run."""
+        real = threefry.threefry2x32
+        on_card = []
+
+        def watched(k0, k1, x0, x1):
+            if any(isinstance(x, torch.Tensor) and x.is_cuda for x in (k0, k1, x0, x1)):
+                on_card.append(1)
+            return real(k0, k1, x0, x1)
+
         torch.cuda.synchronize()
         _build.reset_launch_counts()
-        t0 = time.perf_counter()
-        result = step()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        threefry.threefry2x32 = watched
+        try:
+            t0 = time.perf_counter()
+            result = step()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            threefry.threefry2x32 = real
+        if on_card:
+            raise AssertionError(f"the plain threefry tree ran {len(on_card)} times on the card")
         return result, seconds, _build.launch_counts()
+
+    def channel_launches(path, counts, batches):
+        """K4 and K3 launch once per batch of trials, and once more each for a
+        batch that takes the second-word tie path; returns those extra."""
+        extra = counts.get(K4, 0) - batches
+        if not 0 <= extra <= batches or counts.get(K3, 0) - batches != extra:
+            raise AssertionError(
+                f"{path}: {counts.get(K4, 0)} trial_words and {counts.get(K3, 0)} "
+                f"kth_smallest launches for {batches} batches of trials")
+        return extra
 
 
     def as_stats(p):
@@ -759,10 +975,10 @@ def main() -> int:
     for name in (K1, K2, K3, K4, KV):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"main path never launched kernel {name}")
-    for name in (K1, K3, K4):
-        if launches[name] != N_BATCHES:
-            raise AssertionError(f"{name}: {launches[name]} launches, "
-                                 f"expected one per batch ({N_BATCHES})")
+    if launches[K1] != N_BATCHES:
+        raise AssertionError(f"{K1}: {launches[K1]} launches, "
+                             f"expected one per batch ({N_BATCHES})")
+    tie_batches = channel_launches("main path", launches, N_BATCHES)
 
     # An iteration is one variable update and one check update (K2), whose
     # syndrome flag belongs to that iteration and whose messages are the next
@@ -793,6 +1009,7 @@ def main() -> int:
         "card": card, "code": code.name, "qber": actual_qber, "trials": trials,
         "batch": BATCH, "partials": stats, "mean_iterations": mean_it,
         "launches": launches, "expected_fused_launches": expected_fused,
+        "batches_on_the_tie_path": tie_batches,
         "compaction_overflow": overflowed, "seconds": seconds,
         "frames_per_s": trials / seconds,
         "ms_per_decode_iteration": seconds * 1e3 / fused,
@@ -817,6 +1034,7 @@ def main() -> int:
         raise AssertionError(f"layered path: implausible mean sweeps {mean_sweeps}")
     if any(launches_l.get(name, 0) for name in (K1, K2, K5, KV)):
         raise AssertionError(f"layered path launched a flooding kernel: {launches_l}")
+    channel_launches("layered path", launches_l, N_BATCHES)
     # One launch per sweep: without compaction overflow a batch costs
     # max(iterations) sweeps (phase A's plus phase B's).
     worst_l, overflowed_l, replay_l = replay_batches(opts_l)
@@ -877,6 +1095,7 @@ def main() -> int:
             f"{lane_iterations} lane-iterations")
     if loops_c["generations"] != N_BATCHES:
         raise AssertionError(f"continuation path: {loops_c} for {N_BATCHES} batches")
+    channel_launches("continuation path", launches_c, loops_c["generations"])
     if launches_c.get(K1, 0) or launches_c.get(K2, 0) or launches_c.get(K6, 0):
         raise AssertionError(f"continuation path launched K1/K2/K6: {launches_c}")
     print(json.dumps({"continuation_path": {
@@ -963,6 +1182,8 @@ def main() -> int:
             torch, "keygen_one_batch",
             lambda: make_trial_batch(point_key, N, BATCH, n_err, 0), card,
             stage_ms(lambda: make_trial_batch(point_key, N, BATCH, n_err, 0)))
+        if keygen > KEYGEN_LAUNCH_LIMIT:
+            raise AssertionError(f"one batch of trials took {keygen} launches on the card")
         from qkd_ldpc_tpu_torch.decoder.bp import _DecodeCore
 
         starts = (_DecodeCore, "variable_update")

@@ -1,17 +1,27 @@
-"""Per-trial random bit blocks: CUDA kernel wrapper and plain version.
+"""Per-trial random rows of the channel: CUDA kernel wrapper and plain version.
 
 Replaces ``qkd_ldpc_tpu/channel/pallas_prng.py::trial_words_pallas``.
 The TPU kernel reseeds the TPU's hardware generator per trial, and its
 stream exists on no other machine; the JAX package itself gives the
 portable threefry stream for ``prng="pallas"`` off the TPU.  The port
-therefore generates the **threefry** blocks — word ``i`` of a row is
-``x0 ^ x1`` of ``threefry2x32(key, (0, i))`` — which equals
-``jax.random.bits`` bit for bit and keeps the chunk/shard invariance
-(every row depends on its own key only).
+therefore generates the **threefry** rows, as ``jax.random`` gives them in
+``qkd_ldpc_tpu/channel/keys.py::make_trials_from_ids``.  Trial ``t`` of a
+point has the key ``fold_in(point_key, t)``; from it
 
-The kernel (``csrc/threefry_words.cu``) takes ``R`` keys per trial and
-writes ``[B, R, N]`` words: the main path asks for the Alice row and the
-error-score row in one launch (R=2), the tie path for one row (R=1).
+- ``"alice"``: Alice's bits, ``bernoulli(fold_in(key, 0), 0.5)`` as uint8;
+- ``"scores"``: the channel's error scores, ``bits(fold_in(key, 1))``;
+- ``"ties"``: the second-word tie scores, ``bits(fold_in(fold_in(key, 1), 1))``
+
+(bit blocks as int32 raw words, see ``channel/threefry.py``).  Every row
+depends on its own trial id only, which keeps the chunk/shard invariance.
+
+The kernel (``csrc/threefry_words.cu``) derives each trial's keys on the
+card from the point key and the trial id, so the key tree costs no host
+launch.  Trial ids come as a ``range`` (step 1, taken mod 2**32: no ids
+tensor at all) or as a ``[B]`` integer tensor.  The point key's two words
+go to the kernel as arguments, read on the host: a key on the card costs
+one synchronising read, so callers keep it on the host
+(``derive_point_key`` makes a CPU tensor).
 """
 
 from __future__ import annotations
@@ -21,44 +31,112 @@ import ctypes
 import torch
 
 from qkd_ldpc_tpu_torch import _build
-from qkd_ldpc_tpu_torch.channel.threefry import random_bits, to_raw_int32
+from qkd_ldpc_tpu_torch.channel.threefry import bernoulli_half, fold_in, random_bits
+from qkd_ldpc_tpu_torch.utils import resolve_device
 
 KERNEL_NAME = "trial_words"
+ALICE, SCORES, TIES = "alice", "scores", "ties"
+ROWS = (ALICE, SCORES, TIES)
+_M32 = 0xFFFFFFFF
 
 
-def trial_words_plain(keys: torch.Tensor, n_bits: int) -> torch.Tensor:
-    """Plain PyTorch version: ``[B, R, 2]`` int64 keys -> ``[B, R, n_bits]``
-    int32 raw words."""
-    return random_bits(keys, n_bits)
+def _check(point_key: torch.Tensor, n_bits: int, ids, rows) -> int:
+    """Validate the arguments; returns the batch size."""
+    if tuple(point_key.shape) != (2,):
+        raise ValueError("point_key must be a [2] key")
+    if not rows or len(set(rows)) != len(rows) or not set(rows) <= set(ROWS):
+        raise ValueError(f"rows must be distinct names out of {ROWS}, got {rows!r}")
+    if n_bits <= 0:
+        raise ValueError("n_bits must be positive")
+    if isinstance(ids, range):
+        if ids.step != 1:
+            raise ValueError("a trial range must have step 1")
+        return len(ids)
+    if not isinstance(ids, torch.Tensor) or ids.ndim != 1:
+        raise ValueError("trial ids must be a range or a 1-d tensor")
+    if ids.dtype.is_floating_point or ids.dtype == torch.bool:
+        raise ValueError("trial ids must be integers")
+    return ids.shape[0]
 
 
-def trial_words_cuda(keys: torch.Tensor, n_bits: int) -> torch.Tensor:
-    """Launch the kernel on the current stream (no synchronisation)."""
-    if keys.device.type != "cuda":
-        raise ValueError("trial_words_cuda needs a CUDA tensor")
-    if keys.dtype != torch.int64 or keys.ndim != 3 or keys.shape[-1] != 2:
-        raise ValueError("keys must be int64 [B, R, 2]")
-    if not 0 < n_bits <= 65535 * 256:
+def _id_tensor(ids, device) -> torch.Tensor:
+    if isinstance(ids, range):
+        return (torch.arange(len(ids), dtype=torch.int64, device=device) + ids.start) & _M32
+    return ids.to(device=device, dtype=torch.int64) & _M32
+
+
+def trial_words_plain(point_key: torch.Tensor, n_bits: int, ids,
+                      rows=(ALICE, SCORES), device=None) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version: the int64 ``fold_in`` tree, then ``random_bits``
+    (and ``bernoulli_half`` for Alice's row).  One ``[B, n_bits]`` tensor per
+    name in ``rows``: uint8 for ``"alice"``, int32 raw words otherwise."""
+    _check(point_key, n_bits, ids, rows)
+    device = torch.device(device) if device is not None else (
+        ids.device if isinstance(ids, torch.Tensor) else torch.device("cpu"))
+    trial_keys = fold_in(point_key.to(device), _id_tensor(ids, device))
+    error_keys = fold_in(trial_keys, 1) if (SCORES in rows or TIES in rows) else None
+    out = {}
+    if ALICE in rows:
+        out[ALICE] = bernoulli_half(random_bits(fold_in(trial_keys, 0), n_bits))
+    if SCORES in rows:
+        out[SCORES] = random_bits(error_keys, n_bits)
+    if TIES in rows:
+        out[TIES] = random_bits(fold_in(error_keys, 1), n_bits)
+    return tuple(out[r] for r in rows)
+
+
+def trial_words_cuda(point_key: torch.Tensor, n_bits: int, ids,
+                     rows=(ALICE, SCORES), device=None) -> tuple[torch.Tensor, ...]:
+    """Launch the kernel on the current stream (no synchronisation unless
+    the point key is on the card).  A ``range`` of ids needs ``device``; a
+    tensor of ids is moved to it."""
+    batch = _check(point_key, n_bits, ids, rows)
+    if device is None and isinstance(ids, torch.Tensor):
+        device = ids.device
+    device = torch.device(device) if device is not None else None
+    if device is None or device.type != "cuda":
+        raise ValueError("trial_words_cuda needs a CUDA device")
+    if batch == 0:
+        raise ValueError("empty trial batch")
+    if not n_bits <= 65535 * 1024:
         raise ValueError(f"n_bits {n_bits} outside the kernel's range")
-    B, R, _ = keys.shape
-    if B * R == 0:
-        raise ValueError("empty key batch")
-    raw = to_raw_int32(keys).contiguous()
-    out = torch.empty((B, R, n_bits), dtype=torch.int32, device=keys.device)
+    # the key's two words are kernel arguments (a key on the card: one sync)
+    k0, k1 = (int(w) & _M32 for w in point_key.tolist())
+    id_t = None
+    if isinstance(ids, torch.Tensor):
+        id_t = ids.to(device=device, dtype=torch.int64).contiguous()
+    out = {
+        r: torch.empty((batch, n_bits), device=device,
+                       dtype=torch.uint8 if r == ALICE else torch.int32)
+        for r in rows
+    }
     fn = _build.function(
-        "threefry_words", "threefry_words",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        "threefry_words", "trial_rows",
+        [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_uint, ctypes.c_int,
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p],
     )
-    with torch.cuda.device(keys.device):
-        err = fn(raw.data_ptr(), out.data_ptr(), B * R, n_bits,
+
+    def ptr(name):
+        return out[name].data_ptr() if name in out else None
+
+    with torch.cuda.device(device):
+        err = fn(k0, k1, None if id_t is None else id_t.data_ptr(),
+                 0 if id_t is not None else ids.start & _M32, batch, n_bits,
+                 ptr(ALICE), ptr(SCORES), ptr(TIES),
                  torch.cuda.current_stream().cuda_stream)
     _build.check_launch(KERNEL_NAME, err)
-    return out
+    return tuple(out[r] for r in rows)
 
 
-def trial_words(keys: torch.Tensor, n_bits: int, backend: str = "auto") -> torch.Tensor:
-    """Bit blocks for ``keys``; ``backend`` as in ``DecodeOptions.backend``."""
-    if _build.use_kernel(backend, keys.device):
-        return trial_words_cuda(keys, n_bits)
-    return trial_words_plain(keys, n_bits)
+def trial_words(point_key: torch.Tensor, n_bits: int, ids, rows=(ALICE, SCORES),
+                backend: str = "auto", device=None) -> tuple[torch.Tensor, ...]:
+    """The rows ``rows`` of the trials ``ids`` on ``device``; ``backend`` as
+    in ``DecodeOptions.backend``.  ``device=None`` means the device of a
+    tensor of ids, and for a ``range`` the card (raises without one)."""
+    if device is None and isinstance(ids, torch.Tensor):
+        device = ids.device
+    device = resolve_device(device)
+    if _build.use_kernel(backend, device):
+        return trial_words_cuda(point_key, n_bits, ids, rows, device)
+    return trial_words_plain(point_key, n_bits, ids, rows, device)

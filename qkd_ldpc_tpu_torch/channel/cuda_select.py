@@ -1,16 +1,22 @@
-"""Per-row k-th smallest of uint32 scores: CUDA kernel wrapper and plain version.
+"""The exact-weight channel's common path: CUDA kernel wrapper and plain version.
 
-Replaces ``qkd_ldpc_tpu/channel/pallas_select.py::kth_smallest_pallas``.
-The exact-weight channel needs, for every trial, the k-th smallest of N
-i.i.d. uint32 scores; everything strictly below it flips.  Both versions
-run the same 32-pass bitwise prefix search (greedy largest prefix P with
-``count(s < P) < k``, one bit per pass) and give the same threshold bit
-for bit.
+Replaces ``qkd_ldpc_tpu/channel/pallas_select.py::kth_smallest_pallas`` and
+the passes around it in ``qkd_ldpc_tpu/channel/keys.py::_exact_weight_mask``.
+For every trial the channel needs the k-th smallest ``t`` of N i.i.d. uint32
+scores; everything strictly below it flips, and the count is completed from
+the ties ``s == t`` in index order.  :func:`select_flip` does all of it and
+returns Bob's row ``alice ^ flip`` with the threshold and one flag: whether
+some row has more ties at its threshold than it needs (``n_at > need``), the
+only case where the channel's second-word tie path
+(``keys._uniform_ties``) changes the outcome.
 
-Unlike the TPU kernel, this one takes a per-row ``k`` (a scalar is
-broadcast), so the second-word tie path of the channel goes through the
-same kernel.  Scores and thresholds are int32 tensors holding raw uint32
-bits (see ``channel/threefry.py``).
+The plain version finds ``t`` by the JAX package's 32-pass bitwise prefix
+search (greedy largest prefix P with ``count(s < P) < k``); the kernel by a
+radix select.  The k-th smallest value is unique, so both give the same
+threshold bit for bit.  ``k`` may be one int or one per row (the tie path
+ranks its second words with a per-row k); without Alice's row only the
+threshold is computed (:func:`kth_smallest`).  Scores and thresholds are
+int32 tensors holding raw uint32 bits (see ``channel/threefry.py``).
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ def _rows_k(scores: torch.Tensor, k) -> torch.Tensor:
 
 
 def kth_smallest_plain(scores: torch.Tensor, k) -> torch.Tensor:
-    """Plain PyTorch version: ``[..., N]`` int32 raw scores -> ``[..., 1]``
-    raw threshold.  Each pass is one compare + row sum over ``[..., N]``."""
+    """Plain PyTorch version of the threshold: ``[..., N]`` int32 raw scores
+    -> ``[..., 1]`` raw threshold.  Each pass is one compare + row sum over
+    ``[..., N]``; k <= 0 gives 0."""
     k = _rows_k(scores, k)
     s = flip_sign(scores)
     prefix = torch.zeros(scores.shape[:-1], dtype=torch.int32, device=scores.device)
@@ -45,38 +52,80 @@ def kth_smallest_plain(scores: torch.Tensor, k) -> torch.Tensor:
     return prefix[..., None]
 
 
-def kth_smallest_cuda(scores: torch.Tensor, k) -> torch.Tensor:
-    """Launch the kernel on the current stream (no synchronisation)."""
-    if scores.device.type != "cuda":
-        raise ValueError("kth_smallest_cuda needs a CUDA tensor")
+def select_flip_plain(scores: torch.Tensor, k, alice: torch.Tensor | None = None):
+    """Plain PyTorch version of :func:`select_flip`: the 32-pass search, then
+    the compare / row-sum / cumsum passes of the JAX package's
+    ``_exact_weight_mask`` and ``alice ^ flip``."""
+    _check(scores, alice)
+    thresh = kth_smallest_plain(scores, k)
+    if alice is None:
+        return thresh, None, None
+    k = _rows_k(scores, k)[..., None]
+    s, t = flip_sign(scores), flip_sign(thresh)
+    below, at = s < t, s == t
+    need = k - below.sum(dim=-1, keepdim=True, dtype=torch.int32)
+    n_at = at.sum(dim=-1, keepdim=True, dtype=torch.int32)
+    tie_rank = at.cumsum(dim=-1, dtype=torch.int32) - 1
+    flip = (below | (at & (tie_rank < need))) & (k > 0)
+    excess = ((n_at > need) & (k > 0)).any().reshape(1).to(torch.int32)
+    return thresh, alice ^ flip.to(torch.uint8), excess
+
+
+def _check(scores: torch.Tensor, alice: torch.Tensor | None) -> None:
     if scores.dtype != torch.int32 or scores.ndim < 1:
         raise ValueError("scores must be int32 [..., N] (raw uint32 bits)")
-    if not scores.is_contiguous():
-        raise ValueError("scores must be contiguous")
-    n = scores.shape[-1]
-    rows = scores.numel() // n if n else 0
-    if rows == 0:
+    if scores.numel() == 0:
         raise ValueError("empty score block")
+    if alice is not None and (alice.dtype != torch.uint8 or alice.shape != scores.shape
+                              or alice.device != scores.device):
+        raise ValueError("alice must be uint8 of the scores' shape, on their device")
+
+
+def select_flip_cuda(scores: torch.Tensor, k, alice: torch.Tensor | None = None):
+    """Launch the kernel on the current stream (no synchronisation).  Returns
+    ``(threshold [..., 1], bob or None, excess [1] int32 or None)``."""
+    _check(scores, alice)
+    if scores.device.type != "cuda":
+        raise ValueError("select_flip_cuda needs a CUDA tensor")
+    if not scores.is_contiguous() or (alice is not None and not alice.is_contiguous()):
+        raise ValueError("scores and alice must be contiguous")
+    n = scores.shape[-1]
+    rows = scores.numel() // n
     # A Python int goes to the kernel as an argument: no tensor, no copy.
     k_rows = None if isinstance(k, int) else _rows_k(scores, k).contiguous()
-    out = torch.empty(scores.shape[:-1] + (1,), dtype=torch.int32,
-                      device=scores.device)
+    thresh = torch.empty(scores.shape[:-1] + (1,), dtype=torch.int32, device=scores.device)
+    bob = excess = None
+    if alice is not None:
+        bob = torch.empty_like(alice)
+        excess = torch.zeros(1, dtype=torch.int32, device=scores.device)
     fn = _build.function(
-        "kth_smallest", "kth_smallest",
+        "kth_smallest", "select_flip",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_void_p],
     )
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(scores.device):
-        err = fn(scores.data_ptr(),
-                 None if k_rows is None else k_rows.data_ptr(),
-                 k if k_rows is None else 0, out.data_ptr(), rows, n,
+        err = fn(scores.data_ptr(), ptr(k_rows), k if k_rows is None else 0,
+                 ptr(alice), ptr(bob), thresh.data_ptr(), ptr(excess), rows, n,
                  torch.cuda.current_stream().cuda_stream)
     _build.check_launch(KERNEL_NAME, err)
-    return out
+    return thresh, bob, excess
+
+
+def select_flip(scores: torch.Tensor, k, alice: torch.Tensor | None = None,
+                backend: str = "auto"):
+    """Threshold, Bob's row and the excess-ties flag per row of ``scores``
+    (see the module docstring); ``backend`` as in ``DecodeOptions.backend``."""
+    if _build.use_kernel(backend, scores.device):
+        return select_flip_cuda(scores, k, alice)
+    return select_flip_plain(scores, k, alice)
 
 
 def kth_smallest(scores: torch.Tensor, k, backend: str = "auto") -> torch.Tensor:
-    """k-th smallest per row; ``backend`` as in ``DecodeOptions.backend``."""
-    if _build.use_kernel(backend, scores.device):
-        return kth_smallest_cuda(scores, k)
-    return kth_smallest_plain(scores, k)
+    """k-th smallest per row, ``[..., 1]``; ``backend`` as in
+    ``DecodeOptions.backend``."""
+    return select_flip(scores, k, None, backend)[0]

@@ -17,26 +17,25 @@ point key via ``fold_in``; trial t within the point uses
 given seed, independent of batch size, and equal to the JAX package's.
 
 Keys are int64 ``[..., 2]`` tensors and bit blocks int32 raw words (see
-``channel/threefry.py``).  The ``[B]``-sized key tree is plain PyTorch on
-every device; the ``[B, N]`` bit blocks and the threshold search go to the
-CUDA kernels on the card (``backend`` as in ``DecodeOptions.backend``).
+``channel/threefry.py``).  On the card a batch of trials is two kernel
+launches: K4 (``channel/cuda_prng.py``) derives every trial's keys from the
+point key and writes Alice's bits and the error scores, K3
+(``channel/cuda_select.py``) selects the threshold and writes Bob's bits;
+the host then reads one flag, and only when some row has excess ties does
+the second-word tie path run (plain passes, ``backend`` as in
+``DecodeOptions.backend``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from qkd_ldpc_tpu_torch.channel.cuda_prng import trial_words
-from qkd_ldpc_tpu_torch.channel.cuda_select import kth_smallest
+from qkd_ldpc_tpu_torch.channel.cuda_prng import ALICE, SCORES, TIES, trial_words
+from qkd_ldpc_tpu_torch.channel.cuda_select import kth_smallest, select_flip
 from qkd_ldpc_tpu_torch.channel.cuda_select import (
     kth_smallest_plain as _kth_smallest,  # noqa: F401  (the JAX package's name)
 )
-from qkd_ldpc_tpu_torch.channel.threefry import (
-    bernoulli_half,
-    flip_sign,
-    fold_in,
-    prng_key,
-)
+from qkd_ldpc_tpu_torch.channel.threefry import flip_sign, fold_in, prng_key
 from qkd_ldpc_tpu_torch.utils import resolve_device
 
 
@@ -61,13 +60,15 @@ def num_errors_for(n_bits: int, qber: float) -> int:
     return int(n_bits * qber)
 
 
-def _exact_weight_mask(scores: torch.Tensor, num_errors, tie_scores_fn=None,
-                       backend: str = "auto") -> torch.Tensor:
-    """Boolean mask with exactly ``num_errors`` True per row, uniformly
-    placed, from i.i.d. raw-uint32 ``scores`` [..., N].
+def _exact_weight_flip(scores: torch.Tensor, alice: torch.Tensor, num_errors,
+                       tie_scores_fn=None, backend: str = "auto") -> torch.Tensor:
+    """Bob's bits: ``alice`` with exactly ``num_errors`` bits flipped per row,
+    uniformly placed, from i.i.d. raw-uint32 ``scores`` [..., N].
 
     Selection by threshold: find the k-th smallest score, flip everything
-    strictly below it, and complete the count from the threshold ties.
+    strictly below it, and complete the count from the threshold ties
+    (:func:`~qkd_ldpc_tpu_torch.channel.cuda_select.select_flip`, one kernel
+    on the card).
 
     Tie handling: a collision *at the threshold value* — the only case
     where a choice exists — occurs with probability about (N-1)/2^32 per
@@ -80,39 +81,35 @@ def _exact_weight_mask(scores: torch.Tensor, num_errors, tie_scores_fn=None,
     order.
     """
     k = int(num_errors)
-    if k <= 0:
-        return torch.zeros_like(scores, dtype=torch.bool)
-    thresh = flip_sign(kth_smallest(scores, k, backend))
-    s = flip_sign(scores)  # signed order == the scores' unsigned order
-    below = s < thresh
-    at = s == thresh
-    n_below = below.sum(dim=-1, keepdim=True, dtype=torch.int32)
-    tie_rank = at.cumsum(dim=-1, dtype=torch.int32) - 1
-    need = k - n_below
-    if tie_scores_fn is None:
-        return below | (at & (tie_rank < need))
-
-    n_at = at.sum(dim=-1, keepdim=True, dtype=torch.int32)
+    thresh, bob, excess = select_flip(scores, k, alice, backend)
     # A choice among ties exists only when more scores sit at the
     # threshold than are needed; rows where n_at == need take all ties in
     # both branches, so batching cannot change any trial's outcome.
-    if not bool((n_at > need).any()):
-        return below | (at & (tie_rank < need))
+    if tie_scores_fn is None or not bool(excess):
+        return bob
+    return alice ^ _uniform_ties(scores, thresh, k, tie_scores_fn(), backend)
 
-    s2 = torch.where(at, tie_scores_fn(), -1)  # non-ties rank last (0xFFFFFFFF)
+
+def _uniform_ties(scores, thresh, k: int, tie_scores, backend) -> torch.Tensor:
+    """The second-word tie path, plain passes: the flip mask (uint8) whose
+    threshold ties are ranked by ``tie_scores``, then by index."""
+    s, t = flip_sign(scores), flip_sign(thresh)
+    below, at = s < t, s == t
+    need = k - below.sum(dim=-1, keepdim=True, dtype=torch.int32)
+    s2 = torch.where(at, tie_scores, -1)  # non-ties rank last (0xFFFFFFFF)
     t2 = flip_sign(kth_smallest(s2, need[..., 0].clamp_min(1), backend))
     s2 = flip_sign(s2)
     below2 = at & (s2 < t2)
     at2 = at & (s2 == t2)
     rank2 = at2.cumsum(dim=-1, dtype=torch.int32) - 1
     need2 = need - below2.sum(dim=-1, keepdim=True, dtype=torch.int32)
-    return below | below2 | (at2 & (rank2 < need2))
+    return (below | below2 | (at2 & (rank2 < need2))).to(torch.uint8)
 
 
 def make_trials_from_ids(
     point_key: torch.Tensor,
     n_bits: int,
-    trial_ids: torch.Tensor,  # [B] global trial indices (uint32 values)
+    trial_ids,  # [B] global trial indices (uint32 values), or a range
     num_errors,
     prng: str = "threefry",
     backend: str = "auto",
@@ -122,7 +119,9 @@ def make_trials_from_ids(
 
     Each trial gets its own derived key, so the stream depends only on
     (master seed, sweep point, trial index) — a sweep chunked as 2x512 or
-    1x1024 sees identical trials.
+    1x1024 sees identical trials.  ``trial_ids`` is a ``[B]`` integer tensor
+    or a ``range`` of step 1 (ids taken mod 2**32; on the card it needs no
+    ids tensor).  ``point_key`` is read on the host.
 
     ``prng`` keeps the JAX package's two contract names.  ``"pallas"``
     there is the TPU's hardware generator, which no other machine can
@@ -137,24 +136,16 @@ def make_trials_from_ids(
             "or 'pallas' (v2)"
         )
     device = resolve_device(device)
-    point_key = point_key.to(device)
-    trial_ids = torch.as_tensor(trial_ids).to(device=device, dtype=torch.int64)
-    trial_keys = fold_in(point_key, trial_ids)  # [B, 2]
-    alice_keys = fold_in(trial_keys, 0)
-    error_keys = fold_in(trial_keys, 1)
-
-    words = trial_words(
-        torch.stack([alice_keys, error_keys], dim=1), n_bits, backend
-    )  # [B, 2, N]: Alice's bit words, the error scores
-    alice = bernoulli_half(words[:, 0])
-    scores = words[:, 1].contiguous()
+    if not isinstance(trial_ids, range):
+        trial_ids = torch.as_tensor(trial_ids)
+    alice, scores = trial_words(point_key, n_bits, trial_ids, (ALICE, SCORES),
+                                backend, device)
 
     def tie_scores():
-        tie_keys = fold_in(error_keys, 1)
-        return trial_words(tie_keys[:, None], n_bits, backend)[:, 0]
+        return trial_words(point_key, n_bits, trial_ids, (TIES,), backend, device)[0]
 
-    flip = _exact_weight_mask(scores, num_errors, tie_scores, backend)
-    return alice, alice ^ flip.to(torch.uint8)
+    bob = _exact_weight_flip(scores, alice, num_errors, tie_scores, backend)
+    return alice, bob
 
 
 def make_trial_batch(
@@ -167,11 +158,13 @@ def make_trial_batch(
     backend: str = "auto",
     device=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Generate (alice, bob) key batches for trials [offset, offset+batch).
+    """Generate (alice, bob) key batches for trials [offset, offset+batch)
+    (ids mod 2**32).
 
     ``device=None`` means the card and raises when there is none.
     """
-    trial_ids = (torch.arange(batch, dtype=torch.int64) + int(trial_offset)) & 0xFFFFFFFF
+    offset = int(trial_offset)
     return make_trials_from_ids(
-        point_key, n_bits, trial_ids, num_errors, prng, backend, device
+        point_key, n_bits, range(offset, offset + batch), num_errors, prng,
+        backend, device
     )

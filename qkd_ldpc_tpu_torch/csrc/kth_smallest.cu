@@ -1,17 +1,33 @@
-// Per-row k-th smallest of uint32 scores by a 32-pass bitwise prefix search.
+// The exact-weight channel's common path in one pass: per row, the k-th
+// smallest of n uint32 scores, then Bob's row = Alice's row ^ flip.
 //
-// Replaces qkd_ldpc_tpu/channel/pallas_select.py::kth_smallest_pallas.  The
-// search keeps the largest prefix P with count(s < P) < k, one bit per pass;
-// after 32 passes P is the k-th smallest value of the row, exactly.
+// Replaces qkd_ldpc_tpu/channel/pallas_select.py::kth_smallest_pallas and the
+// passes around it in qkd_ldpc_tpu/channel/keys.py::_exact_weight_mask.  The
+// threshold t is the k-th smallest value of the row, which is unique, so it is
+// the same value as the 32-pass bitwise search of the plain version.  The flip
+// is  s < t,  plus the ties s == t  when their count n_at is at most
+// need = k - count(s < t)  (then n_at == need); otherwise the first `need` ties
+// in index order, and the row raises the excess flag, which sends the batch to
+// the second-word tie path on the host.  k <= 0 flips nothing (threshold 0).
 //
-// Bound on this card: one read of the [rows, n] score block from device
-// memory.  Design: one block per row; the row is copied once into dynamic
-// shared memory (40 KB at n = 10240; above 48 KB the launcher raises the
-// kernel's limit) and all 32 passes count on chip — a warp-shuffle sum, then
-// one __syncthreads per pass over double-buffered per-warp partials.  Rows
-// that exceed the 227 KB a block may hold are re-read from device memory on
-// every pass instead of being refused.  Scores compare as unsigned directly.
-// k is per row, so the channel's tie path uses the same kernel.
+// Bound on this card: one read of the scores and of Alice's row, one write of
+// Bob's row.  Design: one block of 512 threads per row.  A row of up to
+// 512 * 20 words is read from device memory once, into registers, together
+// with its Alice bytes (two register widths: 8 words a thread for rows up to
+// 4096 words, 20 for rows up to 10240, the repo's N = 4096 and N = 10240
+// codes); where n % 4 == 0 and the rows are aligned, a thread
+// holds groups of 4 consecutive words (16-byte loads, 4-byte Alice / Bob
+// accesses), else single words.  Group g of thread tid is group
+// tid + 512 g of the row.  The threshold comes from a radix select: four 8-bit
+// digits from the top, each a 256-bin shared histogram of the words that
+// still share the chosen prefix and a one-warp scan that picks the digit and
+// the rank left within it, two barriers a digit.  The last digit's bin gives
+// n_at and the rank left gives need, so the mask costs no further reduction.
+// The index-ordered tie completion walks the row in chunks of 512 groups
+// (a warp scan of each thread's tie count, one barrier a chunk).  Rows wider
+// than the registers hold re-read the row from device memory in every digit
+// pass instead (the same code).  Without Alice's row the kernel returns the
+// threshold only (per-row k: the tie path's second-word ranking).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -19,65 +35,269 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr size_t kMaxShared = 232448;  // bytes a block may use on sm_90
 
-template <bool IN_SHARED>
-__global__ void __launch_bounds__(kThreads)
-kth_smallest_kernel(const uint32_t* __restrict__ scores,
-                    const int* __restrict__ k_rows, int k_all,
-                    uint32_t* __restrict__ out, int n) {
-    extern __shared__ uint32_t row_smem[];
-    __shared__ int warp_cnt[2][kWarps];
+// One group of VEC consecutive words and their Alice bytes.
+template <int VEC>
+struct Group {
+    uint32_t s[VEC];
+    uint32_t a;  // VEC Alice bytes, little-endian
+};
+
+template <int VEC>
+__device__ __forceinline__ void load_scores(Group<VEC>& g, const uint32_t* row, int q) {
+    if constexpr (VEC == 4) {
+        const uint4 x = reinterpret_cast<const uint4*>(row)[q];
+        g.s[0] = x.x; g.s[1] = x.y; g.s[2] = x.z; g.s[3] = x.w;
+    } else {
+        g.s[0] = row[q];
+    }
+}
+
+template <int VEC>
+__device__ __forceinline__ uint32_t load_bytes(const uint8_t* row, int q) {
+    if constexpr (VEC == 4) return reinterpret_cast<const uint32_t*>(row)[q];
+    else return row[q];
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_bytes(uint8_t* row, int q, uint32_t x) {
+    if constexpr (VEC == 4) reinterpret_cast<uint32_t*>(row)[q] = x;
+    else row[q] = static_cast<uint8_t>(x);
+}
+
+// G groups of VEC words per thread held in registers; G == 0 re-reads the row
+// from device memory.  Every thread calls the same barriers: the branches on
+// k, on alice and on n_at > need are uniform across the block.
+template <int G, int VEC>
+__global__ void __launch_bounds__(kThreads, G > 0 ? 2 : 1)
+select_flip_kernel(const uint32_t* __restrict__ scores, const int* __restrict__ k_rows,
+                   int k_all, const uint8_t* __restrict__ alice, uint8_t* __restrict__ bob,
+                   uint32_t* __restrict__ thresh, int* __restrict__ excess, int n) {
+    __shared__ int hist[2][256];
+    __shared__ int warp_count[2][kWarps];
+    __shared__ int pick[2][3];  // digit, rank left within it, count at it
     const size_t row = blockIdx.x;
-    const uint32_t* src = scores + row * static_cast<size_t>(n);
+    const size_t base = row * static_cast<size_t>(n);
+    const uint32_t* src = scores + base;
+    const uint8_t* a_row = alice ? alice + base : nullptr;
+    uint8_t* b_row = bob ? bob + base : nullptr;
     const int tid = threadIdx.x;
-    const uint32_t* s = src;
-    if (IN_SHARED) {
-        for (int i = tid; i < n; i += kThreads) row_smem[i] = src[i];
-        __syncthreads();
-        s = row_smem;
-    }
-    const int k = k_rows ? k_rows[row] : k_all;  // per-row k, or one k for all
-    uint32_t prefix = 0u;
-    for (int j = 0; j < 32; ++j) {
-        const uint32_t test = prefix | (1u << (31 - j));
-        int c = 0;
-        for (int i = tid; i < n; i += kThreads) c += (s[i] < test) ? 1 : 0;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int k = k_rows ? k_rows[row] : k_all;
+    const int groups = n / VEC;  // n % VEC == 0
+
+    Group<VEC> reg[G > 0 ? G : 1];
+    if constexpr (G > 0) {
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-            c += __shfl_down_sync(0xFFFFFFFFu, c, off);
-        if ((tid & 31) == 0) warp_cnt[j & 1][tid >> 5] = c;
-        __syncthreads();
-        int total = 0;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) total += warp_cnt[j & 1][w];
-        if (total < k) prefix = test;
+        for (int g = 0; g < G; ++g) {
+            const int q = tid + g * kThreads;
+            if (q < groups) {
+                load_scores<VEC>(reg[g], src, q);
+                reg[g].a = a_row ? load_bytes<VEC>(a_row, q) : 0u;
+            }
+        }
     }
-    if (tid == 0) out[row] = prefix;
+    // f(group, q) over this thread's groups of the row.
+    auto each = [&](auto&& f) {
+        if constexpr (G > 0) {
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+                const int q = tid + g * kThreads;
+                if (q < groups) f(reg[g], q);
+            }
+        } else {
+            for (int q = tid; q < groups; q += kThreads) {
+                Group<VEC> x;
+                load_scores<VEC>(x, src, q);
+                x.a = a_row ? load_bytes<VEC>(a_row, q) : 0u;
+                f(x, q);
+            }
+        }
+    };
+
+    if (k <= 0) {  // nothing flips; the plain search's threshold is 0
+        if (tid == 0) thresh[row] = 0u;
+        if (alice) each([&](const Group<VEC>& x, int q) { store_bytes<VEC>(b_row, q, x.a); });
+        return;
+    }
+
+    if (tid < 256) hist[0][tid] = 0;
+    else hist[1][tid - 256] = 0;
+    __syncthreads();
+
+    uint32_t prefix = 0u;  // the digits chosen so far, in place
+    int left = k;          // rank of the answer among the words sharing prefix
+    int n_at = 0;
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+        const int shift = 24 - 8 * d;
+        const uint32_t high = d == 0 ? 0u : ~0u << (shift + 8);
+        int* h = hist[d & 1];
+        each([&](const Group<VEC>& x, int) {
+#pragma unroll
+            for (int j = 0; j < VEC; ++j)
+                if ((x.s[j] & high) == prefix) atomicAdd(&h[(x.s[j] >> shift) & 0xFFu], 1);
+        });
+        if (tid < 256) hist[(d + 1) & 1][tid] = 0;  // read last in digit d - 1
+        __syncthreads();
+        if (warp == 0) {
+            // Lane l owns bins 8l .. 8l + 7; an inclusive scan of the lanes'
+            // sums finds the lane, then the lane its bin.  A rank beyond the
+            // row (k > n) takes bin 255, as the bitwise search sets every bit.
+            int c[8], sum = 0;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) sum += (c[j] = h[8 * lane + j]);
+            int incl = sum;
+#pragma unroll
+            for (int off = 1; off < 32; off <<= 1) {
+                const int up = __shfl_up_sync(0xFFFFFFFFu, incl, off);
+                if (lane >= off) incl += up;
+            }
+            int below = incl - sum;
+            if (below < left && (left <= incl || lane == 31)) {
+                int j = 0, at = c[0];
+#pragma unroll
+                for (int jj = 0; jj < 7; ++jj) {
+                    if (j == jj && below + c[jj] < left) {
+                        below += c[jj];
+                        j = jj + 1;
+                        at = c[jj + 1];
+                    }
+                }
+                pick[d & 1][0] = 8 * lane + j;
+                pick[d & 1][1] = left - below;
+                pick[d & 1][2] = at;
+            }
+        }
+        __syncthreads();
+        prefix |= static_cast<uint32_t>(pick[d & 1][0]) << shift;
+        left = pick[d & 1][1];
+        n_at = pick[d & 1][2];
+    }
+    const uint32_t t = prefix;
+    const int need = left;  // k - count(s < t), 1 <= need <= n_at
+    if (tid == 0) {
+        thresh[row] = t;
+        if (alice && n_at > need) *excess = 1;
+    }
+    if (!alice) return;
+
+    if (n_at <= need) {
+        each([&](const Group<VEC>& x, int q) {
+            uint32_t flip = 0u;
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) flip |= static_cast<uint32_t>(x.s[j] <= t) << (8 * j);
+            store_bytes<VEC>(b_row, q, x.a ^ flip);
+        });
+        return;
+    }
+    // Excess ties: the first `need` of them in index order.  Chunk c holds
+    // groups 512 c .. 512 c + 511, group 512 c + tid on thread tid.
+    int taken = 0;  // ties in the chunks before this one
+    auto chunk = [&](int c, const Group<VEC>& x) {
+        const int q = c * kThreads + tid;
+        int mine = 0;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) mine += (q < groups && x.s[j] == t) ? 1 : 0;
+        int incl = mine;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+            const int up = __shfl_up_sync(0xFFFFFFFFu, incl, off);
+            if (lane >= off) incl += up;
+        }
+        if (lane == 31) warp_count[c & 1][warp] = incl;
+        __syncthreads();
+        int rank = taken + incl - mine, total = 0;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+            const int cw = warp_count[c & 1][w];
+            rank += w < warp ? cw : 0;
+            total += cw;
+        }
+        if (q < groups) {
+            uint32_t flip = 0u;
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) {
+                const bool at = x.s[j] == t;
+                flip |= static_cast<uint32_t>(x.s[j] < t || (at && rank < need)) << (8 * j);
+                rank += at ? 1 : 0;
+            }
+            store_bytes<VEC>(b_row, q, x.a ^ flip);
+        }
+        taken += total;
+    };
+    if constexpr (G > 0) {
+#pragma unroll
+        for (int c = 0; c < G; ++c) chunk(c, reg[c]);
+    } else {
+        const int chunks = (groups + kThreads - 1) / kThreads;
+        for (int c = 0; c < chunks; ++c) {
+            const int q = c * kThreads + tid;
+            Group<VEC> x{};
+            if (q < groups) {
+                load_scores<VEC>(x, src, q);
+                x.a = load_bytes<VEC>(a_row, q);
+            }
+            chunk(c, x);
+        }
+    }
+}
+
+// Words per thread held in registers, in increasing order (multiples of 4).
+constexpr int kRegisterWidths[] = {8, 20};
+
+template <int W, int VEC>
+int launch(int rows, const uint32_t* s, const int* k, int k_all, const uint8_t* a,
+           uint8_t* b, uint32_t* t, int* e, int n, cudaStream_t st) {
+    select_flip_kernel<W / VEC, VEC><<<rows, kThreads, 0, st>>>(s, k, k_all, a, b, t, e, n);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int VEC>
+int launch_width(int width, int rows, const uint32_t* s, const int* k, int k_all,
+                 const uint8_t* a, uint8_t* b, uint32_t* t, int* e, int n, cudaStream_t st) {
+    switch (width) {
+        case 8: return launch<8, VEC>(rows, s, k, k_all, a, b, t, e, n, st);
+        case 20: return launch<20, VEC>(rows, s, k, k_all, a, b, t, e, n, st);
+        default: return launch<0, VEC>(rows, s, k, k_all, a, b, t, e, n, st);
+    }
 }
 
 }  // namespace
 
-// k_rows == nullptr: every row searches for its k_all-th smallest.
-extern "C" int kth_smallest(const void* scores, const void* k_rows, int k_all,
-                            void* out, int rows, int n, void* stream) {
-    const size_t bytes = static_cast<size_t>(n) * sizeof(uint32_t);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
+// Words per thread of the instance that takes rows of n words: the smallest
+// register width that holds them, or 0 (rows re-read from device memory).
+extern "C" int select_flip_width(int n) {
+    for (int w : kRegisterWidths)
+        if (n <= w * kThreads) return w;
+    return 0;
+}
+
+// Words per access: 4 where n % 4 == 0 and every row starts 16-byte aligned
+// (scores) and 4-byte aligned (Alice, Bob), else 1.
+extern "C" int select_flip_vector(int n, const void* scores, const void* alice,
+                                  const void* bob) {
+    const bool aligned = reinterpret_cast<uintptr_t>(scores) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(alice) % 4 == 0 &&
+                         reinterpret_cast<uintptr_t>(bob) % 4 == 0;
+    return n % 4 == 0 && aligned ? 4 : 1;
+}
+
+// k_rows == nullptr: every row takes k_all.  alice == nullptr: the threshold
+// only (bob and excess unused).  *excess must be 0 on entry; the kernel sets
+// it to 1 if any row has more ties at its threshold than it needs.
+extern "C" int select_flip(const void* scores, const void* k_rows, int k_all,
+                           const void* alice, void* bob, void* thresh, void* excess,
+                           int rows, int n, void* stream) {
     const uint32_t* s = static_cast<const uint32_t*>(scores);
     const int* k = static_cast<const int*>(k_rows);
-    uint32_t* o = static_cast<uint32_t*>(out);
-    // The static per-warp partials share the block's budget with the row.
-    if (bytes + sizeof(int) * 2 * kWarps <= kMaxShared) {
-        if (bytes > 48 * 1024) {
-            cudaError_t e = cudaFuncSetAttribute(
-                kth_smallest_kernel<true>,
-                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                static_cast<int>(bytes));
-            if (e != cudaSuccess) return static_cast<int>(e);
-        }
-        kth_smallest_kernel<true><<<rows, kThreads, bytes, st>>>(s, k, k_all, o, n);
-    } else {
-        kth_smallest_kernel<false><<<rows, kThreads, 0, st>>>(s, k, k_all, o, n);
-    }
-    return static_cast<int>(cudaGetLastError());
+    const uint8_t* a = static_cast<const uint8_t*>(alice);
+    uint8_t* b = static_cast<uint8_t*>(bob);
+    uint32_t* t = static_cast<uint32_t*>(thresh);
+    int* e = static_cast<int*>(excess);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int width = select_flip_width(n);
+    if (select_flip_vector(n, scores, alice, bob) == 4)
+        return launch_width<4>(width, rows, s, k, k_all, a, b, t, e, n, st);
+    return launch_width<1>(width, rows, s, k, k_all, a, b, t, e, n, st);
 }

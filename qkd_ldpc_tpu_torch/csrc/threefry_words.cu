@@ -1,35 +1,45 @@
-// Per-trial random bit blocks (Threefry-2x32, 20 rounds).
+// Per-trial random rows of the channel (Threefry-2x32, 20 rounds), with the
+// trial keys derived on chip.
 //
 // Replaces qkd_ldpc_tpu/channel/pallas_prng.py::trial_words_pallas, which
 // reseeds the TPU's hardware generator per trial.  That stream exists only
-// on a TPU, so this kernel writes the portable threefry stream instead:
-// word i of row r is x0 ^ x1 of threefry2x32(key[r], (0, i)), which is
-// jax.random.bits(key[r], (n,)) bit for bit.
+// on a TPU, so this kernel writes the portable threefry stream instead, as
+// jax.random gives it:
+//   trial key  tk = fold_in(point_key, id)        fold_in(k, d) = threefry(k, (0, d))
+//   Alice      ak = fold_in(tk, 0)   bit i = 1 - (word_i >> 31)   (bernoulli 0.5)
+//   scores     sk = fold_in(tk, 1)   word i
+//   tie words  fold_in(sk, 1)        word i
+// where word_i = x0 ^ x1 of threefry(key, (0, i)) (jax.random.bits).  The trial
+// id of row r is ids[r] (mod 2^32) or, without an id array, first + r (mod 2^32).
 //
-// Bound on this card: the write of rows * n uint32 words; the ~100 integer
-// operations per word sit well under the card's integer rate at that
-// bandwidth.  Design: one thread per word, all 20 rounds in registers,
-// neighbouring threads write neighbouring words (coalesced); the grid's x
-// axis walks the rows so any batch size fits.
+// Bound on this card: the integer work of the 20-round loop, one threefry
+// block per emitted word; the writes (Alice's bit as a byte and the score
+// word: 5 bytes a position) take about a sixth of that time at the INT32
+// lanes' rate.  Design: a block covers kWordsPerBlock
+// words of one trial; its first warp derives the row keys once (2-3 threefry
+// blocks, lanes in parallel) and stages them in shared memory, so the key tree
+// costs no host launch and under 1 % of the block's work; every thread then
+// runs the unchanged word loop for each emitted row, neighbouring threads on
+// neighbouring words (coalesced).  A null output pointer skips that row.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kThreads = 256;
+constexpr int kWordsPerThread = 4;
+constexpr int kWordsPerBlock = kThreads * kWordsPerThread;
+
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
     return (x << r) | (x >> (32 - r));
 }
 
-__global__ void threefry_words_kernel(const uint32_t* __restrict__ keys,
-                                      uint32_t* __restrict__ out, int n) {
-    const int i = blockIdx.y * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const size_t row = blockIdx.x;
-    const uint32_t ks0 = keys[2 * row], ks1 = keys[2 * row + 1];
-    const uint32_t ks[3] = {ks0, ks1, ks0 ^ ks1 ^ 0x1BD11BDAu};
+// x0 ^ x1 of threefry2x32(key, (0, counter)); the key derivation keeps both.
+__device__ __forceinline__ uint2 threefry(uint32_t k0, uint32_t k1, uint32_t counter) {
+    const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
     const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
     uint32_t x0 = 0u + ks[0];
-    uint32_t x1 = static_cast<uint32_t>(i) + ks[1];
+    uint32_t x1 = counter + ks[1];
 #pragma unroll
     for (int g = 0; g < 5; ++g) {
 #pragma unroll
@@ -40,16 +50,59 @@ __global__ void threefry_words_kernel(const uint32_t* __restrict__ keys,
         x0 += ks[(g + 1) % 3];
         x1 += ks[(g + 2) % 3] + static_cast<uint32_t>(g + 1);
     }
-    out[row * static_cast<size_t>(n) + i] = x0 ^ x1;
+    return make_uint2(x0, x1);
+}
+
+__global__ void __launch_bounds__(kThreads)
+trial_rows_kernel(uint32_t pk0, uint32_t pk1, const int64_t* __restrict__ ids,
+                  uint32_t first, int n, uint8_t* __restrict__ alice,
+                  uint32_t* __restrict__ scores, uint32_t* __restrict__ ties) {
+    __shared__ uint2 row_key[3];  // Alice, scores, tie words
+    const size_t row = blockIdx.x;
+    const int tid = threadIdx.x;
+    if (tid < 32) {
+        const uint32_t id = ids ? static_cast<uint32_t>(ids[row])
+                                : first + static_cast<uint32_t>(row);
+        const uint2 tk = threefry(pk0, pk1, id);
+        if (tid == 0 && alice) row_key[0] = threefry(tk.x, tk.y, 0u);
+        if (tid == 1 && (scores || ties)) {
+            const uint2 sk = threefry(tk.x, tk.y, 1u);
+            row_key[1] = sk;
+            if (ties) row_key[2] = threefry(sk.x, sk.y, 1u);
+        }
+    }
+    __syncthreads();
+    const size_t base = row * static_cast<size_t>(n);
+#pragma unroll
+    for (int j = 0; j < kWordsPerThread; ++j) {
+        const int i = blockIdx.y * kWordsPerBlock + j * kThreads + tid;
+        if (i >= n) break;
+        if (alice) {
+            const uint2 w = threefry(row_key[0].x, row_key[0].y, static_cast<uint32_t>(i));
+            alice[base + i] = static_cast<uint8_t>(((w.x ^ w.y) >> 31) ^ 1u);
+        }
+        if (scores) {
+            const uint2 w = threefry(row_key[1].x, row_key[1].y, static_cast<uint32_t>(i));
+            scores[base + i] = w.x ^ w.y;
+        }
+        if (ties) {
+            const uint2 w = threefry(row_key[2].x, row_key[2].y, static_cast<uint32_t>(i));
+            ties[base + i] = w.x ^ w.y;
+        }
+    }
 }
 
 }  // namespace
 
-extern "C" int threefry_words(const void* keys, void* out, int rows, int n,
-                              void* stream) {
-    const int threads = 256;
-    dim3 grid(rows, (n + threads - 1) / threads);
-    threefry_words_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(keys), static_cast<uint32_t*>(out), n);
+// ids == nullptr: row r is trial first + r.  alice / scores / ties may each be
+// nullptr (that row is not emitted).
+extern "C" int trial_rows(unsigned int pk0, unsigned int pk1, const void* ids,
+                          unsigned int first, int batch, int n, void* alice,
+                          void* scores, void* ties, void* stream) {
+    dim3 grid(batch, (n + kWordsPerBlock - 1) / kWordsPerBlock);
+    trial_rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        pk0, pk1, static_cast<const int64_t*>(ids), first, n,
+        static_cast<uint8_t*>(alice), static_cast<uint32_t*>(scores),
+        static_cast<uint32_t*>(ties));
     return static_cast<int>(cudaGetLastError());
 }

@@ -147,7 +147,8 @@ def _continuation_core(
                     base, sp, next_id = 0, min(sp + 1, P - 1), 0
                 # ids >= trials are generated but never consumed (tail waste
                 # of at most one block per point).
-                ids = (trial_offset + base + torch.arange(S, dtype=torch.int64)) & 0xFFFFFFFF
+                first = trial_offset + base
+                ids = range(first, first + S)  # taken mod 2**32
                 ne = num_errors[sp]
                 a_new, b_new = make_trials_from_ids(
                     point_keys[sp], N, ids, ne, prng, opts.backend, device)

@@ -37,6 +37,7 @@ from qkd_ldpc_tpu.decoder.pallas_kernels import (
     fused_update_fresh_pallas,
     fused_update_pallas,
 )
+from qkd_ldpc_tpu_torch.channel import cuda_prng, cuda_select
 from qkd_ldpc_tpu_torch.codes import make_code
 from qkd_ldpc_tpu_torch.decoder import cuda_kernels
 
@@ -255,6 +256,45 @@ def test_variable_wrapper_refuses_bad_shapes(bad, match):
     with pytest.raises(ValueError, match=match):
         cuda_kernels.variable_update_cuda(
             x["lr"], x["tot"], x["z"], x["count"], x["active"], x["maps"], scale=None)
+
+
+@pytest.mark.parametrize("bad, match", [
+    (dict(point_key=torch.zeros(3, dtype=torch.int64)), "point_key"),
+    (dict(rows=("alice", "bits")), "rows"),
+    (dict(rows=("scores", "scores")), "rows"),
+    (dict(rows=()), "rows"),
+    (dict(ids=range(0, 8, 2)), "step 1"),
+    (dict(ids=torch.zeros((2, 2), dtype=torch.int64)), "1-d"),
+    (dict(ids=torch.zeros(2)), "integers"),
+    (dict(n_bits=0), "positive"),
+    (dict(device="cpu"), "CUDA"),
+    (dict(ids=torch.arange(4)), "CUDA"),
+], ids=["key-shape", "row-name", "row-twice", "no-rows", "range-step", "ids-2d",
+        "ids-float", "no-bits", "cpu-device", "cpu-ids"])
+def test_trial_words_wrapper_refuses_bad_arguments(bad, match):
+    """K4's wrapper checks the key, the row names, the id form and the device
+    before anything reaches the card."""
+    x = dict(point_key=torch.tensor([1, 2]), n_bits=64, ids=range(4),
+             rows=("alice", "scores"), device=None)
+    x.update(bad)
+    with pytest.raises(ValueError, match=match):
+        cuda_prng.trial_words_cuda(**x)
+
+
+@pytest.mark.parametrize("bad, match", [
+    (dict(scores=torch.zeros((2, 8), dtype=torch.int64)), "int32"),
+    (dict(scores=torch.zeros((0, 8), dtype=torch.int32)), "empty"),
+    (dict(alice=torch.zeros((2, 8), dtype=torch.bool)), "alice"),
+    (dict(alice=torch.zeros((2, 9), dtype=torch.uint8)), "alice"),
+    (dict(), "CUDA"),
+], ids=["scores-dtype", "scores-empty", "alice-dtype", "alice-shape", "cpu"])
+def test_select_flip_wrapper_refuses_bad_arguments(bad, match):
+    """K3's wrapper checks the scores and Alice's row before the device."""
+    x = dict(scores=torch.zeros((2, 8), dtype=torch.int32), k=3,
+             alice=torch.zeros((2, 8), dtype=torch.uint8))
+    x.update(bad)
+    with pytest.raises(ValueError, match=match):
+        cuda_select.select_flip_cuda(**x)
 
 
 @pytest.mark.parametrize("first", [True, False], ids=["first", "fused"])
