@@ -27,24 +27,38 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    3c. ``run_point_continuation`` at a waterfall point (the fresh-lane kernel)
    against ``run_point`` on the same point key: seven equal partial sums;
 4. repeats the paths through the plain versions (``backend="xla"``) and
-   compares the seven partial sums.
+   compares the seven partial sums;
+5. runs the sweep as a user does, through ``cli.main``, over the reference's
+   own irregular alist (rows of 5 and 6: padded check slots) and the QC
+   flagship (``cli_sweep``): native and numpy ingest (equal, and timed), the QC
+   sidecar round trip, the four flooding kernels (K1, K2, K5 and the variable
+   update) at the alist's shapes, ``config.example.json``'s
+   sweep, the same sweep resumed from its checkpoint, the continuation
+   crossover, layered, a min-sum identity of kernels and plain versions, and
+   interactive mode at B = 1 — each sweep counted on its own.
 
 Each phase prints one JSON object on a line of its own; any failure raises.
 The last line is ``{"ok": true, "device": {...}}``.  The script exits non-zero
 without a CUDA device.  ``--profile`` adds a device-time table of each of the
-three paths, of one batch of trials (at most ten launches) and the launches
-per decode iteration.  Times are this card's, labelled with its name and power
+three paths, of one batch of trials (at most ten launches) and of the CLI's
+sweep A, and the launches per decode iteration; all tracing comes after every
+untraced timing.  Times are this card's, labelled with its name and power
 limit; they are a smoke measurement, not a benchmark.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: 80 GB of HBM at 3.35 TB/s
 # Data-sheet float32 rate outside the tensor cores.
@@ -106,6 +120,10 @@ SHORT_N = 4096
 # A code whose frame of totals (116 x 512 floats) exceeds a block's shared
 # memory: the sweep kernel's global-memory mode, held against the plain sweep.
 WIDE_NB, WIDE_MB, WIDE_SEED, WIDE_BATCH = 116, 58, 667, 32
+# The cli_sweep phase: the reference's own matrix (irregular, rows of 5 and
+# 6), and the name the QC flagship is written under beside it.
+REFERENCE_ALIST = "(N=10240,M=5231,R=0.49,CW=3,GEN=666).alist"
+QC_ALIST = "qc_z512_nb20_mb10_dv3_seed666.alist"
 
 
 def _time_ms(torch, fn, flush, repeats=20, warmup=3, prepare=None):
@@ -531,6 +549,381 @@ def _channel_kernels(torch, dev, flush, point_key, n, n_err, wide_n, wide_err, g
     return k4, k3, details
 
 
+def _flooding_inputs(torch, dev, gen, code, width, dtype_name, scale):
+    """Random state of the two flooding kernels on ``code`` at batch ``width``."""
+    from qkd_ldpc_tpu_torch.decoder import cuda_kernels
+    from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
+
+    N, M, dc = code.n_vars, code.n_checks, code.dc_max
+    mdt = cuda_kernels.STORAGE_DTYPES[dtype_name]
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def flags(p):
+        return torch.rand((width,), device=dev, generator=gen) < p
+
+    tot = cuda_kernels._store(4.0 * rand(N, width), mdt, scale)
+    # The target of frame 0 is the syndrome of its own decisions, so its ok
+    # flag is True; the other frames' targets are random bits.
+    syn = (torch.rand((M, width), device=dev, generator=gen) < 0.5).to(torch.int8)
+    z0 = (cuda_kernels._load(tot[:, 0], scale) <= 0).to(torch.uint8)
+    syn[:, 0] = syndrome(code, z0[None, :])[0].to(torch.int8)
+    return dict(
+        tot=tot, lrp=cuda_kernels._store(2.0 * rand(dc, M, width), mdt, scale),
+        syn=syn, llr=4.0 * rand(N, width), fresh=flags(0.4), active=flags(0.7),
+        z=torch.full((N, width), 7, dtype=torch.int8, device=dev),
+        count=torch.arange(width, dtype=torch.int32, device=dev))
+
+
+def _check_modes(kw, fresh):
+    """(kernel name, first, keyword arguments) of K1, K2 and K5 = K2 with a
+    mixed fresh mask and a clip that bites."""
+    from qkd_ldpc_tpu_torch.decoder import cuda_kernels
+
+    return (
+        (cuda_kernels.KERNEL_FIRST, True, dict(kw, first=True)),
+        (cuda_kernels.KERNEL_FUSED, False, dict(kw, first=False)),
+        (cuda_kernels.KERNEL_FRESH, False,
+         dict(kw, first=False, fresh=fresh, threshold=FRESH_THRESHOLD)),
+    )
+
+
+def _compare_check(torch, x, code_maps, own_maps, first, mode, dtype_name, algorithm,
+                   scale):
+    """One check update, kernel against plain: messages by
+    :func:`_compare_messages`; the syndrome flag has no transcendentals and
+    must be equal, also with the flag buffer handed in as the loops do.
+    ``own_maps``: the maps are those of the code whose syndrome made frame 0's
+    target, so its flag must be set (and not every flag is)."""
+    from qkd_ldpc_tpu_torch.decoder import cuda_kernels
+
+    args = (x["tot"], None if first else x["lrp"], x["syn"], code_maps)
+    got, ok = cuda_kernels.check_update_cuda(*args, **mode)
+    ref, ok_ref = cuda_kernels.check_update_plain(*args, **mode)
+    if not first:
+        buf = torch.ones_like(ok)
+        got_b, ok_b = cuda_kernels.check_update_cuda(*args, ok=buf, **mode)
+        if ok_b is not buf or not bool((ok_b == ok).all() & (got_b == got).all()):
+            raise AssertionError("the check kernel differs with a flag buffer")
+    torch.cuda.synchronize()
+    if not first:
+        if not bool((ok == ok_ref).all()):
+            raise AssertionError("the check kernel's syndrome flag differs")
+        if "fresh" in mode:
+            if bool(ok[x["fresh"]].any()):
+                raise AssertionError("ok set on a fresh frame")
+        elif own_maps and (not bool(ok[0]) or bool(ok.all())):
+            raise AssertionError("the syndrome flags do not discriminate")
+    return _compare_messages(torch, got, ref, dtype_name, algorithm, scale)
+
+
+def _compare_variable(torch, x, code_maps, scale):
+    """The variable update, kernel against plain: totals, decisions and
+    counts, all exact (no transcendentals); inactive frames untouched."""
+    from qkd_ldpc_tpu_torch.decoder import cuda_kernels
+
+    z_k, count_k = x["z"].clone(), x["count"].clone()
+    got = cuda_kernels.variable_update_cuda(
+        x["lrp"], x["llr"], z_k, count_k, x["active"], code_maps, scale=scale)
+    ref = cuda_kernels.variable_update_plain(
+        x["lrp"], x["llr"], x["z"], x["count"], x["active"], code_maps, scale=scale)
+    torch.cuda.synchronize()
+    if got[1] is not z_k or got[2] is not count_k:
+        raise AssertionError("the variable kernel does not update in place")
+    if not bool(got[3].all()):
+        raise AssertionError("the variable kernel left a flag unset")
+    n_diff = sum(int((g != r).sum()) for g, r in zip(got, ref))
+    err = float((cuda_kernels._load(got[0], scale)
+                 - cuda_kernels._load(ref[0], scale)).abs().max())
+    if n_diff or not bool((z_k[:, ~x["active"]] == 7).all()):
+        raise AssertionError(f"variable_update differs on {n_diff} entries")
+    return err, n_diff
+
+
+def _reference_alist_and_example():
+    """The reference's own matrix file and config.example.json's settings."""
+    repo = Path(__file__).resolve().parent
+    return (repo / "data" / "alist_sparse_matrices" / REFERENCE_ALIST,
+            json.loads((repo / "configs" / "config.example.json").read_text()))
+
+
+def _matrix_dir(code, directory, with_reference=True):
+    """A matrix directory: the reference alist (optional) and the QC flagship
+    written beside it by the port's ``write_alist`` (alist and sidecar)."""
+    from qkd_ldpc_tpu_torch.codes import write_alist
+
+    directory.mkdir()
+    if with_reference:
+        ref_path, _ = _reference_alist_and_example()
+        shutil.copy(ref_path, directory / ref_path.name)
+    write_alist(code, directory / QC_ALIST)
+    return directory
+
+
+def _cli_sweep(torch, np, dev, card, code, names):
+    """The sweep as a user runs it: ``cli.main`` over a matrix directory with
+    the reference's irregular alist (rows of 5 and 6: padded check slots) and
+    the QC flagship, on the card.  Ingest (native and numpy parsers equal and
+    timed; the QC sidecar round trip), K1/K2/K5/KV against their plain
+    versions at the alist's shapes, then sweeps A (config.example.json's
+    settings), A again (resumed from the checkpoint: no launch, the same
+    bytes), B (the continuation crossover: the same bytes), C (layered on the
+    QC code), a min-sum identity of kernels and plain versions through the
+    CLI, and interactive mode at B = 1.  Each sweep is counted on its own.
+    Returns sweep A's wall in seconds."""
+    from qkd_ldpc_tpu_torch import _build, cli
+    from qkd_ldpc_tpu_torch.codes import read_alist
+    from qkd_ldpc_tpu_torch.decoder import cuda_kernels
+    from qkd_ldpc_tpu_torch.decoder.layered import NOT_QC_MESSAGE
+    from qkd_ldpc_tpu_torch.sim import interactive_simulation, rate_based_qber_range, runner
+    from qkd_ldpc_tpu_torch.config import load_config
+
+    K1, K2, K3, K4, K5, K6, KV = names
+    ref_path, example = _reference_alist_and_example()
+    tmp = Path(tempfile.mkdtemp(prefix="cli_sweep_"))
+    try:
+        # ---- ingest ---------------------------------------------------------
+        ref = read_alist(ref_path, native=True)
+        ref_np = read_alist(ref_path, native=False)
+        fields = ("chk_adj", "chk_mask", "var_adj", "var_mask", "var_slot",
+                  "chk_slot", "var_deg", "chk_deg")
+        if not all(np.array_equal(getattr(ref, f), getattr(ref_np, f)) for f in fields):
+            raise AssertionError("native and numpy alist parsers disagree")
+        hist = {int(d): int(c) for d, c in enumerate(np.bincount(ref.chk_deg)) if c}
+        if ref.qc is not None or ref.dc_max != 6 or set(hist) != {5, 6}:
+            raise AssertionError(f"unexpected reference alist profile {hist}")
+        both = _matrix_dir(code, tmp / "matrices")
+        qc_only = _matrix_dir(code, tmp / "qc_matrices", with_reference=False)
+        back = read_alist(both / QC_ALIST)
+        if back.qc != code.qc or not all(
+                np.array_equal(getattr(back, f), getattr(code, f)) for f in fields):
+            raise AssertionError("the QC flagship did not round-trip with its layout")
+        # What the native loader saves a sweep: each file read by both parsers
+        # (the library already built and loaded), median of five, on the host.
+        ingest_ms = {}
+        for label, path in (("reference_alist", ref_path), ("qc_flagship", both / QC_ALIST)):
+            for native in (True, False):
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    read_alist(path, native=native)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                ingest_ms[f"{label}_{'native' if native else 'numpy'}"] = (
+                    statistics.median(times))
+
+        # ---- K1 / K2 / K5 / KV at the alist's shapes (padded check slots) ---
+        maps = ref.to_device(dev)
+        gen = torch.Generator(device=dev).manual_seed(4321)
+        cells = []
+        for algorithm in ("sum-product", "min-sum"):
+            for dtype_name in ("float32", "bfloat16"):
+                for width in (BATCH, RAGGED_BATCH):
+                    kw = dict(threshold=100.0, clip=True, algorithm=algorithm,
+                              min_sum_alpha=0.8, min_sum_beta=0.0, scale=None)
+                    x = _flooding_inputs(torch, dev, gen, ref, width, dtype_name, None)
+                    by_kernel = {}
+                    for name, first, mode in _check_modes(kw, x["fresh"]):
+                        by_kernel[name] = _compare_check(
+                            torch, x, maps, True, first, mode, dtype_name, algorithm, None)
+                    by_kernel[KV] = _compare_variable(torch, x, maps, None)
+                    if any(err != 0.0 or nd for err, nd in by_kernel.values()):
+                        raise AssertionError(
+                            f"K1/K2/K5/KV differ from their plain versions on the alist: "
+                            f"{algorithm} {dtype_name} B={width}: {by_kernel}")
+                    cells.append({
+                        "algorithm": algorithm, "storage": dtype_name, "batch": width,
+                        "max_abs_err": {k: e for k, (e, _) in by_kernel.items()},
+                        "entries_differing": sum(nd for _, nd in by_kernel.values()),
+                        "frames_per_thread": [cuda_kernels.vector_width(
+                            k, width, cuda_kernels.STORAGE_DTYPES[dtype_name], x["tot"])
+                            for k in ("check_update", "variable_update")]})
+                    del x
+        if {K1, K2, K5, KV} - set(cells[0]["max_abs_err"]):
+            raise AssertionError("a flooding kernel was not held on the alist")
+        torch.cuda.synchronize()
+
+        # ---- the sweeps through the CLI -----------------------------------------
+        seen_trials = []
+        real_finalize = runner.finalize_point
+
+        def recording_finalize(partials, **kw):
+            seen_trials.append(partials.n_trials)
+            return real_finalize(partials, **kw)
+
+        def sweep(label, matrix_dir, expect_rc=0, **overrides):
+            """One CLI run, counted: (wall seconds, launches, csv path, stderr)."""
+            raw = dict(example, checkpoint_dir=str(tmp / f"ckpt_{label}"),
+                       results_dir=str(tmp / f"results_{label}"),
+                       matrix_dir=str(matrix_dir), **overrides)
+            cfg_path = tmp / f"config_{label}.json"
+            cfg_path.write_text(json.dumps(raw))
+            seen_trials.clear()
+            err = io.StringIO()
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            runner.finalize_point = recording_finalize
+            try:
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()), \
+                        contextlib.redirect_stderr(err):
+                    rc = cli.main(["--config", str(cfg_path), "--no-progress"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                runner.finalize_point = real_finalize
+            if rc != expect_rc:
+                raise AssertionError(f"sweep {label}: exit {rc}: {err.getvalue()}")
+            results = sorted((tmp / f"results_{label}").glob("*.csv"))
+            return wall, _build.launch_counts(), results, err.getvalue(), cfg_path
+
+        def rows(path):
+            lines = path.read_text().splitlines()
+            return lines, [line.split(";") for line in lines[1:]]
+
+        points = 13  # per code: the 0.58 row of the rate table, 0.03 ... 0.09
+        batches = 2 * points * -(-example["trials_number"] // BATCH)
+        report = {"card": card, "trials_per_point": example["trials_number"],
+                  "batch": BATCH, "reference_alist": {
+                      "n": ref.n_vars, "m": ref.n_checks, "dc_max": ref.dc_max,
+                      "row_weights": hist},
+                  "ingest_ms": ingest_ms,
+                  "alist_kernel_cells": cells}
+
+        wall_a, launches_a, csv_a, _, cfg_a = sweep("A", both, compact_after=8)
+        lines_a, rows_a = rows(csv_a[0])
+        if len(lines_a) != 2 * points + 1 or len(csv_a) != 1:
+            raise AssertionError(f"sweep A wrote {len(lines_a)} lines")
+        if seen_trials != [example["trials_number"]] * 2 * points:
+            raise AssertionError(f"sweep A: trials per point {seen_trials}")
+        names_in_order = [r[1] for r in rows_a]
+        if names_in_order != [ref_path.name] * points + [QC_ALIST] * points:
+            raise AssertionError(f"sweep A: matrices {names_in_order}")
+        if rows_a[0][-1] != "0" or rows_a[points][-1] != "0":
+            raise AssertionError(f"sweep A: FER at QBER 0.03 {rows_a[0]}, {rows_a[points]}")
+        extra = launches_a.get(K4, 0) - batches
+        if not 0 <= extra <= batches or launches_a.get(K3, 0) != batches + extra:
+            raise AssertionError(f"sweep A: K3/K4 launches {launches_a} for {batches} batches")
+        if launches_a.get(K1, 0) < batches or launches_a.get(K2, 0) <= 0 or (
+                launches_a.get(KV, 0) != launches_a.get(K2, 0)):
+            raise AssertionError(f"sweep A: flooding launches {launches_a}")
+        ckpt_a = sorted((tmp / "ckpt_A").iterdir())
+        if len(ckpt_a) != 1 or len(ckpt_a[0].read_text().splitlines()) != 2 * points:
+            raise AssertionError(f"sweep A: checkpoint {ckpt_a}")
+        report["A"] = {"wall_s": wall_a, "points": 2 * points, "batches": batches,
+                       "trials": 2 * points * example["trials_number"],
+                       "rows_per_s": 2 * points / wall_a, "launches": launches_a,
+                       "compact_after": 8}
+
+        # A again: every point from the checkpoint, nothing on the card.
+        wall_r, launches_r, csv_r, _, _ = sweep("A", both, compact_after=8)
+        if sum(launches_r.values()) or seen_trials or len(csv_r) != 2 or (
+                not csv_r[1].name.endswith("_1.csv")) or (
+                csv_r[1].read_bytes() != csv_a[0].read_bytes()):
+            raise AssertionError(f"resumed sweep A: {launches_r}, {csv_r}")
+        report["A_resumed"] = {"wall_s": wall_r, "launches": launches_r,
+                               "csv_identical": True}
+
+        wall_b, launches_b, csv_b, _, _ = sweep(
+            "B", both, compact_after=8, continuation_qber=0.07)
+        if csv_b[0].read_bytes() != csv_a[0].read_bytes():
+            raise AssertionError("sweep B (continuation crossover) changed the CSV")
+        if launches_b.get(K5, 0) <= 0:
+            raise AssertionError(f"sweep B never launched {K5}: {launches_b}")
+        report["B"] = {"wall_s": wall_b, "points": 2 * points,
+                       "continuation_points": 2 * sum(
+                           q >= 0.07 for q in rate_based_qber_range(
+                               ref.code_rate, load_config(cfg_a).r_qber_parameters)),
+                       "trials": 2 * points * example["trials_number"],
+                       "rows_per_s": 2 * points / wall_b, "launches": launches_b,
+                       "csv_identical_to_A": True}
+
+        _, launches_x, _, err_x, _ = sweep(
+            "C_alist", both, expect_rc=1, schedule="layered", compact_after=4)
+        if NOT_QC_MESSAGE not in err_x or sum(launches_x.values()):
+            raise AssertionError(f"layered over the alist: {err_x!r}, {launches_x}")
+        wall_c, launches_c, csv_c, _, _ = sweep(
+            "C", qc_only, schedule="layered", compact_after=4)
+        _, rows_c = rows(csv_c[0])
+        at_05 = min(rows_c, key=lambda r: abs(float(r[6]) - QBER))
+        mean_05 = float(at_05[7])
+        if len(rows_c) != points or launches_c.get(K6, 0) <= 0 or not (
+                MEAN_SWEEPS_GATE[0] <= mean_05 <= MEAN_SWEEPS_GATE[1]):
+            raise AssertionError(f"sweep C: {len(rows_c)} rows, mean sweeps {mean_05}, "
+                                 f"{launches_c}")
+        if any(launches_c.get(k, 0) for k in (K1, K2, K5, KV)):
+            raise AssertionError(f"sweep C launched a flooding kernel: {launches_c}")
+        report["C"] = {"wall_s": wall_c, "points": points,
+                       "trials": points * example["trials_number"],
+                       "rows_per_s": points / wall_c, "launches": launches_c,
+                       "mean_sweeps_at_0.05": mean_05, "compact_after": 4,
+                       "layered_over_the_alist_refused": True}
+
+        # Identity: min-sum through the kernels and through the plain versions.
+        ident = dict(decoder="min-sum", trials_number=256, code_rate_QBER_parameters=[
+            {"code_rate": 0.58, "QBER_begin": 0.03, "QBER_end": 0.05, "QBER_step": 0.005}])
+        ref_only = tmp / "ref_matrices"
+        ref_only.mkdir()
+        shutil.copy(ref_path, ref_only / ref_path.name)
+        wall_k, launches_k, csv_k, _, _ = sweep("identity_auto", ref_only, **ident)
+        wall_p, launches_p, csv_p, _, _ = sweep(
+            "identity_xla", ref_only, backend="xla", **ident)
+        if csv_k[0].read_bytes() != csv_p[0].read_bytes():
+            raise AssertionError("min-sum sweep: kernels and plain versions differ")
+        if len(rows(csv_k[0])[1]) != 4 or launches_k.get(K2, 0) <= 0 or (
+                sum(launches_p.values())):
+            raise AssertionError(f"identity sweeps: {launches_k}, {launches_p}")
+        report["identity_min_sum"] = {"points": 4, "trials_per_point": 256,
+                                      "wall_s_kernels": wall_k, "wall_s_plain": wall_p,
+                                      "launches_kernels": launches_k,
+                                      "csv_identical": True}
+
+        # Interactive mode: matrix 1 (the alist), one trial per point at B = 1.
+        lines = []
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        interactive_simulation(load_config(cfg_a), both, input_fn=lambda _: "1",
+                               print_fn=lines.append, device=dev)
+        torch.cuda.synchronize()
+        wall_i = time.perf_counter() - t0
+        launches_i = _build.launch_counts()
+        verdicts = [x for x in lines if x.startswith("Error reconciliation")]
+        if len(verdicts) != points or launches_i.get(K1, 0) != points or (
+                launches_i.get(K4, 0) < points):
+            raise AssertionError(f"interactive: {len(verdicts)} verdicts, {launches_i}")
+        report["interactive"] = {"wall_s": wall_i, "points": points, "batch": 1,
+                                 "successful": sum("SUCCESSFUL" in x for x in verdicts),
+                                 "launches": launches_i}
+        print(json.dumps({"cli_sweep": report}), flush=True)
+        return wall_a
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _trace_cli_sweep(torch, code, card, untraced_ms):
+    """``--profile``: sweep A once more under the tracer, without a
+    checkpoint so that both traced runs decode: its device-busy share of the
+    untraced wall."""
+    from qkd_ldpc_tpu_torch import cli
+
+    _, example = _reference_alist_and_example()
+    tmp = Path(tempfile.mkdtemp(prefix="cli_sweep_traced_"))
+    try:
+        raw = dict(example, checkpoint_dir="", results_dir=str(tmp / "results"),
+                   matrix_dir=str(_matrix_dir(code, tmp / "matrices")), compact_after=8)
+        (tmp / "config.json").write_text(json.dumps(raw))
+
+        def sweep_a():
+            with contextlib.redirect_stdout(io.StringIO()):
+                if cli.main(["--config", str(tmp / "config.json"), "--no-progress"]):
+                    raise AssertionError("the traced sweep failed")
+
+        _profile_path(torch, "cli_sweep_A", sweep_a, card, untraced_ms)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -593,9 +986,6 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(1234)
     point_key = derive_point_key(MASTER_SEED, POINT_INDEX)
 
-    def storage(x, dtype_name, scale):
-        return cuda_kernels._store(x, cuda_kernels.STORAGE_DTYPES[dtype_name], scale)
-
     # A mask with padded slots (slot 0 always real) for the correctness matrix;
     # the timings use the flagship code's own (full) mask.
     pad_mask = (torch.rand((dc, M), device=dev, generator=gen) < 0.9)
@@ -609,79 +999,6 @@ def main() -> int:
     act_mixed = torch.rand((BATCH,), device=dev, generator=gen) < 0.7
     act_all = torch.ones((BATCH,), dtype=torch.bool, device=dev)
 
-    def flooding_inputs(width, dtype_name, scale):
-        """Random state of the two flooding kernels at batch ``width``."""
-        def rand(*shape):
-            return torch.randn(shape, device=dev, generator=gen)
-
-        def flags(p):
-            return torch.rand((width,), device=dev, generator=gen) < p
-
-        tot = storage(4.0 * rand(N, width), dtype_name, scale)
-        # The target of frame 0 is the syndrome of its own decisions, so its
-        # ok flag is True; the other frames' targets are random bits.
-        syn = (torch.rand((M, width), device=dev, generator=gen) < 0.5).to(torch.int8)
-        z0 = (cuda_kernels._load(tot[:, 0], scale) <= 0).to(torch.uint8)
-        syn[:, 0] = syndrome(code, z0[None, :])[0].to(torch.int8)
-        return dict(
-            tot=tot, lrp=storage(2.0 * rand(dc, M, width), dtype_name, scale),
-            syn=syn, llr=4.0 * rand(N, width), fresh=flags(0.4), active=flags(0.7),
-            z=torch.full((N, width), 7, dtype=torch.int8, device=dev),
-            count=torch.arange(width, dtype=torch.int32, device=dev))
-
-    def check_modes(kw, fresh):
-        """(kernel name, first, keyword arguments) of K1, K2 and K5 = K2 with a
-        mixed fresh mask and a clip that bites."""
-        return (
-            (cuda_kernels.KERNEL_FIRST, True, dict(kw, first=True)),
-            (cuda_kernels.KERNEL_FUSED, False, dict(kw, first=False)),
-            (cuda_kernels.KERNEL_FRESH, False,
-             dict(kw, first=False, fresh=fresh, threshold=FRESH_THRESHOLD)),
-        )
-
-    def compare_check(x, code_maps, first, mode, dtype_name, algorithm, scale):
-        """One check update, kernel against plain: messages by
-        :func:`_compare_messages`; the syndrome flag has no transcendentals
-        and must be equal."""
-        args = (x["tot"], None if first else x["lrp"], x["syn"], code_maps)
-        got, ok = cuda_kernels.check_update_cuda(*args, **mode)
-        ref, ok_ref = cuda_kernels.check_update_plain(*args, **mode)
-        if not first:  # the same with the flag buffer handed in, as the loops do
-            buf = torch.ones_like(ok)
-            got_b, ok_b = cuda_kernels.check_update_cuda(*args, ok=buf, **mode)
-            if ok_b is not buf or not bool((ok_b == ok).all() & (got_b == got).all()):
-                raise AssertionError("the check kernel differs with a flag buffer")
-        torch.cuda.synchronize()
-        if not first:
-            if not bool((ok == ok_ref).all()):
-                raise AssertionError("the check kernel's syndrome flag differs")
-            if "fresh" in mode:
-                if bool(ok[x["fresh"]].any()):
-                    raise AssertionError("ok set on a fresh frame")
-            elif code_maps is maps and (not bool(ok[0]) or bool(ok.all())):
-                raise AssertionError("the syndrome flags do not discriminate")
-        return _compare_messages(torch, got, ref, dtype_name, algorithm, scale)
-
-    def compare_variable(x, scale):
-        """The variable update, kernel against plain: totals, decisions and
-        counts, all exact (no transcendentals); inactive frames untouched."""
-        z_k, count_k = x["z"].clone(), x["count"].clone()
-        got = cuda_kernels.variable_update_cuda(
-            x["lrp"], x["llr"], z_k, count_k, x["active"], maps, scale=scale)
-        ref = cuda_kernels.variable_update_plain(
-            x["lrp"], x["llr"], x["z"], x["count"], x["active"], maps, scale=scale)
-        torch.cuda.synchronize()
-        if got[1] is not z_k or got[2] is not count_k:
-            raise AssertionError("the variable kernel does not update in place")
-        if not bool(got[3].all()):
-            raise AssertionError("the variable kernel left a flag unset")
-        n_diff = sum(int((g != r).sum()) for g, r in zip(got, ref))
-        err = float((cuda_kernels._load(got[0], scale)
-                     - cuda_kernels._load(ref[0], scale)).abs().max())
-        if n_diff or not bool((z_k[:, ~x["active"]] == 7).all()):
-            raise AssertionError(f"variable_update differs on {n_diff} entries")
-        return err, n_diff
-
     matrix = []
     main_entries = {}
     other_widths = []
@@ -692,17 +1009,17 @@ def main() -> int:
             is_main = (algorithm, dtype_name) == ("sum-product", "bfloat16")
             kw = dict(threshold=100.0, clip=True, algorithm=algorithm,
                       min_sum_alpha=0.8, min_sum_beta=0.0, scale=scale)
-            x = flooding_inputs(BATCH, dtype_name, scale)
+            x = _flooding_inputs(torch, dev, gen, code, BATCH, dtype_name, scale)
             itemsize = x["tot"].element_size()
             if min(cuda_kernels.vector_width(k, BATCH, mdt, x["tot"])
                    for k in ("check_update", "variable_update")) <= 1:
                 raise AssertionError("the flagship batch does not take the vector instances")
             n_edge = dc * M * BATCH
-            for name, first, mode in check_modes(kw, x["fresh"]):
+            for name, first, mode in _check_modes(kw, x["fresh"]):
                 worst, n_diff = 0.0, 0
                 for code_maps in (maps, maps_padded):
-                    err, nd = compare_check(
-                        x, code_maps, first, mode, dtype_name, algorithm, scale)
+                    err, nd = _compare_check(torch, x, code_maps, code_maps is maps,
+                                             first, mode, dtype_name, algorithm, scale)
                     worst, n_diff = max(worst, err), n_diff + nd
                 args = (x["tot"], None if first else x["lrp"], x["syn"], maps)
                 # timed as the loops call it: the flag buffer comes set from
@@ -733,7 +1050,7 @@ def main() -> int:
                 if is_main:
                     main_entries[name] = entry
             if algorithm == "sum-product":  # the variable update has no algorithm
-                worst, n_diff = compare_variable(x, scale)
+                worst, n_diff = _compare_variable(torch, x, maps, scale)
                 z_w, count_w = x["z"].clone(), x["count"].clone()
                 ms = _time_ms(torch, lambda: cuda_kernels.variable_update_cuda(
                     x["lrp"], x["llr"], z_w, count_w, act_all, maps, scale=scale), flush)
@@ -762,18 +1079,18 @@ def main() -> int:
             # The same kernels at the compacted width (vector instances) and at
             # a ragged width (scalar instances), padded mask, correctness only.
             for width in (COMPACT_BATCH, RAGGED_BATCH):
-                x = flooding_inputs(width, dtype_name, scale)
+                x = _flooding_inputs(torch, dev, gen, code, width, dtype_name, scale)
                 vec = [cuda_kernels.vector_width(k, width, mdt, x["tot"])
                        for k in ("check_update", "variable_update")]
                 if (min(vec) <= 1) == (width == COMPACT_BATCH) or (
                         max(vec) > 1) == (width == RAGGED_BATCH):
                     raise AssertionError(f"B = {width} took the wrong instances ({vec})")
                 worst, n_diff = 0.0, 0
-                for name, first, mode in check_modes(kw, x["fresh"]):
-                    err, nd = compare_check(
-                        x, maps_padded, first, mode, dtype_name, algorithm, scale)
+                for name, first, mode in _check_modes(kw, x["fresh"]):
+                    err, nd = _compare_check(torch, x, maps_padded, False, first, mode,
+                                             dtype_name, algorithm, scale)
                     worst, n_diff = max(worst, err), n_diff + nd
-                err, nd = compare_variable(x, scale)
+                err, nd = _compare_variable(torch, x, maps, scale)
                 other_widths.append({
                     "batch": width, "frames_per_thread": vec, "algorithm": algorithm,
                     "storage": dtype_name, "max_abs_err": max(worst, err),
@@ -1156,6 +1473,9 @@ def main() -> int:
         }
     print(json.dumps({"identity": identity}), flush=True)
 
+    # ---- phase 5: the sweep through the command line (cli_sweep) -------------
+    wall_a = _cli_sweep(torch, np, dev, card, code, names)
+
     # Tracing comes last: once the tracer has been attached, every later
     # launch of the process costs the host more, which would fall on the
     # walls timed above.
@@ -1193,6 +1513,7 @@ def main() -> int:
                       None, keygen * N_BATCHES)
         _profile_path(torch, "continuation", continuation_step, card, seconds_c * 1e3,
                       starts, keygen * N_BATCHES)
+        _trace_cli_sweep(torch, code, card, wall_a * 1e3)
 
     # ---- the contract's lines ----------------------------------------------
     def kernel_line(name, source, replaces, meas, counts):

@@ -3,10 +3,14 @@
 The port sits beside the JAX package and mirrors its module layout so a
 reader finds each counterpart under the same name:
 
-- code construction (numpy only)                      -> ``codes``
+- config JSON (the reference's schema)                -> ``config``
+- code ingest (alist + dense, native C++ loader) and
+  construction                                        -> ``codes``
 - threefry key tree + exact-weight binary channel     -> ``channel``
-- syndrome-target flooding BP decode, protocol step   -> ``decoder``
-- statistics and the Monte-Carlo point runner         -> ``sim``
+- syndrome-target BP decode, protocol step, oracle    -> ``decoder``
+- QBER sweep planning, runners, stats, CSV,
+  checkpointing, interactive mode, console tracing    -> ``sim``
+- command line (``python -m qkd_ldpc_tpu_torch``)     -> ``cli``
 - hand-written CUDA kernels and their build           -> ``csrc``, ``_build``
 
 Where the JAX package has a Pallas TPU kernel the port has a CUDA C++
@@ -15,7 +19,15 @@ beside its wrapper.  Entry points take ``device``; ``None`` means the
 card and raises when there is none.
 """
 
-from qkd_ldpc_tpu_torch.codes import LDPCCode, make_code, make_qc_code
+from qkd_ldpc_tpu_torch.codes import (
+    LDPCCode,
+    load_code,
+    make_code,
+    make_qc_code,
+    read_alist,
+    read_dense,
+)
+from qkd_ldpc_tpu_torch.config import Config, load_config
 from qkd_ldpc_tpu_torch.decoder import (
     DecodeOptions,
     DecodeResult,
@@ -29,7 +41,12 @@ from qkd_ldpc_tpu_torch.utils import resolve_device
 __version__ = "0.1.0"
 
 __all__ = [
+    "Config",
+    "load_config",
     "LDPCCode",
+    "load_code",
+    "read_alist",
+    "read_dense",
     "make_code",
     "make_qc_code",
     "DecodeOptions",

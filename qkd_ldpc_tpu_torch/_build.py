@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels; count their launches.
+"""Build and load the port's CUDA kernels; count their launches; build the
+native C++ ingest library.
 
 The sources in ``csrc/`` have a plain C interface (raw pointers, sizes,
 the stream), so each compiles in seconds with ``nvcc`` alone and is
@@ -9,6 +10,12 @@ and its defines, all ``nvcc`` processes started together.  A build or
 launch failure raises; nothing falls back to the plain PyTorch versions,
 which run only for tensors that lie on the CPU (or on request,
 ``backend="xla"``).
+
+The native ingest library (alist loader and graph builder,
+``native/qkd_ldpc_native.cpp`` at the repository root, a plain C interface
+shared with the JAX package's sources) is built the same way with ``g++``
+into ``_build/`` under a name that carries the hash of its source and flags
+(:func:`build_native`); ``codes/_native.py`` loads it.
 """
 
 from __future__ import annotations
@@ -45,6 +52,9 @@ LIBRARIES = {
         for storage, define in STORAGE_DEFINES.items()
     },
 }
+
+NATIVE_SOURCE = Path(__file__).resolve().parent.parent / "native" / "qkd_ldpc_native.cpp"
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-shared")
 
 _loaded: dict[tuple[str, str], object] = {}
 _launches: dict[str, int] = {}
@@ -170,3 +180,30 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     _launches.clear()
+
+
+def native_library_path() -> Path:
+    """Where the built native ingest library lies (hash of source and flags)."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update(NATIVE_SOURCE.read_bytes())
+    return _OUT / f"libqkd_ldpc_native.{h.hexdigest()[:16]}.so"
+
+
+def build_native() -> Path:
+    """Compile the native ingest library with ``g++`` if it is missing and
+    return its path; raises when the source or the compiler is missing or
+    the build fails."""
+    out = native_library_path()
+    if out.exists():
+        return out
+    _OUT.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        ["g++", *GXX_FLAGS, "-o", str(tmp), str(NATIVE_SOURCE)],
+        capture_output=True, text=True, timeout=120,
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {NATIVE_SOURCE.name}:\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out

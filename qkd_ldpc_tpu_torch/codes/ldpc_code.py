@@ -211,12 +211,18 @@ def from_check_adjacency(
     check_neighbors: Sequence[np.ndarray],
     n_vars: int,
     name: str = "",
+    native: bool | None = None,
 ) -> LDPCCode:
     """Build an :class:`LDPCCode` from per-check neighbor lists.
 
     ``check_neighbors[c]`` is the array of variable indices adjacent to
     check ``c`` (0-based, unique).  The variable-side adjacency is derived
     by bucketing edges in ascending check order.
+
+    Graphs of 100 000 edges or more route through the native C++
+    graph-builder when it is available (``native`` forces either path:
+    ``True`` raises when the library is unavailable); both builders produce
+    bit-identical arrays.
     """
     n_checks = len(check_neighbors)
     chk_deg = np.array([len(nb) for nb in check_neighbors], dtype=np.int32)
@@ -230,6 +236,15 @@ def from_check_adjacency(
     e_chk = np.repeat(np.arange(n_checks, dtype=np.int64), chk_deg)
     e_var = np.concatenate([np.asarray(nb, dtype=np.int64) for nb in check_neighbors])
     n_edges = e_var.size
+
+    if native or (native is None and n_edges >= 100_000):
+        from qkd_ldpc_tpu_torch.codes._native import build_graph_native
+
+        code = build_graph_native(chk_deg, e_var.astype(np.int32), n_vars, name)
+        if code is not None:
+            return code
+        if native:
+            raise RuntimeError("Native graph builder unavailable")
     if e_var.min() < 0 or e_var.max() >= n_vars:
         raise ValueError("Variable index out of range in adjacency list")
 

@@ -191,6 +191,13 @@ def _sweep_loop(sweep, t, Lr, syn, it, iters, done, limit, frozen=None):
     return t, Lr, it, iters, done
 
 
+# The JAX package's text for a layered decode of a code without a QC layout.
+NOT_QC_MESSAGE = (
+    "schedule='layered' requires a QC code (codes.qc; generate "
+    "with make_qc_code or cli generate --qc)"
+)
+
+
 def layered_decode_batch_last(
     code: LDPCCode,
     llr: torch.Tensor,  # [N, B] float32 a-priori LLRs (batch last)
@@ -200,10 +207,7 @@ def layered_decode_batch_last(
     """Layered decode on the tensors' device; returns
     (z [N,B] int8, iters [B] int32, ok [B] bool)."""
     if code.qc is None:
-        raise ValueError(
-            "schedule='layered' requires a QC code (codes.qc; generate "
-            "with make_qc_code or cli generate --qc)"
-        )
+        raise ValueError(NOT_QC_MESSAGE)
     if llr.dtype != torch.float32 or llr.ndim != 2:
         raise ValueError("llr must be float32 [N, B]")
     device = llr.device

@@ -67,8 +67,7 @@ def _continuation_core(
     code: LDPCCode,
     point_keys: list,  # P PRNG keys, one per sweep point
     num_errors: list[int],  # [P]
-    trials: int,  # trials per point in THIS pool
-    trial_offset: int,  # first global trial id
+    trials: int,  # trials per point
     batch: int,
     segment: int,
     refill_min: int,
@@ -76,9 +75,9 @@ def _continuation_core(
     prng: str = "threefry",
     device=None,
 ) -> torch.Tensor:
-    """Trials [trial_offset, trial_offset + trials) of P consecutive sweep
-    points with CROSS-POINT lane continuation; returns the stacked [7, P]
-    int32 stat matrix on the device.
+    """Trials [0, trials) of P consecutive sweep points with CROSS-POINT
+    lane continuation; returns the stacked [7, P] int32 stat matrix on the
+    device.
 
     Points are consumed in order; as point p's ids run out, drained lanes
     start hosting point p+1's trials immediately.  Each lane is tagged with
@@ -86,10 +85,6 @@ def _continuation_core(
     order-independent scatter adds/mins/maxes, and a trial's trajectory
     depends only on its own (llr, syndrome) — so the per-point statistics
     are bit-identical to running each point alone.
-
-    ``trial_offset`` exists for a sharded composition: trial ids are global
-    (every trial's data is keyed to fold_in(point_key, id)), so a pool's
-    statistics depend only on WHICH ids it owns, not where they run.
     """
     device = resolve_device(device)
     N, M = code.n_vars, code.n_checks
@@ -147,8 +142,7 @@ def _continuation_core(
                     base, sp, next_id = 0, min(sp + 1, P - 1), 0
                 # ids >= trials are generated but never consumed (tail waste
                 # of at most one block per point).
-                first = trial_offset + base
-                ids = range(first, first + S)  # taken mod 2**32
+                ids = range(base, base + S)  # taken mod 2**32
                 ne = num_errors[sp]
                 a_new, b_new = make_trials_from_ids(
                     point_keys[sp], N, ids, ne, prng, opts.backend, device)
@@ -284,7 +278,7 @@ def dispatch_sweep_continuation(
     n_errs = _check_point(code, qbers, trials, opts, mesh,
                           "lower continuation_qber or trials_number")
     future = _continuation_core(
-        code, list(point_keys), n_errs, trials, 0, batch, segment,
+        code, list(point_keys), n_errs, trials, batch, segment,
         _refill_quantum(batch, refill_frac), opts, prng, device,
     )
     holder = {"future": future, "host": None}
@@ -313,7 +307,7 @@ def run_point_continuation(
     (n_err,) = _check_point(code, [qber], trials, opts, None,
                             "split the point or use the plain runner")
     stacked = _continuation_core(
-        code, [point_key], [n_err], trials, 0, batch, segment,
+        code, [point_key], [n_err], trials, batch, segment,
         _refill_quantum(batch, refill_frac), opts, device=device,
     )
     # Merging into an empty PointPartials applies the n_sp == 0 min/max

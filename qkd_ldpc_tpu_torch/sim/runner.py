@@ -1,35 +1,113 @@
-"""The Monte-Carlo trial step and the point runner.
+"""Monte-Carlo sweep orchestration: the trial step, the point runner and
+the sweep over matrices x QBER points with checkpoint/resume.
 
-Counterpart of ``qkd_ldpc_tpu/sim/runner.py`` for one (matrix, QBER) point:
-key generation, exact-weight error injection, syndrome computation,
-batched BP decode and the statistics reduction, batch after batch, with
-seven int32 scalars per chunk as the only result fetched from the device.
-(The decode loop itself fetches one flag per iteration.)  Sweep
-orchestration over many points, checkpointing and the CLI are not part of
-this slice of the port.
+Counterpart of ``qkd_ldpc_tpu/sim/runner.py`` and, like it, of the
+reference's batch simulator (``QKD_LDPC_batch_simulation``,
+``src/simulation.cpp:192-316``).  One (matrix, QBER) point is key
+generation, exact-weight error injection, syndrome computation, batched BP
+decode and the statistics reduction, batch after batch, with seven int32
+scalars per chunk as the only result fetched from the device.  (The decode
+loop itself fetches one flag per iteration.)
 
-Determinism contract: trial t of a point uses ``fold_in(point_key, t)`` —
-reproducible independent of the batch size.
+Additions over the reference, as in the JAX package:
+
+- **Checkpoint/resume**: each completed (matrix, QBER) point appends a JSON
+  line; an interrupted sweep resumes where it stopped.  The file's name and
+  lines are byte-identical to the JAX package's for the same experiment, so
+  either package resumes the other's checkpoint.
+- **Determinism contract**: point key = fold_in(master key, global point
+  index); trial t = fold_in(point_key, t) — reproducible independent of
+  batch size, and equal to the JAX package's stream.
+
+The JAX sweep keeps one point in flight to hide its per-dispatch latency;
+here the decode loop already synchronises once per iteration, so points run
+in order.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+import hashlib
+import json
+import sys
+from pathlib import Path
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
-from qkd_ldpc_tpu_torch.channel.keys import make_trial_batch, num_errors_for
-from qkd_ldpc_tpu_torch.codes.ldpc_code import LDPCCode
+from qkd_ldpc_tpu_torch.channel.keys import make_trial_batch, master_key, num_errors_for
+from qkd_ldpc_tpu_torch.channel.threefry import fold_in
+from qkd_ldpc_tpu_torch.codes import LDPCCode, list_matrix_files, load_code
+from qkd_ldpc_tpu_torch.config import Config
 from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions
+from qkd_ldpc_tpu_torch.decoder.layered import NOT_QC_MESSAGE
 from qkd_ldpc_tpu_torch.decoder.reconcile import reconcile
+from qkd_ldpc_tpu_torch.sim.planner import rate_based_qber_range
+from qkd_ldpc_tpu_torch.sim.progress import ProgressBar
 from qkd_ldpc_tpu_torch.sim.stats import (
     PointPartials,
+    SimResult,
+    finalize_point,
     partials_from_stacked,
     reduce_trials,
     stack_partials,
 )
 from qkd_ldpc_tpu_torch.utils import resolve_device
+
+
+@dataclasses.dataclass
+class SimInput:
+    """One matrix plus its planned QBER sweep (reference ``sim_input``,
+    ``src/simulation.hpp:16-21``)."""
+
+    code: LDPCCode
+    matrix_filename: str
+    qber: list[float]
+
+
+def decode_options_from_config(cfg: Config) -> DecodeOptions:
+    return DecodeOptions(
+        max_iterations=cfg.sum_product_max_iterations,
+        clip_messages=cfg.enable_sum_product_msg_llr_threshold,
+        message_threshold=cfg.sum_product_msg_llr_threshold,
+        algorithm=cfg.decoder,
+        min_sum_alpha=cfg.min_sum_alpha,
+        min_sum_beta=cfg.min_sum_beta,
+        message_dtype=cfg.dtype,
+        backend=cfg.backend,
+        schedule=cfg.schedule,
+    )
+
+
+def prepare_sim_inputs(
+    matrix_paths: Sequence[str | Path], cfg: Config
+) -> list[SimInput]:
+    """Load all matrices and plan their QBER sweeps
+    (reference ``prepare_sim_inputs``, simulation.cpp:140-158).
+
+    ``cfg.threads_number`` sizes the host thread pool for matrix ingest
+    (the reference sizes its trial pool with it, simulation.cpp:230; here
+    trial parallelism is a device batch, so the host threads go to parsing
+    many matrix files concurrently).
+    """
+    paths = list(matrix_paths)
+    if cfg.threads_number > 1 and len(paths) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=cfg.threads_number) as pool:
+            codes = list(
+                pool.map(lambda p: load_code(p, dense=cfg.use_dense_matrices), paths)
+            )
+    else:
+        codes = [load_code(p, dense=cfg.use_dense_matrices) for p in paths]
+    inputs = []
+    for path, code in zip(paths, codes):
+        qber = rate_based_qber_range(code.code_rate, cfg.r_qber_parameters)
+        inputs.append(
+            SimInput(code=code, matrix_filename=Path(path).name, qber=qber)
+        )
+    return inputs
 
 
 def point_batch_partials(
@@ -163,3 +241,184 @@ def run_point(
     if tick is not None:
         tick(total.n_trials)
     return total, actual_qber
+
+
+def auto_batch_size(cfg: Config, code: LDPCCode) -> int:
+    """Pick a trial batch size: the configured one, else up to 512 trials
+    with the message state of a batch kept to a bounded size.  The rule is
+    the JAX package's, so both packages sweep with the same batch (the
+    results do not depend on it)."""
+    if cfg.batch_size:
+        return min(cfg.batch_size, cfg.trials_number)
+    bytes_per_trial = code.n_checks * code.dc_max * 4 * 6
+    cap = max(1, (3 << 29) // bytes_per_trial)
+    return int(min(cfg.trials_number, 512, cap))
+
+
+# --------------------------------------------------------------------------
+# Checkpointing
+
+
+def _experiment_fingerprint(sim_inputs: Sequence[SimInput], cfg: Config) -> str:
+    """Hash of everything that determines a sweep's results, so a resumed
+    checkpoint can never be silently reused for a *different* experiment.
+    Equal to the JAX package's for the same inputs."""
+    # compact_after is deliberately absent — compaction is a schedule change
+    # with bit-identical results, so resuming a sweep with it toggled is
+    # sound.  prng and a non-flooding schedule are part of the name, as in
+    # the JAX package.
+    parts = [
+        f"{cfg.trials_number}|{cfg.simulation_seed}|"
+        f"{cfg.sum_product_max_iterations}|{cfg.decoder}|{cfg.min_sum_alpha}|"
+        f"{cfg.dtype}|{cfg.backend}|{cfg.enable_sum_product_msg_llr_threshold}|"
+        f"{cfg.sum_product_msg_llr_threshold}"
+        + ("" if cfg.prng == "threefry" else f"|prng={cfg.prng}")
+        + ("" if cfg.schedule == "flooding" else f"|sched={cfg.schedule}")
+    ]
+    for si in sim_inputs:
+        parts.append(
+            f"{si.matrix_filename}|{si.code.n_vars}|{si.code.n_checks}|"
+            f"{si.code.n_edges}|" + ",".join(f"{q:.9g}" for q in si.qber)
+        )
+    return hashlib.sha256("\n".join(parts).encode()).hexdigest()[:12]
+
+
+def _checkpoint_path(cfg: Config, sim_inputs: Sequence[SimInput]) -> Path | None:
+    if not cfg.checkpoint_dir:
+        return None
+    d = Path(cfg.checkpoint_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    return d / (
+        f"sweep(trial_num={cfg.trials_number},"
+        f"max_sum_prod_iters={cfg.sum_product_max_iterations},"
+        f"seed={cfg.simulation_seed},"
+        f"exp={_experiment_fingerprint(sim_inputs, cfg)}).jsonl"
+    )
+
+
+def _load_checkpoint(path: Path | None) -> dict[int, dict]:
+    if path is None or not path.exists():
+        return {}
+    done = {}
+    for line in path.read_text().splitlines():
+        if line.strip():
+            rec = json.loads(line)
+            done[rec["sim_number"]] = rec
+    return done
+
+
+def _append_checkpoint(path: Path | None, record: dict) -> None:
+    if path is None:
+        return
+    with path.open("a") as f:
+        f.write(json.dumps(record) + "\n")
+
+
+# --------------------------------------------------------------------------
+# Batch simulation
+
+
+def batch_simulation(
+    sim_inputs: Sequence[SimInput],
+    cfg: Config,
+    progress: bool = True,
+    device=None,
+) -> list[SimResult]:
+    """Full sweep over all matrices x QBER points (reference
+    ``QKD_LDPC_batch_simulation``), with checkpoint/resume.
+
+    Points run in order on ``device`` (``None`` = the card; raises when there
+    is none).  With ``cfg.continuation_qber > 0`` every point of a matrix at
+    or above it runs in ONE cross-point continuation call after the
+    matrix's other points; its statistics are identical to the plain
+    runner's.
+    """
+    device = resolve_device(device)
+    opts = decode_options_from_config(cfg)
+    if cfg.schedule == "layered" and any(si.code.qc is None for si in sim_inputs):
+        # The JAX package raises this at the first decode of such a code,
+        # after the sweep's earlier points; here before any point runs.
+        raise ValueError(NOT_QC_MESSAGE)
+    ckpt_path = _checkpoint_path(cfg, sim_inputs)
+    done = _load_checkpoint(ckpt_path)
+    master = master_key(cfg.simulation_seed, cfg.prng)
+    if cfg.use_mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
+        print(f"The trial mesh is not ported: the sweep runs on {device} alone "
+              f"of {torch.cuda.device_count()} visible cards.", file=sys.stderr)
+
+    total_trials = sum(len(si.qber) for si in sim_inputs) * cfg.trials_number
+    bar = ProgressBar(total_trials, enabled=progress)
+    results: dict[int, SimResult] = {}
+
+    def finish(num, si, actual_qber, partials) -> None:
+        result = finalize_point(
+            partials,
+            sim_number=num,
+            matrix_filename=si.matrix_filename,
+            is_regular=si.code.is_regular,
+            num_bit_nodes=si.code.n_vars,
+            num_check_nodes=si.code.n_checks,
+            initial_qber=actual_qber,
+            max_iterations=opts.max_iterations,
+        )
+        results[num] = result
+        _append_checkpoint(
+            ckpt_path, dict(sim_number=num, result=dataclasses.asdict(result))
+        )
+        bar.tick(partials.n_trials)
+
+    sim_number = 0
+    for si in sim_inputs:
+        batch = auto_batch_size(cfg, si.code)
+        # Per-matrix options derive from the config-derived base every time
+        # (compaction is sized by the per-matrix batch and must not leak
+        # from one matrix into the next).
+        m_opts = opts
+        if cfg.compact_after > 0 and batch >= 8:
+            # Residency compaction: schedule-only, bit-identical.  Lanes =
+            # batch/4; waterfall points overflow into the exact full-batch
+            # fallback.
+            m_opts = dataclasses.replace(
+                opts, compact_after=cfg.compact_after, compact_lanes=batch // 4,
+            )
+        cont_entries = []  # (sim_number, qber, point_key) waterfall points
+        for qber in si.qber:
+            if sim_number in done:
+                results[sim_number] = SimResult(**done[sim_number]["result"])
+                bar.tick(cfg.trials_number)
+                sim_number += 1
+                continue
+            point_key = fold_in(master, sim_number)
+            if cfg.continuation_qber > 0 and qber >= cfg.continuation_qber:
+                cont_entries.append((sim_number, qber, point_key))
+            else:
+                futures, actual_qber = _dispatch_point(
+                    si.code, point_key, qber, cfg.trials_number, batch, m_opts,
+                    prng=cfg.prng, device=device,
+                )
+                finish(sim_number, si, actual_qber, _collect_point(futures))
+            sim_number += 1
+
+        if cont_entries:
+            from qkd_ldpc_tpu_torch.sim.continuation import dispatch_sweep_continuation
+
+            futs, actuals = dispatch_sweep_continuation(
+                si.code, [k for _, _, k in cont_entries],
+                [q for _, q, _ in cont_entries], cfg.trials_number,
+                batch, m_opts, prng=cfg.prng, device=device,
+            )
+            for (num, _, _), (piece,), aq in zip(cont_entries, futs, actuals):
+                # the points' slices share one fetch
+                finish(num, si, aq, partials_from_stacked(piece.fetch()))
+    bar.close()
+    return [results[i] for i in sorted(results)]
+
+
+def simulate_directory(cfg: Config, matrix_dir: str | Path, progress: bool = True,
+                       device=None) -> list[SimResult]:
+    """Convenience: load every matrix in a directory and run the sweep."""
+    paths = list_matrix_files(matrix_dir)
+    if not paths:
+        raise FileNotFoundError(f"Matrix folder is empty: {matrix_dir}")
+    sim_inputs = prepare_sim_inputs(paths, cfg)
+    return batch_simulation(sim_inputs, cfg, progress=progress, device=device)

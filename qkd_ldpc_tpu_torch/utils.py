@@ -1,7 +1,13 @@
-"""Device resolution and card identification for the PyTorch/CUDA port.
+"""Console helpers, device resolution and card identification.
 
-Counterpart of ``qkd_ldpc_tpu/utils.py`` for the part the port needs: the
-JAX package picks its backend through ``jax.default_backend()``; here
+Counterpart of ``qkd_ldpc_tpu/utils.py``.  The console helpers reproduce the
+reference's color scheme (``src/utils.{hpp,cpp}``: green = status,
+purple/magenta = mode banners, red = errors, blue = traces) with plain ANSI,
+honoring ``NO_COLOR`` and non-TTY streams.  The JAX package's persistent
+compilation cache has no counterpart: the CUDA libraries are already cached
+by source hash in ``_build/``.
+
+The JAX package picks its backend through ``jax.default_backend()``; here
 every entry point takes an explicit ``device`` and resolves it with
 :func:`resolve_device`.  ``None`` means the card and raises when there is
 none — no path carries on on the CPU because it found no GPU.
@@ -9,9 +15,45 @@ none — no path carries on on the CPU because it found no GPU.
 
 from __future__ import annotations
 
+import os
 import subprocess
+import sys
 
 import torch
+
+_CODES = {
+    "green": "\x1b[32m",
+    "magenta": "\x1b[35m",
+    "red": "\x1b[31m",
+    "blue": "\x1b[34m",
+}
+_RESET = "\x1b[0m"
+
+
+def _want_color(stream) -> bool:
+    if os.environ.get("NO_COLOR"):
+        return False
+    return hasattr(stream, "isatty") and stream.isatty()
+
+
+def colorize(text: str, color: str, stream=None) -> str:
+    """Wrap ``text`` in an ANSI color when the stream is a color TTY."""
+    stream = stream if stream is not None else sys.stdout
+    if not _want_color(stream):
+        return text
+    return f"{_CODES[color]}{text}{_RESET}"
+
+
+def print_status(text: str) -> None:
+    print(colorize(text, "green"))
+
+
+def print_mode(text: str) -> None:
+    print(colorize(text, "magenta"))
+
+
+def print_error(text: str) -> None:
+    print(colorize(text, "red", sys.stderr), file=sys.stderr)
 
 
 def resolve_device(device=None) -> torch.device:
