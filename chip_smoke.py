@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's three decode paths once on the card.
+"""Drive the PyTorch/CUDA port's decode paths and protocol surface on the card.
 
 Run ``python3 chip_smoke.py`` from the repository root on a machine with one
 NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
@@ -28,14 +28,28 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    against ``run_point`` on the same point key: seven equal partial sums;
 4. repeats the paths through the plain versions (``backend="xla"``) and
    compares the seven partial sums;
+   2b. (``f1_degrees``) the flooding kernels K1, K2, K5 and the variable
+   update at every check degree 2..9, 12, 15, 60 and 200 (and the three
+   dense matrices of ``data/``), vector and scalar instances, all storage
+   types (int8 at padded slots too), and the sweep kernel at base-row degrees
+   15 and 60 with its totals in shared and in global memory, all against
+   their plain versions, error 0 required; K2 timed at degrees 12, 15 and 60,
+   K6 at 15 and 60, with ptxas's registers and spills of the check kernel's
+   instances;
 5. runs the sweep as a user does, through ``cli.main``, over the reference's
    own irregular alist (rows of 5 and 6: padded check slots) and the QC
    flagship (``cli_sweep``): native and numpy ingest (equal, and timed), the QC
    sidecar round trip, the four flooding kernels (K1, K2, K5 and the variable
    update) at the alist's shapes, ``config.example.json``'s
    sweep, the same sweep resumed from its checkpoint, the continuation
-   crossover, layered, a min-sum identity of kernels and plain versions, and
-   interactive mode at B = 1 — each sweep counted on its own.
+   crossover, layered, a rate-0.8 code (check degree 15) under the config's
+   0.8 row, a min-sum identity of kernels and plain versions, and
+   interactive mode at B = 1 — each sweep counted on its own;
+6. drives the protocol surface on the flagship (``protocol``): the
+   ``Reconciler`` at 128 and 101 lanes against ``backend="xla"``,
+   ``reconcile_secure``, the rate-adapted endpoint (flooding and layered) and
+   the four decoder kernels on its erasure/pinned LLRs, a blind session, and
+   the four Toeplitz methods at the flagship and at a 262,144-bit frame.
 
 Each phase prints one JSON object on a line of its own; any failure raises.
 The last line is ``{"ok": true, "device": {...}}``.  The script exits non-zero
@@ -124,6 +138,39 @@ WIDE_NB, WIDE_MB, WIDE_SEED, WIDE_BATCH = 116, 58, 667, 32
 # 6), and the name the QC flagship is written under beside it.
 REFERENCE_ALIST = "(N=10240,M=5231,R=0.49,CW=3,GEN=666).alist"
 QC_ALIST = "qc_z512_nb20_mb10_dv3_seed666.alist"
+# The f1_degrees phase: the flooding kernels at every check degree.  (n, m, dv)
+# of make_code, whose dc_max is ceil(n * dv / m) (rows of two degrees, so padded
+# slots, where that does not divide): dc_max 2..8 (the unrolled instances), 9
+# (the loop instance at its lowest degree), 12, 15, 60 and 200; the N = 10240
+# codes have the flagship's 30,720 edges a frame.  Then the three matrices of
+# data/dense_matrices (rows of mixed degrees, N of 6 to 10).
+F1_CODES = ((2048, 1024, 1), (2048, 1366, 2), (2048, 1536, 3), (2048, 1229, 3),
+            (2048, 1024, 3), (2048, 878, 3), (2048, 768, 3), (2048, 683, 3),
+            (10240, 2560, 3), (10240, 2048, 3), (10240, 512, 3), (10240, 154, 3))
+F1_WIDTHS = (COMPACT_BATCH, RAGGED_BATCH)  # vector and scalar instances
+F1_TIMED_DEGREES = (12, 15, 60)  # K2 timed there beside the flagship's 6
+# The check kernel's instances whose registers and spills the f1 line reports
+# beside the loop instance's: the fused sum-product update at the vector width,
+# unrolled at DC = 6 and 8.
+F1_RESOURCE_DEGREES = (6, 8)
+# QC codes of base-row degree 15 and 60 (dv 3): totals in shared memory at
+# N = 10240, in global memory at nb = 120 (240 KiB of totals a frame).
+F1_LAYERED_CODES = ((512, 20, 4), (128, 80, 4), (512, 120, 24), (512, 120, 6))
+F1_LAYERED_WIDE_BATCH = 32
+# The cli_sweep phase's rate-0.8 code (dc 15): config.example.json's 0.8 row.
+RATE08_CODE = dict(n=10240, m=2048, dv=3, seed=8)
+RATE08_POINTS = 10  # 0.005, 0.0075, ... 0.0275
+# The protocol phase on the flagship: keys from PROTOCOL_SEED's threefry
+# blocks; the Reconciler at 128 lanes and at 101 (the kernels' scalar
+# instances); the rate-adapted endpoint (erasures and +-64 pins); a blind
+# session; amplification at the flagship and at the 262,144-bit frame of
+# benchmarks/frame_scale.py.
+PROTOCOL_SEED, PROTOCOL_FRAMES = 4242, 512
+PROTOCOL_LANES = (128, RAGGED_BATCH)
+ADAPT_PUNCTURED, ADAPT_SHORTENED, ADAPT_SEED, ADAPT_QBER = 512, 512, 3, 0.04
+BLIND_PUNCTURED, BLIND_STEP, BLIND_QBER = 1024, 256, 0.065
+AMPLIFY_FRAMES, BIG_FRAME, BIG_LEAK = 32, 262144, 131072
+AMPLIFY_BLOCKS, AMPLIFY_ROWS_CHECKED = (128, 256, 512), 64
 
 
 def _time_ms(torch, fn, flush, repeats=20, warmup=3, prepare=None):
@@ -641,6 +688,435 @@ def _compare_variable(torch, x, code_maps, scale):
     return err, n_diff
 
 
+def _require_exact(what, err, n_diff):
+    """The kernels equal their plain versions bit for bit wherever they run the
+    same arithmetic: any difference, even one a tolerance would admit, fails."""
+    if err != 0.0 or n_diff:
+        raise AssertionError(f"{what}: max abs err {err}, {n_diff} entries differ "
+                             "from the plain version")
+
+
+def _f1_degrees(torch, np, dev, gen, flush, card, copy_bytes_per_s):
+    """Fault F1 closed: K1, K2, K5 and the variable update against their plain
+    versions at every check degree of ``F1_CODES`` and the dense matrices
+    (sum-product and min-sum x float32, bfloat16 and int8, vector and scalar
+    instances), then K6 at base-row degrees 15 and 60 with its totals in shared
+    and in global memory; every holding exact.  K2 timed at degrees 12, 15 and
+    60, K6 at 15 and 60 (sum-product, bfloat16, B = 512); ptxas's registers and
+    spills of the check kernel's fused sum-product instances.  Returns the
+    line's dict and the degrees held."""
+    from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.channel.keys import make_trial_batch, derive_point_key
+    from qkd_ldpc_tpu_torch.codes import make_code, make_qc_code, read_dense
+    from qkd_ldpc_tpu_torch.decoder import cuda_kernels, cuda_layered, layered
+    from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr
+    from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
+
+    t0 = time.perf_counter()
+    dense_dir = Path(__file__).resolve().parent / "data" / "dense_matrices"
+    codes = [make_code(n=n, m=m, dv=dv, seed=5) for n, m, dv in F1_CODES]
+    codes += [read_dense(p) for p in sorted(dense_dir.glob("*.txt"))]
+    cells, timed = [], {}
+    for code in codes:
+        maps = code.to_device(dev)
+        padded = not bool(code.chk_mask.all())
+        worst, n_diff, n_calls = 0.0, 0, 0
+        for algorithm in ("sum-product", "min-sum"):
+            for dtype_name in ("float32", "bfloat16", "int8"):
+                scale = 0.25 if dtype_name == "int8" else None
+                mdt = cuda_kernels.STORAGE_DTYPES[dtype_name]
+                kw = dict(threshold=100.0, clip=True, algorithm=algorithm,
+                          min_sum_alpha=0.8, min_sum_beta=0.0, scale=scale)
+                for width in F1_WIDTHS:
+                    x = _flooding_inputs(torch, dev, gen, code, width, dtype_name, scale)
+                    vec = cuda_kernels.vector_width("check_update", width, mdt, x["tot"])
+                    if (vec > 1) != (width == COMPACT_BATCH):
+                        raise AssertionError(f"B = {width} took the wrong instance")
+                    for name, first, mode in _check_modes(kw, x["fresh"]):
+                        err, nd = _compare_check(torch, x, maps, True, first, mode,
+                                                 dtype_name, algorithm, scale)
+                        _require_exact(f"{name} on {code.name} (dc_max {code.dc_max}), "
+                                       f"{algorithm} {dtype_name} B={width}", err, nd)
+                        worst, n_diff, n_calls = max(worst, err), n_diff + nd, n_calls + 1
+                    if algorithm == "sum-product":
+                        err, nd = _compare_variable(torch, x, maps, scale)
+                        _require_exact(f"variable update on {code.name}, {dtype_name} "
+                                       f"B={width}", err, nd)
+                        worst, n_diff, n_calls = max(worst, err), n_diff + nd, n_calls + 1
+                    del x
+        cells.append({"code": code.name, "dc_max": code.dc_max, "padded_slots": padded,
+                      "calls": n_calls, "max_abs_err": worst, "entries_differing": n_diff})
+        if code.dc_max in F1_TIMED_DEGREES:  # K2 as the main path runs it
+            kw = dict(threshold=100.0, clip=True, algorithm="sum-product",
+                      min_sum_alpha=0.8, min_sum_beta=0.0, scale=None)
+            x = _flooding_inputs(torch, dev, gen, code, BATCH, "bfloat16", None)
+            args = (x["tot"], x["lrp"], x["syn"], maps)
+            buf = torch.ones((BATCH,), dtype=torch.bool, device=dev)
+            ms = _time_ms(torch, lambda: cuda_kernels.check_update_cuda(
+                *args, ok=buf, first=False, **kw), flush, prepare=lambda: buf.fill_(True))
+            plain_ms = _time_ms(torch, lambda: cuda_kernels.check_update_plain(
+                *args, first=False, **kw), flush, repeats=3, warmup=1)
+            N, M, dc = code.n_vars, code.n_checks, code.dc_max
+            n_edge = dc * M * BATCH
+            n_bytes = N * BATCH * 2 + 2 * n_edge * 2 + M * BATCH + 2 * dc * M * 4 + BATCH
+            bound_ms, bound_by = _bound(n_bytes, (OPS_PER_EDGE["sum-product"]
+                                                  + OPS_PER_EDGE_SYNDROME) * n_edge)
+            timed[f"check_update_fused_dc{dc}"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes": n_bytes, "bound_ms_at_copy_rate": n_bytes / copy_bytes_per_s * 1e3}
+            del x, args, buf
+
+    # K6 at base-row degrees 15 and 60, shared and global totals.
+    point_key = derive_point_key(MASTER_SEED, POINT_INDEX)
+    sweeps = []
+    for z, nb, mb in F1_LAYERED_CODES:
+        qc = make_qc_code(z=z, nb=nb, mb=mb, dv=DV, seed=CODE_SEED)
+        tables = layered.layer_tables(qc, dev)
+        ncells = tables.col.shape[0]
+        shared = cuda_layered.totals_in_shared_memory(nb, z, mb, ncells)
+        width = BATCH if shared else F1_LAYERED_WIDE_BATCH
+        n_err = int(qc.n_vars * QBER)
+        a, b = make_trial_batch(point_key, qc.n_vars, width, n_err, 0, device=dev)
+        llr = apriori_llr(b, np.float32(n_err) / np.float32(qc.n_vars)).T
+        syn = syndrome(qc, a).T
+        act = torch.rand((width,), device=dev, generator=gen) < 0.7
+        act_all = torch.ones_like(act)
+        worst, n_diff = 0.0, 0
+        for algorithm in ("sum-product", "min-sum"):
+            for dtype_name in ("float32", "bfloat16", "int8"):
+                scale = 0.25 if dtype_name == "int8" else None
+                kw = dict(threshold=100.0, clip=True, algorithm=algorithm,
+                          min_sum_alpha=0.8, min_sum_beta=0.0, scale=scale)
+                t_s, lr_s, syn3 = layered.initial_state(
+                    tables, llr, syn, cuda_kernels.STORAGE_DTYPES[dtype_name])
+                t_s, lr_s, _ = layered.layered_sweep_plain(
+                    t_s, lr_s, syn3, act_all, tables, **kw)
+                ref = layered.layered_sweep_plain(t_s, lr_s, syn3, act, tables, **kw)
+                got = cuda_layered.layered_sweep_cuda(
+                    t_s.clone(), lr_s.clone(), syn3, act, tables, **kw)
+                torch.cuda.synchronize()
+                err, nd = _compare_sweep(torch, got, ref, act, dtype_name, algorithm,
+                                         scale, DV)
+                _require_exact(f"layered sweep on {qc.name} (row degree "
+                               f"{tables.max_row_degree}, shared {shared}), {algorithm} "
+                               f"{dtype_name}", err, nd)
+                worst, n_diff = max(worst, err), n_diff + nd
+                if shared and (algorithm, dtype_name) == ("sum-product", "bfloat16"):
+                    t_w, lr_w = t_s.clone(), lr_s.clone()
+                    ms = _time_ms(torch, lambda: cuda_layered.layered_sweep_cuda(
+                        t_w, lr_w, syn3, act_all, tables, **kw), flush)
+                    plain_ms = _time_ms(torch, lambda: layered.layered_sweep_plain(
+                        t_s, lr_s, syn3, act_all, tables, **kw), flush, repeats=3,
+                        warmup=1)
+                    n_edge = ncells * z * width
+                    n_bytes = width * (2 * nb * z * 4 + 2 * ncells * z * 2 + mb * z + 2)
+                    bound_ms, bound_by = _bound(n_bytes, (
+                        OPS_PER_EDGE[algorithm] + OPS_PER_EDGE_LAYERED_EXTRA) * n_edge)
+                    timed[f"layered_sweep_row_degree{tables.max_row_degree}"] = {
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "bytes": n_bytes,
+                        "bound_ms_at_copy_rate": n_bytes / copy_bytes_per_s * 1e3}
+                    del t_w, lr_w
+                del t_s, lr_s, syn3, ref, got
+        sweeps.append({"code": qc.name, "row_degree": tables.max_row_degree,
+                       "totals_in_shared_memory": shared, "batch": width,
+                       "max_abs_err": worst, "entries_differing": n_diff})
+        del a, b, llr, syn
+    resources = {}
+    for dtype_name in cuda_kernels.STORAGE_DTYPES:
+        library = "check_update_" + dtype_name
+        log, vec = _build.build_log(library), _build.constant(
+            library, "check_update_vector_width")
+        for dc in F1_RESOURCE_DEGREES:  # <sum-product, not FIRST, DC, VEC>
+            resources[f"{dtype_name}_dc{dc}_vec{vec}"] = _kernel_resources(
+                log, "check_update_kernel", f"ILi0ELb0ELi{dc}ELi{vec}EE")
+        resources[f"{dtype_name}_loop_vec{vec}"] = _kernel_resources(
+            log, "check_update_any_kernel", f"ILi0ELb0ELi{vec}EE")
+    line = {"card": card, "flooding": cells, "layered": sweeps, "timed": timed,
+            "check_kernel_resources": resources, "seconds": time.perf_counter() - t0}
+    flooding_degrees = sorted({c["dc_max"] for c in cells})
+    layered_degrees = sorted({c["row_degree"] for c in sweeps})
+    return line, flooding_degrees, layered_degrees
+
+
+def _protocol(torch, np, dev, card, code, names):
+    """The protocol surface on the flagship, through the entry points a
+    deployed node calls: keys (threefry blocks; Bob's flips by K3), the
+    Reconciler (SP/bf16 at 128 and 101 lanes, each against backend="xla":
+    min-sum equal per lane, sum-product on decisions and iterations),
+    reconcile_secure (keys equal to Alice's amplification), the rate-adapted
+    endpoint in flooding and layered, K1/K2/K5/KV and K6 against their plain
+    versions on its LLRs (erasures and +-64 pins), a blind session (min-sum,
+    equal to backend="xla" per frame) and the four amplification methods
+    (bit-equal at the flagship and, blocked ones, at a 262,144-bit frame, 64
+    rows against a numpy GF(2) product).  Returns the line's dict."""
+    from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.channel import (
+        generate_random_bits,
+        introduce_errors,
+        num_errors_for,
+    )
+    from qkd_ldpc_tpu_torch.channel.threefry import bernoulli_half, fold_in, prng_key
+    from qkd_ldpc_tpu_torch.channel.threefry import random_bits
+    from qkd_ldpc_tpu_torch.decoder import (
+        DecodeOptions,
+        RateAdapter,
+        blind_reconcile_sim,
+        cuda_kernels,
+        cuda_layered,
+        layered,
+    )
+    from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
+    from qkd_ldpc_tpu_torch.postprocess import (
+        _DENSE_LIMIT,
+        amplified_key_bits,
+        privacy_amplify,
+        toeplitz_hash,
+    )
+    from qkd_ldpc_tpu_torch.serve import Reconciler
+
+    K1, K2, K3, K4, K5, K6, KV = names
+    t_phase = time.perf_counter()
+    N, M = code.n_vars, code.n_checks
+    key = prng_key(PROTOCOL_SEED)
+    base = dict(max_iterations=100, clip_messages=True, message_threshold=100.0,
+                message_dtype="bfloat16")
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, _build.launch_counts()
+
+    def keys(k, n_bits, qber):
+        a = generate_random_bits(k, n_bits, PROTOCOL_FRAMES, device=dev)
+        n_err = num_errors_for(n_bits, qber)
+        return a, introduce_errors(fold_in(k, 1), a, n_err), n_err
+
+    (alice_t, bob_t, n_err), keygen_s, keygen_launches = counted(lambda: keys(key, N, QBER))
+    alice, bob = alice_t.cpu().numpy(), bob_t.cpu().numpy()
+    if keygen_launches.get(K3, 0) < 1 or not ((alice ^ bob).sum(axis=1) == n_err).all():
+        raise AssertionError(f"protocol keys: {keygen_launches}")
+    q = n_err / N
+    report = {"card": card, "code": code.name, "frames": PROTOCOL_FRAMES, "qber": q,
+              "keygen_s": keygen_s, "keygen_launches": keygen_launches}
+
+    # ---- the Reconciler, 128 and 101 lanes, against the plain versions ------
+    rec_report = {}
+    for lanes in PROTOCOL_LANES:
+        outs = {}
+        for alg in ("sum-product", "min-sum"):
+            for backend in ("auto", "xla"):
+                rec = Reconciler(code, DecodeOptions(algorithm=alg, backend=backend, **base),
+                                 lanes=lanes, device=dev)
+                if backend == "auto":
+                    rec.warmup()
+                syn = rec.syndromes(alice)
+                outs[alg, backend] = counted(lambda: rec.reconcile(bob, syn, q))
+        sp, sp_s, sp_launches = outs["sum-product", "auto"]
+        if not sp.syndromes_match.all() or not (sp.bits == alice).all():
+            raise AssertionError(f"Reconciler at {lanes} lanes: "
+                                 f"{int(sp.syndromes_match.sum())} frames verified")
+        mean_it = float(sp.iterations.mean())
+        if not MEAN_ITERATIONS_GATE[0] <= mean_it <= MEAN_ITERATIONS_GATE[1]:
+            raise AssertionError(f"Reconciler: implausible mean iterations {mean_it}")
+        chunks = -(-PROTOCOL_FRAMES // lanes)
+        if sp_launches.get(K1, 0) != chunks or sp_launches.get(K2, 0) <= 0 or (
+                sp_launches.get(KV) != sp_launches.get(K2)) or sp_launches.get(K6, 0):
+            raise AssertionError(f"Reconciler launches {sp_launches} for {chunks} chunks")
+        ms, ms_plain = outs["min-sum", "auto"][0], outs["min-sum", "xla"][0]
+        if any(not np.array_equal(a, b) for a, b in zip(ms, ms_plain)):
+            raise AssertionError(f"Reconciler min-sum at {lanes} lanes: kernels != plain")
+        sp_plain = outs["sum-product", "xla"][0]
+        moved = sp.iterations != sp_plain.iterations
+        if not (np.array_equal(sp.bits, sp_plain.bits)
+                and np.array_equal(sp.syndromes_match, sp_plain.syndromes_match)) or (
+                int(moved.sum()) > SP_ITERATION_SUM_ALLOWANCE) or (
+                np.abs(sp.iterations - sp_plain.iterations).max() > 1):
+            raise AssertionError(f"Reconciler sum-product at {lanes} lanes: kernels vs plain")
+        if sum(outs["sum-product", "xla"][2].values()):
+            raise AssertionError("backend='xla' launched a kernel")
+        rec_report[lanes] = {
+            "sum_product_s": sp_s, "frames_per_s": PROTOCOL_FRAMES / sp_s,
+            "mean_iterations": mean_it, "launches": sp_launches,
+            "min_sum_s": outs["min-sum", "auto"][1],
+            "plain_sum_product_s": outs["sum-product", "xla"][1],
+            "min_sum_equal_to_plain": True,
+            "sum_product_frames_moved_one_iteration": int(moved.sum())}
+        if lanes == PROTOCOL_LANES[0]:
+            lanes_results = sp
+        elif any(not np.array_equal(a, b) for a, b in zip(sp, lanes_results)):
+            raise AssertionError("Reconciler: 101 lanes differ from 128 lanes")
+    report["reconciler"] = rec_report
+
+    # ---- the secure chain ----------------------------------------------------
+    rec = Reconciler(code, DecodeOptions(algorithm="sum-product", **base),
+                     lanes=PROTOCOL_LANES[0], device=dev)
+    tag_key, pa_key = prng_key(11), prng_key(12)
+    syn = rec.syndromes(alice)
+    a_tags = rec.tags(alice, tag_key)
+    final_bits = rec.final_key_bits()
+    if final_bits != N - M - 64 - 100 or final_bits * N > _DENSE_LIMIT:
+        raise AssertionError(f"final key bits {final_bits}")
+    sec, sec_s, sec_launches = counted(
+        lambda: rec.reconcile_secure(bob, syn, q, a_tags, tag_key, pa_key))
+    a_key = privacy_amplify(alice, pa_key, final_bits, device=dev).cpu().numpy()
+    if not sec.verified.all() or not np.array_equal(sec.key, a_key):
+        raise AssertionError(f"reconcile_secure: {int(sec.verified.sum())} verified, "
+                             "keys differ from Alice's")
+    report["reconcile_secure"] = {"wall_s": sec_s, "final_bits": final_bits,
+                                  "verified": int(sec.verified.sum()),
+                                  "keys_equal_to_alice": True, "launches": sec_launches}
+
+    # ---- the rate-adapted endpoint: flooding and layered ---------------------
+    ad = RateAdapter.make(code, n_punctured=ADAPT_PUNCTURED, n_shortened=ADAPT_SHORTENED,
+                          seed=ADAPT_SEED)
+    l = ad.payload_bits
+    a_pay_t, b_pay_t, ne = keys(fold_in(key, 2), l, ADAPT_QBER)
+    a_pay, b_pay = a_pay_t.cpu().numpy(), b_pay_t.cpu().numpy()
+    frame_key = fold_in(key, 4)
+    adapted = {}
+    for schedule in ("flooding", "layered"):
+        rec_a = Reconciler(code, DecodeOptions(algorithm="sum-product", schedule=schedule,
+                                               **base),
+                           lanes=PROTOCOL_LANES[0], adapter=ad, device=dev)
+        syn_a = rec_a.syndromes(a_pay, frame_key=frame_key)
+        out_a, s_a, launches_a = counted(lambda: rec_a.reconcile(b_pay, syn_a, ne / l))
+        if not out_a.syndromes_match.all() or not (out_a.bits == a_pay).all():
+            raise AssertionError(f"adapted endpoint ({schedule}): "
+                                 f"{int(out_a.syndromes_match.sum())} verified")
+        kernel = K6 if schedule == "layered" else K2
+        other = K2 if schedule == "layered" else K6
+        if launches_a.get(kernel, 0) <= 0 or launches_a.get(other, 0):
+            raise AssertionError(f"adapted endpoint ({schedule}) launches {launches_a}")
+        adapted[schedule] = {"wall_s": s_a, "frames_per_s": PROTOCOL_FRAMES / s_a,
+                             "mean_iterations": float(out_a.iterations.mean()),
+                             "launches": launches_a}
+    report["adapted_endpoint"] = {"n_punctured": ADAPT_PUNCTURED,
+                                  "n_shortened": ADAPT_SHORTENED, "qber": ne / l,
+                                  "effective_rate": ad.effective_rate, **adapted}
+
+    # ---- K1/K2/K5/KV and K6 on the adapter's LLRs ---------------------------
+    llr_a = ad.llr(b_pay_t[:BATCH], ne / l).T.contiguous()  # erasures and pins
+    frames = ad.build_frames(a_pay_t[:BATCH], frame_key)
+    syn_t = syndrome(code, frames).T.contiguous()
+    maps = code.to_device(dev)
+    tables = layered.layer_tables(code, dev)
+    gen = torch.Generator(device=dev).manual_seed(99)
+    act = torch.rand((BATCH,), device=dev, generator=gen) < 0.7
+    fresh = torch.rand((BATCH,), device=dev, generator=gen) < 0.4
+    ones = torch.ones_like(act)
+    held = []
+    for algorithm in ("sum-product", "min-sum"):
+        for dtype_name in ("float32", "bfloat16", "int8"):
+            scale = 0.25 if dtype_name == "int8" else None
+            mdt = cuda_kernels.STORAGE_DTYPES[dtype_name]
+            kw = dict(threshold=100.0, clip=True, algorithm=algorithm,
+                      min_sum_alpha=0.8, min_sum_beta=0.0, scale=scale)
+            total0 = cuda_kernels._store(llr_a, mdt, scale)
+            lr1 = cuda_kernels.check_update_plain(total0, None, syn_t, maps, first=True,
+                                                  **kw)[0]
+            total1 = cuda_kernels.variable_update_plain(
+                lr1, llr_a, torch.zeros((N, BATCH), dtype=torch.int8, device=dev),
+                torch.zeros((BATCH,), dtype=torch.int32, device=dev), ones, maps,
+                scale=scale)[0]
+            x = dict(syn=syn_t, lrp=lr1, llr=llr_a, fresh=fresh, active=act,
+                     z=torch.full((N, BATCH), 7, dtype=torch.int8, device=dev),
+                     count=torch.arange(BATCH, dtype=torch.int32, device=dev))
+            worst, n_diff = 0.0, 0
+            for name, first, mode in _check_modes(kw, fresh):
+                x["tot"] = total0 if first else total1
+                err, nd = _compare_check(torch, x, maps, False, first, mode, dtype_name,
+                                         algorithm, scale)
+                _require_exact(f"{name} on the adapter's LLRs, {algorithm} {dtype_name}",
+                               err, nd)
+                worst, n_diff = max(worst, err), n_diff + nd
+            if algorithm == "sum-product":
+                err, nd = _compare_variable(torch, x, maps, scale)
+                _require_exact(f"variable update on the adapter's LLRs, {dtype_name}",
+                               err, nd)
+                worst, n_diff = max(worst, err), n_diff + nd
+            t_s, lr_s, syn3 = layered.initial_state(tables, llr_a, syn_t, mdt)
+            for _ in range(2):
+                t_s, lr_s, _ = layered.layered_sweep_plain(t_s, lr_s, syn3, ones, tables,
+                                                           **kw)
+            ref = layered.layered_sweep_plain(t_s, lr_s, syn3, act, tables, **kw)
+            got = cuda_layered.layered_sweep_cuda(t_s.clone(), lr_s.clone(), syn3, act,
+                                                  tables, **kw)
+            torch.cuda.synchronize()
+            err, nd = _compare_sweep(torch, got, ref, act, dtype_name, algorithm, scale, DV)
+            _require_exact(f"layered sweep on the adapter's LLRs, {algorithm} {dtype_name}",
+                           err, nd)
+            held.append({"algorithm": algorithm, "storage": dtype_name,
+                         "max_abs_err": max(worst, err), "entries_differing": n_diff + nd})
+            del x, total0, total1, lr1, t_s, lr_s, syn3, ref, got
+    report["kernels_on_adapter_llrs"] = held
+
+    # ---- blind: min-sum, kernels against the plain versions per frame -------
+    d = BLIND_PUNCTURED
+    a_b, b_b, _ = keys(fold_in(key, 5), N - d, BLIND_QBER)
+    blind = {}
+    for backend in ("auto", "xla"):
+        o = DecodeOptions(algorithm="min-sum", backend=backend, **base)
+        blind[backend] = counted(lambda: blind_reconcile_sim(
+            code, a_b, b_b, n_punctured=d, qber_hint=BLIND_QBER, opts=o,
+            reveal_step=BLIND_STEP, device=dev))
+    (res_k, km_k), blind_s, blind_launches = blind["auto"]
+    (res_p, km_p), blind_plain_s, _ = blind["xla"]
+    for f in res_k._fields:
+        if not np.array_equal(getattr(res_k, f), getattr(res_p, f)):
+            raise AssertionError(f"blind session: {f} differs from backend='xla'")
+    if not (res_k.rounds > 0).any() or not np.array_equal(km_k, km_p) or (
+            not km_k[res_k.ok].all()) or blind_launches.get(K2, 0) <= 0:
+        raise AssertionError(f"blind session: rounds {np.bincount(res_k.rounds)}, "
+                             f"launches {blind_launches}")
+    report["blind"] = {"n_punctured": d, "reveal_step": BLIND_STEP, "qber": BLIND_QBER,
+                       "frames_by_rounds": np.bincount(res_k.rounds).tolist(),
+                       "verified": int(res_k.ok.sum()), "keys_match": int(km_k.sum()),
+                       "wall_s": blind_s, "plain_wall_s": blind_plain_s,
+                       "equal_to_plain_per_frame": True, "launches": blind_launches}
+
+    # ---- amplification --------------------------------------------------------
+    methods = ("dense", "blocked", "blocked-xor", "blocked-diag")
+    bits32 = torch.as_tensor(alice[:AMPLIFY_FRAMES], device=dev)
+    amp = {}
+    dense = None
+    for m in methods:
+        out, wall, _ = counted(lambda: toeplitz_hash(bits32, pa_key, final_bits, method=m))
+        dense = out if dense is None else dense
+        if not torch.equal(out, dense):
+            raise AssertionError(f"amplification: {m} differs from dense at the flagship")
+        amp[f"flagship_{m}_s"] = wall
+    n_out = amplified_key_bits(BIG_FRAME, BIG_LEAK)
+    big = generate_random_bits(fold_in(key, 7), BIG_FRAME, 1, device=dev)
+    first = None
+    big_walls = {}
+    for c in AMPLIFY_BLOCKS:
+        for m in methods[1:]:
+            out, wall, _ = counted(lambda: toeplitz_hash(big, pa_key, n_out, block_out=c,
+                                                         method=m))
+            first = out if first is None else first
+            if not torch.equal(out, first):
+                raise AssertionError(f"amplification at {BIG_FRAME} bits: {m}, c = {c}")
+            big_walls[f"{m}_c{c}_s"] = wall
+            del out
+    s = bernoulli_half(random_bits(pa_key, BIG_FRAME + n_out - 1)).numpy().astype(np.int64)
+    x = big[0].cpu().numpy().astype(np.int64)
+    j = np.arange(BIG_FRAME)
+    rows = np.random.default_rng(0).choice(n_out, AMPLIFY_ROWS_CHECKED, replace=False)
+    got = first[0].cpu().numpy()
+    for i in rows:
+        if int(s[i - j + BIG_FRAME - 1] @ x) & 1 != got[i]:
+            raise AssertionError(f"amplification at {BIG_FRAME} bits: row {i} != GF(2)")
+    amp.update(frame_bits=BIG_FRAME, n_out=n_out, rows_checked=AMPLIFY_ROWS_CHECKED,
+               big_frame_walls=big_walls)
+    report["amplification"] = amp
+    report["seconds"] = time.perf_counter() - t_phase
+    return report
+
+
 def _reference_alist_and_example():
     """The reference's own matrix file and config.example.json's settings."""
     repo = Path(__file__).resolve().parent
@@ -673,7 +1149,7 @@ def _cli_sweep(torch, np, dev, card, code, names):
     CLI, and interactive mode at B = 1.  Each sweep is counted on its own.
     Returns sweep A's wall in seconds."""
     from qkd_ldpc_tpu_torch import _build, cli
-    from qkd_ldpc_tpu_torch.codes import read_alist
+    from qkd_ldpc_tpu_torch.codes import make_code, read_alist, write_alist
     from qkd_ldpc_tpu_torch.decoder import cuda_kernels
     from qkd_ldpc_tpu_torch.decoder.layered import NOT_QC_MESSAGE
     from qkd_ldpc_tpu_torch.sim import interactive_simulation, rate_based_qber_range, runner
@@ -859,6 +1335,22 @@ def _cli_sweep(torch, np, dev, card, code, names):
                        "mean_sweeps_at_0.05": mean_05, "compact_after": 4,
                        "layered_over_the_alist_refused": True}
 
+        # D: a rate-0.8 code (check degree 15, the loop instances) under the
+        # config's 0.8 row, written as a user's alist.
+        rate08 = make_code(**RATE08_CODE)
+        r08_dir = tmp / "rate08_matrices"
+        r08_dir.mkdir()
+        write_alist(rate08, r08_dir / "rate08.alist")
+        wall_d, launches_d, csv_d, _, _ = sweep("D", r08_dir)
+        _, rows_d = rows(csv_d[0])
+        if rate08.dc_max != 15 or len(rows_d) != RATE08_POINTS or rows_d[0][-1] != "0" or (
+                launches_d.get(K2, 0) <= 0 or launches_d.get(KV) != launches_d.get(K2)):
+            raise AssertionError(f"sweep D (rate 0.8): {len(rows_d)} rows, first "
+                                 f"{rows_d[0] if rows_d else None}, {launches_d}")
+        report["D_rate_0.8"] = {"wall_s": wall_d, "dc_max": rate08.dc_max,
+                                "points": RATE08_POINTS, "launches": launches_d,
+                                "fer_by_qber": [[float(r[6]), float(r[-1])] for r in rows_d]}
+
         # Identity: min-sum through the kernels and through the plain versions.
         ident = dict(decoder="min-sum", trials_number=256, code_rate_QBER_parameters=[
             {"code_rate": 0.58, "QBER_begin": 0.03, "QBER_end": 0.05, "QBER_step": 0.005}])
@@ -950,10 +1442,21 @@ def main() -> int:
     from qkd_ldpc_tpu_torch.utils import card_name_and_power_limit
 
     dev = torch.device("cuda")
+    phase_seconds = {}
+    clock = [None, time.perf_counter()]
+
+    def phase_start(name):
+        """Close the running phase's wall time and open ``name``'s."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if clock[0] is not None:
+            phase_seconds[clock[0]] = now - clock[1]
+        clock[:] = [name, now]
     torch.manual_seed(0)
     profiling = "--profile" in sys.argv[1:]
 
     # ---- phase 1: device, toolchain, build ---------------------------------
+    phase_start("device_and_build")
     card = card_name_and_power_limit()
     _build.build_all()
     nvcc_release = subprocess.run(
@@ -977,6 +1480,7 @@ def main() -> int:
     }}), flush=True)
 
     # ---- phase 2: every kernel against its plain version -------------------
+    phase_start("kernels")
     code = make_qc_code(z=Z, nb=NB, mb=MB_ROWS, dv=DV, seed=CODE_SEED)
     N, M, dc = code.n_vars, code.n_checks, code.dc_max
     maps = code.to_device(dev)
@@ -1208,7 +1712,16 @@ def main() -> int:
     del wide, wide_tables, a_w, b_w, llr_w, syn_w
     del alice, bob, llr0, syn0
 
+    # ---- phase 2b: every check degree (fault F1 closed) ----------------------
+    phase_start("f1_degrees")
+    f1_line, flooding_degrees, layered_degrees = _f1_degrees(
+        torch, np, dev, gen, flush, card, copy_bytes_per_s)
+    f1_line["flagship_dc6_ms"] = {K: main_entries[K]["ms"] for K in (
+        cuda_kernels.KERNEL_FUSED, cuda_layered.KERNEL_NAME)}
+    print(json.dumps({"f1_degrees": f1_line}), flush=True)
+
     # ---- phase 3: the main path (flooding) ---------------------------------
+    phase_start("main_path")
     base = dict(max_iterations=100, clip_messages=True, message_threshold=100.0,
                 message_dtype="bfloat16")
     opts = DecodeOptions(algorithm="sum-product", backend="auto", compact_after=8,
@@ -1334,6 +1847,7 @@ def main() -> int:
     }}), flush=True)
 
     # ---- phase 3b: the layered path ------------------------------------------
+    phase_start("layered_path")
     opts_l = DecodeOptions(
         algorithm="sum-product", backend="auto", schedule="layered",
         compact_after=LAYERED_COMPACT_AFTER, compact_lanes=BATCH // 4, **base)
@@ -1374,6 +1888,7 @@ def main() -> int:
     }}), flush=True)
 
     # ---- phase 3c: the continuation path --------------------------------------
+    phase_start("continuation_path")
     opts_c = DecodeOptions(algorithm="sum-product", backend="auto", **base)
     key_c = derive_point_key(MASTER_SEED, WATERFALL_POINT_INDEX)
 
@@ -1440,6 +1955,7 @@ def main() -> int:
           flush=True)
 
     # ---- phase 4: identity against the plain versions on the card ----------
+    phase_start("identity")
     def seven(alg, backend, path):
         if path == "continuation":
             o = DecodeOptions(algorithm=alg, backend=backend, **base)
@@ -1474,7 +1990,16 @@ def main() -> int:
     print(json.dumps({"identity": identity}), flush=True)
 
     # ---- phase 5: the sweep through the command line (cli_sweep) -------------
+    phase_start("cli_sweep")
     wall_a = _cli_sweep(torch, np, dev, card, code, names)
+
+    # ---- phase 6: the protocol surface (protocol) ------------------------------
+    phase_start("protocol")
+    print(json.dumps({"protocol": _protocol(torch, np, dev, card, code, names)}),
+          flush=True)
+
+    phase_start(None)
+    print(json.dumps({"phase_seconds": dict(card=card, **phase_seconds)}), flush=True)
 
     # Tracing comes last: once the tracer has been attached, every later
     # launch of the process costs the host more, which would fall on the
@@ -1517,12 +2042,16 @@ def main() -> int:
 
     # ---- the contract's lines ----------------------------------------------
     def kernel_line(name, source, replaces, meas, counts):
+        # the check degrees (K1/K2/K5/KV) and base-row degrees (K6) at which
+        # the kernel was held to its plain version; the channel kernels have none
+        degrees = {K6: sorted({6, *layered_degrees}),
+                   K3: None, K4: None}.get(name, flooding_degrees)
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "max_abs_err": meas["max_abs_err"],
             "ms": meas["ms"], "plain_ms": meas["plain_ms"],
             "bound_ms": meas["bound_ms"], "bound_by": meas["bound_by"],
-            "library_ms": meas.get("library_ms"),
+            "library_ms": meas.get("library_ms"), "degrees_held": degrees,
         }
 
     csrc = "qkd_ldpc_tpu_torch/csrc/"

@@ -7,7 +7,11 @@ reader finds each counterpart under the same name:
 - code ingest (alist + dense, native C++ loader) and
   construction                                        -> ``codes``
 - threefry key tree + exact-weight binary channel     -> ``channel``
-- syndrome-target BP decode, protocol step, oracle    -> ``decoder``
+- syndrome-target BP decode, protocol step, rate
+  adaptation, blind reconciliation, oracle            -> ``decoder``
+- verification tags + privacy amplification           -> ``postprocess``
+- the serving endpoint (Bob's side of the protocol)   -> ``serve``
+- the three example programs (``python -m``)          -> ``examples``
 - QBER sweep planning, runners, stats, CSV,
   checkpointing, interactive mode, console tracing    -> ``sim``
 - command line (``python -m qkd_ldpc_tpu_torch``)     -> ``cli``
@@ -35,6 +39,12 @@ from qkd_ldpc_tpu_torch.decoder import (
     reconcile,
     syndrome,
 )
+from qkd_ldpc_tpu_torch.postprocess import (
+    amplified_key_bits,
+    privacy_amplify,
+    verification_tags,
+)
+from qkd_ldpc_tpu_torch.serve import Reconciler, SecureResult, ServeResult
 from qkd_ldpc_tpu_torch.sim import run_point
 from qkd_ldpc_tpu_torch.utils import resolve_device
 
@@ -55,6 +65,12 @@ __all__ = [
     "reconcile",
     "syndrome",
     "run_point",
+    "Reconciler",
+    "ServeResult",
+    "SecureResult",
+    "verification_tags",
+    "privacy_amplify",
+    "amplified_key_bits",
     "resolve_device",
     "__version__",
 ]

@@ -2,6 +2,8 @@
 
 from qkd_ldpc_tpu_torch.channel.keys import (
     derive_point_key,
+    generate_random_bits,
+    introduce_errors,
     make_trial_batch,
     make_trials_from_ids,
     master_key,
@@ -10,6 +12,8 @@ from qkd_ldpc_tpu_torch.channel.keys import (
 
 __all__ = [
     "derive_point_key",
+    "generate_random_bits",
+    "introduce_errors",
     "master_key",
     "make_trial_batch",
     "make_trials_from_ids",

@@ -24,9 +24,18 @@ point key and writes Alice's bits and the error scores, K3
 the host then reads one flag, and only when some row has excess ties does
 the second-word tie path run (plain passes, ``backend`` as in
 ``DecodeOptions.backend``).
+
+The protocol's keys (:func:`generate_random_bits`, :func:`introduce_errors`)
+are one ``[B, N]`` block drawn from one key, not a batch of trials: the JAX
+package draws those words with ``jax.random`` outside any Pallas kernel, so
+the port draws them with the plain threefry of ``channel/threefry.py`` on
+the block's device; Bob's flips are K3's.
 """
 
+
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -35,8 +44,14 @@ from qkd_ldpc_tpu_torch.channel.cuda_select import kth_smallest, select_flip
 from qkd_ldpc_tpu_torch.channel.cuda_select import (
     kth_smallest_plain as _kth_smallest,  # noqa: F401  (the JAX package's name)
 )
-from qkd_ldpc_tpu_torch.channel.threefry import flip_sign, fold_in, prng_key
-from qkd_ldpc_tpu_torch.utils import resolve_device
+from qkd_ldpc_tpu_torch.channel.threefry import (
+    bernoulli_half,
+    flip_sign,
+    fold_in,
+    prng_key,
+    random_bits,
+)
+from qkd_ldpc_tpu_torch.utils import resolve_device, tensor_on
 
 
 def master_key(seed: int, impl: str = "threefry") -> torch.Tensor:
@@ -58,6 +73,36 @@ def num_errors_for(n_bits: int, qber: float) -> int:
     """Exact error count floor(N * q) — 0 means the key is too small for
     this QBER, which callers treat as fatal."""
     return int(n_bits * qber)
+
+
+def block_words(key: torch.Tensor, shape: tuple, device) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int32 raw words on
+    ``device`` (the flat block of ``prod(shape)`` words, reshaped)."""
+    return random_bits(key.to(device), math.prod(shape)).view(shape)
+
+
+def generate_random_bits(key: torch.Tensor, n_bits: int, batch: int,
+                         device=None) -> torch.Tensor:
+    """Alice's sifted keys: [batch, n_bits] uint8 i.i.d. uniform bits
+    (``jax.random.bernoulli(key, 0.5, (batch, n_bits))``).  ``device=None``
+    means the card and raises when there is none."""
+    return bernoulli_half(block_words(key, (batch, n_bits), resolve_device(device)))
+
+
+def introduce_errors(key: torch.Tensor, bits, num_errors,
+                     device=None) -> torch.Tensor:
+    """Flip exactly ``num_errors`` uniformly random positions per frame of
+    ``bits`` [B, N] uint8 (a tensor stays on its device; anything else goes
+    to ``device``, None = the card).  The scores are one ``[B, N]`` block of
+    ``key``, the threshold ties ranked by the block of ``fold_in(key, 1)``;
+    the selection and the flip are K3's on the card."""
+    bits = tensor_on(bits, device, torch.uint8)
+    B, N = bits.shape
+    scores = block_words(key, (B, N), bits.device)
+    tie_key = fold_in(key, 1)
+    return _exact_weight_flip(
+        scores, bits.contiguous(), num_errors,
+        lambda: block_words(tie_key, (B, N), bits.device))
 
 
 def _exact_weight_flip(scores: torch.Tensor, alice: torch.Tensor, num_errors,

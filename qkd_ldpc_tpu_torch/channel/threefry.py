@@ -25,6 +25,7 @@ so 32-bit words travel in two forms, stated once here:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -69,6 +70,16 @@ def prng_key(seed: int) -> torch.Tensor:
     return torch.tensor([0, seed], dtype=torch.int64)
 
 
+def key_from_words(words) -> torch.Tensor:
+    """A JAX key as numpy (``np.asarray(jax.random.PRNGKey(s))``, uint32
+    ``[..., 2]``) -> the port's int64 key ``[..., 2]`` (on the CPU), so both
+    packages compute with the same keys."""
+    w = np.asarray(words)
+    if w.shape[-1:] != (2,) or w.dtype.kind not in "iu" or (w < 0).any() or (w > _M32).any():
+        raise ValueError("a key is [..., 2] words of 32 bits")
+    return torch.as_tensor(w.astype(np.int64))
+
+
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``; ``key`` is ``[..., 2]``, ``data`` an int or an
     int64 tensor of uint32 values broadcastable against ``key[..., 0]``."""
@@ -81,7 +92,9 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
 
 def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.bits(key, (n,), uint32)`` per key: ``[..., 2]`` keys ->
-    ``[..., n]`` int32 raw words."""
+    ``[..., n]`` int32 raw words, on the key's device.  JAX counts a block of
+    any shape by its flat row-major index, so ``bits(key, (B, N))`` is this
+    block of ``B * N`` words reshaped (for ``B * N < 2**32``)."""
     i = torch.arange(n, dtype=torch.int64, device=key.device)
     x0, x1 = threefry2x32(
         key[..., 0:1], key[..., 1:2], torch.zeros_like(i), i

@@ -12,6 +12,10 @@
 // exactly 1 (sum-product) or carries +inf and no sign (min-sum), so a row of
 // degree d < DC gives the results of a DC = d instance bit for bit.
 //
+// check_messages_loop is the same update for a row of any degree, the slots walked
+// in loops with nothing per slot in registers; its arithmetic is the unrolled
+// form's in the same order, so the two agree bit for bit.
+//
 // Arithmetic is float32; compiled without fast-math and without fma contraction.
 // The including file is built once per storage type (-DSTORAGE=0|1|2).
 #pragma once
@@ -137,6 +141,96 @@ __device__ __forceinline__ void check_messages(const float (&lq)[DC],
             float lr = alpha * sign * loo;
             if (CLIP) lr = clipf(lr, threshold);
             out[j] = lr;
+        }
+    }
+}
+
+// check_messages for a row of `dc` slots, VEC frames at once, in two passes over
+// the slots: nothing per slot stays in registers, so a row of 60 or 200 slots costs
+// no spills.  `read(j, first_pass, lq)` gives slot j's inputs lq[VEC] (clipped as
+// the caller's Lq is) and returns whether the slot is real; `write(j, out)` takes
+// slot j's messages right after the second pass has read slot j.  Sum-product
+// writes the exclusive prefix products of t_j to the float32 `scratch` (slot j's
+// VEC frames at scratch[at + j * stride], VEC-aligned) going forward and combines
+// them with the running suffix product going back (pre[j] * suf[j] is not
+// total / t_j); min-sum finds the two minima (the first occurrence of the row
+// minimum is the excluded slot) and the sign count in the first pass and writes
+// in the second.  Min-sum does not touch the scratch, which may then be null.
+template <int ALG, bool CLIP, int VEC, typename Read, typename Write>
+__device__ __forceinline__ void check_messages_loop(int dc, const float (&syn)[VEC],
+                                                    float threshold, float alpha,
+                                                    float beta, float* scratch,
+                                                    size_t at, size_t stride, Read read,
+                                                    Write write) {
+    float lq[VEC], out[VEC];
+    if (ALG == kSumProduct) {
+        float acc[VEC];
+#pragma unroll
+        for (int f = 0; f < VEC; ++f) acc[f] = 1.0f;
+        for (int j = 0; j < dc; ++j) {  // forward: prefix products to scratch
+            const bool valid = read(j, true, lq);
+            Vec<float, VEC> pre;
+#pragma unroll
+            for (int f = 0; f < VEC; ++f) {
+                pre.v[f] = acc[f];
+                acc[f] = acc[f] * (valid ? tanhf(lq[f] * 0.5f) : 1.0f);
+            }
+            store_vec<VEC>(scratch + at + j * stride, pre);
+        }
+#pragma unroll
+        for (int f = 0; f < VEC; ++f) acc[f] = 1.0f;  // running suffix product
+        for (int j = dc - 1; j >= 0; --j) {
+            const bool valid = read(j, false, lq);
+            const Vec<float, VEC> pre = load_vec<VEC>(scratch + at + j * stride);
+#pragma unroll
+            for (int f = 0; f < VEC; ++f) {
+                const float x = pre.v[f] * acc[f] * syn[f];
+                float lr = log1pf(2.0f * x / (1.0f - x));
+                if (CLIP) lr = clipf(lr, threshold);
+                out[f] = lr;
+                acc[f] = acc[f] * (valid ? tanhf(lq[f] * 0.5f) : 1.0f);
+            }
+            write(j, out);
+        }
+    } else {
+        float m1[VEC], m2[VEC];
+        int s1[VEC], tot_neg[VEC];
+        for (int j = 0; j < dc; ++j) {  // the two minima and the sign count
+            const bool valid = read(j, true, lq);
+#pragma unroll
+            for (int f = 0; f < VEC; ++f) {
+                const float a = valid ? fabsf(lq[f]) : INFINITY;
+                const int neg = (valid && lq[f] < 0.0f) ? 1 : 0;
+                if (j == 0) {  // as the unrolled form, also for a NaN
+                    m1[f] = a;
+                    s1[f] = 0;
+                    m2[f] = INFINITY;
+                    tot_neg[f] = neg;
+                } else {
+                    if (a < m1[f]) {  // strict: keeps the first occurrence
+                        m2[f] = m1[f];
+                        m1[f] = a;
+                        s1[f] = j;
+                    } else {
+                        m2[f] = a < m2[f] ? a : m2[f];
+                    }
+                    tot_neg[f] += neg;
+                }
+            }
+        }
+        for (int j = 0; j < dc; ++j) {
+            const bool valid = read(j, false, lq);
+#pragma unroll
+            for (int f = 0; f < VEC; ++f) {
+                const int neg = (valid && lq[f] < 0.0f) ? 1 : 0;
+                float loo = (s1[f] == j) ? m2[f] : m1[f];
+                if (beta != 0.0f) loo = fmaxf(loo - beta, 0.0f);
+                const float sign = (((tot_neg[f] - neg) & 1) ? -1.0f : 1.0f) * syn[f];
+                float lr = alpha * sign * loo;
+                if (CLIP) lr = clipf(lr, threshold);
+                out[f] = lr;
+            }
+            write(j, out);
         }
     }
 }

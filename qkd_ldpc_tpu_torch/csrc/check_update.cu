@@ -54,6 +54,15 @@
 // any width).  A scalar instance of the same templates (VEC = 1) takes a B that is
 // not a multiple of the vector or a pointer that is not 16-byte aligned; the caller
 // chooses by shape and alignment.
+//
+// Check degrees.  The instances above unroll the slots of a check (DC = 2..8, the
+// degrees of the flagship codes): every slot's inputs sit in registers at once.
+// Any other dc_max runs check_update_any_kernel, the loop form of the same update
+// (check_messages_loop in check_math.cuh), which keeps nothing per slot in
+// registers, so a row of 60 or 200 slots costs no spills, and equals the plain
+// version bit for bit as the unrolled instances do.  Its sum-product keeps the
+// prefix products in a float32 scratch [dc, M, B] that the caller allocates.  The
+// second pass reads the inputs again.
 // Arithmetic is float32 with the plain version's rounding points; compiled without
 // fast-math and without fma contraction, once per storage type (-DSTORAGE=0|1|2).
 #include "check_math.cuh"
@@ -98,6 +107,22 @@ __device__ __forceinline__ bool locate(int rows, int B, int* row, int* b0) {
     *row = static_cast<int>(idx / vecs);
     *b0 = static_cast<int>(idx - static_cast<size_t>(*row) * vecs) * VEC;
     return true;
+}
+
+// Clears ok[b0 + f] for every bit f of `bad`.  Every check of a frame may clear
+// the same byte, and a byte that many blocks hammer is a hot spot of the L2 cache.
+// So look first, with one access, and store only where the byte still stands.  The
+// look comes last and goes to the L2 cache, past the SM's L1 (which other blocks'
+// stores do not reach): a look made with the other loads, when no check has
+// finished yet, sees every byte standing and measured 15 % slower.
+template <int VEC>
+__device__ __forceinline__ void clear_flags(uint8_t* __restrict__ ok, int b0,
+                                            unsigned bad) {
+    const Vec<uint8_t, VEC> seen = load_bytes_l2<VEC>(ok + b0);
+#pragma unroll
+    for (int f = 0; f < VEC; ++f) {
+        if (((bad >> f) & 1u) && seen.v[f] != 0) ok[b0 + f] = 0;
+    }
 }
 
 template <int ALG, bool FIRST, int DC, int VEC>
@@ -160,20 +185,94 @@ check_update_kernel(const storage_t* __restrict__ total,    // [N, B]
     }
 #pragma unroll
     for (int j = 0; j < DC; ++j) store_vec<VEC>(out + j * MB + e0, ov[j]);
-    if (!FIRST && ok != nullptr && bad != 0) {
-        // Every check of a frame may clear the same byte, and a byte that many
-        // blocks hammer is a hot spot of the L2 cache.  So look first, with one
-        // access, and store only where the byte still stands.  The look comes
-        // last and goes to the L2 cache, past the SM's L1 (which other blocks'
-        // stores do not reach): a look made with the other loads, when no
-        // check has finished yet, sees every byte standing and measured 15 %
-        // slower.
-        const Vec<uint8_t, VEC> seen = load_bytes_l2<VEC>(ok + b0);
+    if (!FIRST && ok != nullptr && bad != 0) clear_flags<VEC>(ok, b0, bad);
+}
+
+// Slot j of check m for this thread's frames: whether it is real, Lq per frame
+// (the unrolled kernel's arithmetic) and, when `parity` is given, the decision
+// parity of the totals folded into it.
+template <bool FIRST, int VEC>
+__device__ __forceinline__ bool slot_inputs(
+        const storage_t* __restrict__ total, const int* __restrict__ adj,
+        const int* __restrict__ mask, const storage_t* __restrict__ lr_prev, int j,
+        int m, int M, int B, int b0, size_t MB, size_t e0, const bool (&clip_lq)[VEC],
+        float threshold, float scale, float (&lq)[VEC], int* parity) {
+    const bool valid = mask[j * M + m] != 0;
+    // a padded slot's index is 0: a row that exists, whose values are ignored
+    const Vec<storage_t, VEC> tv =
+        load_vec<VEC>(total + static_cast<size_t>(adj[j * M + m]) * B + b0);
+    Vec<storage_t, VEC> pv;
+    if (!FIRST) pv = load_vec<VEC>(lr_prev + j * MB + e0);
+#pragma unroll
+    for (int f = 0; f < VEC; ++f) {
+        float v = from_storage(tv.v[f], scale);
+        if (parity != nullptr && valid && v <= 0.0f) parity[f] ^= 1;
+        if (!FIRST) {
+            v = v - from_storage(pv.v[f], scale);
+            if (clip_lq[f]) v = clipf(v, threshold);
+        }
+        lq[f] = v;
+    }
+    return valid;
+}
+
+// check_update_kernel for any dc: the slots in loops, nothing per slot in
+// registers (see the header).  `scratch` [dc, M, B] float32 holds the prefix
+// products of sum-product; min-sum does not use it.
+template <int ALG, bool FIRST, int VEC>
+__global__ void __launch_bounds__(kThreads)
+check_update_any_kernel(const storage_t* __restrict__ total,    // [N, B]
+                        const int* __restrict__ adj,            // [dc, M]
+                        const int* __restrict__ mask,           // [dc, M]
+                        const storage_t* __restrict__ lr_prev,  // [dc, M, B]; unused when FIRST
+                        const uint8_t* __restrict__ fresh,      // [B] or null
+                        const int8_t* __restrict__ syn,         // [M, B]
+                        storage_t* __restrict__ out,            // [dc, M, B]
+                        uint8_t* __restrict__ ok,               // [B] preset to 1, or null
+                        float* __restrict__ scratch,            // [dc, M, B] (sum-product)
+                        int dc, int M, int B, bool clip, float threshold, float alpha,
+                        float beta, float scale) {
+    int m, b0;
+    if (!locate<VEC>(M, B, &m, &b0)) return;
+    const size_t MB = static_cast<size_t>(M) * B;
+    const size_t e0 = static_cast<size_t>(m) * B + b0;
+    const Vec<int8_t, VEC> sv = load_vec<VEC>(syn + e0);
+    const bool flagged = !FIRST && fresh != nullptr;
+    Vec<uint8_t, VEC> fv;
+    if (flagged) fv = load_vec<VEC>(fresh + b0);
+    bool is_fresh[VEC], clip_lq[VEC];
+    float sgn[VEC];
+    int parity[VEC];
+#pragma unroll
+    for (int f = 0; f < VEC; ++f) {
+        is_fresh[f] = flagged && fv.v[f] != 0;
+        clip_lq[f] = clip && !is_fresh[f];
+        sgn[f] = sv.v[f] == 1 ? -1.0f : 1.0f;
+        parity[f] = 0;
+    }
+    // the second pass reads the inputs again; the first folds in the parity
+    auto read = [&](int j, bool first_pass, float (&lq)[VEC]) {
+        return slot_inputs<FIRST, VEC>(total, adj, mask, lr_prev, j, m, M, B, b0, MB, e0,
+                                       clip_lq, threshold, scale, lq,
+                                       first_pass ? parity : nullptr);
+    };
+    // the clip of the outputs is applied here, as in check_update_kernel
+    auto write = [&](int j, const float (&lr)[VEC]) {
+        Vec<storage_t, VEC> ov;
 #pragma unroll
         for (int f = 0; f < VEC; ++f) {
-            if (((bad >> f) & 1u) && seen.v[f] != 0) ok[b0 + f] = 0;
+            ov.v[f] = to_storage(clip ? clipf(lr[f], threshold) : lr[f], scale);
         }
+        store_vec<VEC>(out + j * MB + e0, ov);
+    };
+    check_messages_loop<ALG, false, VEC>(dc, sgn, threshold, alpha, beta, scratch, e0, MB,
+                                         read, write);
+    unsigned bad = 0;
+#pragma unroll
+    for (int f = 0; f < VEC; ++f) {
+        if (parity[f] != sv.v[f] || is_fresh[f]) bad |= 1u << f;
     }
+    if (!FIRST && ok != nullptr && bad != 0) clear_flags<VEC>(ok, b0, bad);
 }
 
 // The check messages of one variable slot for this thread's frames; a padded slot
@@ -264,6 +363,7 @@ struct Args {
     const int8_t* syn;
     storage_t* out;
     uint8_t* ok;
+    float* scratch;
     int M, B;
     bool clip;
     float threshold, alpha, beta, scale;
@@ -284,29 +384,40 @@ void launch(const Args& p) {
 }
 
 template <int ALG, bool FIRST, int VEC>
-bool launch_dc(int dc, const Args& p) {
+void launch_any(int dc, const Args& p) {
+    check_update_any_kernel<ALG, FIRST, VEC>
+        <<<blocks_for(p.M, p.B, VEC), kThreads, 0, p.stream>>>(
+            p.total, p.adj, p.mask, p.lr_prev, p.fresh, p.syn, p.out, p.ok, p.scratch,
+            dc, p.M, p.B, p.clip, p.threshold, p.alpha, p.beta, p.scale);
+}
+
+template <int ALG, bool FIRST, int VEC>
+void launch_dc(int dc, const Args& p) {
     switch (dc) {
-        case 2: launch<ALG, FIRST, 2, VEC>(p); return true;
-        case 3: launch<ALG, FIRST, 3, VEC>(p); return true;
-        case 4: launch<ALG, FIRST, 4, VEC>(p); return true;
-        case 5: launch<ALG, FIRST, 5, VEC>(p); return true;
-        case 6: launch<ALG, FIRST, 6, VEC>(p); return true;
-        case 7: launch<ALG, FIRST, 7, VEC>(p); return true;
-        case 8: launch<ALG, FIRST, 8, VEC>(p); return true;
-        default: return false;
+        case 2: launch<ALG, FIRST, 2, VEC>(p); return;
+        case 3: launch<ALG, FIRST, 3, VEC>(p); return;
+        case 4: launch<ALG, FIRST, 4, VEC>(p); return;
+        case 5: launch<ALG, FIRST, 5, VEC>(p); return;
+        case 6: launch<ALG, FIRST, 6, VEC>(p); return;
+        case 7: launch<ALG, FIRST, 7, VEC>(p); return;
+        case 8: launch<ALG, FIRST, 8, VEC>(p); return;
+        default: launch_any<ALG, FIRST, VEC>(dc, p); return;
     }
 }
 
 template <int ALG, int VEC>
-bool launch_first(bool first, int dc, const Args& p) {
-    return first ? launch_dc<ALG, true, VEC>(dc, p) : launch_dc<ALG, false, VEC>(dc, p);
+void launch_first(bool first, int dc, const Args& p) {
+    if (first) launch_dc<ALG, true, VEC>(dc, p);
+    else launch_dc<ALG, false, VEC>(dc, p);
 }
 
 template <int VEC>
-bool launch_algorithm(int algorithm, bool first, int dc, const Args& p) {
-    return algorithm == kMinSum ? launch_first<kMinSum, VEC>(first, dc, p)
-                                : launch_first<kSumProduct, VEC>(first, dc, p);
+void launch_algorithm(int algorithm, bool first, int dc, const Args& p) {
+    if (algorithm == kMinSum) launch_first<kMinSum, VEC>(first, dc, p);
+    else launch_first<kSumProduct, VEC>(first, dc, p);
 }
+
+constexpr int kMaxUnrolledDegree = 8;
 
 }  // namespace
 
@@ -315,15 +426,21 @@ bool launch_algorithm(int algorithm, bool first, int dc, const Args& p) {
 extern "C" int check_update_vector_width() { return kCheckVec; }
 extern "C" int variable_update_vector_width() { return kVariableVec; }
 
-// Returns cudaGetLastError(); -1 when dc has no compiled instance, -2 when `vec`
-// is neither of the two.  `lr_prev` is null exactly when `first`;
-// `fresh` ([B] bytes, nonzero = the frame restarts) and `ok` ([B] bytes, preset to
-// 1 by the caller) may be null.
+// The largest dc_max whose instance is unrolled; above it (and below 2) the loop
+// instance runs, whose sum-product needs the scratch.
+extern "C" int check_update_max_unrolled_degree() { return kMaxUnrolledDegree; }
+
+// Returns cudaGetLastError(); -1 when dc < 1, -2 when `vec` is neither of the two,
+// -3 when the loop instance of sum-product is given no scratch.  `lr_prev` is
+// null exactly when `first`; `fresh` ([B] bytes, nonzero = the frame restarts) and
+// `ok` ([B] bytes, preset to 1 by the caller) may be null; `scratch` is float32
+// [dc, M, B] and may be null where it is not used.
 extern "C" int check_update(int algorithm, int first, int clip, int dc, int vec,
                             const void* total, const void* adj, const void* mask,
                             const void* lr_prev, const void* fresh, const void* syn,
-                            void* out, void* ok, int M, int B, float threshold,
-                            float alpha, float beta, float scale, void* stream) {
+                            void* out, void* ok, void* scratch, int M, int B,
+                            float threshold, float alpha, float beta, float scale,
+                            void* stream) {
     const Args p{static_cast<const storage_t*>(total),
                  static_cast<const int*>(adj),
                  static_cast<const int*>(mask),
@@ -332,17 +449,19 @@ extern "C" int check_update(int algorithm, int first, int clip, int dc, int vec,
                  static_cast<const int8_t*>(syn),
                  static_cast<storage_t*>(out),
                  static_cast<uint8_t*>(ok),
+                 static_cast<float*>(scratch),
                  M, B, clip != 0, threshold, alpha, beta, scale,
                  static_cast<cudaStream_t>(stream)};
-    bool known;
+    if (dc < 1) return -1;
+    const bool unrolled = dc >= 2 && dc <= kMaxUnrolledDegree;
+    if (!unrolled && algorithm != kMinSum && scratch == nullptr) return -3;
     if (vec == kCheckVec && B % kCheckVec == 0) {
-        known = launch_algorithm<kCheckVec>(algorithm, first != 0, dc, p);
+        launch_algorithm<kCheckVec>(algorithm, first != 0, dc, p);
     } else if (vec == 1) {
-        known = launch_algorithm<1>(algorithm, first != 0, dc, p);
+        launch_algorithm<1>(algorithm, first != 0, dc, p);
     } else {
         return -2;
     }
-    if (!known) return -1;
     return static_cast<int>(cudaGetLastError());
 }
 

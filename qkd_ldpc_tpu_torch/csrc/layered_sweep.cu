@@ -37,6 +37,16 @@
 //    loads and stores of Lr and syn, fewer and fatter threads, every frame resident
 //    in one wave) measured slower on the H100 at every width, for sum-product by
 //    24 to 120 %: fewer warps are left to hide the arithmetic's latency.
+// Row degrees.  The instances above unroll the cells of a row (DC = 2..8): a
+// check's messages sit in registers, and the next step's are fetched ahead.  Any
+// larger base-row degree runs the DC = 0 instance, the loop form of the same update
+// (check_messages_loop in check_math.cuh), which keeps nothing per cell in
+// registers (a row of 60 cells would otherwise spill hundreds of values a thread)
+// and equals the plain sweep bit for bit as the unrolled instances do.  Its
+// sum-product keeps a check's prefix products in a float32 scratch [dc_max, B, z]
+// that the caller allocates.  The second pass reads t and Lr again: a cell's
+// position of t is written only by the pass that has just read it.  This instance
+// loads nothing ahead and keeps no target bits for the parity pass.
 // Inside a layer no barrier is needed: a base row has at most one cell per column
 // j and r -> (r + s) mod z is a bijection, so whichever thread owns check r is the
 // only one of its layer to read or write t[j][(r + s) mod z], and a thread takes
@@ -97,6 +107,7 @@ layered_sweep_kernel(float* __restrict__ t,             // [nb, B, z]
                      const int* __restrict__ row_ptr_g,  // [mb + 1]
                      const int* __restrict__ col_g,      // [ncells]
                      const int* __restrict__ shift_g,    // [ncells]
+                     float* __restrict__ scratch,        // [dc_max, B, z] (DC = 0, SP)
                      int nb, int mb, int ncells, int z, int B, bool wide_copy,
                      float threshold, float alpha, float beta, float scale) {
     // [nb * z floats of t when SHARED][mb + 1 | ncells | ncells ints of tables]
@@ -144,69 +155,103 @@ layered_sweep_kernel(float* __restrict__ t,             // [nb, B, z]
     __syncthreads();  // tables and totals are in place
 
     const int chunks = (z + blockDim.x - 1) / blockDim.x;
-    const int steps = mb * chunks;
     // The target bits of a thread's check, kept for the parity pass when they fit.
-    const bool keep_targets = chunks == 1 && mb <= 64;
+    const bool keep_targets = DC > 0 && chunks == 1 && mb <= 64;
     unsigned long long targets = 0;
-    StepData<DC> cur, next;
-    fetch_step<DC>(lr, syn, row_ptr, 0, chunks, z, Bz, frame, &next);
-    for (int i = 0; i < mb; ++i) {
-        const int c0 = row_ptr[i];
-        const int d = row_ptr[i + 1] - c0;
-        int cj[DC], sh[DC];
-#pragma unroll
-        for (int k = 0; k < DC; ++k) {
-            cj[k] = k < d ? col[c0 + k] : 0;
-            sh[k] = k < d ? shift[c0 + k] : 0;
-        }
-        for (int c = 0; c < chunks; ++c) {
-            const int step = i * chunks + c;
-            const int r = threadIdx.x + c * blockDim.x;
-            cur = next;
-            // the next step's loads do not depend on t: start them before this
-            // step's arithmetic
-            if (step + 1 < steps) {
-                fetch_step<DC>(lr, syn, row_ptr, step + 1, chunks, z, Bz, frame, &next);
-            }
-            if (r >= z) continue;
-            const float sgn = cur.syn == 1 ? -1.0f : 1.0f;
-            if (keep_targets) targets |= static_cast<unsigned long long>(cur.syn & 1) << i;
-            float lq[DC], old[DC], was[DC], out[DC];
-            bool valid[DC];
-            pos_t pos[DC];
+    if constexpr (DC > 0) {
+        const int steps = mb * chunks;
+        StepData<DC> cur, next;
+        fetch_step<DC>(lr, syn, row_ptr, 0, chunks, z, Bz, frame, &next);
+        for (int i = 0; i < mb; ++i) {
+            const int c0 = row_ptr[i];
+            const int d = row_ptr[i + 1] - c0;
+            int cj[DC], sh[DC];
 #pragma unroll
             for (int k = 0; k < DC; ++k) {
-                valid[k] = k < d;
-                lq[k] = 0.0f;
-                old[k] = 0.0f;
-                was[k] = 0.0f;
-                pos[k] = 0;
-                if (valid[k]) {
-                    int p = r + sh[k];
+                cj[k] = k < d ? col[c0 + k] : 0;
+                sh[k] = k < d ? shift[c0 + k] : 0;
+            }
+            for (int c = 0; c < chunks; ++c) {
+                const int step = i * chunks + c;
+                const int r = threadIdx.x + c * blockDim.x;
+                cur = next;
+                // the next step's loads do not depend on t: start them before this
+                // step's arithmetic
+                if (step + 1 < steps) {
+                    fetch_step<DC>(lr, syn, row_ptr, step + 1, chunks, z, Bz, frame, &next);
+                }
+                if (r >= z) continue;
+                const float sgn = cur.syn == 1 ? -1.0f : 1.0f;
+                if (keep_targets) targets |= static_cast<unsigned long long>(cur.syn & 1) << i;
+                float lq[DC], old[DC], was[DC], out[DC];
+                bool valid[DC];
+                pos_t pos[DC];
+#pragma unroll
+                for (int k = 0; k < DC; ++k) {
+                    valid[k] = k < d;
+                    lq[k] = 0.0f;
+                    old[k] = 0.0f;
+                    was[k] = 0.0f;
+                    pos[k] = 0;
+                    if (valid[k]) {
+                        int p = r + sh[k];
+                        if (p >= z) p -= z;
+                        pos[k] = cj[k] * tstride + p;
+                        old[k] = from_storage(cur.lr[k], scale);
+                        was[k] = tt[pos[k]];
+                        const float v = was[k] - old[k];
+                        lq[k] = CLIP ? clipf(v, threshold) : v;
+                    }
+                }
+                check_messages<ALG, CLIP, DC>(lq, valid, sgn, threshold, alpha, beta, out);
+#pragma unroll
+                for (int k = 0; k < DC; ++k) {
+                    if (valid[k]) {
+                        const storage_t q = to_storage(out[k], scale);
+                        cur.lr[k] = q;
+                        const float delta = from_storage(q, scale) - old[k];
+                        tt[pos[k]] = was[k] + delta;
+                    }
+                }
+#pragma unroll
+                for (int k = 0; k < DC; ++k) {
+                    if (k < d) lr[(c0 + k) * Bz + frame + r] = cur.lr[k];
+                }
+            }
+            __syncthreads();  // the next layer reads what this one added to t
+        }
+    } else {
+        for (int i = 0; i < mb; ++i) {
+            const int c0 = row_ptr[i];
+            const int d = row_ptr[i + 1] - c0;
+            for (int c = 0; c < chunks; ++c) {
+                const int r = threadIdx.x + c * blockDim.x;
+                if (r >= z) continue;
+                const float sgn[1] = {syn[i * Bz + frame + r] == 1 ? -1.0f : 1.0f};
+                // Cell k of this check: its position of t, the old message and the
+                // total, kept for the write that follows the second pass's read.
+                pos_t pos;
+                float old, was;
+                auto read = [&](int k, bool, float (&lq)[1]) {
+                    int p = r + shift[c0 + k];
                     if (p >= z) p -= z;
-                    pos[k] = cj[k] * tstride + p;
-                    old[k] = from_storage(cur.lr[k], scale);
-                    was[k] = tt[pos[k]];
-                    const float v = was[k] - old[k];
-                    lq[k] = CLIP ? clipf(v, threshold) : v;
-                }
+                    pos = col[c0 + k] * tstride + p;
+                    old = from_storage(lr[(c0 + k) * Bz + frame + r], scale);
+                    was = tt[pos];
+                    const float v = was - old;
+                    lq[0] = CLIP ? clipf(v, threshold) : v;
+                    return true;
+                };
+                auto write = [&](int k, const float (&out)[1]) {
+                    const storage_t q = to_storage(out[0], scale);
+                    lr[(c0 + k) * Bz + frame + r] = q;
+                    tt[pos] = was + (from_storage(q, scale) - old);
+                };
+                check_messages_loop<ALG, CLIP, 1>(d, sgn, threshold, alpha, beta, scratch,
+                                                  frame + r, Bz, read, write);
             }
-            check_messages<ALG, CLIP, DC>(lq, valid, sgn, threshold, alpha, beta, out);
-#pragma unroll
-            for (int k = 0; k < DC; ++k) {
-                if (valid[k]) {
-                    const storage_t q = to_storage(out[k], scale);
-                    cur.lr[k] = q;
-                    const float delta = from_storage(q, scale) - old[k];
-                    tt[pos[k]] = was[k] + delta;
-                }
-            }
-#pragma unroll
-            for (int k = 0; k < DC; ++k) {
-                if (k < d) lr[(c0 + k) * Bz + frame + r] = cur.lr[k];
-            }
+            __syncthreads();  // the next layer reads what this one added to t
         }
-        __syncthreads();  // the next layer reads what this one added to t
     }
 
     // Decision syndrome of the post-sweep totals (t <= 0 -> bit 1).
@@ -245,6 +290,7 @@ struct Args {
     const int* row_ptr;
     const int* col;
     const int* shift;
+    float* scratch;
     int nb, mb, ncells, z, B;
     bool wide_copy;  // t starts on a 16-byte boundary and z is a multiple of 4
     float threshold, alpha, beta, scale;
@@ -279,7 +325,8 @@ int launch_kernel(const Args& p) {
     int threads = (p.z + 31) / 32 * 32;  // whole warps
     if (threads > kMaxThreads) threads = kMaxThreads;
     kernel<<<p.B, threads, shared, p.stream>>>(
-        p.t, p.lr, p.syn, p.act, p.ok, p.row_ptr, p.col, p.shift, p.nb, p.mb, p.ncells,
+        p.t, p.lr, p.syn, p.act, p.ok, p.row_ptr, p.col, p.shift, p.scratch, p.nb, p.mb,
+        p.ncells,
         p.z, p.B, p.wide_copy, p.threshold, p.alpha, p.beta, p.scale);
     return static_cast<int>(cudaGetLastError());
 }
@@ -300,9 +347,11 @@ int launch_dc(int dc, const Args& p) {
         case 6: return launch<ALG, CLIP, 6>(p);
         case 7: return launch<ALG, CLIP, 7>(p);
         case 8: return launch<ALG, CLIP, 8>(p);
-        default: return -1;
+        default: return launch<ALG, CLIP, 0>(p);
     }
 }
+
+constexpr int kMaxUnrolledDegree = 8;
 
 int launch_flags(int algorithm, int clip, int dc, const Args& p) {
     if (algorithm == kMinSum) {
@@ -313,15 +362,23 @@ int launch_flags(int algorithm, int clip, int dc, const Args& p) {
 
 }  // namespace
 
+// The largest row degree whose instance is unrolled; above it the loop instance
+// runs, whose sum-product needs the scratch.
+extern "C" int layered_sweep_max_unrolled_degree() { return kMaxUnrolledDegree; }
+
 // `aligned`: t starts on a 16-byte boundary (the 16-byte copies of t need it, and a z
-// that is a multiple of 4).  Returns cudaGetLastError() (or the error of raising the
-// shared-memory limit), or -1 when the largest row degree `dc` has no compiled
-// instance.
+// that is a multiple of 4).  `dc` is the largest row degree; `scratch` is float32
+// [dc, B, z] and may be null where it is not used.  Returns cudaGetLastError() (or
+// the error of raising the shared-memory limit), -1 when dc < 2, or -3 when the loop
+// instance of sum-product is given no scratch.
 extern "C" int layered_sweep(int algorithm, int clip, int dc, int aligned, void* t,
                              void* lr, const void* syn, const void* act, void* ok,
                              const void* row_ptr, const void* col, const void* shift,
-                             int nb, int mb, int ncells, int z, int B, float threshold,
-                             float alpha, float beta, float scale, void* stream) {
+                             void* scratch, int nb, int mb, int ncells, int z, int B,
+                             float threshold, float alpha, float beta, float scale,
+                             void* stream) {
+    if (dc < 2) return -1;
+    if (dc > kMaxUnrolledDegree && algorithm != kMinSum && scratch == nullptr) return -3;
     const Args p{static_cast<float*>(t),
                  static_cast<storage_t*>(lr),
                  static_cast<const int8_t*>(syn),
@@ -330,6 +387,7 @@ extern "C" int layered_sweep(int algorithm, int clip, int dc, int aligned, void*
                  static_cast<const int*>(row_ptr),
                  static_cast<const int*>(col),
                  static_cast<const int*>(shift),
+                 static_cast<float*>(scratch),
                  nb, mb, ncells, z, B, aligned != 0 && z % 4 == 0, threshold, alpha, beta, scale,
                  static_cast<cudaStream_t>(stream)};
     return launch_flags(algorithm, clip, dc, p);

@@ -1,5 +1,13 @@
-"""Syndrome-target BP decoding: sum-product + normalized min-sum."""
+"""Syndrome-target BP decoding (sum-product + normalized min-sum), rate
+adaptation, blind reconciliation and the float64 oracle."""
 
+from qkd_ldpc_tpu_torch.decoder.blind import (
+    BlindResult,
+    BlindSession,
+    SecureBlindResult,
+    blind_reconcile,
+    blind_reconcile_sim,
+)
 from qkd_ldpc_tpu_torch.decoder.bp import (
     DecodeOptions,
     DecodeResult,
@@ -7,6 +15,8 @@ from qkd_ldpc_tpu_torch.decoder.bp import (
     decode,
 )
 from qkd_ldpc_tpu_torch.decoder.layered import layered_decode_batch_last
+from qkd_ldpc_tpu_torch.decoder.oracle import OracleResult, oracle_decode, oracle_syndrome
+from qkd_ldpc_tpu_torch.decoder.rate_adapt import RateAdapter
 from qkd_ldpc_tpu_torch.decoder.reconcile import (
     ReconcileResult,
     apriori_llr,
@@ -26,4 +36,13 @@ __all__ = [
     "reconcile",
     "reconcile_with_syndrome",
     "ReconcileResult",
+    "RateAdapter",
+    "BlindSession",
+    "BlindResult",
+    "SecureBlindResult",
+    "blind_reconcile",
+    "blind_reconcile_sim",
+    "oracle_decode",
+    "oracle_syndrome",
+    "OracleResult",
 ]

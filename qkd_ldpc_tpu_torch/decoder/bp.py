@@ -73,9 +73,8 @@ class DecodeOptions:
       a QC code.
     - ``schedule="layered"`` (QC codes only) runs ``decoder/layered.py``;
       under it ``backend`` chooses between the CUDA sweep kernel and the
-      plain loop by the same rule; a base-row degree the kernel has no
-      instance for raises (``cuda_layered.refusal``), as ``dc_max`` does
-      for the flooding kernels.
+      plain loop by the same rule; every check degree and base-row
+      degree from 2 up runs on the kernels.
     """
 
     max_iterations: int = 100

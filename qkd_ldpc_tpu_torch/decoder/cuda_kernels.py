@@ -34,7 +34,10 @@ about it is in the header of ``csrc/check_update.cu``: each thread takes a
 vector of adjacent frames (:func:`vector_width`: 16 bytes in the variable
 update, 4 frames in the check update, whose time the width hardly moves); a
 scalar instance of the same kernels takes a ragged ``B`` or an unaligned
-tensor.
+tensor.  The check kernel takes every ``dc_max``: degrees 2..8 run instances
+that unroll the slots, any other degree an instance that walks them in loops
+(its sum-product keeps the prefix products in a float32 scratch ``[dc, M,
+B]`` that the wrapper allocates); both equal the plain version bit for bit.
 
 Tensors are in the message storage type (float32, bfloat16, or int8 fixed
 point with ``scale`` LLR units per LSB), messages dc-first ``[dc, M, B]``
@@ -58,7 +61,6 @@ KERNEL_FUSED = "check_update_fused"
 KERNEL_FRESH = "check_update_fresh"
 KERNEL_VARIABLE = "variable_update"
 _ALGORITHMS = {"sum-product": 0, "min-sum": 1}
-_DC_INSTANCES = range(2, 9)  # template instances compiled in check_update.cu
 # DecodeOptions.message_dtype -> the torch type of the stored messages
 STORAGE_DTYPES = {
     "float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8,
@@ -229,11 +231,6 @@ def check_update_cuda(total, lr_prev, syn, maps, *, first, threshold, clip,
     if total.ndim != 2 or total.shape[0] != N or total.shape[1] < 1:
         raise ValueError(f"total must be [N, B] with the code's N = {N}")
     B = total.shape[1]
-    if dc not in _DC_INSTANCES:
-        raise ValueError(
-            f"check_update.cu has no instance for dc_max={dc} "
-            f"(compiled: {_DC_INSTANCES.start}..{_DC_INSTANCES.stop - 1})"
-        )
     if first and fresh is not None:
         raise ValueError("fresh belongs to the fused update, not to iteration 1")
     tensors = [total, maps.chk_adj_T_i32, maps.chk_mask_T_i32, syn]
@@ -259,9 +256,16 @@ def check_update_cuda(total, lr_prev, syn, maps, *, first, threshold, clip,
     # the vector instance reads and writes vectors of every tensor, ok included
     vec = vector_width("check_update", B, total.dtype, *tensors, out,
                        *([] if first else [ok]))
+    library = "check_update_" + _STORAGE_NAMES[total.dtype]
+    # the loop instance's sum-product keeps its prefix products here (a fresh
+    # allocation, aligned for the vector instance as `out` is)
+    scratch = None
+    if algorithm == "sum-product" and not (
+            2 <= dc <= _build.constant(library, "check_update_max_unrolled_degree")):
+        scratch = torch.empty((dc, M, B), dtype=torch.float32, device=total.device)
     fn = _build.function(
-        "check_update_" + _STORAGE_NAMES[total.dtype], "check_update",
-        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+        library, "check_update",
+        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
         + [ctypes.c_float] * 4 + [ctypes.c_void_p],
     )
     with torch.cuda.device(total.device):
@@ -270,7 +274,8 @@ def check_update_cuda(total, lr_prev, syn, maps, *, first, threshold, clip,
             total.data_ptr(), maps.chk_adj_T_i32.data_ptr(),
             maps.chk_mask_T_i32.data_ptr(), 0 if first else lr_prev.data_ptr(),
             0 if fresh is None else fresh.data_ptr(), syn.data_ptr(),
-            out.data_ptr(), 0 if first else ok.data_ptr(), M, B,
+            out.data_ptr(), 0 if first else ok.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), M, B,
             threshold, min_sum_alpha, min_sum_beta,
             scale if scale is not None else 1.0,
             torch.cuda.current_stream().cuda_stream,

@@ -11,7 +11,11 @@ serial layers, not its bytes; the header of the source says what the
 design does about it (row tables in shared memory, the next layer's
 messages and syndrome bits loaded ahead of the serial chain) and what was
 measured slower and not kept (several lifted checks per thread with vector
-accesses, a ring of bulk copies).  Its plain version is
+accesses, a ring of bulk copies).  Every base-row degree from 2 up is taken:
+degrees 2..8 run instances that unroll the cells of a row, larger ones an
+instance that walks them in loops (its sum-product keeps the prefix
+products in a float32 scratch ``[dc_max, B, z]`` that the wrapper
+allocates); both equal the plain sweep bit for bit.  Its plain version is
 ``decoder.layered.layered_sweep_plain`` (same arguments, same results);
 the decode loop around both is ``decoder.layered``.
 
@@ -35,7 +39,6 @@ from qkd_ldpc_tpu_torch import _build
 from qkd_ldpc_tpu_torch.decoder.cuda_kernels import _ALGORITHMS, _STORAGE_NAMES
 
 KERNEL_NAME = "layered_sweep"
-MAX_ROW_DEGREE = 8  # template instances 2..8 compiled in layered_sweep.cu
 MIN_ROW_DEGREE = 2
 MAX_SHARED_BYTES = 232448  # what one thread block may use on Hopper (227 KB)
 
@@ -59,12 +62,13 @@ def copy_width(z: int, t: torch.Tensor) -> int:
 
 def refusal(max_row_degree: int) -> str | None:
     """Why the kernel cannot take a code of this base-row degree, or None if
-    it can.  As with the flooding kernels' ``dc_max``, a degree with no
-    compiled instance raises under every backend that selects the kernel."""
-    if not MIN_ROW_DEGREE <= max_row_degree <= MAX_ROW_DEGREE:
+    it can: every degree from 2 up runs (a base row of one cell is no
+    check the schedule needs).  A refused degree raises under every backend
+    that selects the kernel."""
+    if max_row_degree < MIN_ROW_DEGREE:
         return (
-            f"layered_sweep.cu has no instance for a base-row degree of "
-            f"{max_row_degree} (compiled: {MIN_ROW_DEGREE}..{MAX_ROW_DEGREE})"
+            f"layered_sweep.cu takes a base-row degree of {MIN_ROW_DEGREE} or "
+            f"more, not {max_row_degree}"
         )
     return None
 
@@ -105,18 +109,23 @@ def layered_sweep_cuda(t, Lr, syn, act, tables, *, threshold, clip, algorithm,
         raise ValueError("inputs must be contiguous and on one device")
     ok = torch.empty((B,), dtype=torch.bool, device=t.device)
     library = "layered_sweep_" + _STORAGE_NAMES[Lr.dtype]
+    dc = tables.max_row_degree
+    scratch = None  # the loop instance's sum-product keeps its prefix products here
+    if algorithm == "sum-product" and dc > _build.constant(
+            library, "layered_sweep_max_unrolled_degree"):
+        scratch = torch.empty((dc, B, z), dtype=torch.float32, device=t.device)
     fn = _build.function(
         library, "layered_sweep",
-        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
         + [ctypes.c_float] * 4 + [ctypes.c_void_p],
     )
     with torch.cuda.device(t.device):
         err = fn(
-            _ALGORITHMS[algorithm], int(clip), tables.max_row_degree,
-            int(copy_width(z, t) == 4),
+            _ALGORITHMS[algorithm], int(clip), dc, int(copy_width(z, t) == 4),
             t.data_ptr(), Lr.data_ptr(), syn.data_ptr(), act.data_ptr(),
             ok.data_ptr(), tables.row_ptr.data_ptr(), tables.col.data_ptr(),
-            tables.shift.data_ptr(), nb, mb, ncells, z, B,
+            tables.shift.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+            nb, mb, ncells, z, B,
             threshold, min_sum_alpha, min_sum_beta,
             scale if scale is not None else 1.0,
             torch.cuda.current_stream().cuda_stream,

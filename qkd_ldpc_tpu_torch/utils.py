@@ -19,6 +19,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 _CODES = {
@@ -66,6 +67,23 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def tensor_on(x, device=None, dtype=None) -> torch.Tensor:
+    """``x`` as a tensor: a tensor stays on its device unless ``device`` is
+    given; anything else (numpy, lists) goes to :func:`resolve_device`'s
+    device.  ``dtype`` converts."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x if dtype is None else x.to(dtype)
+    return torch.as_tensor(x, dtype=dtype).to(resolve_device(device))
+
+
+def host(x, dtype=None) -> np.ndarray:
+    """``x`` as a numpy array on the host (a tensor is fetched from its
+    device); ``dtype`` converts."""
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return np.asarray(x, dtype=dtype)
 
 
 def card_name_and_power_limit() -> str:

@@ -10,6 +10,9 @@ CODE_SPECS = {
     "regular": ("make_code", dict(n=120, m=60, dv=3, seed=2)),  # rows 6, columns 3
     "irregular": ("make_code", dict(n=256, m=131, dv=3, seed=1)),
     "qc": ("make_qc_code", dict(z=32, nb=12, mb=6, dv=3, seed=5)),
+    # base rows of 15 cells (R = 0.8): above the unrolled sweep instances
+    "qc15": ("make_qc_code", dict(z=32, nb=20, mb=4, dv=3, seed=5)),
+    "dc12": ("make_code", dict(n=92, m=24, dv=3, seed=3)),  # rows 11 and 12
 }
 _cache = {}
 
@@ -45,3 +48,10 @@ def make_frames(n_bits, batch, n_err, seed):
     for b in range(batch):
         bob[b, rng.choice(n_bits, n_err, replace=False)] ^= 1
     return alice, bob
+
+
+def tkey(jax_key):
+    """The port's key for a JAX key (carried across as numpy words)."""
+    from qkd_ldpc_tpu_torch.channel.threefry import key_from_words
+
+    return key_from_words(np.asarray(jax_key))

@@ -97,7 +97,35 @@ def _values(x, scale):
 @pytest.mark.parametrize("algorithm", ["sum-product", "min-sum"])
 @pytest.mark.parametrize("clip", [True, False], ids=["clip", "noclip"])
 def test_plain_check_update_matches_pallas(padded_code, algorithm, dtype, mode, clip):
-    code = padded_code
+    _check_update_matches_pallas(padded_code, algorithm, dtype, mode, clip)
+
+
+# Check degrees above the unrolled kernel instances (2..8), rows of two
+# degrees each (padded slots): dc_max = ceil(n * 3 / m).
+HIGH_DEGREE_CODES = {12: dict(n=92, m=24, dv=3, seed=3), 15: dict(n=116, m=24, dv=3, seed=3)}
+# One storage a (degree, mode), each degree taking all three: an interpreted
+# Pallas kernel at these degrees takes seconds to build.
+HIGH_DEGREE_DTYPES = {(12, "first"): "float32", (12, "fused"): "bfloat16",
+                      (12, "fresh"): "int8", (15, "first"): "int8",
+                      (15, "fused"): "float32", (15, "fresh"): "bfloat16"}
+
+
+@pytest.mark.parametrize("mode", ["first", "fused", "fresh"],
+                         ids=["K1-first", "K2-fused", "K5-fresh"])
+@pytest.mark.parametrize("algorithm", ["sum-product", "min-sum"])
+@pytest.mark.parametrize("dc", sorted(HIGH_DEGREE_CODES))
+def test_plain_check_update_matches_pallas_at_high_degree(dc, algorithm, mode):
+    """The plain versions the loop instances are held against on the card,
+    at dc_max 12 and 15, against the Pallas kernels (which unroll any dc)."""
+    dtype = HIGH_DEGREE_DTYPES[dc, mode]
+    code = make_code(**HIGH_DEGREE_CODES[dc])
+    assert code.dc_max == dc and not code.chk_mask.all()
+    # K5: a row minimum of 11 or 14 inputs lies below the threshold of 5
+    # that bites on rows of 6, so the clip is set where it changes min-sum.
+    _check_update_matches_pallas(code, algorithm, dtype, mode, True, fresh_threshold=0.25)
+
+
+def _check_update_matches_pallas(code, algorithm, dtype, mode, clip, fresh_threshold=5.0):
     first = mode == "first"
     t_tot, t_lrp, syn, scale = _inputs(code, dtype, seed=17)
     maps = code.to_device("cpu")
@@ -107,7 +135,7 @@ def test_plain_check_update_matches_pallas(padded_code, algorithm, dtype, mode, 
     j_sign = jnp.asarray(np.where(syn == 1, -1.0, 1.0).astype(np.float32))
     t_syn = torch.from_numpy(syn)
     # K5: a threshold below most |tot - lr|, so clipped and fresh frames differ.
-    threshold = 5.0 if mode == "fresh" else 100.0
+    threshold = fresh_threshold if mode == "fresh" else 100.0
     kw = dict(threshold=threshold, clip=clip, algorithm=algorithm,
               min_sum_alpha=0.8, min_sum_beta=0.0 if first else 0.3, scale=scale)
     if first:
@@ -178,6 +206,23 @@ def test_min_sum_first_occurrence_tie_rule():
         jnp.ones((1, 1), jnp.float32), interpret=True, algorithm="min-sum",
         min_sum_alpha=1.0)
     np.testing.assert_array_equal(np.asarray(want), out.numpy())
+
+
+@pytest.mark.parametrize("dc", [9, 15, 60])
+def test_check_wrapper_takes_every_degree(dc):
+    """No check degree is refused: a dc_max above the unrolled instances
+    passes every check of the wrapper and stops only at the device (a CPU
+    tensor here)."""
+    maps = _one_check_maps(dc)
+    kw = dict(threshold=100.0, clip=True, algorithm="sum-product",
+              min_sum_alpha=0.8, min_sum_beta=0.0, scale=None)
+    tot, syn = torch.zeros((dc, 4)), torch.zeros((1, 4), dtype=torch.int8)
+    with pytest.raises(ValueError, match="the CUDA kernels need CUDA tensors"):
+        cuda_kernels.check_update_cuda(tot, None, syn, maps, first=True, **kw)
+    with pytest.raises(ValueError, match="the CUDA kernels need CUDA tensors"):
+        cuda_kernels.check_update_cuda(tot, torch.zeros((dc, 1, 4)), syn, maps,
+                                       first=False, **kw)
+    assert not hasattr(cuda_kernels, "_DC_INSTANCES")
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -350,8 +395,8 @@ def test_vector_width_follows_shape_and_alignment(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("which", ["regular", "ragged", "qc"],
-                         ids=["regular", "irregular", "qc"])
+@pytest.mark.parametrize("which", ["regular", "ragged", "qc", "dc12", "qc15"],
+                         ids=["regular", "irregular", "qc", "dc12", "qc15"])
 def test_variable_update_and_syndrome_flag_match_jax_after_check(which, dtype):
     """``variable_update_plain`` gives the totals and decisions of the JAX
     decoder's ``after_check``, and the ``ok`` that the next check update

@@ -84,10 +84,13 @@ def test_row_tables_equal_jax(spec):
         assert layered.layer_tables(tc, "cpu") is tab  # built once per device
 
 
+@pytest.mark.parametrize("which,n_err", [("qc", 17), ("qc15", 7)])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_min_sum_layered_exact(dtype):
-    _, _, llr, syn = decode_inputs("qc", 20, 17, seed=41)
-    rj, rt = both_layered("qc", llr, syn, algorithm="min-sum", message_dtype=dtype)
+def test_min_sum_layered_exact(dtype, which, n_err):
+    """Also on base rows of 15 cells, which the sweep kernel runs through its
+    loop instance."""
+    _, _, llr, syn = decode_inputs(which, 20, n_err, seed=41)
+    rj, rt = both_layered(which, llr, syn, algorithm="min-sum", message_dtype=dtype)
     assert_same_result(rj, rt)
     assert rt.syndromes_match.all() and int(rt.iterations.max()) > 2
 
@@ -276,7 +279,7 @@ def test_sweep_kernel_wrapper_refuses_cpu_tensors_and_bad_shapes():
     """The CUDA wrapper raises for CPU tensors, backend='pallas' does not
     fall back to the plain loop, and no rule lets a CUDA tensor take the
     plain loop under 'auto': a wide frame keeps its totals in global memory,
-    and a row degree without a compiled instance raises."""
+    every row degree from 2 up runs, and a degree below 2 raises."""
     tab, t, Lr, syn3, kw = _sweep_state("float32")
     act = torch.ones(6, dtype=torch.bool)
     with pytest.raises(ValueError, match="CUDA"):
@@ -288,15 +291,15 @@ def test_sweep_kernel_wrapper_refuses_cpu_tensors_and_bad_shapes():
         tbp.decode(tc, llr, syn,
                    tbp.DecodeOptions(schedule="layered", backend="pallas"),
                    device="cpu")
-    assert cuda_layered.refusal(6) is None
-    assert "row degree" in cuda_layered.refusal(9)
+    for degree in (2, 6, 9, 15, 60):
+        assert cuda_layered.refusal(degree) is None
     assert "row degree" in cuda_layered.refusal(1)
     assert cuda_layered.totals_in_shared_memory(20, 512)
     assert not cuda_layered.totals_in_shared_memory(128, 512)
     assert not hasattr(layered, "_use_kernel")
     # On a (pretended) CUDA device the decode raises the refusal before any
     # device work, under "auto" as under "pallas"; "xla" and the CPU do not.
-    steep = dataclasses.replace(tab, max_row_degree=9)
+    steep = dataclasses.replace(tab, max_row_degree=1)
     tc._device_cache[("layers", torch.device("cpu"))] = steep
     try:
         for backend in ("auto", "pallas"):

@@ -189,6 +189,11 @@ def test_import_leaves_jax_out():
         "import qkd_ldpc_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "assert len(names) >= 15, names\n"
+        "protocol = {'serve', 'postprocess', 'decoder.rate_adapt', 'decoder.blind',\n"
+        "            'examples.qkd_ldpc_example', 'examples.rate_adaptive_example',\n"
+        "            'examples.secure_chain_example'}\n"
+        "missing = {pkg.__name__ + '.' + n for n in protocol} - set(names)\n"
+        "assert not missing, missing\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -219,6 +224,26 @@ def test_entry_points_default_to_the_card_and_raise_without_one(dryrun_codes):
                    np.zeros((2, tc.n_checks), np.int8), opts)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_trial_batch(prng_key(1), tc.n_vars, 2, 7)
+    # the protocol surface
+    from qkd_ldpc_tpu_torch import Reconciler, privacy_amplify
+    from qkd_ldpc_tpu_torch.channel import generate_random_bits, introduce_errors
+    from qkd_ldpc_tpu_torch.decoder import RateAdapter, blind_reconcile_sim
+    from qkd_ldpc_tpu_torch.examples import rate_adaptive_example
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Reconciler(tc, opts)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate_random_bits(prng_key(1), tc.n_vars, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        introduce_errors(prng_key(1), alice, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RateAdapter.make(tc, n_shortened=4).build_frames(alice[:, 4:], prng_key(2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        blind_reconcile_sim(tc, alice[:, 8:], bob[:, 8:], n_punctured=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        privacy_amplify(alice, prng_key(3), 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rate_adaptive_example.main([])
 
 
 # The JAX package's fixed-seed regression pins (tests/test_regression.py):
