@@ -49,7 +49,17 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    ``Reconciler`` at 128 and 101 lanes against ``backend="xla"``,
    ``reconcile_secure``, the rate-adapted endpoint (flooding and layered) and
    the four decoder kernels on its erasure/pinned LLRs, a blind session, and
-   the four Toeplitz methods at the flagship and at a 262,144-bit frame.
+   the four Toeplitz methods at the flagship and at a 262,144-bit frame;
+7. drives ``parallel/`` on the one card (``parallel``): a trial mesh
+   of four shards on the card (``run_point_sharded`` flooding and layered, the
+   sharded continuation, ``run_sweep_sharded`` over three points, each equal
+   to the single-device runner, 7/7, with its kernels counted and no plain
+   update on the card), the general node-sharded decoder on (1 x 2) and
+   (2 x 2) meshes of the card (min-sum equal per lane, sum-product on
+   decisions and iterations) and ``run_point_node_sharded``, and the CLI run
+   by two processes sharing the card in a gloo group (CSV and checkpoint
+   byte-equal to one process's).  Shards on one card measure overhead, not
+   scaling.
 
 Each phase prints one JSON object on a line of its own; any failure raises.
 The last line is ``{"ok": true, "device": {...}}``.  The script exits non-zero
@@ -171,6 +181,15 @@ ADAPT_PUNCTURED, ADAPT_SHORTENED, ADAPT_SEED, ADAPT_QBER = 512, 512, 3, 0.04
 BLIND_PUNCTURED, BLIND_STEP, BLIND_QBER = 1024, 256, 0.065
 AMPLIFY_FRAMES, BIG_FRAME, BIG_LEAK = 32, 262144, 131072
 AMPLIFY_BLOCKS, AMPLIFY_ROWS_CHECKED = (128, 256, 512), 64
+# The parallel phase: four trial shards on the one card (a global batch of
+# BATCH, BATCH / 4 lanes a shard); a sweep of three points; node-sharded
+# decodes of NODE_BATCH flagship frames on (trial x node) meshes of the card;
+# the CLI in two processes sharing the card (each given CLI_PROCESS_TIMEOUT s).
+PARALLEL_SHARDS = 4
+PARALLEL_SWEEP_QBERS, PARALLEL_SWEEP_TRIALS = [0.04, 0.05, 0.06], 1024
+NODE_BATCH, NODE_POINT_TRIALS = 128, 512
+PARALLEL_NODE_MESHES = ((1, 2), (2, 2))
+CLI_PROCESS_TRIALS, CLI_PROCESS_TIMEOUT = 1000, 180
 
 
 def _time_ms(torch, fn, flush, repeats=20, warmup=3, prepare=None):
@@ -1416,6 +1435,294 @@ def _trace_cli_sweep(torch, code, card, untraced_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def _no_plain_on_card(torch):
+    """Fail if a plain check, variable or layered update runs on a CUDA
+    tensor inside the block (the wrappers look them up at call time)."""
+    from qkd_ldpc_tpu_torch.decoder import cuda_kernels, layered
+
+    seen = []
+    patched = [(cuda_kernels, "check_update_plain"), (cuda_kernels, "variable_update_plain"),
+               (layered, "layered_sweep_plain")]
+    reals = [getattr(mod, name) for mod, name in patched]
+
+    def watch(real, name):
+        def watched(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                seen.append(name)
+            return real(*args, **kw)
+        return watched
+
+    for (mod, name), real in zip(patched, reals):
+        setattr(mod, name, watch(real, name))
+    try:
+        yield
+    finally:
+        for (mod, name), real in zip(patched, reals):
+            setattr(mod, name, real)
+    if seen:
+        raise AssertionError(f"plain updates ran on the card: {sorted(set(seen))}")
+
+
+def _sp_drift(torch, got, ref):
+    """Sum-product across formulations: verdicts equal, bits equal where the
+    iterations are; returns the lanes whose iterations differ (each by 1 at
+    most, else it raises)."""
+    if not torch.equal(got.syndromes_match, ref.syndromes_match):
+        raise AssertionError("node-sharded SP: convergence verdicts differ")
+    same = got.iterations == ref.iterations
+    if not torch.equal(got.bits[same], ref.bits[same]):
+        raise AssertionError("node-sharded SP: decisions differ on frames of equal iterations")
+    moved = (~same).nonzero().flatten().tolist()
+    if (got.iterations - ref.iterations).abs().max() > 1:
+        raise AssertionError(f"node-sharded SP: a frame moved by more than 1 iteration: {moved}")
+    return moved
+
+
+def _wall(torch, fn):
+    """Seconds of one call of ``fn`` ending in a synchronise (after a warm-up
+    call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _collective_bytes(algorithm, n_trial, n_node, m, batch):
+    """Bytes the node-sharded decoder's collectives move per iteration between
+    the cards of its rows, were each shard on a card of its own: every shard
+    but a row's first sends its check partials (the fused stack: 2 float32
+    rows for sum-product, 4 int32 rows for min-sum) and its decision parity
+    row, and receives the merged stack back.  On one card no copy is made."""
+    depth = 4 if algorithm == "min-sum" else 2
+    return n_trial * (n_node - 1) * (2 * depth + 1) * m * (batch // n_trial) * 4
+
+
+def _two_process_cli(code):
+    """``python -m qkd_ldpc_tpu_torch`` over the flagship alone (3 points,
+    1000 trials a point, the last through the continuation), once in one
+    process and once in two processes sharing the card (gloo group on a free
+    localhost port): exactly one CSV and one checkpoint each, byte-equal.
+    A failed or late child fails the phase.  Returns the walls."""
+    import os
+    import socket
+
+    from qkd_ldpc_tpu_torch.codes import write_alist
+
+    repo = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="two_process_"))
+    try:
+        (tmp / "m").mkdir()
+        write_alist(code, tmp / "m" / QC_ALIST)
+        _, example = _reference_alist_and_example()
+        cfg = dict(example, trials_number=CLI_PROCESS_TRIALS, continuation_qber=0.055,
+                   code_rate_QBER_parameters=[dict(code_rate=0.5, QBER_begin=0.04,
+                                                   QBER_end=0.065, QBER_step=0.01)])
+        env = dict(os.environ, PYTHONPATH=str(repo))
+
+        def run(tag, n_procs):
+            d = tmp / tag
+            d.mkdir()
+            (d / "config.json").write_text(json.dumps(dict(
+                cfg, checkpoint_dir=str(d / "ckpt"), results_dir=str(d / "res"))))
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            argv = [sys.executable, "-m", "qkd_ldpc_tpu_torch", "--config",
+                    str(d / "config.json"), "--matrix-dir", str(tmp / "m"), "--no-progress"]
+            group = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n_procs)]
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                argv + (group + ["--process-id", str(i)] if n_procs > 1 else []),
+                cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for i in range(n_procs)]
+            try:
+                outs = [p.communicate(timeout=CLI_PROCESS_TIMEOUT) for p in procs]
+            finally:
+                for p in procs:
+                    p.kill()
+            seconds = time.perf_counter() - t0
+            for i, (p, (_, err)) in enumerate(zip(procs, outs)):
+                if p.returncode != 0:
+                    raise AssertionError(f"{tag} process {i} exited {p.returncode}:\n{err[-2000:]}")
+            files = [sorted((d / sub).glob(pat)) for sub, pat in (("res", "*.csv"),
+                                                                   ("ckpt", "*.jsonl"))]
+            if [len(f) for f in files] != [1, 1]:
+                raise AssertionError(f"{tag}: {files} (one CSV and one checkpoint expected)")
+            return [f[0] for f in files], seconds
+
+        single, s1 = run("single", 1)
+        multi, s2 = run("two", 2)
+        for a, b in zip(single, multi):
+            if a.name != b.name or a.read_bytes() != b.read_bytes():
+                raise AssertionError(f"two-process {b.name} differs from one process's")
+        rows = single[0].read_text().splitlines()[1:]
+        return {"points": len(rows), "trials_per_point": CLI_PROCESS_TRIALS,
+                "byte_equal": True, "one_process_seconds": s1, "two_process_seconds": s2,
+                "csv_rows": rows}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _parallel(torch, np, dev, card, code, names, opts, opts_l, opts_c, point_key, key_c,
+              counted, channel_launches, as_stats):
+    """``parallel/`` on one card: (a) a trial mesh of four shards on
+    the card — ``run_point_sharded`` (flooding, then layered),
+    ``run_sweep_sharded`` over three points and the sharded continuation,
+    each equal to the single-device runner, 7/7, and each counted: the
+    kernels of its schedule launched, no plain update on the card; (b) the
+    general node-sharded decoder on (1 x 2) and (2 x 2) meshes (min-sum equal
+    per lane, sum-product on decisions and iterations) and
+    ``run_point_node_sharded``; (c) two CLI processes sharing the card
+    through a gloo group, their CSV and checkpoint byte-equal to one
+    process's.  Shards on one card: every number is overhead, not scaling.
+    Returns the line's dict."""
+    from qkd_ldpc_tpu_torch.channel.threefry import fold_in, prng_key
+    from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions, decode
+    from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr
+    from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
+    from qkd_ldpc_tpu_torch.channel.keys import make_trial_batch, num_errors_for
+    from qkd_ldpc_tpu_torch.parallel import (
+        decode_node_sharded,
+        make_mesh,
+        make_trial_mesh,
+        run_point_node_sharded,
+        run_point_sharded,
+        run_sweep_sharded,
+    )
+    from qkd_ldpc_tpu_torch.sim import run_point, run_point_continuation
+    from qkd_ldpc_tpu_torch.sim.continuation import run_point_continuation_sharded
+
+    K1, K2, K3, K4, K5, K6, KV = names
+    from qkd_ldpc_tpu_torch.utils import canonical_device
+
+    card0 = canonical_device(dev)
+    trials = N_BATCHES * BATCH
+    b = BATCH // PARALLEL_SHARDS  # lanes a shard
+    mesh = make_trial_mesh([card0] * PARALLEL_SHARDS)
+    report = {"card": card, "shards_on_one_card": PARALLEL_SHARDS, "trials": trials,
+              "global_batch": BATCH, "note": "shards share one card: overhead, not scaling"}
+
+    def equal(what, got, ref):
+        if as_stats(got) != as_stats(ref):
+            raise AssertionError(f"{what}: {as_stats(got)} != {as_stats(ref)}")
+
+    def leg(name, step, ref_step, must, must_not):
+        """Warm up, then run ``step`` counted (no plain update on the card)
+        and ``ref_step``; hold them equal; check the launches."""
+        step()
+        with _no_plain_on_card(torch):
+            (got, _), seconds, launches = counted(step)
+        (ref, _), ref_seconds, _ = counted(ref_step)
+        equal(name, got, ref)
+        for k in must:
+            if launches.get(k, 0) <= 0:
+                raise AssertionError(f"{name}: kernel {k} was never launched: {launches}")
+        for k in must_not:
+            if launches.get(k, 0):
+                raise AssertionError(f"{name}: kernel {k} was launched: {launches}")
+        report[name] = {"partials": as_stats(got), "launches": launches,
+                        "seconds": seconds, "frames_per_s": trials / seconds,
+                        "single_device_seconds": ref_seconds,
+                        "single_device_frames_per_s": trials / ref_seconds}
+        return got, launches
+
+    # ---- (a) the trial mesh ------------------------------------------------
+    # compaction within each shard's lanes: compact_lanes from the shard's batch
+    opts_a = dataclasses.replace(opts, compact_lanes=b // 4)
+    _, launches = leg(
+        "trial_mesh_flooding",
+        lambda: run_point_sharded(code, point_key, QBER, trials, BATCH, opts_a, mesh),
+        lambda: run_point(code, point_key, QBER, trials, BATCH, opts, prng="pallas",
+                          device=card0),
+        (K1, K2, K3, K4, KV), (K5, K6))
+    batches = PARALLEL_SHARDS * N_BATCHES  # batches of b lanes
+    if launches[K1] != batches:
+        raise AssertionError(f"trial mesh: {launches[K1]} {K1} launches for {batches} batches")
+    channel_launches("trial mesh", launches, batches)
+    opts_la = dataclasses.replace(opts_l, compact_lanes=b // 4)
+    leg("trial_mesh_layered",
+        lambda: run_point_sharded(code, point_key, QBER, trials, BATCH, opts_la, mesh),
+        lambda: run_point(code, point_key, QBER, trials, BATCH, opts_l, prng="pallas",
+                          device=card0),
+        (K3, K4, K6), (K1, K2, K5, KV))
+    cont, _ = leg("trial_mesh_continuation",
+        lambda: run_point_continuation_sharded(code, key_c, WATERFALL_QBER, trials, b,
+                                               opts_c, mesh, segment=SEGMENT,
+                                               refill_frac=REFILL_FRAC),
+        lambda: run_point_continuation(code, key_c, WATERFALL_QBER, trials, BATCH, opts_c,
+                                       segment=SEGMENT, refill_frac=REFILL_FRAC,
+                                       device=card0),
+        (K3, K4, K5, KV), (K1, K2, K6))
+    plain_c, _ = run_point(code, key_c, WATERFALL_QBER, trials, BATCH, opts_c, device=card0)
+    equal("sharded continuation against run_point", cont, plain_c)
+    master = prng_key(MASTER_SEED)
+    swept = run_sweep_sharded(code, master, PARALLEL_SWEEP_QBERS, PARALLEL_SWEEP_TRIALS,
+                              BATCH, opts_a, mesh)
+    for i, (p, q) in enumerate(swept):
+        ref, q_ref = run_point(code, fold_in(master, i), PARALLEL_SWEEP_QBERS[i],
+                               PARALLEL_SWEEP_TRIALS, BATCH, opts, device=card0)
+        equal(f"run_sweep_sharded point {i}", p, ref)
+        if q != q_ref:
+            raise AssertionError(f"run_sweep_sharded point {i}: QBER {q} != {q_ref}")
+    report["sweep_sharded"] = {"qbers": PARALLEL_SWEEP_QBERS, "trials": PARALLEL_SWEEP_TRIALS,
+                               "partials": [as_stats(p) for p, _ in swept]}
+
+    # ---- (b) node sharding at the flagship -------------------------------------
+    N = code.n_vars
+    n_err = num_errors_for(N, QBER)
+    alice, bob = make_trial_batch(point_key, N, NODE_BATCH, n_err, 0, device=card0)
+    llr = apriori_llr(bob, np.float32(n_err) / np.float32(N))
+    syn = syndrome(code, alice)
+    base = dict(max_iterations=100, clip_messages=True, message_threshold=100.0,
+                message_dtype="bfloat16", routing="gather")
+    node = {"batch": NODE_BATCH, "qber": QBER}
+    M = code.n_checks
+    for alg in ("min-sum", "sum-product"):
+        o = DecodeOptions(algorithm=alg, **base)
+        ref = decode(code, llr, syn, o, device=card0)
+        plain = dataclasses.replace(o, backend="xla")
+        for n_trial, n_node in PARALLEL_NODE_MESHES:
+            m = make_mesh(n_trial, n_node, devices=[card0] * (n_trial * n_node))
+            got = decode_node_sharded(code, llr, syn, o, m)
+            if alg == "min-sum":
+                for f in ("bits", "iterations", "syndromes_match"):
+                    if not torch.equal(getattr(got, f), getattr(ref, f)):
+                        raise AssertionError(f"node-sharded min-sum {n_trial}x{n_node}: {f} differ")
+                moved = []
+            else:
+                moved = _sp_drift(torch, got, ref)
+                if len(moved) > SP_ITERATION_SUM_ALLOWANCE:
+                    raise AssertionError(f"node-sharded SP {n_trial}x{n_node}: lanes {moved}")
+            node[f"{alg}_{n_trial}x{n_node}"] = {
+                "equal_per_lane": alg == "min-sum", "sp_lanes_moved_1_iteration": moved,
+                "seconds": _wall(torch, lambda: decode_node_sharded(code, llr, syn, o, m)),
+                "collective_bytes_per_iteration": _collective_bytes(
+                    alg, n_trial, n_node, M, NODE_BATCH),
+            }
+        node[f"{alg}_single_device_kernel_seconds"] = _wall(
+            torch, lambda: decode(code, llr, syn, o, device=card0))
+        node[f"{alg}_single_device_plain_seconds"] = _wall(
+            torch, lambda: decode(code, llr, syn, plain, device=card0))
+        node[f"{alg}_mean_iterations"] = float(ref.iterations.float().mean())
+    o_ms = DecodeOptions(algorithm="min-sum", **base)
+    m22 = make_mesh(2, 2, devices=[card0] * 4)
+    (p_node, _), s_node, launches_node = counted(
+        lambda: run_point_node_sharded(code, point_key, QBER, NODE_POINT_TRIALS, BATCH, o_ms, m22))
+    p_ref, _ = run_point(code, point_key, QBER, NODE_POINT_TRIALS, BATCH, o_ms, device=card0)
+    equal("run_point_node_sharded", p_node, p_ref)
+    node["run_point_node_sharded"] = {"trials": NODE_POINT_TRIALS, "mesh": "2x2",
+                                      "partials": as_stats(p_node), "seconds": s_node,
+                                      "launches": launches_node}
+    report["node_sharded"] = node
+
+    # ---- (c) two processes sharing the card -------------------------------------
+    report["two_process_cli"] = _two_process_cli(code)
+    return report
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1997,6 +2304,12 @@ def main() -> int:
     phase_start("protocol")
     print(json.dumps({"protocol": _protocol(torch, np, dev, card, code, names)}),
           flush=True)
+
+    # ---- phase 7: parallel/ on one card (parallel) --------------------------------
+    phase_start("parallel")
+    print(json.dumps({"parallel": _parallel(
+        torch, np, dev, card, code, names, opts, opts_l, opts_c, point_key, key_c,
+        counted, channel_launches, as_stats)}), flush=True)
 
     phase_start(None)
     print(json.dumps({"phase_seconds": dict(card=card, **phase_seconds)}), flush=True)

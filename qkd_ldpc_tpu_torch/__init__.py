@@ -14,6 +14,8 @@ reader finds each counterpart under the same name:
 - the three example programs (``python -m``)          -> ``examples``
 - QBER sweep planning, runners, stats, CSV,
   checkpointing, interactive mode, console tracing    -> ``sim``
+- trial meshes, sharded sweeps, node-sharded decode,
+  process groups                                      -> ``parallel``
 - command line (``python -m qkd_ldpc_tpu_torch``)     -> ``cli``
 - hand-written CUDA kernels and their build           -> ``csrc``, ``_build``
 

@@ -25,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -58,6 +59,10 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-shared")
 
 _loaded: dict[tuple[str, str], object] = {}
 _launches: dict[str, int] = {}
+# Shards of a mesh on distinct cards launch from one host thread each: the
+# first build (its temporary files are named by the process alone), the
+# table of loaded functions and the launch counts are changed under this lock.
+_lock = threading.RLock()
 build_seconds = 0.0  # wall time of the nvcc runs this process started
 
 
@@ -109,6 +114,11 @@ def build_log(name: str) -> str:
 
 def build_all() -> None:
     """Compile every missing library, all nvcc processes in parallel."""
+    with _lock:
+        _build_missing()
+
+
+def _build_missing() -> None:
     global build_seconds
     todo = [n for n in LIBRARIES if not library_path(n).exists()]
     if not todo:
@@ -145,14 +155,17 @@ def function(library: str, name: str, argtypes: list):
     entry returns ``cudaGetLastError()`` as an int."""
     fn = _loaded.get((library, name))
     if fn is None:
-        if library not in LIBRARIES:
-            raise KeyError(library)
-        build_all()
-        lib = ctypes.CDLL(str(library_path(library)))
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _loaded[(library, name)] = fn
+        with _lock:
+            fn = _loaded.get((library, name))
+            if fn is None:
+                if library not in LIBRARIES:
+                    raise KeyError(library)
+                build_all()
+                lib = ctypes.CDLL(str(library_path(library)))
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _loaded[(library, name)] = fn
     return fn
 
 
@@ -161,7 +174,9 @@ def constant(library: str, name: str) -> int:
     width compiled into it), asked once."""
     key = (library, name + "()")
     if key not in _loaded:
-        _loaded[key] = function(library, name, [])()
+        with _lock:
+            if key not in _loaded:
+                _loaded[key] = function(library, name, [])()
     return _loaded[key]
 
 
@@ -170,7 +185,8 @@ def check_launch(kernel: str, err: int) -> None:
     launch otherwise.  This is the only place the counts change."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {kernel!r} failed to launch: error {err}")
-    _launches[kernel] = _launches.get(kernel, 0) + 1
+    with _lock:
+        _launches[kernel] = _launches.get(kernel, 0) + 1
 
 
 def launch_counts() -> dict[str, int]:
@@ -193,6 +209,11 @@ def build_native() -> Path:
     """Compile the native ingest library with ``g++`` if it is missing and
     return its path; raises when the source or the compiler is missing or
     the build fails."""
+    with _lock:
+        return _build_native()
+
+
+def _build_native() -> Path:
     out = native_library_path()
     if out.exists():
         return out

@@ -29,6 +29,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from qkd_ldpc_tpu_torch.utils import canonical_device
+
 _ARRAY_FIELDS = (
     "chk_adj", "chk_mask", "var_adj", "var_mask",
     "var_slot", "chk_slot", "var_deg", "chk_deg",
@@ -129,8 +131,9 @@ class LDPCCode:
         return self.n_vars - self.n_checks
 
     def to_device(self, device) -> DeviceCode:
-        """The decoder's index tensors on ``device`` (built once, reused)."""
-        device = torch.device(device)
+        """The decoder's index tensors on ``device`` (built once, reused;
+        ``cuda`` and ``cuda:0`` are one key)."""
+        device = canonical_device(device)
         cached = self._device_cache.get(device)
         if cached is not None:
             return cached

@@ -26,6 +26,7 @@ from qkd_ldpc_tpu_torch.sim.stats import (
     PointPartials,
     SimResult,
     finalize_point,
+    partials_from_device,
     reduce_trials,
 )
 from qkd_ldpc_tpu_torch.sim.tracing import ConsoleTracer, TraceFlags, traced_reconcile
@@ -53,5 +54,6 @@ __all__ = [
     "PointPartials",
     "SimResult",
     "finalize_point",
+    "partials_from_device",
     "reduce_trials",
 ]

@@ -36,8 +36,12 @@ decision syndrome) and five small per-lane ops; the loop carries ``Lr``, and
 neither the totals nor a gathered copy of them are lane state.
 
 The continuation runner decodes with the flooding schedule only and raises
-on ``schedule="layered"``; the variants sharded over a device mesh belong
-to the ``parallel/`` slice of the port.
+on ``schedule="layered"``.  Over a trial mesh (``parallel.mesh``) each trial
+shard runs its own lane pool over a contiguous range of every point's
+global trial ids (shard ``s`` of ``S`` takes ``[s*q + min(s, r), ...)`` with
+``q, r = divmod(trials, S)``); the shards' ``[7, P]`` integer statistics
+merge on the host by sums, minima and maxima, so the result is again the
+plain runner's.
 """
 
 from __future__ import annotations
@@ -56,10 +60,10 @@ from qkd_ldpc_tpu_torch.sim.stats import PointPartials, partials_from_stacked
 from qkd_ldpc_tpu_torch.utils import resolve_device
 
 
-# How often the most recent _continuation_core call went round its loops: outer
-# steps (one device fetch and `segment` decode iterations each), refills and
-# staging-block generations.  A diagnostic, read by callers that hold the
-# kernels' launch counts against the loop structure.
+# How often the most recent continuation run went round its loops, summed
+# over its trial shards: outer steps (one device fetch and `segment` decode
+# iterations each), refills and staging-block generations.  A diagnostic, read
+# by callers that hold the kernels' launch counts against the loop structure.
 last_loop_counts = {"outer_steps": 0, "refills": 0, "generations": 0}
 
 
@@ -68,16 +72,17 @@ def _continuation_core(
     point_keys: list,  # P PRNG keys, one per sweep point
     num_errors: list[int],  # [P]
     trials: int,  # trials per point
+    trial_offset: int,  # first global trial id of every point
     batch: int,
     segment: int,
     refill_min: int,
     opts: DecodeOptions,
     prng: str = "threefry",
     device=None,
-) -> torch.Tensor:
-    """Trials [0, trials) of P consecutive sweep points with CROSS-POINT
-    lane continuation; returns the stacked [7, P] int32 stat matrix on the
-    device.
+) -> tuple[torch.Tensor, dict]:
+    """Trials [trial_offset, trial_offset + trials) of P consecutive sweep
+    points with CROSS-POINT lane continuation; returns the stacked [7, P]
+    int32 stat matrix on the device and the loops' counts.
 
     Points are consumed in order; as point p's ids run out, drained lanes
     start hosting point p+1's trials immediately.  Each lane is tagged with
@@ -142,7 +147,7 @@ def _continuation_core(
                     base, sp, next_id = 0, min(sp + 1, P - 1), 0
                 # ids >= trials are generated but never consumed (tail waste
                 # of at most one block per point).
-                ids = range(base, base + S)  # taken mod 2**32
+                ids = range(trial_offset + base, trial_offset + base + S)  # mod 2**32
                 ne = num_errors[sp]
                 a_new, b_new = make_trials_from_ids(
                     point_keys[sp], N, ids, ne, prng, opts.backend, device)
@@ -209,17 +214,48 @@ def _continuation_core(
         acc[6].scatter_reduce_(0, lane_p, it_sp, "amax", include_self=True)
         live = live & ~finished
         live_n = int(live.sum())  # the one fetch per outer step
-    last_loop_counts.update(counts)
-    return torch.stack(acc)
+    return torch.stack(acc), counts
 
 
-def _check_point(code, qbers, trials, opts, mesh, hint):
+def _run_shards(code, point_keys, n_errs, trials, batch, segment, refill_min, opts,
+                prng, device, mesh) -> torch.Tensor:
+    """The continuation on ``device``, or on every trial shard of ``mesh``
+    (``batch`` lanes each); returns the merged [7, P] statistics on the host
+    and records the loops' counts in ``last_loop_counts``."""
+    if mesh is None:
+        stacked, counts = _continuation_core(
+            code, point_keys, n_errs, trials, 0, batch, segment, refill_min, opts, prng,
+            device)
+        last_loop_counts.update(counts)
+        return stacked.cpu()
+    from qkd_ldpc_tpu_torch.parallel.mesh import (
+        TRIAL_AXIS,
+        all_gather_rows,
+        run_on_shards,
+        trial_sharding,
+    )
+
+    n_shards = mesh.shape[TRIAL_AXIS]
+    q, r = divmod(trials, n_shards)
+
+    def shard_run(shard):
+        s = shard.index
+        return _continuation_core(
+            code, point_keys, n_errs, q + (s < r), s * q + min(s, r), batch, segment,
+            refill_min, opts, prng, shard.device)
+
+    runs = run_on_shards(shard_run, trial_sharding(mesh, n_shards))
+    last_loop_counts.update({k: sum(c[k] for _, c in runs) for k in last_loop_counts})
+    rows = torch.stack([st.cpu().to(torch.int64) for st, _ in runs])  # [k, 7, P]
+    if mesh.process_count > 1:
+        rows = all_gather_rows(rows)
+    # Integer sums, minima and maxima: exact, independent of the shard order.
+    return torch.cat([rows[:, :5].sum(0), rows[:, 5:6].amin(0),
+                      rows[:, 6:7].amax(0)]).to(torch.int32)
+
+
+def _check_point(code, qbers, trials, opts, hint):
     """The guards shared by the entry points; returns the error counts."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "continuation over a device mesh belongs to the parallel/ slice "
-            "of the port (trial sharding over torch.distributed)"
-        )
     if opts.schedule == "layered":
         raise ValueError(
             "the continuation runner decodes with the flooding schedule "
@@ -245,17 +281,14 @@ def _refill_quantum(batch: int, refill_frac: float) -> int:
 
 
 class _SweepSlice:
-    """Per-point view of a [7, P] continuation-sweep result; the device
-    fetch happens ONCE for the whole group."""
+    """Per-point view of a [7, P] continuation-sweep result, fetched from
+    the device ONCE for the whole group."""
 
-    def __init__(self, holder: dict, idx: int):
-        self._holder, self._idx = holder, idx
+    def __init__(self, host: torch.Tensor, idx: int):
+        self._host, self._idx = host, idx
 
     def fetch(self):
-        h = self._holder
-        if h.get("host") is None:
-            h["host"] = h["future"].cpu()
-        return h["host"][:, self._idx]
+        return self._host[:, self._idx]
 
 
 def dispatch_sweep_continuation(
@@ -272,17 +305,16 @@ def dispatch_sweep_continuation(
     device=None,
 ) -> tuple[list[list], list[float]]:
     """Run P consecutive waterfall points as ONE cross-point continuation
-    (drained lanes of point p host point p+1's trials).  Returns per-point
-    result lists (each a single shared-fetch slice) and the actual QBERs.
+    (drained lanes of point p host point p+1's trials), on ``device`` or on
+    every trial shard of ``mesh`` with ``batch`` lanes each.  Returns
+    per-point result lists (each a single shared-fetch slice) and the actual
+    QBERs.
     """
-    n_errs = _check_point(code, qbers, trials, opts, mesh,
+    n_errs = _check_point(code, qbers, trials, opts,
                           "lower continuation_qber or trials_number")
-    future = _continuation_core(
-        code, list(point_keys), n_errs, trials, batch, segment,
-        _refill_quantum(batch, refill_frac), opts, prng, device,
-    )
-    holder = {"future": future, "host": None}
-    futures = [[_SweepSlice(holder, i)] for i in range(len(qbers))]
+    host = _run_shards(code, list(point_keys), n_errs, trials, batch, segment,
+                       _refill_quantum(batch, refill_frac), opts, prng, device, mesh)
+    futures = [[_SweepSlice(host, i)] for i in range(len(qbers))]
     return futures, [n / code.n_vars for n in n_errs]
 
 
@@ -304,15 +336,60 @@ def run_point_continuation(
     wherever per-frame iteration residency varies widely (the waterfall).
     ``device=None`` means the card and raises when there is none.
     """
-    (n_err,) = _check_point(code, [qber], trials, opts, None,
+    (n_err,) = _check_point(code, [qber], trials, opts,
                             "split the point or use the plain runner")
-    stacked = _continuation_core(
-        code, [point_key], [n_err], trials, batch, segment,
-        _refill_quantum(batch, refill_frac), opts, device=device,
-    )
+    host = _run_shards(code, [point_key], [n_err], trials, batch, segment,
+                       _refill_quantum(batch, refill_frac), opts, "threefry", device, None)
     # Merging into an empty PointPartials applies the n_sp == 0 min/max
     # convention, so partials compare bit-equal with the plain runner.
-    total = PointPartials().merge(partials_from_stacked(stacked[:, 0].cpu()))
+    total = PointPartials().merge(partials_from_stacked(host[:, 0]))
     if tick is not None:
         tick(total.n_trials)
     return total, n_err / code.n_vars
+
+
+def dispatch_point_continuation_sharded(
+    code: LDPCCode,
+    point_key: torch.Tensor,
+    qber: float,
+    trials: int,
+    batch: int,
+    opts: DecodeOptions,
+    mesh,
+    segment: int = 4,
+    refill_frac: float = 0.25,
+) -> tuple[list, float]:
+    """One point's continuation on every trial shard of ``mesh`` (``batch``
+    lanes each), in the futures protocol of ``sim.runner``."""
+    futures, actuals = dispatch_sweep_continuation(
+        code, [point_key], [qber], trials, batch, opts, mesh=mesh,
+        segment=segment, refill_frac=refill_frac,
+    )
+    return futures[0], actuals[0]
+
+
+def run_point_continuation_sharded(
+    code: LDPCCode,
+    point_key: torch.Tensor,
+    qber: float,
+    trials: int,
+    batch: int,  # lanes per trial shard
+    opts: DecodeOptions,
+    mesh,
+    segment: int = 4,
+    refill_frac: float = 0.25,
+    tick: Callable[[int], None] | None = None,
+) -> tuple[PointPartials, float]:
+    """All trials of one point with one continuation lane pool a trial shard.
+
+    Statistics bit-identical to :func:`run_point_continuation` and to the
+    plain (sharded or single-device) runner.
+    """
+    futures, actual = dispatch_point_continuation_sharded(
+        code, point_key, qber, trials, batch, opts, mesh,
+        segment=segment, refill_frac=refill_frac,
+    )
+    total = PointPartials().merge(partials_from_stacked(futures[0].fetch()))
+    if tick is not None:
+        tick(total.n_trials)
+    return total, actual

@@ -21,7 +21,10 @@ Additions over the reference, as in the JAX package:
 
 The JAX sweep keeps one point in flight to hide its per-dispatch latency;
 here the decode loop already synchronises once per iteration, so points run
-in order.
+in order.  With ``cfg.use_mesh`` and more than one card visible, or more
+than one process in a ``torch.distributed`` group, the sweep runs over a
+trial mesh (``parallel``) with bit-identical results; only process 0 then
+writes the checkpoint and shows progress.
 """
 
 from __future__ import annotations
@@ -29,7 +32,6 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-import sys
 from pathlib import Path
 from typing import Callable, Sequence
 
@@ -332,7 +334,16 @@ def batch_simulation(
     or above it runs in ONE cross-point continuation call after the
     matrix's other points; its statistics are identical to the plain
     runner's.
+
+    A trial mesh engages when ``cfg.use_mesh`` holds and either ``device``
+    is the card unpinned (``None`` or ``cuda``) with more than one card
+    visible — the mesh then covers every card — or this process belongs to a
+    group of several — the mesh then holds ``device`` once in each process.
+    ``batch`` is then per trial shard, as in the JAX package.  Every process
+    reads the checkpoint (multi-process resume needs ``checkpoint_dir`` on a
+    shared file system); only process 0 appends to it and shows progress.
     """
+    unpinned = device is None or torch.device(device) == torch.device("cuda")
     device = resolve_device(device)
     opts = decode_options_from_config(cfg)
     if cfg.schedule == "layered" and any(si.code.qc is None for si in sim_inputs):
@@ -342,9 +353,9 @@ def batch_simulation(
     ckpt_path = _checkpoint_path(cfg, sim_inputs)
     done = _load_checkpoint(ckpt_path)
     master = master_key(cfg.simulation_seed, cfg.prng)
-    if cfg.use_mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
-        print(f"The trial mesh is not ported: the sweep runs on {device} alone "
-              f"of {torch.cuda.device_count()} visible cards.", file=sys.stderr)
+    mesh = _sweep_mesh(cfg, device, unpinned)
+    if mesh is not None and mesh.process_index != 0:
+        ckpt_path, progress = None, False
 
     total_trials = sum(len(si.qber) for si in sim_inputs) * cfg.trials_number
     bar = ProgressBar(total_trials, enabled=progress)
@@ -381,6 +392,12 @@ def batch_simulation(
             m_opts = dataclasses.replace(
                 opts, compact_after=cfg.compact_after, compact_lanes=batch // 4,
             )
+        if mesh is not None:
+            from qkd_ldpc_tpu_torch.parallel.sweep import _collect as collect_sharded
+            from qkd_ldpc_tpu_torch.parallel.sweep import make_point_dispatcher
+
+            mesh_dispatch = make_point_dispatcher(si.code, batch, m_opts, mesh,
+                                                  prng=cfg.prng)
         cont_entries = []  # (sim_number, qber, point_key) waterfall points
         for qber in si.qber:
             if sim_number in done:
@@ -391,6 +408,9 @@ def batch_simulation(
             point_key = fold_in(master, sim_number)
             if cfg.continuation_qber > 0 and qber >= cfg.continuation_qber:
                 cont_entries.append((sim_number, qber, point_key))
+            elif mesh is not None:
+                futures, actual_qber = mesh_dispatch(point_key, qber, cfg.trials_number)
+                finish(sim_number, si, actual_qber, collect_sharded(futures, mesh))
             else:
                 futures, actual_qber = _dispatch_point(
                     si.code, point_key, qber, cfg.trials_number, batch, m_opts,
@@ -405,13 +425,27 @@ def batch_simulation(
             futs, actuals = dispatch_sweep_continuation(
                 si.code, [k for _, _, k in cont_entries],
                 [q for _, q, _ in cont_entries], cfg.trials_number,
-                batch, m_opts, prng=cfg.prng, device=device,
+                batch, m_opts, mesh=mesh, prng=cfg.prng, device=device,
             )
             for (num, _, _), (piece,), aq in zip(cont_entries, futs, actuals):
                 # the points' slices share one fetch
                 finish(num, si, aq, partials_from_stacked(piece.fetch()))
     bar.close()
     return [results[i] for i in sorted(results)]
+
+
+def _sweep_mesh(cfg: Config, device: torch.device, unpinned: bool):
+    """The trial mesh of a sweep, or None for one device (see
+    :func:`batch_simulation`)."""
+    if not cfg.use_mesh:
+        return None
+    from qkd_ldpc_tpu_torch.parallel.mesh import make_trial_mesh, process_count
+
+    if device.type == "cuda" and unpinned and torch.cuda.device_count() > 1:
+        return make_trial_mesh()
+    if process_count() > 1:
+        return make_trial_mesh([device])
+    return None
 
 
 def simulate_directory(cfg: Config, matrix_dir: str | Path, progress: bool = True,

@@ -106,6 +106,14 @@ def partials_from_stacked(stacked) -> PointPartials:
     )
 
 
+def partials_from_device(reduced: dict, max_iterations: int) -> PointPartials:
+    """A ``reduce_trials`` dict on the device -> ``PointPartials`` with ONE
+    fetch: the seven scalars stacked, then copied to the host.  The values
+    are the reduction's own (``min_it`` stays at ``max_iterations`` where no
+    trial succeeded), as in the JAX package, whose signature this keeps."""
+    return partials_from_stacked(stack_partials(reduced).cpu())
+
+
 @dataclasses.dataclass
 class SimResult:
     """One CSV row of a sweep."""

@@ -69,6 +69,16 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def canonical_device(device) -> torch.device:
+    """``device`` with its index filled in: ``cuda`` becomes ``cuda:<current
+    card>``, so ``cuda`` and ``cuda:0`` name one card in a cache key or a
+    mesh.  Other devices come back as given."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def tensor_on(x, device=None, dtype=None) -> torch.Tensor:
     """``x`` as a tensor: a tensor stays on its device unless ``device`` is
     given; anything else (numpy, lists) goes to :func:`resolve_device`'s

@@ -119,9 +119,13 @@ def test_the_default_device_is_the_card_and_fails_without_one(workspace, capsys,
 @pytest.mark.parametrize("flag", [["--coordinator", "localhost:1234"],
                                   ["--num-processes", "2"], ["--process-id", "0"]])
 def test_multi_process_flags_are_refused(workspace, capsys, flag):
+    """One of the three multi-process flags alone is refused before any work
+    (torch.distributed discovers no cluster; the full set is driven in
+    tests/test_torch_distributed.py)."""
     rc = tcli.main(["--config", str(workspace / "config.json"), "--device", "cpu"] + flag)
     assert rc == 1
-    assert "ROADMAP.md item 11" in capsys.readouterr().err
+    assert tcli.MULTI_PROCESS_FLAGS in capsys.readouterr().err
+    assert not (workspace / "results").exists()
 
 
 def test_profile_writes_a_torch_profiler_trace(workspace, capsys):

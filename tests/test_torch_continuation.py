@@ -29,6 +29,7 @@ from qkd_ldpc_tpu.sim.continuation import run_point_continuation as j_run_point_
 from qkd_ldpc_tpu_torch import codes as tcodes
 from qkd_ldpc_tpu_torch.channel.threefry import fold_in, prng_key
 from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions
+from qkd_ldpc_tpu_torch.parallel import make_trial_mesh
 from qkd_ldpc_tpu_torch.sim import (
     dispatch_sweep_continuation,
     run_point,
@@ -156,9 +157,10 @@ def test_continuation_guards(wf_code):
     with pytest.raises(ValueError, match="flooding schedule only"):
         dispatch_sweep_continuation(wf_code, [key], [0.05], 4, 4, layered,
                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        dispatch_sweep_continuation(wf_code, [key], [0.05], 4, 4, DecodeOptions(),
-                                    mesh=object(), device="cpu")
+    # ... on a trial mesh too (the sharded continuation, parallel/)
+    with pytest.raises(ValueError, match="flooding schedule only"):
+        dispatch_sweep_continuation(wf_code, [key], [0.05], 4, 4, layered,
+                                    mesh=make_trial_mesh([torch.device("cpu")] * 2))
     if not torch.cuda.is_available():  # device=None means the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run_point_continuation(wf_code, key, 0.05, trials=4, batch=4,
