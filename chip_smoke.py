@@ -59,7 +59,16 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    decisions and iterations) and ``run_point_node_sharded``, and the CLI run
    by two processes sharing the card in a gloo group (CSV and checkpoint
    byte-equal to one process's).  Shards on one card measure overhead, not
-   scaling.
+   scaling;
+8. drives the QC node-sharded decoder (``qc_node``) on the flagship: 128
+   frames, flooding and layered, sum-product and min-sum (bf16; min-sum also
+   int8 on (1 x 2)), on (1 x 2), (2 x 2) and (1 x 3) meshes of the card, each
+   held against the single-device kernel decode of its schedule (min-sum
+   equal per lane, sum-product on decisions with at most 2 frames moved by
+   one iteration); its sweep point (min-sum, 512 trials, (2 x 2)) equal to
+   ``run_point`` 7/7 with the general decoder never called; and a (1 x 2)
+   row whose shards lie in two processes sharing the card (gloo): every
+   decode bit-equal to the one-process row, the point 7/7.
 
 Each phase prints one JSON object on a line of its own; any failure raises.
 The last line is ``{"ok": true, "device": {...}}``.  The script exits non-zero
@@ -190,6 +199,13 @@ PARALLEL_SWEEP_QBERS, PARALLEL_SWEEP_TRIALS = [0.04, 0.05, 0.06], 1024
 NODE_BATCH, NODE_POINT_TRIALS = 128, 512
 PARALLEL_NODE_MESHES = ((1, 2), (2, 2))
 CLI_PROCESS_TRIALS, CLI_PROCESS_TIMEOUT = 1000, 180
+# The qc_node phase: the QC node-sharded decoder (routing "auto") on
+# (trial x node) meshes of the card, NODE_BATCH flagship frames; (1 x 3) pads
+# one dummy block (nb_s = 7).  Its sweep point on (2 x 2), NODE_POINT_TRIALS
+# trials.  Then one (1 x 2) row whose two shards lie in two processes sharing
+# the card (each given ROW_PROCESS_TIMEOUT s).
+QC_NODE_MESHES = ((1, 2), (2, 2), (1, 3))
+ROW_PROCESS_TIMEOUT = 300
 
 
 def _time_ms(torch, fn, flush, repeats=20, warmup=3, prepare=None):
@@ -1566,6 +1582,257 @@ def _two_process_cli(code):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _qc_collective_bytes(algorithm, schedule, n_trial, n_node, m, z, batch):
+    """Bytes the QC node-sharded decoder's collectives would move between
+    cards, were each shard on a card of its own: every shard's check partials
+    go to every other shard of its row (sum-product one float32 row of
+    products a check, min-sum four int32 rows) and each shard's decision
+    parities to the row's first shard.  Flooding: per iteration (all M
+    checks, one parity); layered: per layer (z checks) and per sweep (mb
+    layers, one parity).  On one card, and within a process, no copy is
+    made."""
+    depth = 4 if algorithm == "min-sum" else 1
+    b = batch // n_trial
+    gather = n_trial * n_node * (n_node - 1) * depth * 4 * b  # a check's partials
+    parity = n_trial * (n_node - 1) * 4 * m * b
+    if schedule == "flooding":
+        return {"collective_bytes_per_iteration": gather * m + parity}
+    return {"collective_bytes_per_layer": gather * z,
+            "collective_bytes_per_sweep": gather * m + parity}
+
+
+# One process of a (1 x 2) row spanning two processes that share the card:
+# argv = coordinator port, rank, output directory, parameters (JSON).  It
+# makes the row's frames, decodes them (flooding and layered, sum-product and
+# min-sum) and runs the min-sum sweep point, and saves what it got.
+_ROW_CHILD = r"""
+import dataclasses, json, sys, time
+import numpy as np
+import torch
+from qkd_ldpc_tpu_torch import _build
+from qkd_ldpc_tpu_torch.channel.keys import derive_point_key, make_trial_batch, num_errors_for
+from qkd_ldpc_tpu_torch.codes import make_qc_code
+from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions
+from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr
+from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
+from qkd_ldpc_tpu_torch.parallel import (
+    decode_qc_node_sharded, initialize_distributed, make_mesh, run_point_node_sharded)
+port, rank, out, p = sys.argv[1], int(sys.argv[2]), sys.argv[3], json.loads(sys.argv[4])
+initialize_distributed(f"127.0.0.1:{port}", 2, rank)
+card = torch.device("cuda", 0)
+mesh = make_mesh(1, 2, devices=[card])
+assert mesh.rows[0].group is not None and mesh.rows[0].nodes == (rank,)
+code = make_qc_code(**p["code"])
+key = derive_point_key(p["master_seed"], p["point_index"])
+n_err = num_errors_for(code.n_vars, p["qber"])
+alice, bob = make_trial_batch(key, code.n_vars, p["batch"], n_err, 0, device=card)
+llr = apriori_llr(bob, np.float32(n_err) / np.float32(code.n_vars))
+syn = syndrome(code, alice)
+got = {}
+for sched, alg in p["legs"]:
+    o = DecodeOptions(algorithm=alg, schedule=sched, **p["base"])
+    decode_qc_node_sharded(code, llr, syn, o, mesh)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = decode_qc_node_sharded(code, llr, syn, o, mesh)
+    torch.cuda.synchronize()
+    got[f"{sched}/{alg}"] = dict(bits=r.bits.cpu(), iterations=r.iterations.cpu(),
+                                 syndromes_match=r.syndromes_match.cpu(),
+                                 seconds=time.perf_counter() - t0,
+                                 launches=_build.launch_counts())
+points = {}
+for sched in ("flooding", "layered"):
+    o = DecodeOptions(algorithm="min-sum", schedule=sched, **p["base"])
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    part, _ = run_point_node_sharded(code, key, p["qber"], p["trials"], p["trials"], o, mesh)
+    torch.cuda.synchronize()
+    points[sched] = dict(partials=list(dataclasses.astuple(part)),
+                         seconds=time.perf_counter() - t0, launches=_build.launch_counts())
+torch.save(dict(decodes=got, points=points), f"{out}/rank{rank}.pt")
+"""
+
+
+def _two_process_row(torch, code, base, legs, trials):
+    """The (1 x 2) row across two processes sharing the card; returns each
+    rank's saved results.  A failed or late child fails the phase."""
+    import os
+    import socket
+
+    repo = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="two_process_row_"))
+    try:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        params = json.dumps(dict(
+            code=dict(z=Z, nb=NB, mb=MB_ROWS, dv=DV, seed=CODE_SEED), master_seed=MASTER_SEED,
+            point_index=POINT_INDEX, qber=QBER, batch=NODE_BATCH, trials=trials, base=base,
+            legs=legs))
+        env = dict(os.environ, PYTHONPATH=str(repo))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _ROW_CHILD, str(port), str(i), str(tmp), params],
+            cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i in range(2)]
+        try:
+            outs = [p.communicate(timeout=ROW_PROCESS_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        seconds = time.perf_counter() - t0
+        for i, (p, (_, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"row process {i} exited {p.returncode}:\n{err[-3000:]}")
+        return [torch.load(tmp / f"rank{i}.pt", weights_only=True) for i in range(2)], seconds
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _qc_node(torch, np, dev, card, code, names, counted, as_stats, point_key):
+    """The QC node-sharded decoder on meshes of the card (routing "auto"),
+    held against the single-device kernel decodes; its sweep point against
+    ``run_point``; a row across two processes against the one-process row.
+    Returns the phase's line."""
+    from qkd_ldpc_tpu_torch.channel.keys import make_trial_batch, num_errors_for
+    from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions, decode
+    from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr
+    from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
+    from qkd_ldpc_tpu_torch.parallel import (
+        decode_qc_node_sharded,
+        make_mesh,
+        node_sharded,
+        run_point_node_sharded,
+    )
+    from qkd_ldpc_tpu_torch.sim import run_point
+    from qkd_ldpc_tpu_torch.utils import canonical_device
+
+    K1, K2, K3, K4, K5, K6, KV = names
+    card0 = canonical_device(dev)
+    N, M = code.n_vars, code.n_checks
+    n_err = num_errors_for(N, QBER)
+    alice, bob = make_trial_batch(point_key, N, NODE_BATCH, n_err, 0, device=card0)
+    llr = apriori_llr(bob, np.float32(n_err) / np.float32(N))
+    syn = syndrome(code, alice)
+    base = dict(max_iterations=100, clip_messages=True, message_threshold=100.0,
+                routing="auto")
+    report = {"card": card, "batch": NODE_BATCH, "qber": QBER, "routing": "auto",
+              "note": "shards share one card: overhead, not scaling"}
+    kernels_of = {"flooding": (K1, K2, KV), "layered": (K6,)}
+
+    # The general decoder must never run for the QC code.
+    general = []
+    real_general = node_sharded._decode_row
+
+    def watched_general(*a, **k):
+        general.append(1)
+        return real_general(*a, **k)
+
+    node_sharded._decode_row = watched_general
+    one_process = {}
+    try:
+        for sched in ("flooding", "layered"):
+            for alg, dtype in (("min-sum", "bfloat16"), ("sum-product", "bfloat16"),
+                               ("min-sum", "int8")):
+                o = DecodeOptions(algorithm=alg, schedule=sched, message_dtype=dtype, **base)
+                decode(code, llr, syn, o, device=card0)  # warm-up
+                with _no_plain_on_card(torch):
+                    ref, ref_s, ref_launches = counted(
+                        lambda: decode(code, llr, syn, o, device=card0))
+                for k in kernels_of[sched]:
+                    if ref_launches.get(k, 0) <= 0:
+                        raise AssertionError(f"{sched} reference: {k} never launched")
+                legs = {"single_device_kernel_seconds": ref_s,
+                        "single_device_launches": ref_launches,
+                        "mean_iterations": float(ref.iterations.float().mean())}
+                meshes = QC_NODE_MESHES if dtype == "bfloat16" else ((1, 2),)
+                for n_trial, n_node in meshes:
+                    m = make_mesh(n_trial, n_node, devices=[card0] * (n_trial * n_node))
+                    decode_qc_node_sharded(code, llr, syn, o, m)  # warm-up: plans, indices
+                    got, secs, launches = counted(
+                        lambda: decode_qc_node_sharded(code, llr, syn, o, m))
+                    if alg == "min-sum":
+                        for f in ("bits", "iterations", "syndromes_match"):
+                            if not torch.equal(getattr(got, f), getattr(ref, f)):
+                                raise AssertionError(
+                                    f"QC node {sched} {alg}/{dtype} {n_trial}x{n_node}: {f} differ")
+                        moved = []
+                    else:
+                        moved = _sp_drift(torch, got, ref)
+                        if len(moved) > SP_ITERATION_SUM_ALLOWANCE:
+                            raise AssertionError(
+                                f"QC node {sched} SP {n_trial}x{n_node}: lanes {moved}")
+                    if (n_trial, n_node) == (1, 2) and dtype == "bfloat16":
+                        one_process[f"{sched}/{alg}"] = got
+                    legs[f"{n_trial}x{n_node}"] = {
+                        "equal_per_lane": alg == "min-sum",
+                        "sp_lanes_moved_1_iteration": moved,
+                        "sp_lanes_moved_iterations": [
+                            [int(ref.iterations[i]), int(got.iterations[i])] for i in moved],
+                        "seconds": secs, "launches": launches,
+                        **_qc_collective_bytes(alg, sched, n_trial, n_node, M, Z, NODE_BATCH),
+                    }
+                report[f"{sched}_{alg}_{dtype}"] = legs
+
+        # ---- the sweep point on (2 x 2): the QC decoder, keygen on the card --
+        m22 = make_mesh(2, 2, devices=[card0] * 4)
+        for sched in ("flooding", "layered"):
+            o = DecodeOptions(algorithm="min-sum", schedule=sched, message_dtype="bfloat16",
+                              **base)
+            (p_node, _), s_node, launches = counted(lambda: run_point_node_sharded(
+                code, point_key, QBER, NODE_POINT_TRIALS, NODE_POINT_TRIALS, o, m22))
+            (p_ref, _), s_ref, _ = counted(lambda: run_point(
+                code, point_key, QBER, NODE_POINT_TRIALS, NODE_POINT_TRIALS, o, device=card0))
+            if as_stats(p_node) != as_stats(p_ref):
+                raise AssertionError(f"QC node point {sched}: {as_stats(p_node)} != "
+                                     f"{as_stats(p_ref)}")
+            if launches.get(K4, 0) < 2 or launches.get(K3, 0) < 2:
+                raise AssertionError(f"QC node point {sched}: keygen launches {launches}")
+            report[f"point_{sched}"] = {
+                "mesh": "2x2", "trials": NODE_POINT_TRIALS, "partials": as_stats(p_node),
+                "seconds": s_node, "launches": launches, "run_point_seconds": s_ref}
+    finally:
+        node_sharded._decode_row = real_general
+    if general:
+        raise AssertionError(f"the general node-sharded decoder ran {len(general)} times")
+
+    # ---- (1 x 2) across two processes sharing the card ------------------------
+    legs = [[sched, alg] for sched in ("flooding", "layered")
+            for alg in ("min-sum", "sum-product")]
+    ranks, seconds = _two_process_row(torch, code, dict(base, message_dtype="bfloat16"),
+                                      legs, NODE_POINT_TRIALS)
+    row = {"processes": 2, "mesh": "1x2", "bit_equal_to_one_process": True,
+           "wall_seconds_both_processes": seconds}
+    for sched, alg in legs:
+        key = f"{sched}/{alg}"
+        ref = one_process[key]
+        for rank, res in enumerate(ranks):
+            got = res["decodes"][key]
+            for f in ("bits", "iterations", "syndromes_match"):
+                if not torch.equal(got[f], getattr(ref, f).cpu()):
+                    raise AssertionError(f"two-process row {key} rank {rank}: {f} differ")
+        row[key] = {"seconds_per_rank": [r["decodes"][key]["seconds"] for r in ranks],
+                    "launches_per_rank": [r["decodes"][key]["launches"] for r in ranks],
+                    "one_process_seconds": report[f"{sched}_{alg}_bfloat16"]["1x2"]["seconds"],
+                    **_qc_collective_bytes(alg, sched, 1, 2, M, Z, NODE_BATCH)}
+    for sched in ("flooding", "layered"):
+        want = [report[f"point_{sched}"]["partials"][k] for k in
+                ("n_trials", "n_sp", "n_ldpc", "sum_it", "sum_it2", "min_it", "max_it")]
+        for rank, res in enumerate(ranks):
+            if res["points"][sched]["partials"] != want:
+                raise AssertionError(f"two-process row point {sched} rank {rank}: "
+                                     f"{res['points'][sched]['partials']} != {want}")
+        row[f"point_{sched}"] = {"trials": NODE_POINT_TRIALS, "partials_equal": True,
+                                 "seconds_per_rank": [r["points"][sched]["seconds"]
+                                                      for r in ranks],
+                                 "launches_per_rank": [r["points"][sched]["launches"]
+                                                       for r in ranks]}
+    report["two_process_row"] = row
+    return report
+
+
 def _parallel(torch, np, dev, card, code, names, opts, opts_l, opts_c, point_key, key_c,
               counted, channel_launches, as_stats):
     """``parallel/`` on one card: (a) a trial mesh of four shards on
@@ -2310,6 +2577,11 @@ def main() -> int:
     print(json.dumps({"parallel": _parallel(
         torch, np, dev, card, code, names, opts, opts_l, opts_c, point_key, key_c,
         counted, channel_launches, as_stats)}), flush=True)
+
+    # ---- phase 8: the QC node-sharded decoder (qc_node) ------------------------
+    phase_start("qc_node")
+    print(json.dumps({"qc_node": _qc_node(
+        torch, np, dev, card, code, names, counted, as_stats, point_key)}), flush=True)
 
     phase_start(None)
     print(json.dumps({"phase_seconds": dict(card=card, **phase_seconds)}), flush=True)

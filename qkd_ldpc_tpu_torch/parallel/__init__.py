@@ -2,11 +2,9 @@
 
 Counterpart of ``qkd_ldpc_tpu/parallel``: the trial mesh and the sharded
 point and sweep runners (``sweep``), the general node-sharded flooding
-decoder (``node_sharded``) and the process group (``mesh``, gloo over
-``torch.distributed``).  The QC node-sharded decoder of the JAX package
-(``bp_decode_qc_node_sharded``, ``decode_qc_node_sharded``, with its layered
-composition) is not ported yet and not exported: ROADMAP item 11b.  A node
-axis that spans processes is item 11c.
+decoder (``node_sharded``), the QC node-sharded decoder, flooding and
+layered (``qc_node_sharded``), and the process group (``mesh``, gloo over
+``torch.distributed``).  A mesh row's node shards may span processes.
 """
 
 from qkd_ldpc_tpu_torch.parallel.mesh import (
@@ -23,6 +21,12 @@ from qkd_ldpc_tpu_torch.parallel.node_sharded import (
     bp_decode_node_sharded,
     decode_node_sharded,
 )
+from qkd_ldpc_tpu_torch.parallel.qc_node_sharded import (
+    QCShardPlan,
+    bp_decode_qc_node_sharded,
+    build_qc_shard_plan,
+    decode_qc_node_sharded,
+)
 from qkd_ldpc_tpu_torch.parallel.sweep import (
     make_point_dispatcher,
     run_point_node_sharded,
@@ -33,6 +37,10 @@ from qkd_ldpc_tpu_torch.parallel.sweep import (
 __all__ = [
     "bp_decode_node_sharded",
     "decode_node_sharded",
+    "QCShardPlan",
+    "build_qc_shard_plan",
+    "bp_decode_qc_node_sharded",
+    "decode_qc_node_sharded",
     "NODE_AXIS",
     "TRIAL_AXIS",
     "Mesh",

@@ -24,9 +24,12 @@ Counterpart of ``qkd_ldpc_tpu/parallel/node_sharded.py``, with its design:
   excluded edge is the FIRST occurrence of the row minimum as in the
   single-device decoder).  A second, integer collective sums the decision
   parities for the syndrome check.
-- In one process a collective is an explicit copy of each shard's partial
-  to the row's first device, a reduction there in shard order and a copy
-  back (no copy at all where the shards share a card).
+- A collective is :func:`parallel.mesh.row_gather`: every shard's partial
+  on each device of the row, reduced there in shard order (within a
+  process explicit copies, none where the shards share a card; across
+  processes one gloo ``all_gather`` of the partials' bytes over the row's
+  group).  Every process of a row thus reduces the same bits in the same
+  order, and a row that spans processes gives the bits of one process's.
 
 Min-sum is bit-identical to the single-device decoder on any mesh: its
 reductions (minima, integer sign counts) are exact.  Sum-product forms the
@@ -54,7 +57,10 @@ from qkd_ldpc_tpu_torch.parallel.mesh import (
     NODE_AXIS,
     TRIAL_AXIS,
     Mesh,
+    Row,
+    all_gather_cat,
     process_count,
+    row_gather,
     run_on_shards,
     trial_sharding,
 )
@@ -141,10 +147,12 @@ def _shard_plan(code: LDPCCode, n_node: int) -> dict:
     return plan
 
 
-def _shards(code: LDPCCode, devices) -> list[_Shard]:
-    plan = _shard_plan(code, len(devices))
+def _shards(code: LDPCCode, row: Row) -> list[_Shard]:
+    """This process's shards of ``row`` (cached per code, shard count, node
+    position and device)."""
+    plan = _shard_plan(code, row.n_node)
     out = []
-    for s, d in enumerate(devices):
+    for s, d in zip(row.nodes, row.devices):
         key = (s, d)
         if key not in plan["shards"]:
             plan["shards"][key] = _Shard(plan, s, d)
@@ -152,26 +160,38 @@ def _shards(code: LDPCCode, devices) -> list[_Shard]:
     return out
 
 
-def _sum_at(parts: list, device) -> torch.Tensor:
-    """The shards' partials copied to ``device`` and added in shard order."""
-    acc = parts[0].to(device)
-    for p in parts[1:]:
-        acc = acc + p.to(device)
-    return acc
+def _row_sum(row: Row, parts: list, devices=None) -> dict:
+    """``{device: sum of every shard's partial in node order}`` on each of
+    ``devices`` (default: this process's devices of the row)."""
+    out = {}
+    for d, full in row_gather(row, parts, devices).items():
+        acc = full[0]
+        for p in full[1:]:
+            acc = acc + p
+        out[d] = acc
+    return out
 
 
-def _row_sum(parts: list, shards: list[_Shard]) -> list:
-    """Sum of the shards' partials on the row's first device, copied back to
-    every shard."""
-    acc = _sum_at(parts, shards[0].device)
-    return [acc.to(sh.device) for sh in shards]
+def merge_top2(allc: torch.Tensor, sentinel: int) -> torch.Tensor:
+    """The row-wide min-sum statistics from every shard's ``[n, 4, ...]``
+    candidates (int32 float bits of the minimum, its slot, the second
+    minimum, the sign count): the minimum, its FIRST slot (``sentinel``
+    marks none), the second minimum with that one occurrence excluded, and
+    the row's sign count — the single-device tie rule, exact on any mesh."""
+    c_min1, c_slot1, c_min2, c_neg = allc[:, 0], allc[:, 1], allc[:, 2], allc[:, 3]
+    min1_g = c_min1.amin(0)
+    slot1_g = torch.where(c_min1 == min1_g, c_slot1, sentinel).amin(0)
+    ex1 = (c_min1 == min1_g) & (c_slot1 == slot1_g)
+    min2_g = torch.minimum(torch.where(ex1, _INF_BITS, c_min1).amin(0), c_min2.amin(0))
+    return torch.stack([min1_g, slot1_g, min2_g, _sum_i32(c_neg)])
 
 
-def _decode_row(code: LDPCCode, llr, syn, opts: DecodeOptions, devices):
-    """Decode the frames ``llr [N, b]``, ``syn [M, b]`` on one mesh row (its
-    node shards on ``devices``); returns ``(z [N, b] int8, iters [b] int32,
-    ok [b] bool)`` on the row's first device."""
-    shards = _shards(code, devices)
+def _decode_row(code: LDPCCode, llr, syn, opts: DecodeOptions, row: Row):
+    """Decode the frames ``llr [N, b]``, ``syn [M, b]`` on one mesh row (this
+    process's shards of it: ``row.nodes`` on ``row.devices``); returns ``(z
+    [N, b] int8, iters [b] int32, ok [b] bool)`` on the first of those
+    devices, the same on every process of the row."""
+    shards = _shards(code, row)
     head = shards[0].device
     N, dc, dv = code.n_vars, code.dc_max, code.dv_max
     n_local, b = shards[0].n_local, llr.shape[1]
@@ -181,10 +201,11 @@ def _decode_row(code: LDPCCode, llr, syn, opts: DecodeOptions, devices):
     threshold = opts.message_threshold
 
     llr = llr.to(torch.float32)
-    n_pad = n_local * len(shards) - N
+    n_pad = n_local * row.n_node - N
     if n_pad:
         llr = torch.cat([llr, llr.new_ones((n_pad, b))])
-    llr_s = [llr[s * n_local:(s + 1) * n_local].to(sh.device) for s, sh in enumerate(shards)]
+    llr_s = [llr[s * n_local:(s + 1) * n_local].to(sh.device)
+             for s, sh in zip(row.nodes, shards)]
     syn_head = syn.to(head, torch.int32)
     syn_sign = [torch.where(syn_head == 1, -1.0, 1.0).to(sh.device) for sh in shards]
 
@@ -201,8 +222,10 @@ def _decode_row(code: LDPCCode, llr, syn, opts: DecodeOptions, devices):
             parts.append(torch.stack([sh.to_checks(logmag, 0.0, _sum),
                                       sh.to_checks(neg, 0.0, _sum)]))
             ctx.append((mag, neg))
+        sums = _row_sum(row, parts)
         out = []
-        for sh, rows, sgn, (mag, neg) in zip(shards, _row_sum(parts, shards), syn_sign, ctx):
+        for sh, sgn, (mag, neg) in zip(shards, syn_sign, ctx):
+            rows = sums[sh.device]
             loo_neg = (sh.to_edges(rows[1]) - neg).to(torch.int32) & 1
             sign = torch.where(loo_neg == 1, -1.0, 1.0) * sh.to_edges(sgn)
             q = torch.clamp_max(sh.to_edges(torch.exp(rows[0])) / mag, 1.0)
@@ -222,18 +245,11 @@ def _decode_row(code: LDPCCode, llr, syn, opts: DecodeOptions, devices):
                 sh.to_checks(torch.where(own, _INF_BITS, bits), _INF_BITS, _min), _INF_BITS)
             parts.append(torch.stack([min1, slot1, min2, sh.to_checks(neg, 0, _sum_i32)]))
             ctx.append((at_min1, neg))
-        # The all-gather: every shard's candidates on the row's first device,
-        # merged there with the single-device tie rule, copied back.
-        allc = torch.stack([p.to(head) for p in parts])  # [n, 4, M, b]
-        c_min1, c_slot1, c_min2, c_neg = allc[:, 0], allc[:, 1], allc[:, 2], allc[:, 3]
-        min1_g = c_min1.amin(0)
-        slot1_g = torch.where(c_min1 == min1_g, c_slot1, dc).amin(0)
-        ex1 = (c_min1 == min1_g) & (c_slot1 == slot1_g)
-        min2_g = torch.minimum(torch.where(ex1, _INF_BITS, c_min1).amin(0), c_min2.amin(0))
-        merged = torch.stack([min1_g, slot1_g, min2_g, _sum_i32(c_neg)])
+        merged = {d: merge_top2(torch.stack(full), dc)
+                  for d, full in row_gather(row, parts).items()}
         out = []
         for sh, sgn, (at_min1, neg) in zip(shards, syn_sign, ctx):
-            m1, s1, m2, row_neg = merged.to(sh.device)
+            m1, s1, m2, row_neg = merged[sh.device]
             own_g = at_min1 & (sh.jslot3 == sh.to_edges(s1))
             loo = torch.where(own_g, sh.to_edges(m2), sh.to_edges(m1)).view(torch.float32)
             loo_neg = (sh.to_edges(row_neg) - neg) & 1
@@ -262,7 +278,7 @@ def _decode_row(code: LDPCCode, llr, syn, opts: DecodeOptions, devices):
             parts.append(sh.to_checks(z_edge, 0, _sum_i32))
             totals.append(total)
             zs.append(z)
-        ok = ((_sum_at(parts, head) & 1) == syn_head).all(dim=0)
+        ok = ((_row_sum(row, parts, (head,))[head] & 1) == syn_head).all(dim=0)
         return totals, zs, ok
 
     # Peeled iteration 1: the check inputs are the storage-rounded, UNCLIPPED
@@ -284,7 +300,7 @@ def _decode_row(code: LDPCCode, llr, syn, opts: DecodeOptions, devices):
         done = done | ok
         it += 1
     iters = torch.where(done, iters, opts.max_iterations).to(torch.int32)
-    z = torch.cat([zo.to(head) for zo in z_out])[:N]
+    z = torch.cat(row_gather(row, z_out, (head,))[head])[:N]
     return z, iters, done
 
 
@@ -309,11 +325,20 @@ def bp_decode_node_sharded(
 
     ``mesh`` must carry a ``node`` axis; a ``trial`` axis, if present,
     splits the batch (``B`` a multiple of it): each trial row decodes its
-    lanes, and across processes each process decodes its rows' lanes and
-    the results are gathered.  Flooding only (``schedule='layered'``
-    raises); the compaction fields are ignored.
+    lanes, and across processes every process gets every row's lanes.
+    Flooding only (``schedule='layered'`` raises); the compaction fields are
+    ignored.
     """
     _check_options(opts)
+    return decode_rows(_decode_row, code, llr, syndrome, opts, mesh)
+
+
+def decode_rows(decode_row, code: LDPCCode, llr: torch.Tensor, syndrome: torch.Tensor,
+                opts: DecodeOptions, mesh: Mesh):
+    """``decode_row(code, llr, syn, opts, row)`` on every row this process
+    holds shards of, each on its lanes; returns every row's ``(z [N, B],
+    iters [B], ok [B])`` on ``llr``'s device, in lane order (across
+    processes each row's from the process that leads it)."""
     if NODE_AXIS not in mesh.axis_names:
         raise ValueError(f"node-sharded decoding needs a mesh with a {NODE_AXIS!r} axis")
     B = llr.shape[1]
@@ -322,47 +347,34 @@ def bp_decode_node_sharded(
         raise ValueError(f"batch {B} is not a multiple of the {n_trial} trial shards")
     shards = trial_sharding(mesh, B)
     rows = run_on_shards(
-        lambda sh: _decode_row(code, llr[:, sh.lanes], syndrome[:, sh.lanes], opts,
-                               sh.devices),
+        lambda sh: decode_row(code, llr[:, sh.lanes], syndrome[:, sh.lanes], opts, sh.row),
         shards,
     )
-    z = torch.cat([r[0].to(llr.device) for r in rows], dim=1)
-    iters = torch.cat([r[1].to(llr.device) for r in rows])
-    ok = torch.cat([r[2].to(llr.device) for r in rows])
+    led = [r for sh, r in zip(shards, rows) if sh.row.leader]
+    dev = llr.device
+    z = torch.cat([r[0].to(dev) for r in led] or [llr.new_empty((code.n_vars, 0), dtype=torch.int8)],
+                  dim=1)
+    iters = torch.cat([r[1].to(dev) for r in led] or [llr.new_empty((0,), dtype=torch.int32)])
+    ok = torch.cat([r[2].to(dev) for r in led] or [llr.new_empty((0,), dtype=torch.bool)])
     if process_count() > 1:
-        z, iters, ok = _gather_lanes(z, iters, ok, llr.device)
+        z, iters, ok = (all_gather_cat(z, 1).to(dev), all_gather_cat(iters).to(dev),
+                        all_gather_cat(ok).to(dev))
     return z, iters, ok
 
 
-def _gather_lanes(z, iters, ok, device):
-    """Every process's lanes, in rank order (= global lane order)."""
-    import torch.distributed as dist
-
-    outs = []
-    for t, dim in ((z, 1), (iters, 0), (ok.to(torch.uint8), 0)):
-        t = t.cpu().contiguous()
-        parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, t)
-        outs.append(torch.cat(parts, dim=dim).to(device))
-    return outs[0], outs[1], outs[2].to(torch.bool)
-
-
-def decode_node_sharded(
-    code: LDPCCode,
-    llr,  # [B, N] or [N]
-    syndrome,  # [B, M] or [M]
-    opts: DecodeOptions,
-    mesh: Mesh,
-) -> DecodeResult:
-    """Batch-first wrapper (mirrors ``decoder.bp.decode``).
+def batch_first(bp_decode, code: LDPCCode, llr, syndrome, opts: DecodeOptions,
+                mesh: Mesh) -> DecodeResult:
+    """``bp_decode(code, llr [N, B], syndrome [M, B], opts, mesh)`` from
+    batch-first inputs (``[B, N]`` or one frame ``[N]``), as
+    ``decoder.bp.decode`` takes them.
 
     Pads the batch to a multiple of the mesh's ``trial`` axis with inert
     frames (LLR +1, syndrome 0), sliced off on return, so any request size
-    works.  Results are on ``llr``'s device (a tensor) or the mesh's first
-    device (anything else).
+    works.  Results are on ``llr``'s device (a tensor) or this process's
+    first device of the mesh (anything else).
     """
     if not isinstance(llr, torch.Tensor):
-        llr = torch.as_tensor(llr).to(mesh.devices[0, 0])
+        llr = torch.as_tensor(llr).to(mesh.local_devices[0])
     syndrome = torch.as_tensor(syndrome).to(llr.device)
     single = llr.ndim == 1
     if single:
@@ -372,8 +384,20 @@ def decode_node_sharded(
     if pad:
         llr = torch.cat([llr, llr.new_ones((pad, llr.shape[1]))])
         syndrome = torch.cat([syndrome, syndrome.new_zeros((pad, syndrome.shape[1]))])
-    z, iters, ok = bp_decode_node_sharded(code, llr.T, syndrome.T, opts, mesh)
+    z, iters, ok = bp_decode(code, llr.T, syndrome.T, opts, mesh)
     res = DecodeResult(bits=z.T[:B], iterations=iters[:B], syndromes_match=ok[:B])
     if single:
         res = DecodeResult(res.bits[0], res.iterations[0], res.syndromes_match[0])
     return res
+
+
+def decode_node_sharded(
+    code: LDPCCode,
+    llr,  # [B, N] or [N]
+    syndrome,  # [B, M] or [M]
+    opts: DecodeOptions,
+    mesh: Mesh,
+) -> DecodeResult:
+    """Batch-first wrapper of :func:`bp_decode_node_sharded` (mirrors
+    ``decoder.bp.decode``; see :func:`batch_first`)."""
+    return batch_first(bp_decode_node_sharded, code, llr, syndrome, opts, mesh)

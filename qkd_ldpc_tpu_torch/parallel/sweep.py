@@ -12,7 +12,9 @@ exactly those lanes' share of the unsharded run.  Batches chain into chunks
 iterations squared exact), merged on each shard's device; a chunk costs one
 ``[7]`` fetch a shard.  The host then merges the chunk's shards in global
 shard order: within a process with ``PointPartials.merge``, across
-processes after one gloo ``all_gather`` of an int64 ``[k, 7]`` tensor.  Sums
+processes after one gloo ``all_gather`` of an int64 ``[k, 7]`` tensor, to
+which each process gives the rows it leads (a row whose node shards span
+processes is counted once).  Sums
 are exact integers and minima / maxima go through ``merge``, so the result
 is bit-identical to the single-device runner on any mesh, with any number
 of processes (trial t's keys depend only on the point key and t).
@@ -43,19 +45,13 @@ from qkd_ldpc_tpu_torch.parallel.mesh import (
     run_on_shards,
     trial_sharding,
 )
-from qkd_ldpc_tpu_torch.parallel.node_sharded import _check_options, _decode_row
+from qkd_ldpc_tpu_torch.parallel import node_sharded, qc_node_sharded
 from qkd_ldpc_tpu_torch.sim.runner import merge_partials_tree, point_batch_partials
 from qkd_ldpc_tpu_torch.sim.stats import (
     PointPartials,
     partials_from_stacked,
     reduce_trials,
     stack_partials,
-)
-
-QC_NODE_SHARDED_NOT_PORTED = (
-    "the QC node-sharded decoder (parallel/qc_node_sharded.py, block-roll "
-    "routing) is not ported yet: ROADMAP item 11b; routing='gather' takes the "
-    "general node-sharded decoder"
 )
 
 
@@ -82,7 +78,9 @@ def _n_err(code: LDPCCode, qber: float) -> int:
 def _dispatch_chunks(batch_fn, mesh: Mesh, trials: int, batch: int, opts: DecodeOptions,
                      max_batches_per_dispatch: int) -> list:
     """Every chunk of one point over the local trial shards WITHOUT fetching:
-    a list (one entry a chunk) of the shards' stacked ``[7]`` device stats.
+    a list (one entry a chunk) of the stacked ``[7]`` device stats of the
+    shards this process leads (every shard runs: a row spanning processes
+    decodes in all of them).
 
     ``batch_fn(shard, trial_offset, valid_count, b)`` is one shard's
     reduction of its ``b`` lanes, trial ids ``trial_offset + lane``, the
@@ -106,7 +104,8 @@ def _dispatch_chunks(batch_fn, mesh: Mesh, trials: int, batch: int, opts: Decode
                 out = red if out is None else merge_partials_tree(out, red)
             return stack_partials(out)
 
-        futures.append(run_on_shards(chunk, shards))
+        stats = run_on_shards(chunk, shards)
+        futures.append([st for sh, st in zip(shards, stats) if sh.row.leader])
         offset += valid
     return futures
 
@@ -116,7 +115,8 @@ def _collect(futures: list, mesh: Mesh) -> PointPartials:
     (across processes after one all-gather a chunk)."""
     total = PointPartials()
     for shard_stats in futures:
-        rows = torch.stack([s.cpu().to(torch.int64) for s in shard_stats])
+        rows = (torch.stack([s.cpu().to(torch.int64) for s in shard_stats]) if shard_stats
+                else torch.empty((0, 7), dtype=torch.int64))
         if mesh.process_count > 1:
             rows = all_gather_rows(rows)
         for row in rows:
@@ -249,17 +249,24 @@ def run_point_node_sharded(
     """One sweep point on a 2-D ``(trial, node)`` mesh: the batch splits over
     ``trial`` while each frame's variables split over ``node``.
 
-    Routing as in the JAX package: ``routing="gather"``, or a non-QC code
-    under ``"auto"``, takes the general node-sharded decoder
-    (``parallel.node_sharded``); a QC code under ``"auto"`` or ``"roll"``
-    needs the QC node-sharded decoder, which is not ported yet, and raises.
+    Routing as in the JAX package: ``routing="roll"``, or ``"auto"`` with a
+    QC code, takes the QC node-sharded decoder (``parallel.qc_node_sharded``,
+    flooding or layered, a non-QC code raising under ``"roll"``);
+    ``"gather"``, or a non-QC code under ``"auto"``, takes the general
+    decoder (``parallel.node_sharded``), which decodes flooding only.  Every
+    process holding shards of a row makes the row's whole trials and decodes
+    its own variables.
 
     Statistics: exactly the single-device runner's for min-sum; for
-    sum-product the distributed log-sum can move a rare boundary frame by
-    one iteration (``node_sharded``'s docstring)."""
+    sum-product a rare boundary frame may move by one iteration (the
+    decoders' cross-shard products group differently)."""
     if opts.routing == "roll" or (opts.routing == "auto" and code.qc is not None):
-        raise NotImplementedError(QC_NODE_SHARDED_NOT_PORTED)
-    _check_options(opts)
+        if code.qc is None:
+            raise ValueError(qc_node_sharded.NOT_QC_MESSAGE)
+        decoder = qc_node_sharded
+    else:
+        node_sharded._check_options(opts)
+        decoder = node_sharded
     if NODE_AXIS not in mesh.axis_names:
         raise ValueError(f"node-sharded decoding needs a mesh with a {NODE_AXIS!r} axis")
     n_err = _n_err(code, qber)
@@ -271,7 +278,7 @@ def run_point_node_sharded(
                                       backend=opts.backend, device=shard.device)
         llr = apriori_llr(bob, aq)
         syn = syndrome(code, alice)
-        z, iters, ok = _decode_row(code, llr.T, syn.T, opts, shard.devices)
+        z, iters, ok = decoder._decode_row(code, llr.T, syn.T, opts, shard.row)
         keys_match = (z.T == alice.to(torch.int8)).all(dim=-1)
         valid = torch.arange(b, device=shard.device) < count
         return reduce_trials(ok, keys_match, iters, opts.max_iterations, valid)

@@ -244,9 +244,11 @@ def _run_shards(code, point_keys, n_errs, trials, batch, segment, refill_min, op
             code, point_keys, n_errs, q + (s < r), s * q + min(s, r), batch, segment,
             refill_min, opts, prng, shard.device)
 
-    runs = run_on_shards(shard_run, trial_sharding(mesh, n_shards))
+    shards = trial_sharding(mesh, n_shards)
+    runs = [r for sh, r in zip(shards, run_on_shards(shard_run, shards)) if sh.row.leader]
     last_loop_counts.update({k: sum(c[k] for _, c in runs) for k in last_loop_counts})
-    rows = torch.stack([st.cpu().to(torch.int64) for st, _ in runs])  # [k, 7, P]
+    rows = (torch.stack([st.cpu().to(torch.int64) for st, _ in runs]) if runs  # [k, 7, P]
+            else torch.empty((0, 7, len(point_keys)), dtype=torch.int64))
     if mesh.process_count > 1:
         rows = all_gather_rows(rows)
     # Integer sums, minima and maxima: exact, independent of the shard order.

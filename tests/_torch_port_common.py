@@ -55,3 +55,36 @@ def tkey(jax_key):
     from qkd_ldpc_tpu_torch.channel.threefry import key_from_words
 
     return key_from_words(np.asarray(jax_key))
+
+
+def decode_frames(code, n_err, batch, seed):
+    """Numpy a-priori LLRs and target syndromes of ``batch`` frames with
+    ``n_err`` flips each (float32 ``[B, N]``, int8 ``[B, M]``)."""
+    alice, bob = make_frames(code.n_vars, batch, n_err, seed)
+    q = np.float32(n_err) / np.float32(code.n_vars)
+    mag = np.float32(np.log(np.float64((np.float32(1) - q) / q)))
+    llr = np.where(bob == 1, -mag, mag).astype(np.float32)
+    syn = ((alice.astype(np.int64) @ code.dense.T.astype(np.int64)) % 2).astype(np.int8)
+    return llr, syn
+
+
+def assert_equal(a, b):
+    """Two decodes' ``(bits, iterations, syndromes_match)`` equal bit for bit."""
+    np.testing.assert_array_equal(a[1], b[1])  # iterations
+    np.testing.assert_array_equal(a[2], b[2])  # syndromes_match
+    np.testing.assert_array_equal(a[0], b[0])  # bits
+
+
+def assert_sp_close(a, b, frames, shift):
+    """Sum-product across formulations: every verdict equal; iterations and
+    bits equal on every frame but at most ``frames``, whose iteration counts
+    differ by at most ``shift`` (None: any).  Such frames are ROADMAP C
+    drift entries (float32 ``tanh``/``log`` rounding, which int8 messages
+    amplify to whole quanta)."""
+    np.testing.assert_array_equal(a[2], b[2])
+    moved = np.nonzero(a[1] != b[1])[0]
+    assert len(moved) <= frames, (moved, a[1][moved], b[1][moved])
+    if shift is not None:
+        assert np.all(np.abs(a[1][moved].astype(int) - b[1][moved]) <= shift)
+    same = a[1] == b[1]
+    np.testing.assert_array_equal(a[0][same], b[0][same])

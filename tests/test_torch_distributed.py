@@ -74,10 +74,19 @@ syn = (torch.rand(2 * nproc * local, 131, generator=g) < 0.5).to(torch.int8)
 res = decode_node_sharded(code, llr, syn, DecodeOptions(max_iterations=20,
                                                         algorithm="min-sum"), mesh2)
 print("DECODE", res.iterations.tolist(), int(res.bits.sum()), flush=True)
-try:
-    make_mesh(n_trial=1, n_node=2 * nproc * local, devices=[cpu] * (2 * local))
-except NotImplementedError as e:
-    print("NODE_ACROSS", "11c" in str(e), flush=True)
+# one row of node shards over every process's devices (sum-product: the
+# log-sums of every shard, gathered through gloo, added in shard order)
+res = decode_node_sharded(code, llr, syn, DecodeOptions(max_iterations=20),
+                          make_mesh(n_trial=1, n_node=2 * nproc * local,
+                                    devices=[cpu] * (2 * local)))
+print("NODE_ACROSS", res.iterations.tolist(), int(res.bits.sum()),
+      int((res.bits.to(torch.int64) * torch.arange(256)).sum()), flush=True)
+from qkd_ldpc_tpu_torch.parallel import Mesh
+node_only = Mesh([cpu] * (2 * local), ("node",))  # one row over every device
+assert node_only.shape == {"node": 2 * nproc * local} and len(node_only.rows) == 1
+res2 = decode_node_sharded(code, llr, syn, DecodeOptions(max_iterations=20), node_only)
+print("NODE_ONLY", torch.equal(res.bits, res2.bits), torch.equal(res.iterations, res2.iterations),
+      flush=True)
 try:
     make_trial_mesh([cpu] * (1 + pid))
 except ValueError as e:
@@ -151,7 +160,14 @@ def _check(run, n_procs, local):
                                                             algorithm="min-sum"),
                               make_mesh(n_node=2, devices=[torch.device("cpu")] * 2))
     assert " ".join(run["DECODE"]) == f"{res.iterations.tolist()} {int(res.bits.sum())}"
-    assert run["NODE_ACROSS"] == ["True"] and run["UNEVEN"] == ["True"]
+    # a node row across every process equals the one-process row of that shape
+    cpus = [torch.device("cpu")] * (2 * n_procs * local)
+    res = decode_node_sharded(code, llr, syn, DecodeOptions(max_iterations=20),
+                              make_mesh(n_trial=1, n_node=len(cpus), devices=cpus))
+    assert " ".join(run["NODE_ACROSS"]) == (
+        f"{res.iterations.tolist()} {int(res.bits.sum())} "
+        f"{int((res.bits.to(torch.int64) * torch.arange(256)).sum())}")
+    assert run["NODE_ONLY"] == ["True", "True"] and run["UNEVEN"] == ["True"]
 
 
 def test_two_process_sharded_runs_match_single():
@@ -161,6 +177,82 @@ def test_two_process_sharded_runs_match_single():
 def test_four_process_sharded_runs_match_single():
     """Four processes of two shards: most shards are remote to each rank."""
     _check(_group_runs(4, 2), 4, 2)
+
+
+# Node rows across processes (the QC node-sharded decoder, flooding and
+# layered, SP and min-sum, and its sweep point), the same source in the
+# workers and in the test: a row's processes exchange their partials through
+# gloo and reduce them in shard order, so every decode is bit-equal to the
+# one-process mesh of the same shape.
+_ROWS_CASE = r"""
+import dataclasses, hashlib
+import numpy as np
+import torch
+from qkd_ldpc_tpu_torch.channel.keys import make_trial_batch, num_errors_for
+from qkd_ldpc_tpu_torch.channel.threefry import prng_key
+from qkd_ldpc_tpu_torch.codes import make_qc_code
+from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions
+from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr
+from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
+from qkd_ldpc_tpu_torch.parallel import decode_qc_node_sharded, run_point_node_sharded
+
+def rows_case(mesh):
+    code = make_qc_code(z=16, nb=6, mb=3, dv=3, seed=2)  # 4 shards pad two blocks
+    n_err = num_errors_for(code.n_vars, 0.06)
+    alice, bob = make_trial_batch(prng_key(5), code.n_vars, 12, n_err, device="cpu")
+    llr = apriori_llr(bob, np.float32(n_err) / np.float32(code.n_vars))
+    syn = syndrome(code, alice)
+    out = {}
+    for sched in ("flooding", "layered"):
+        for alg in ("sum-product", "min-sum"):
+            o = DecodeOptions(algorithm=alg, schedule=sched, max_iterations=30)
+            r = decode_qc_node_sharded(code, llr, syn, o, mesh)
+            out[f"DEC_{sched}_{alg}"] = [
+                *map(str, r.iterations.tolist()), *map(str, r.syndromes_match.int().tolist()),
+                hashlib.sha256(r.bits.numpy().tobytes()).hexdigest()[:16]]
+        ms = DecodeOptions(algorithm="min-sum", schedule=sched, max_iterations=30)
+        p, _ = run_point_node_sharded(code, prng_key(777), 0.06, 24, 12, ms, mesh)
+        out[f"PT_{sched}"] = [str(x) for x in dataclasses.astuple(p)]
+    return code, out
+"""
+
+_ROWS = _ROWS_CASE + r"""
+import sys
+torch.set_num_threads(1)
+port, pid, nproc, local, n_trial, n_node = sys.argv[1], *map(int, sys.argv[2:])
+from qkd_ldpc_tpu_torch.parallel import initialize_distributed, make_mesh
+initialize_distributed(f"127.0.0.1:{port}", nproc, pid)
+mesh = make_mesh(n_trial, n_node, devices=[torch.device("cpu")] * local)
+assert any(r.group is not None for r in mesh.rows)  # a row spans processes
+for key, words in rows_case(mesh)[1].items():
+    print(key, *words, flush=True)
+"""
+
+
+@pytest.mark.parametrize("n_procs,local,n_trial,n_node", [
+    (2, 1, 1, 2),  # one row over two processes
+    (2, 2, 1, 4),  # one row over two processes of two shards each
+    (2, 3, 3, 2),  # mixed: each process holds a whole row and half of another
+    (4, 1, 2, 2),  # two rows, each over two processes
+], ids=["2x1-1x2", "2x2-1x4", "2x3-3x2", "4x1-2x2"])
+def test_node_rows_across_processes_equal_one_process(n_procs, local, n_trial, n_node):
+    port = _free_port()
+    outs = _run_group(n_procs, lambda i: [sys.executable, "-c", _ROWS, str(port), str(i),
+                                          str(n_procs), str(local), str(n_trial),
+                                          str(n_node)])
+    runs = [_lines(o) for o in outs]
+    for r in runs[1:]:
+        assert r == runs[0], "ranks disagree"
+    torch.set_num_threads(1)
+    ns = {}
+    exec(_ROWS_CASE, ns)
+    cpus = [torch.device("cpu")] * (n_procs * local)
+    code, one = ns["rows_case"](make_mesh(n_trial, n_node, devices=cpus))
+    assert runs[0] == one
+    for sched in ("flooding", "layered"):
+        ms = DecodeOptions(algorithm="min-sum", schedule=sched, max_iterations=30)
+        ref, _ = run_point(code, prng_key(777), 0.06, 24, 12, ms, device="cpu")
+        assert one[f"PT_{sched}"] == _seven(ref) and ref.n_sp > 0
 
 
 _CLI = r"""

@@ -7,13 +7,13 @@
 - (3) node-sharded min-sum/bf16 == ``decode`` bit for bit;
 - (4) a QC code under ``routing="roll"`` on the trial mesh == ``"gather"`` ==
   unsharded, 7/7;
+- (4b) the QC node-sharded decoder on the (4 x 2) mesh == ``decode`` (bits
+  and iterations), sum-product and min-sum/bf16;
 - (4c) the layered schedule with compaction on the trial mesh == unsharded;
+- (4d) the QC node-sharded decoder, layered, on the (4 x 2) mesh == the
+  single-device layered ``decode``, sum-product and min-sum/bf16;
 - (5) the cross-point continuation on the trial mesh == the plain sharded
   runner at two waterfall points.
-
-Legs (4b) and (4d) drive the QC node-sharded decoder
-(``decode_qc_node_sharded``, flooding and layered), which is not ported yet
-(ROADMAP item 11b); they come with it.
 """
 
 import dataclasses
@@ -30,6 +30,7 @@ from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr
 from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
 from qkd_ldpc_tpu_torch.parallel import (
     decode_node_sharded,
+    decode_qc_node_sharded,
     make_mesh,
     make_trial_mesh,
     run_point_node_sharded,
@@ -107,6 +108,23 @@ def leg_4(c):
     assert q == q_ref and roll == gather == ref and ref.n_sp > 0
 
 
+def qc_node_legs(c, schedule):
+    llr, syn = frames(c["qc"], 2)
+    for o in (DecodeOptions(max_iterations=32, schedule=schedule),
+              DecodeOptions(max_iterations=32, schedule=schedule, algorithm="min-sum",
+                            message_dtype="bfloat16")):
+        same_decode(decode_qc_node_sharded(c["qc"], llr, syn, o, c["mesh2"]),
+                    decode(c["qc"], llr, syn, o, device="cpu"))
+
+
+def leg_4b(c):
+    qc_node_legs(c, "flooding")
+
+
+def leg_4d(c):
+    qc_node_legs(c, "layered")
+
+
 def leg_4c(c):
     lay = DecodeOptions(max_iterations=32, schedule="layered", message_dtype="bfloat16",
                         compact_after=2, compact_lanes=2)
@@ -127,7 +145,7 @@ def leg_5(c):
         assert dataclasses.astuple(got) == dataclasses.astuple(plain), (q, got, plain)
 
 
-@pytest.mark.parametrize("leg", [leg_1, leg_2, leg_3, leg_4, leg_4c, leg_5],
-                         ids=["1", "2", "3", "4", "4c", "5"])
+@pytest.mark.parametrize("leg", [leg_1, leg_2, leg_3, leg_4, leg_4b, leg_4c, leg_4d, leg_5],
+                         ids=["1", "2", "3", "4", "4b", "4c", "4d", "5"])
 def test_dryrun_multichip_leg(leg):
     leg(setup())

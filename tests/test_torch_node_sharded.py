@@ -37,7 +37,7 @@ from qkd_ldpc_tpu_torch.parallel import (
 )
 from qkd_ldpc_tpu_torch.sim import run_point
 from tests import fixtures
-from tests._torch_port_common import make_frames
+from tests._torch_port_common import assert_equal, assert_sp_close, decode_frames as frames
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -53,16 +53,6 @@ def pair(which):
             H = np.array(getattr(fixtures, which))
             _codes[which] = (jcodes.from_dense(H), tcodes.from_dense(H))
     return _codes[which]
-
-
-def frames(code, n_err, batch, seed):
-    """Numpy LLRs and syndromes of ``batch`` frames with ``n_err`` flips."""
-    alice, bob = make_frames(code.n_vars, batch, n_err, seed)
-    q = np.float32(n_err) / np.float32(code.n_vars)
-    mag = np.float32(np.log(np.float64((np.float32(1) - q) / q)))
-    llr = np.where(bob == 1, -mag, mag).astype(np.float32)
-    syn = ((alice.astype(np.int64) @ code.dense.T.astype(np.int64)) % 2).astype(np.int8)
-    return llr, syn
 
 
 def jopts(opts):
@@ -83,27 +73,6 @@ def run_all(which, llr, syn, opts, n_trial, n_node):
         return tuple(np.asarray(x) for x in r)
 
     return host(ref), host(out), host(jout)
-
-
-def assert_equal(a, b):
-    np.testing.assert_array_equal(a[1], b[1])  # iterations
-    np.testing.assert_array_equal(a[2], b[2])  # syndromes_match
-    np.testing.assert_array_equal(a[0], b[0])  # bits
-
-
-def assert_sp_close(a, b, frames, shift):
-    """Sum-product across formulations: every verdict equal; iterations and
-    bits equal on every frame but at most ``frames``, whose iteration counts
-    differ by at most ``shift`` (None: any).  Such frames are ROADMAP C
-    drift entries (float32 ``tanh``/``log`` rounding, which int8 messages
-    amplify to whole quanta)."""
-    np.testing.assert_array_equal(a[2], b[2])
-    moved = np.nonzero(a[1] != b[1])[0]
-    assert len(moved) <= frames, (moved, a[1][moved], b[1][moved])
-    if shift is not None:
-        assert np.all(np.abs(a[1][moved].astype(int) - b[1][moved]) <= shift)
-    same = a[1] == b[1]
-    np.testing.assert_array_equal(a[0][same], b[0][same])
 
 
 @pytest.mark.parametrize("n_node", [2, 4, 8])
@@ -227,15 +196,29 @@ def test_layered_raises_the_jax_text():
 
 
 @pytest.mark.parametrize("routing", ["auto", "roll"])
-def test_qc_code_needs_the_qc_decoder_item_11b(routing):
-    """A QC code under routing "auto" or "roll" raises, naming the missing
-    QC node-sharded decoder; it never takes the general decoder instead."""
+def test_qc_code_needs_the_qc_decoder_item_11b(routing, monkeypatch):
+    """A QC code under routing "auto" or "roll" takes the QC node-sharded
+    decoder, never the general one, and its min-sum partials equal the
+    single-device runner's 7/7."""
+    from qkd_ldpc_tpu_torch.parallel import node_sharded, qc_node_sharded
+
+    calls = []
+    real = qc_node_sharded._decode_row
+    monkeypatch.setattr(qc_node_sharded, "_decode_row",
+                        lambda *a: calls.append(1) or real(*a))
+
+    def boom(*a, **k):
+        raise AssertionError("general node-sharded decoder used for a QC code")
+
+    monkeypatch.setattr(node_sharded, "_decode_row", boom)
     code = tcodes.make_qc_code(z=16, nb=16, mb=8, dv=3, seed=4)
-    with pytest.raises(NotImplementedError, match="item 11b") as e:
-        run_point_node_sharded(code, prng_key(1), 0.03, 8, 8,
-                               DecodeOptions(max_iterations=10, routing=routing),
-                               make_mesh(4, 2, devices=[CPU] * 8))
-    assert "qc_node_sharded" in str(e.value)
+    opts = DecodeOptions(max_iterations=40, routing=routing, algorithm="min-sum")
+    key = fold_in(prng_key(777), 5)
+    p1, q1 = run_point(code, key, 0.03, 24, 24, opts, device="cpu")
+    p2, q2 = run_point_node_sharded(code, key, 0.03, 24, 24, opts,
+                                    make_mesh(4, 2, devices=[CPU] * 8))
+    assert calls and q1 == q2
+    assert dataclasses.astuple(p2) == dataclasses.astuple(p1) and p1.n_sp > 0
 
 
 def test_bad_batch_and_mesh_are_refused():
