@@ -18,14 +18,34 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    and on crafted tie rows, a per-row k and every instance of K3 (rows in 8 or
    20 words a thread or re-read from device memory, each with 16-byte and with
    single-word accesses), and the second-word tie path end to end;
-3. drives ``run_point`` — keygen (K4), exact-weight channel (K3), syndrome,
-   flooding BP decode with compaction, statistics — on the flagship
+3. drives ``run_point`` — keygen (K4), exact-weight channel (K3, and the
+   second-word tie path gated on the card: K4's tie row and the tie kernel),
+   syndrome, flooding BP decode with compaction (one replay of a captured
+   CUDA graph a batch, its loops WHILE nodes), statistics — on the flagship
    quasi-cyclic code at its operating point and checks the statistics and the
-   launch counts (one K4 and one K3 per batch, no plain threefry tree on the
-   card);
+   launch counts (K4 twice, K3 and the tie kernel once per batch; K1 and the
+   three loop-entry tests once per replay; K2, the variable update and the
+   loop's bookkeeping once per pass, read from the graph's device counters;
+   no plain threefry tree on the card);
    3b. the same point with ``schedule="layered"`` (the sweep kernel);
-   3c. ``run_point_continuation`` at a waterfall point (the fresh-lane kernel)
-   against ``run_point`` on the same point key: seven equal partial sums;
+   3c. ``run_point_continuation`` at a waterfall point (the fresh-lane kernel,
+   ``segment`` passes as one graph replay per outer step) against
+   ``run_point`` on the same point key: seven equal partial sums; then the
+   three paths' walls in turns, each beside its eager kernel loop;
+   3d. (``device_loops``) every decode leg as a graph against the eager kernel
+   loop, bit for bit and launch for launch, and against the plain versions:
+   flooding and layered at the flagship (SP/bf16, min-sum/int8), with a
+   forced phase-C overflow, with every lane converged in phase A, and at
+   check degree 15 (the loop instance and its scratch); four host threads
+   sharing one graph; K2 in place over its input; the continuation's segment
+   graph against its eager loop; the tie path gated on the card against
+   ``_uniform_ties`` on a forced-tie flagship batch and on rows of many ties
+   sharing their second words across the row; ``point_batch_partials`` and
+   the decodes under
+   ``torch.cuda.set_sync_debug_mode("error")`` (any host synchronisation
+   fails the script); the Reconciler with 1 and 4 chunks in flight; the new
+   kernels (loop entry, loop step, sweep step, tie completion) held to their
+   plain versions and timed;
 4. repeats the paths through the plain versions (``backend="xla"``) and
    compares the seven partial sums;
    2b. (``f1_degrees``) the flooding kernels K1, K2, K5 and the variable
@@ -44,7 +64,8 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    sweep, the same sweep resumed from its checkpoint, the continuation
    crossover, layered, a rate-0.8 code (check degree 15) under the config's
    0.8 row, a min-sum identity of kernels and plain versions, and
-   interactive mode at B = 1 — each sweep counted on its own;
+   interactive mode at B = 1 — each sweep counted on its own; sweep A also
+   in turns with the eager kernel loop;
 6. drives the protocol surface on the flagship (``protocol``): the
    ``Reconciler`` at 128 and 101 lanes against ``backend="xla"``,
    ``reconcile_secure``, the rate-adapted endpoint (flooding and layered) and
@@ -74,8 +95,8 @@ Each phase prints one JSON object on a line of its own; any failure raises.
 The last line is ``{"ok": true, "device": {...}}``.  The script exits non-zero
 without a CUDA device.  ``--profile`` adds a device-time table of each of the
 three paths, of one batch of trials (at most ten launches) and of the CLI's
-sweep A, and the launches per decode iteration; all tracing comes after every
-untraced timing.  Times are this card's, labelled with its name and power
+sweep A, and the host's launch calls per graph replay; all tracing comes after
+every untraced timing.  Times are this card's, labelled with its name and power
 limit; they are a smoke measurement, not a benchmark.
 """
 
@@ -91,6 +112,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: 80 GB of HBM at 3.35 TB/s
@@ -146,7 +168,8 @@ FRESH_THRESHOLD = 3.0  # K5's check: the Lq clip must bite where it is applied
 # Other widths of the two flooding kernels: the compacted batch (vector
 # instances) and a width no vector divides (scalar instances).
 COMPACT_BATCH, RAGGED_BATCH = BATCH // 4, 101
-# One batch of trials on the card: K4, the flag's fill, K3, the flag's fetch.
+# One batch of trials on the card: K4, the flag's fill, K3, K4's gated tie row
+# and the gated tie kernel.
 KEYGEN_LAUNCH_LIMIT = 10
 # Rows of the N = 4096 codes: K3's instances of 8 words a thread.
 SHORT_N = 4096
@@ -354,11 +377,12 @@ def _profile_path(torch, path, step, card, untraced_ms, iteration_starts=None,
     tracer's start-up; both runs do the same work, so totals are halved.
 
     ``iteration_starts`` = (class, method name) of the call that opens a
-    decode iteration: it is wrapped to leave a marker in the trace, and the
-    host's launch calls (kernels, copies and fills) are counted between one
-    marker and the next.  Most such windows hold exactly one iteration (a
-    few also hold what runs between two batches or outer steps), so their
-    median is the launches one iteration costs, counted and not derived.
+    graph replay (a decode, or a continuation step's segment passes): it is
+    wrapped to leave a marker in the trace, and the host's launch calls
+    (graph launches, kernels, copies and fills) are counted between one
+    marker and the next.  Their median is the host calls one replay window
+    costs (the replay and what the host launches up to the next one),
+    counted and not derived.
     """
     import bisect
 
@@ -390,7 +414,8 @@ def _profile_path(torch, path, step, card, untraced_ms, iteration_starts=None,
             rows[ev.name] = (ms + ev.device_time / 1e3 / 2, count + 0.5)
         elif ev.name == "decode_iteration_starts":
             marks.append(ev.time_range.start)
-        elif ev.name.startswith(("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")):
+        elif ev.name.startswith(("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync",
+                                 "cudaGraphLaunch")):
             calls.append(ev.time_range.start)
     if not rows:
         raise AssertionError("the profiler recorded no device time")
@@ -406,7 +431,7 @@ def _profile_path(torch, path, step, card, untraced_ms, iteration_starts=None,
         windows = [bisect.bisect_left(calls, hi) - bisect.bisect_left(calls, lo)
                    for lo, hi in zip(marks, marks[1:])]
         per_iteration = {
-            "iterations_traced": len(marks) / 2,
+            "replays_traced": len(marks) / 2,
             "launches_median": statistics.median(windows),
             "launches_lowest": min(windows),
             "share_of_windows_at_median": windows.count(
@@ -420,7 +445,7 @@ def _profile_path(torch, path, step, card, untraced_ms, iteration_starts=None,
         "path": path, "card": card, "untraced_wall_ms": untraced_ms,
         "device_busy_ms": busy_ms, "device_busy_share": busy_ms / untraced_ms,
         "kernel_launches": n_launches, "keygen_launches": keygen_launches,
-        "launches_per_iteration": per_iteration,
+        "host_calls_per_replay": per_iteration,
         "by_kernel_ms_count_name": [[round(m, 4), c, k[:100]] for m, c, k in table[:30]],
         "traced_host_self_ms_count_op": [[round(m, 3), c, k[:60]] for m, c, k in host[:12]],
     }}), flush=True)
@@ -891,6 +916,7 @@ def _protocol(torch, np, dev, card, code, names):
         introduce_errors,
         num_errors_for,
     )
+    from qkd_ldpc_tpu_torch.channel.keys import block_words
     from qkd_ldpc_tpu_torch.channel.threefry import bernoulli_half, fold_in, prng_key
     from qkd_ldpc_tpu_torch.channel.threefry import random_bits
     from qkd_ldpc_tpu_torch.decoder import (
@@ -935,8 +961,13 @@ def _protocol(torch, np, dev, card, code, names):
     if keygen_launches.get(K3, 0) < 1 or not ((alice ^ bob).sum(axis=1) == n_err).all():
         raise AssertionError(f"protocol keys: {keygen_launches}")
     q = n_err / N
+    # introduce_errors makes its tie words (a plain threefry block) whether
+    # or not a row has excess ties: the flag is never read on the host
+    tie_key = fold_in(fold_in(key, 1), 1)
+    tie_block_s = _wall(torch, lambda: block_words(tie_key, (PROTOCOL_FRAMES, N), dev))
     report = {"card": card, "code": code.name, "frames": PROTOCOL_FRAMES, "qber": q,
-              "keygen_s": keygen_s, "keygen_launches": keygen_launches}
+              "keygen_s": keygen_s, "keygen_launches": keygen_launches,
+              "keygen_tie_block_s": tie_block_s}
 
     # ---- the Reconciler, 128 and 101 lanes, against the plain versions ------
     rec_report = {}
@@ -1100,6 +1131,11 @@ def _protocol(torch, np, dev, card, code, names):
             reveal_step=BLIND_STEP, device=dev))
     (res_k, km_k), blind_s, blind_launches = blind["auto"]
     (res_p, km_p), blind_plain_s, _ = blind["xla"]
+    # the first blind run captured its decode graph; a second replays it
+    o = DecodeOptions(algorithm="min-sum", **base)
+    _, blind_warm_s, _ = counted(lambda: blind_reconcile_sim(
+        code, a_b, b_b, n_punctured=d, qber_hint=BLIND_QBER, opts=o,
+        reveal_step=BLIND_STEP, device=dev))
     for f in res_k._fields:
         if not np.array_equal(getattr(res_k, f), getattr(res_p, f)):
             raise AssertionError(f"blind session: {f} differs from backend='xla'")
@@ -1110,7 +1146,8 @@ def _protocol(torch, np, dev, card, code, names):
     report["blind"] = {"n_punctured": d, "reveal_step": BLIND_STEP, "qber": BLIND_QBER,
                        "frames_by_rounds": np.bincount(res_k.rounds).tolist(),
                        "verified": int(res_k.ok.sum()), "keys_match": int(km_k.sum()),
-                       "wall_s": blind_s, "plain_wall_s": blind_plain_s,
+                       "wall_s": blind_s, "warm_wall_s": blind_warm_s,
+                       "plain_wall_s": blind_plain_s,
                        "equal_to_plain_per_frame": True, "launches": blind_launches}
 
     # ---- amplification --------------------------------------------------------
@@ -1184,13 +1221,15 @@ def _cli_sweep(torch, np, dev, card, code, names):
     CLI, and interactive mode at B = 1.  Each sweep is counted on its own.
     Returns sweep A's wall in seconds."""
     from qkd_ldpc_tpu_torch import _build, cli
+    from qkd_ldpc_tpu_torch.channel import cuda_select
     from qkd_ldpc_tpu_torch.codes import make_code, read_alist, write_alist
-    from qkd_ldpc_tpu_torch.decoder import cuda_kernels
+    from qkd_ldpc_tpu_torch.decoder import cuda_kernels, device_loop
     from qkd_ldpc_tpu_torch.decoder.layered import NOT_QC_MESSAGE
     from qkd_ldpc_tpu_torch.sim import interactive_simulation, rate_based_qber_range, runner
     from qkd_ldpc_tpu_torch.config import load_config
 
     K1, K2, K3, K4, K5, K6, KV = names
+    KT = cuda_select.KERNEL_TIES
     ref_path, example = _reference_alist_and_example()
     tmp = Path(tempfile.mkdtemp(prefix="cli_sweep_"))
     try:
@@ -1312,8 +1351,9 @@ def _cli_sweep(torch, np, dev, card, code, names):
             raise AssertionError(f"sweep A: matrices {names_in_order}")
         if rows_a[0][-1] != "0" or rows_a[points][-1] != "0":
             raise AssertionError(f"sweep A: FER at QBER 0.03 {rows_a[0]}, {rows_a[points]}")
-        extra = launches_a.get(K4, 0) - batches
-        if not 0 <= extra <= batches or launches_a.get(K3, 0) != batches + extra:
+        # a batch: K4 (Alice, scores), K3, K4's gated tie row, the gated tie kernel
+        if (launches_a.get(K4, 0), launches_a.get(K3, 0), launches_a.get(KT, 0)) != (
+                2 * batches, batches, batches):
             raise AssertionError(f"sweep A: K3/K4 launches {launches_a} for {batches} batches")
         if launches_a.get(K1, 0) < batches or launches_a.get(K2, 0) <= 0 or (
                 launches_a.get(KV, 0) != launches_a.get(K2, 0)):
@@ -1325,6 +1365,17 @@ def _cli_sweep(torch, np, dev, card, code, names):
                        "trials": 2 * points * example["trials_number"],
                        "rows_per_s": 2 * points / wall_a, "launches": launches_a,
                        "compact_after": 8}
+
+        # A's wall with the decode graphs and with the eager kernel loop, in
+        # turns (graph, eager, eager, graph), each run a fresh sweep.
+        turns = {"graph": [], "eager": []}
+        for i, mode in enumerate(("graph", "eager", "eager", "graph")):
+            with (device_loop.eager_loops() if mode == "eager" else contextlib.nullcontext()):
+                wall_t, _, csv_t, _, _ = sweep(f"A_turn{i}", both, compact_after=8)
+            if csv_t[0].read_bytes() != csv_a[0].read_bytes():
+                raise AssertionError(f"sweep A ({mode}) changed the CSV")
+            turns[mode].append(wall_t)
+        report["A"]["walls_in_turns_s"] = turns
 
         # A again: every point from the checkpoint, nothing on the card.
         wall_r, launches_r, csv_r, _, _ = sweep("A", both, compact_after=8)
@@ -1449,6 +1500,22 @@ def _trace_cli_sweep(torch, code, card, untraced_ms):
         _profile_path(torch, "cli_sweep_A", sweep_a, card, untraced_ms)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def _counting_calls(owner, method):
+    """Inside, every call of ``owner.method`` adds one to ``yielded[0]``."""
+    real, n = getattr(owner, method), [0]
+
+    def counted_call(*args, **kwargs):
+        n[0] += 1
+        return real(*args, **kwargs)
+
+    setattr(owner, method, counted_call)
+    try:
+        yield n
+    finally:
+        setattr(owner, method, real)
 
 
 @contextlib.contextmanager
@@ -1990,6 +2057,354 @@ def _parallel(torch, np, dev, card, code, names, opts, opts_l, opts_c, point_key
     return report
 
 
+def _many_ties(torch, scores, k, dev):
+    """Scores whose row r has ``need_r`` = 1 + 37 r mod 500 of its ``k``
+    flips left to take from ``n_at_r`` = need_r + 1 + 13 r mod 700 threshold
+    ties at random positions (the smallest scores after the first k - need_r
+    set equal), and second words drawn from four values (3, 2^31 - 1, 2^31,
+    2^32 - 1 as uint32), so most ties share their second word with a
+    hundred others across the row.  Returns (scores, second words, needs,
+    n_ats)."""
+    from qkd_ldpc_tpu_torch.channel.threefry import flip_sign
+
+    B, n = scores.shape
+    r = torch.arange(B, device=dev)
+    need = 1 + (r * 37) % 500
+    below = k - need
+    n_at = need + 1 + (r * 13) % 700
+    vals, idx = flip_sign(scores).sort(dim=1)
+    j = torch.arange(n, device=dev)[None, :]
+    tie = (j >= below[:, None]) & (j < (below + n_at)[:, None])
+    vals = torch.where(tie, vals[r, below][:, None], vals)
+    many = flip_sign(torch.empty_like(scores).scatter_(1, idx, vals))
+    g = torch.Generator(device=dev).manual_seed(11)
+    table = torch.tensor([3, 2**31 - 1, -2**31, -1], dtype=torch.int32, device=dev)
+    second = table[torch.randint(0, 4, (B, n), generator=g, device=dev)]
+    return many, second, need.tolist(), n_at.tolist()
+
+
+def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, counted,
+                  as_stats):
+    """The port's device-resident control flow (``device_loops``): every
+    flooding and layered decode leg as a captured CUDA graph against the
+    eager kernel loop (z, iterations and verdicts bit for bit, and the same
+    launches) and against the plain versions (min-sum equal, sum-product
+    verdicts equal and at most 2 frames +-1 iteration); four host threads,
+    a stream each, sharing one graph (each call its own batch's answer, no
+    new capture); K2 in place over its input equal to K2 into a new buffer;
+    the continuation's segment graph against its eager loop (7/7); the tie
+    path gated on the card against ``_uniform_ties`` on a forced-tie
+    flagship batch and on rows of many ties that share their second words
+    across the row (``_many_ties``), and untouched where no row has excess
+    ties; ``point_batch_partials`` and the decodes under
+    ``torch.cuda.set_sync_debug_mode("error")``; the Reconciler with a window
+    of 1 and of 4 chunks in flight; the new kernels held to their plain
+    versions and timed.  Returns (report, {kernel name: measurement})."""
+    from qkd_ldpc_tpu_torch import Reconciler
+    from qkd_ldpc_tpu_torch.channel import cuda_prng, cuda_select, keys
+    from qkd_ldpc_tpu_torch.channel.cuda_prng import ALICE, SCORES, TIES
+    from qkd_ldpc_tpu_torch.channel.threefry import flip_sign
+    from qkd_ldpc_tpu_torch.codes import make_code
+    from qkd_ldpc_tpu_torch.decoder import cuda_kernels, cuda_layered, device_loop
+    from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions, bp_decode_batch_last
+    from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr
+    from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
+    from qkd_ldpc_tpu_torch.sim import run_point_continuation
+    from qkd_ldpc_tpu_torch.sim.runner import point_batch_partials
+
+    N = code.n_vars
+    n_err = keys.num_errors_for(N, QBER)
+    report = {"card": card}
+
+    def inputs(c, qber, key):
+        ne = keys.num_errors_for(c.n_vars, qber)
+        alice, bob = keys.make_trial_batch(key, c.n_vars, BATCH, ne, 0)
+        q32 = np.float32(ne) / np.float32(c.n_vars)
+        return apriori_llr(bob, q32).T.contiguous(), syndrome(c, alice).T.contiguous()
+
+    flagship = inputs(code, QBER, point_key)
+    wide_dc = make_code(**RATE08_CODE)  # dc 15: K1/K2's loop instance with its scratch
+    base = dict(max_iterations=100, clip_messages=True, message_threshold=100.0)
+    sp, ms = dict(algorithm="sum-product", message_dtype="bfloat16"), dict(
+        algorithm="min-sum", message_dtype="int8")
+    legs = {
+        # name: (code, inputs, options, regime)
+        "flooding_sp_bf16": (code, flagship, dict(sp, compact_after=8, compact_lanes=128),
+                             None),
+        "flooding_ms_int8": (code, flagship, dict(ms, compact_after=8, compact_lanes=128),
+                             None),
+        "layered_sp_bf16": (code, flagship, dict(sp, schedule="layered", compact_after=4,
+                                                 compact_lanes=128), None),
+        "layered_ms_int8": (code, flagship, dict(ms, schedule="layered", compact_after=4,
+                                                 compact_lanes=128), None),
+        "flooding_phase_c_overflow": (code, flagship, dict(sp, compact_after=2,
+                                                           compact_lanes=8), "overflow"),
+        "layered_phase_c_overflow": (code, flagship, dict(sp, schedule="layered",
+                                                          compact_after=1, compact_lanes=8),
+                                     "overflow"),
+        "flooding_all_in_phase_a": (code, flagship, dict(sp, compact_after=60,
+                                                         compact_lanes=128), "phase_a"),
+        "layered_all_in_phase_a": (code, flagship, dict(sp, schedule="layered",
+                                                        compact_after=60, compact_lanes=128),
+                                   "phase_a"),
+        "flooding_dc15_sp_bf16": (wide_dc, inputs(wide_dc, 0.005, point_key),
+                                  dict(sp, compact_after=8, compact_lanes=128), None),
+    }
+    K2, KV, K6 = cuda_kernels.KERNEL_FUSED, cuda_kernels.KERNEL_VARIABLE, cuda_layered.KERNEL_NAME
+    KS, KW = device_loop.KERNEL_STEP, device_loop.KERNEL_SWEEP_STEP
+    for name, (c, (llr, syn), kw, regime) in legs.items():
+        o = DecodeOptions(**base, **kw)
+
+        def decode(o=o, c=c, llr=llr, syn=syn):
+            return bp_decode_batch_last(c, llr, syn, o)
+
+        decode()  # capture
+        with device_loop.eager_loops():
+            decode()  # warm-up
+        graph, graph_s, graph_counts = counted(decode)
+        with device_loop.eager_loops():
+            eager, eager_s, eager_counts = counted(decode)
+        plain = bp_decode_batch_last(c, llr, syn, dataclasses.replace(o, backend="xla"))
+        torch.cuda.synchronize()
+        for what, a, b in zip(("z", "iterations", "verdicts"), graph, eager):
+            if not torch.equal(a, b):
+                raise AssertionError(f"device_loops {name}: graph and eager {what} differ")
+        body = (K6, KW) if o.schedule == "layered" else (K2, KV, KS)
+        if any(graph_counts.get(k, 0) != eager_counts.get(k, 0) for k in body) or (
+                graph_counts.get(body[0], 0) <= 0):
+            raise AssertionError(f"device_loops {name}: graph launches {graph_counts} "
+                                 f"against eager {eager_counts}")
+        z, it, ok = graph
+        if o.algorithm == "min-sum":
+            moved = [] if all(torch.equal(a, b) for a, b in zip(graph, plain)) else None
+        else:
+            same = it == plain[1]
+            moved = (~same).nonzero().flatten().tolist()
+            if not torch.equal(ok, plain[2]) or not torch.equal(z[:, same], plain[0][:, same]) \
+                    or len(moved) > SP_ITERATION_SUM_ALLOWANCE or (
+                    (it - plain[1]).abs().max() > 1):
+                moved = None
+        if moved is None:
+            raise AssertionError(f"device_loops {name}: the graph decode breaks the rules "
+                                 "against the plain versions")
+        k, lanes = o.compact_after, o.compact_lanes
+        if regime == "overflow" and not int((it > k).sum()) > lanes:
+            raise AssertionError(f"device_loops {name}: no phase-C overflow")
+        if regime == "phase_a" and not (bool(ok.all()) and int(it.max()) <= k):
+            raise AssertionError(f"device_loops {name}: not every lane converged in phase A")
+        report[name] = {
+            "code": c.name, "batch": BATCH, "compact_after": k, "compact_lanes": lanes,
+            "converged": int(ok.sum()), "max_iterations": int(it.max()),
+            "lanes_past_compact_after": int((it > k).sum()),
+            "graph_equals_eager": True, "sp_frames_moved_against_plain": moved,
+            "graph_launches": graph_counts, "eager_launches": eager_counts,
+            "graph_ms": graph_s * 1e3, "eager_ms": eager_s * 1e3}
+
+    # ---- host threads sharing the card's decode graph --------------------------
+    # four threads, each on a stream of its own, decode two batches with one
+    # program at once, three times each: every call gets its own batch's
+    # answer from the one graph (calls are serialised per card, and a call's
+    # stream waits for the previous call's copies of the outputs)
+    o = DecodeOptions(**base, **legs["flooding_sp_bf16"][2])
+    batches = [flagship, inputs(code, QBER, key_c)] * 2
+    alone = [bp_decode_batch_last(code, x, y, o) for x, y in batches]
+    torch.cuda.synchronize()
+
+    def on_a_thread(i):
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            outs = [bp_decode_batch_last(code, *batches[i], o) for _ in range(3)]
+            torch.cuda.current_stream().synchronize()
+        return outs
+
+    with _counting_calls(device_loop.Graph, "capture") as captures, \
+            ThreadPoolExecutor(max_workers=4) as pool:
+        shared = list(pool.map(on_a_thread, range(4)))
+    wrong = sum(not all(torch.equal(a, b) for a, b in zip(out, alone[i]))
+                for i in range(4) for out in shared[i])
+    if captures[0] or wrong:
+        raise AssertionError(f"threads sharing the card's graph: {captures[0]} captures, "
+                             f"{wrong} of 12 decodes wrong")
+    report["threads_share_the_graph"] = {"threads": 4, "decodes": 12, "captures": 0,
+                                         "equal_to_alone": True}
+
+    # ---- K2 in place over its input (the graphs' loop bodies) ------------------
+    gen = torch.Generator(device=dev).manual_seed(99)
+    in_place = {}
+    for c in (code, wide_dc):
+        maps = c.to_device(dev)
+        for algorithm, dtype_name in (("sum-product", "bfloat16"), ("min-sum", "int8"),
+                                      ("sum-product", "float32")):
+            scale = 0.25 if dtype_name == "int8" else None
+            x = _flooding_inputs(torch, dev, gen, c, BATCH, dtype_name, scale)
+            kw = dict(threshold=100.0, clip=True, algorithm=algorithm, min_sum_alpha=0.8,
+                      min_sum_beta=0.0, scale=scale, first=False)
+            for fresh in (None, x["fresh"]):
+                ref, ok_ref = cuda_kernels.check_update_cuda(
+                    x["tot"], x["lrp"], x["syn"], maps, fresh=fresh, **kw)
+                buf = x["lrp"].clone()
+                got, ok_got = cuda_kernels.check_update_cuda(
+                    x["tot"], buf, x["syn"], maps, fresh=fresh, out=buf, **kw)
+                torch.cuda.synchronize()
+                if got is not buf or not torch.equal(got, ref) or not torch.equal(ok_got,
+                                                                                   ok_ref):
+                    raise AssertionError(f"K2 in place differs: {c.name} {algorithm} "
+                                         f"{dtype_name} fresh={fresh is not None}")
+            in_place[f"{c.name}_{algorithm}_{dtype_name}"] = "equal"
+    report["check_update_in_place"] = in_place
+
+    # ---- the continuation's segment graph against its eager loop ---------------
+    def cont():
+        return run_point_continuation(code, key_c, WATERFALL_QBER, 2 * BATCH, BATCH, opts_c,
+                                      segment=SEGMENT, refill_frac=REFILL_FRAC)
+
+    (p_graph, _), cont_s, cont_counts = counted(cont)
+    with device_loop.eager_loops():
+        (p_eager, _), cont_eager_s, cont_eager_counts = counted(cont)
+    if as_stats(p_graph) != as_stats(p_eager) or cont_counts.get(KV) != cont_eager_counts.get(
+            KV):
+        raise AssertionError(f"continuation: graph {as_stats(p_graph)} / {cont_counts} "
+                             f"against eager {as_stats(p_eager)} / {cont_eager_counts}")
+    report["continuation_graph_equals_eager"] = {
+        "partials": as_stats(p_graph), "launches": cont_counts,
+        "graph_s": cont_s, "eager_s": cont_eager_s}
+
+    # ---- the tie path, gated on the card ---------------------------------------
+    alice, scores = cuda_prng.trial_words_cuda(point_key, N, range(0, BATCH),
+                                               (ALICE, SCORES), dev)
+    ties = scores.clone()
+    vals, idx = flip_sign(ties).sort(dim=1)
+    r = torch.arange(BATCH, device=dev)
+    ties[r, idx[r, n_err]] = flip_sign(vals[r, n_err - 1])  # n_at = 2 > need = 1
+    second = cuda_prng.trial_words_cuda(point_key, N, range(0, BATCH), (TIES,), dev)[0]
+    thresh, bob_idx, excess = cuda_select.select_flip_cuda(ties, n_err, alice)
+    gated = cuda_prng.trial_words_cuda(point_key, N, range(0, BATCH), (TIES,), dev,
+                                       gate=excess)[0]
+    got = keys._exact_weight_flip(ties, alice, n_err, lambda: second,
+                                  gated_tie_scores=lambda e: gated)
+    want = alice ^ keys._uniform_ties(ties, thresh, n_err, second, "xla")
+    torch.cuda.synchronize()
+    tie_diff = int((got != want).sum())
+    if int(excess) != 1 or not torch.equal(gated, second) or tie_diff or torch.equal(
+            got, bob_idx) or not bool(((got ^ alice).sum(dim=1) == n_err).all()):
+        raise AssertionError(f"the gated tie path differs from _uniform_ties: {tie_diff} bits")
+    # no excess: the gated kernels leave Bob's row as K3 made it
+    t0, bob0, ex0 = cuda_select.select_flip_cuda(scores, n_err, alice)
+    kept = bob0.clone()
+    cuda_select.complete_ties_cuda(scores, t0, n_err, second, alice, bob0, ex0)
+    torch.cuda.synchronize()
+    if int(ex0) != 0 or not torch.equal(bob0, kept):
+        raise AssertionError("the gated tie kernel touched a batch without excess ties")
+    # many ties a row, their second words few repeated values: the ties at t2
+    # lie in every 512-word chunk of the row and are taken in index order
+    many, second_rep, needs, n_ats = _many_ties(torch, scores, n_err, dev)
+    t_m, bob_m, ex_m = cuda_select.select_flip_cuda(many, n_err, alice)
+    index_order = bob_m.clone()
+    cuda_select.complete_ties_cuda(many, t_m, n_err, second_rep, alice, bob_m, ex_m)
+    want_m = alice ^ keys._uniform_ties(many, t_m, n_err, second_rep, "xla")
+    torch.cuda.synchronize()
+    many_diff = int((bob_m != want_m).sum())
+    rows_moved = int((bob_m != index_order).any(dim=1).sum())
+    if int(ex_m) != 1 or many_diff or not bool(((bob_m ^ alice).sum(dim=1) == n_err).all()) \
+            or rows_moved < BATCH // 2:
+        raise AssertionError(f"many ties a row: {many_diff} bits off _uniform_ties, "
+                             f"{rows_moved} rows off index order")
+    bob_w = bob_idx.clone()
+    tie_ms = _time_ms(torch, lambda: cuda_select.complete_ties_cuda(
+        ties, thresh, n_err, second, alice, bob_w, excess), flush)
+    tie_plain_ms = _time_ms(torch, lambda: alice ^ keys._uniform_ties(
+        ties, thresh, n_err, second, "xla"), flush, repeats=5, warmup=1)
+    tie_bound, tie_by = _bound(BATCH * N * (4 + 4 + 1 + 1) + BATCH * 4 + 4,
+                               OPS_PER_SCORE_SELECT * BATCH * N)
+    report["tie_path"] = {"rows": BATCH, "n": N, "k": n_err, "bits_differing": tie_diff,
+                          "gated_words_equal": True, "untouched_without_excess": True,
+                          "many_ties": {"ties_a_row": [min(n_ats), max(n_ats)],
+                                        "need": [min(needs), max(needs)],
+                                        "bits_differing": many_diff,
+                                        "rows_off_index_order": rows_moved}}
+    max_tie_err = float(tie_diff + many_diff)
+    measured = {cuda_select.KERNEL_TIES: dict(
+        max_abs_err=max_tie_err, ms=tie_ms, plain_ms=tie_plain_ms, bound_ms=tie_bound,
+        bound_by=tie_by, library_ms=None)}
+
+    # ---- the bookkeeping kernels against their plain versions, timed -----------
+    g2 = torch.Generator(device=dev).manual_seed(7)
+    for mode, kernel in ((device_loop.ENTRY, device_loop.KERNEL_ENTRY),
+                         (device_loop.FLOODING, device_loop.KERNEL_STEP),
+                         (device_loop.LAYERED, device_loop.KERNEL_SWEEP_STEP)):
+        state = dict(
+            ok=torch.rand(BATCH, device=dev, generator=g2) < 0.5,
+            done=torch.rand(BATCH, device=dev, generator=g2) < 0.3,
+            active=torch.rand(BATCH, device=dev, generator=g2) < 0.6,
+            frozen=torch.rand(BATCH, device=dev, generator=g2) < 0.2,
+            it=torch.tensor([5], dtype=torch.int32, device=dev),
+            iters=torch.randint(0, 9, (BATCH,), dtype=torch.int32, device=dev,
+                                generator=g2),
+            passes=torch.zeros((), dtype=torch.int64, device=dev),
+            go=torch.zeros(1, dtype=torch.bool, device=dev))
+        a = {k: v.clone() for k, v in state.items()}
+        b = {k: v.clone() for k, v in state.items()}
+        args = ("ok", "done", "active", "frozen", "it", "iters")
+        device_loop.loop_step_cuda(mode, *(a[k] for k in args), 9, a["passes"], a["go"])
+        device_loop.loop_step_plain(mode, *(b[k] for k in args), 9, b["passes"], b["go"])
+        torch.cuda.synchronize()
+        diff = sum(int((a[k] != b[k]).sum()) for k in a)
+        if diff:
+            raise AssertionError(f"{kernel} differs from its plain version: {diff}")
+        ms = _time_ms(torch, lambda: device_loop.loop_step_cuda(
+            mode, *(a[k] for k in args), 9, a["passes"], a["go"]), flush)
+        plain_ms = _time_ms(torch, lambda: device_loop.loop_step_plain(
+            mode, *(b[k] for k in args), 9, b["passes"], b["go"]), flush)
+        # read ok, done, active, frozen (and iters); write done, active (and
+        # iters); it read and written, passes, go
+        n_bytes = BATCH * (4 + 2) + (8 * BATCH if mode == device_loop.LAYERED else 0) + 17
+        bound_ms, bound_by = _bound(n_bytes, 6 * BATCH)
+        measured[kernel] = dict(max_abs_err=float(diff), ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+    # ---- no host round trip: the trial step and the decodes under sync debug ---
+    sync_legs = {}
+    opts_f = DecodeOptions(**base, **legs["flooding_sp_bf16"][2])
+    opts_l = DecodeOptions(**base, **legs["layered_sp_bf16"][2])
+    for name, step in (
+            ("point_batch_partials_flooding", lambda: point_batch_partials(
+                code, point_key, n_err, 0, BATCH, BATCH, opts_f, "pallas")),
+            ("point_batch_partials_layered", lambda: point_batch_partials(
+                code, point_key, n_err, 0, BATCH, BATCH, opts_l, "pallas")),
+            ("decode_flooding", lambda: bp_decode_batch_last(code, *flagship, opts_f)),
+            ("decode_layered", lambda: bp_decode_batch_last(code, *flagship, opts_l))):
+        step()  # captured outside the gate
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        sync_legs[name] = "no synchronising call"
+    report["sync_debug_error_mode"] = sync_legs
+
+    # ---- the Reconciler: one chunk in flight against four, in turns -----------
+    rec = Reconciler(code, DecodeOptions(**base, **sp), lanes=128, device=dev).warmup()
+    alice_h, bob_h = (x.cpu().numpy() for x in keys.make_trial_batch(
+        point_key, N, PROTOCOL_FRAMES, n_err, 0))
+    syn_h = rec.syndromes(alice_h)
+    q = n_err / N
+    walls, results = {1: [], 4: []}, {}
+    for window in (1, 4, 4, 1) * 3:
+        rec.max_inflight_chunks = window
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rec.reconcile(bob_h, syn_h, q)
+        walls[window].append(time.perf_counter() - t0)
+        results.setdefault(window, res)
+    if not all(np.array_equal(getattr(results[1], f), getattr(results[4], f))
+               for f in results[1]._fields) or not results[4].syndromes_match.all():
+        raise AssertionError("the Reconciler's window changed its results")
+    report["reconciler_window_walls_s"] = {
+        "frames": PROTOCOL_FRAMES, "lanes": 128, "window_1": walls[1], "window_4": walls[4]}
+    return report, measured
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2007,7 +2422,7 @@ def main() -> int:
     )
     from qkd_ldpc_tpu_torch.channel import threefry
     from qkd_ldpc_tpu_torch.codes import make_qc_code
-    from qkd_ldpc_tpu_torch.decoder import cuda_kernels, cuda_layered, layered
+    from qkd_ldpc_tpu_torch.decoder import cuda_kernels, cuda_layered, device_loop, layered
     from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions
     from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr, reconcile
     from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
@@ -2306,6 +2721,8 @@ def main() -> int:
              cuda_kernels.KERNEL_FRESH, cuda_layered.KERNEL_NAME,
              cuda_kernels.KERNEL_VARIABLE)
     K1, K2, K3, K4, K5, K6, KV = names
+    KT = cuda_select.KERNEL_TIES
+    KE, KS, KW = device_loop.KERNEL_ENTRY, device_loop.KERNEL_STEP, device_loop.KERNEL_SWEEP_STEP
 
     def counted(step):
         """Drive one path with the launch counts set to 0 just before it and
@@ -2335,14 +2752,15 @@ def main() -> int:
         return result, seconds, _build.launch_counts()
 
     def channel_launches(path, counts, batches):
-        """K4 and K3 launch once per batch of trials, and once more each for a
-        batch that takes the second-word tie path; returns those extra."""
-        extra = counts.get(K4, 0) - batches
-        if not 0 <= extra <= batches or counts.get(K3, 0) - batches != extra:
+        """A batch of trials is K4 (Alice's bits and the scores), K3, and the
+        second-word tie path gated on K3's flag on the card: K4's tie-row
+        launch and the tie kernel, each once a batch, both doing nothing
+        where the flag is 0 (no host read decides it)."""
+        got = (counts.get(K4, 0), counts.get(K3, 0), counts.get(KT, 0))
+        if got != (2 * batches, batches, batches):
             raise AssertionError(
-                f"{path}: {counts.get(K4, 0)} trial_words and {counts.get(K3, 0)} "
-                f"kth_smallest launches for {batches} batches of trials")
-        return extra
+                f"{path}: {got} trial_words, kth_smallest and complete_ties launches "
+                f"for {batches} batches of trials")
 
 
     def as_stats(p):
@@ -2368,7 +2786,15 @@ def main() -> int:
         return run_point(code, point_key, QBER, trials, BATCH, opts, prng="pallas")
 
     run_point(code, point_key, QBER, BATCH, BATCH, opts, prng="pallas")  # warm-up
-    (partials, actual_qber), seconds, launches = counted(flooding_step)
+    with _counting_calls(device_loop.Graph, "replay") as replays:
+        (partials, actual_qber), seconds, launches = counted(flooding_step)
+    replays_main = replays[0]
+    if replays_main != N_BATCHES:
+        raise AssertionError(f"main path: {replays_main} decode-graph replays for "
+                             f"{N_BATCHES} batches")
+    # every batch's decode: one replay; its loops' bookkeeping on the card
+    if launches.get(KE, 0) != 3 * N_BATCHES or launches.get(KS, 0) != launches.get(K2, 0):
+        raise AssertionError(f"main path: loop kernels {launches}")
 
     stats = as_stats(partials)
     mean_it = partials.sum_it / max(partials.n_sp, 1)
@@ -2382,7 +2808,7 @@ def main() -> int:
     if launches[K1] != N_BATCHES:
         raise AssertionError(f"{K1}: {launches[K1]} launches, "
                              f"expected one per batch ({N_BATCHES})")
-    tie_batches = channel_launches("main path", launches, N_BATCHES)
+    channel_launches("main path", launches, N_BATCHES)
 
     # An iteration is one variable update and one check update (K2), whose
     # syndrome flag belongs to that iteration and whose messages are the next
@@ -2399,9 +2825,9 @@ def main() -> int:
             f"check_update_fused launched {fused} times and variable_update "
             f"{launches[KV]} times, iteration counts say {expected_fused} "
             f"(overflow: {overflowed})")
-    # The decode loop fetches one flag per iteration; on an idle stream that
-    # fetch costs this much (its floor — in the loop it also waits for the
-    # iteration's kernels).
+    # The eager kernel loop (the version the graphs are held against) fetches
+    # one flag per pass; on an idle stream that fetch costs this much (its
+    # floor — in the loop it also waits for the pass's kernels).
     flag = torch.zeros(BATCH, dtype=torch.bool, device=dev)
     sync_times = []
     for _ in range(200):
@@ -2413,7 +2839,7 @@ def main() -> int:
         "card": card, "code": code.name, "qber": actual_qber, "trials": trials,
         "batch": BATCH, "partials": stats, "mean_iterations": mean_it,
         "launches": launches, "expected_fused_launches": expected_fused,
-        "batches_on_the_tie_path": tie_batches,
+        "graph_replays_per_batch": replays_main / N_BATCHES,
         "compaction_overflow": overflowed, "seconds": seconds,
         "frames_per_s": trials / seconds,
         "ms_per_decode_iteration": seconds * 1e3 / fused,
@@ -2451,6 +2877,8 @@ def main() -> int:
         raise AssertionError(
             f"layered_sweep launched {sweeps} times, iteration counts say "
             f"{sum(worst_l)} (overflow: {overflowed_l})")
+    if launches_l.get(KW, 0) != sweeps or launches_l.get(KE, 0) != 3 * N_BATCHES:
+        raise AssertionError(f"layered path: loop kernels {launches_l}")
     print(json.dumps({"layered_path": {
         "card": card, "qber": actual_qber, "trials": trials, "batch": BATCH,
         "compact_after": LAYERED_COMPACT_AFTER, "partials": stats_l,
@@ -2519,14 +2947,34 @@ def main() -> int:
 
     # The host's clock spreads and drifts (the machine's CPU cores are shared),
     # so the paths are timed again in turns: each round runs all four.
-    steps = {"flooding": flooding_step, "layered": layered_step,
-             "continuation": continuation_step, "waterfall_plain": waterfall_plain_step}
+    # Each decode path also runs its eager kernel loop (one condition fetch a
+    # pass, the segment passes launched one by one) beside its graphs.
+    def eager(step):
+        def run():
+            with device_loop.eager_loops():
+                return step()
+        return run
+
+    steps = {"flooding": flooding_step, "flooding_eager": eager(flooding_step),
+             "layered": layered_step, "layered_eager": eager(layered_step),
+             "continuation": continuation_step,
+             "continuation_eager": eager(continuation_step),
+             "waterfall_plain": waterfall_plain_step}
+    for name, step in steps.items():  # the eager legs' warm-up
+        if name.endswith("_eager"):
+            step()
     rounds = {name: [] for name in steps}
     for _ in range(4):
         for name, step in steps.items():
             rounds[name].append(counted(step)[1])
     print(json.dumps({"wall_seconds_in_turns": dict(card=card, trials=trials, **rounds)}),
           flush=True)
+
+    # ---- phase 3d: the device-resident control flow (device_loops) -----------
+    phase_start("device_loops")
+    loops_report, loop_kernels = _device_loops(
+        torch, np, dev, card, flush, code, point_key, key_c, opts_c, counted, as_stats)
+    print(json.dumps({"device_loops": loops_report}), flush=True)
 
     # ---- phase 4: identity against the plain versions on the card ----------
     phase_start("identity")
@@ -2614,23 +3062,37 @@ def main() -> int:
             stage_ms(lambda: make_trial_batch(point_key, N, BATCH, n_err, 0)))
         if keygen > KEYGEN_LAUNCH_LIMIT:
             raise AssertionError(f"one batch of trials took {keygen} launches on the card")
-        from qkd_ldpc_tpu_torch.decoder.bp import _DecodeCore
-
-        starts = (_DecodeCore, "variable_update")
+        # a decode (flooding, layered) or an outer step's segment (the
+        # continuation) is one graph replay: the marker opens each
+        starts = (device_loop.Graph, "replay")
         _profile_path(torch, "flooding", flooding_step, card, seconds * 1e3,
                       starts, keygen * N_BATCHES)
         _profile_path(torch, "layered", layered_step, card, seconds_l * 1e3,
-                      None, keygen * N_BATCHES)
+                      starts, keygen * N_BATCHES)
         _profile_path(torch, "continuation", continuation_step, card, seconds_c * 1e3,
                       starts, keygen * N_BATCHES)
         _trace_cli_sweep(torch, code, card, wall_a * 1e3)
+        # The Reconciler (512 flagship frames, 128 lanes) with 1 and 4 chunks
+        # in flight: how busy the card is says whether the window can help.
+        from qkd_ldpc_tpu_torch import Reconciler
+
+        rec = Reconciler(code, DecodeOptions(algorithm="sum-product", **base), lanes=128,
+                         device=dev).warmup()
+        ra, rb = (x.cpu().numpy() for x in make_trial_batch(
+            point_key, N, PROTOCOL_FRAMES, n_err, 0))
+        rsyn = rec.syndromes(ra)
+        for window in (1, 4):
+            rec.max_inflight_chunks = window
+            _profile_path(torch, f"reconciler_window_{window}",
+                          lambda: rec.reconcile(rb, rsyn, n_err / N), card,
+                          stage_ms(lambda: rec.reconcile(rb, rsyn, n_err / N)))
 
     # ---- the contract's lines ----------------------------------------------
     def kernel_line(name, source, replaces, meas, counts):
         # the check degrees (K1/K2/K5/KV) and base-row degrees (K6) at which
         # the kernel was held to its plain version; the channel kernels have none
-        degrees = {K6: sorted({6, *layered_degrees}),
-                   K3: None, K4: None}.get(name, flooding_degrees)
+        degrees = {K6: sorted({6, *layered_degrees}), K3: None, K4: None, KT: None,
+                   KE: None, KS: None, KW: None}.get(name, flooding_degrees)
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "max_abs_err": meas["max_abs_err"],
@@ -2661,6 +3123,15 @@ def main() -> int:
         kernel_line(K6, csrc + "layered_sweep.cu",
                     "qkd_ldpc_tpu/decoder/pallas_layered.py:266",
                     main_entries[K6], launches_l),
+        # the control flow that the JAX package compiles into its programs
+        kernel_line(KT, csrc + "kth_smallest.cu",
+                    "qkd_ldpc_tpu/channel/keys.py:167", loop_kernels[KT], launches),
+        kernel_line(KE, csrc + "device_loop.cu",
+                    "qkd_ldpc_tpu/decoder/bp.py:447", loop_kernels[KE], launches),
+        kernel_line(KS, csrc + "device_loop.cu",
+                    "qkd_ldpc_tpu/decoder/bp.py:434", loop_kernels[KS], launches),
+        kernel_line(KW, csrc + "device_loop.cu",
+                    "qkd_ldpc_tpu/decoder/layered.py:218", loop_kernels[KW], launches_l),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

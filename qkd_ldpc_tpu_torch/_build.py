@@ -20,6 +20,7 @@ into ``_build/`` under a name that carries the hash of its source and flags
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -47,6 +48,7 @@ STORAGE_DEFINES = {"float32": "-DSTORAGE=0", "bfloat16": "-DSTORAGE=1", "int8": 
 LIBRARIES = {
     "threefry_words": ("threefry_words.cu", ()),
     "kth_smallest": ("kth_smallest.cu", ()),
+    "device_loop": ("device_loop.cu", ()),
     **{
         f"{stem}_{storage}": (f"{stem}.cu", (define,))
         for stem in ("check_update", "layered_sweep")
@@ -59,6 +61,13 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-shared")
 
 _loaded: dict[tuple[str, str], object] = {}
 _launches: dict[str, int] = {}
+# Launches that a CUDA graph makes on the card without passing a wrapper:
+# (kernel names, an int64 device counter of how often they ran).  A WHILE
+# body's bookkeeping kernel adds one to its counter on every pass.
+_device_counters: list[tuple[tuple[str, ...], torch.Tensor]] = []
+# Per host thread: the lists that launches are recorded into instead of
+# being counted (a capture's or a warm-up's), innermost last.
+_recording = threading.local()
 # Shards of a mesh on distinct cards launch from one host thread each: the
 # first build (its temporary files are named by the process alone), the
 # table of loaded functions and the launch counts are changed under this lock.
@@ -182,20 +191,87 @@ def constant(library: str, name: str) -> int:
 
 def check_launch(kernel: str, err: int) -> None:
     """Raise on a refused launch (``cudaGetLastError`` != 0); count the
-    launch otherwise.  This is the only place the counts change."""
+    launch otherwise, or list it where :func:`recording` is open.  This and
+    a graph's replay (:func:`count_replay`) are the only places the counts
+    change."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {kernel!r} failed to launch: error {err}")
+    stack = getattr(_recording, "stack", None)
+    if stack:
+        stack[-1].append(kernel)
+        return
     with _lock:
         _launches[kernel] = _launches.get(kernel, 0) + 1
 
 
+@contextlib.contextmanager
+def recording():
+    """Inside, this thread's launches are listed in the yielded list and not
+    counted: a graph capture lists the kernel nodes it records (each counted
+    at every replay), a warm-up its throwaway launches."""
+    stack = getattr(_recording, "stack", None)
+    if stack is None:
+        stack = _recording.stack = []
+    names: list[str] = []
+    stack.append(names)
+    try:
+        yield names
+    finally:
+        stack.pop()
+
+
+def count_replay(names) -> None:
+    """One replay of a graph whose outer kernel nodes are ``names``."""
+    with _lock:
+        for kernel in names:
+            _launches[kernel] = _launches.get(kernel, 0) + 1
+
+
+def add_device_counter(names, counter: torch.Tensor) -> None:
+    """Count ``names`` once for every unit the int64 device scalar
+    ``counter`` holds: the passes of a WHILE body, which the card runs
+    without the host."""
+    with _lock:
+        _device_counters.append((tuple(names), counter))
+
+
+def fold_device_counters(counters) -> None:
+    """Stop reading ``counters`` (device counters of a graph about to be
+    dropped, its replays finished): what they hold joins the host's
+    counts."""
+    with _lock:
+        mine = [e for e in _device_counters if any(e[1] is c for c in counters)]
+        _device_counters[:] = [e for e in _device_counters if not any(e is m for m in mine)]
+        for names, counter in mine:
+            passes = int(counter)
+            for kernel in names:
+                if passes:
+                    _launches[kernel] = _launches.get(kernel, 0) + passes
+
+
 def launch_counts() -> dict[str, int]:
-    """Launches of each kernel since the last reset."""
-    return dict(_launches)
+    """Launches of each kernel since the last reset.  Reading the graphs'
+    device counters synchronises with the card (one read a device)."""
+    with _lock:
+        counts = dict(_launches)
+        counters = list(_device_counters)
+    by_device: dict = {}
+    for names, counter in counters:
+        by_device.setdefault(counter.device, []).append((names, counter))
+    for entries in by_device.values():
+        passes = torch.stack([c for _, c in entries]).tolist()
+        for (names, _), n in zip(entries, passes):
+            for kernel in names:
+                if n:
+                    counts[kernel] = counts.get(kernel, 0) + n
+    return counts
 
 
 def reset_launch_counts() -> None:
-    _launches.clear()
+    with _lock:
+        _launches.clear()
+        for _, counter in _device_counters:
+            counter.zero_()
 
 
 def native_library_path() -> Path:

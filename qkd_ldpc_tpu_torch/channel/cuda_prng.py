@@ -86,10 +86,14 @@ def trial_words_plain(point_key: torch.Tensor, n_bits: int, ids,
 
 
 def trial_words_cuda(point_key: torch.Tensor, n_bits: int, ids,
-                     rows=(ALICE, SCORES), device=None) -> tuple[torch.Tensor, ...]:
+                     rows=(ALICE, SCORES), device=None,
+                     gate: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
     """Launch the kernel on the current stream (no synchronisation unless
     the point key is on the card).  A ``range`` of ids needs ``device``; a
-    tensor of ids is moved to it."""
+    tensor of ids is moved to it.  ``gate`` (int32 ``[1]`` on the card, e.g.
+    ``select_flip``'s excess-ties flag): where it reads 0 the kernel writes
+    nothing and the rows are left unset — the condition is tested on the
+    card, not fetched."""
     batch = _check(point_key, n_bits, ids, rows)
     if device is None and isinstance(ids, torch.Tensor):
         device = ids.device
@@ -110,11 +114,14 @@ def trial_words_cuda(point_key: torch.Tensor, n_bits: int, ids,
                        dtype=torch.uint8 if r == ALICE else torch.int32)
         for r in rows
     }
+    if gate is not None and (gate.shape != (1,) or gate.dtype != torch.int32
+                             or not gate.is_cuda):
+        raise ValueError("gate must be an int32 [1] tensor on the rows' device")
     fn = _build.function(
         "threefry_words", "trial_rows",
         [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_uint, ctypes.c_int,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p],
+         ctypes.c_void_p, ctypes.c_void_p],
     )
 
     def ptr(name):
@@ -124,6 +131,7 @@ def trial_words_cuda(point_key: torch.Tensor, n_bits: int, ids,
         err = fn(k0, k1, None if id_t is None else id_t.data_ptr(),
                  0 if id_t is not None else ids.start & _M32, batch, n_bits,
                  ptr(ALICE), ptr(SCORES), ptr(TIES),
+                 None if gate is None else gate.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
     _build.check_launch(KERNEL_NAME, err)
     return tuple(out[r] for r in rows)

@@ -8,7 +8,9 @@ the ties ``s == t`` in index order.  :func:`select_flip` does all of it and
 returns Bob's row ``alice ^ flip`` with the threshold and one flag: whether
 some row has more ties at its threshold than it needs (``n_at > need``), the
 only case where the channel's second-word tie path
-(``keys._uniform_ties``) changes the outcome.
+(``keys._uniform_ties``) changes the outcome.  :func:`complete_ties_cuda`
+takes that path on the card, gated on the flag there (``keys.py``'s
+``lax.cond``); ``keys._uniform_ties`` is its plain version.
 
 The plain version finds ``t`` by the JAX package's 32-pass bitwise prefix
 search (greedy largest prefix P with ``count(s < P) < k``); the kernel by a
@@ -29,6 +31,7 @@ from qkd_ldpc_tpu_torch import _build
 from qkd_ldpc_tpu_torch.channel.threefry import flip_sign
 
 KERNEL_NAME = "kth_smallest"
+KERNEL_TIES = "complete_ties"
 
 
 def _rows_k(scores: torch.Tensor, k) -> torch.Tensor:
@@ -129,3 +132,39 @@ def kth_smallest(scores: torch.Tensor, k, backend: str = "auto") -> torch.Tensor
     """k-th smallest per row, ``[..., 1]``; ``backend`` as in
     ``DecodeOptions.backend``."""
     return select_flip(scores, k, None, backend)[0]
+
+
+def complete_ties_cuda(scores: torch.Tensor, thresh: torch.Tensor, k: int,
+                       second: torch.Tensor, alice: torch.Tensor, bob: torch.Tensor,
+                       excess: torch.Tensor) -> torch.Tensor:
+    """Launch the tie-completion kernel on the current stream: where the
+    ``excess`` flag that :func:`select_flip` wrote is set (read on the card,
+    never by the host), rewrite ``bob`` IN PLACE for the rows whose threshold
+    ties are ranked by the ``second`` words, then by index
+    (``keys._uniform_ties`` is its plain version); a no-op otherwise.
+    Returns ``bob``."""
+    _check(scores, alice)
+    tensors = (scores, thresh, second, alice, bob, excess)
+    if any(not t.is_cuda or not t.is_contiguous() or t.device != scores.device
+           for t in tensors):
+        raise ValueError("complete_ties_cuda needs contiguous CUDA tensors on one device")
+    if second.shape != scores.shape or second.dtype != torch.int32:
+        raise ValueError("second must be int32 of the scores' shape")
+    if bob.shape != alice.shape or bob.dtype != torch.uint8:
+        raise ValueError("bob must be uint8 of Alice's shape")
+    if thresh.shape != scores.shape[:-1] + (1,) or thresh.dtype != torch.int32:
+        raise ValueError("thresh must be int32 [..., 1]")
+    if excess.shape != (1,) or excess.dtype != torch.int32:
+        raise ValueError("excess must be int32 [1]")
+    n = scores.shape[-1]
+    fn = _build.function(
+        "kth_smallest", "complete_ties",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    )
+    with torch.cuda.device(scores.device):
+        err = fn(scores.data_ptr(), thresh.data_ptr(), int(k), second.data_ptr(),
+                 alice.data_ptr(), bob.data_ptr(), excess.data_ptr(), scores.numel() // n,
+                 n, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(KERNEL_TIES, err)
+    return bob

@@ -20,10 +20,13 @@ Keys are int64 ``[..., 2]`` tensors and bit blocks int32 raw words (see
 ``channel/threefry.py``).  On the card a batch of trials is two kernel
 launches: K4 (``channel/cuda_prng.py``) derives every trial's keys from the
 point key and writes Alice's bits and the error scores, K3
-(``channel/cuda_select.py``) selects the threshold and writes Bob's bits;
-the host then reads one flag, and only when some row has excess ties does
-the second-word tie path run (plain passes, ``backend`` as in
-``DecodeOptions.backend``).
+(``channel/cuda_select.py``) selects the threshold, writes Bob's bits and
+an excess-ties flag; the second-word tie path (JAX's ``lax.cond``) is
+taken on the card: K4's tie-row launch and the tie-completion kernel read
+the flag from device memory and return at once where it is 0, so a batch of
+trials is four launches and no host read.  Off the card (and under
+``backend="xla"``) the flag is read and the plain passes run only when it is
+set.
 
 The protocol's keys (:func:`generate_random_bits`, :func:`introduce_errors`)
 are one ``[B, N]`` block drawn from one key, not a batch of trials: the JAX
@@ -39,8 +42,19 @@ import math
 
 import torch
 
-from qkd_ldpc_tpu_torch.channel.cuda_prng import ALICE, SCORES, TIES, trial_words
-from qkd_ldpc_tpu_torch.channel.cuda_select import kth_smallest, select_flip
+from qkd_ldpc_tpu_torch.channel.cuda_prng import (
+    ALICE,
+    SCORES,
+    TIES,
+    trial_words,
+    trial_words_cuda,
+)
+from qkd_ldpc_tpu_torch import _build
+from qkd_ldpc_tpu_torch.channel.cuda_select import (
+    complete_ties_cuda,
+    kth_smallest,
+    select_flip,
+)
 from qkd_ldpc_tpu_torch.channel.cuda_select import (
     kth_smallest_plain as _kth_smallest,  # noqa: F401  (the JAX package's name)
 )
@@ -95,7 +109,10 @@ def introduce_errors(key: torch.Tensor, bits, num_errors,
     ``bits`` [B, N] uint8 (a tensor stays on its device; anything else goes
     to ``device``, None = the card).  The scores are one ``[B, N]`` block of
     ``key``, the threshold ties ranked by the block of ``fold_in(key, 1)``;
-    the selection and the flip are K3's on the card."""
+    the selection and the flip are K3's on the card.  There the tie block
+    (plain threefry) is made on every call, needed or not, so that no host
+    read of the excess-ties flag is made: the same work again as the score
+    block."""
     bits = tensor_on(bits, device, torch.uint8)
     B, N = bits.shape
     scores = block_words(key, (B, N), bits.device)
@@ -106,7 +123,8 @@ def introduce_errors(key: torch.Tensor, bits, num_errors,
 
 
 def _exact_weight_flip(scores: torch.Tensor, alice: torch.Tensor, num_errors,
-                       tie_scores_fn=None, backend: str = "auto") -> torch.Tensor:
+                       tie_scores_fn=None, backend: str = "auto",
+                       gated_tie_scores=None) -> torch.Tensor:
     """Bob's bits: ``alice`` with exactly ``num_errors`` bits flipped per row,
     uniformly placed, from i.i.d. raw-uint32 ``scores`` [..., N].
 
@@ -120,17 +138,24 @@ def _exact_weight_flip(scores: torch.Tensor, alice: torch.Tensor, num_errors,
     frame.  When ``tie_scores_fn`` is given (a thunk returning an
     independent score tensor shaped like ``scores``), such ties are
     completed by a second-word ranking instead of index order, which makes
-    the flip-set law exactly uniform.  The second word is generated and
-    ranked only when some row actually has excess ties (a fetched flag, one
-    host sync per call).  Without ``tie_scores_fn``, ties complete in index
-    order.
+    the flip-set law exactly uniform.  On the card the second word is
+    ranked by the tie-completion kernel, which reads the excess-ties flag
+    there and does nothing where it is 0 (``gated_tie_scores(flag)``, when
+    given, replaces the thunk there: K4 generates the words under the same
+    gate); elsewhere the flag is read and the plain passes run only when it
+    is set.  Without ``tie_scores_fn``, ties complete in index order.
     """
     k = int(num_errors)
     thresh, bob, excess = select_flip(scores, k, alice, backend)
     # A choice among ties exists only when more scores sit at the
     # threshold than are needed; rows where n_at == need take all ties in
     # both branches, so batching cannot change any trial's outcome.
-    if tie_scores_fn is None or not bool(excess):
+    if tie_scores_fn is None:
+        return bob
+    if _build.use_kernel(backend, scores.device):
+        second = tie_scores_fn() if gated_tie_scores is None else gated_tie_scores(excess)
+        return complete_ties_cuda(scores, thresh, k, second, alice, bob, excess)
+    if not bool(excess):
         return bob
     return alice ^ _uniform_ties(scores, thresh, k, tie_scores_fn(), backend)
 
@@ -189,7 +214,12 @@ def make_trials_from_ids(
     def tie_scores():
         return trial_words(point_key, n_bits, trial_ids, (TIES,), backend, device)[0]
 
-    bob = _exact_weight_flip(scores, alice, num_errors, tie_scores, backend)
+    def gated_tie_scores(excess):  # on the card: written only where excess is set
+        return trial_words_cuda(point_key, n_bits, trial_ids, (TIES,), device,
+                                gate=excess)[0]
+
+    bob = _exact_weight_flip(scores, alice, num_errors, tie_scores, backend,
+                             gated_tie_scores)
     return alice, bob
 
 

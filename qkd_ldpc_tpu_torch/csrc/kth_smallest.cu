@@ -8,7 +8,8 @@
 // is  s < t,  plus the ties s == t  when their count n_at is at most
 // need = k - count(s < t)  (then n_at == need); otherwise the first `need` ties
 // in index order, and the row raises the excess flag, which sends the batch to
-// the second-word tie path on the host.  k <= 0 flips nothing (threshold 0).
+// the second-word tie path (complete_ties_kernel below, gated on the flag on the
+// card).  k <= 0 flips nothing (threshold 0).
 //
 // Bound on this card: one read of the scores and of Alice's row, one write of
 // Bob's row.  Design: one block of 512 threads per row.  A row of up to
@@ -300,4 +301,116 @@ extern "C" int select_flip(const void* scores, const void* k_rows, int k_all,
     if (select_flip_vector(n, scores, alice, bob) == 4)
         return launch_width<4>(width, rows, s, k, k_all, a, b, t, e, n, st);
     return launch_width<1>(width, rows, s, k, k_all, a, b, t, e, n, st);
+}
+
+// ---------------------------------------------------------------------------
+// The second-word tie path on the card: the lax.cond of
+// qkd_ldpc_tpu/channel/keys.py:158-167 (uniform_ties under the excess flag).
+// Plain version: keys._uniform_ties (and its use in keys._exact_weight_flip).
+//
+// select_flip completes a row's count from its threshold ties in index order.
+// Where a row has more ties than it needs (n_at > need, probability ~(N-1)/2^32
+// a frame) the JAX package ranks those ties by a second word instead, then by
+// index, so the flip set's law is exactly uniform.  complete_ties_kernel does
+// that for every row of a batch whose excess flag (select_flip's, in device
+// memory) is set, and returns at once when it is 0: the host never reads it.
+// Per row (one block): need = k - count(s < t); the need-th smallest second
+// word t2 among the ties, by the same radix select as above (four 8-bit digits,
+// a 256-bin shared histogram each; the scan of the bins runs on one thread: this
+// path is rare); then flip  s < t,  the ties with a second word below t2, and
+// of the ties whose second word equals t2 the first need2 in index order (a
+// block scan over chunks of kThreads words).  Bob's row is rewritten whole:
+// alice ^ flip.  A row with n_at == need, or k <= 0, keeps select_flip's row,
+// which is the same.  Bound: latency (six passes over a rare row).
+namespace {
+
+__global__ void __launch_bounds__(kThreads)
+complete_ties_kernel(const uint32_t* __restrict__ scores, const uint32_t* __restrict__ thresh,
+                     int k, const uint32_t* __restrict__ second,
+                     const uint8_t* __restrict__ alice, uint8_t* __restrict__ bob,
+                     const int* __restrict__ excess, int n) {
+    if (*excess == 0) return;
+    __shared__ unsigned hist[256];
+    __shared__ int counts[2];
+    __shared__ unsigned digit_state[2];  // prefix, rank left
+    __shared__ int warp_sums[kWarps];
+    const int tid = threadIdx.x;
+    const size_t base = static_cast<size_t>(blockIdx.x) * n;
+    const uint32_t* s = scores + base;
+    const uint32_t* s2 = second + base;
+    const uint32_t t = thresh[blockIdx.x];
+    if (tid < 2) counts[tid] = 0;
+    __syncthreads();
+    int below = 0, at = 0;
+    for (int i = tid; i < n; i += kThreads) {
+        below += s[i] < t;
+        at += s[i] == t;
+    }
+    atomicAdd(&counts[0], below);
+    atomicAdd(&counts[1], at);
+    __syncthreads();
+    const int need = k - counts[0];
+    if (k <= 0 || counts[1] <= need) return;  // select_flip's row is this row
+    // t2: the need-th smallest second word among the ties
+    uint32_t prefix = 0, mask = 0;
+    if (tid == 0) digit_state[1] = static_cast<unsigned>(need);
+    for (int d = 3; d >= 0; --d) {
+        for (int b = tid; b < 256; b += kThreads) hist[b] = 0;
+        __syncthreads();
+        for (int i = tid; i < n; i += kThreads) {
+            if (s[i] == t && (s2[i] & mask) == prefix) atomicAdd(&hist[(s2[i] >> (8 * d)) & 255u], 1u);
+        }
+        __syncthreads();
+        if (tid == 0) {
+            unsigned rank = digit_state[1], b = 0;
+            while (hist[b] < rank) rank -= hist[b++];
+            digit_state[0] = b;
+            digit_state[1] = rank;
+        }
+        __syncthreads();
+        prefix |= digit_state[0] << (8 * d);
+        mask |= 255u << (8 * d);
+        __syncthreads();
+    }
+    const uint32_t t2 = prefix;
+    const int need2 = static_cast<int>(digit_state[1]);  // ties at t2 still needed
+    // flip, the ties at t2 taken in index order, chunk by chunk
+    int taken = 0;  // ties at t2 before this chunk
+    const int lane = tid & 31, warp = tid >> 5;
+    for (int c = 0; c < n; c += kThreads) {
+        const int i = c + tid;
+        const bool in = i < n;
+        const bool tie = in && s[i] == t;
+        const bool at2 = tie && s2[i] == t2;
+        const unsigned ballot = __ballot_sync(0xffffffffu, at2);
+        if (lane == 0) warp_sums[warp] = __popc(ballot);
+        __syncthreads();
+        int before = taken + __popc(ballot & ((1u << lane) - 1u));
+        int chunk = 0;
+        for (int w = 0; w < kWarps; ++w) {
+            if (w < warp) before += warp_sums[w];
+            chunk += warp_sums[w];
+        }
+        if (in) {
+            const bool flip = s[i] < t || (tie && s2[i] < t2) || (at2 && before < need2);
+            bob[base + i] = alice[base + i] ^ static_cast<uint8_t>(flip);
+        }
+        taken += chunk;
+        __syncthreads();
+    }
+}
+
+}  // namespace
+
+// Rewrites bob [rows, n] where some row's ties need the second word (see
+// complete_ties_kernel); a no-op launch when *excess == 0.  `scores`, `second`
+// [rows, n] uint32, `thresh` [rows] uint32.  Returns cudaGetLastError().
+extern "C" int complete_ties(const void* scores, const void* thresh, int k,
+                             const void* second, const void* alice, void* bob,
+                             const void* excess, int rows, int n, void* stream) {
+    complete_ties_kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(scores), static_cast<const uint32_t*>(thresh), k,
+        static_cast<const uint32_t*>(second), static_cast<const uint8_t*>(alice),
+        static_cast<uint8_t*>(bob), static_cast<const int*>(excess), n);
+    return static_cast<int>(cudaGetLastError());
 }

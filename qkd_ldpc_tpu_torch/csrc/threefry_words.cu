@@ -56,8 +56,11 @@ __device__ __forceinline__ uint2 threefry(uint32_t k0, uint32_t k1, uint32_t cou
 __global__ void __launch_bounds__(kThreads)
 trial_rows_kernel(uint32_t pk0, uint32_t pk1, const int64_t* __restrict__ ids,
                   uint32_t first, int n, uint8_t* __restrict__ alice,
-                  uint32_t* __restrict__ scores, uint32_t* __restrict__ ties) {
+                  uint32_t* __restrict__ scores, uint32_t* __restrict__ ties,
+                  const int* __restrict__ gate) {
     __shared__ uint2 row_key[3];  // Alice, scores, tie words
+    // the tie rows of a batch whose excess-ties flag (K3's) is 0 are not needed
+    if (gate != nullptr && *gate == 0) return;
     const size_t row = blockIdx.x;
     const int tid = threadIdx.x;
     if (tid < 32) {
@@ -95,14 +98,17 @@ trial_rows_kernel(uint32_t pk0, uint32_t pk1, const int64_t* __restrict__ ids,
 }  // namespace
 
 // ids == nullptr: row r is trial first + r.  alice / scores / ties may each be
-// nullptr (that row is not emitted).
+// nullptr (that row is not emitted).  gate (an int on the card, may be null):
+// where it reads 0 the launch writes nothing (the tie path, lax.cond of
+// qkd_ldpc_tpu/channel/keys.py:167, taken on the card: the gate is K3's
+// excess-ties flag).
 extern "C" int trial_rows(unsigned int pk0, unsigned int pk1, const void* ids,
                           unsigned int first, int batch, int n, void* alice,
-                          void* scores, void* ties, void* stream) {
+                          void* scores, void* ties, const void* gate, void* stream) {
     dim3 grid(batch, (n + kWordsPerBlock - 1) / kWordsPerBlock);
     trial_rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         pk0, pk1, static_cast<const int64_t*>(ids), first, n,
         static_cast<uint8_t*>(alice), static_cast<uint32_t*>(scores),
-        static_cast<uint32_t*>(ties));
+        static_cast<uint32_t*>(ties), static_cast<const int*>(gate));
     return static_cast<int>(cudaGetLastError());
 }

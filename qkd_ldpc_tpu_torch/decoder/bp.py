@@ -28,9 +28,16 @@ package's, restated for PyTorch:
   the same calls run the plain versions.
 - **Early exit** with per-frame convergence masks: frame b stops counting
   on the iteration where its decision syndrome first equals the target.
-  ``lax.while_loop`` becomes a Python ``while`` that fetches one flag per
-  iteration (one host sync each; its cost is in PERF.md), ``lax.cond`` a
-  Python ``if`` on a fetched flag.
+- **One device program per decode**, as the JAX package's ``jit``: on the
+  card the kernel backend captures the whole decode (peeled K1, the loops,
+  the compaction's ops) as one CUDA graph per (code, B, options, thread)
+  and replays it, so a decode makes no host round trip between its input
+  and its output.  ``lax.while_loop`` becomes a WHILE node whose condition a
+  bookkeeping kernel sets on the card, ``lax.cond`` (phase C) a WHILE node
+  whose entry test is the cond's predicate (``decoder/device_loop.py``).
+  The same program runs eagerly on the CPU, under ``backend="xla"``, and in
+  ``device_loop.eager_loops()`` (the eager kernel loop the graph is held
+  against); there the loop fetches its condition after every pass.
 
 The decision rule is ``total <= 0 -> bit = 1``.
 """
@@ -44,7 +51,7 @@ import torch
 
 from qkd_ldpc_tpu_torch import _build
 from qkd_ldpc_tpu_torch.codes.ldpc_code import LDPCCode
-from qkd_ldpc_tpu_torch.decoder import cuda_kernels
+from qkd_ldpc_tpu_torch.decoder import cuda_kernels, device_loop
 from qkd_ldpc_tpu_torch.decoder.layered import layered_decode_batch_last
 from qkd_ldpc_tpu_torch.utils import resolve_device
 
@@ -154,14 +161,29 @@ class _DecodeCore:
         """Float compute value -> message storage dtype."""
         return cuda_kernels._store(x, self.mdt, self.scale)
 
-    def check_update_first(self, total0, syn):
+    @property
+    def use_kernel(self) -> bool:
+        return self.backend == "pallas"
+
+    def scratch(self, B: int):
+        """The check kernel's loop-instance scratch for ``B`` frames, or None
+        (the plain versions and the unrolled degrees need none)."""
+        dc, M = self.maps.chk_mask_T.shape
+        shape = (cuda_kernels.check_scratch_shape(dc, M, B, self.kernel_args["algorithm"],
+                                                  self.mdt)
+                 if self.use_kernel else None)
+        return None if shape is None else torch.empty(
+            shape, dtype=torch.float32, device=self.device)
+
+    def check_update_first(self, total0, syn, scratch=None):
         """Iteration-1 check update on the (unclipped) a-priori LLRs, given
         in storage type ``[N, B]``; returns ``Lr``."""
         return cuda_kernels.check_update_first(
-            total0, syn, self.maps, **self.kernel_args
+            total0, syn, self.maps, scratch=scratch, **self.kernel_args
         )
 
-    def check_update_fused(self, total, Lr_prev, syn, fresh=None, ok=None):
+    def check_update_fused(self, total, Lr_prev, syn, fresh=None, ok=None, out=None,
+                           scratch=None):
         """Bit-node update (Lq = clip(total - Lr), in registers) + check
         update + decision syndrome of ``total``; returns ``(Lr, ok)``.
 
@@ -174,10 +196,11 @@ class _DecodeCore:
         :meth:`variable_update` returned (the kernel clears flags in it).
         """
         return cuda_kernels.check_update_fused(
-            total, Lr_prev, syn, self.maps, fresh=fresh, ok=ok, **self.kernel_args
+            total, Lr_prev, syn, self.maps, fresh=fresh, ok=ok, out=out,
+            scratch=scratch, **self.kernel_args
         )
 
-    def variable_update(self, Lr, llr, z, count, active):
+    def variable_update(self, Lr, llr, z, count, active, out=None):
         """Route -> totals -> decision: ``(total, z, count, ok)`` with ``z``
         and ``count`` moved on the ``active`` frames only (in place by the
         kernel) and ``ok`` all True, for the check update to clear.  Decisions and the syndrome that the next check update
@@ -185,30 +208,94 @@ class _DecodeCore:
         exactly consistent."""
         return cuda_kernels.variable_update(
             Lr, llr, z, count, active, self.maps, backend=self.backend,
-            scale=self.scale,
+            scale=self.scale, out=out,
         )
 
 
-def _decode_loop(core, llr, syn, init, limit, frozen=None):
-    """The shared early-exit iteration loop from a prepared carry
-    ``(Lr, z_out, iters, done, it)``: ``Lr`` holds the check messages of
-    iteration ``it + 1``, whose variable update is still to run.
+class _Lanes:
+    """A batch's decode state on its lanes: messages ``Lr``, the totals
+    buffer, decisions ``z``, counts ``iters``, the loop's flags, and the
+    inputs they decode."""
 
-    ``frozen`` ([B] bool, optional) marks lanes whose bookkeeping must
-    never change (their z/iters/done are final) even though their stale
-    message state is recomputed — the full-batch fallback phase of the
-    compaction schedule runs with the compacted lanes frozen.
-    """
-    Lr, z_out, iters, done, it = init
-    while it < limit:
-        active = ~done if frozen is None else ~(done | frozen)
-        if not bool(active.any()):  # the per-iteration host sync
-            break
-        total, z_out, iters, ok = core.variable_update(Lr, llr, z_out, iters, active)
-        Lr, ok = core.check_update_fused(total, Lr, syn, ok=ok)
-        done = torch.where(active, ok, done)
-        it += 1
-    return Lr, z_out, iters, done, it
+    def __init__(self, core, llr, syn, Lr, z, iters, done, it):
+        self.core, self.llr, self.syn = core, llr, syn
+        self.Lr, self.z, self.iters = Lr, z, iters
+        self.loop = device_loop.LoopState(done, it)
+        self.total = torch.empty(llr.shape, dtype=core.mdt, device=llr.device)
+        self.scratch = core.scratch(llr.shape[1])
+
+    def iteration(self):
+        """One pass of the loop body: variable update (z and iters move on
+        the active lanes), then the check update IN PLACE over ``Lr``, whose
+        flags land in ``loop.ok``.  Allocates nothing."""
+        core, loop = self.core, self.loop
+        core.variable_update(self.Lr, self.llr, self.z, self.iters, loop.active,
+                             out=(self.total, loop.ok))
+        core.check_update_fused(self.total, self.Lr, self.syn, ok=loop.ok, out=self.Lr,
+                                scratch=self.scratch)
+
+    def run(self, limit, graph, frozen=None):
+        """The early-exit loop (``lax.while_loop``) up to ``limit`` passes
+        in all; ``frozen`` ([B] bool) marks lanes whose bookkeeping must not
+        change although their stale messages are recomputed (phase C)."""
+        device_loop.run_loop(self.iteration, self.loop, limit, device_loop.FLOODING,
+                             use_kernel=self.core.use_kernel, frozen=frozen, graph=graph)
+
+
+def _flooding_program(core, llr, syn, opts, graph):
+    """The flooding decode of ``llr [N, B]`` float32 toward ``syn [M, B]``
+    int8: eagerly (``graph=None``) or as the capture into ``graph``.
+    Returns ``(z [N, B] int8, iters [B] int32, done [B] bool)``."""
+    N, B = llr.shape
+    dev = llr.device
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    # ---- peeled first check update: its inputs are the raw a-priori LLRs
+    # (never clipped).  Every frame then runs iteration 1 in the loop.
+    lanes = _Lanes(core, llr, syn, None, zeros((N, B), torch.int8),
+                   zeros((B,), torch.int32), zeros((B,), torch.bool),
+                   zeros((1,), torch.int32))
+    lanes.Lr = core.check_update_first(core.to_storage(llr), syn, scratch=lanes.scratch)
+
+    B2 = opts.compact_lanes
+    if not (0 < B2 < B and opts.compact_after < opts.max_iterations):
+        lanes.run(opts.max_iterations, graph)
+        done = lanes.loop.done
+        # Frames that never converged report max_iterations.
+        return lanes.z, torch.where(done, lanes.iters, opts.max_iterations), done
+
+    # ---- residency-compaction schedule.  Phase A runs compact_after
+    # iterations on the full batch; phase B gathers the unconverged
+    # minority into compact_lanes lanes and finishes only those; phase C
+    # (a full-batch fallback that runs only if more than compact_lanes
+    # lanes were unconverged) continues any overflow lanes from their
+    # phase-A state with the compacted lanes' bookkeeping frozen.  Every
+    # lane's trajectory is the plain loop's, merely re-scheduled.
+    lanes.run(opts.compact_after, graph)
+    done_a = lanes.loop.done
+
+    # Unconverged lanes first (the sort is stable: ties keep lane order);
+    # when fewer than compact_lanes are unconverged the tail picks
+    # already-done lanes, which the loop's masks keep inert.  Phase B's
+    # count of passes starts from phase A's, on the device.
+    idx = torch.argsort(done_a.to(torch.int32), stable=True)[:B2]
+    part = _Lanes(core, llr.index_select(1, idx), syn.index_select(1, idx),
+                  lanes.Lr.index_select(2, idx), lanes.z.index_select(1, idx),
+                  lanes.iters.index_select(0, idx), done_a.index_select(0, idx),
+                  lanes.loop.it.clone())
+    part.run(opts.max_iterations, graph)
+
+    # Scatter phase B back in place; phase C (the lax.cond: its loop's
+    # entry test is the overflow predicate) continues from phase A's
+    # messages and count, the compacted lanes frozen.
+    lanes.z.index_copy_(1, idx, part.z)
+    lanes.iters.index_copy_(0, idx, part.iters)
+    done_a.index_copy_(0, idx, part.loop.done)
+    frozen = zeros((B,), torch.bool).index_fill_(0, idx, True)
+    lanes.run(opts.max_iterations, graph, frozen=frozen)
+    return lanes.z, torch.where(done_a, lanes.iters, opts.max_iterations), done_a
 
 
 def bp_decode_batch_last(
@@ -218,73 +305,20 @@ def bp_decode_batch_last(
     opts: DecodeOptions,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Core batched decode loop on the tensors' device; returns
-    (z [N,B] int8, iters [B] int32, ok [B] bool)."""
+    (z [N,B] int8, iters [B] int32, ok [B] bool).  On the card under the
+    kernel backend the decode is one replay of a captured CUDA graph."""
     if opts.schedule == "layered":
         return layered_decode_batch_last(code, llr, syndrome, opts)
     if llr.dtype != torch.float32 or llr.ndim != 2:
         raise ValueError("llr must be float32 [N, B]")
-    B = llr.shape[1]
     core = _DecodeCore(code, opts, llr.device)
-    llr = llr.contiguous()
-    syn = syndrome.to(torch.int8).contiguous()  # [M, B] target bits
-
-    # ---- peeled first check update: its inputs are the raw a-priori LLRs
-    # (never clipped).  Every frame then runs iteration 1 in the loop.
-    Lr1 = core.check_update_first(core.to_storage(llr), syn)
-    init = (
-        Lr1, torch.zeros((code.n_vars, B), dtype=torch.int8, device=llr.device),
-        torch.zeros((B,), dtype=torch.int32, device=llr.device),
-        torch.zeros((B,), dtype=torch.bool, device=llr.device), 0,
-    )
-
-    B2 = opts.compact_lanes
-    if not (0 < B2 < B and opts.compact_after < opts.max_iterations):
-        _, z_out, iters, done, _ = _decode_loop(
-            core, llr, syn, init, opts.max_iterations
-        )
-        # Frames that never converged report max_iterations.
-        iters = torch.where(done, iters, opts.max_iterations)
-        return z_out, iters, done
-
-    # ---- residency-compaction schedule.  Phase A runs compact_after
-    # iterations on the full batch; phase B gathers the unconverged
-    # minority into compact_lanes lanes and finishes only those; phase C
-    # (a full-batch fallback that runs only if more than compact_lanes
-    # lanes were unconverged) continues any overflow lanes from their
-    # phase-A state with the compacted lanes' bookkeeping frozen.  Every
-    # lane's trajectory is the plain loop's, merely re-scheduled.
-    Lr_a, z_a, it_a, done_a, itc_a = _decode_loop(
-        core, llr, syn, init, opts.compact_after
-    )
-
-    # Unconverged lanes first (the sort is stable: ties keep lane order);
-    # when fewer than compact_lanes are unconverged the tail picks
-    # already-done lanes, which the loop's masks keep inert.
-    idx = torch.argsort(done_a.to(torch.int32), stable=True)[:B2]
-    init_c = (
-        Lr_a.index_select(2, idx), z_a.index_select(1, idx), it_a[idx],
-        done_a[idx], itc_a,
-    )
-    _, z_b, it_b, done_b, _ = _decode_loop(
-        core, llr.index_select(1, idx), syn.index_select(1, idx), init_c,
-        opts.max_iterations,
-    )
-
-    # z_a / it_a / done_a are dead after this point: update them in place
-    # instead of cloning [N, B] once more.
-    z_full = z_a.index_copy_(1, idx, z_b)
-    it_full = it_a.index_copy_(0, idx, it_b)
-    done_full = done_a.index_copy_(0, idx, done_b)
-    frozen = torch.zeros((B,), dtype=torch.bool, device=llr.device)
-    frozen[idx] = True
-
-    if bool((~done_full & ~frozen).any()):  # overflow: phase C
-        carry = (Lr_a, z_full, it_full, done_full, itc_a)
-        _, z_full, it_full, done_full, _ = _decode_loop(
-            core, llr, syn, carry, opts.max_iterations, frozen=frozen,
-        )
-    iters = torch.where(done_full, it_full, opts.max_iterations)
-    return z_full, iters, done_full
+    syn = syndrome.to(torch.int8)
+    if device_loop.graphs_on(core.use_kernel, core.device):
+        return device_loop.decode_graph(
+            ("flooding", code.fingerprint, llr.shape[1], opts),
+            lambda x, s, graph: _flooding_program(core, x, s, opts, graph),
+            (llr, syn), keep=core)
+    return _flooding_program(core, llr.contiguous(), syn.contiguous(), opts, None)
 
 
 def decode(

@@ -80,7 +80,8 @@ def _store(x: torch.Tensor, dtype: torch.dtype, scale) -> torch.Tensor:
     device, never a multiplication by a reciprocal."""
     if scale is None:
         return x.to(dtype)
-    q = torch.round(x / torch.tensor(scale, dtype=torch.float32, device=x.device))
+    # made on the device (no host copy: a decode graph captures this division)
+    q = torch.round(x / torch.full((), scale, dtype=torch.float32, device=x.device))
     return torch.clamp(q, -127.0, 127.0).to(torch.int8)
 
 
@@ -161,13 +162,14 @@ def _gathered(total, maps):
 
 def check_update_plain(total, lr_prev, syn, maps, *, first, threshold, clip,
                        algorithm, min_sum_alpha, min_sum_beta, scale, fresh=None,
-                       ok=None):
+                       ok=None, out=None, scratch=None):
     """Plain PyTorch version of the check kernel (``first`` and ``fresh``
     select which; ``fresh`` is a [B] bool mask of frames whose ``Lq`` is not
     clipped).  ``total`` is [N, B] in storage type, ``syn`` the [M, B] integer
     target syndrome, ``maps`` the code's ``DeviceCode``.  Returns ``(Lr, ok)``;
-    ``ok`` is None when ``first``.  The ``ok`` argument is the kernel's (a
-    buffer to clear flags in); this version computes the flags anew."""
+    ``ok`` is None when ``first``.  As the kernel's wrapper, it writes ``Lr``
+    into ``out`` when given (which may be ``lr_prev`` itself) and the flags
+    into ``ok`` when given; ``scratch`` is the kernel's and unused here."""
     a = _gathered(total, maps)
     dc = a.shape[0]
     masks = [maps.chk_mask_T[j][:, None] for j in range(dc)]
@@ -182,19 +184,20 @@ def check_update_plain(total, lr_prev, syn, maps, *, first, threshold, clip,
         lq.append(v)
     syn_sign = torch.where(syn == 1, -1.0, 1.0)
     if algorithm == "min-sum":
-        out = _ms_messages(lq, masks, syn_sign, threshold, clip,
-                           min_sum_alpha, min_sum_beta)
+        lr_out = _ms_messages(lq, masks, syn_sign, threshold, clip,
+                              min_sum_alpha, min_sum_beta)
     else:
-        out = _sp_messages(lq, masks, syn_sign, threshold, clip)
-    Lr = torch.stack([_store(o, a.dtype, scale) for o in out])
+        lr_out = _sp_messages(lq, masks, syn_sign, threshold, clip)
+    Lr = torch.stack([_store(o, a.dtype, scale) for o in lr_out])
     if first:
-        return Lr, None
+        return (Lr if out is None else out.copy_(Lr)), None
     # Decisions and their syndrome derive from the same storage-rounded totals.
     z_chk = (a <= 0) & maps.chk_mask_T[:, :, None]
-    ok = ((z_chk.sum(dim=0, dtype=torch.int32) & 1) == syn).all(dim=0)
+    flags = ((z_chk.sum(dim=0, dtype=torch.int32) & 1) == syn).all(dim=0)
     if fresh is not None:
-        ok = ok & ~fresh
-    return Lr, ok
+        flags = flags & ~fresh
+    return (Lr if out is None else out.copy_(Lr)), (
+        flags if ok is None else ok.copy_(flags))
 
 
 def _need_cuda(ref):
@@ -218,12 +221,16 @@ def _on_device_contiguous(ref, tensors):
 
 def check_update_cuda(total, lr_prev, syn, maps, *, first, threshold, clip,
                       algorithm, min_sum_alpha, min_sum_beta, scale, fresh=None,
-                      ok=None):
+                      ok=None, out=None, scratch=None):
     """Launch the check kernel on the current stream (no synchronisation);
     same arguments and results as :func:`check_update_plain`, with ``syn``
     int8.  ``ok`` ([B] bool, all True — as the variable update leaves it) is
     cleared IN PLACE where a check objects, and returned; without it the
-    wrapper makes one."""
+    wrapper makes one.  ``out`` ([dc, M, B], may be ``lr_prev`` itself: a
+    thread reads each message it overwrites before it writes it, and no other
+    thread touches it) and ``scratch`` (:func:`check_scratch_shape`) are used
+    instead of new tensors when given, so a call inside a CUDA graph's loop
+    allocates nothing."""
     _check_storage(total, scale, algorithm)
     dc, M = maps.chk_adj_T_i32.shape
     N = maps.var_slot_T_i32.shape[1]
@@ -252,17 +259,25 @@ def check_update_cuda(total, lr_prev, syn, maps, *, first, threshold, clip,
         ok = None
     elif ok is None:
         ok = torch.ones((B,), dtype=torch.bool, device=total.device)
-    out = torch.empty((dc, M, B), dtype=total.dtype, device=total.device)
-    # the vector instance reads and writes vectors of every tensor, ok included
+    if out is None:
+        out = torch.empty((dc, M, B), dtype=total.dtype, device=total.device)
+    elif (out.shape != (dc, M, B) or out.dtype != total.dtype
+          or out.device != total.device or not out.is_contiguous()):
+        raise ValueError("out must be contiguous [dc, M, B] in the storage type of total")
+    # the loop instance's sum-product keeps its prefix products in scratch
+    need = check_scratch_shape(dc, M, B, algorithm, total.dtype)
+    if need is None:
+        scratch = None
+    elif scratch is None:
+        scratch = torch.empty(need, dtype=torch.float32, device=total.device)
+    elif (scratch.dtype != torch.float32 or scratch.numel() < dc * M * B
+          or scratch.device != total.device or not scratch.is_contiguous()):
+        raise ValueError(f"scratch must be contiguous float32 of {dc * M * B} elements")
+    # the vector instance reads and writes vectors of every tensor, ok and
+    # the scratch included
     vec = vector_width("check_update", B, total.dtype, *tensors, out,
-                       *([] if first else [ok]))
+                       *([] if first else [ok]), *([] if scratch is None else [scratch]))
     library = "check_update_" + _STORAGE_NAMES[total.dtype]
-    # the loop instance's sum-product keeps its prefix products here (a fresh
-    # allocation, aligned for the vector instance as `out` is)
-    scratch = None
-    if algorithm == "sum-product" and not (
-            2 <= dc <= _build.constant(library, "check_update_max_unrolled_degree")):
-        scratch = torch.empty((dc, M, B), dtype=torch.float32, device=total.device)
     fn = _build.function(
         library, "check_update",
         [ctypes.c_int] * 5 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
@@ -285,29 +300,43 @@ def check_update_cuda(total, lr_prev, syn, maps, *, first, threshold, clip,
     return out, ok
 
 
-def check_update_first(total0, syn, maps, *, backend="auto", **kw):
+def check_scratch_shape(dc: int, M: int, B: int, algorithm: str, dtype: torch.dtype):
+    """The float32 scratch ``[dc, M, B]`` that the check kernel's loop
+    instance (sum-product at a degree it does not unroll) needs, or None."""
+    if algorithm != "sum-product" or 2 <= dc <= _build.constant(
+            "check_update_" + _STORAGE_NAMES[dtype], "check_update_max_unrolled_degree"):
+        return None
+    return (dc, M, B)
+
+
+def check_update_first(total0, syn, maps, *, backend="auto", out=None, scratch=None,
+                       **kw):
     """Iteration-1 check update: the a-priori LLRs in storage type ``[N, B]``
-    -> ``Lr [dc, M, B]``."""
+    -> ``Lr [dc, M, B]`` (written into ``out`` when given)."""
     fn = check_update_cuda if _build.use_kernel(backend, total0.device) else check_update_plain
-    return fn(total0, None, syn, maps, first=True, **kw)[0]
+    return fn(total0, None, syn, maps, first=True, out=out, scratch=scratch, **kw)[0]
 
 
 def check_update_fused(total, Lr_prev, syn, maps, *, backend="auto", fresh=None,
-                       ok=None, **kw):
+                       ok=None, out=None, scratch=None, **kw):
     """Fused bit-node + check update: ``(total, Lr_prev)`` -> ``(Lr, ok)``;
     with ``fresh`` ([B] bool) the frames it marks skip the clip of ``Lq``.
-    ``ok`` is the all-True flag buffer that the variable update returned."""
+    ``ok`` is the all-True flag buffer that the variable update returned;
+    ``out`` (may be ``Lr_prev``: an update in place) and ``scratch`` replace
+    the new tensors of the kernel's wrapper."""
     fn = check_update_cuda if _build.use_kernel(backend, total.device) else check_update_plain
-    return fn(total, Lr_prev, syn, maps, first=False, fresh=fresh, ok=ok, **kw)
+    return fn(total, Lr_prev, syn, maps, first=False, fresh=fresh, ok=ok, out=out,
+              scratch=scratch, **kw)
 
 
-def variable_update_plain(Lr, llr, z, count, active, maps, *, scale):
+def variable_update_plain(Lr, llr, z, count, active, maps, *, scale, out=None):
     """Plain PyTorch version of the variable kernel.  ``Lr [dc, M, B]`` in
     storage type, ``llr [N, B]`` float32, ``z [N, B]`` int8, ``count [B]``
     int32, ``active [B]`` bool.  Returns new ``(total [N, B], z, count, ok)``:
     the totals of every frame, decisions and counts moved on active frames,
     and ``ok [B]`` all True — the flags that the check update of these totals
-    clears."""
+    clears.  With ``out = (total, ok)`` it writes into those, and into ``z``
+    and ``count``, in place, as the kernel does."""
     dc, M, B = Lr.shape
     dv = maps.var_slot_T.shape[0] // llr.shape[0]
     flat = Lr.view(dc * M, B)
@@ -320,14 +349,20 @@ def variable_update_plain(Lr, llr, z, count, active, maps, *, scale):
         acc = acc + Lr_var[k]
     total = _store(llr + acc, Lr.dtype, scale)
     z_new = (total <= 0).to(torch.int8)  # total <= 0 -> bit 1
-    z = torch.where(active[None, :], z_new, z)
-    return total, z, count + active.to(torch.int32), torch.ones_like(active)
+    z_next = torch.where(active[None, :], z_new, z)
+    count_next = count + active.to(torch.int32)
+    if out is None:
+        return total, z_next, count_next, torch.ones_like(active)
+    total_out, ok = out
+    return (total_out.copy_(total), z.copy_(z_next), count.copy_(count_next),
+            ok.fill_(True))
 
 
-def variable_update_cuda(Lr, llr, z, count, active, maps, *, scale):
+def variable_update_cuda(Lr, llr, z, count, active, maps, *, scale, out=None):
     """Launch the variable kernel on the current stream (no synchronisation).
     Same arguments as :func:`variable_update_plain`; ``z`` and ``count`` are
-    updated IN PLACE and returned beside the new ``total`` and ``ok``."""
+    updated IN PLACE and returned beside the new ``total`` and ``ok`` (or
+    the given ``out = (total, ok)``)."""
     _check_storage(Lr, scale)
     dv, N = maps.var_slot_T_i32.shape
     if Lr.ndim != 3 or Lr.shape[:2] != maps.chk_adj_T_i32.shape or Lr.shape[2] < 1:
@@ -344,8 +379,15 @@ def variable_update_cuda(Lr, llr, z, count, active, maps, *, scale):
     if active.shape != (B,) or active.dtype != torch.bool:
         raise ValueError("active must be bool [B]")
     _need_cuda(Lr)
-    total = torch.empty((N, B), dtype=Lr.dtype, device=Lr.device)
-    ok = torch.empty((B,), dtype=torch.bool, device=Lr.device)
+    if out is None:
+        total = torch.empty((N, B), dtype=Lr.dtype, device=Lr.device)
+        ok = torch.empty((B,), dtype=torch.bool, device=Lr.device)
+    else:
+        total, ok = out
+        if (total.shape != (N, B) or total.dtype != Lr.dtype or ok.shape != (B,)
+                or ok.dtype != torch.bool):
+            raise ValueError("out must be (total [N, B] in storage type, ok bool [B])")
+        _on_device_contiguous(Lr, [total, ok])
     vec = vector_width("variable_update", B, Lr.dtype, *tensors, total, ok)
     fn = _build.function(
         "check_update_" + _STORAGE_NAMES[Lr.dtype], "variable_update",
@@ -363,8 +405,10 @@ def variable_update_cuda(Lr, llr, z, count, active, maps, *, scale):
     return total, z, count, ok
 
 
-def variable_update(Lr, llr, z, count, active, maps, *, backend="auto", scale):
+def variable_update(Lr, llr, z, count, active, maps, *, backend="auto", scale,
+                    out=None):
     """Variable-node update: ``Lr`` -> ``(total, z, count, ok)`` (see the
-    plain version); the kernel updates ``z`` and ``count`` in place."""
+    plain version); the kernel updates ``z`` and ``count`` in place, and
+    writes into ``out = (total, ok)`` when given."""
     fn = variable_update_cuda if _build.use_kernel(backend, Lr.device) else variable_update_plain
-    return fn(Lr, llr, z, count, active, maps, scale=scale)
+    return fn(Lr, llr, z, count, active, maps, scale=scale, out=out)

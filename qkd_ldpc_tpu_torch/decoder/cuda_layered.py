@@ -73,10 +73,23 @@ def refusal(max_row_degree: int) -> str | None:
     return None
 
 
+def sweep_scratch_shape(tables, B: int, algorithm: str, dtype: torch.dtype):
+    """The float32 scratch ``[dc_max, B, z]`` that the sweep kernel's loop
+    instance (sum-product above the unrolled row degrees) needs, or None."""
+    dc = tables.max_row_degree
+    if algorithm != "sum-product" or dc <= _build.constant(
+            "layered_sweep_" + _STORAGE_NAMES[dtype], "layered_sweep_max_unrolled_degree"):
+        return None
+    return (dc, B, tables.z)
+
+
 def layered_sweep_cuda(t, Lr, syn, act, tables, *, threshold, clip, algorithm,
-                       min_sum_alpha, min_sum_beta, scale):
+                       min_sum_alpha, min_sum_beta, scale, out=None, scratch=None):
     """Launch one sweep on the current stream (no synchronisation); updates
-    ``t`` and ``Lr`` in place and returns ``(t, Lr, ok [B] bool)``.
+    ``t`` and ``Lr`` in place and returns ``(t, Lr, ok [B] bool)``.  ``ok``
+    is written into ``out`` and the loop instance's prefix products into
+    ``scratch`` (:func:`sweep_scratch_shape`) when they are given, so a
+    call inside a CUDA graph's loop allocates nothing.
 
     ``tables`` carries the code's static layer tables on the tensors' device:
     ``nb``, ``mb``, ``z``, ``max_row_degree`` and the int32 tensors ``row_ptr
@@ -107,13 +120,24 @@ def layered_sweep_cuda(t, Lr, syn, act, tables, *, threshold, clip, algorithm,
     tensors = (t, Lr, syn, act, tables.row_ptr, tables.col, tables.shift)
     if any(x.device != t.device or not x.is_contiguous() for x in tensors):
         raise ValueError("inputs must be contiguous and on one device")
-    ok = torch.empty((B,), dtype=torch.bool, device=t.device)
+    if out is None:
+        ok = torch.empty((B,), dtype=torch.bool, device=t.device)
+    elif (out.shape != (B,) or out.dtype != torch.bool or out.device != t.device
+          or not out.is_contiguous()):
+        raise ValueError("out must be contiguous bool [B] on the device of t")
+    else:
+        ok = out
     library = "layered_sweep_" + _STORAGE_NAMES[Lr.dtype]
     dc = tables.max_row_degree
-    scratch = None  # the loop instance's sum-product keeps its prefix products here
-    if algorithm == "sum-product" and dc > _build.constant(
-            library, "layered_sweep_max_unrolled_degree"):
-        scratch = torch.empty((dc, B, z), dtype=torch.float32, device=t.device)
+    # the loop instance's sum-product keeps its prefix products in scratch
+    need = sweep_scratch_shape(tables, B, algorithm, Lr.dtype)
+    if need is None:
+        scratch = None
+    elif scratch is None:
+        scratch = torch.empty(need, dtype=torch.float32, device=t.device)
+    elif (scratch.dtype != torch.float32 or scratch.numel() < dc * B * z
+          or scratch.device != t.device or not scratch.is_contiguous()):
+        raise ValueError(f"scratch must be contiguous float32 of {dc * B * z} elements")
     fn = _build.function(
         library, "layered_sweep",
         [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5

@@ -1,0 +1,313 @@
+"""The decode loops' control flow on the card: loop bookkeeping as a kernel,
+and a decode captured as one CUDA graph whose loops are WHILE nodes.
+
+The JAX package runs a decode as one compiled device program:
+``lax.while_loop`` around the iteration (``qkd_ldpc_tpu/decoder/bp.py:454``,
+``layered.py:225``), ``lax.cond`` around the compaction's fallback phase
+(``bp.py:546``), ``fori_loop`` around the continuation's segment
+(``sim/continuation.py:235``).  The port's counterparts:
+
+- :func:`loop_step` — the loop's carry and condition (``csrc/device_loop.cu``
+  ``loop_step_kernel``; plain version :func:`loop_step_plain`, which the CPU
+  loop runs): after a pass ``done |= active & ok``, ``it += 1`` (the layered
+  carry also sets ``iters = it`` where a frame newly converged), then
+  ``active = ~done & ~frozen`` and the condition ``it < limit &&
+  any(active)``; the ENTRY mode only tests.
+- :func:`run_loop` — ``lax.while_loop``.  Eagerly (the CPU, ``backend="xla"``,
+  or :func:`eager_loops`) it is a Python ``while`` that fetches the condition
+  byte after every pass.  Inside a capture it is a conditional WHILE node:
+  the entry kernel sets the node's condition before it and the body's last
+  kernel after every pass, so the card runs the loop with no host round
+  trip.  A ``lax.cond`` whose branches are "run the loop" and "nothing" (phase
+  C) is the same node with the cond's predicate as its entry test.
+- :class:`Graph` — one program captured on a side stream with
+  ``torch.cuda.CUDAGraph`` (``thread_local`` error mode, so shards in other
+  threads may synchronise meanwhile): torch's ops between the loops
+  (``argsort``, ``index_select``, ``index_copy_``, ``where``) take their
+  memory from the graph's pool; a WHILE body allocates nothing and holds only
+  the port's kernels, launched through ctypes into buffers made before it.
+  The program runs once eagerly on a side stream before its capture (so the
+  kernel libraries are loaded and torch's workspaces exist); that run's
+  launches are not counted.  A capture that fails raises: nothing falls back
+  to the eager loop.
+- :func:`decode_graph` — a bounded cache of captured decodes per device,
+  one per program key: static inputs are copied in, the graph replayed, and
+  copies of its outputs returned (the next replay overwrites the static
+  buffers).  Host threads that share a card (a mesh's shards) share its
+  graphs: their calls are serialised per card, and each call's stream waits
+  for the previous call's output copies before it overwrites the inputs.
+
+Launch counts: a capture lists its kernel nodes (``_build.recording``);
+every replay counts the outer graph's nodes, and each WHILE body's kernels
+are counted by the passes its bookkeeping kernel adds to a device counter
+(read when the counts are read, and folded into the host's counts when the
+graph leaves the cache).
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import ctypes
+import threading
+
+import torch
+
+from qkd_ldpc_tpu_torch import _build
+
+ENTRY, FLOODING, LAYERED = 0, 1, 2
+# Kernel names the launch counts use for the three modes of loop_step_kernel.
+KERNEL_ENTRY = "loop_entry"
+KERNEL_STEP = "loop_step"
+KERNEL_SWEEP_STEP = "sweep_step"
+_KERNEL_NAMES = {ENTRY: KERNEL_ENTRY, FLOODING: KERNEL_STEP, LAYERED: KERNEL_SWEEP_STEP}
+# WHILE nodes one program may hold (phases A, B and C).
+MAX_LOOPS = 3
+# Captured decodes kept at once on one device (each holds its static state
+# and graph pool; the flagship's is ~70 MB).
+CACHE_SIZE = 8
+
+_eager = threading.local()
+
+
+@contextlib.contextmanager
+def eager_loops():
+    """Inside, this thread's decodes run the eager kernel loop (one condition
+    fetch a pass) instead of the graph: the version the graph is held
+    against."""
+    before = getattr(_eager, "on", False)
+    _eager.on = True
+    try:
+        yield
+    finally:
+        _eager.on = before
+
+
+def graphs_on(use_kernel: bool, device: torch.device) -> bool:
+    """Whether a decode on ``device`` runs as a captured graph: the kernel
+    backend on a CUDA device, outside :func:`eager_loops`."""
+    return use_kernel and device.type == "cuda" and not getattr(_eager, "on", False)
+
+
+class LoopState:
+    """The per-loop buffers a pass and its bookkeeping share: ``ok`` (the
+    pass's convergence flags), ``done``, ``active``, ``it`` ([1] int32,
+    passes so far), ``go`` ([1] bool, the eager loop's condition)."""
+
+    def __init__(self, done: torch.Tensor, it: torch.Tensor):
+        B, device = done.shape[0], done.device
+        self.done, self.it = done, it
+        self.ok = torch.ones((B,), dtype=torch.bool, device=device)
+        self.active = torch.zeros((B,), dtype=torch.bool, device=device)
+        self.go = torch.zeros((1,), dtype=torch.bool, device=device)
+
+
+def loop_step_plain(mode, ok, done, active, frozen, it, iters, limit, passes=None,
+                    go=None):
+    """Plain version of the bookkeeping kernel (same arguments), in place on
+    ``done``, ``active``, ``it``, ``iters`` (LAYERED), ``passes`` and ``go``."""
+    it_new = it + (0 if mode == ENTRY else 1)
+    if mode != ENTRY:
+        newly = active & ok & ~done
+        done |= newly
+        if mode == LAYERED:
+            iters.copy_(torch.where(newly, it_new, iters))
+        it.copy_(it_new)
+        if passes is not None:
+            passes += 1
+    act = ~done if frozen is None else ~done & ~frozen
+    active.copy_(act)
+    if go is not None:
+        go.copy_((it_new < limit) & act.any())
+
+
+def loop_step_cuda(mode, ok, done, active, frozen, it, iters, limit, passes=None,
+                   go=None, handle=None):
+    """Launch the bookkeeping kernel on the current stream; ``handle`` (a
+    WHILE node's condition, inside a capture) is set as well as ``go``."""
+    B = done.shape[0]
+    flags = [ok, done, active] + ([] if frozen is None else [frozen])
+    if any(t.shape != (B,) or t.dtype != torch.bool for t in flags):
+        raise ValueError("ok, done, active and frozen must be bool [B]")
+    if it.shape != (1,) or it.dtype != torch.int32:
+        raise ValueError("it must be int32 [1]")
+    if mode == LAYERED and (iters is None or iters.shape != (B,)
+                            or iters.dtype != torch.int32):
+        raise ValueError("the layered step needs int32 iters [B]")
+    tensors = flags + [it] + [t for t in (iters, passes, go) if t is not None]
+    if any(t.device != done.device or not t.is_contiguous() for t in tensors):
+        raise ValueError("inputs must be contiguous and on one device")
+    if done.device.type != "cuda":
+        raise ValueError("loop_step_cuda needs CUDA tensors")
+    fn = _build.function(
+        "device_loop", "loop_step",
+        [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+        + [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p],
+    )
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(done.device):
+        err = fn(mode, ptr(ok), ptr(done), ptr(active), ptr(frozen), ptr(it), ptr(iters),
+                 ptr(passes), ptr(go), limit, B, 0 if handle is None else handle,
+                 int(handle is not None), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(_KERNEL_NAMES[mode], err)
+
+
+def loop_step(mode, ok, done, active, frozen, it, iters, limit, *, use_kernel,
+              passes=None, go=None, handle=None):
+    """The bookkeeping of one pass (or the entry test): the kernel when
+    ``use_kernel`` (raises for a CPU tensor), else the plain version."""
+    if use_kernel:
+        loop_step_cuda(mode, ok, done, active, frozen, it, iters, limit, passes, go, handle)
+    else:
+        loop_step_plain(mode, ok, done, active, frozen, it, iters, limit, passes, go)
+
+
+def run_loop(body, state: LoopState, limit: int, mode: int, *, use_kernel: bool,
+             frozen=None, iters=None, graph=None):
+    """``lax.while_loop``: while ``state.it < limit`` and some frame is
+    active (not done, not frozen), run ``body()`` — one pass, which writes
+    its convergence flags into ``state.ok`` — then the bookkeeping.
+
+    ``graph`` (a :class:`Graph` being captured) makes it a WHILE node;
+    otherwise the loop fetches the condition byte after every pass."""
+
+    def step(m, handle=None, passes=None):
+        loop_step(m, state.ok, state.done, state.active, frozen, state.it, iters, limit,
+                  use_kernel=use_kernel, passes=passes, go=state.go, handle=handle)
+
+    if graph is not None:
+        graph.while_loop(lambda h: step(ENTRY, h), body,
+                         lambda h, passes: step(mode, h, passes))
+        return
+    step(ENTRY)
+    while bool(state.go):  # the eager loop's host sync, one a pass
+        body()
+        step(mode)
+
+
+def _call(fn, *args) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"CUDA graph capture of a WHILE node failed: error {err}")
+
+
+class Graph:
+    """One program captured as a CUDA graph on ``device``, with its WHILE
+    nodes and the kernel launches it stands for."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.stream = torch.cuda.Stream(self.device)
+        self.body_stream = torch.cuda.Stream(self.device)
+        self.passes = torch.zeros((MAX_LOOPS,), dtype=torch.int64, device=self.device)
+        self.outer: list[str] = []  # kernel nodes of the outer graph
+        self.bodies: list[list[str]] = []  # kernel nodes of each WHILE body
+        self.counters: list[torch.Tensor] = []  # each WHILE body's passes
+        self.outputs = None
+        self.keep = None  # what the captured pointers point into
+        # Recorded after a call's copies of the outputs: the next call's
+        # stream waits for it before it overwrites the static inputs.
+        self.free = torch.cuda.Event()
+
+    def capture(self, program, warmup=None):
+        """Run ``warmup()`` (default: ``program(None)``) eagerly on the side
+        stream with its launches discarded, then capture ``program(self)``;
+        its return value becomes :attr:`outputs`."""
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            with _build.recording():
+                (warmup or (lambda: program(None)))()
+            with _build.recording() as outer:
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.outputs = program(self)
+                finally:
+                    self.graph.capture_end()
+        current.wait_stream(self.stream)
+        self.outer = list(outer)
+        self.counters = [self.passes[k] for k in range(len(self.bodies))]
+        for names, counter in zip(self.bodies, self.counters):
+            _build.add_device_counter(names, counter)
+        return self
+
+    def release(self) -> None:
+        """Before the graph is dropped: wait for its last replay and fold
+        its WHILE bodies' passes into the host's launch counts."""
+        torch.cuda.synchronize(self.device)
+        _build.fold_device_counters(self.counters)
+
+    def while_loop(self, entry, body, step):
+        """Capture a WHILE node: ``entry(handle)`` launches the entry test on
+        the capturing stream, ``body()`` and ``step(handle, passes)`` the
+        body on the body stream."""
+        k = len(self.bodies)
+        if k == MAX_LOOPS:
+            raise RuntimeError(f"a captured program holds at most {MAX_LOOPS} loops")
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        handle = ctypes.c_ulonglong(0)
+        _call(_build.function("device_loop", "while_handle",
+                              [ctypes.c_void_p, ctypes.c_void_p]),
+              stream, ctypes.byref(handle))
+        entry(handle.value)
+        _call(_build.function("device_loop", "while_begin",
+                              [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong]),
+              stream, self.body_stream.cuda_stream, handle.value)
+        try:
+            with torch.cuda.stream(self.body_stream), _build.recording() as names:
+                body()
+                step(handle.value, self.passes[k:k + 1])
+        finally:
+            _call(_build.function("device_loop", "while_end", [ctypes.c_void_p]),
+                  self.body_stream.cuda_stream)
+        self.bodies.append(names)
+
+    def replay(self) -> None:
+        """Launch the graph on the current stream (no synchronisation)."""
+        self.graph.replay()
+        _build.count_replay(self.outer)
+
+
+class _DeviceCache:
+    """One device's captured decodes, most recently used last, and the lock
+    that serialises the calls of host threads sharing the device."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.graphs: collections.OrderedDict = collections.OrderedDict()
+
+
+_caches: dict = {}
+_caches_lock = threading.Lock()
+
+
+def decode_graph(key: tuple, program, inputs: tuple, keep=None) -> tuple:
+    """Run ``program(*static_inputs, graph)`` as a captured graph: captured
+    at the first call for ``key`` on this device, replayed after copying
+    ``inputs`` into the static inputs.  ``program(..., None)`` must be the
+    same computation run eagerly.  Returns copies of the outputs."""
+    device = inputs[0].device
+    with _caches_lock:
+        cache = _caches.setdefault(device, _DeviceCache())
+    with cache.lock:
+        g = cache.graphs.get(key)
+        if g is None:
+            static = tuple(x.clone(memory_format=torch.contiguous_format) for x in inputs)
+            g = Graph(device).capture(lambda graph: program(*static, graph))
+            g.keep = (static, keep)
+            cache.graphs[key] = g
+            while len(cache.graphs) > CACHE_SIZE:
+                cache.graphs.popitem(last=False)[1].release()
+        cache.graphs.move_to_end(key)
+        stream = torch.cuda.current_stream(device)
+        stream.wait_event(g.free)  # the previous call's copies of the outputs
+        for dst, src in zip(g.keep[0], inputs):
+            dst.copy_(src)
+        g.replay()
+        outs = tuple(out.clone() for out in g.outputs)
+        g.free.record(stream)
+    return outs

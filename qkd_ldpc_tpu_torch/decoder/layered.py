@@ -29,13 +29,17 @@ once per decode; compaction selects along the frame axis.  Cells are
 numbered by ``(i, j)`` in lexicographic order.
 
 :func:`layered_sweep_plain` is the plain PyTorch version of the kernel and
-what runs for CPU tensors and under ``backend="xla"``; the early-exit loop
-fetches one flag per sweep.
+what runs for CPU tensors and under ``backend="xla"``.  The early-exit loop
+is ``decoder.device_loop.run_loop`` with the layered carry: on the card the
+kernel backend captures the whole decode as one CUDA graph (one WHILE node a
+phase, the carry and the condition kept by a kernel), elsewhere the same
+program runs eagerly and fetches the condition after every sweep.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -43,7 +47,7 @@ import torch
 from qkd_ldpc_tpu_torch import _build
 from qkd_ldpc_tpu_torch.codes.ldpc_code import LDPCCode
 from qkd_ldpc_tpu_torch.codes.qc import qc_cells
-from qkd_ldpc_tpu_torch.decoder import cuda_kernels, cuda_layered
+from qkd_ldpc_tpu_torch.decoder import cuda_kernels, cuda_layered, device_loop
 from qkd_ldpc_tpu_torch.decoder.cuda_kernels import _load, _store
 
 
@@ -116,12 +120,17 @@ def _rot(x: torch.Tensor, s: int) -> torch.Tensor:
 
 
 def layered_sweep_plain(t, Lr, syn, act, tables, *, threshold, clip, algorithm,
-                        min_sum_alpha, min_sum_beta, scale):
+                        min_sum_alpha, min_sum_beta, scale, out=None, scratch=None,
+                        in_place=False):
     """One serial pass over all layers plus the decision-syndrome check: the
     plain PyTorch version of ``cuda_layered.layered_sweep_cuda`` (same
     arguments).  Returns new ``(t, Lr, ok [B] bool)``; ``act`` [B] bool gates
-    the updates (an inactive frame's state does not change)."""
+    the updates (an inactive frame's state does not change).  With
+    ``in_place`` it updates ``t`` and ``Lr`` where they lie, as the kernel
+    does, and ``ok`` goes into ``out`` when given (``scratch`` is the
+    kernel's and unused here)."""
     z = tables.z
+    t_in, Lr_in = t, Lr
     t, Lr = t.clone(), Lr.clone()
     act_f = act.to(t.dtype)[:, None]  # [B, 1], broadcasts over z
     keep = act_f > 0
@@ -134,16 +143,19 @@ def layered_sweep_plain(t, Lr, syn, act, tables, *, threshold, clip, algorithm,
             v = _rot(t[j], s) - lr_old
             lq.append(torch.clamp(v, -threshold, threshold) if clip else v)
         if algorithm == "min-sum":
-            out = cuda_kernels._ms_messages(lq, no_pad, sgn, threshold, clip,
-                                            min_sum_alpha, min_sum_beta)
+            msgs = cuda_kernels._ms_messages(lq, no_pad, sgn, threshold, clip,
+                                             min_sum_alpha, min_sum_beta)
         else:
-            out = cuda_kernels._sp_messages(lq, no_pad, sgn, threshold, clip)
+            msgs = cuda_kernels._sp_messages(lq, no_pad, sgn, threshold, clip)
         for k, (ci, j, s) in enumerate(row):
-            new_q = _store(out[k], Lr.dtype, scale)
+            new_q = _store(msgs[k], Lr.dtype, scale)
             delta = _load(new_q, scale) - old[k]
             t[j] = t[j] + _rot(delta, (z - s) % z) * act_f
             Lr[ci] = torch.where(keep, new_q, Lr[ci])
-    return t, Lr, syndrome_ok(t, syn, tables)
+    ok = syndrome_ok(t, syn, tables)
+    if in_place:
+        t, Lr = t_in.copy_(t), Lr_in.copy_(Lr)
+    return t, Lr, (ok if out is None else out.copy_(ok))
 
 
 def syndrome_ok(t, syn, tables) -> torch.Tensor:
@@ -171,24 +183,30 @@ def initial_state(tables: LayerTables, llr, syndrome, mdt):
     return t, Lr, syn
 
 
-def _sweep_loop(sweep, t, Lr, syn, it, iters, done, limit, frozen=None):
-    """Early-exit sweep loop over a (possibly compacted) batch.
+class _SweepLanes:
+    """A batch's layered state on its lanes: ``t``, ``Lr``, ``syn``, the
+    counts ``iters`` and the loop's flags."""
 
-    ``frozen`` ([B] bool, optional) marks lanes whose state and bookkeeping
-    must never change — the full-batch fallback phase of the compaction
-    schedule runs with the compacted lanes frozen; their ``t`` must stay put
-    too, because decisions derive from the final ``t``.
-    """
-    while it < limit:
-        act = ~done if frozen is None else ~done & ~frozen
-        if not bool(act.any()):  # the per-sweep host sync
-            break
-        t, Lr, ok = sweep(t, Lr, syn, act)
-        it += 1
-        newly = act & ok
-        iters = torch.where(newly, it, iters)
-        done = done | newly
-    return t, Lr, it, iters, done
+    def __init__(self, sweep, t, Lr, syn, iters, done, it, scratch):
+        self.sweep, self.t, self.Lr, self.syn, self.iters = sweep, t, Lr, syn, iters
+        self.loop = device_loop.LoopState(done, it)
+        self.scratch = scratch
+
+    def pass_(self):
+        """One sweep of the active lanes, in place; its flags land in
+        ``loop.ok``.  Allocates nothing on the kernel."""
+        self.sweep(self.t, self.Lr, self.syn, self.loop.active, out=self.loop.ok,
+                   scratch=self.scratch)
+
+    def run(self, limit, graph, use_kernel, frozen=None):
+        """Early-exit sweeps up to ``limit`` in all.  ``frozen`` ([B] bool)
+        marks lanes whose state and bookkeeping must never change — the
+        full-batch fallback phase of the compaction schedule runs with the
+        compacted lanes frozen; their ``t`` must stay put too, because
+        decisions derive from the final ``t``."""
+        device_loop.run_loop(self.pass_, self.loop, limit, device_loop.LAYERED,
+                             use_kernel=use_kernel, frozen=frozen, iters=self.iters,
+                             graph=graph)
 
 
 # The JAX package's text for a layered decode of a code without a QC layout.
@@ -205,13 +223,34 @@ def layered_decode_batch_last(
     opts,  # decoder.bp.DecodeOptions
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Layered decode on the tensors' device; returns
-    (z [N,B] int8, iters [B] int32, ok [B] bool)."""
+    (z [N,B] int8, iters [B] int32, ok [B] bool).  On the card under the
+    kernel backend the decode is one replay of a captured CUDA graph."""
     if code.qc is None:
         raise ValueError(NOT_QC_MESSAGE)
     if llr.dtype != torch.float32 or llr.ndim != 2:
         raise ValueError("llr must be float32 [N, B]")
     device = llr.device
     tables = layer_tables(code, device)
+    # The port's one backend rule; a CUDA tensor never takes the plain sweep
+    # unless backend="xla" asks for it.
+    use_kernel = _build.use_kernel(opts.backend, device)
+    if use_kernel:
+        why = cuda_layered.refusal(tables.max_row_degree)
+        if why is not None:
+            raise ValueError(why)
+    syn = syndrome.to(torch.int8)
+    if device_loop.graphs_on(use_kernel, device):
+        return device_loop.decode_graph(
+            ("layered", code.fingerprint, llr.shape[1], opts),
+            lambda x, s, graph: _layered_program(tables, x, s, opts, use_kernel, graph),
+            (llr, syn), keep=tables)
+    return _layered_program(tables, llr, syn, opts, use_kernel, None)
+
+
+def _layered_program(tables, llr, syndrome, opts, use_kernel, graph):
+    """The layered decode, eagerly (``graph=None``) or as the capture into
+    ``graph``."""
+    device = llr.device
     z, nb = tables.z, tables.nb
     B = llr.shape[1]
     mdt = cuda_kernels.STORAGE_DTYPES[opts.message_dtype]
@@ -221,21 +260,26 @@ def layered_decode_batch_last(
         min_sum_beta=opts.min_sum_beta,
         scale=opts.int8_scale if opts.message_dtype == "int8" else None,
     )
-    # The port's one backend rule; a CUDA tensor never takes the plain sweep
-    # unless backend="xla" asks for it.
-    sweep_fn = layered_sweep_plain
-    if _build.use_kernel(opts.backend, device):
-        why = cuda_layered.refusal(tables.max_row_degree)
-        if why is not None:
-            raise ValueError(why)
+    if use_kernel:
         sweep_fn = cuda_layered.layered_sweep_cuda
+    else:  # the plain sweep updates in place as the kernel does
+        sweep_fn = functools.partial(layered_sweep_plain, in_place=True)
 
-    def sweep(t, Lr, syn, act):
-        return sweep_fn(t, Lr, syn, act, tables, **kw)
+    def sweep(t, Lr, syn, act, out, scratch):
+        return sweep_fn(t, Lr, syn, act, tables, out=out, scratch=scratch, **kw)
+
+    def scratch(width):
+        shape = (cuda_layered.sweep_scratch_shape(tables, width, opts.algorithm, mdt)
+                 if use_kernel else None)
+        return None if shape is None else torch.empty(
+            shape, dtype=torch.float32, device=device)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     t0, Lr0, syn3 = initial_state(tables, llr, syndrome, mdt)
-    iters0 = torch.zeros((B,), dtype=torch.int32, device=device)
-    done0 = torch.zeros((B,), dtype=torch.bool, device=device)
+    lanes = _SweepLanes(sweep, t0, Lr0, syn3, zeros((B,), torch.int32),
+                        zeros((B,), torch.bool), zeros((1,), torch.int32), scratch(B))
 
     def finalize(t, iters, done):
         # A converged frame reports the sweep at which its decision syndrome
@@ -246,39 +290,33 @@ def layered_decode_batch_last(
 
     B2 = opts.compact_lanes
     if not (0 < B2 < B and opts.compact_after < opts.max_iterations):
-        t, _, _, iters, done = _sweep_loop(
-            sweep, t0, Lr0, syn3, 0, iters0, done0, opts.max_iterations)
-        return finalize(t, iters, done)
+        lanes.run(opts.max_iterations, graph, use_kernel)
+        return finalize(lanes.t, lanes.iters, lanes.loop.done)
 
     # ---- residency-compaction schedule: the phases A/B/C of the flooding
     # loop (decoder/bp.py).  Frames are independent, so re-scheduling lanes
     # is exact.
-    t_a, Lr_a, it_a, iters_a, done_a = _sweep_loop(
-        sweep, t0, Lr0, syn3, 0, iters0, done0, opts.compact_after)
+    lanes.run(opts.compact_after, graph, use_kernel)
+    done_a = lanes.loop.done
 
     # Unconverged lanes first (the sort is stable: ties keep lane order);
     # when fewer than compact_lanes are unconverged the tail picks
     # already-done lanes, which the loop's masks keep inert.
     idx = torch.argsort(done_a.to(torch.int32), stable=True)[:B2]
-    t_b, Lr_b, _, iters_b, done_b = _sweep_loop(
-        sweep, t_a.index_select(1, idx), Lr_a.index_select(1, idx),
-        syn3.index_select(1, idx), it_a, iters_a[idx], done_a[idx],
-        opts.max_iterations,
-    )
+    part = _SweepLanes(
+        sweep, lanes.t.index_select(1, idx), lanes.Lr.index_select(1, idx),
+        syn3.index_select(1, idx), lanes.iters.index_select(0, idx),
+        done_a.index_select(0, idx), lanes.loop.it.clone(), scratch(B2))
+    part.run(opts.max_iterations, graph, use_kernel)
 
     # Scatter phase B back (in place: the phase-A tensors are dead after
     # this point).  Decisions derive from t, so the compacted lanes' final t
     # must land in the full slab; phase C's frozen mask keeps it untouched.
-    t_full = t_a.index_copy_(1, idx, t_b)
-    Lr_full = Lr_a.index_copy_(1, idx, Lr_b)
-    iters_full = iters_a.index_copy_(0, idx, iters_b)
-    done_full = done_a.index_copy_(0, idx, done_b)
-    frozen = torch.zeros((B,), dtype=torch.bool, device=device)
-    frozen[idx] = True
-
-    if bool((~done_full & ~frozen).any()):  # overflow: phase C
-        t_full, _, _, iters_full, done_full = _sweep_loop(
-            sweep, t_full, Lr_full, syn3, it_a, iters_full, done_full,
-            opts.max_iterations, frozen=frozen,
-        )
-    return finalize(t_full, iters_full, done_full)
+    lanes.t.index_copy_(1, idx, part.t)
+    lanes.Lr.index_copy_(1, idx, part.Lr)
+    lanes.iters.index_copy_(0, idx, part.iters)
+    done_a.index_copy_(0, idx, part.loop.done)
+    frozen = zeros((B,), torch.bool).index_fill_(0, idx, True)
+    # phase C, the overflow (its loop's entry test is the lax.cond's predicate)
+    lanes.run(opts.max_iterations, graph, use_kernel, frozen=frozen)
+    return finalize(lanes.t, lanes.iters, done_a)

@@ -63,6 +63,10 @@ class RateAdapter:
     key_idx: np.ndarray  # [l] payload positions
     punct_idx: np.ndarray  # [p] punctured positions
     short_idx: np.ndarray  # [s] shortened positions
+    # Device tensors made from the plan, by (what, device): the index arrays
+    # and the pinned LLRs of a shared seed's short pattern, uploaded once.
+    _on_device: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                         compare=False)
 
     @staticmethod
     def make(
@@ -115,8 +119,21 @@ class RateAdapter:
         disclosure per frame for privacy amplification."""
         return self.code.n_checks - self.punct_idx.size
 
-    def _index(self, idx: np.ndarray, device) -> torch.Tensor:
-        return torch.as_tensor(idx, dtype=torch.int64, device=device)
+    def _cached(self, what, device, make) -> torch.Tensor:
+        key = (what, torch.device(device))
+        t = self._on_device.get(key)
+        if t is None:
+            t = self._on_device[key] = make()
+        return t
+
+    def _index(self, name: str, device) -> torch.Tensor:
+        """The positions ``name`` (``"key_idx"``, ...) as int64 on ``device``."""
+        return self._cached(name, device, lambda: torch.as_tensor(
+            getattr(self, name), dtype=torch.int64, device=device))
+
+    def payload(self, frames: torch.Tensor) -> torch.Tensor:
+        """The payload positions of full frames: [B, N] -> [B, l]."""
+        return frames[:, self._index("key_idx", frames.device)]
 
     # --- frame construction (Alice side / simulation) ----------------------
 
@@ -129,12 +146,12 @@ class RateAdapter:
         dev = key_bits.device
         B = key_bits.shape[0]
         frame = torch.zeros((B, self.code.n_vars), dtype=torch.uint8, device=dev)
-        frame[:, self._index(self.key_idx, dev)] = key_bits
+        frame[:, self._index("key_idx", dev)] = key_bits
         if self.punct_idx.size:
             pb = bernoulli_half(block_words(frame_key, (B, self.punct_idx.size), dev))
-            frame[:, self._index(self.punct_idx, dev)] = pb
+            frame[:, self._index("punct_idx", dev)] = pb
         if self.short_idx.size:
-            frame[:, self._index(self.short_idx, dev)] = self.short_pattern(
+            frame[:, self._index("short_idx", dev)] = self.short_pattern(
                 shared_seed, dev)[None, :]
         return frame
 
@@ -155,14 +172,17 @@ class RateAdapter:
 
     def llr(self, bob_key_bits, qber, shared_seed: int = 0, device=None) -> torch.Tensor:
         """Full-frame LLRs: channel LLRs at payload positions, 0 at
-        punctured (erasure), +-_KNOWN_LLR at shortened (known bits)."""
+        punctured (erasure), +-_KNOWN_LLR at shortened (known bits).  The
+        positions and the pinned LLRs are made once per device (and seed),
+        so on the card a call queues its work without a host round trip."""
         bob = tensor_on(bob_key_bits, device, torch.uint8)
         dev = bob.device
         llr = torch.zeros((bob.shape[0], self.code.n_vars), dtype=torch.float32, device=dev)
-        llr[:, self._index(self.key_idx, dev)] = apriori_llr(bob, qber)
+        llr[:, self._index("key_idx", dev)] = apriori_llr(bob, qber)
         if self.short_idx.size:
-            llr[:, self._index(self.short_idx, dev)] = pinned_llr(
-                self.short_pattern(shared_seed, dev))[None, :]
+            llr[:, self._index("short_idx", dev)] = self._cached(
+                ("short_llr", shared_seed), dev,
+                lambda: pinned_llr(self.short_pattern(shared_seed, dev)))[None, :]
         return llr
 
     def reconcile(self, bob_key_bits, alice_syndromes, qber,
@@ -176,7 +196,7 @@ class RateAdapter:
         syn = torch.atleast_2d(tensor_on(alice_syndromes, bob.device))
         res = decode(self.code, self.llr(bob, qber, shared_seed), syn, opts,
                      device=bob.device)
-        key = res.bits[:, self._index(self.key_idx, bob.device)].to(torch.uint8)
+        key = self.payload(res.bits).to(torch.uint8)
         if single:
             return key[0], res.iterations[0], res.syndromes_match[0]
         return key, res.iterations, res.syndromes_match

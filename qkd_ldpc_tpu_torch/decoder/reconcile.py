@@ -43,9 +43,9 @@ def apriori_llr(bob_bits: torch.Tensor, qber) -> torch.Tensor:
     q = np.asarray(qber, dtype=np.float32)
     ratio = (np.float32(1.0) - q) / q
     log_p = np.log(ratio.astype(np.float64)).astype(np.float32)
-    log_p = torch.as_tensor(log_p, device=bob_bits.device)
-    if log_p.ndim == 1:
-        log_p = log_p[:, None]
+    if log_p.ndim == 0:  # two float32 constants: no host-to-card copy
+        return torch.where(bob_bits == 1, float(-log_p), float(log_p))
+    log_p = torch.as_tensor(log_p, device=bob_bits.device)[:, None]
     return torch.where(bob_bits == 1, -log_p, log_p)
 
 

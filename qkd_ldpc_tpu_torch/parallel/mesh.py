@@ -237,12 +237,15 @@ def replicated(mesh: Mesh) -> list[torch.device]:
 def run_on_shards(fn: Callable, shards: Sequence[TrialShard]) -> list:
     """``[fn(shard) for shard in shards]``, in shard order.
 
-    Shards on distinct cards run in one host thread per card (the decode
-    loop fetches a flag every iteration, so one thread would run the cards
-    in turn); shards that share a card, and CPU shards, run in turn in the
-    caller's thread, and so do all shards where a row spans processes: its
-    blocking collectives pair up only if every process runs its rows in
-    ascending order.  An exception of any shard is raised here.
+    Shards on distinct cards run in one host thread per card (a
+    continuation's outer step and the eager loops fetch from the card, so
+    one thread would run the cards in turn; a card's captured decode graphs
+    are shared by the threads that use it, see
+    ``decoder.device_loop.decode_graph``); shards that share a card, and CPU
+    shards, run in turn in the caller's thread, and so do all shards where a
+    row spans processes: its blocking collectives pair up only if every
+    process runs its rows in ascending order.  An exception of any shard is
+    raised here.
     """
     cards = list(dict.fromkeys(s.device for s in shards))
     if (len(cards) < 2 or any(c.type != "cuda" for c in cards)

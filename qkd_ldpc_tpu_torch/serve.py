@@ -6,9 +6,12 @@ module packages that boundary as a long-lived object with a
 serving-shaped contract:
 
 - **Any request size**: requests are padded and chunked to ``lanes``
-  frames, so every decode has the same shape.  The decode loop fetches one
-  flag per iteration, so chunks run one after the other and a request
-  holds one chunk's tensors on the card at a time.
+  frames, so every decode has the same shape.  Up to
+  ``max_inflight_chunks`` chunks are in flight: chunk k+1 is dispatched
+  (host-to-card copy through pinned memory, LLRs, one replay of the decode
+  graph, a copy back into pinned memory behind a CUDA event) before chunk k
+  is fetched, so the host's dispatch hides under the card's decode and the
+  card's memory stays bounded by the window, not the request.
 - **Host-friendly IO**: NumPy in, NumPy out.
 - **Both roles**: :meth:`Reconciler.syndromes` is Alice's side,
   :meth:`Reconciler.reconcile` Bob's; ``leak_bits`` reports the
@@ -37,6 +40,7 @@ Example::
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import numpy as np
@@ -112,6 +116,10 @@ class Reconciler:
         self.lanes = lanes
         self.adapter = adapter
         self.shared_seed = shared_seed
+        # Chunks allowed in flight before the oldest is fetched: enough to
+        # hide the host's dispatch and fetch under the card's decode, small
+        # enough that device memory stays constant in the request size.
+        self.max_inflight_chunks = 4
         code.to_device(self.device)  # the index tensors, once
 
     @property
@@ -141,7 +149,8 @@ class Reconciler:
 
     def warmup(self) -> "Reconciler":
         """Run both directions once now (on the card this builds the
-        kernels, which the first call would otherwise pay for)."""
+        kernels and captures the decode graph, which the first call would
+        otherwise pay for)."""
         bob = np.zeros((1, self.frame_bits), np.uint8)
         syn = self.syndromes(bob, frame_key=prng_key(0))
         self.reconcile(bob, syn, qber=0.01)
@@ -185,10 +194,20 @@ class Reconciler:
         out = toeplitz_hash(arr, tag_key, tag_bits, device=self.device).cpu().numpy()
         return out[0] if single else out
 
-    def _decode_chunk(self, bob: np.ndarray, syn: np.ndarray, qber: float):
-        """One padded chunk on the device -> (bits, iterations, ok) on the host."""
-        b = torch.as_tensor(bob, device=self.device)
-        s = torch.as_tensor(syn, device=self.device).to(torch.int8)
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the endpoint's device; onto the card through
+        pinned memory without waiting (torch keeps the pinned block until
+        the copy has run)."""
+        x = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return x.to(self.device)
+        return x.pin_memory().to(self.device, non_blocking=True)
+
+    def _dispatch(self, bob: np.ndarray, syn: np.ndarray, qber: float):
+        """Queue one padded chunk: decode on the device and the copy of its
+        results back to the host; returns what :meth:`_fetch` needs."""
+        b = self._to_device(bob)
+        s = self._to_device(syn).to(torch.int8)
         if self.adapter is not None:
             llr = self.adapter.llr(b, qber, self.shared_seed)
         else:
@@ -196,9 +215,23 @@ class Reconciler:
         z, iters, ok = bp_decode_batch_last(self.code, llr.T, s.T, self.opts)
         bits = z.T
         if self.adapter is not None:
-            bits = bits[:, torch.as_tensor(self.adapter.key_idx, device=self.device)]
-        return (bits.to(torch.uint8).cpu().numpy(), iters.cpu().numpy(),
-                ok.cpu().numpy())
+            bits = self.adapter.payload(bits)
+        outs = (bits.to(torch.uint8), iters, ok)
+        if self.device.type != "cuda":
+            return outs, None
+        host_outs = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs)
+        for h, o in zip(host_outs, outs):
+            h.copy_(o, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host_outs, done
+
+    @staticmethod
+    def _fetch(pending) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        outs, done = pending
+        if done is not None:
+            done.synchronize()
+        return tuple(o.numpy() for o in outs)
 
     def reconcile(self, bob_bits, alice_syndromes, qber: float) -> ServeResult:
         """Bob side: correct noisy frames toward received syndromes.
@@ -217,20 +250,34 @@ class Reconciler:
             )
         if not (0.0 < qber < 1.0):
             raise ValueError("qber must be in (0, 1)")
+        if self.max_inflight_chunks < 1:
+            raise ValueError("max_inflight_chunks must be >= 1")
 
         n = bob.shape[0]
         bits = np.empty((n, self.frame_bits), np.uint8)
         iters = np.empty((n,), np.int32)
         ok = np.empty((n,), bool)
-        for off in range(0, n, self.lanes):
-            chunk = min(self.lanes, n - off)
-            pad = ((0, self.lanes - chunk), (0, 0))
-            z, it, okc = self._decode_chunk(
-                np.pad(bob[off:off + chunk], pad), np.pad(syn[off:off + chunk], pad),
-                qber)
+        # A bounded window of chunks in flight (each with output tensors of
+        # its own): chunk k+1's dispatch hides under chunk k's decode.
+        pending = collections.deque()
+
+        def fetch_one():
+            off, chunk, work = pending.popleft()
+            z, it, okc = self._fetch(work)
             bits[off:off + chunk] = z[:chunk]
             iters[off:off + chunk] = it[:chunk]
             ok[off:off + chunk] = okc[:chunk]
+
+        for off in range(0, n, self.lanes):
+            chunk = min(self.lanes, n - off)
+            pad = ((0, self.lanes - chunk), (0, 0))
+            pending.append((off, chunk, self._dispatch(
+                np.pad(bob[off:off + chunk], pad), np.pad(syn[off:off + chunk], pad),
+                qber)))
+            if len(pending) >= self.max_inflight_chunks:
+                fetch_one()
+        while pending:
+            fetch_one()
         res = ServeResult(bits=bits, iterations=iters, syndromes_match=ok)
         if single:
             res = ServeResult(res.bits[0], res.iterations[0], res.syndromes_match[0])

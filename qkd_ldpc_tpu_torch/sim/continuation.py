@@ -24,16 +24,20 @@ keys the plain runner derives.
 - per-trial iteration counts are banked when the trial finishes, and all
   reductions (integer sums, min/max) are order-independent.
 
-The JAX runner is one jitted ``while_loop``; here the loops run on the
-host.  What the host needs from the device is ONE small fetch per outer
+The JAX runner is one jitted ``while_loop``; here the outer loop runs on
+the host.  What the host needs from the device is ONE small fetch per outer
 step (the number of live lanes after banking); the staging block's base,
 read position and point, and the ids consumed, are functions of the refill
 count and ``trials`` alone and live on the host as Python ints.  Refills
 copy staged columns into the first empty lanes with ``index_copy_`` along
 the lane axis.  One pass of the segment loop is the two kernels of
 ``decoder/cuda_kernels.py`` (variable update, then check update with the
-decision syndrome) and five small per-lane ops; the loop carries ``Lr``, and
-neither the totals nor a gathered copy of them are lane state.
+decision syndrome, in place over ``Lr``) and four small per-lane ops; the
+loop carries ``Lr``, and neither the totals nor a gathered copy of them are
+lane state.  On the card under the kernel backend the ``segment`` passes
+(JAX's ``fori_loop``) are captured once per run as one CUDA graph over the
+lane state, and each outer step replays it: one host call for ``segment``
+iterations (``decoder/device_loop.py``).
 
 The continuation runner decodes with the flooding schedule only and raises
 on ``schedule="layered"``.  Over a trial mesh (``parallel.mesh``) each trial
@@ -53,6 +57,7 @@ import torch
 
 from qkd_ldpc_tpu_torch.channel.keys import make_trials_from_ids, num_errors_for
 from qkd_ldpc_tpu_torch.codes.ldpc_code import LDPCCode
+from qkd_ldpc_tpu_torch.decoder import device_loop
 from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions, _DecodeCore
 from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr
 from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome as syndrome_fn
@@ -118,6 +123,32 @@ def _continuation_core(
     run = zeros((batch,), torch.bool)  # live & ~done & (age < max_it)
     fresh = zeros((batch,), torch.bool)
     lane_p = zeros((batch,), torch.int64)  # sweep-point index of each lane's trial
+    total = torch.empty((N, batch), dtype=mdt, device=device)
+    ok = torch.ones((batch,), dtype=torch.bool, device=device)
+    scratch = core.scratch(batch)
+
+    def segment_passes(Lr, llr, syn, z, age, done, run, fresh, total, ok):
+        """``segment`` decode iterations of every lane, in place (per-lane
+        bookkeeping as in decoder.bp: stopped lanes keep computing, masked
+        out of stats).  The variable update moves z and age on the running
+        lanes; the check update's ok is the syndrome of those totals."""
+        for i in range(segment):
+            core.variable_update(Lr, llr, z, age, run, out=(total, ok))
+            core.check_update_fused(total, Lr, syn, fresh=fresh, ok=ok, out=Lr,
+                                    scratch=scratch)
+            conv = ok & run
+            done |= conv
+            torch.bitwise_and(run ^ conv, age < max_it, out=run)  # conv is a subset of run
+            if i == 0:
+                fresh.zero_()
+
+    lane_state = (Lr, llr, syn, z, age, done, run, fresh, total, ok)
+    segment_graph = None
+    if device_loop.graphs_on(core.use_kernel, device):
+        segment_graph = device_loop.Graph(device).capture(
+            lambda graph: segment_passes(*lane_state),
+            warmup=lambda: segment_passes(*(x.clone() for x in lane_state)))
+
     # Seven [P] per-point accumulators, in stats.STAT_KEYS order.
     acc = [zeros((P,), i32) for _ in range(7)]
     acc[5].fill_(max_it)
@@ -184,17 +215,12 @@ def _continuation_core(
                 counts["refills"] += 1
             pos += K
 
-        # 2. decode `segment` iterations (per-lane bookkeeping as in
-        # decoder.bp: stopped lanes keep computing, masked out of stats).
-        # The variable update moves z and age on the running lanes; the
-        # check update's ok is the syndrome of those totals.
-        for _ in range(segment):
-            total, z, age, ok = core.variable_update(Lr, llr, z, age, run)
-            Lr, ok = core.check_update_fused(total, Lr, syn, fresh=fresh, ok=ok)
-            conv = ok & run
-            done |= conv
-            run = (run ^ conv) & (age < max_it)  # conv is a subset of run
-            fresh.zero_()
+        # 2. decode `segment` iterations: one replay of the segment graph
+        # on the card, the same passes eagerly elsewhere.
+        if segment_graph is not None:
+            segment_graph.replay()
+        else:
+            segment_passes(*lane_state)
 
         # 3. bank statistics of finished trials into their POINT's
         # accumulators (integer scatter add/min/max: exact and

@@ -6,8 +6,8 @@ reference's batch simulator (``QKD_LDPC_batch_simulation``,
 ``src/simulation.cpp:192-316``).  One (matrix, QBER) point is key
 generation, exact-weight error injection, syndrome computation, batched BP
 decode and the statistics reduction, batch after batch, with seven int32
-scalars per chunk as the only result fetched from the device.  (The decode
-loop itself fetches one flag per iteration.)
+scalars per chunk as the only result fetched from the device (on the card a
+decode is one CUDA graph replay, its loops tested there).
 
 Additions over the reference, as in the JAX package:
 
@@ -211,13 +211,34 @@ def _dispatch_point(
                          n_batches, opts, prng, device)
         )
         offset += valid
-    return futures, actual_qber
+    return [_HostCopy(f) for f in futures], actual_qber
+
+
+class _HostCopy:
+    """A device tensor's copy into pinned host memory, queued behind the
+    work that makes it (a CUDA event marks its end): the host waits for it
+    only when it reads it."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = t
+
+    def get(self) -> torch.Tensor:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host
 
 
 def _collect_point(futures: list) -> PointPartials:
     total = PointPartials()
     for stacked in futures:
-        total = total.merge(partials_from_stacked(stacked.cpu()))
+        total = total.merge(partials_from_stacked(stacked.get()))
     return total
 
 
@@ -330,7 +351,10 @@ def batch_simulation(
     ``QKD_LDPC_batch_simulation``), with checkpoint/resume.
 
     Points run in order on ``device`` (``None`` = the card; raises when there
-    is none).  With ``cfg.continuation_qber > 0`` every point of a matrix at
+    is none), one point in flight: point p+1 is dispatched before point p's
+    statistics are fetched, as in the JAX package, so the host's dispatch of
+    the next point overlaps the card's work on this one; checkpoint lines,
+    CSV rows and progress ticks keep the JAX package's order.  With ``cfg.continuation_qber > 0`` every point of a matrix at
     or above it runs in ONE cross-point continuation call after the
     matrix's other points; its statistics are identical to the plain
     runner's.
@@ -360,6 +384,11 @@ def batch_simulation(
     total_trials = sum(len(si.qber) for si in sim_inputs) * cfg.trials_number
     bar = ProgressBar(total_trials, enabled=progress)
     results: dict[int, SimResult] = {}
+    pending: list[tuple] = []  # (sim_number, si, actual_qber, collect)
+
+    def flush_one() -> None:
+        num, si, actual_qber, collect = pending.pop(0)
+        finish(num, si, actual_qber, collect())
 
     def finish(num, si, actual_qber, partials) -> None:
         result = finalize_point(
@@ -408,7 +437,7 @@ def batch_simulation(
             point_key = fold_in(master, sim_number)
             if cfg.continuation_qber > 0 and qber >= cfg.continuation_qber:
                 cont_entries.append((sim_number, qber, point_key))
-            elif mesh is not None:
+            elif mesh is not None:  # finished in place: the mesh's own order
                 futures, actual_qber = mesh_dispatch(point_key, qber, cfg.trials_number)
                 finish(sim_number, si, actual_qber, collect_sharded(futures, mesh))
             else:
@@ -416,7 +445,10 @@ def batch_simulation(
                     si.code, point_key, qber, cfg.trials_number, batch, m_opts,
                     prng=cfg.prng, device=device,
                 )
-                finish(sim_number, si, actual_qber, _collect_point(futures))
+                pending.append((sim_number, si, actual_qber,
+                                lambda f=futures: _collect_point(f)))
+                if len(pending) > 1:  # keep one point in flight
+                    flush_one()
             sim_number += 1
 
         if cont_entries:
@@ -429,7 +461,12 @@ def batch_simulation(
             )
             for (num, _, _), (piece,), aq in zip(cont_entries, futs, actuals):
                 # the points' slices share one fetch
-                finish(num, si, aq, partials_from_stacked(piece.fetch()))
+                pending.append((num, si, aq,
+                                lambda p=piece: partials_from_stacked(p.fetch())))
+                if len(pending) > 1:
+                    flush_one()
+    while pending:
+        flush_one()
     bar.close()
     return [results[i] for i in sorted(results)]
 

@@ -120,10 +120,10 @@ def test_continuation_loop_counts(wf_code, monkeypatch):
     calls = []
     real = _DecodeCore.check_update_fused
 
-    def spy(self, total, Lr, syn, fresh=None, ok=None):
+    def spy(self, total, Lr, syn, fresh=None, ok=None, **kw):
         calls.append(int(fresh.sum()))
         assert ok.all()  # the variable update hands over a set flag buffer
-        Lr_new, ok = real(self, total, Lr, syn, fresh=fresh, ok=ok)
+        Lr_new, ok = real(self, total, Lr, syn, fresh=fresh, ok=ok, **kw)
         assert not ok[fresh].any()  # a fresh lane has completed no iteration
         return Lr_new, ok
 

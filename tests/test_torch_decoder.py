@@ -203,13 +203,13 @@ def test_decode_loop_carries_no_gathered_totals(monkeypatch):
     real_c = tbp._DecodeCore.check_update_fused
     real_v = tbp._DecodeCore.variable_update
 
-    def spy_c(self, total, Lr, syn_, fresh=None, ok=None):
+    def spy_c(self, total, Lr, syn_, **kw):
         shapes.append(tuple(total.shape))
-        return real_c(self, total, Lr, syn_, fresh=fresh, ok=ok)
+        return real_c(self, total, Lr, syn_, **kw)
 
-    def spy_v(self, Lr, llr_, z, count, active):
+    def spy_v(self, Lr, llr_, z, count, active, **kw):
         updates.append(int(active.sum()))
-        return real_v(self, Lr, llr_, z, count, active)
+        return real_v(self, Lr, llr_, z, count, active, **kw)
 
     monkeypatch.setattr(tbp._DecodeCore, "check_update_fused", spy_c)
     monkeypatch.setattr(tbp._DecodeCore, "variable_update", spy_v)

@@ -82,6 +82,27 @@ def test_frames_syndromes_pattern_and_llr_equal_jax(mother, shared_seed):
         np.asarray(ja.llr(jnp.asarray(bob), q, shared_seed)))
 
 
+def test_llr_uploads_the_plan_once_per_device_and_seed(mother):
+    """The positions and a shared seed's pinned LLRs are made once per
+    device: repeated calls, and a second seed after the first, still give
+    JAX's LLRs."""
+    jc, tc = mother
+    ja = JAdapter.make(jc, n_punctured=96, n_shortened=64, seed=11)
+    ta = TAdapter.make(tc, n_punctured=96, n_shortened=64, seed=11)
+    kk, alice = _alice(ja, 4)
+    bob = np.asarray(jkeys.introduce_errors(jax.random.fold_in(kk, 1), alice, 19))
+    q = np.float32(19) / np.float32(256)
+    for shared_seed in (0, 5, 0):
+        np.testing.assert_array_equal(
+            ta.llr(bob, q, shared_seed, device="cpu").numpy(),
+            np.asarray(ja.llr(jnp.asarray(bob), q, shared_seed)))
+    assert ta._index("key_idx", "cpu") is ta._index("key_idx", torch.device("cpu"))
+    assert len(ta._on_device) == 4  # key and short positions, two seeds' pins
+    frames = torch.arange(2 * tc.n_vars).view(2, tc.n_vars)
+    np.testing.assert_array_equal(ta.payload(frames).numpy(),
+                                  frames.numpy()[:, ja.key_idx])
+
+
 def _decode_both(jc, tc, jopts, topts, p, s, qber_err, seed, batch=6):
     """One rate-adapted round through both packages on the same frames."""
     ja = JAdapter.make(jc, n_punctured=p, n_shortened=s, seed=seed)

@@ -252,3 +252,57 @@ def test_example_programs_run_on_the_host(name, expect, capsys):
     assert expect in out
     if name == "rate_adaptive_example":
         assert "shortened s=512" in out and "blind (d=256 punctured" in out
+
+
+def test_inflight_window_default_is_the_jax_endpoints(medium):
+    jc, tc = medium
+    assert Reconciler(tc, device="cpu").max_inflight_chunks == 4
+    assert JReconciler(jc).max_inflight_chunks == 4
+
+
+@pytest.mark.parametrize("window", [1, 2, 4])
+@pytest.mark.parametrize("n_frames", [24, 21], ids=["whole-chunks", "ragged"])
+def test_inflight_window_keeps_the_results(medium, window, n_frames):
+    """A window of 1, 2 or 4 chunks in flight, on a request that ``lanes``
+    divides and on one it does not: every frame equals the JAX endpoint's."""
+    jc, tc = medium
+    kw = dict(max_iterations=60, algorithm="min-sum")
+    alice, bob, q = _trials(jc.n_vars, 0.04, n_frames, seed=9)
+    jrec = JReconciler(jc, JOpts(**kw), lanes=4)
+    trec = Reconciler(tc, TOpts(**kw), lanes=4, device="cpu")
+    trec.max_inflight_chunks = window
+    syn = trec.syndromes(alice)
+    want = jrec.reconcile(bob, syn, qber=q)
+    got = trec.reconcile(bob, syn, qber=q)
+    for f in want._fields:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+
+
+@pytest.mark.parametrize("window", [1, 3])
+def test_inflight_window_on_the_adapted_endpoint(medium, window):
+    jc, tc = medium
+    kw = dict(max_iterations=60, algorithm="min-sum")
+    jad = JAdapter.make(jc, n_punctured=32, n_shortened=64, seed=4)
+    tad = RateAdapter.make(tc, n_punctured=32, n_shortened=64, seed=4)
+    jrec = JReconciler(jc, JOpts(**kw), lanes=4, adapter=jad)
+    trec = Reconciler(tc, TOpts(**kw), lanes=4, adapter=tad, device="cpu")
+    trec.max_inflight_chunks = window
+    kk = jax.random.PRNGKey(8)
+    alice = np.asarray(jkeys.generate_random_bits(kk, tad.payload_bits, 11))
+    n_err = jkeys.num_errors_for(tad.payload_bits, 0.03)
+    bob = np.asarray(jkeys.introduce_errors(jax.random.fold_in(kk, 1), alice, n_err))
+    fk = jax.random.PRNGKey(2)
+    syn = trec.syndromes(alice, frame_key=tkey(fk))
+    want = jrec.reconcile(bob, syn, qber=n_err / tad.payload_bits)
+    got = trec.reconcile(bob, syn, qber=n_err / tad.payload_bits)
+    for f in want._fields:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+
+
+def test_inflight_window_must_be_positive(medium):
+    _, tc = medium
+    trec = Reconciler(tc, device="cpu")
+    trec.max_inflight_chunks = 0
+    with pytest.raises(ValueError, match="max_inflight_chunks"):
+        trec.reconcile(np.zeros((2, tc.n_vars), np.uint8),
+                       np.zeros((2, tc.n_checks), np.int8), qber=0.02)

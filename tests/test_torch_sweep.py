@@ -161,3 +161,79 @@ def test_prepare_sim_inputs_is_the_jax_packages(tmp_path):
     for cfg in (tcfg, dataclasses.replace(tcfg, threads_number=1)):
         got = trunner.prepare_sim_inputs(paths, cfg)
         assert [(s.matrix_filename, s.qber, s.code.fingerprint) for s in got] == want
+
+
+def test_one_point_in_flight_dispatches_before_it_collects(monkeypatch):
+    """Point p+1 is dispatched before point p is collected (the JAX
+    package's window of one), and the collection order is the point order."""
+    _, tcfg = _configs(decoder="min-sum")
+    _, tin = _inputs(*_configs(decoder="min-sum"))
+    events = []
+    real_dispatch, real_collect = trunner._dispatch_point, trunner._collect_point
+
+    def dispatch(code, point_key, qber, *a, **k):
+        events.append(("dispatch", qber))
+        futures, aq = real_dispatch(code, point_key, qber, *a, **k)
+        for f in futures:
+            f.qber = qber
+        return futures, aq
+
+    def collect(futures):
+        events.append(("collect", futures[0].qber))
+        return real_collect(futures)
+
+    monkeypatch.setattr(trunner, "_dispatch_point", dispatch)
+    monkeypatch.setattr(trunner, "_collect_point", collect)
+    trunner.batch_simulation(tin, tcfg, progress=False, device="cpu")
+    q = tin[0].qber
+    want = [("dispatch", q[0])]
+    for prev, nxt in zip(q, q[1:]):
+        want += [("dispatch", nxt), ("collect", prev)]
+    assert events == want + [("collect", q[-1])]
+
+
+@pytest.mark.parametrize("crossover", [0.0, 0.04], ids=["plain", "continuation"])
+def test_pipelined_sweep_of_two_matrices_is_byte_equal_to_jax(tmp_path, crossover):
+    """Two matrices, plain and continuation points sharing the window: the
+    CSV rows, the checkpoint bytes and the progress ticks are the JAX
+    package's; a resumed run dispatches nothing."""
+    kw = dict(decoder="min-sum", continuation_qber=crossover)
+    jcfg, tcfg = _configs(checkpoint_dir=str(tmp_path / "jax"), **kw)
+    jin, tin = _inputs(jcfg, tcfg)
+    jin, tin = jin + [dataclasses.replace(jin[0], matrix_filename="b.alist")], \
+        tin + [dataclasses.replace(tin[0], matrix_filename="b.alist")]
+    ticks = {"jax": [], "torch": []}
+
+    def bar(name, real):
+        class Bar(real):
+            def tick(self, n):
+                ticks[name].append(n)
+                return super().tick(n)
+        return Bar
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(jrunner, "ProgressBar", bar("jax", jrunner.ProgressBar))
+        m.setattr(trunner, "ProgressBar", bar("torch", trunner.ProgressBar))
+        want = jrunner.batch_simulation(jin, jcfg, progress=False)
+        got = trunner.batch_simulation(
+            tin, dataclasses.replace(tcfg, checkpoint_dir=str(tmp_path / "torch")),
+            progress=False, device="cpu")
+    assert tcsv.format_rows(got) == jcsv.format_rows(want)
+    assert ticks["torch"] == ticks["jax"] and len(ticks["torch"]) == len(got)
+    (j_ckpt,) = (tmp_path / "jax").iterdir()
+    (t_ckpt,) = (tmp_path / "torch").iterdir()
+    assert t_ckpt.read_bytes() == j_ckpt.read_bytes()
+
+    def no_dispatch(*args, **kwargs):
+        raise AssertionError("a checkpointed point was dispatched again")
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(trunner, "_dispatch_point", no_dispatch)
+        from qkd_ldpc_tpu_torch.sim import continuation
+
+        m.setattr(continuation, "dispatch_sweep_continuation", no_dispatch)
+        resumed = trunner.batch_simulation(
+            tin, dataclasses.replace(tcfg, checkpoint_dir=str(tmp_path / "torch")),
+            progress=False, device="cpu")
+    assert tcsv.format_rows(resumed) == tcsv.format_rows(got)
+    assert t_ckpt.read_bytes() == j_ckpt.read_bytes()
