@@ -20,11 +20,11 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    single-word accesses), and the second-word tie path end to end;
 3. drives ``run_point`` — keygen (K4), exact-weight channel (K3, and the
    second-word tie path gated on the card: K4's tie row and the tie kernel),
-   syndrome, flooding BP decode with compaction (one replay of a captured
-   CUDA graph a batch, its loops WHILE nodes), statistics — on the flagship
-   quasi-cyclic code at its operating point and checks the statistics and the
-   launch counts (K4 twice, K3 and the tie kernel once per batch; K1 and the
-   three loop-entry tests once per replay; K2, the variable update and the
+   syndrome, flooding BP decode with compaction (its loops WHILE nodes),
+   statistics, the four batches one replay of the chunk's captured CUDA graph
+   — on the flagship quasi-cyclic code at its operating point and checks the
+   statistics and the launch counts (K4 twice, K3, the tie kernel, K1 and
+   the three loop-entry tests once per batch; K2, the variable update and the
    loop's bookkeeping once per pass, read from the graph's device counters;
    no plain threefry tree on the card);
    3b. the same point with ``schedule="layered"`` (the sweep kernel);
@@ -46,6 +46,14 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    fails the script); the Reconciler with 1 and 4 chunks in flight; the new
    kernels (loop entry, loop step, sweep step, tie completion) held to their
    plain versions and timed;
+   3e. (``chunk_graph``) the trial chunk as one CUDA graph: sweep A through
+   ``batch_simulation`` captures once per code; the chunk graph against the
+   eager chunk 7/7 and launch for launch on the ``run_point`` legs (flooding
+   and layered in SP/bf16 and min-sum/int8, the continuation's crossover
+   point) and on a trial mesh of four shards; one graph replayed for four
+   inputs that differ in key, error count, first trial and tail, each equal
+   to its eager chunk; ``_dispatch_point`` under the sync-debug gate; each
+   capture's time, nodes and pool bytes;
 4. repeats the paths through the plain versions (``backend="xla"``) and
    compares the seven partial sums;
    2b. (``f1_degrees``) the flooding kernels K1, K2, K5 and the variable
@@ -66,7 +74,9 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    0.8 row, a min-sum identity of kernels and plain versions, and
    interactive mode at B = 1 — each sweep counted on its own; sweep A also
    in turns with the eager kernel loop;
-6. drives the protocol surface on the flagship (``protocol``): the
+6. drives the protocol surface on the flagship (``protocol``): the keys
+   (the flat-block kernel, its tie block gated on K3's flag, held against its
+   plain version on a forced-tie batch and timed), the
    ``Reconciler`` at 128 and 101 lanes against ``backend="xla"``,
    ``reconcile_secure``, the rate-adapted endpoint (flooding and layered) and
    the four decoder kernels on its erasure/pinned LLRs, a blind session, and
@@ -95,7 +105,8 @@ Each phase prints one JSON object on a line of its own; any failure raises.
 The last line is ``{"ok": true, "device": {...}}``.  The script exits non-zero
 without a CUDA device.  ``--profile`` adds a device-time table of each of the
 three paths, of one batch of trials (at most ten launches) and of the CLI's
-sweep A, and the host's launch calls per graph replay; all tracing comes after
+sweep A, and the host's launch calls per graph replay (per chunk on the trial
+paths and sweep A); all tracing comes after
 every untraced timing.  Times are this card's, labelled with its name and power
 limit; they are a smoke measurement, not a benchmark.
 """
@@ -454,17 +465,21 @@ def _profile_path(torch, path, step, card, untraced_ms, iteration_starts=None,
 
 def _channel_kernels(torch, dev, flush, point_key, n, n_err, wide_n, wide_err, gen):
     """K4 and K3 against their plain versions on the card, bit for bit, then
-    timed at the flagship shape.  K4: both id forms (a range, with and without
-    the wrap at 2**32, and an id tensor) and all three rows, and a point key on
-    the card.  K3: the real flagship rows, crafted tie rows (excess and not), a
-    per-row k (with and without Alice's row), and each of its six instances.
-    Returns (K4 entry, K3 entry, details)."""
+    timed at the flagship shape.  K4: every id form (a range, with and without
+    the wrap at 2**32, an id tensor, a device range whose base lies on the
+    card) and all three rows, and a point key on the card (int64 words, and
+    int32 raw words as a captured chunk holds it).  K3: the real flagship
+    rows, crafted tie rows (excess and not), a per-row k (with and without
+    Alice's row), k as one int32 on the card, and each of its six instances.
+    Both timed in the forms the captured trial chunk launches (key, first id
+    and k read on the card), the host-argument forms beside them.  Returns
+    (K4 entry, K3 entry, details)."""
     import ctypes
 
     from qkd_ldpc_tpu_torch import _build
     from qkd_ldpc_tpu_torch.channel import cuda_prng, cuda_select, keys
     from qkd_ldpc_tpu_torch.channel.cuda_prng import ALICE, SCORES, TIES
-    from qkd_ldpc_tpu_torch.channel.threefry import flip_sign
+    from qkd_ldpc_tpu_torch.channel.threefry import flip_sign, to_raw_int32
 
     all_rows = (ALICE, SCORES, TIES)
 
@@ -489,6 +504,8 @@ def _channel_kernels(torch, dev, flush, point_key, n, n_err, wide_n, wide_err, g
         "id_tensor": torch.randint(0, 2**32, (BATCH,), device=dev, generator=gen,
                                    dtype=torch.int64),
     }
+    base = to_raw_int32(torch.tensor([2**32 - BATCH // 2], dtype=torch.int64, device=dev))
+    id_forms["device_range_wrapping"] = cuda_prng.DeviceRange(base, range(0, BATCH))
     k4_cases = {}
     for form, ids in id_forms.items():
         for rows in (all_rows, (ALICE, SCORES), (TIES,)):
@@ -496,16 +513,21 @@ def _channel_kernels(torch, dev, flush, point_key, n, n_err, wide_n, wide_err, g
             ref = cuda_prng.trial_words_plain(point_key, n, ids, rows, dev)
             torch.cuda.synchronize()
             k4_cases[f"{form}:{'+'.join(rows)}"] = differ(got, ref)
-    # a key on the card: read with one synchronising copy, the same trials
-    got = cuda_prng.trial_words_cuda(point_key.to(dev), n, range(0, BATCH), all_rows, dev)
-    ref = cuda_prng.trial_words_plain(point_key, n, range(0, BATCH), all_rows, dev)
-    torch.cuda.synchronize()
-    k4_cases["range:point_key_on_card"] = differ(got, ref)
+    # a key on the card, read there by the kernel: int64 words, int32 raw words
+    for form, key in (("int64", point_key.to(dev)), ("raw_int32", to_raw_int32(point_key).to(dev))):
+        got = cuda_prng.trial_words_cuda(key, n, range(0, BATCH), all_rows, dev)
+        ref = cuda_prng.trial_words_plain(point_key, n, range(0, BATCH), all_rows, dev)
+        torch.cuda.synchronize()
+        k4_cases[f"range:point_key_on_card_{form}"] = differ(got, ref)
     k4_err = max(e for e, _ in k4_cases.values())
     k4_diff = sum(d for _, d in k4_cases.values())
     if k4_err or k4_diff:
         raise AssertionError(f"trial_words kernel differs from its plain version: {k4_cases}")
-    main = (point_key, n, range(0, BATCH), (ALICE, SCORES), dev)
+    host_args = (point_key, n, range(0, BATCH), (ALICE, SCORES), dev)
+    # as the captured chunk launches it: key words and first id on the card
+    x_key = to_raw_int32(point_key).to(dev)
+    x_first = torch.zeros(1, dtype=torch.int32, device=dev)
+    main = (x_key, n, cuda_prng.DeviceRange(x_first, range(0, BATCH)), (ALICE, SCORES), dev)
     k4_bytes = BATCH * n * (1 + 4)  # Alice's bits as bytes, the scores as words
     k4_ops = OPS_PER_THREEFRY * (2 * BATCH * n + 3 * BATCH)  # + 3 key blocks a trial
     k4_bound, k4_by = _bound(k4_bytes, k4_ops)
@@ -514,6 +536,8 @@ def _channel_kernels(torch, dev, flush, point_key, n, n_err, wide_n, wide_err, g
         "bound_ms": k4_bound, "bound_by": k4_by, "bytes": k4_bytes, "operations": k4_ops,
         "bound_ms_at_int32_rate": _bound(k4_bytes, k4_ops, INT32_OPS_PER_S)[0],
         "ms": _time_ms(torch, lambda: cuda_prng.trial_words_cuda(*main), flush),
+        "host_arguments_ms": _time_ms(
+            torch, lambda: cuda_prng.trial_words_cuda(*host_args), flush),
         "plain_ms": _time_ms(torch, lambda: cuda_prng.trial_words_plain(*main), flush,
                              repeats=5, warmup=1),
         "library_ms": None,
@@ -537,6 +561,7 @@ def _channel_kernels(torch, dev, flush, point_key, n, n_err, wide_n, wide_err, g
     tie_s = scores[:64].clone()
     tie_s[16:32] &= -(1 << 20)
     craft_ties(tie_s, n_err, (32, 48), (48, 64))
+    k_dev = torch.tensor([n_err], dtype=torch.int32, device=dev)  # a chunk's error count
     k_rows = torch.randint(1, n + 1, (BATCH,), device=dev, generator=gen, dtype=torch.int32)
     k_rows[:2] = torch.tensor([1, n], device=dev, dtype=torch.int32)
     wide_a, wide_s = cuda_prng.trial_words_cuda(point_key, wide_n, range(0, WIDE_BATCH),
@@ -567,6 +592,8 @@ def _channel_kernels(torch, dev, flush, point_key, n, n_err, wide_n, wide_err, g
         "flagship": (scores, n_err, alice),
         "crafted_ties": (tie_s, n_err, alice[:64]),
         "per_row_k": (scores, k_rows, alice),
+        "k_on_card": (scores, k_dev, alice),
+        "crafted_ties_k_on_card": (tie_s, k_dev, alice[:64]),
         "per_row_k_threshold_only": (scores, k_rows, None),
         "k_zero": (scores[:8], 0, alice[:8]),
         # single-word accesses: a width not a multiple of 4, an unaligned Alice
@@ -611,7 +638,8 @@ def _channel_kernels(torch, dev, flush, point_key, n, n_err, wide_n, wide_err, g
     if k3_err or k3_diff:
         raise AssertionError(f"kth_smallest kernel differs from its plain version: {k3_cases}")
     if not all(flags[c] for c in (
-            "crafted_ties", "crafted_ties_odd_width", "crafted_ties_unaligned",
+            "crafted_ties", "crafted_ties_k_on_card", "crafted_ties_odd_width",
+            "crafted_ties_unaligned",
             "short_rows", "short_rows_odd_width", "wide_rows", "wide_rows_odd_width")) or (
             flags["k_zero"]):
         raise AssertionError(f"the crafted rows do not reach the tie branch: {flags}")
@@ -627,9 +655,12 @@ def _channel_kernels(torch, dev, flush, point_key, n, n_err, wide_n, wide_err, g
         "max_abs_err": k3_err, "entries_differing": k3_diff, "cases": len(k3_cases),
         "bound_ms": k3_bound, "bound_by": k3_by, "bytes": k3_bytes, "operations": k3_ops,
         "bound_ms_at_int32_rate": _bound(k3_bytes, k3_ops, INT32_OPS_PER_S)[0],
-        # as the path calls it: the flag's fill (about 1 us) included
-        "ms": _time_ms(torch, lambda: cuda_select.select_flip_cuda(scores, n_err, alice),
+        # as the captured chunk calls it (k read on the card): the flag's fill
+        # (about 1 us) included
+        "ms": _time_ms(torch, lambda: cuda_select.select_flip_cuda(scores, k_dev, alice),
                        flush),
+        "host_argument_ms": _time_ms(
+            torch, lambda: cuda_select.select_flip_cuda(scores, n_err, alice), flush),
         "threshold_only_ms": _time_ms(
             torch, lambda: cuda_select.select_flip_cuda(scores, n_err), flush),
         "wide_rows_ms": _time_ms(
@@ -899,6 +930,55 @@ def _f1_degrees(torch, np, dev, gen, flush, card, copy_bytes_per_s):
     return line, flooding_degrees, layered_degrees
 
 
+def _block_kernel(torch, dev, key, n, n_err, alice, keygen_s):
+    """The flat-block kernel (``block_words``, fault D1's repair) against its
+    plain version on the protocol's flagship block (``introduce_errors(key,
+    alice, n_err)``'s tie block, 512 x 10,240 words): ungated, and gated on
+    K3's flag of a forced-tie batch (the scores cut to their top 12 bits:
+    excess ties in every row), where the gated block equals the plain block
+    and Bob's bits equal the plain tie path's.  Timed ungated, gated off (a
+    flag of 0: launch only) and the protocol keys' warm wall.  Returns
+    (report, kernel-line measurement)."""
+    from qkd_ldpc_tpu_torch.channel import cuda_prng, cuda_select, keys
+    from qkd_ldpc_tpu_torch.channel.threefry import fold_in
+
+    B = alice.shape[0]
+    count = B * n
+    tie_key = fold_in(key, 1)
+    got = cuda_prng.block_words_cuda(tie_key, count, dev)
+    ref = cuda_prng.block_words_plain(tie_key, count, dev)
+    scores = (cuda_prng.block_words_cuda(key, count, dev) & -(1 << 20)).view(B, n)
+    _, _, excess = cuda_select.select_flip_cuda(scores, n_err, alice)
+    gated = cuda_prng.block_words_cuda(tie_key, count, dev, gate=excess)
+    bob = keys._exact_weight_flip(
+        scores, alice, n_err, lambda: ref.view(B, n),
+        gated_tie_scores=lambda e: keys.block_words(tie_key, (B, n), dev, e))
+    bob_plain = keys._exact_weight_flip(scores, alice, n_err, lambda: ref.view(B, n), "xla")
+    torch.cuda.synchronize()
+    err = max(int((g.to(torch.int64) - ref.to(torch.int64)).abs().max()) for g in (got, gated))
+    bits_off = int((bob != bob_plain).sum())
+    if int(excess) != 1 or err or bits_off or not bool(
+            ((bob ^ alice).sum(dim=1) == n_err).all()):
+        raise AssertionError(f"block_words: flag {int(excess)}, words off by {err}, "
+                             f"{bits_off} tie-path bits off")
+    off = torch.zeros(1, dtype=torch.int32, device=dev)
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    bound_ms, bound_by = _bound(4 * count, OPS_PER_THREEFRY * count)
+    measured = dict(
+        max_abs_err=float(err + bits_off), bound_ms=bound_ms, bound_by=bound_by,
+        ms=_time_ms(torch, lambda: cuda_prng.block_words_cuda(tie_key, count, dev), flush),
+        plain_ms=_time_ms(torch, lambda: cuda_prng.block_words_plain(tie_key, count, dev),
+                          flush, repeats=5, warmup=1),
+        library_ms=None)
+    report = dict(measured, words=count, forced_tie_flag=1, tie_path_bits_off=bits_off,
+                  bound_ms_at_int32_rate=_bound(4 * count, OPS_PER_THREEFRY * count,
+                                                INT32_OPS_PER_S)[0],
+                  gated_off_ms=_time_ms(torch, lambda: cuda_prng.block_words_cuda(
+                      tie_key, count, dev, gate=off), flush),
+                  protocol_keys_warm_s=keygen_s())
+    return report, measured
+
+
 def _protocol(torch, np, dev, card, code, names):
     """The protocol surface on the flagship, through the entry points a
     deployed node calls: keys (threefry blocks; Bob's flips by K3), the
@@ -916,7 +996,7 @@ def _protocol(torch, np, dev, card, code, names):
         introduce_errors,
         num_errors_for,
     )
-    from qkd_ldpc_tpu_torch.channel.keys import block_words
+    from qkd_ldpc_tpu_torch.channel import cuda_prng
     from qkd_ldpc_tpu_torch.channel.threefry import bernoulli_half, fold_in, prng_key
     from qkd_ldpc_tpu_torch.channel.threefry import random_bits
     from qkd_ldpc_tpu_torch.decoder import (
@@ -937,6 +1017,7 @@ def _protocol(torch, np, dev, card, code, names):
     from qkd_ldpc_tpu_torch.serve import Reconciler
 
     K1, K2, K3, K4, K5, K6, KV = names
+    KB = cuda_prng.KERNEL_BLOCK
     t_phase = time.perf_counter()
     N, M = code.n_vars, code.n_checks
     key = prng_key(PROTOCOL_SEED)
@@ -961,13 +1042,16 @@ def _protocol(torch, np, dev, card, code, names):
     if keygen_launches.get(K3, 0) < 1 or not ((alice ^ bob).sum(axis=1) == n_err).all():
         raise AssertionError(f"protocol keys: {keygen_launches}")
     q = n_err / N
-    # introduce_errors makes its tie words (a plain threefry block) whether
-    # or not a row has excess ties: the flag is never read on the host
-    tie_key = fold_in(fold_in(key, 1), 1)
-    tie_block_s = _wall(torch, lambda: block_words(tie_key, (PROTOCOL_FRAMES, N), dev))
+    # The flat-block kernel: generate_random_bits, introduce_errors' scores and
+    # its tie block, which is drawn only where K3's flag is set (read on the card)
+    if keygen_launches.get(KB, 0) != 3:
+        raise AssertionError(f"protocol keys: {keygen_launches.get(KB, 0)} block launches")
+    block, block_measured = _block_kernel(
+        torch, dev, fold_in(key, 1), N, n_err, alice_t,
+        lambda: _wall(torch, lambda: keys(key, N, QBER)))
     report = {"card": card, "code": code.name, "frames": PROTOCOL_FRAMES, "qber": q,
               "keygen_s": keygen_s, "keygen_launches": keygen_launches,
-              "keygen_tie_block_s": tie_block_s}
+              "block_words": block}
 
     # ---- the Reconciler, 128 and 101 lanes, against the plain versions ------
     rec_report = {}
@@ -1186,7 +1270,7 @@ def _protocol(torch, np, dev, card, code, names):
                big_frame_walls=big_walls)
     report["amplification"] = amp
     report["seconds"] = time.perf_counter() - t_phase
-    return report
+    return report, block_measured
 
 
 def _reference_alist_and_example():
@@ -1340,7 +1424,11 @@ def _cli_sweep(torch, np, dev, card, code, names):
                   "ingest_ms": ingest_ms,
                   "alist_kernel_cells": cells}
 
-        wall_a, launches_a, csv_a, _, cfg_a = sweep("A", both, compact_after=8)
+        with _counting_calls(device_loop.Graph, "replay") as replays_a:
+            wall_a, launches_a, csv_a, _, cfg_a = sweep("A", both, compact_after=8)
+        if replays_a[0] != 2 * points:  # a point of 1000 trials is one chunk
+            raise AssertionError(f"sweep A: {replays_a[0]} graph replays for {2 * points} "
+                                 "one-chunk points")
         lines_a, rows_a = rows(csv_a[0])
         if len(lines_a) != 2 * points + 1 or len(csv_a) != 1:
             raise AssertionError(f"sweep A wrote {len(lines_a)} lines")
@@ -1364,7 +1452,7 @@ def _cli_sweep(torch, np, dev, card, code, names):
         report["A"] = {"wall_s": wall_a, "points": 2 * points, "batches": batches,
                        "trials": 2 * points * example["trials_number"],
                        "rows_per_s": 2 * points / wall_a, "launches": launches_a,
-                       "compact_after": 8}
+                       "graph_replays": replays_a[0], "compact_after": 8}
 
         # A's wall with the decode graphs and with the eager kernel loop, in
         # turns (graph, eager, eager, graph), each run a fresh sweep.
@@ -1484,6 +1572,7 @@ def _trace_cli_sweep(torch, code, card, untraced_ms):
     checkpoint so that both traced runs decode: its device-busy share of the
     untraced wall."""
     from qkd_ldpc_tpu_torch import cli
+    from qkd_ldpc_tpu_torch.decoder import device_loop
 
     _, example = _reference_alist_and_example()
     tmp = Path(tempfile.mkdtemp(prefix="cli_sweep_traced_"))
@@ -1497,7 +1586,11 @@ def _trace_cli_sweep(torch, code, card, untraced_ms):
                 if cli.main(["--config", str(tmp / "config.json"), "--no-progress"]):
                     raise AssertionError("the traced sweep failed")
 
-        _profile_path(torch, "cli_sweep_A", sweep_a, card, untraced_ms)
+        # a point of sweep A is one chunk, one replay: the window is a chunk's
+        # host calls (a run first, untraced, recaptures graphs evicted since)
+        sweep_a()
+        _profile_path(torch, "cli_sweep_A", sweep_a, card, untraced_ms,
+                      (device_loop.Graph, "replay"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2281,9 +2374,13 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
                                        gate=excess)[0]
     got = keys._exact_weight_flip(ties, alice, n_err, lambda: second,
                                   gated_tie_scores=lambda e: gated)
+    # k as one int32 on the card, as the captured chunk passes it to K3 and KT
+    k_dev = torch.tensor([n_err], dtype=torch.int32, device=dev)
+    got_k = keys._exact_weight_flip(ties, alice, k_dev, lambda: second,
+                                    gated_tie_scores=lambda e: gated)
     want = alice ^ keys._uniform_ties(ties, thresh, n_err, second, "xla")
     torch.cuda.synchronize()
-    tie_diff = int((got != want).sum())
+    tie_diff = int((got != want).sum()) + int((got_k != want).sum())
     if int(excess) != 1 or not torch.equal(gated, second) or tie_diff or torch.equal(
             got, bob_idx) or not bool(((got ^ alice).sum(dim=1) == n_err).all()):
         raise AssertionError(f"the gated tie path differs from _uniform_ties: {tie_diff} bits")
@@ -2310,12 +2407,15 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
                              f"{rows_moved} rows off index order")
     bob_w = bob_idx.clone()
     tie_ms = _time_ms(torch, lambda: cuda_select.complete_ties_cuda(
+        ties, thresh, k_dev, second, alice, bob_w, excess), flush)
+    tie_host_k_ms = _time_ms(torch, lambda: cuda_select.complete_ties_cuda(
         ties, thresh, n_err, second, alice, bob_w, excess), flush)
     tie_plain_ms = _time_ms(torch, lambda: alice ^ keys._uniform_ties(
         ties, thresh, n_err, second, "xla"), flush, repeats=5, warmup=1)
     tie_bound, tie_by = _bound(BATCH * N * (4 + 4 + 1 + 1) + BATCH * 4 + 4,
                                OPS_PER_SCORE_SELECT * BATCH * N)
     report["tie_path"] = {"rows": BATCH, "n": N, "k": n_err, "bits_differing": tie_diff,
+                          "k_on_card_ms": tie_ms, "k_as_argument_ms": tie_host_k_ms,
                           "gated_words_equal": True, "untouched_without_excess": True,
                           "many_ties": {"ties_a_row": [min(n_ats), max(n_ats)],
                                         "need": [min(needs), max(needs)],
@@ -2403,6 +2503,187 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
     report["reconciler_window_walls_s"] = {
         "frames": PROTOCOL_FRAMES, "lanes": 128, "window_1": walls[1], "window_4": walls[4]}
     return report, measured
+
+
+
+def _pool_bytes(torch, graph):
+    """Bytes of the segments of a captured graph's private memory pool, or
+    None where the allocator's snapshot does not name the pool."""
+    pool = tuple(graph.graph.pool())
+    sizes = [seg["total_size"] for seg in torch.cuda.memory_snapshot()
+             if "segment_pool_id" in seg and tuple(seg["segment_pool_id"]) == pool]
+    return sum(sizes) if sizes else None
+
+
+def _chunk_graph(torch, np, dev, card, code, names, point_key, key_c, opts, opts_l, opts_c,
+                 counted, as_stats):
+    """The trial chunk as one CUDA graph (``chunk_graph``): sweep A through
+    ``batch_simulation`` (config.example.json, compaction 8) captures once per
+    code and replays once per point; the chunk graph equals the eager chunk
+    (``device_loop.eager_loops()``) 7/7 with equal launch counts per kernel,
+    one replay per chunk, on the ``run_point`` legs (flooding and layered in
+    SP/bf16 and min-sum/int8, the continuation's crossover point) and on a
+    trial mesh of four shards on the card (also equal to ``run_point``); one
+    captured graph replays for four inputs that differ in key, error count,
+    first trial (one across 2**32) and tail, each equal to its eager chunk;
+    nothing raises under ``torch.cuda.set_sync_debug_mode("error")`` across
+    ``_dispatch_point`` (flooding and layered); and every graph captured here
+    reports its capture time, node counts and pool bytes."""
+    from qkd_ldpc_tpu_torch.channel import cuda_select
+    from qkd_ldpc_tpu_torch.channel.keys import derive_point_key, num_errors_for
+    from qkd_ldpc_tpu_torch.codes import list_matrix_files
+    from qkd_ldpc_tpu_torch.config import load_config
+    from qkd_ldpc_tpu_torch.decoder import device_loop
+    from qkd_ldpc_tpu_torch.parallel import make_trial_mesh, run_point_sharded
+    from qkd_ldpc_tpu_torch.sim import run_point, runner
+
+    K1, K2, K3, K4, K5, K6, KV = names
+    N = code.n_vars
+    trials = N_BATCHES * BATCH
+    report = {"card": card, "trials_per_leg": trials, "batch": BATCH}
+    captured = []  # (what, graph, seconds) of each capture of this phase
+    real_capture = device_loop.Graph.capture
+    what = ["?"]
+
+    def timed_capture(graph, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_capture(graph, *args, **kwargs)
+        torch.cuda.synchronize()
+        captured.append((what[0], graph, time.perf_counter() - t0))
+        return out
+
+    device_loop.Graph.capture = timed_capture
+    tmp = Path(tempfile.mkdtemp(prefix="chunk_graph_"))
+    try:
+        # ---- sweep A: one capture a code, one replay a point -------------------
+        what[0] = "sweep_A"
+        _, example = _reference_alist_and_example()
+        matrices = _matrix_dir(code, tmp / "matrices")
+        (tmp / "config.json").write_text(json.dumps(dict(
+            example, checkpoint_dir="", results_dir=str(tmp / "results"),
+            matrix_dir=str(matrices), compact_after=8)))
+        cfg = load_config(tmp / "config.json")
+        inputs = runner.prepare_sim_inputs(list_matrix_files(matrices), cfg)
+        points = sum(len(si.qber) for si in inputs)
+        with _counting_calls(device_loop.Graph, "replay") as replays:
+            t0 = time.perf_counter()
+            results = runner.batch_simulation(inputs, cfg, progress=False, device=dev)
+            torch.cuda.synchronize()
+            sweep_s = time.perf_counter() - t0
+        if len(results) != points or len(captured) != len(inputs) or replays[0] != points:
+            raise AssertionError(f"sweep A: {len(captured)} captures for {len(inputs)} codes, "
+                                 f"{replays[0]} replays for {points} points")
+        report["sweep_A"] = {"codes": len(inputs), "points": points, "captures": len(captured),
+                             "replays": replays[0], "first_run_s": sweep_s}
+
+        # ---- the chunk graph against the eager chunk, leg by leg ----------------
+        ms = dict(algorithm="min-sum", message_dtype="int8")
+        mesh = make_trial_mesh([dev] * PARALLEL_SHARDS)
+        legs = {
+            "flooding_sp_bf16": (lambda: run_point(
+                code, point_key, QBER, trials, BATCH, opts, prng="pallas"), 1),
+            "flooding_ms_int8": (lambda: run_point(
+                code, point_key, QBER, trials, BATCH, dataclasses.replace(opts, **ms),
+                prng="pallas"), 1),
+            "layered_sp_bf16": (lambda: run_point(
+                code, point_key, QBER, trials, BATCH, opts_l, prng="pallas"), 1),
+            "layered_ms_int8": (lambda: run_point(
+                code, point_key, QBER, trials, BATCH, dataclasses.replace(opts_l, **ms),
+                prng="pallas"), 1),
+            "continuation_crossover_point": (lambda: run_point(
+                code, key_c, WATERFALL_QBER, trials, BATCH, opts_c), 1),
+            "trial_mesh_flooding_sp_bf16": (lambda: run_point_sharded(
+                code, point_key, QBER, trials, BATCH, opts, mesh), PARALLEL_SHARDS),
+        }
+        kernels = (K1, K2, K3, K4, KV, K6, cuda_select.KERNEL_TIES, device_loop.KERNEL_ENTRY,
+                   device_loop.KERNEL_STEP, device_loop.KERNEL_SWEEP_STEP)
+        legs_report = {}
+        for name, (step, chunks) in legs.items():
+            what[0] = name
+            step()  # captures the leg's graph where it is new
+            with _counting_calls(device_loop.Graph, "replay") as replays:
+                (p_graph, _), graph_s, graph_counts = counted(step)
+            with device_loop.eager_loops():
+                (p_eager, _), eager_s, eager_counts = counted(step)
+            differing = {k: (graph_counts.get(k, 0), eager_counts.get(k, 0)) for k in kernels
+                         if graph_counts.get(k, 0) != eager_counts.get(k, 0)}
+            if as_stats(p_graph) != as_stats(p_eager) or differing or replays[0] != chunks:
+                raise AssertionError(
+                    f"chunk_graph {name}: graph {as_stats(p_graph)} against eager "
+                    f"{as_stats(p_eager)}, launches differing {differing}, "
+                    f"{replays[0]} replays for {chunks} chunks")
+            # every shard's chunk runs N_BATCHES batches of its lanes
+            batches = N_BATCHES * chunks
+            if (graph_counts.get(K4, 0), graph_counts.get(K3, 0), graph_counts.get(K1, 0)) != (
+                    2 * batches, batches, 0 if name.startswith("layered") else batches):
+                raise AssertionError(f"chunk_graph {name}: launches {graph_counts} for "
+                                     f"{batches} batches")
+            legs_report[name] = {"partials": as_stats(p_graph), "replays": replays[0],
+                                 "launches": graph_counts, "graph_s": graph_s,
+                                 "eager_s": eager_s}
+        if legs_report["trial_mesh_flooding_sp_bf16"]["partials"] != (
+                legs_report["flooding_sp_bf16"]["partials"]):
+            raise AssertionError("chunk_graph: the trial mesh differs from run_point")
+        report["graph_equals_eager"] = legs_report
+
+        # ---- one graph, four inputs: nothing of the first is frozen in ----------
+        what[0] = "four_inputs"
+        cases = (
+            ("qber_0.05_from_0", point_key, num_errors_for(N, QBER), 0, 2 * BATCH),
+            ("waterfall_across_2**32_tail", key_c, num_errors_for(N, WATERFALL_QBER),
+             2**32 - 300, 2 * BATCH - 212),
+            ("qber_0.03_tail", derive_point_key(MASTER_SEED, 5), num_errors_for(N, 0.03),
+             12345, BATCH + 1),
+            ("qber_0.06", derive_point_key(MASTER_SEED, 6), num_errors_for(N, 0.06), 7,
+             2 * BATCH),
+        )
+
+        def chunk(key, n_err, first, valid):
+            return runner._point_chunk(code, key, n_err, first, valid, BATCH, 2, opts,
+                                       "pallas", dev)
+
+        before = len(captured)
+        with _counting_calls(device_loop.Graph, "replay") as replays:
+            graph_out = [chunk(*c[1:]).tolist() for c in cases]
+        with device_loop.eager_loops():
+            eager_out = [chunk(*c[1:]).tolist() for c in cases]
+        if graph_out != eager_out or len({tuple(o) for o in graph_out}) != len(cases) or (
+                len(captured) - before != 1 or replays[0] != len(cases)):
+            raise AssertionError(f"one graph, four inputs: graph {graph_out}, eager "
+                                 f"{eager_out}, {len(captured) - before} captures, "
+                                 f"{replays[0]} replays")
+        report["one_graph_four_inputs"] = {
+            c[0]: {"n_errors": c[2], "first": c[3], "valid": c[4], "partials": o}
+            for c, o in zip(cases, graph_out)}
+
+        # ---- no host synchronisation across _dispatch_point ----------------------
+        sync = {}
+        for name, o in (("flooding", opts), ("layered", opts_l)):
+            want = as_stats(runner._collect_point(runner._dispatch_point(
+                code, point_key, QBER, trials, BATCH, o, prng="pallas", device=dev)[0]))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                futures, _ = runner._dispatch_point(code, point_key, QBER, trials, BATCH, o,
+                                                    prng="pallas", device=dev)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if as_stats(runner._collect_point(futures)) != want:
+                raise AssertionError(f"_dispatch_point {name} under the sync gate differs")
+            sync[name] = "no synchronising call"
+        report["sync_debug_error_mode_dispatch_point"] = sync
+    finally:
+        device_loop.Graph.capture = real_capture
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- what each capture cost ------------------------------------------------
+    report["captures"] = [{
+        "leg": leg, "seconds": seconds, "nodes": graph.nodes, "kernel_nodes": len(graph.outer),
+        "while_nodes": len(graph.bodies), "while_body_kernels": sum(map(len, graph.bodies)),
+        "loop_counters": int(graph.passes.shape[0]), "pool_bytes": _pool_bytes(torch, graph)}
+        for leg, graph, seconds in captured]
+    return report
 
 
 def main() -> int:
@@ -2721,7 +3002,7 @@ def main() -> int:
              cuda_kernels.KERNEL_FRESH, cuda_layered.KERNEL_NAME,
              cuda_kernels.KERNEL_VARIABLE)
     K1, K2, K3, K4, K5, K6, KV = names
-    KT = cuda_select.KERNEL_TIES
+    KT, KB = cuda_select.KERNEL_TIES, cuda_prng.KERNEL_BLOCK
     KE, KS, KW = device_loop.KERNEL_ENTRY, device_loop.KERNEL_STEP, device_loop.KERNEL_SWEEP_STEP
 
     def counted(step):
@@ -2785,12 +3066,12 @@ def main() -> int:
     def flooding_step():
         return run_point(code, point_key, QBER, trials, BATCH, opts, prng="pallas")
 
-    run_point(code, point_key, QBER, BATCH, BATCH, opts, prng="pallas")  # warm-up
+    flooding_step()  # warm-up: captures the chunk's graph
     with _counting_calls(device_loop.Graph, "replay") as replays:
         (partials, actual_qber), seconds, launches = counted(flooding_step)
     replays_main = replays[0]
-    if replays_main != N_BATCHES:
-        raise AssertionError(f"main path: {replays_main} decode-graph replays for "
+    if replays_main != 1:
+        raise AssertionError(f"main path: {replays_main} graph replays for one chunk of "
                              f"{N_BATCHES} batches")
     # every batch's decode: one replay; its loops' bookkeeping on the card
     if launches.get(KE, 0) != 3 * N_BATCHES or launches.get(KS, 0) != launches.get(K2, 0):
@@ -2839,7 +3120,7 @@ def main() -> int:
         "card": card, "code": code.name, "qber": actual_qber, "trials": trials,
         "batch": BATCH, "partials": stats, "mean_iterations": mean_it,
         "launches": launches, "expected_fused_launches": expected_fused,
-        "graph_replays_per_batch": replays_main / N_BATCHES,
+        "graph_replays_per_chunk": replays_main, "batches_per_chunk": N_BATCHES,
         "compaction_overflow": overflowed, "seconds": seconds,
         "frames_per_s": trials / seconds,
         "ms_per_decode_iteration": seconds * 1e3 / fused,
@@ -2855,7 +3136,7 @@ def main() -> int:
     def layered_step():
         return run_point(code, point_key, QBER, trials, BATCH, opts_l, prng="pallas")
 
-    run_point(code, point_key, QBER, BATCH, BATCH, opts_l, prng="pallas")  # warm-up
+    layered_step()  # warm-up: captures the chunk's graph
     (partials_l, _), seconds_l, launches_l = counted(layered_step)
     stats_l = as_stats(partials_l)
     mean_sweeps = partials_l.sum_it / max(partials_l.n_sp, 1)
@@ -2906,6 +3187,7 @@ def main() -> int:
     def waterfall_plain_step():
         return run_point(code, key_c, WATERFALL_QBER, trials, BATCH, opts_c)
 
+    waterfall_plain_step()  # warm-up: captures the chunk's graph
     (plain_c, qber_p), seconds_p, launches_p = counted(waterfall_plain_step)
     stats_c, stats_p = as_stats(partials_c), as_stats(plain_c)
     if stats_c != stats_p or qber_c != qber_p:
@@ -2976,6 +3258,12 @@ def main() -> int:
         torch, np, dev, card, flush, code, point_key, key_c, opts_c, counted, as_stats)
     print(json.dumps({"device_loops": loops_report}), flush=True)
 
+    # ---- phase 3e: the trial chunk as one CUDA graph (chunk_graph) -------------
+    phase_start("chunk_graph")
+    print(json.dumps({"chunk_graph": _chunk_graph(
+        torch, np, dev, card, code, names, point_key, key_c, opts, opts_l, opts_c,
+        counted, as_stats)}), flush=True)
+
     # ---- phase 4: identity against the plain versions on the card ----------
     phase_start("identity")
     def seven(alg, backend, path):
@@ -3017,7 +3305,8 @@ def main() -> int:
 
     # ---- phase 6: the protocol surface (protocol) ------------------------------
     phase_start("protocol")
-    print(json.dumps({"protocol": _protocol(torch, np, dev, card, code, names)}),
+    protocol_report, block_kernel = _protocol(torch, np, dev, card, code, names)
+    print(json.dumps({"protocol": protocol_report}),
           flush=True)
 
     # ---- phase 7: parallel/ on one card (parallel) --------------------------------
@@ -3062,13 +3351,18 @@ def main() -> int:
             stage_ms(lambda: make_trial_batch(point_key, N, BATCH, n_err, 0)))
         if keygen > KEYGEN_LAUNCH_LIMIT:
             raise AssertionError(f"one batch of trials took {keygen} launches on the card")
-        # a decode (flooding, layered) or an outer step's segment (the
-        # continuation) is one graph replay: the marker opens each
+        # a trial chunk (flooding, layered) or an outer step's segment (the
+        # continuation) is one graph replay: the marker opens each.  The two
+        # trial paths are traced in chunks of two batches (two replays a run).
         starts = (device_loop.Graph, "replay")
-        _profile_path(torch, "flooding", flooding_step, card, seconds * 1e3,
-                      starts, keygen * N_BATCHES)
-        _profile_path(torch, "layered", layered_step, card, seconds_l * 1e3,
-                      starts, keygen * N_BATCHES)
+        for path, o, wall_s in (("flooding", opts, seconds), ("layered", opts_l, seconds_l)):
+            def two_chunks(o=o):
+                return run_point(code, point_key, QBER, trials, BATCH, o, prng="pallas",
+                                 max_batches_per_dispatch=N_BATCHES // 2)
+
+            two_chunks()  # captures the two-batch chunk's graph
+            _profile_path(torch, path, two_chunks, card, wall_s * 1e3, starts,
+                          keygen * N_BATCHES)
         _profile_path(torch, "continuation", continuation_step, card, seconds_c * 1e3,
                       starts, keygen * N_BATCHES)
         _trace_cli_sweep(torch, code, card, wall_a * 1e3)
@@ -3092,7 +3386,7 @@ def main() -> int:
         # the check degrees (K1/K2/K5/KV) and base-row degrees (K6) at which
         # the kernel was held to its plain version; the channel kernels have none
         degrees = {K6: sorted({6, *layered_degrees}), K3: None, K4: None, KT: None,
-                   KE: None, KS: None, KW: None}.get(name, flooding_degrees)
+                   KB: None, KE: None, KS: None, KW: None}.get(name, flooding_degrees)
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "max_abs_err": meas["max_abs_err"],
@@ -3126,6 +3420,10 @@ def main() -> int:
         # the control flow that the JAX package compiles into its programs
         kernel_line(KT, csrc + "kth_smallest.cu",
                     "qkd_ldpc_tpu/channel/keys.py:167", loop_kernels[KT], launches),
+        # the protocol's key blocks; the tie block under lax.cond(has_excess)
+        kernel_line(KB, csrc + "threefry_words.cu",
+                    "qkd_ldpc_tpu/channel/keys.py:182", block_kernel,
+                    protocol_report["keygen_launches"]),
         kernel_line(KE, csrc + "device_loop.cu",
                     "qkd_ldpc_tpu/decoder/bp.py:447", loop_kernels[KE], launches),
         kernel_line(KS, csrc + "device_loop.cu",

@@ -15,10 +15,12 @@ takes that path on the card, gated on the flag there (``keys.py``'s
 The plain version finds ``t`` by the JAX package's 32-pass bitwise prefix
 search (greedy largest prefix P with ``count(s < P) < k``); the kernel by a
 radix select.  The k-th smallest value is unique, so both give the same
-threshold bit for bit.  ``k`` may be one int or one per row (the tie path
-ranks its second words with a per-row k); without Alice's row only the
-threshold is computed (:func:`kth_smallest`).  Scores and thresholds are
-int32 tensors holding raw uint32 bits (see ``channel/threefry.py``).
+threshold bit for bit.  ``k`` may be one int, one int32 ``[1]`` tensor
+(read by the kernel on the card: a captured trial chunk's error count) or
+one per row (the tie path ranks its second words with a per-row k); without
+Alice's row only the threshold is computed (:func:`kth_smallest`).  Scores
+and thresholds are int32 tensors holding raw uint32 bits (see
+``channel/threefry.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ KERNEL_TIES = "complete_ties"
 def _rows_k(scores: torch.Tensor, k) -> torch.Tensor:
     """``k`` broadcast to one int32 per row of ``scores[..., N]``."""
     k = torch.as_tensor(k, dtype=torch.int32, device=scores.device)
+    if k.numel() == 1:
+        k = k.reshape(())
     return k.broadcast_to(scores.shape[:-1])
 
 
@@ -94,8 +98,14 @@ def select_flip_cuda(scores: torch.Tensor, k, alice: torch.Tensor | None = None)
         raise ValueError("scores and alice must be contiguous")
     n = scores.shape[-1]
     rows = scores.numel() // n
-    # A Python int goes to the kernel as an argument: no tensor, no copy.
-    k_rows = None if isinstance(k, int) else _rows_k(scores, k).contiguous()
+    # A Python int goes to the kernel as an argument: no tensor, no copy; a
+    # tensor of one k is read by every row (stride 0).
+    k_rows, k_stride = None, 1
+    if isinstance(k, torch.Tensor) and k.numel() == 1 and k.dtype == torch.int32 and (
+            k.device == scores.device):
+        k_rows, k_stride = k.reshape(1), 0
+    elif not isinstance(k, int):
+        k_rows = _rows_k(scores, k).contiguous()
     thresh = torch.empty(scores.shape[:-1] + (1,), dtype=torch.int32, device=scores.device)
     bob = excess = None
     if alice is not None:
@@ -103,7 +113,7 @@ def select_flip_cuda(scores: torch.Tensor, k, alice: torch.Tensor | None = None)
         excess = torch.zeros(1, dtype=torch.int32, device=scores.device)
     fn = _build.function(
         "kth_smallest", "select_flip",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_int, ctypes.c_void_p],
     )
@@ -112,7 +122,7 @@ def select_flip_cuda(scores: torch.Tensor, k, alice: torch.Tensor | None = None)
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(scores.device):
-        err = fn(scores.data_ptr(), ptr(k_rows), k if k_rows is None else 0,
+        err = fn(scores.data_ptr(), ptr(k_rows), k_stride, k if k_rows is None else 0,
                  ptr(alice), ptr(bob), thresh.data_ptr(), ptr(excess), rows, n,
                  torch.cuda.current_stream().cuda_stream)
     _build.check_launch(KERNEL_NAME, err)
@@ -134,15 +144,22 @@ def kth_smallest(scores: torch.Tensor, k, backend: str = "auto") -> torch.Tensor
     return select_flip(scores, k, None, backend)[0]
 
 
-def complete_ties_cuda(scores: torch.Tensor, thresh: torch.Tensor, k: int,
+def _k_on(k: torch.Tensor, device) -> torch.Tensor:
+    """A one-element k as the int32 the kernels read on ``device``."""
+    if k.dtype != torch.int32 or k.device != device:
+        raise ValueError("a tensor k must be int32 on the scores' device")
+    return k.reshape(1)
+
+
+def complete_ties_cuda(scores: torch.Tensor, thresh: torch.Tensor, k,
                        second: torch.Tensor, alice: torch.Tensor, bob: torch.Tensor,
                        excess: torch.Tensor) -> torch.Tensor:
     """Launch the tie-completion kernel on the current stream: where the
     ``excess`` flag that :func:`select_flip` wrote is set (read on the card,
     never by the host), rewrite ``bob`` IN PLACE for the rows whose threshold
     ties are ranked by the ``second`` words, then by index
-    (``keys._uniform_ties`` is its plain version); a no-op otherwise.
-    Returns ``bob``."""
+    (``keys._uniform_ties`` is its plain version); a no-op otherwise.  ``k``
+    is an int or an int32 ``[1]`` tensor on the card.  Returns ``bob``."""
     _check(scores, alice)
     tensors = (scores, thresh, second, alice, bob, excess)
     if any(not t.is_cuda or not t.is_contiguous() or t.device != scores.device
@@ -157,13 +174,16 @@ def complete_ties_cuda(scores: torch.Tensor, thresh: torch.Tensor, k: int,
     if excess.shape != (1,) or excess.dtype != torch.int32:
         raise ValueError("excess must be int32 [1]")
     n = scores.shape[-1]
+    k_dev = _k_on(k, scores.device) if isinstance(k, torch.Tensor) else None
     fn = _build.function(
         "kth_smallest", "complete_ties",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     )
     with torch.cuda.device(scores.device):
-        err = fn(scores.data_ptr(), thresh.data_ptr(), int(k), second.data_ptr(),
+        err = fn(scores.data_ptr(), thresh.data_ptr(),
+                 None if k_dev is None else k_dev.data_ptr(),
+                 0 if k_dev is not None else int(k), second.data_ptr(),
                  alice.data_ptr(), bob.data_ptr(), excess.data_ptr(), scores.numel() // n,
                  n, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(KERNEL_TIES, err)

@@ -26,13 +26,16 @@ taken on the card: K4's tie-row launch and the tie-completion kernel read
 the flag from device memory and return at once where it is 0, so a batch of
 trials is four launches and no host read.  Off the card (and under
 ``backend="xla"``) the flag is read and the plain passes run only when it is
-set.
+set.  The point key, the first trial id and the error count may lie on the
+card (a captured trial chunk's inputs): the kernels read them there.
 
 The protocol's keys (:func:`generate_random_bits`, :func:`introduce_errors`)
-are one ``[B, N]`` block drawn from one key, not a batch of trials: the JAX
-package draws those words with ``jax.random`` outside any Pallas kernel, so
-the port draws them with the plain threefry of ``channel/threefry.py`` on
-the block's device; Bob's flips are K3's.
+are one ``[B, N]`` block drawn from one key, not a batch of trials, which
+the JAX package draws with ``jax.random`` outside any Pallas kernel.  On the
+card the port draws such a block with the flat-block kernel of
+``csrc/threefry_words.cu`` (:func:`block_words`); Bob's flips are K3's, and
+the tie block of :func:`introduce_errors` is drawn only where K3's flag is
+set, read on the card (JAX's ``lax.cond(has_excess)``).
 """
 
 
@@ -42,10 +45,12 @@ import math
 
 import torch
 
+from qkd_ldpc_tpu_torch.channel import cuda_prng
 from qkd_ldpc_tpu_torch.channel.cuda_prng import (
     ALICE,
     SCORES,
     TIES,
+    DeviceRange,
     trial_words,
     trial_words_cuda,
 )
@@ -63,7 +68,6 @@ from qkd_ldpc_tpu_torch.channel.threefry import (
     flip_sign,
     fold_in,
     prng_key,
-    random_bits,
 )
 from qkd_ldpc_tpu_torch.utils import resolve_device, tensor_on
 
@@ -89,10 +93,12 @@ def num_errors_for(n_bits: int, qber: float) -> int:
     return int(n_bits * qber)
 
 
-def block_words(key: torch.Tensor, shape: tuple, device) -> torch.Tensor:
+def block_words(key: torch.Tensor, shape: tuple, device, gate=None) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int32 raw words on
-    ``device`` (the flat block of ``prod(shape)`` words, reshaped)."""
-    return random_bits(key.to(device), math.prod(shape)).view(shape)
+    ``device`` (the flat block of ``prod(shape)`` words, reshaped): the
+    flat-block kernel on the card, where ``gate`` (int32 ``[1]`` there) may
+    skip it; plain threefry elsewhere."""
+    return cuda_prng.block_words(key, math.prod(shape), device, gate=gate).view(shape)
 
 
 def generate_random_bits(key: torch.Tensor, n_bits: int, batch: int,
@@ -109,17 +115,18 @@ def introduce_errors(key: torch.Tensor, bits, num_errors,
     ``bits`` [B, N] uint8 (a tensor stays on its device; anything else goes
     to ``device``, None = the card).  The scores are one ``[B, N]`` block of
     ``key``, the threshold ties ranked by the block of ``fold_in(key, 1)``;
-    the selection and the flip are K3's on the card.  There the tie block
-    (plain threefry) is made on every call, needed or not, so that no host
-    read of the excess-ties flag is made: the same work again as the score
-    block."""
+    the selection and the flip are K3's on the card.  The tie block is drawn
+    only where some row has excess ties: on the card the flat-block kernel
+    reads K3's flag there and writes nothing where it is 0 (no host read),
+    elsewhere the flag is read first."""
     bits = tensor_on(bits, device, torch.uint8)
     B, N = bits.shape
     scores = block_words(key, (B, N), bits.device)
     tie_key = fold_in(key, 1)
     return _exact_weight_flip(
         scores, bits.contiguous(), num_errors,
-        lambda: block_words(tie_key, (B, N), bits.device))
+        lambda: block_words(tie_key, (B, N), bits.device),
+        gated_tie_scores=lambda excess: block_words(tie_key, (B, N), bits.device, excess))
 
 
 def _exact_weight_flip(scores: torch.Tensor, alice: torch.Tensor, num_errors,
@@ -144,8 +151,10 @@ def _exact_weight_flip(scores: torch.Tensor, alice: torch.Tensor, num_errors,
     given, replaces the thunk there: K4 generates the words under the same
     gate); elsewhere the flag is read and the plain passes run only when it
     is set.  Without ``tie_scores_fn``, ties complete in index order.
+    ``num_errors`` is an int or an int32 ``[1]`` tensor (on the card: read
+    there by the kernels).
     """
-    k = int(num_errors)
+    k = num_errors if isinstance(num_errors, torch.Tensor) else int(num_errors)
     thresh, bob, excess = select_flip(scores, k, alice, backend)
     # A choice among ties exists only when more scores sit at the
     # threshold than are needed; rows where n_at == need take all ties in
@@ -160,7 +169,7 @@ def _exact_weight_flip(scores: torch.Tensor, alice: torch.Tensor, num_errors,
     return alice ^ _uniform_ties(scores, thresh, k, tie_scores_fn(), backend)
 
 
-def _uniform_ties(scores, thresh, k: int, tie_scores, backend) -> torch.Tensor:
+def _uniform_ties(scores, thresh, k, tie_scores, backend) -> torch.Tensor:
     """The second-word tie path, plain passes: the flip mask (uint8) whose
     threshold ties are ranked by ``tie_scores``, then by index."""
     s, t = flip_sign(scores), flip_sign(thresh)
@@ -191,7 +200,9 @@ def make_trials_from_ids(
     (master seed, sweep point, trial index) — a sweep chunked as 2x512 or
     1x1024 sees identical trials.  ``trial_ids`` is a ``[B]`` integer tensor
     or a ``range`` of step 1 (ids taken mod 2**32; on the card it needs no
-    ids tensor).  ``point_key`` is read on the host.
+    ids tensor), or a :class:`~qkd_ldpc_tpu_torch.channel.cuda_prng.DeviceRange`
+    (its base on the card).  ``point_key`` and ``num_errors`` (an int32
+    ``[1]`` tensor) may lie on the card, where the kernels read them.
 
     ``prng`` keeps the JAX package's two contract names.  ``"pallas"``
     there is the TPU's hardware generator, which no other machine can
@@ -206,7 +217,7 @@ def make_trials_from_ids(
             "or 'pallas' (v2)"
         )
     device = resolve_device(device)
-    if not isinstance(trial_ids, range):
+    if not isinstance(trial_ids, (range, DeviceRange)):
         trial_ids = torch.as_tensor(trial_ids)
     alice, scores = trial_words(point_key, n_bits, trial_ids, (ALICE, SCORES),
                                 backend, device)

@@ -182,3 +182,17 @@ extern "C" int while_end(void* body_stream) {
     cudaGraph_t body;
     return static_cast<int>(cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream), &body));
 }
+
+// The number of top-level nodes (kernels, copies, memsets, WHILE nodes) of the
+// graph that `stream` is capturing, so far.  Returns a cudaError_t.
+extern "C" int capture_nodes(void* stream, unsigned long long* count) {
+    cudaGraph_t graph;
+    const cudaGraphNode_t* deps;
+    size_t n;
+    cudaError_t e = capture_info(static_cast<cudaStream_t>(stream), &graph, &deps, &n);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    size_t nodes = 0;
+    e = cudaGraphGetNodes(graph, nullptr, &nodes);
+    *count = nodes;
+    return static_cast<int>(e);
+}

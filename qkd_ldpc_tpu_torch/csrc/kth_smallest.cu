@@ -72,7 +72,8 @@ __device__ __forceinline__ void store_bytes(uint8_t* row, int q, uint32_t x) {
 template <int G, int VEC>
 __global__ void __launch_bounds__(kThreads, G > 0 ? 2 : 1)
 select_flip_kernel(const uint32_t* __restrict__ scores, const int* __restrict__ k_rows,
-                   int k_all, const uint8_t* __restrict__ alice, uint8_t* __restrict__ bob,
+                   int k_stride, int k_all, const uint8_t* __restrict__ alice,
+                   uint8_t* __restrict__ bob,
                    uint32_t* __restrict__ thresh, int* __restrict__ excess, int n) {
     __shared__ int hist[2][256];
     __shared__ int warp_count[2][kWarps];
@@ -84,7 +85,7 @@ select_flip_kernel(const uint32_t* __restrict__ scores, const int* __restrict__ 
     uint8_t* b_row = bob ? bob + base : nullptr;
     const int tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
-    const int k = k_rows ? k_rows[row] : k_all;
+    const int k = k_rows ? k_rows[row * k_stride] : k_all;
     const int groups = n / VEC;  // n % VEC == 0
 
     Group<VEC> reg[G > 0 ? G : 1];
@@ -248,19 +249,19 @@ select_flip_kernel(const uint32_t* __restrict__ scores, const int* __restrict__ 
 constexpr int kRegisterWidths[] = {8, 20};
 
 template <int W, int VEC>
-int launch(int rows, const uint32_t* s, const int* k, int k_all, const uint8_t* a,
+int launch(int rows, const uint32_t* s, const int* k, int ks, int k_all, const uint8_t* a,
            uint8_t* b, uint32_t* t, int* e, int n, cudaStream_t st) {
-    select_flip_kernel<W / VEC, VEC><<<rows, kThreads, 0, st>>>(s, k, k_all, a, b, t, e, n);
+    select_flip_kernel<W / VEC, VEC><<<rows, kThreads, 0, st>>>(s, k, ks, k_all, a, b, t, e, n);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <int VEC>
-int launch_width(int width, int rows, const uint32_t* s, const int* k, int k_all,
+int launch_width(int width, int rows, const uint32_t* s, const int* k, int ks, int k_all,
                  const uint8_t* a, uint8_t* b, uint32_t* t, int* e, int n, cudaStream_t st) {
     switch (width) {
-        case 8: return launch<8, VEC>(rows, s, k, k_all, a, b, t, e, n, st);
-        case 20: return launch<20, VEC>(rows, s, k, k_all, a, b, t, e, n, st);
-        default: return launch<0, VEC>(rows, s, k, k_all, a, b, t, e, n, st);
+        case 8: return launch<8, VEC>(rows, s, k, ks, k_all, a, b, t, e, n, st);
+        case 20: return launch<20, VEC>(rows, s, k, ks, k_all, a, b, t, e, n, st);
+        default: return launch<0, VEC>(rows, s, k, ks, k_all, a, b, t, e, n, st);
     }
 }
 
@@ -284,10 +285,12 @@ extern "C" int select_flip_vector(int n, const void* scores, const void* alice,
     return n % 4 == 0 && aligned ? 4 : 1;
 }
 
-// k_rows == nullptr: every row takes k_all.  alice == nullptr: the threshold
-// only (bob and excess unused).  *excess must be 0 on entry; the kernel sets
-// it to 1 if any row has more ties at its threshold than it needs.
-extern "C" int select_flip(const void* scores, const void* k_rows, int k_all,
+// k_rows == nullptr: every row takes k_all; else row r takes k_rows[r * k_stride]
+// (k_stride 0: one k on the card for every row, as a captured trial chunk
+// passes the point's error count).  alice == nullptr: the threshold only (bob
+// and excess unused).  *excess must be 0 on entry; the kernel sets it to 1 if
+// any row has more ties at its threshold than it needs.
+extern "C" int select_flip(const void* scores, const void* k_rows, int k_stride, int k_all,
                            const void* alice, void* bob, void* thresh, void* excess,
                            int rows, int n, void* stream) {
     const uint32_t* s = static_cast<const uint32_t*>(scores);
@@ -299,8 +302,8 @@ extern "C" int select_flip(const void* scores, const void* k_rows, int k_all,
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int width = select_flip_width(n);
     if (select_flip_vector(n, scores, alice, bob) == 4)
-        return launch_width<4>(width, rows, s, k, k_all, a, b, t, e, n, st);
-    return launch_width<1>(width, rows, s, k, k_all, a, b, t, e, n, st);
+        return launch_width<4>(width, rows, s, k, k_stride, k_all, a, b, t, e, n, st);
+    return launch_width<1>(width, rows, s, k, k_stride, k_all, a, b, t, e, n, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -326,10 +329,11 @@ namespace {
 
 __global__ void __launch_bounds__(kThreads)
 complete_ties_kernel(const uint32_t* __restrict__ scores, const uint32_t* __restrict__ thresh,
-                     int k, const uint32_t* __restrict__ second,
-                     const uint8_t* __restrict__ alice, uint8_t* __restrict__ bob,
-                     const int* __restrict__ excess, int n) {
+                     const int* __restrict__ k_dev, int k_arg,
+                     const uint32_t* __restrict__ second, const uint8_t* __restrict__ alice,
+                     uint8_t* __restrict__ bob, const int* __restrict__ excess, int n) {
     if (*excess == 0) return;
+    const int k = k_dev ? *k_dev : k_arg;
     __shared__ unsigned hist[256];
     __shared__ int counts[2];
     __shared__ unsigned digit_state[2];  // prefix, rank left
@@ -404,12 +408,14 @@ complete_ties_kernel(const uint32_t* __restrict__ scores, const uint32_t* __rest
 
 // Rewrites bob [rows, n] where some row's ties need the second word (see
 // complete_ties_kernel); a no-op launch when *excess == 0.  `scores`, `second`
-// [rows, n] uint32, `thresh` [rows] uint32.  Returns cudaGetLastError().
-extern "C" int complete_ties(const void* scores, const void* thresh, int k,
+// [rows, n] uint32, `thresh` [rows] uint32; k is the int at `k_dev` (on the
+// card) where that is not null, else `k`.  Returns cudaGetLastError().
+extern "C" int complete_ties(const void* scores, const void* thresh, const void* k_dev, int k,
                              const void* second, const void* alice, void* bob,
                              const void* excess, int rows, int n, void* stream) {
     complete_ties_kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(scores), static_cast<const uint32_t*>(thresh), k,
+        static_cast<const uint32_t*>(scores), static_cast<const uint32_t*>(thresh),
+        static_cast<const int*>(k_dev), k,
         static_cast<const uint32_t*>(second), static_cast<const uint8_t*>(alice),
         static_cast<uint8_t*>(bob), static_cast<const int*>(excess), n);
     return static_cast<int>(cudaGetLastError());

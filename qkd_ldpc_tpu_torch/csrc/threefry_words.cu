@@ -10,7 +10,10 @@
 //   scores     sk = fold_in(tk, 1)   word i
 //   tie words  fold_in(sk, 1)        word i
 // where word_i = x0 ^ x1 of threefry(key, (0, i)) (jax.random.bits).  The trial
-// id of row r is ids[r] (mod 2^32) or, without an id array, first + r (mod 2^32).
+// id of row r is ids[r] (mod 2^32) or, without an id array, base + first + r
+// (mod 2^32).  The point key and the base may be read from device memory: a
+// captured trial chunk (sim/runner.py) replays the same launch for every point
+// and chunk, whose key and first trial id the replay copies in.
 //
 // Bound on this card: the integer work of the 20-round loop, one threefry
 // block per emitted word; the writes (Alice's bit as a byte and the score
@@ -54,19 +57,21 @@ __device__ __forceinline__ uint2 threefry(uint32_t k0, uint32_t k1, uint32_t cou
 }
 
 __global__ void __launch_bounds__(kThreads)
-trial_rows_kernel(uint32_t pk0, uint32_t pk1, const int64_t* __restrict__ ids,
-                  uint32_t first, int n, uint8_t* __restrict__ alice,
-                  uint32_t* __restrict__ scores, uint32_t* __restrict__ ties,
-                  const int* __restrict__ gate) {
+trial_rows_kernel(uint32_t pk0, uint32_t pk1, const uint32_t* __restrict__ key,
+                  const int64_t* __restrict__ ids, uint32_t first,
+                  const uint32_t* __restrict__ first_dev, int n,
+                  uint8_t* __restrict__ alice, uint32_t* __restrict__ scores,
+                  uint32_t* __restrict__ ties, const int* __restrict__ gate) {
     __shared__ uint2 row_key[3];  // Alice, scores, tie words
     // the tie rows of a batch whose excess-ties flag (K3's) is 0 are not needed
     if (gate != nullptr && *gate == 0) return;
     const size_t row = blockIdx.x;
     const int tid = threadIdx.x;
     if (tid < 32) {
+        const uint32_t base = first_dev ? *first_dev : 0u;
         const uint32_t id = ids ? static_cast<uint32_t>(ids[row])
-                                : first + static_cast<uint32_t>(row);
-        const uint2 tk = threefry(pk0, pk1, id);
+                                : base + first + static_cast<uint32_t>(row);
+        const uint2 tk = key ? threefry(key[0], key[1], id) : threefry(pk0, pk1, id);
         if (tid == 0 && alice) row_key[0] = threefry(tk.x, tk.y, 0u);
         if (tid == 1 && (scores || ties)) {
             const uint2 sk = threefry(tk.x, tk.y, 1u);
@@ -95,20 +100,61 @@ trial_rows_kernel(uint32_t pk0, uint32_t pk1, const int64_t* __restrict__ ids,
     }
 }
 
+// The flat block of jax.random.bits(key, shape, uint32): word i = x0 ^ x1 of
+// threefry(key, (0, i)) for the flat row-major index i (< 2^32), as
+// channel/threefry.py::random_bits gives it.  The protocol's key blocks
+// (qkd_ldpc_tpu/channel/keys.py:171-184 draws them with jax.random outside any
+// Pallas kernel) and the tie words of introduce_errors, which JAX draws only
+// under lax.cond(has_excess) (keys.py:167): here `gate` (K3's excess flag, on
+// the card) skips the block where it reads 0.  Bound: the same integer work as
+// trial_rows_kernel, one threefry block a word; each thread writes
+// kWordsPerThread words kThreads apart (coalesced).
+__global__ void __launch_bounds__(kThreads)
+block_words_kernel(uint32_t pk0, uint32_t pk1, const uint32_t* __restrict__ key,
+                   uint32_t* __restrict__ out, long long count, const int* __restrict__ gate) {
+    if (gate != nullptr && *gate == 0) return;
+    const uint32_t k0 = key ? key[0] : pk0, k1 = key ? key[1] : pk1;
+    const long long first = static_cast<long long>(blockIdx.x) * kWordsPerBlock;
+#pragma unroll
+    for (int j = 0; j < kWordsPerThread; ++j) {
+        const long long i = first + j * kThreads + threadIdx.x;
+        if (i >= count) break;
+        const uint2 w = threefry(k0, k1, static_cast<uint32_t>(i));
+        out[i] = w.x ^ w.y;
+    }
+}
+
 }  // namespace
 
-// ids == nullptr: row r is trial first + r.  alice / scores / ties may each be
-// nullptr (that row is not emitted).  gate (an int on the card, may be null):
-// where it reads 0 the launch writes nothing (the tie path, lax.cond of
-// qkd_ldpc_tpu/channel/keys.py:167, taken on the card: the gate is K3's
-// excess-ties flag).
-extern "C" int trial_rows(unsigned int pk0, unsigned int pk1, const void* ids,
-                          unsigned int first, int batch, int n, void* alice,
-                          void* scores, void* ties, const void* gate, void* stream) {
+// The point key is (pk0, pk1), or the two words at `key` (uint32 on the card,
+// may be null) where given.  ids == nullptr: row r is trial base + first + r
+// (mod 2^32), base the uint32 at `first_dev` (on the card; 0 when null).
+// alice / scores / ties may each be nullptr (that row is not emitted).  gate
+// (an int on the card, may be null): where it reads 0 the launch writes
+// nothing (the tie path, lax.cond of qkd_ldpc_tpu/channel/keys.py:167, taken
+// on the card: the gate is K3's excess-ties flag).
+extern "C" int trial_rows(unsigned int pk0, unsigned int pk1, const void* key, const void* ids,
+                          unsigned int first, const void* first_dev, int batch, int n,
+                          void* alice, void* scores, void* ties, const void* gate,
+                          void* stream) {
     dim3 grid(batch, (n + kWordsPerBlock - 1) / kWordsPerBlock);
     trial_rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        pk0, pk1, static_cast<const int64_t*>(ids), first, n,
-        static_cast<uint8_t*>(alice), static_cast<uint32_t*>(scores),
-        static_cast<uint32_t*>(ties), static_cast<const int*>(gate));
+        pk0, pk1, static_cast<const uint32_t*>(key), static_cast<const int64_t*>(ids), first,
+        static_cast<const uint32_t*>(first_dev), n, static_cast<uint8_t*>(alice),
+        static_cast<uint32_t*>(scores), static_cast<uint32_t*>(ties),
+        static_cast<const int*>(gate));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// `count` words of the flat block of the key (pk0, pk1), or of the two words at
+// `key` (uint32 on the card) where given, into `out`; nothing where the int at
+// `gate` (may be null) reads 0.  count < 2^32.
+extern "C" int block_words(unsigned int pk0, unsigned int pk1, const void* key, void* out,
+                           long long count, const void* gate, void* stream) {
+    const long long blocks = (count + kWordsPerBlock - 1) / kWordsPerBlock;
+    block_words_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        pk0, pk1, static_cast<const uint32_t*>(key), static_cast<uint32_t*>(out), count,
+        static_cast<const int*>(gate));
     return static_cast<int>(cudaGetLastError());
 }

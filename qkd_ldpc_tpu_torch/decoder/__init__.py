@@ -15,7 +15,12 @@ from qkd_ldpc_tpu_torch.decoder.bp import (
     decode,
 )
 from qkd_ldpc_tpu_torch.decoder.layered import layered_decode_batch_last
-from qkd_ldpc_tpu_torch.decoder.oracle import OracleResult, oracle_decode, oracle_syndrome
+from qkd_ldpc_tpu_torch.decoder.oracle import (
+    OracleResult,
+    oracle_decode,
+    oracle_reconcile,
+    oracle_syndrome,
+)
 from qkd_ldpc_tpu_torch.decoder.rate_adapt import RateAdapter
 from qkd_ldpc_tpu_torch.decoder.reconcile import (
     ReconcileResult,
@@ -43,6 +48,7 @@ __all__ = [
     "blind_reconcile",
     "blind_reconcile_sim",
     "oracle_decode",
+    "oracle_reconcile",
     "oracle_syndrome",
     "OracleResult",
 ]

@@ -30,11 +30,13 @@ package's, restated for PyTorch:
   on the iteration where its decision syndrome first equals the target.
 - **One device program per decode**, as the JAX package's ``jit``: on the
   card the kernel backend captures the whole decode (peeled K1, the loops,
-  the compaction's ops) as one CUDA graph per (code, B, options, thread)
+  the compaction's ops) as one CUDA graph per (code, B, options, card)
   and replays it, so a decode makes no host round trip between its input
-  and its output.  ``lax.while_loop`` becomes a WHILE node whose condition a
-  bookkeeping kernel sets on the card, ``lax.cond`` (phase C) a WHILE node
-  whose entry test is the cond's predicate (``decoder/device_loop.py``).
+  and its output; a trial chunk (``sim/runner.py``) captures the same
+  program once per batch inside its own graph (:func:`decode_program`).
+  ``lax.while_loop`` becomes a WHILE node whose condition a bookkeeping
+  kernel sets on the card, ``lax.cond`` (phase C) a WHILE node whose entry
+  test is the cond's predicate (``decoder/device_loop.py``).
   The same program runs eagerly on the CPU, under ``backend="xla"``, and in
   ``device_loop.eager_loops()`` (the eager kernel loop the graph is held
   against); there the loop fetches its condition after every pass.
@@ -52,7 +54,7 @@ import torch
 from qkd_ldpc_tpu_torch import _build
 from qkd_ldpc_tpu_torch.codes.ldpc_code import LDPCCode
 from qkd_ldpc_tpu_torch.decoder import cuda_kernels, device_loop
-from qkd_ldpc_tpu_torch.decoder.layered import layered_decode_batch_last
+from qkd_ldpc_tpu_torch.decoder.layered import layered_decode_batch_last, layered_program
 from qkd_ldpc_tpu_torch.utils import resolve_device
 
 
@@ -298,6 +300,22 @@ def _flooding_program(core, llr, syn, opts, graph):
     return lanes.z, torch.where(done_a, lanes.iters, opts.max_iterations), done_a
 
 
+def decode_program(code: LDPCCode, opts: DecodeOptions, device):
+    """The decode of ``opts.schedule`` on ``device`` as one program:
+    ``(run, use_kernel, keep)``, ``run(llr [N, B] float32, syn [M, B] int8,
+    graph)`` decoding eagerly (``graph=None``) or as the capture into
+    ``graph`` (which may hold other work too: a trial chunk captures one
+    decode per batch), ``keep`` what its captured pointers point into."""
+    if opts.schedule == "layered":
+        return layered_program(code, opts, device)
+    core = _DecodeCore(code, opts, device)
+
+    def run(llr, syn, graph):
+        return _flooding_program(core, llr, syn, opts, graph)
+
+    return run, core.use_kernel, core
+
+
 def bp_decode_batch_last(
     code: LDPCCode,
     llr: torch.Tensor,  # [N, B] float32 a-priori LLRs (batch last)
@@ -311,14 +329,12 @@ def bp_decode_batch_last(
         return layered_decode_batch_last(code, llr, syndrome, opts)
     if llr.dtype != torch.float32 or llr.ndim != 2:
         raise ValueError("llr must be float32 [N, B]")
-    core = _DecodeCore(code, opts, llr.device)
+    run, use_kernel, core = decode_program(code, opts, llr.device)
     syn = syndrome.to(torch.int8)
-    if device_loop.graphs_on(core.use_kernel, core.device):
-        return device_loop.decode_graph(
-            ("flooding", code.fingerprint, llr.shape[1], opts),
-            lambda x, s, graph: _flooding_program(core, x, s, opts, graph),
-            (llr, syn), keep=core)
-    return _flooding_program(core, llr.contiguous(), syn.contiguous(), opts, None)
+    if device_loop.graphs_on(use_kernel, llr.device):
+        return device_loop.run_graph(
+            ("flooding", code.fingerprint, llr.shape[1], opts), run, (llr, syn), keep=core)
+    return run(llr.contiguous(), syn.contiguous(), None)
 
 
 def decode(

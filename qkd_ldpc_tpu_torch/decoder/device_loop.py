@@ -30,12 +30,14 @@ The JAX package runs a decode as one compiled device program:
   kernel libraries are loaded and torch's workspaces exist); that run's
   launches are not counted.  A capture that fails raises: nothing falls back
   to the eager loop.
-- :func:`decode_graph` — a bounded cache of captured decodes per device,
-  one per program key: static inputs are copied in, the graph replayed, and
-  copies of its outputs returned (the next replay overwrites the static
-  buffers).  Host threads that share a card (a mesh's shards) share its
-  graphs: their calls are serialised per card, and each call's stream waits
-  for the previous call's output copies before it overwrites the inputs.
+- :func:`run_graph` — a bounded cache of captured programs per device (a
+  decode, or a whole trial chunk of ``sim/runner.py``), one per program key:
+  the inputs (tensors on the card, or in pinned host memory) are copied into
+  the static inputs without a synchronisation, the graph replayed, and copies
+  of its outputs returned (the next replay overwrites the static buffers).
+  Host threads that share a card (a mesh's shards) share its graphs: their
+  calls are serialised per card, and each call's stream waits for the
+  previous call's output copies before it overwrites the inputs.
 
 Launch counts: a capture lists its kernel nodes (``_build.recording``);
 every replay counts the outer graph's nodes, and each WHILE body's kernels
@@ -54,6 +56,7 @@ import threading
 import torch
 
 from qkd_ldpc_tpu_torch import _build
+from qkd_ldpc_tpu_torch.utils import canonical_device
 
 ENTRY, FLOODING, LAYERED = 0, 1, 2
 # Kernel names the launch counts use for the three modes of loop_step_kernel.
@@ -61,10 +64,13 @@ KERNEL_ENTRY = "loop_entry"
 KERNEL_STEP = "loop_step"
 KERNEL_SWEEP_STEP = "sweep_step"
 _KERNEL_NAMES = {ENTRY: KERNEL_ENTRY, FLOODING: KERNEL_STEP, LAYERED: KERNEL_SWEEP_STEP}
-# WHILE nodes one program may hold (phases A, B and C).
-MAX_LOOPS = 3
-# Captured decodes kept at once on one device (each holds its static state
-# and graph pool; the flagship's is ~70 MB).
+# WHILE nodes one decode holds (phases A, B and C); a program of several
+# decodes (a trial chunk) sizes its graph with LOOPS_PER_DECODE each.
+LOOPS_PER_DECODE = 3
+# Captured programs kept at once on one device, decodes and trial chunks
+# alike (each holds its static state and graph pool: a flagship decode's is
+# ~70 MB, and a chunk's pool holds about one batch's working set, its
+# batches reusing each other's blocks).
 CACHE_SIZE = 8
 
 _eager = threading.local()
@@ -191,20 +197,22 @@ def run_loop(body, state: LoopState, limit: int, mode: int, *, use_kernel: bool,
 def _call(fn, *args) -> None:
     err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"CUDA graph capture of a WHILE node failed: error {err}")
+        raise RuntimeError(f"CUDA graph capture failed: error {err}")
 
 
 class Graph:
     """One program captured as a CUDA graph on ``device``, with its WHILE
     nodes and the kernel launches it stands for."""
 
-    def __init__(self, device):
+    def __init__(self, device, loops: int = LOOPS_PER_DECODE):
         self.device = torch.device(device)
         self.graph = torch.cuda.CUDAGraph()
         self.stream = torch.cuda.Stream(self.device)
         self.body_stream = torch.cuda.Stream(self.device)
-        self.passes = torch.zeros((MAX_LOOPS,), dtype=torch.int64, device=self.device)
+        # one device counter of passes for each WHILE node the program holds
+        self.passes = torch.zeros((loops,), dtype=torch.int64, device=self.device)
         self.outer: list[str] = []  # kernel nodes of the outer graph
+        self.nodes = 0  # all nodes of the outer graph (torch's ops and WHILE nodes too)
         self.bodies: list[list[str]] = []  # kernel nodes of each WHILE body
         self.counters: list[torch.Tensor] = []  # each WHILE body's passes
         self.outputs = None
@@ -226,6 +234,11 @@ class Graph:
                 self.graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     self.outputs = program(self)
+                    count = ctypes.c_ulonglong(0)
+                    _call(_build.function("device_loop", "capture_nodes",
+                                          [ctypes.c_void_p, ctypes.c_void_p]),
+                          self.stream.cuda_stream, ctypes.byref(count))
+                    self.nodes = count.value
                 finally:
                     self.graph.capture_end()
         current.wait_stream(self.stream)
@@ -246,8 +259,8 @@ class Graph:
         the capturing stream, ``body()`` and ``step(handle, passes)`` the
         body on the body stream."""
         k = len(self.bodies)
-        if k == MAX_LOOPS:
-            raise RuntimeError(f"a captured program holds at most {MAX_LOOPS} loops")
+        if k == self.passes.shape[0]:
+            raise RuntimeError(f"this captured program holds at most {k} loops")
         stream = torch.cuda.current_stream(self.device).cuda_stream
         handle = ctypes.c_ulonglong(0)
         _call(_build.function("device_loop", "while_handle",
@@ -273,7 +286,7 @@ class Graph:
 
 
 class _DeviceCache:
-    """One device's captured decodes, most recently used last, and the lock
+    """One device's captured programs, most recently used last, and the lock
     that serialises the calls of host threads sharing the device."""
 
     def __init__(self):
@@ -285,28 +298,42 @@ _caches: dict = {}
 _caches_lock = threading.Lock()
 
 
-def decode_graph(key: tuple, program, inputs: tuple, keep=None) -> tuple:
-    """Run ``program(*static_inputs, graph)`` as a captured graph: captured
-    at the first call for ``key`` on this device, replayed after copying
-    ``inputs`` into the static inputs.  ``program(..., None)`` must be the
-    same computation run eagerly.  Returns copies of the outputs."""
-    device = inputs[0].device
+def run_graph(key: tuple, program, inputs: tuple, keep=None, device=None,
+              loops: int = LOOPS_PER_DECODE, warmup=None) -> tuple:
+    """Run ``program(*static_inputs, graph)`` as a captured graph on
+    ``device`` (default: the first input's): captured at the first call for
+    ``key`` on this device, replayed after copying ``inputs`` (on the card,
+    or on the host: copied from pinned memory) into the static inputs on the
+    current stream.
+    ``program(..., None)`` must be the same computation run eagerly; the
+    capture first runs ``warmup(*static_inputs)`` (default: the program)
+    eagerly.  ``loops`` bounds the program's WHILE nodes.  Returns copies of
+    the outputs."""
+    device = canonical_device(device if device is not None else inputs[0].device)
+    # a copy from pinned memory queues behind the stream's work, and the
+    # host allocator keeps the block until that copy has run
+    inputs = tuple(x if x.is_cuda else x.pin_memory() for x in inputs)
     with _caches_lock:
         cache = _caches.setdefault(device, _DeviceCache())
     with cache.lock:
+        stream = torch.cuda.current_stream(device)
         g = cache.graphs.get(key)
         if g is None:
-            static = tuple(x.clone(memory_format=torch.contiguous_format) for x in inputs)
-            g = Graph(device).capture(lambda graph: program(*static, graph))
+            static = tuple(torch.empty(x.shape, dtype=x.dtype, device=device)
+                           for x in inputs)
+            for dst, src in zip(static, inputs):
+                dst.copy_(src, non_blocking=True)
+            g = Graph(device, loops).capture(
+                lambda graph: program(*static, graph),
+                warmup=None if warmup is None else lambda: warmup(*static))
             g.keep = (static, keep)
             cache.graphs[key] = g
             while len(cache.graphs) > CACHE_SIZE:
                 cache.graphs.popitem(last=False)[1].release()
         cache.graphs.move_to_end(key)
-        stream = torch.cuda.current_stream(device)
         stream.wait_event(g.free)  # the previous call's copies of the outputs
         for dst, src in zip(g.keep[0], inputs):
-            dst.copy_(src)
+            dst.copy_(src, non_blocking=True)
         g.replay()
         outs = tuple(out.clone() for out in g.outputs)
         g.free.record(stream)

@@ -216,6 +216,29 @@ NOT_QC_MESSAGE = (
 )
 
 
+def layered_program(code: LDPCCode, opts, device):
+    """The layered decode of ``code`` on ``device`` as one program:
+    ``(run, use_kernel, keep)``, ``run(llr [N, B] float32, syn [M, B] int8,
+    graph)`` decoding eagerly (``graph=None``) or as the capture into
+    ``graph``, ``keep`` what its captured pointers point into."""
+    if code.qc is None:
+        raise ValueError(NOT_QC_MESSAGE)
+    device = torch.device(device)
+    tables = layer_tables(code, device)
+    # The port's one backend rule; a CUDA tensor never takes the plain sweep
+    # unless backend="xla" asks for it.
+    use_kernel = _build.use_kernel(opts.backend, device)
+    if use_kernel:
+        why = cuda_layered.refusal(tables.max_row_degree)
+        if why is not None:
+            raise ValueError(why)
+
+    def run(llr, syn, graph):
+        return _layered_program(tables, llr, syn, opts, use_kernel, graph)
+
+    return run, use_kernel, tables
+
+
 def layered_decode_batch_last(
     code: LDPCCode,
     llr: torch.Tensor,  # [N, B] float32 a-priori LLRs (batch last)
@@ -229,22 +252,12 @@ def layered_decode_batch_last(
         raise ValueError(NOT_QC_MESSAGE)
     if llr.dtype != torch.float32 or llr.ndim != 2:
         raise ValueError("llr must be float32 [N, B]")
-    device = llr.device
-    tables = layer_tables(code, device)
-    # The port's one backend rule; a CUDA tensor never takes the plain sweep
-    # unless backend="xla" asks for it.
-    use_kernel = _build.use_kernel(opts.backend, device)
-    if use_kernel:
-        why = cuda_layered.refusal(tables.max_row_degree)
-        if why is not None:
-            raise ValueError(why)
+    run, use_kernel, tables = layered_program(code, opts, llr.device)
     syn = syndrome.to(torch.int8)
-    if device_loop.graphs_on(use_kernel, device):
-        return device_loop.decode_graph(
-            ("layered", code.fingerprint, llr.shape[1], opts),
-            lambda x, s, graph: _layered_program(tables, x, s, opts, use_kernel, graph),
-            (llr, syn), keep=tables)
-    return _layered_program(tables, llr, syn, opts, use_kernel, None)
+    if device_loop.graphs_on(use_kernel, llr.device):
+        return device_loop.run_graph(
+            ("layered", code.fingerprint, llr.shape[1], opts), run, (llr, syn), keep=tables)
+    return run(llr, syn, None)
 
 
 def _layered_program(tables, llr, syndrome, opts, use_kernel, graph):

@@ -28,6 +28,15 @@ class ReconcileResult(NamedTuple):
     keys_match: torch.Tensor  # [B] bool (oracle check vs Alice)
 
 
+def llr_magnitude(qber) -> np.ndarray:
+    """``log((1 - q) / q)`` as float32 (numpy, of ``qber``'s shape): the ratio
+    in float32, its ``log`` in float64 rounded to float32 (see
+    :func:`apriori_llr`)."""
+    q = np.asarray(qber, dtype=np.float32)
+    ratio = (np.float32(1.0) - q) / q
+    return np.log(ratio.astype(np.float64)).astype(np.float32)
+
+
 def apriori_llr(bob_bits: torch.Tensor, qber) -> torch.Tensor:
     """A-priori LLRs (float32): +log((1-q)/q) for bit 0, negative for bit 1.
 
@@ -40,9 +49,7 @@ def apriori_llr(bob_bits: torch.Tensor, qber) -> torch.Tensor:
     magnitude at every QBER; the tests hold the port to the QBERs they
     use.  A per-frame ``qber`` [B] broadcasts over the bits.
     """
-    q = np.asarray(qber, dtype=np.float32)
-    ratio = (np.float32(1.0) - q) / q
-    log_p = np.log(ratio.astype(np.float64)).astype(np.float32)
+    log_p = llr_magnitude(qber)
     if log_p.ndim == 0:  # two float32 constants: no host-to-card copy
         return torch.where(bob_bits == 1, float(-log_p), float(log_p))
     log_p = torch.as_tensor(log_p, device=bob_bits.device)[:, None]

@@ -241,7 +241,7 @@ def run_on_shards(fn: Callable, shards: Sequence[TrialShard]) -> list:
     continuation's outer step and the eager loops fetch from the card, so
     one thread would run the cards in turn; a card's captured decode graphs
     are shared by the threads that use it, see
-    ``decoder.device_loop.decode_graph``); shards that share a card, and CPU
+    ``decoder.device_loop.run_graph``); shards that share a card, and CPU
     shards, run in turn in the caller's thread, and so do all shards where a
     row spans processes: its blocking collectives pair up only if every
     process runs its rows in ascending order.  An exception of any shard is

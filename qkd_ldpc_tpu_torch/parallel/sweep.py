@@ -1,23 +1,28 @@
 """Sharded Monte-Carlo sweep: trial parallelism over a mesh, and sweep
 points on a 2-D ``(trial, node)`` mesh.
 
-Counterpart of ``qkd_ldpc_tpu/parallel/sweep.py``.  The device step is the
-single-device runner's (``sim.runner.point_batch_partials``: keygen K4,
-exact-weight channel K3, syndrome, decode, seven stat scalars).  A global
+Counterpart of ``qkd_ldpc_tpu/parallel/sweep.py``.  A shard's chunk is the
+single-device runner's chunk program (``sim.runner._point_chunk``: keygen
+K4, exact-weight channel K3, syndrome, decode, seven stat scalars, batch
+after batch; on the card one replay of the chunk's captured graph), as the
+JAX package's ``_sharded_chunk`` is its ``lax.scan`` per shard.  A global
 batch of ``batch`` lanes splits over the trial axis: shard ``g`` runs trial
-ids ``offset + g*b + lane`` for its ``b = batch / n_shards`` lanes, and the
-ragged tail of a point is masked globally, so every shard's partials are
-exactly those lanes' share of the unsharded run.  Batches chain into chunks
-(up to ``max_batches_per_dispatch``, and as many as keep the int32 sum of
+ids ``offset + i*batch + g*b + lane`` in batch ``i`` for its
+``b = batch / n_shards`` lanes (its lane start and the chunk's offset are
+the chunk program's first trial id, ``batch`` its stride), and the ragged
+tail of a point is masked globally, so every shard's partials are exactly
+those lanes' share of the unsharded run.  Batches chain into chunks (up to
+``max_batches_per_dispatch``, and as many as keep the int32 sum of
 iterations squared exact), merged on each shard's device; a chunk costs one
-``[7]`` fetch a shard.  The host then merges the chunk's shards in global
-shard order: within a process with ``PointPartials.merge``, across
-processes after one gloo ``all_gather`` of an int64 ``[k, 7]`` tensor, to
-which each process gives the rows it leads (a row whose node shards span
-processes is counted once).  Sums
-are exact integers and minima / maxima go through ``merge``, so the result
-is bit-identical to the single-device runner on any mesh, with any number
-of processes (trial t's keys depend only on the point key and t).
+``[7]`` fetch a shard.  The node-sharded decoders' chunks stay a host loop
+over batches (their decodes fetch a flag every iteration).  The host then
+merges the chunk's shards in global shard order: within a process with
+``PointPartials.merge``, across processes after one gloo ``all_gather`` of
+an int64 ``[k, 7]`` tensor, to which each process gives the rows it leads
+(a row whose node shards span processes is counted once).  Sums are exact
+integers and minima / maxima go through ``merge``, so the result is
+bit-identical to the single-device runner on any mesh, with any number of
+processes (trial t's keys depend only on the point key and t).
 
 Shards on distinct cards run in one host thread per card; shards that
 share a card, and CPU shards, run in turn (``mesh.run_on_shards``).
@@ -46,7 +51,7 @@ from qkd_ldpc_tpu_torch.parallel.mesh import (
     trial_sharding,
 )
 from qkd_ldpc_tpu_torch.parallel import node_sharded, qc_node_sharded
-from qkd_ldpc_tpu_torch.sim.runner import merge_partials_tree, point_batch_partials
+from qkd_ldpc_tpu_torch.sim.runner import _point_chunk, merge_partials_tree
 from qkd_ldpc_tpu_torch.sim.stats import (
     PointPartials,
     partials_from_stacked,
@@ -75,16 +80,17 @@ def _n_err(code: LDPCCode, qber: float) -> int:
     return n_err
 
 
-def _dispatch_chunks(batch_fn, mesh: Mesh, trials: int, batch: int, opts: DecodeOptions,
+def _dispatch_chunks(chunk_fn, mesh: Mesh, trials: int, batch: int, opts: DecodeOptions,
                      max_batches_per_dispatch: int) -> list:
     """Every chunk of one point over the local trial shards WITHOUT fetching:
     a list (one entry a chunk) of the stacked ``[7]`` device stats of the
     shards this process leads (every shard runs: a row spanning processes
     decodes in all of them).
 
-    ``batch_fn(shard, trial_offset, valid_count, b)`` is one shard's
-    reduction of its ``b`` lanes, trial ids ``trial_offset + lane``, the
-    first ``valid_count`` of them valid."""
+    ``chunk_fn(shard, first, valid, n_batches, b)`` is one shard's chunk of
+    ``n_batches`` batches of its ``b`` lanes: in batch ``i`` trial ids
+    ``first + i * batch + lane``, the lanes below ``valid - i * batch``
+    valid; it returns the stacked ``[7]`` partials."""
     safe_batches = _check_int32_stats_bound(batch, opts)
     shards = trial_sharding(mesh, batch)
     b = batch // mesh.shape.get(TRIAL_AXIS, 1)
@@ -96,13 +102,8 @@ def _dispatch_chunks(batch_fn, mesh: Mesh, trials: int, batch: int, opts: Decode
         valid = min(n_batches * batch, remaining)
 
         def chunk(shard, offset=offset, valid=valid, n_batches=n_batches):
-            out = None
-            for i in range(n_batches):
-                first = offset + i * batch + shard.lanes.start
-                count = min(max(valid - i * batch - shard.lanes.start, 0), b)
-                red = batch_fn(shard, first, count, b)
-                out = red if out is None else merge_partials_tree(out, red)
-            return stack_partials(out)
+            start = shard.lanes.start
+            return chunk_fn(shard, offset + start, valid - start, n_batches, b)
 
         stats = run_on_shards(chunk, shards)
         futures.append([st for sh, st in zip(shards, stats) if sh.row.leader])
@@ -124,11 +125,27 @@ def _collect(futures: list, mesh: Mesh) -> PointPartials:
     return total
 
 
-def _trial_batch_fn(code, point_key, n_err, opts, prng):
-    def batch_fn(shard, first, count, b):
-        return point_batch_partials(code, point_key, n_err, first, count, b, opts, prng,
-                                    shard.device)
-    return batch_fn
+def _trial_chunk_fn(code, point_key, n_err, opts, prng, batch):
+    """A trial shard's chunk: the runner's chunk program (one graph replay on
+    the card), ``batch`` (the global batch) apart from one batch to the next."""
+    def chunk_fn(shard, first, valid, n_batches, b):
+        return _point_chunk(code, point_key, n_err, first, valid, b, n_batches, opts, prng,
+                            shard.device, stride=batch)
+    return chunk_fn
+
+
+def _batch_loop(batch_fn, batch):
+    """A chunk as a host loop over batches: ``batch_fn(shard, first, count,
+    b)`` reduces ``b`` lanes, trial ids ``first + lane``, the first ``count``
+    of them valid."""
+    def chunk_fn(shard, first, valid, n_batches, b):
+        out = None
+        for i in range(n_batches):
+            count = min(max(valid - i * batch, 0), b)
+            red = batch_fn(shard, first + i * batch, count, b)
+            out = red if out is None else merge_partials_tree(out, red)
+        return stack_partials(out)
+    return chunk_fn
 
 
 def _global_batch(batch: int, mesh: Mesh) -> int:
@@ -161,8 +178,8 @@ def make_point_dispatcher(
     def dispatch(point_key: torch.Tensor, qber: float, trials: int):
         n_err = _n_err(code, qber)
         futures = _dispatch_chunks(
-            _trial_batch_fn(code, point_key, n_err, opts, prng), mesh, trials, gbatch,
-            opts, max_batches_per_dispatch)
+            _trial_chunk_fn(code, point_key, n_err, opts, prng, gbatch), mesh, trials,
+            gbatch, opts, max_batches_per_dispatch)
         return futures, n_err / code.n_vars
 
     return dispatch
@@ -186,9 +203,10 @@ def run_point_sharded(
     single-device runner's."""
     n_err = _n_err(code, qber)
     _upload(code, mesh)
+    gbatch = _global_batch(batch, mesh)
     futures = _dispatch_chunks(
-        _trial_batch_fn(code, point_key, n_err, opts, "threefry"), mesh, trials,
-        _global_batch(batch, mesh), opts, max_batches_per_dispatch)
+        _trial_chunk_fn(code, point_key, n_err, opts, "threefry", gbatch), mesh, trials,
+        gbatch, opts, max_batches_per_dispatch)
     total = _collect(futures, mesh)
     if tick is not None:
         tick(total.n_trials)
@@ -225,8 +243,8 @@ def run_sweep_sharded(
 
     for i, n_err in enumerate(n_errs):
         futures = _dispatch_chunks(
-            _trial_batch_fn(code, fold_in(master_key, i), n_err, opts, "threefry"), mesh,
-            trials, gbatch, opts, max_batches_per_dispatch)
+            _trial_chunk_fn(code, fold_in(master_key, i), n_err, opts, "threefry", gbatch),
+            mesh, trials, gbatch, opts, max_batches_per_dispatch)
         pending.append((futures, n_err / code.n_vars))
         if len(pending) > 1:  # keep one point in flight
             flush_one()
@@ -283,7 +301,8 @@ def run_point_node_sharded(
         valid = torch.arange(b, device=shard.device) < count
         return reduce_trials(ok, keys_match, iters, opts.max_iterations, valid)
 
-    futures = _dispatch_chunks(batch_fn, mesh, trials, _global_batch(batch, mesh), opts,
+    gbatch = _global_batch(batch, mesh)
+    futures = _dispatch_chunks(_batch_loop(batch_fn, gbatch), mesh, trials, gbatch, opts,
                                max_batches_per_dispatch)
     total = _collect(futures, mesh)
     if tick is not None:

@@ -6,8 +6,7 @@ reference's batch simulator (``QKD_LDPC_batch_simulation``,
 ``src/simulation.cpp:192-316``).  One (matrix, QBER) point is key
 generation, exact-weight error injection, syndrome computation, batched BP
 decode and the statistics reduction, batch after batch, with seven int32
-scalars per chunk as the only result fetched from the device (on the card a
-decode is one CUDA graph replay, its loops tested there).
+scalars per chunk as the only result fetched from the device.
 
 Additions over the reference, as in the JAX package:
 
@@ -19,12 +18,22 @@ Additions over the reference, as in the JAX package:
   index); trial t = fold_in(point_key, t) — reproducible independent of
   batch size, and equal to the JAX package's stream.
 
-The JAX sweep keeps one point in flight to hide its per-dispatch latency;
-here the decode loop already synchronises once per iteration, so points run
-in order.  With ``cfg.use_mesh`` and more than one card visible, or more
-than one process in a ``torch.distributed`` group, the sweep runs over a
-trial mesh (``parallel``) with bit-identical results; only process 0 then
-writes the checkpoint and shows progress.
+A chunk of up to ``max_batches_per_dispatch`` trial batches is one device
+program, as the JAX package's ``_point_chunk_step`` (``lax.scan`` under one
+``jit``).  On the card it is one CUDA graph per (code, batch, batches a
+chunk, options, prng, card) that holds, batch after batch, keygen (K4, K3
+and the tie path gated on the card), syndrome, a-priori LLRs, the decode
+(its loops WHILE nodes) and the statistics; a call copies one int32 input
+vector in (point key, first trial id, valid trials, error count, LLR
+magnitude: :func:`chunk_inputs`), replays the graph once and copies the
+seven partials out.  Points differ only in that vector, so a sweep captures
+once per code.  The CPU, ``backend="xla"`` and ``eager_loops()`` run the same
+program eagerly.  The sweep keeps one point in flight, as the JAX package
+does: point p+1 is dispatched before point p's statistics are fetched.
+With ``cfg.use_mesh`` and more than one card visible, or more than one
+process in a ``torch.distributed`` group, the sweep runs over a trial mesh
+(``parallel``) with bit-identical results; only process 0 then writes the
+checkpoint and shows progress.
 """
 
 from __future__ import annotations
@@ -38,16 +47,20 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from qkd_ldpc_tpu_torch.channel.keys import make_trial_batch, master_key, num_errors_for
+from qkd_ldpc_tpu_torch.channel.cuda_prng import DeviceRange
+from qkd_ldpc_tpu_torch.channel.keys import make_trials_from_ids, master_key, num_errors_for
 from qkd_ldpc_tpu_torch.channel.threefry import fold_in
 from qkd_ldpc_tpu_torch.codes import LDPCCode, list_matrix_files, load_code
 from qkd_ldpc_tpu_torch.config import Config
-from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions
+from qkd_ldpc_tpu_torch.decoder import device_loop
+from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions, decode_program
 from qkd_ldpc_tpu_torch.decoder.layered import NOT_QC_MESSAGE
-from qkd_ldpc_tpu_torch.decoder.reconcile import reconcile
+from qkd_ldpc_tpu_torch.decoder.reconcile import llr_magnitude
+from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
 from qkd_ldpc_tpu_torch.sim.planner import rate_based_qber_range
 from qkd_ldpc_tpu_torch.sim.progress import ProgressBar
 from qkd_ldpc_tpu_torch.sim.stats import (
+    STAT_KEYS,
     PointPartials,
     SimResult,
     finalize_point,
@@ -55,7 +68,7 @@ from qkd_ldpc_tpu_torch.sim.stats import (
     reduce_trials,
     stack_partials,
 )
-from qkd_ldpc_tpu_torch.utils import resolve_device
+from qkd_ldpc_tpu_torch.utils import canonical_device, resolve_device
 
 
 @dataclasses.dataclass
@@ -123,20 +136,11 @@ def point_batch_partials(
     prng: str = "threefry",
     device=None,
 ) -> dict[str, torch.Tensor]:
-    """One device step: trials [offset, offset+batch) -> partial sums."""
-    device = resolve_device(device)
-    alice, bob = make_trial_batch(
-        point_key, code.n_vars, batch, num_errors, trial_offset, prng,
-        opts.backend, device,
-    )
-    # float32 division, as the JAX step computes the QBER it decodes with.
-    actual_qber = np.float32(num_errors) / np.float32(code.n_vars)
-    res = reconcile(code, alice, bob, actual_qber, opts, device)
-    valid = torch.arange(batch, dtype=torch.int32, device=device) < valid_count
-    return reduce_trials(
-        res.syndromes_match, res.keys_match, res.iterations,
-        opts.max_iterations, valid,
-    )
+    """One device step: trials [offset, offset+batch) -> partial sums (a
+    chunk of one batch: on the card one graph replay)."""
+    stacked = _point_chunk(code, point_key, num_errors, trial_offset, valid_count, batch,
+                           1, opts, prng, device)
+    return dict(zip(STAT_KEYS, stacked))
 
 
 def merge_partials_tree(a: dict, b: dict) -> dict:
@@ -152,20 +156,85 @@ def merge_partials_tree(a: dict, b: dict) -> dict:
     )
 
 
+# The int32 input vector of one chunk call (see chunk_inputs): its fields.
+KEY, FIRST, VALID, ERRORS, LLR = slice(0, 2), slice(2, 3), slice(3, 4), slice(4, 5), slice(5, 6)
+_M32 = 0xFFFFFFFF
+
+
+def chunk_inputs(point_key: torch.Tensor, first: int, total_valid: int, num_errors: int,
+                 n_vars: int) -> torch.Tensor:
+    """The int32 ``[6]`` input vector of one chunk call, on the host: the
+    point key's two words and the first trial id (raw uint32 bits, the id
+    mod 2**32), the chunk's valid trials, the error count, and the bits of
+    the float32 a-priori LLR magnitude (computed here from the float32 QBER
+    ``num_errors / n_vars`` as ``reconcile.apriori_llr`` computes it)."""
+    words = [int(w) & _M32 for w in point_key.tolist()] + [int(first) & _M32]
+    mag = llr_magnitude(np.float32(num_errors) / np.float32(n_vars))
+    vec = np.concatenate([np.array(words, np.uint32).view(np.int32),
+                          np.array([total_valid, num_errors], np.int32),
+                          np.array([mag], np.float32).view(np.int32)])
+    return torch.from_numpy(vec)
+
+
+class _ChunkProgram:
+    """``n_batches`` trial batches of ``width`` lanes, merged on the device:
+    the runner's one program, eager (``graph=None``) or captured into a
+    :class:`~qkd_ldpc_tpu_torch.decoder.device_loop.Graph`.  Batch ``i``
+    runs trials ``first + i * stride + lane`` and counts the lanes below
+    ``valid - i * stride``; everything that varies per call is read from the
+    input vector ``x`` (:func:`chunk_inputs`) on the device, so one capture
+    serves every point and chunk of the code (``stride`` is the global batch
+    of a trial shard, else ``width``)."""
+
+    def __init__(self, code, width, stride, n_batches, opts, prng, device):
+        self.code, self.width, self.stride, self.n_batches = code, width, stride, n_batches
+        self.opts, self.prng, self.device = opts, prng, device
+        self.decode, self.use_kernel, _ = decode_program(code, opts, device)
+
+    def batch(self, x: torch.Tensor, i: int, graph) -> dict[str, torch.Tensor]:
+        """Batch ``i``: keygen and channel (K4, K3, the gated tie path),
+        syndrome, a-priori LLRs, decode, statistics."""
+        code, B, opts, dev = self.code, self.width, self.opts, self.device
+        ids = DeviceRange(x[FIRST], range(i * self.stride, i * self.stride + B))
+        alice, bob = make_trials_from_ids(x[KEY], code.n_vars, ids, x[ERRORS], self.prng,
+                                          opts.backend, dev)
+        mag = x[LLR].view(torch.float32)
+        llr = torch.where(bob.T == 1, -mag, mag).contiguous()  # [N, B]
+        syn = syndrome(code, alice).T.contiguous()  # [M, B] int8
+        z, iters, ok = self.decode(llr, syn, graph)
+        keys_match = (z.T == alice.to(torch.int8)).all(dim=-1)
+        valid = torch.arange(B, dtype=torch.int32, device=dev) < x[VALID] - i * self.stride
+        return reduce_trials(ok, keys_match, iters, opts.max_iterations, valid)
+
+    def __call__(self, x: torch.Tensor, graph=None) -> torch.Tensor:
+        """The chunk's stacked ``[7]`` int32 partials."""
+        out = None
+        for i in range(self.n_batches):
+            red = self.batch(x, i, graph)
+            out = red if out is None else merge_partials_tree(out, red)
+        return stack_partials(out)
+
+
 def _point_chunk(code, point_key, num_errors, start_offset, total_valid,
-                 batch, n_batches, opts, prng="threefry", device=None):
+                 batch, n_batches, opts, prng="threefry", device=None, stride=None):
     """``n_batches`` sequential trial batches merged on the device: one
     result fetch per chunk instead of per batch.  The tail batch masks its
-    excess trials through ``valid_count``."""
-    out = None
-    for i in range(n_batches):
-        valid = min(max(total_valid - i * batch, 0), batch)
-        red = point_batch_partials(
-            code, point_key, num_errors, start_offset + i * batch, valid,
-            batch, opts, prng, device,
-        )
-        out = red if out is None else merge_partials_tree(out, red)
-    return stack_partials(out)
+    excess trials through ``total_valid``.  On the card under the kernel
+    backend it is one replay of the chunk's captured graph: the input vector
+    goes in by one copy from pinned memory, the ``[7]`` partials come back
+    as a copy on the card.  ``stride`` (default ``batch``): the trial ids
+    between two batches, a trial shard's global batch."""
+    device = canonical_device(resolve_device(device))
+    stride = batch if stride is None else stride
+    x = chunk_inputs(point_key, start_offset, total_valid, num_errors, code.n_vars)
+    program = _ChunkProgram(code, batch, stride, n_batches, opts, prng, device)
+    if not device_loop.graphs_on(program.use_kernel, device):
+        return program(x.to(device))
+    key = ("chunk", code.fingerprint, batch, stride, n_batches, opts, prng)
+    return device_loop.run_graph(
+        key, lambda v, graph: (program(v, graph),), (x,), keep=program, device=device,
+        loops=device_loop.LOOPS_PER_DECODE * n_batches,
+        warmup=lambda v: program.batch(v, 0, None))[0]
 
 
 def _dispatch_point(
