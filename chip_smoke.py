@@ -28,17 +28,27 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    loop's bookkeeping once per pass, read from the graph's device counters;
    no plain threefry tree on the card);
    3b. the same point with ``schedule="layered"`` (the sweep kernel);
-   3c. ``run_point_continuation`` at a waterfall point (the fresh-lane kernel,
-   ``segment`` passes as one graph replay per outer step) against
-   ``run_point`` on the same point key: seven equal partial sums; then the
-   three paths' walls in turns, each beside its eager kernel loop;
+   3c. ``run_point_continuation`` at a waterfall point — the whole
+   continuation one graph replay per call: the outer loop and the refill loop
+   WHILE nodes, regen and refill IF nodes, the ``segment`` passes (the
+   fresh-lane kernel) and the banking inside — against ``run_point`` on the
+   same point key: seven equal partial sums, launches per outer step, the
+   staging blocks and the program's own steps counted from the card; the
+   same call under ``torch.cuda.set_sync_debug_mode("error")``; a three-point
+   ``dispatch_sweep_continuation`` and a two-shard sharded continuation, each
+   equal to ``run_point`` at each point; the capture's time, nodes,
+   conditional nodes and pool bytes; the kernels of ``csrc/continuation.cu``
+   bit-equal to their plain versions (a tail refill of n_new < K among the
+   cases) and timed; then the three paths' walls in turns, each beside its
+   eager kernel loop;
    3d. (``device_loops``) every decode leg as a graph against the eager kernel
    loop, bit for bit and launch for launch, and against the plain versions:
    flooding and layered at the flagship (SP/bf16, min-sum/int8), with a
    forced phase-C overflow, with every lane converged in phase A, and at
    check degree 15 (the loop instance and its scratch); four host threads
-   sharing one graph; K2 in place over its input; the continuation's segment
-   graph against its eager loop; the tie path gated on the card against
+   sharing one graph; K2 in place over its input; the continuation program
+   against its eager program (7/7, equal launches of every kernel); the tie
+   path gated on the card against
    ``_uniform_ties`` on a forced-tie flagship batch and on rows of many ties
    sharing their second words across the row; ``point_batch_partials`` and
    the decodes under
@@ -175,6 +185,8 @@ MEAN_SWEEPS_GATE = (3.2, 4.8)
 # fail there at the cap of 100, the others take 21 to 100 iterations).
 WATERFALL_QBER, WATERFALL_POINT_INDEX = 0.0825, 1
 SEGMENT, REFILL_FRAC = 4, 0.125
+# The continuation's three-point sweep (points 0, 1, 2 of the master seed).
+CONTINUATION_QBERS = (0.075, 0.08, WATERFALL_QBER)
 FRESH_THRESHOLD = 3.0  # K5's check: the Lq clip must bite where it is applied
 # Other widths of the two flooding kernels: the compacted batch (vector
 # instances) and a width no vector divides (scalar instances).
@@ -2185,7 +2197,8 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
     verdicts equal and at most 2 frames +-1 iteration); four host threads,
     a stream each, sharing one graph (each call its own batch's answer, no
     new capture); K2 in place over its input equal to K2 into a new buffer;
-    the continuation's segment graph against its eager loop (7/7); the tie
+    the continuation program against its eager program (7/7, equal launches
+    of every kernel); the tie
     path gated on the card against ``_uniform_ties`` on a forced-tie
     flagship batch and on rows of many ties that share their second words
     across the row (``_many_ties``), and untouched where no row has excess
@@ -2345,21 +2358,22 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
             in_place[f"{c.name}_{algorithm}_{dtype_name}"] = "equal"
     report["check_update_in_place"] = in_place
 
-    # ---- the continuation's segment graph against its eager loop ---------------
+    # ---- the continuation program against its eager program -------------------
     def cont():
         return run_point_continuation(code, key_c, WATERFALL_QBER, 2 * BATCH, BATCH, opts_c,
                                       segment=SEGMENT, refill_frac=REFILL_FRAC)
 
+    cont()  # the graph is captured (another trial count is another input, not a key)
     (p_graph, _), cont_s, cont_counts = counted(cont)
     with device_loop.eager_loops():
+        cont()  # warm-up
         (p_eager, _), cont_eager_s, cont_eager_counts = counted(cont)
-    if as_stats(p_graph) != as_stats(p_eager) or cont_counts.get(KV) != cont_eager_counts.get(
-            KV):
+    if as_stats(p_graph) != as_stats(p_eager) or cont_counts != cont_eager_counts:
         raise AssertionError(f"continuation: graph {as_stats(p_graph)} / {cont_counts} "
                              f"against eager {as_stats(p_eager)} / {cont_eager_counts}")
-    report["continuation_graph_equals_eager"] = {
+    report["continuation_program_equals_eager"] = {
         "partials": as_stats(p_graph), "launches": cont_counts,
-        "graph_s": cont_s, "eager_s": cont_eager_s}
+        "launches_equal_for_every_kernel": True, "graph_s": cont_s, "eager_s": cont_eager_s}
 
     # ---- the tie path, gated on the card ---------------------------------------
     alice, scores = cuda_prng.trial_words_cuda(point_key, N, range(0, BATCH),
@@ -2504,6 +2518,214 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
         "frames": PROTOCOL_FRAMES, "lanes": 128, "window_1": walls[1], "window_4": walls[4]}
     return report, measured
 
+
+def _continuation_kernels(torch, dev, flush, code):
+    """The kernels of ``csrc/continuation.cu`` against their plain versions on
+    the card, bit for bit (every tensor each writes), at the flagship (B = S
+    = 512 lanes, K = 64, three points, N = 10240): the start, the refill
+    loop's test on six carries, the stage step on the next block, a point's
+    advance, the clamp at the last point and ids across 2**32, the stage fill
+    of a real K4 / K3 block, refills of K trials, of a point's tail (n_new <
+    K) and of none, the pass step on a segment's first and later passes, and
+    the banking into three points; then each timed at the flagship.  Returns
+    {kernel name: measurement}."""
+    from qkd_ldpc_tpu_torch.channel import cuda_prng, cuda_select
+    from qkd_ldpc_tpu_torch.channel.keys import derive_point_key, num_errors_for
+    from qkd_ldpc_tpu_torch.sim import cuda_continuation as steps
+    from qkd_ldpc_tpu_torch.sim.continuation import continuation_inputs
+
+    B = S = BATCH
+    K, P, max_it = int(BATCH * REFILL_FRAC), 3, 100
+    N, M, dc = code.n_vars, code.n_checks, code.dc_max
+    trials = N_BATCHES * BATCH
+    maps = code.to_device(dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    keys = [derive_point_key(MASTER_SEED, i) for i in range(P)]
+    n_errs = [num_errors_for(N, q) for q in (0.075, 0.08, WATERFALL_QBER)]
+    i32, u8 = torch.int32, torch.uint8
+
+    def inputs(offset=0, n=trials):
+        return continuation_inputs(keys, n_errs, n, offset, 10**6, N).to(dev)
+
+    def flags_(p):
+        return torch.rand(B, device=dev, generator=g) < p
+
+    def lanes():
+        live = flags_(0.7)
+        age = torch.randint(-1, max_it + 1, (B,), dtype=i32, device=dev, generator=g)
+        done = live & flags_(0.3)
+        return dict(live=live, run=live & ~done & (age < max_it), done=done,
+                    fresh=live & flags_(0.1), age=age,
+                    lane_p=torch.randint(0, P, (B,), dtype=i32, device=dev, generator=g))
+
+    def carry(**slots):
+        st = torch.zeros(steps.SLOTS, dtype=i32, device=dev)
+        for name, v in slots.items():
+            st[getattr(steps, name)] = v
+        return st
+
+    def lane_tuple(s):
+        return tuple(s[k] for k in ("live", "run", "done", "fresh", "age", "lane_p"))
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else (
+            t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+
+    measured, report = {}, {}
+
+    def hold(name, cases, kernel, plain, n_bytes, n_ops):
+        """``cases``: {case: state dict}; ``kernel(state, case)`` and
+        ``plain(state, case)`` write into the state.  Bit-equal on every
+        tensor of the state, then timed on the first case with the state
+        restored before each run."""
+        diff = {}
+        for case, state in cases.items():
+            a = {k: v.clone() for k, v in state.items()}
+            b = {k: v.clone() for k, v in state.items()}
+            kernel(a, case)
+            plain(b, case)
+            torch.cuda.synchronize()
+            diff[case] = sum(int((bits(a[k]) != bits(b[k])).sum()) for k in state)
+        if any(diff.values()):
+            raise AssertionError(f"{name} differs from its plain version: {diff}")
+        case0, first = next(iter(cases.items()))
+        work = {k: v.clone() for k, v in first.items()}
+
+        def restore():
+            for k, v in first.items():
+                work[k].copy_(v)
+
+        ms = _time_ms(torch, lambda: kernel(work, case0), flush, prepare=restore)
+        plain_ms = _time_ms(torch, lambda: plain(work, case0), flush, repeats=5, warmup=1,
+                            prepare=restore)
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        measured[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, library_ms=None)
+        report[name] = {"cases": list(cases), "bits_differing": 0, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+    flags0 = torch.zeros(4, dtype=u8, device=dev)
+    acc0 = torch.randint(0, 50, (7, P), dtype=i32, device=dev, generator=g)
+
+    # cont_start
+    s = dict(x=inputs(), acc=acc0.clone(), st=carry(BASE=5, POS=3, OUTER=9),
+             flags=flags0.clone(), **lanes())
+    hold(steps.KERNEL_START, {"flagship": s},
+         lambda t, c: steps.start_cuda(t["x"], t["acc"], t["st"], lane_tuple(t), S, max_it,
+                                    t["flags"]),
+         lambda t, c: steps.start_plain(t["x"], t["acc"], t["st"], lane_tuple(t), S, max_it,
+                                     t["flags"]),
+         B * 12 + 28 * P + 4 * steps.SLOTS + 1, B)
+
+    # cont_want: ids left or not, lanes free or not, the block used up or not
+    cases = {}
+    for sp, nid, live_n, pos in ((0, 100, 300, 64), (2, trials, 300, 64), (2, 64, 480, 64),
+                                 (2, 64, 0, S), (1, 2048, 449, S), (2, 64, 448, 128)):
+        cases[f"sp{sp}_next{nid}_live{live_n}_pos{pos}"] = dict(
+            x=inputs(), st=carry(SP=sp, NEXT_ID=nid, LIVE_N=live_n, POS=pos, INNER=3),
+            flags=flags0.clone())
+    hold(steps.KERNEL_WANT, cases,
+         lambda t, c: steps.want_cuda(t["x"], t["st"], B, P, K, S, 40, False, t["flags"]),
+         lambda t, c: steps.want_plain(t["x"], t["st"], B, P, K, S, 40, False, t["flags"]),
+         4 * 6 + 3 + 4, 8)
+
+    # stage_step: the next block, a point's advance, the clamp, ids across 2**32
+    cases = {
+        "next_block": dict(x=inputs(), st=carry(BASE=512, SP=0, NEXT_ID=900, POS=S, EXCESS=1)),
+        "advance": dict(x=inputs(), st=carry(BASE=1536, SP=0, NEXT_ID=2048, POS=S)),
+        "clamp_at_last_point": dict(x=inputs(), st=carry(BASE=1536, SP=2, POS=S)),
+        "ids_across_2**32": dict(x=inputs(2**32 - 700), st=carry(BASE=0, SP=1, POS=S)),
+    }
+    hold(steps.KERNEL_STAGE, cases,
+         lambda t, c: steps.stage_step_cuda(t["x"], t["st"], S, P),
+         lambda t, c: steps.stage_step_plain(t["x"], t["st"], S, P),
+         4 * (6 + 2 * steps.SLOTS), 12)
+
+    # stage_fill on a real staging block: K4's Alice row and K3's Bob row
+    alice_rows, scores = cuda_prng.trial_words_cuda(keys[2], N, range(0, S),
+                                                    ("alice", "scores"), dev)
+    _, bob, _ = cuda_select.select_flip_cuda(scores, n_errs[2], alice_rows)
+    st_mag = carry()
+    st_mag[steps.MAG] = inputs()[steps.KEYS + 3 * P + 2]
+    s = dict(alice_rows=alice_rows, bob=bob, st=st_mag,
+             llr_s=torch.zeros((N, S), device=dev), syn_s=torch.zeros((M, S), dtype=torch.int8,
+                                                                     device=dev),
+             alice_s=torch.zeros((N, S), dtype=torch.int8, device=dev))
+    hold(steps.KERNEL_FILL, {"flagship_block": s},
+         lambda t, c: steps.stage_fill_cuda(t["alice_rows"], t["bob"], maps, t["st"], t["llr_s"],
+                                         t["syn_s"], t["alice_s"]),
+         lambda t, c: steps.stage_fill_plain(t["alice_rows"], t["bob"], maps, t["st"], t["llr_s"],
+                                          t["syn_s"], t["alice_s"]),
+         2 * S * N + 8 * dc * M + N * S * 5 + M * S, S * (N * 2 + M * dc))
+
+    # refill_lanes: K trials mid-point; of a point of 2000 trials, its tail
+    # (n_new = 16 < K) and a refill past it (n_new = 0)
+    def lanes_case(base, pos, n=trials):
+        st = carry(BASE=base, POS=pos, SP=1, NEXT_ID=base + pos, LIVE_N=300)
+        return dict(x=inputs(n=n), st=st, lane_of=torch.zeros(K, dtype=i32, device=dev),
+                    **lanes())
+    cases = {"k_trials": lanes_case(512, 128), "tail_n_new_16": lanes_case(1536, 448, 2000),
+             "none_past_the_tail": lanes_case(1536, 480, 2000)}
+    hold(steps.KERNEL_LANES, cases,
+         lambda t, c: steps.refill_lanes_cuda(t["x"], t["st"], lane_tuple(t), t["lane_of"], K),
+         lambda t, c: steps.refill_lanes_plain(t["x"], t["st"], lane_tuple(t), t["lane_of"], K),
+         B + 4 * K + K * 12 + 4 * 8, B)
+
+    # refill_copy: K staged columns into chosen lanes, and a tail of 20
+    staged = dict(llr_s=torch.randn((N, S), device=dev, generator=g),
+                  syn_s=torch.randint(0, 2, (M, S), dtype=torch.int8, device=dev, generator=g),
+                  alice_s=torch.randint(0, 2, (N, S), dtype=torch.int8, device=dev,
+                                        generator=g))
+
+    def copy_case(n_new):
+        pool = dict(llr=torch.randn((N, B), device=dev, generator=g),
+                    syn=torch.randint(0, 2, (M, B), dtype=torch.int8, device=dev, generator=g),
+                    alice=torch.randint(0, 2, (N, B), dtype=torch.int8, device=dev,
+                                        generator=g),
+                    Lr=torch.randn((dc, M, B), device=dev, generator=g).to(torch.bfloat16))
+        lane_of = torch.full((K,), -1, dtype=i32, device=dev)
+        lane_of[:n_new] = torch.randperm(B, device=dev, generator=g)[:n_new].sort().values.to(
+            i32)
+        return dict(st=carry(COL0=128, N_NEW=n_new), lane_of=lane_of, **staged, **pool)
+
+    def copy(fn):
+        return lambda t, c: fn(t["st"], t["lane_of"], (t["llr_s"], t["syn_s"], t["alice_s"]),
+                            (t["llr"], t["syn"], t["alice"], t["Lr"]))
+    hold(steps.KERNEL_COPY, {"k_columns": copy_case(K), "tail_20": copy_case(20)},
+         copy(steps.refill_copy_cuda), copy(steps.refill_copy_plain),
+         K * (2 * (4 * N + N + M) + 2 * dc * M) + 4 * K, K * (2 * N + M + dc * M))
+
+    # pass_step: a segment's first pass (fresh cleared) and a later one
+    def pass_case():
+        s = lanes()
+        return dict(ok=flags_(0.4), done=s["done"], run=s["run"], age=s["age"],
+                    fresh=s["fresh"])
+
+    def pass_(fn):
+        return lambda t, c: fn(t["ok"], t["done"], t["run"], t["age"], t["fresh"], max_it,
+                               c == "first_pass")
+    hold(steps.KERNEL_PASS, {"first_pass": pass_case(), "later_pass": pass_case()},
+         pass_(steps.pass_step_cuda), pass_(steps.pass_step_plain), B * 10, B * 4)
+
+    # bank: three points, z against Alice's bits with mismatches on some lanes
+    s = lanes()
+    z = torch.randint(0, 2, (N, B), dtype=torch.int8, device=dev, generator=g)
+    alice = z.clone()
+    alice[torch.randint(0, N, (B,), device=dev, generator=g), torch.arange(B, device=dev)] ^= (
+        flags_(0.2).to(torch.int8))
+    s.pop("fresh")
+    state = dict(x=inputs(), acc=acc0.clone(), st=carry(SP=1, NEXT_ID=100), z=z, alice=alice,
+                 mis=torch.zeros(B, dtype=i32, device=dev), flags=flags0.clone(), **s)
+    n_spr = int((s["live"] & ~s["run"] & s["done"]).sum())
+
+    def bank(fn):
+        return lambda t, c: fn(t["x"], t["acc"], t["st"],
+                            (t["live"], t["run"], t["done"], t["age"], t["lane_p"]), t["z"],
+                            t["alice"], t["mis"], max_it, t["flags"])
+    hold(steps.KERNEL_BANK, {"three_points": state}, bank(steps.bank_cuda),
+         bank(steps.bank_plain), B * 11 + 2 * N * n_spr + 28 * P + B + 8, B * 8 + N * n_spr)
+    report[steps.KERNEL_BANK]["lanes_banking_a_success"] = n_spr
+    return measured, report
 
 
 def _pool_bytes(torch, graph):
@@ -2707,8 +2929,16 @@ def main() -> int:
     from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions
     from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr, reconcile
     from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
-    from qkd_ldpc_tpu_torch.sim import continuation, run_point, run_point_continuation
-    from qkd_ldpc_tpu_torch.sim.stats import STAT_KEYS
+    from qkd_ldpc_tpu_torch.parallel import make_trial_mesh
+    from qkd_ldpc_tpu_torch.sim import (
+        continuation,
+        cuda_continuation,
+        dispatch_sweep_continuation,
+        run_point,
+        run_point_continuation,
+    )
+    from qkd_ldpc_tpu_torch.sim.continuation import run_point_continuation_sharded
+    from qkd_ldpc_tpu_torch.sim.stats import STAT_KEYS, PointPartials, partials_from_stacked
     from qkd_ldpc_tpu_torch.utils import card_name_and_power_limit
 
     dev = torch.device("cuda")
@@ -3004,6 +3234,8 @@ def main() -> int:
     K1, K2, K3, K4, K5, K6, KV = names
     KT, KB = cuda_select.KERNEL_TIES, cuda_prng.KERNEL_BLOCK
     KE, KS, KW = device_loop.KERNEL_ENTRY, device_loop.KERNEL_STEP, device_loop.KERNEL_SWEEP_STEP
+    (KC_START, KC_WANT, KC_STAGE, KC_FILL, KC_LANES, KC_COPY, KC_PASS,
+     KC_BANK) = cuda_continuation.KERNELS
 
     def counted(step):
         """Drive one path with the launch counts set to 0 just before it and
@@ -3180,9 +3412,29 @@ def main() -> int:
             code, key_c, WATERFALL_QBER, n, BATCH, o, segment=SEGMENT,
             refill_frac=REFILL_FRAC)
 
-    continuation_step(n=BATCH)  # warm-up
-    (partials_c, qber_c), seconds_c, launches_c = counted(continuation_step)
-    loops_c = dict(continuation.last_loop_counts)  # what the runner's loops did
+    # the first call captures the program's graph: time the capture
+    captures_c = []
+    real_capture = device_loop.Graph.capture
+
+    def timed_capture(graph, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_capture(graph, *args, **kwargs)
+        torch.cuda.synchronize()
+        captures_c.append((graph, time.perf_counter() - t0))
+        return out
+
+    device_loop.Graph.capture = timed_capture
+    try:
+        continuation_step(n=BATCH)  # warm-up: captures the program's graph
+    finally:
+        device_loop.Graph.capture = real_capture
+    with _counting_calls(device_loop.Graph, "replay") as replays_c:
+        (partials_c, qber_c), seconds_c, launches_c = counted(continuation_step)
+    loops_c = dict(continuation.last_loop_counts)  # read from the card with the result
+    if replays_c[0] != 1 or len(captures_c) != 1:
+        raise AssertionError(f"continuation path: {replays_c[0]} graph replays for one call, "
+                             f"{len(captures_c)} captures")
 
     def waterfall_plain_step():
         return run_point(code, key_c, WATERFALL_QBER, trials, BATCH, opts_c)
@@ -3197,9 +3449,9 @@ def main() -> int:
         raise AssertionError(f"continuation path: implausible statistics {stats_c}")
     fresh_launches = launches_c.get(K5, 0)
     # Every pass of every outer step is one launch of each flooding kernel, and
-    # the runner counts its outer steps itself; a trial costs its iterations
-    # plus the pass that forms its a-priori totals, and the lanes cannot have
-    # done more work than all of them busy in every pass.
+    # the program counts its outer steps on the card; a trial costs its
+    # iterations plus the pass that forms its a-priori totals, and the lanes
+    # cannot have done more work than all of them busy in every pass.
     lane_iterations = int(partials_c.sum_it) + (trials - partials_c.n_sp) * 100
     if fresh_launches <= 0 or fresh_launches != SEGMENT * loops_c["outer_steps"] or (
             fresh_launches * BATCH < lane_iterations + trials) or (
@@ -3214,10 +3466,64 @@ def main() -> int:
     channel_launches("continuation path", launches_c, loops_c["generations"])
     if launches_c.get(K1, 0) or launches_c.get(K2, 0) or launches_c.get(K6, 0):
         raise AssertionError(f"continuation path launched K1/K2/K6: {launches_c}")
+    # the program's own steps, each as often as its loop ran
+    expect_c = {KC_START: 1, KC_STAGE: loops_c["generations"], KC_FILL: loops_c["generations"],
+                KC_LANES: launches_c.get(KC_COPY, 0), KC_PASS: fresh_launches,
+                KC_BANK: loops_c["outer_steps"]}
+    # cont_want: once before each refill loop and once after each of its passes
+    expect_c[KC_WANT] = loops_c["outer_steps"] + loops_c["generations"] + launches_c.get(
+        KC_LANES, 0)
+    if any(launches_c.get(k, 0) != v for k, v in expect_c.items()) or (
+            launches_c.get(KC_LANES, 0) < loops_c["refills"]):
+        raise AssertionError(f"continuation path: step launches {launches_c} for {loops_c}")
+
+    # no host read before the result: the call under the sync-debug gate
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        partials_sync, _ = continuation_step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if as_stats(partials_sync) != stats_p:
+        raise AssertionError("continuation under the sync-debug gate differs")
+
+    # three points as one program, each equal to the plain runner
+    sweep_keys = [derive_point_key(MASTER_SEED, i) for i in range(len(CONTINUATION_QBERS))]
+    with _counting_calls(device_loop.Graph, "replay") as replays_s:
+        t0 = time.perf_counter()
+        sweep_futures, _ = dispatch_sweep_continuation(
+            code, sweep_keys, list(CONTINUATION_QBERS), trials, BATCH, opts_c,
+            segment=SEGMENT, refill_frac=REFILL_FRAC)
+        sweep_s = time.perf_counter() - t0
+    loops_s = dict(continuation.last_loop_counts)
+    sweep_points = {}
+    for k_i, q_i, fut in zip(sweep_keys, CONTINUATION_QBERS, sweep_futures):
+        got = as_stats(PointPartials().merge(partials_from_stacked(fut[0].fetch())))
+        want = as_stats(run_point(code, k_i, q_i, trials, BATCH, opts_c)[0])
+        if got != want:
+            raise AssertionError(f"continuation sweep at QBER {q_i}: {got} != run_point {want}")
+        sweep_points[str(q_i)] = got
+    if replays_s[0] != 1 or loops_s["generations"] < len(CONTINUATION_QBERS) * N_BATCHES:
+        raise AssertionError(f"continuation sweep: {replays_s[0]} replays, {loops_s}")
+
+    # the sharded continuation: a trial mesh of two shards on the card
+    mesh_c = make_trial_mesh([dev] * 2)
+    with _counting_calls(device_loop.Graph, "replay") as replays_m:
+        sharded_c, _ = run_point_continuation_sharded(
+            code, key_c, WATERFALL_QBER, trials, BATCH, opts_c, mesh_c, segment=SEGMENT,
+            refill_frac=REFILL_FRAC)
+    if as_stats(sharded_c) != stats_p or replays_m[0] != 2:
+        raise AssertionError(f"sharded continuation {as_stats(sharded_c)} against run_point "
+                             f"{stats_p}, {replays_m[0]} replays for two shards")
+
+    # the program's new kernels against their plain versions, bit for bit
+    cont_kernels, cont_kernel_report = _continuation_kernels(torch, dev, flush, code)
+    graph_c, capture_s = captures_c[0]
     print(json.dumps({"continuation_path": {
         "card": card, "qber": qber_c, "trials": trials, "batch": BATCH,
         "segment": SEGMENT, "refill_frac": REFILL_FRAC, "partials": stats_c,
         "equal_to_plain_runner": True, "launches": launches_c,
+        "graph_replays_per_call": replays_c[0],
         "outer_steps": loops_c["outer_steps"], "refills": loops_c["refills"],
         "staging_generations": loops_c["generations"],
         "lane_iterations": lane_iterations,
@@ -3225,6 +3531,20 @@ def main() -> int:
         "seconds": seconds_c, "frames_per_s": trials / seconds_c,
         "plain_runner_seconds": seconds_p, "plain_runner_frames_per_s": trials / seconds_p,
         "plain_runner_launches": launches_p,
+        "sync_debug_error_mode": "no synchronising call before the result copy",
+        "sweep_three_points": {"qbers": list(CONTINUATION_QBERS), "partials": sweep_points,
+                               "equal_to_run_point": True, "replays": replays_s[0],
+                               "loops": loops_s, "seconds": sweep_s},
+        "sharded_two_shards": {"partials": as_stats(sharded_c), "equal_to_run_point": True,
+                               "replays": replays_m[0]},
+        "capture": {"seconds": capture_s, "nodes": graph_c.nodes,
+                    "kernel_nodes": len(graph_c.outer),
+                    "conditional_nodes": len(graph_c.bodies),
+                    "while_nodes": graph_c.kinds.count(device_loop.WHILE),
+                    "if_nodes": graph_c.kinds.count(device_loop.IF),
+                    "body_kernels": [len(b) for b in graph_c.bodies],
+                    "pool_bytes": _pool_bytes(torch, graph_c)},
+        "kernels_held": cont_kernel_report,
     }}), flush=True)
 
     # The host's clock spreads and drifts (the machine's CPU cores are shared),
@@ -3363,8 +3683,11 @@ def main() -> int:
             two_chunks()  # captures the two-batch chunk's graph
             _profile_path(torch, path, two_chunks, card, wall_s * 1e3, starts,
                           keygen * N_BATCHES)
-        _profile_path(torch, "continuation", continuation_step, card, seconds_c * 1e3,
-                      starts, keygen * N_BATCHES)
+        # the continuation is one replay a call: two calls a traced run (the
+        # call before recaptures its graph if the cache of 8 dropped it)
+        continuation_step()
+        _profile_path(torch, "continuation", lambda: (continuation_step(), continuation_step()),
+                      card, 2 * seconds_c * 1e3, starts, 2 * keygen * N_BATCHES)
         _trace_cli_sweep(torch, code, card, wall_a * 1e3)
         # The Reconciler (512 flagship frames, 128 lanes) with 1 and 4 chunks
         # in flight: how busy the card is says whether the window can help.
@@ -3386,7 +3709,8 @@ def main() -> int:
         # the check degrees (K1/K2/K5/KV) and base-row degrees (K6) at which
         # the kernel was held to its plain version; the channel kernels have none
         degrees = {K6: sorted({6, *layered_degrees}), K3: None, K4: None, KT: None,
-                   KB: None, KE: None, KS: None, KW: None}.get(name, flooding_degrees)
+                   KB: None, KE: None, KS: None, KW: None,
+                   **dict.fromkeys(cuda_continuation.KERNELS)}.get(name, flooding_degrees)
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "max_abs_err": meas["max_abs_err"],
@@ -3430,6 +3754,11 @@ def main() -> int:
                     "qkd_ldpc_tpu/decoder/bp.py:434", loop_kernels[KS], launches),
         kernel_line(KW, csrc + "device_loop.cu",
                     "qkd_ldpc_tpu/decoder/layered.py:218", loop_kernels[KW], launches_l),
+        # the continuation's outer loop, one program as JAX's _continuation_core
+        *(kernel_line(name, csrc + "continuation.cu", f"qkd_ldpc_tpu/sim/continuation.py:{line}",
+                      cont_kernels[name], launches_c)
+          for name, line in zip(cuda_continuation.KERNELS,
+                                (266, 205, 111, 132, 154, 179, 225, 242))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

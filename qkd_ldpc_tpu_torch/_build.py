@@ -49,6 +49,7 @@ LIBRARIES = {
     "threefry_words": ("threefry_words.cu", ()),
     "kth_smallest": ("kth_smallest.cu", ()),
     "device_loop": ("device_loop.cu", ()),
+    "continuation": ("continuation.cu", ()),
     **{
         f"{stem}_{storage}": (f"{stem}.cu", (define,))
         for stem in ("check_update", "layered_sweep")

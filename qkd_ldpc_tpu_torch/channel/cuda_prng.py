@@ -140,13 +140,17 @@ def trial_words_plain(point_key: torch.Tensor, n_bits: int, ids,
 
 def trial_words_cuda(point_key: torch.Tensor, n_bits: int, ids,
                      rows=(ALICE, SCORES), device=None,
-                     gate: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
+                     gate: torch.Tensor | None = None,
+                     out: tuple[torch.Tensor, ...] | None = None) -> tuple[torch.Tensor, ...]:
     """Launch the kernel on the current stream (no synchronisation).  A
     ``range`` of ids needs ``device``; a tensor of ids is moved to it.  A
     point key on the card is read there.  ``gate`` (int32 ``[1]`` on the
     card, e.g. ``select_flip``'s excess-ties flag): where it reads 0 the
     kernel writes nothing and the rows are left unset — the condition is
-    tested on the card, not fetched."""
+    tested on the card, not fetched.  ``out`` (one contiguous ``[B,
+    n_bits]`` tensor per name in ``rows``, of that row's type, on the
+    device) receives the rows instead of new tensors: the form a captured
+    program's conditional body launches, which may allocate nothing."""
     batch = _check(point_key, n_bits, ids, rows)
     if device is None:
         device = _ids_device(ids)
@@ -165,11 +169,17 @@ def trial_words_cuda(point_key: torch.Tensor, n_bits: int, ids,
             raise ValueError("a device range's base must lie on the launch's device")
     elif isinstance(ids, torch.Tensor):
         id_t = ids.to(device=device, dtype=torch.int64).contiguous()
-    out = {
-        r: torch.empty((batch, n_bits), device=device,
-                       dtype=torch.uint8 if r == ALICE else torch.int32)
-        for r in rows
-    }
+    dtypes = {r: torch.uint8 if r == ALICE else torch.int32 for r in rows}
+    if out is None:
+        out = {r: torch.empty((batch, n_bits), device=device, dtype=dtypes[r]) for r in rows}
+    else:
+        if len(out) != len(rows) or any(
+                t.shape != (batch, n_bits) or t.dtype != dtypes[r] or not t.is_contiguous()
+                or canonical_device(t.device) != canonical_device(device)
+                for r, t in zip(rows, out)):
+            raise ValueError("out must hold one contiguous [B, n_bits] tensor per row, of "
+                             "the row's type, on the launch's device")
+        out = dict(zip(rows, out))
     if gate is not None and (gate.shape != (1,) or gate.dtype != torch.int32
                              or not gate.is_cuda):
         raise ValueError("gate must be an int32 [1] tensor on the rows' device")

@@ -88,9 +88,14 @@ def _check(scores: torch.Tensor, alice: torch.Tensor | None) -> None:
         raise ValueError("alice must be uint8 of the scores' shape, on their device")
 
 
-def select_flip_cuda(scores: torch.Tensor, k, alice: torch.Tensor | None = None):
+def select_flip_cuda(scores: torch.Tensor, k, alice: torch.Tensor | None = None,
+                     out: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None):
     """Launch the kernel on the current stream (no synchronisation).  Returns
-    ``(threshold [..., 1], bob or None, excess [1] int32 or None)``."""
+    ``(threshold [..., 1], bob or None, excess [1] int32 or None)``.  ``out``
+    = ``(threshold, bob, excess)`` (with Alice's row; ``excess`` must hold 0,
+    the kernel only raises it) receives the results instead of new tensors:
+    the form a captured program's conditional body launches, which may
+    allocate nothing."""
     _check(scores, alice)
     if scores.device.type != "cuda":
         raise ValueError("select_flip_cuda needs a CUDA tensor")
@@ -106,11 +111,23 @@ def select_flip_cuda(scores: torch.Tensor, k, alice: torch.Tensor | None = None)
         k_rows, k_stride = k.reshape(1), 0
     elif not isinstance(k, int):
         k_rows = _rows_k(scores, k).contiguous()
-    thresh = torch.empty(scores.shape[:-1] + (1,), dtype=torch.int32, device=scores.device)
-    bob = excess = None
-    if alice is not None:
-        bob = torch.empty_like(alice)
-        excess = torch.zeros(1, dtype=torch.int32, device=scores.device)
+    if out is not None:
+        thresh, bob, excess = out
+        if alice is None or thresh.shape != scores.shape[:-1] + (1,) or (
+                thresh.dtype != torch.int32) or bob.shape != alice.shape or (
+                bob.dtype != torch.uint8) or excess.shape != (1,) or (
+                excess.dtype != torch.int32) or any(
+                t.device != scores.device or not t.is_contiguous()
+                for t in (thresh, bob, excess)):
+            raise ValueError("out must be (thresh int32 [..., 1], bob uint8 like alice, "
+                             "excess int32 [1]), contiguous, on the scores' device")
+    else:
+        thresh = torch.empty(scores.shape[:-1] + (1,), dtype=torch.int32,
+                             device=scores.device)
+        bob = excess = None
+        if alice is not None:
+            bob = torch.empty_like(alice)
+            excess = torch.zeros(1, dtype=torch.int32, device=scores.device)
     fn = _build.function(
         "kth_smallest", "select_flip",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,

@@ -22,11 +22,15 @@
 // latency; it moves a few bytes a frame.  `passes` (an int64, may be null)
 // counts the passes, so the host can count the body's launches afterwards.
 //
-// while_handle / while_begin / while_end insert a WHILE node into the graph that
-// a stream is capturing, as PyTorch's own IF-node capture does
-// (CUDAGraph::begin_capture_to_if_node): the node depends on what the stream
-// has captured so far, later work on the stream depends on the node, and the
-// body is captured from a second stream into the node's child graph.
+// while_handle / while_begin (or if_begin) / while_end insert a WHILE (or IF)
+// node into the graph that a stream is capturing, as PyTorch's own IF-node
+// capture does (CUDAGraph::begin_capture_to_if_node): the node depends on what
+// the stream has captured so far, later work on the stream depends on the node,
+// and the body is captured from a second stream into the node's child graph.
+// The capturing stream may itself be capturing a body, so nodes nest (the
+// continuation's outer loop holds its refill loop, which holds two IF nodes:
+// sim/continuation.py); a handle made on the top-level graph serves a node at
+// any depth below it.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -142,20 +146,24 @@ extern "C" int while_handle(void* stream, unsigned long long* handle) {
     return static_cast<int>(e);
 }
 
-// Adds a WHILE node on `handle` after everything `stream` has captured, makes
-// the stream's later work depend on it, and starts capturing `body_stream` into
-// the node's body.  Returns a cudaError_t.
-extern "C" int while_begin(void* stream, void* body_stream, unsigned long long handle) {
+namespace {
+
+// Adds a conditional node of `type` on `handle` after everything `stream` has
+// captured (the stream may itself be capturing a conditional body: nodes nest),
+// makes the stream's later work depend on it, and starts capturing
+// `body_stream` into the node's body.  Returns a cudaError_t.
+cudaError_t cond_begin(void* stream, void* body_stream, unsigned long long handle,
+                       cudaGraphConditionalNodeType type) {
     const auto s = static_cast<cudaStream_t>(stream);
     cudaGraph_t graph;
     const cudaGraphNode_t* deps;
     size_t n;
     cudaError_t e = capture_info(s, &graph, &deps, &n);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) return e;
     cudaGraphNodeParams params = {};
     params.type = cudaGraphNodeTypeConditional;
     params.conditional.handle = handle;
-    params.conditional.type = cudaGraphCondTypeWhile;
+    params.conditional.type = type;
     params.conditional.size = 1;
     cudaGraphNode_t node;
 #if CUDART_VERSION >= 13000
@@ -163,7 +171,7 @@ extern "C" int while_begin(void* stream, void* body_stream, unsigned long long h
 #else
     e = cudaGraphAddNode(&node, graph, deps, n, &params);
 #endif
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) return e;
     const cudaGraph_t body = params.conditional.phGraph_out[0];
 #if CUDART_VERSION >= 13000
     e = cudaStreamUpdateCaptureDependencies(s, &node, nullptr, 1,
@@ -171,13 +179,26 @@ extern "C" int while_begin(void* stream, void* body_stream, unsigned long long h
 #else
     e = cudaStreamUpdateCaptureDependencies(s, &node, 1, cudaStreamSetCaptureDependencies);
 #endif
-    if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(cudaStreamBeginCaptureToGraph(
-        static_cast<cudaStream_t>(body_stream), body, nullptr, nullptr, 0,
-        cudaStreamCaptureModeRelaxed));
+    if (e != cudaSuccess) return e;
+    return cudaStreamBeginCaptureToGraph(static_cast<cudaStream_t>(body_stream), body, nullptr,
+                                         nullptr, 0, cudaStreamCaptureModeRelaxed);
 }
 
-// Ends the capture of a WHILE body.  Returns a cudaError_t.
+}  // namespace
+
+// A WHILE node (the body runs while the handle reads non-zero after it, and not
+// at all if it reads zero before the node).  Returns a cudaError_t.
+extern "C" int while_begin(void* stream, void* body_stream, unsigned long long handle) {
+    return static_cast<int>(cond_begin(stream, body_stream, handle, cudaGraphCondTypeWhile));
+}
+
+// An IF node (the body runs once if the handle reads non-zero at the node).
+// Returns a cudaError_t.
+extern "C" int if_begin(void* stream, void* body_stream, unsigned long long handle) {
+    return static_cast<int>(cond_begin(stream, body_stream, handle, cudaGraphCondTypeIf));
+}
+
+// Ends the capture of a conditional node's body.  Returns a cudaError_t.
 extern "C" int while_end(void* body_stream) {
     cudaGraph_t body;
     return static_cast<int>(cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream), &body));

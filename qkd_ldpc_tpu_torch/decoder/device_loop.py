@@ -29,7 +29,10 @@ The JAX package runs a decode as one compiled device program:
   The program runs once eagerly on a side stream before its capture (so the
   kernel libraries are loaded and torch's workspaces exist); that run's
   launches are not counted.  A capture that fails raises: nothing falls back
-  to the eager loop.
+  to the eager loop.  :meth:`Graph.conditional` adds a WHILE or an IF node
+  on a handle that a kernel sets before it; a body may hold such nodes
+  itself (the continuation's outer loop holds its refill loop, which holds
+  one IF node for ``regen`` and one for ``refill``: ``sim/continuation.py``).
 - :func:`run_graph` — a bounded cache of captured programs per device (a
   decode, or a whole trial chunk of ``sim/runner.py``), one per program key:
   the inputs (tensors on the card, or in pinned host memory) are copied into
@@ -40,8 +43,8 @@ The JAX package runs a decode as one compiled device program:
   previous call's output copies before it overwrites the inputs.
 
 Launch counts: a capture lists its kernel nodes (``_build.recording``);
-every replay counts the outer graph's nodes, and each WHILE body's kernels
-are counted by the passes its bookkeeping kernel adds to a device counter
+every replay counts the outer graph's nodes, and each conditional body's
+kernels are counted by the passes one of its kernels adds to a device counter
 (read when the counts are read, and folded into the host's counts when the
 graph leaves the cache).
 """
@@ -67,6 +70,10 @@ _KERNEL_NAMES = {ENTRY: KERNEL_ENTRY, FLOODING: KERNEL_STEP, LAYERED: KERNEL_SWE
 # WHILE nodes one decode holds (phases A, B and C); a program of several
 # decodes (a trial chunk) sizes its graph with LOOPS_PER_DECODE each.
 LOOPS_PER_DECODE = 3
+# Kinds of conditional node, and how deep they nest (the continuation: its
+# outer loop, the refill loop inside it, and the two IF nodes inside that).
+WHILE, IF = "while", "if"
+MAX_DEPTH = 3
 # Captured programs kept at once on one device, decodes and trial chunks
 # alike (each holds its static state and graph pool: a flagship decode's is
 # ~70 MB, and a chunk's pool holds about one batch's working set, its
@@ -201,20 +208,24 @@ def _call(fn, *args) -> None:
 
 
 class Graph:
-    """One program captured as a CUDA graph on ``device``, with its WHILE
-    nodes and the kernel launches it stands for."""
+    """One program captured as a CUDA graph on ``device``, with its
+    conditional nodes (WHILE and IF, nested up to :data:`MAX_DEPTH` deep) and
+    the kernel launches it stands for."""
 
     def __init__(self, device, loops: int = LOOPS_PER_DECODE):
         self.device = torch.device(device)
         self.graph = torch.cuda.CUDAGraph()
         self.stream = torch.cuda.Stream(self.device)
-        self.body_stream = torch.cuda.Stream(self.device)
-        # one device counter of passes for each WHILE node the program holds
+        # the stream that captures a conditional body at each nesting depth
+        self.body_streams = [torch.cuda.Stream(self.device) for _ in range(MAX_DEPTH)]
+        self.depth = 0
+        # one device counter of passes for each conditional body the program holds
         self.passes = torch.zeros((loops,), dtype=torch.int64, device=self.device)
         self.outer: list[str] = []  # kernel nodes of the outer graph
-        self.nodes = 0  # all nodes of the outer graph (torch's ops and WHILE nodes too)
-        self.bodies: list[list[str]] = []  # kernel nodes of each WHILE body
-        self.counters: list[torch.Tensor] = []  # each WHILE body's passes
+        self.nodes = 0  # all nodes of the outer graph (torch's ops and conditional nodes too)
+        self.bodies: list[list[str]] = []  # kernel nodes of each conditional body
+        self.kinds: list[str] = []  # WHILE or IF, for each body
+        self.counters: list[torch.Tensor] = []  # each body's passes
         self.outputs = None
         self.keep = None  # what the captured pointers point into
         # Recorded after a call's copies of the outputs: the next call's
@@ -250,34 +261,61 @@ class Graph:
 
     def release(self) -> None:
         """Before the graph is dropped: wait for its last replay and fold
-        its WHILE bodies' passes into the host's launch counts."""
+        its bodies' passes into the host's launch counts."""
         torch.cuda.synchronize(self.device)
         _build.fold_device_counters(self.counters)
+
+    def handle(self) -> int:
+        """A new condition handle, made on the top-level graph (so it serves
+        a node at any depth); a kernel sets it before its node tests it."""
+        handle = ctypes.c_ulonglong(0)
+        _call(_build.function("device_loop", "while_handle",
+                              [ctypes.c_void_p, ctypes.c_void_p]),
+              self.stream.cuda_stream, ctypes.byref(handle))
+        return handle.value
+
+    def conditional(self, kind: str, handle: int, body) -> None:
+        """Capture a conditional node of ``kind`` (:data:`WHILE` or
+        :data:`IF`) on ``handle`` after the work captured so far on the
+        current stream; ``body(passes)`` launches the body on this depth's
+        body stream, and one of its kernels adds one to ``passes`` (an int64
+        ``[1]`` device counter) every time the body runs.  ``body`` may
+        capture conditional nodes itself."""
+        k = len(self.bodies)
+        if k == self.passes.shape[0]:
+            raise RuntimeError(f"this captured program holds at most {k} conditional bodies")
+        if self.depth == MAX_DEPTH:
+            raise RuntimeError(f"conditional nodes nest at most {MAX_DEPTH} deep")
+        self.bodies.append([])
+        self.kinds.append(kind)
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        body_stream = self.body_streams[self.depth]
+        begin = {WHILE: "while_begin", IF: "if_begin"}[kind]
+        _call(_build.function("device_loop", begin,
+                              [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong]),
+              stream, body_stream.cuda_stream, handle)
+        self.depth += 1
+        try:
+            with torch.cuda.stream(body_stream), _build.recording() as names:
+                body(self.passes[k:k + 1])
+        finally:
+            self.depth -= 1
+            _call(_build.function("device_loop", "while_end", [ctypes.c_void_p]),
+                  body_stream.cuda_stream)
+        self.bodies[k] = names
 
     def while_loop(self, entry, body, step):
         """Capture a WHILE node: ``entry(handle)`` launches the entry test on
         the capturing stream, ``body()`` and ``step(handle, passes)`` the
         body on the body stream."""
-        k = len(self.bodies)
-        if k == self.passes.shape[0]:
-            raise RuntimeError(f"this captured program holds at most {k} loops")
-        stream = torch.cuda.current_stream(self.device).cuda_stream
-        handle = ctypes.c_ulonglong(0)
-        _call(_build.function("device_loop", "while_handle",
-                              [ctypes.c_void_p, ctypes.c_void_p]),
-              stream, ctypes.byref(handle))
-        entry(handle.value)
-        _call(_build.function("device_loop", "while_begin",
-                              [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong]),
-              stream, self.body_stream.cuda_stream, handle.value)
-        try:
-            with torch.cuda.stream(self.body_stream), _build.recording() as names:
-                body()
-                step(handle.value, self.passes[k:k + 1])
-        finally:
-            _call(_build.function("device_loop", "while_end", [ctypes.c_void_p]),
-                  self.body_stream.cuda_stream)
-        self.bodies.append(names)
+        handle = self.handle()
+        entry(handle)
+
+        def run(passes):
+            body()
+            step(handle, passes)
+
+        self.conditional(WHILE, handle, run)
 
     def replay(self) -> None:
         """Launch the graph on the current stream (no synchronisation)."""
@@ -307,8 +345,8 @@ def run_graph(key: tuple, program, inputs: tuple, keep=None, device=None,
     current stream.
     ``program(..., None)`` must be the same computation run eagerly; the
     capture first runs ``warmup(*static_inputs)`` (default: the program)
-    eagerly.  ``loops`` bounds the program's WHILE nodes.  Returns copies of
-    the outputs."""
+    eagerly.  ``loops`` bounds the program's conditional bodies.  Returns
+    copies of the outputs."""
     device = canonical_device(device if device is not None else inputs[0].device)
     # a copy from pinned memory queues behind the stream's work, and the
     # host allocator keeps the block until that copy has run

@@ -237,9 +237,9 @@ def replicated(mesh: Mesh) -> list[torch.device]:
 def run_on_shards(fn: Callable, shards: Sequence[TrialShard]) -> list:
     """``[fn(shard) for shard in shards]``, in shard order.
 
-    Shards on distinct cards run in one host thread per card (a
-    continuation's outer step and the eager loops fetch from the card, so
-    one thread would run the cards in turn; a card's captured decode graphs
+    Shards on distinct cards run in one host thread per card (a call waits
+    for its result, and the eager loops fetch from the card, so one thread
+    would run the cards in turn; a card's captured decode graphs
     are shared by the threads that use it, see
     ``decoder.device_loop.run_graph``); shards that share a card, and CPU
     shards, run in turn in the caller's thread, and so do all shards where a

@@ -24,20 +24,27 @@ keys the plain runner derives.
 - per-trial iteration counts are banked when the trial finishes, and all
   reductions (integer sums, min/max) are order-independent.
 
-The JAX runner is one jitted ``while_loop``; here the outer loop runs on
-the host.  What the host needs from the device is ONE small fetch per outer
-step (the number of live lanes after banking); the staging block's base,
-read position and point, and the ids consumed, are functions of the refill
-count and ``trials`` alone and live on the host as Python ints.  Refills
-copy staged columns into the first empty lanes with ``index_copy_`` along
-the lane axis.  One pass of the segment loop is the two kernels of
-``decoder/cuda_kernels.py`` (variable update, then check update with the
-decision syndrome, in place over ``Lr``) and four small per-lane ops; the
-loop carries ``Lr``, and neither the totals nor a gathered copy of them are
-lane state.  On the card under the kernel backend the ``segment`` passes
-(JAX's ``fori_loop``) are captured once per run as one CUDA graph over the
-lane state, and each outer step replays it: one host call for ``segment``
-iterations (``decoder/device_loop.py``).
+The JAX runner is one jitted ``while_loop``, and so is the port's: one
+program, :class:`_ContinuationProgram`, whose structure is JAX's line by line
+and whose carry lives on the device.  On the card under the kernel backend it
+is captured once per (code, batch, segment, refill quantum, options, prng,
+points) as one CUDA graph (``decoder/device_loop.py``): the outer
+``while_loop`` is a WHILE node, the refill ``while_loop`` inside it another,
+and ``lax.cond(pos >= S, regen, refill)`` two IF nodes whose predicates one
+kernel writes before either runs; the segment's ``fori_loop`` is unrolled
+(``segment`` passes of the variable update, the check update with the
+``fresh`` flags, and the pass bookkeeping) and the banking is one kernel.
+Every step around the decode is a kernel of ``csrc/continuation.cu``
+(``sim/cuda_continuation.py``), and regen's channel is K4, K3, K4's gated tie
+row and KT writing into buffers made before the capture.  A call copies one
+int32 input vector in (trials, first trial id, the points' keys, error
+counts and LLR magnitudes), replays the graph once and copies the ``[7, P]``
+statistics and the loops' counters out: no host read in between.  The CPU,
+``backend="xla"`` and ``device_loop.eager_loops()`` run the same program
+eagerly, the steps' plain versions (or the kernels, launched one by one)
+with a Python ``while`` that fetches the loops' verdicts.  A refilled lane
+starts with ``Lr = 0`` and ``age = -1``: its first pass only forms its
+a-priori totals.
 
 The continuation runner decodes with the flooding schedule only and raises
 on ``schedule="layered"``.  Over a trial mesh (``parallel.mesh``) each trial
@@ -50,26 +57,229 @@ plain runner's.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Callable
 
 import numpy as np
 import torch
 
+from qkd_ldpc_tpu_torch.channel.cuda_prng import ALICE, SCORES, TIES, DeviceRange, trial_words_cuda
+from qkd_ldpc_tpu_torch.channel.cuda_select import complete_ties_cuda, select_flip_cuda
 from qkd_ldpc_tpu_torch.channel.keys import make_trials_from_ids, num_errors_for
 from qkd_ldpc_tpu_torch.codes.ldpc_code import LDPCCode
 from qkd_ldpc_tpu_torch.decoder import device_loop
 from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions, _DecodeCore
-from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr
-from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome as syndrome_fn
+from qkd_ldpc_tpu_torch.decoder.reconcile import llr_magnitude
+from qkd_ldpc_tpu_torch.sim import cuda_continuation as steps
+from qkd_ldpc_tpu_torch.sim.runner import _HostCopy
 from qkd_ldpc_tpu_torch.sim.stats import PointPartials, partials_from_stacked
-from qkd_ldpc_tpu_torch.utils import resolve_device
+from qkd_ldpc_tpu_torch.utils import canonical_device, resolve_device
 
 
 # How often the most recent continuation run went round its loops, summed
-# over its trial shards: outer steps (one device fetch and `segment` decode
-# iterations each), refills and staging-block generations.  A diagnostic, read
-# by callers that hold the kernels' launch counts against the loop structure.
+# over its trial shards: outer steps (`segment` decode iterations each),
+# refills and staging-block generations, read from the device's carry with the
+# statistics.  A diagnostic, read by callers that hold the kernels' launch
+# counts against the loop structure.
 last_loop_counts = {"outer_steps": 0, "refills": 0, "generations": 0}
+_COUNT_SLOTS = {"outer_steps": steps.OUTER, "refills": steps.REFILLS,
+                "generations": steps.GENS}
+# Conditional bodies of the captured program: the outer loop, the refill
+# loop, regen and refill.
+_BODIES = 4
+_M32 = 0xFFFFFFFF
+
+
+def continuation_inputs(point_keys: list, num_errors: list[int], trials: int,
+                        trial_offset: int, outer_cap: int, n_vars: int) -> torch.Tensor:
+    """The int32 input vector of one continuation call, on the host:
+    ``trials``, the first global trial id (raw uint32 bits, mod 2**32), the
+    outer loop's bound (``cuda_continuation.loop_caps``), the P point keys'
+    words (raw uint32 bits), the P error counts, and the bits of the P
+    float32 a-priori LLR magnitudes (``reconcile.llr_magnitude`` of the
+    float32 QBER ``num_errors / n_vars``, as ``apriori_llr`` computes it)."""
+    words = [int(w) & _M32 for key in point_keys for w in torch.as_tensor(key).tolist()]
+    q = np.asarray(num_errors, np.float32) / np.float32(n_vars)
+    vec = np.concatenate([
+        np.array([trials], np.int32),
+        np.array([int(trial_offset) & _M32], np.uint32).view(np.int32),
+        np.array([outer_cap], np.int32),
+        np.array(words, np.uint32).view(np.int32),
+        np.asarray(num_errors, np.int32),
+        llr_magnitude(q).astype(np.float32).view(np.int32)])
+    return torch.from_numpy(vec)
+
+
+class _ContinuationProgram:
+    """Trials ``[x[OFFSET], x[OFFSET] + x[TRIALS])`` of P consecutive sweep
+    points with cross-point lane continuation on ``batch`` lanes: JAX's
+    ``_continuation_core``, eager (``graph=None``) or captured into a
+    :class:`~qkd_ldpc_tpu_torch.decoder.device_loop.Graph`.  Returns the
+    carry, int32 ``[7 P + SLOTS]``: the ``[7, P]`` statistics, then the
+    scalars of ``sim/cuda_continuation.py`` (the loops' counts among them).
+
+    Points are consumed in order; as point p's ids run out, drained lanes
+    start hosting point p+1's trials at once.  Each lane is tagged with its
+    point, statistics bank into per-point accumulators with order-independent
+    integer adds, minima and maxima, and a trial's trajectory depends only on
+    its own (llr, syndrome) — so the per-point statistics are bit-identical
+    to running each point alone.  Everything the program allocates it
+    allocates before its loops: their bodies write into those buffers only.
+    """
+
+    def __init__(self, code, P, batch, segment, refill_min, opts, prng, device):
+        if prng not in ("threefry", "pallas"):
+            raise ValueError(f"Unknown prng contract {prng!r}: expected 'threefry' (v1) "
+                             "or 'pallas' (v2)")
+        self.code, self.P, self.B, self.segment = code, P, batch, segment
+        self.S = batch  # staging-block size: one key generation per `batch` trials,
+        # as the plain runner's per-batch keygen
+        self.K = refill_min
+        assert self.S % self.K == 0, "refill quantum must divide the staging block"
+        self.opts, self.prng, self.device = opts, prng, device
+        self.inner_cap = steps.loop_caps(0, P, batch, self.S, self.K, opts.max_iterations,
+                                         segment)[1]
+        self.core = _DecodeCore(code, opts, device)
+        self.use_kernel = self.core.use_kernel
+
+    def _buffers(self, dev):
+        """The program's state, made before any loop.  Dead lanes keep
+        computing on harmless values (llr pinned positive, zero messages) and
+        are masked out of all statistics."""
+        code, B, S, P = self.code, self.B, self.S, self.P
+        N, M = code.n_vars, code.n_checks
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        b = SimpleNamespace()
+        b.Lr = zeros((code.dc_max, M, B), self.core.mdt)
+        b.llr = torch.ones((N, B), dtype=torch.float32, device=dev)
+        b.syn = zeros((M, B), torch.int8)
+        b.alice, b.z = zeros((N, B), torch.int8), zeros((N, B), torch.int8)
+        b.age = zeros((B,), torch.int32)  # iterations completed; -1 on a fresh lane
+        b.done, b.live = zeros((B,), torch.bool), zeros((B,), torch.bool)
+        b.run = zeros((B,), torch.bool)  # live & ~done & (age < max_it)
+        b.fresh = zeros((B,), torch.bool)
+        b.lane_p = zeros((B,), torch.int32)  # sweep-point index of each lane's trial
+        b.total = torch.empty((N, B), dtype=self.core.mdt, device=dev)
+        b.ok = torch.ones((B,), dtype=torch.bool, device=dev)
+        b.scratch = self.core.scratch(B)
+        # the staging block: S fresh trials of point st[SP], slot i = id st[BASE] + i
+        b.llr_s = zeros((N, S), torch.float32)
+        b.syn_s, b.alice_s = zeros((M, S), torch.int8), zeros((N, S), torch.int8)
+        # regen's channel: K4's rows, K3's threshold and Bob's rows
+        b.a_rows, b.bob = zeros((S, N), torch.uint8), zeros((S, N), torch.uint8)
+        b.scores, b.ties = zeros((S, N), torch.int32), zeros((S, N), torch.int32)
+        b.thresh = zeros((S, 1), torch.int32)
+        b.carry = zeros((7 * P + steps.SLOTS,), torch.int32)
+        b.acc, b.st = b.carry[:7 * P].view(7, P), b.carry[7 * P:]
+        b.lane_of = zeros((self.K,), torch.int32)
+        b.mis = zeros((B,), torch.int32)
+        b.flags = zeros((4,), torch.uint8)
+        return b
+
+    def _regen(self, x, b, passes=None):
+        """``regen``: the next S staged trials — of the next point once the
+        current one's ids are exhausted.  Ids past ``trials`` are generated
+        but never consumed (at most one block a point)."""
+        kern, st, N = self.use_kernel, b.st, self.code.n_vars
+        steps.stage_step(x, st, self.S, self.P, use_kernel=kern, passes=passes)
+        key, k = st[steps.KEY0:steps.KEY1 + 1], st[steps.K:steps.K + 1]
+        ids = DeviceRange(st[steps.ID_BASE:steps.ID_BASE + 1], range(self.S))
+        if kern:
+            excess = st[steps.EXCESS:steps.EXCESS + 1]
+            trial_words_cuda(key, N, ids, (ALICE, SCORES), self.device,
+                             out=(b.a_rows, b.scores))
+            select_flip_cuda(b.scores, k, b.a_rows, out=(b.thresh, b.bob, excess))
+            trial_words_cuda(key, N, ids, (TIES,), self.device, gate=excess, out=(b.ties,))
+            complete_ties_cuda(b.scores, b.thresh, k, b.ties, b.a_rows, b.bob, excess)
+        else:
+            a, bob = make_trials_from_ids(key, N, ids, k, self.prng, self.opts.backend,
+                                          self.device)
+            b.a_rows.copy_(a)
+            b.bob.copy_(bob)
+        steps.stage_fill(b.a_rows, b.bob, self.core.maps, st, b.llr_s, b.syn_s, b.alice_s,
+                         use_kernel=kern)
+
+    def _refill(self, x, b, passes=None):
+        """``refill``: the next K staged trials (fewer at the tail of a point)
+        into the first empty lanes; the read position moves by K."""
+        kern = self.use_kernel
+        lanes = (b.live, b.run, b.done, b.fresh, b.age, b.lane_p)
+        steps.refill_lanes(x, b.st, lanes, b.lane_of, self.K, use_kernel=kern, passes=passes)
+        steps.refill_copy(b.st, b.lane_of, (b.llr_s, b.syn_s, b.alice_s),
+                          (b.llr, b.syn, b.alice, b.Lr), use_kernel=kern)
+
+    def _want(self, x, b, entry, passes=None, handles=None):
+        steps.want(x, b.st, self.B, self.P, self.K, self.S, self.inner_cap, entry, b.flags,
+                   use_kernel=self.use_kernel, passes=passes, handles=handles)
+
+    def _segment_and_bank(self, x, b, passes=None, handle=None):
+        """``segment`` decode iterations of every lane, in place (per-lane
+        bookkeeping as in decoder.bp: stopped lanes keep computing, masked out
+        of the statistics; the variable update moves z and age on the running
+        lanes, the check update's ok is the syndrome of those totals), then
+        the banking of the finished lanes into their points' accumulators."""
+        core, kern, max_it = self.core, self.use_kernel, self.opts.max_iterations
+        for i in range(self.segment):
+            core.variable_update(b.Lr, b.llr, b.z, b.age, b.run, out=(b.total, b.ok))
+            core.check_update_fused(b.total, b.Lr, b.syn, fresh=b.fresh, ok=b.ok, out=b.Lr,
+                                    scratch=b.scratch)
+            steps.pass_step(b.ok, b.done, b.run, b.age, b.fresh, max_it, i == 0,
+                            use_kernel=kern)
+        steps.bank(x, b.acc, b.st, (b.live, b.run, b.done, b.age, b.lane_p), b.z, b.alice,
+                   b.mis, max_it, b.flags, use_kernel=kern, passes=passes, handle=handle)
+
+    def __call__(self, x: torch.Tensor, graph=None, outer_limit=None) -> torch.Tensor:
+        """Run (or capture into ``graph``) the program on the input vector
+        ``x`` (:func:`continuation_inputs`, on the device); ``outer_limit``
+        stops the eager program after that many outer steps (a capture's
+        warm-up)."""
+        b = self._buffers(x.device)
+        lanes = (b.live, b.run, b.done, b.fresh, b.age, b.lane_p)
+        kern, max_it = self.use_kernel, self.opts.max_iterations
+        if graph is None:
+            steps.start(x, b.acc, b.st, lanes, self.S, max_it, b.flags, use_kernel=kern)
+            done_steps = 0
+            while b.flags[steps.OUTER_GO]:  # the eager program's host read, an outer step
+                # 1. refill empty lanes, K at a time, while enough have retired
+                # (or none are live at all); regenerate the staging block when
+                # it runs dry — advancing to the next point's ids as needed.
+                self._want(x, b, entry=True)
+                while True:
+                    go, regen, refill = b.flags[steps.IN_GO:].tolist()  # one host read
+                    if not go:
+                        break
+                    if regen:
+                        self._regen(x, b)
+                    if refill:
+                        self._refill(x, b)
+                    self._want(x, b, entry=False)
+                # 2. decode `segment` iterations; 3. bank finished trials.
+                self._segment_and_bank(x, b)
+                done_steps += 1
+                if outer_limit is not None and done_steps >= outer_limit:
+                    break
+            return b.carry
+        h_out, h_in, h_regen, h_refill = (graph.handle() for _ in range(4))
+        steps.start(x, b.acc, b.st, lanes, self.S, max_it, b.flags, use_kernel=kern,
+                    handle=h_out)
+
+        def refill_loop(passes):
+            # the cond's two branches; cont_want wrote both predicates before
+            # either runs, so a regeneration never enables a refill in its pass
+            graph.conditional(device_loop.IF, h_regen, lambda p: self._regen(x, b, p))
+            graph.conditional(device_loop.IF, h_refill, lambda p: self._refill(x, b, p))
+            self._want(x, b, False, passes, (h_in, h_regen, h_refill))
+
+        def outer_step(passes):
+            self._want(x, b, True, None, (h_in, h_regen, h_refill))
+            graph.conditional(device_loop.WHILE, h_in, refill_loop)
+            self._segment_and_bank(x, b, passes, h_out)
+
+        graph.conditional(device_loop.WHILE, h_out, outer_step)
+        return b.carry
 
 
 def _continuation_core(
@@ -77,7 +287,7 @@ def _continuation_core(
     point_keys: list,  # P PRNG keys, one per sweep point
     num_errors: list[int],  # [P]
     trials: int,  # trials per point
-    trial_offset: int,  # first global trial id of every point
+    trial_offset: int,  # first global trial id of every point (mod 2**32)
     batch: int,
     segment: int,
     refill_min: int,
@@ -87,160 +297,31 @@ def _continuation_core(
 ) -> tuple[torch.Tensor, dict]:
     """Trials [trial_offset, trial_offset + trials) of P consecutive sweep
     points with CROSS-POINT lane continuation; returns the stacked [7, P]
-    int32 stat matrix on the device and the loops' counts.
-
-    Points are consumed in order; as point p's ids run out, drained lanes
-    start hosting point p+1's trials immediately.  Each lane is tagged with
-    its point, statistics bank into per-point accumulators with
-    order-independent scatter adds/mins/maxes, and a trial's trajectory
-    depends only on its own (llr, syndrome) — so the per-point statistics
-    are bit-identical to running each point alone.
-    """
-    device = resolve_device(device)
-    N, M = code.n_vars, code.n_checks
+    int32 stat matrix on the host and the loops' counts.  On the card under
+    the kernel backend one replay of the program's captured graph; elsewhere
+    the same program eagerly."""
+    device = canonical_device(resolve_device(device))
     P = len(point_keys)
-    core = _DecodeCore(code, opts, device)
-    mdt, dc = core.mdt, code.dc_max
-    max_it = opts.max_iterations
-    S = batch  # staging-block size: one key generation per `batch` trials,
-    # as the plain runner's per-batch keygen
-    K = refill_min
-    assert S % K == 0, "refill quantum must divide the staging block"
-
-    def zeros(shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=device)
-
-    i32 = torch.int32
-    # Device state.  Dead lanes keep computing on harmless values (llr
-    # pinned positive, zero messages) and are masked out of all statistics.
-    Lr = zeros((dc, M, batch), mdt)
-    llr = torch.ones((N, batch), dtype=torch.float32, device=device)
-    syn = zeros((M, batch), torch.int8)
-    alice, z = zeros((N, batch), torch.int8), zeros((N, batch), torch.int8)
-    age = zeros((batch,), i32)  # iterations completed; -1 on a fresh lane
-    done = zeros((batch,), torch.bool)
-    live = zeros((batch,), torch.bool)
-    run = zeros((batch,), torch.bool)  # live & ~done & (age < max_it)
-    fresh = zeros((batch,), torch.bool)
-    lane_p = zeros((batch,), torch.int64)  # sweep-point index of each lane's trial
-    total = torch.empty((N, batch), dtype=mdt, device=device)
-    ok = torch.ones((batch,), dtype=torch.bool, device=device)
-    scratch = core.scratch(batch)
-
-    def segment_passes(Lr, llr, syn, z, age, done, run, fresh, total, ok):
-        """``segment`` decode iterations of every lane, in place (per-lane
-        bookkeeping as in decoder.bp: stopped lanes keep computing, masked
-        out of stats).  The variable update moves z and age on the running
-        lanes; the check update's ok is the syndrome of those totals."""
-        for i in range(segment):
-            core.variable_update(Lr, llr, z, age, run, out=(total, ok))
-            core.check_update_fused(total, Lr, syn, fresh=fresh, ok=ok, out=Lr,
-                                    scratch=scratch)
-            conv = ok & run
-            done |= conv
-            torch.bitwise_and(run ^ conv, age < max_it, out=run)  # conv is a subset of run
-            if i == 0:
-                fresh.zero_()
-
-    lane_state = (Lr, llr, syn, z, age, done, run, fresh, total, ok)
-    segment_graph = None
-    if device_loop.graphs_on(core.use_kernel, device):
-        segment_graph = device_loop.Graph(device).capture(
-            lambda graph: segment_passes(*lane_state),
-            warmup=lambda: segment_passes(*(x.clone() for x in lane_state)))
-
-    # Seven [P] per-point accumulators, in stats.STAT_KEYS order.
-    acc = [zeros((P,), i32) for _ in range(7)]
-    acc[5].fill_(max_it)
-
-    # Host state.  The staging block holds S fresh trials OF POINT sp: slot i
-    # is trial id base + i, slots pos..S-1 are unconsumed.  It starts empty
-    # (pos == S forces a regeneration; base starts at -S so the first block
-    # holds trials 0..S-1 of point 0).  next_id counts the ids consumed of
-    # the stage's current point; live_n is the device's live-lane count as
-    # of the last fetch plus the refills since.
-    llr_s = syn_s = alice_s = None
-    base, pos, sp, next_id, live_n = -S, S, 0, 0, 0
-
-    def more_ids():
-        return sp < P - 1 or next_id < trials
-
-    counts = dict.fromkeys(last_loop_counts, 0)
-    while more_ids() or live_n > 0:
-        counts["outer_steps"] += 1
-        # 1. refill empty lanes, K at a time, while enough have retired (or
-        # none are live at all); regenerate the staging block when it runs
-        # dry — advancing to the next point's ids as needed.
-        while more_ids() and (batch - live_n >= K or live_n == 0):
-            if pos >= S:
-                base += S
-                if base >= trials:  # current point exhausted -> advance
-                    base, sp, next_id = 0, min(sp + 1, P - 1), 0
-                # ids >= trials are generated but never consumed (tail waste
-                # of at most one block per point).
-                ids = range(trial_offset + base, trial_offset + base + S)  # mod 2**32
-                ne = num_errors[sp]
-                a_new, b_new = make_trials_from_ids(
-                    point_keys[sp], N, ids, ne, prng, opts.backend, device)
-                aq = np.float32(ne) / np.float32(N)
-                llr_s = apriori_llr(b_new, aq).T
-                syn_s = syndrome_fn(code, a_new).T.to(torch.int8)
-                alice_s = a_new.T.to(torch.int8)
-                pos = 0
-                counts["generations"] += 1
-                continue
-            # Move the next K staged trials (fewer at the tail of a point)
-            # into the first empty lanes.  The refill predicate guarantees
-            # >= K empty lanes; the stable sort lists them in lane order.
-            n_new = min(max(trials - (base + pos), 0), K)
-            if n_new > 0:
-                lanes = torch.argsort(live.to(torch.int8), stable=True)[:n_new]
-                cols = slice(pos, pos + n_new)
-                llr.index_copy_(1, lanes, llr_s[:, cols])
-                syn.index_copy_(1, lanes, syn_s[:, cols])
-                alice.index_copy_(1, lanes, alice_s[:, cols])
-                # Zero messages: the lane's next variable update makes its
-                # totals the a-priori LLRs, which completes no iteration.
-                Lr.index_fill_(2, lanes, 0)
-                age.index_fill_(0, lanes, -1)
-                done.index_fill_(0, lanes, False)
-                live.index_fill_(0, lanes, True)
-                run.index_fill_(0, lanes, True)
-                # Accumulates: several refills can run back to back in one
-                # outer step when many lanes retired at once.
-                fresh.index_fill_(0, lanes, True)
-                lane_p.index_fill_(0, lanes, sp)
-                next_id += n_new
-                live_n += n_new
-                counts["refills"] += 1
-            pos += K
-
-        # 2. decode `segment` iterations: one replay of the segment graph
-        # on the card, the same passes eagerly elsewhere.
-        if segment_graph is not None:
-            segment_graph.replay()
-        else:
-            segment_passes(*lane_state)
-
-        # 3. bank statistics of finished trials into their POINT's
-        # accumulators (integer scatter add/min/max: exact and
-        # order-independent), mark their lanes empty.
-        finished = live & ~run
-        sp_r = finished & done
-        keys = (z == alice).all(dim=0)  # keys_match (only used when sp_r)
-        it_sp = torch.where(sp_r, age, 0)
-        acc[0].index_add_(0, lane_p, finished.to(i32))
-        acc[1].index_add_(0, lane_p, sp_r.to(i32))
-        acc[2].index_add_(0, lane_p, (sp_r & keys).to(i32))
-        acc[3].index_add_(0, lane_p, it_sp)
-        acc[4].index_add_(0, lane_p, it_sp * it_sp)
-        # Unfinished/dead lanes contribute the neutral elements.
-        acc[5].scatter_reduce_(0, lane_p, torch.where(sp_r, age, max_it),
-                               "amin", include_self=True)
-        acc[6].scatter_reduce_(0, lane_p, it_sp, "amax", include_self=True)
-        live = live & ~finished
-        live_n = int(live.sum())  # the one fetch per outer step
-    return torch.stack(acc), counts
+    outer_cap, _ = steps.loop_caps(trials, P, batch, batch, refill_min, opts.max_iterations,
+                                   segment)
+    x = continuation_inputs(point_keys, num_errors, trials, trial_offset, outer_cap,
+                            code.n_vars)
+    program = _ContinuationProgram(code, P, batch, segment, refill_min, opts, prng, device)
+    if device_loop.graphs_on(program.use_kernel, device):
+        key = ("continuation", code.fingerprint, batch, segment, refill_min, opts, prng, P)
+        carry = device_loop.run_graph(
+            key, lambda v, graph: (program(v, graph),), (x,), keep=program, device=device,
+            loops=_BODIES, warmup=lambda v: program(v, None, outer_limit=1))[0]
+    else:
+        carry = program(x.to(device))
+    # one copy into pinned memory, the run's only wait for the card
+    carry = _HostCopy(carry).get()
+    fault = int(carry[7 * P + steps.FAULT])
+    if fault:
+        raise RuntimeError(f"the continuation program stopped a loop at its bound (fault "
+                           f"bits {fault}): a fault of the program, not of the data")
+    counts = {name: int(carry[7 * P + slot]) for name, slot in _COUNT_SLOTS.items()}
+    return carry[:7 * P].view(7, P), counts
 
 
 def _run_shards(code, point_keys, n_errs, trials, batch, segment, refill_min, opts,
@@ -253,7 +334,7 @@ def _run_shards(code, point_keys, n_errs, trials, batch, segment, refill_min, op
             code, point_keys, n_errs, trials, 0, batch, segment, refill_min, opts, prng,
             device)
         last_loop_counts.update(counts)
-        return stacked.cpu()
+        return stacked
     from qkd_ldpc_tpu_torch.parallel.mesh import (
         TRIAL_AXIS,
         all_gather_rows,
@@ -273,7 +354,7 @@ def _run_shards(code, point_keys, n_errs, trials, batch, segment, refill_min, op
     shards = trial_sharding(mesh, n_shards)
     runs = [r for sh, r in zip(shards, run_on_shards(shard_run, shards)) if sh.row.leader]
     last_loop_counts.update({k: sum(c[k] for _, c in runs) for k in last_loop_counts})
-    rows = (torch.stack([st.cpu().to(torch.int64) for st, _ in runs]) if runs  # [k, 7, P]
+    rows = (torch.stack([st.to(torch.int64) for st, _ in runs]) if runs  # [k, 7, P]
             else torch.empty((0, 7, len(point_keys)), dtype=torch.int64))
     if mesh.process_count > 1:
         rows = all_gather_rows(rows)
