@@ -53,7 +53,14 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    sharing their second words across the row; ``point_batch_partials`` and
    the decodes under
    ``torch.cuda.set_sync_debug_mode("error")`` (any host synchronisation
-   fails the script); the Reconciler with 1 and 4 chunks in flight; the new
+   fails the script); the Reconciler's serve and syndrome programs, one
+   captured graph each per endpoint, against their eager runs bit for bit
+   and launch for launch (flooding and layered, SP/bf16 and min-sum/int8,
+   128 and 101 lanes, plain and adapted), one capture across three requests
+   of different sizes and QBERs and none after other decodes filled the
+   shared graph cache, one replay a chunk, a 4-chunk window dispatched under
+   the sync gate up to its first fetch, each capture's time, nodes and pool;
+   the Reconciler with 1 and 4 chunks in flight; the new
    kernels (loop entry, loop step, sweep step, tie completion) held to their
    plain versions and timed;
    3e. (``chunk_graph``) the trial chunk as one CUDA graph: sweep A through
@@ -116,17 +123,21 @@ The last line is ``{"ok": true, "device": {...}}``.  The script exits non-zero
 without a CUDA device.  ``--profile`` adds a device-time table of each of the
 three paths, of one batch of trials (at most ten launches) and of the CLI's
 sweep A, and the host's launch calls per graph replay (per chunk on the trial
-paths and sweep A); all tracing comes after
+paths, sweep A and the Reconciler, whose windows of 1 and 4 chunks it traces
+with their busy shares; ``profile_reconciler_here`` runs those two legs alone
+on another checkout's package); all tracing comes after
 every untraced timing.  Times are this card's, labelled with its name and power
 limit; they are a smoke measurement, not a benchmark.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -392,6 +403,12 @@ def _sweep_kernel_resources(log, instance):
             **limits}
 
 
+# The host's calls that launch work on a stream (counted between two replay
+# markers by _profile_path), and those that order a stream by an event.
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync", "cudaGraphLaunch")
+_STREAM_CALLS = ("cudaEventRecord", "cudaStreamWaitEvent")
+
+
 def _profile_path(torch, path, step, card, untraced_ms, iteration_starts=None,
                   keygen_launches=0):
     """``--profile``: trace one path and print the device time by kernel
@@ -405,7 +422,9 @@ def _profile_path(torch, path, step, card, untraced_ms, iteration_starts=None,
     (graph launches, kernels, copies and fills) are counted between one
     marker and the next.  Their median is the host calls one replay window
     costs (the replay and what the host launches up to the next one),
-    counted and not derived.
+    counted and not derived.  Beside them: the calls that launch or order
+    work on a stream (those and event records or waits) and every call into
+    CUDA (``cuda*`` and ``cu*`` entry points), with the mean count of each by name.
     """
     import bisect
 
@@ -430,16 +449,18 @@ def _profile_path(torch, path, step, card, untraced_ms, iteration_starts=None,
     finally:
         if iteration_starts is not None:
             setattr(owner, method, real)
-    rows, marks, calls = {}, [], []
+    rows, marks, calls, api = {}, [], [], []
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             ms, count = rows.get(ev.name, (0.0, 0))
             rows[ev.name] = (ms + ev.device_time / 1e3 / 2, count + 0.5)
         elif ev.name == "decode_iteration_starts":
             marks.append(ev.time_range.start)
-        elif ev.name.startswith(("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync",
-                                 "cudaGraphLaunch")):
-            calls.append(ev.time_range.start)
+        else:
+            if ev.name.startswith(_LAUNCH_CALLS):
+                calls.append(ev.time_range.start)
+            if re.match(r"cu(da)?[A-Z]", ev.name):  # any call into CUDA (cuda* or cu*)
+                api.append((ev.time_range.start, ev.name))
     if not rows:
         raise AssertionError("the profiler recorded no device time")
     table = sorted(((ms, c, k) for k, (ms, c) in rows.items()), reverse=True)
@@ -453,6 +474,14 @@ def _profile_path(torch, path, step, card, untraced_ms, iteration_starts=None,
             raise AssertionError("the trace holds no iteration markers or launch calls")
         windows = [bisect.bisect_left(calls, hi) - bisect.bisect_left(calls, lo)
                    for lo, hi in zip(marks, marks[1:])]
+        api.sort()
+        starts = [t for t, _ in api]
+        in_windows = [[name for _, name in api[bisect.bisect_left(starts, lo):
+                                                bisect.bisect_left(starts, hi)]]
+                      for lo, hi in zip(marks, marks[1:])]
+        stream_calls = [sum(name.startswith(_LAUNCH_CALLS + _STREAM_CALLS) for name in w)
+                        for w in in_windows]
+        by_name = collections.Counter(name for w in in_windows for name in w)
         per_iteration = {
             "replays_traced": len(marks) / 2,
             "launches_median": statistics.median(windows),
@@ -460,6 +489,11 @@ def _profile_path(torch, path, step, card, untraced_ms, iteration_starts=None,
             "share_of_windows_at_median": windows.count(
                 statistics.median(windows)) / len(windows),
             "whole_path_less_keygen": (n_launches - keygen_launches) / (len(marks) / 2),
+            # launches, copies, fills, graph launches and event records or waits
+            "stream_calls_median": statistics.median(stream_calls),
+            "cuda_calls_median": statistics.median(len(w) for w in in_windows),
+            "cuda_calls_per_window_by_name": {
+                k: v / len(in_windows) for k, v in by_name.most_common(16)},
         }
     # Where the host's time goes: operators by their own CPU time, under tracing.
     host = sorted(((a.self_cpu_time_total / 1e3 / 2, a.count / 2, a.key)
@@ -473,6 +507,68 @@ def _profile_path(torch, path, step, card, untraced_ms, iteration_starts=None,
         "traced_host_self_ms_count_op": [[round(m, 3), c, k[:60]] for m, c, k in host[:12]],
     }}), flush=True)
     return n_launches
+
+
+def _profile_reconciler(torch, dev, card, code, point_key, n_err):
+    """``--profile``: the Reconciler (PROTOCOL_FRAMES flagship frames, 128
+    lanes, SP/bf16) with 1 and with 4 chunks in flight, traced: the device's
+    busy share of the untraced wall (median of 10) and the host's calls into
+    CUDA a chunk, counted between two replays (a chunk is one replay).  It
+    uses only entry points every slice of the port has, so it measures an
+    earlier checkout too (:func:`profile_reconciler_here`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qkd_ldpc_tpu_torch import Reconciler
+    from qkd_ldpc_tpu_torch.channel.keys import make_trial_batch
+    from qkd_ldpc_tpu_torch.decoder import DecodeOptions, device_loop
+
+    # The tracer attached once before the capture: a graph captured in a
+    # process where it had never been attached showed one pass of each WHILE
+    # body in its trace, however many the card ran.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+    rec = Reconciler(code, DecodeOptions(
+        algorithm="sum-product", max_iterations=100, clip_messages=True,
+        message_threshold=100.0, message_dtype="bfloat16"), lanes=128, device=dev).warmup()
+    alice, bob = (x.cpu().numpy() for x in make_trial_batch(
+        point_key, code.n_vars, PROTOCOL_FRAMES, n_err, 0))
+    syn = rec.syndromes(alice)
+    q = n_err / code.n_vars
+    for window in (1, 4):
+        rec.max_inflight_chunks = window
+        walls = []
+        for _ in range(11):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec.reconcile(bob, syn, q)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        _profile_path(torch, f"reconciler_window_{window}", lambda: rec.reconcile(bob, syn, q),
+                      card, statistics.median(walls[1:]), (device_loop.Graph, "replay"))
+
+
+def profile_reconciler_here() -> int:
+    """``--profile``'s Reconciler legs alone, on the package that ``import
+    qkd_ldpc_tpu_torch`` finds first.  From an earlier checkout's root::
+
+        python3 -c "import runpy; runpy.run_path('<this file>',
+                    run_name='chip_smoke')['profile_reconciler_here']()"
+    """
+    import torch
+
+    from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.channel.keys import derive_point_key, num_errors_for
+    from qkd_ldpc_tpu_torch.codes import make_qc_code
+    from qkd_ldpc_tpu_torch.utils import card_name_and_power_limit
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    _build.build_all()
+    code = make_qc_code(z=Z, nb=NB, mb=MB_ROWS, dv=DV, seed=CODE_SEED)
+    _profile_reconciler(torch, torch.device("cuda"), card_name_and_power_limit(), code,
+                        derive_point_key(MASTER_SEED, POINT_INDEX),
+                        num_errors_for(code.n_vars, QBER))
+    return 0
 
 
 def _channel_kernels(torch, dev, flush, point_key, n, n_err, wide_n, wide_err, gen):
@@ -2203,8 +2299,9 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
     flagship batch and on rows of many ties that share their second words
     across the row (``_many_ties``), and untouched where no row has excess
     ties; ``point_batch_partials`` and the decodes under
-    ``torch.cuda.set_sync_debug_mode("error")``; the Reconciler with a window
-    of 1 and of 4 chunks in flight; the new kernels held to their plain
+    ``torch.cuda.set_sync_debug_mode("error")``; the Reconciler's programs
+    (``_serve_program``) and the Reconciler with a window of 1 and of 4
+    chunks in flight, in turns; the new kernels held to their plain
     versions and timed.  Returns (report, {kernel name: measurement})."""
     from qkd_ldpc_tpu_torch import Reconciler
     from qkd_ldpc_tpu_torch.channel import cuda_prng, cuda_select, keys
@@ -2497,6 +2594,9 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
         sync_legs[name] = "no synchronising call"
     report["sync_debug_error_mode"] = sync_legs
 
+    # ---- the serving step as one program per endpoint ----------------------------
+    report["serve_program"] = _serve_program(torch, np, dev, card, code, point_key, counted)
+
     # ---- the Reconciler: one chunk in flight against four, in turns -----------
     rec = Reconciler(code, DecodeOptions(**base, **sp), lanes=128, device=dev).warmup()
     alice_h, bob_h = (x.cpu().numpy() for x in keys.make_trial_batch(
@@ -2517,6 +2617,192 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
     report["reconciler_window_walls_s"] = {
         "frames": PROTOCOL_FRAMES, "lanes": 128, "window_1": walls[1], "window_4": walls[4]}
     return report, measured
+
+
+def _serve_program(torch, np, dev, card, code, point_key, counted):
+    """The serving step as one program per endpoint (``device_loops``): the
+    Reconciler's captured programs against their eager runs
+    (``device_loop.eager_loops()``) bit for bit and launch for launch, on
+    flooding and layered, SP/bf16 and min-sum/int8, 128 and 101 lanes, plain
+    and adapted endpoints (Alice's syndromes too); one endpoint across three
+    requests of different sizes and QBERs (one capture, one replay a chunk,
+    none again after nine other decodes filled the shared cache of 8);
+    ``reconcile``'s dispatch of a 4-chunk window under
+    ``torch.cuda.set_sync_debug_mode("error")`` up to its first fetch; each
+    capture's seconds, nodes and pool bytes, and an endpoint's memory.
+    Returns the report's dict."""
+    from qkd_ldpc_tpu_torch import Reconciler, serve
+    from qkd_ldpc_tpu_torch.channel import generate_random_bits, introduce_errors, keys
+    from qkd_ldpc_tpu_torch.channel.threefry import fold_in, prng_key
+    from qkd_ldpc_tpu_torch.decoder import (
+        DecodeOptions,
+        RateAdapter,
+        cuda_kernels,
+        cuda_layered,
+        device_loop,
+    )
+    from qkd_ldpc_tpu_torch.decoder.bp import bp_decode_batch_last
+
+    N = code.n_vars
+    base = dict(max_iterations=100, clip_messages=True, message_threshold=100.0)
+    algorithms = {"sp_bf16": dict(algorithm="sum-product", message_dtype="bfloat16"),
+                  "ms_int8": dict(algorithm="min-sum", message_dtype="int8")}
+    kernels = (cuda_kernels.KERNEL_FIRST, cuda_kernels.KERNEL_FUSED,
+               cuda_kernels.KERNEL_VARIABLE, cuda_layered.KERNEL_NAME,
+               device_loop.KERNEL_ENTRY, device_loop.KERNEL_STEP,
+               device_loop.KERNEL_SWEEP_STEP)
+    captured = []  # what each capture cost: the legs of 128 lanes, SP/bf16, in full
+    real_capture = device_loop.Graph.capture
+    what = ["?"]
+
+    def timed_capture(graph, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_capture(graph, *args, **kwargs)
+        torch.cuda.synchronize()
+        entry = {"leg": what[0], "seconds": time.perf_counter() - t0}
+        if what[0].startswith(("flooding_sp_bf16_128", "layered_sp_bf16_128", "three")):
+            entry.update(nodes=graph.nodes, kernel_nodes=len(graph.outer),
+                         while_nodes=len(graph.bodies), pool_bytes=_pool_bytes(torch, graph))
+        captured.append(entry)
+        return out
+
+    def frames(k, n_bits, qber, n):
+        a = generate_random_bits(k, n_bits, n, device=dev)
+        n_err = keys.num_errors_for(n_bits, qber)
+        return (a.cpu().numpy(), introduce_errors(fold_in(k, 1), a, n_err).cpu().numpy(),
+                n_err / n_bits)
+
+    def same(x, y):
+        return all(np.array_equal(a, b) for a, b in zip(x, y))
+
+    key = prng_key(PROTOCOL_SEED + 1)
+    adapter = RateAdapter.make(code, n_punctured=ADAPT_PUNCTURED,
+                               n_shortened=ADAPT_SHORTENED, seed=ADAPT_SEED)
+    requests = {False: frames(key, N, QBER, PROTOCOL_FRAMES),
+                True: frames(fold_in(key, 2), adapter.payload_bits, ADAPT_QBER,
+                             PROTOCOL_FRAMES)}
+    frame_key = fold_in(key, 4)
+    report = {"card": card, "frames": PROTOCOL_FRAMES}
+    device_loop.Graph.capture = timed_capture
+    try:
+        # ---- every endpoint's graphs against their eager programs -------------
+        legs = {}
+        for schedule in ("flooding", "layered"):
+            for alg, akw in algorithms.items():
+                for lanes in PROTOCOL_LANES:
+                    for adapted in (False, True):
+                        name = f"{schedule}_{alg}_{lanes}_{'adapted' if adapted else 'plain'}"
+                        what[0] = name
+                        alice, bob, q = requests[adapted]
+                        rec = Reconciler(code, DecodeOptions(schedule=schedule, **base, **akw),
+                                         lanes=lanes, adapter=adapter if adapted else None,
+                                         device=dev)
+                        syn = rec.syndromes(alice, frame_key=frame_key)
+                        with device_loop.eager_loops():
+                            syn_eager = rec.syndromes(alice, frame_key=frame_key)
+                        rec.reconcile(bob, syn, q)  # captures the serve program
+                        with _counting_calls(device_loop.Graph, "replay") as replays:
+                            got, graph_s, graph_counts = counted(
+                                lambda: rec.reconcile(bob, syn, q))
+                        with device_loop.eager_loops():
+                            want, eager_s, eager_counts = counted(
+                                lambda: rec.reconcile(bob, syn, q))
+                        chunks = -(-PROTOCOL_FRAMES // lanes)
+                        differing = {k: (graph_counts.get(k, 0), eager_counts.get(k, 0))
+                                     for k in kernels
+                                     if graph_counts.get(k, 0) != eager_counts.get(k, 0)}
+                        if not (np.array_equal(syn, syn_eager) and same(got, want)) or (
+                                differing or replays[0] != chunks):
+                            raise AssertionError(
+                                f"serve program {name}: graph != eager program, launches "
+                                f"differing {differing}, {replays[0]} replays for {chunks} "
+                                "chunks")
+                        verified = int(got.syndromes_match.sum())
+                        if alg == "sp_bf16" and (verified != PROTOCOL_FRAMES
+                                                 or not np.array_equal(got.bits, alice)):
+                            raise AssertionError(f"serve program {name}: {verified} verified")
+                        legs[name] = {"verified": verified,
+                                      "mean_iterations": float(got.iterations.mean()),
+                                      "graph_s": graph_s, "eager_s": eager_s,
+                                      "replays": replays[0]}
+                        del rec
+        report["graph_equals_eager"] = legs
+
+        # ---- one endpoint, three requests, then the shared cache filled --------
+        what[0] = "three_requests"
+        rec = Reconciler(code, DecodeOptions(**base, **algorithms["sp_bf16"]), lanes=128,
+                         device=dev)
+        asks = [(PROTOCOL_FRAMES, QBER), (300, 0.04), (1, 0.03)]
+        asks = [frames(fold_in(key, 10 + i), N, qber, n) + (n,)
+                for i, (n, qber) in enumerate(asks)]
+        before = len(captured)
+        with _counting_calls(device_loop.Graph, "replay") as replays:
+            syns = [rec.syndromes(a) for a, _, _, _ in asks]
+            outs = [rec.reconcile(b, s, q) for (_, b, q, _), s in zip(asks, syns)]
+        with device_loop.eager_loops():
+            eager = [rec.reconcile(b, s, q) for (_, b, q, _), s in zip(asks, syns)]
+        chunks = sum(-(-n // 128) for *_, n in asks)
+        if len(captured) - before != 2 or replays[0] != 2 * chunks or not all(
+                same(g, e) and np.array_equal(g.bits, a) for g, e, (a, *_) in
+                zip(outs, eager, asks)):
+            raise AssertionError(f"three requests: {len(captured) - before} captures, "
+                                 f"{replays[0]} replays for 2 x {chunks} chunks")
+        # nine decodes of other widths fill run_graph's cache of 8: the
+        # endpoint's graphs are its own, so nothing is captured again
+        what[0] = "shared_cache_filler"
+        llr = torch.full((N, 72), 2.0, dtype=torch.float32, device=dev)
+        syn0 = torch.zeros((code.n_checks, 72), dtype=torch.int8, device=dev)
+        for width in range(8, 80, 8):
+            bp_decode_batch_last(code, llr[:, :width], syn0[:, :width],
+                                 DecodeOptions(**base, **algorithms["sp_bf16"]))
+        before = len(captured)
+        with _counting_calls(device_loop.Graph, "replay") as replays:
+            again = rec.reconcile(asks[0][1], syns[0], asks[0][2])
+        if len(captured) != before or replays[0] != -(-PROTOCOL_FRAMES // 128) or not same(
+                again, outs[0]):
+            raise AssertionError(f"after the shared cache filled: {len(captured) - before} "
+                                 f"captures, {replays[0]} replays")
+        report["three_requests"] = {
+            "sizes_qbers": [[n, q] for _, _, q, n in asks], "captures": 2,
+            "replays": 2 * chunks, "verified": [int(o.syndromes_match.sum()) for o in outs],
+            "captures_after_nine_other_decodes": 0}
+
+        # ---- no host synchronisation before the first fetch ---------------------
+        real_fetch = serve._Runner.fetch
+
+        def ungated_fetch(runner, slot):
+            torch.cuda.set_sync_debug_mode(0)
+            return real_fetch(runner, slot)
+
+        rec.max_inflight_chunks = 4
+        alice, bob, q, n = asks[0]
+        torch.cuda.synchronize()
+        serve._Runner.fetch = ungated_fetch
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gated = rec.reconcile(bob, syns[0], q)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            serve._Runner.fetch = real_fetch
+        if not same(gated, outs[0]):
+            raise AssertionError("reconcile under the sync gate differs")
+        report["sync_debug_error_mode_first_window"] = {
+            "chunks_dispatched_before_the_first_fetch": 4, "result": "no synchronising call"}
+
+        # ---- an endpoint's memory ---------------------------------------------------
+        runners = list(rec._runners.values())
+        report["endpoint_memory_bytes"] = {
+            "static_device": sum(r.static_in.numel() + r.static_out.numel() for r in runners),
+            "pinned_slots": sum(s.inp.numel() + s.out.numel() for r in runners
+                                for s in r.slots),
+            "graph_pools": [_pool_bytes(torch, r.graph) for r in runners]}
+    finally:
+        device_loop.Graph.capture = real_capture
+    report["captures"] = [c for c in captured if "nodes" in c]
+    report["capture_seconds_all_legs"] = [c["seconds"] for c in captured
+                                          if c["leg"] in legs]
+    return report
 
 
 def _continuation_kernels(torch, dev, flush, code):
@@ -3689,20 +3975,7 @@ def main() -> int:
         _profile_path(torch, "continuation", lambda: (continuation_step(), continuation_step()),
                       card, 2 * seconds_c * 1e3, starts, 2 * keygen * N_BATCHES)
         _trace_cli_sweep(torch, code, card, wall_a * 1e3)
-        # The Reconciler (512 flagship frames, 128 lanes) with 1 and 4 chunks
-        # in flight: how busy the card is says whether the window can help.
-        from qkd_ldpc_tpu_torch import Reconciler
-
-        rec = Reconciler(code, DecodeOptions(algorithm="sum-product", **base), lanes=128,
-                         device=dev).warmup()
-        ra, rb = (x.cpu().numpy() for x in make_trial_batch(
-            point_key, N, PROTOCOL_FRAMES, n_err, 0))
-        rsyn = rec.syndromes(ra)
-        for window in (1, 4):
-            rec.max_inflight_chunks = window
-            _profile_path(torch, f"reconciler_window_{window}",
-                          lambda: rec.reconcile(rb, rsyn, n_err / N), card,
-                          stage_ms(lambda: rec.reconcile(rb, rsyn, n_err / N)))
+        _profile_reconciler(torch, dev, card, code, point_key, n_err)
 
     # ---- the contract's lines ----------------------------------------------
     def kernel_line(name, source, replaces, meas, counts):

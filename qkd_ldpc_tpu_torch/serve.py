@@ -5,13 +5,21 @@ node is ONE side of the protocol with a network boundary in between; this
 module packages that boundary as a long-lived object with a
 serving-shaped contract:
 
-- **Any request size**: requests are padded and chunked to ``lanes``
-  frames, so every decode has the same shape.  Up to
-  ``max_inflight_chunks`` chunks are in flight: chunk k+1 is dispatched
-  (host-to-card copy through pinned memory, LLRs, one replay of the decode
-  graph, a copy back into pinned memory behind a CUDA event) before chunk k
-  is fetched, so the host's dispatch hides under the card's decode and the
-  card's memory stays bounded by the window, not the request.
+- **One program, any request size**: a chunk of ``lanes`` frames is one
+  device program (:class:`_ServeProgram`, JAX's ``_serve_step`` /
+  ``_serve_step_adapted``; :class:`_SyndromeProgram`, its
+  ``_syndrome_step``) over static buffers.  On the card under the kernel
+  backend each endpoint captures it once as a CUDA graph that the endpoint
+  owns (not ``device_loop.run_graph``'s shared cache, so a sweep on the same
+  card cannot evict it); the LLR magnitude and the chunk's valid lanes are
+  read from the chunk's input on the card, so neither a new channel
+  estimate nor a ragged request captures again.
+- **Pipelined chunks**: up to ``max_inflight_chunks`` chunks are in flight,
+  each through a slot of pinned host memory: its rows are copied into the
+  slot, then one copy to the card, one replay, one copy back into the slot
+  and one CUDA event; a slot is refilled only after its chunk was fetched.
+  The host's work hides under the card's decode, and the card's memory stays
+  constant in the request size.
 - **Host-friendly IO**: NumPy in, NumPy out.
 - **Both roles**: :meth:`Reconciler.syndromes` is Alice's side,
   :meth:`Reconciler.reconcile` Bob's; ``leak_bits`` reports the
@@ -25,14 +33,18 @@ serving-shaped contract:
   over the mother code — requests then carry payload bits, punctured
   positions are decoder-recovered erasures, and the leakage accounting
   follows the adapter.  Adapters bind to the endpoint's code by CONTENT
-  fingerprint (``LDPCCode.fingerprint``), not shape.
+  fingerprint (``LDPCCode.fingerprint``), not shape.  The LLR assembly and
+  the payload gather are part of the chunk's program.
 
 ``device=None`` means the card and raises without one; keys are the port's
-int64 keys (``channel.threefry.key_from_words`` converts a JAX key).
+int64 keys (``channel.threefry.key_from_words`` converts a JAX key).  The
+CPU and ``backend="xla"`` run the same programs eagerly with the plain
+versions, ``device_loop.eager_loops()`` eagerly with the kernels.
 
 Example::
 
     rec = Reconciler(code, DecodeOptions(message_dtype="bfloat16"))
+    rec.warmup()                        # optional: capture both programs now
     syn = rec.syndromes(alice_bits)     # Alice -> (classical channel)
     out = rec.reconcile(bob_bits, syn, qber=0.04)   # Bob
     corrected, ok = out.bits, out.syndromes_match
@@ -41,16 +53,20 @@ Example::
 from __future__ import annotations
 
 import collections
+import threading
+import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from qkd_ldpc_tpu_torch import _build
 from qkd_ldpc_tpu_torch.channel.threefry import prng_key
 from qkd_ldpc_tpu_torch.codes.ldpc_code import LDPCCode
-from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions, bp_decode_batch_last
-from qkd_ldpc_tpu_torch.decoder.rate_adapt import RateAdapter
-from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr
+from qkd_ldpc_tpu_torch.decoder import device_loop
+from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions, decode_program
+from qkd_ldpc_tpu_torch.decoder.rate_adapt import RateAdapter, pinned_llr
+from qkd_ldpc_tpu_torch.decoder.reconcile import llr_magnitude
 from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome as syndrome_fn
 from qkd_ldpc_tpu_torch.postprocess import (
     amplified_key_bits,
@@ -81,12 +97,195 @@ class SecureResult(NamedTuple):
     final_bits: int  # columns of `key`
 
 
+_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int8): torch.int8,
+                 np.dtype(np.int32): torch.int32, np.dtype(bool): torch.bool}
+
+
+class _Layout:
+    """Fields ``(dtype, shape)`` of one byte buffer, each at a 16-byte
+    aligned offset: a chunk's inputs or outputs, so that one copy moves them
+    all.  :meth:`views` cuts a tensor (on the card) or a numpy array (a
+    pinned host slot) into the fields."""
+
+    def __init__(self, *fields):
+        self.fields, offset = [], 0
+        for dtype, shape in fields:
+            dtype = np.dtype(dtype)
+            n = int(np.prod(shape)) * dtype.itemsize
+            self.fields.append((offset, n, dtype, shape))
+            offset += -(-n // 16) * 16
+        self.nbytes = offset
+
+    def views(self, buf) -> list:
+        if isinstance(buf, torch.Tensor):
+            return [buf[o:o + n].view(_TORCH_DTYPES[d]).reshape(s)
+                    for o, n, d, s in self.fields]
+        return [buf[o:o + n].view(d).reshape(s) for o, n, d, s in self.fields]
+
+
+# The int32 header of a chunk's input: the float32 bits of the a-priori LLR
+# magnitude, and the chunk's valid lanes.
+MAG, VALID = 0, 1
+
+
+def chunk_header(qber: float, valid: int) -> np.ndarray:
+    """The int32 ``[2]`` header of a chunk: the bits of
+    ``reconcile.llr_magnitude(qber)`` (so the rounding is ``apriori_llr``'s)
+    and the valid lane count."""
+    mag = np.asarray(llr_magnitude(qber), np.float32).reshape(1)
+    return np.array([mag.view(np.int32)[0], valid], np.int32)
+
+
+class _ServeProgram:
+    """JAX's ``_serve_step`` / ``_serve_step_adapted``
+    (``qkd_ldpc_tpu/serve.py:96-121``) over one chunk of ``lanes`` frames, on
+    static byte buffers: eager (``graph=None``) or captured into a
+    :class:`~qkd_ldpc_tpu_torch.decoder.device_loop.Graph`.
+
+    Input (:attr:`inputs`): the header (:func:`chunk_header`), Bob's bits
+    ``[lanes, frame_bits]`` uint8 and Alice's syndromes ``[lanes, M]``;
+    output (:attr:`outputs`): iterations int32, flags bool and the corrected
+    bits uint8 (payload bits on an adapted endpoint).  Lanes at or past the
+    valid count decode zeros toward a zero syndrome, as JAX's padding does,
+    and so converge at once whatever the buffer held before.  Everything that
+    varies per chunk is read on the device, so one capture serves every
+    request and QBER."""
+
+    def __init__(self, code, opts, lanes, adapter, shared_seed, device):
+        self.decode, self.use_kernel, _ = decode_program(code, opts, device)
+        self.code, self.lanes, self.adapter = code, lanes, adapter
+        F = code.n_vars if adapter is None else adapter.payload_bits
+        self.inputs = _Layout((np.int32, (2,)), (np.uint8, (lanes, F)),
+                              (np.uint8, (lanes, code.n_checks)))
+        self.outputs = _Layout((np.int32, (lanes,)), (bool, (lanes,)),
+                               (np.uint8, (lanes, F)))
+        self.lane = torch.arange(lanes, dtype=torch.int32, device=device)
+        if adapter is not None:
+            self.key_idx = torch.as_tensor(adapter.key_idx, dtype=torch.int64, device=device)
+            self.short_idx = torch.as_tensor(adapter.short_idx, dtype=torch.int64,
+                                             device=device)
+            # the shared seed's pinned +-64, [s, lanes], made once
+            self.short_llr = pinned_llr(adapter.short_pattern(shared_seed, device))[
+                :, None].expand(-1, lanes).contiguous()
+
+    def __call__(self, inp: torch.Tensor, out: torch.Tensor, graph=None) -> None:
+        x, bob, syn = self.inputs.views(inp)
+        iters_out, ok_out, bits_out = self.outputs.views(out)
+        mag = x[MAG:MAG + 1].view(torch.float32)
+        keep = self.lane < x[VALID]
+        channel = torch.where((bob.T == 1) & keep, -mag, mag)  # [frame_bits, B]
+        if self.adapter is None:
+            llr = channel.contiguous()
+        else:  # zeros (the punctured erasures), channel LLRs, the pins
+            llr = torch.zeros((self.code.n_vars, self.lanes), dtype=torch.float32,
+                              device=inp.device)
+            llr.index_copy_(0, self.key_idx, channel)
+            if self.short_idx.shape[0]:
+                llr.index_copy_(0, self.short_idx, self.short_llr)
+        s = torch.where(keep, syn.T, 0).to(torch.int8).contiguous()  # [M, B]
+        z, iters, ok = self.decode(llr, s, graph)
+        if self.adapter is not None:
+            z = z.index_select(0, self.key_idx)
+        bits_out.copy_(z.T)
+        iters_out.copy_(iters)
+        ok_out.copy_(ok)
+
+
+class _SyndromeProgram:
+    """JAX's ``_syndrome_step`` (``qkd_ldpc_tpu/serve.py:123-125``) over one
+    chunk of ``lanes`` full frames: input ``[lanes, N]`` uint8, output the
+    syndromes ``[lanes, M]`` int8."""
+
+    def __init__(self, code, opts, lanes, device):
+        self.code = code
+        # torch's ops only, captured where the endpoint's backend runs kernels
+        self.use_kernel = _build.use_kernel(opts.backend, device)
+        self.inputs = _Layout((np.uint8, (lanes, code.n_vars)))
+        self.outputs = _Layout((np.int8, (lanes, code.n_checks)))
+
+    def __call__(self, inp: torch.Tensor, out: torch.Tensor, graph=None) -> None:
+        (bits,), (syn,) = self.inputs.views(inp), self.outputs.views(out)
+        syn.copy_(syndrome_fn(self.code, bits))
+
+
+class _Slot:
+    """One chunk's host side: its input and output bytes (pinned when the
+    endpoint is on the card, with numpy views of both) and the event
+    recorded after its output copy."""
+
+    def __init__(self, program, device):
+        pin = device.type == "cuda"
+        self.inp = torch.zeros(program.inputs.nbytes, dtype=torch.uint8, pin_memory=pin)
+        self.out = torch.zeros(program.outputs.nbytes, dtype=torch.uint8, pin_memory=pin)
+        self.inp_views = program.inputs.views(self.inp.numpy())
+        self.out_views = program.outputs.views(self.out.numpy())
+        self.event = torch.cuda.Event() if pin else None
+
+
+class _Runner:
+    """One program of an endpoint, its static buffers on the device and the
+    ring of host slots that feeds it.
+
+    On the card under the kernel backend (outside ``eager_loops()``) the
+    program is captured at its first chunk into a ``device_loop.Graph`` that
+    this runner owns for its lifetime; every chunk is then one copy in, one
+    replay, one copy out and one event.  Otherwise it runs eagerly on the
+    same buffers.  A capture that fails raises."""
+
+    def __init__(self, program, device, loops):
+        self.program, self.device, self.loops = program, device, loops
+        self.static_in = torch.zeros(program.inputs.nbytes, dtype=torch.uint8, device=device)
+        self.static_out = torch.zeros(program.outputs.nbytes, dtype=torch.uint8,
+                                      device=device)
+        self.graph = None
+        self.slots: list[_Slot] = []
+
+    def ring(self, n: int) -> list[_Slot]:
+        """The first ``n`` slots (made at first need, then kept)."""
+        while len(self.slots) < n:
+            self.slots.append(_Slot(self.program, self.device))
+        return self.slots[:n]
+
+    def dispatch(self, slot: _Slot, rows: torch.Tensor | None = None) -> None:
+        """Queue one chunk: the slot's input (or ``rows``, a contiguous tensor
+        on the device) into the static input, the program, the static output
+        into the slot's output, the slot's event.  Synchronises nothing once
+        the program is captured."""
+        src = slot.inp if rows is None else rows.reshape(-1)
+        self.static_in[:src.numel()].copy_(src, non_blocking=True)
+        if device_loop.graphs_on(self.program.use_kernel, self.device):
+            if self.graph is None:
+                self.graph = self._capture()
+            self.graph.replay()
+        else:
+            self.program(self.static_in, self.static_out)
+        slot.out.copy_(self.static_out, non_blocking=True)
+        if slot.event is not None:
+            slot.event.record()
+
+    def fetch(self, slot: _Slot) -> list:
+        """The slot's output fields (numpy), once its chunk has run."""
+        if slot.event is not None:
+            slot.event.synchronize()
+        return slot.out_views
+
+    def _capture(self) -> device_loop.Graph:
+        program, static_in, static_out = self.program, self.static_in, self.static_out
+        graph = device_loop.Graph(self.device, self.loops).capture(
+            lambda g: program(static_in, static_out, g))
+        graph.keep = (static_in, static_out, program)
+        # when the endpoint goes, its graph's body counts join the host's
+        weakref.finalize(self, graph.release).atexit = False
+        return graph
+
+
 class Reconciler:
     """Long-lived reconciliation endpoint bound to one code + options.
 
     ``lanes`` is the decode batch width; requests of any size are
     padded/chunked to it (any ``lanes >= 1``: a width the kernels' vectors
-    do not divide runs their scalar instances)."""
+    do not divide runs their scalar instances).  Calls on one endpoint are
+    serialised (its programs' buffers are shared)."""
 
     def __init__(
         self,
@@ -121,6 +320,8 @@ class Reconciler:
         # enough that device memory stays constant in the request size.
         self.max_inflight_chunks = 4
         code.to_device(self.device)  # the index tensors, once
+        self._lock = threading.Lock()
+        self._runners: dict = {}
 
     @property
     def frame_bits(self) -> int:
@@ -149,12 +350,55 @@ class Reconciler:
 
     def warmup(self) -> "Reconciler":
         """Run both directions once now (on the card this builds the
-        kernels and captures the decode graph, which the first call would
+        kernels and captures both programs, which the first calls would
         otherwise pay for)."""
         bob = np.zeros((1, self.frame_bits), np.uint8)
         syn = self.syndromes(bob, frame_key=prng_key(0))
         self.reconcile(bob, syn, qber=0.01)
         return self
+
+    def _runner(self, kind: str) -> _Runner:
+        """The endpoint's program ``kind`` ("serve" or "syndrome"): one per
+        (schedule and options, lanes, adapter, shared seed), kept for the
+        endpoint's lifetime (a program holds its adapter, so the adapter's id
+        in the key stays unique)."""
+        key = (kind, self.opts, self.lanes, id(self.adapter), self.shared_seed)
+        runner = self._runners.get(key)
+        if runner is None:
+            if kind == "serve":
+                runner = _Runner(_ServeProgram(self.code, self.opts, self.lanes,
+                                               self.adapter, self.shared_seed, self.device),
+                                 self.device, device_loop.LOOPS_PER_DECODE)
+            else:
+                runner = _Runner(_SyndromeProgram(self.code, self.opts, self.lanes, self.device),
+                                 self.device, 0)
+            self._runners[key] = runner
+        return runner
+
+    def _stream(self, runner: _Runner, n: int, fill, read) -> None:
+        """Rows ``[0, n)`` through ``runner`` a chunk of ``lanes`` at a time,
+        ``max_inflight_chunks`` in flight: ``fill(input views, off, chunk)``
+        writes a chunk into its slot (or returns its rows on the device),
+        ``read(output views, off, chunk)`` takes its results."""
+        window = self.max_inflight_chunks
+        if window < 1:
+            raise ValueError("max_inflight_chunks must be >= 1")
+        ring = runner.ring(window)
+        pending = collections.deque()
+
+        def fetch_oldest():
+            off, chunk, slot = pending.popleft()
+            read(runner.fetch(slot), off, chunk)
+
+        for k, off in enumerate(range(0, n, self.lanes)):
+            chunk = min(self.lanes, n - off)
+            slot = ring[k % window]  # its previous chunk was fetched
+            runner.dispatch(slot, fill(slot.inp_views, off, chunk))
+            pending.append((off, chunk, slot))
+            if len(pending) == window:
+                fetch_oldest()
+        while pending:
+            fetch_oldest()
 
     def _frames(self, bits) -> tuple[np.ndarray, bool]:
         arr = host(bits, np.uint8)
@@ -173,17 +417,29 @@ class Reconciler:
         first; ``frame_key`` supplies Alice's PRIVATE randomness for
         punctured positions (required when the adapter punctures)."""
         arr, single = self._frames(bits)
-        x = torch.as_tensor(arr, device=self.device)
+        frames = None
         if self.adapter is not None:
             if self.adapter.punct_idx.size and frame_key is None:
                 raise ValueError(
                     "frame_key (Alice's private randomness for punctured "
                     "bits) is required on a punctured endpoint"
                 )
-            x = self.adapter.build_frames(
-                x, frame_key if frame_key is not None else prng_key(0),
-                self.shared_seed)
-        out = syndrome_fn(self.code, x).cpu().numpy()
+            frames = self.adapter.build_frames(
+                torch.as_tensor(arr, device=self.device),
+                frame_key if frame_key is not None else prng_key(0), self.shared_seed)
+        out = np.empty((arr.shape[0], self.code.n_checks), np.int8)
+
+        def fill(views, off, chunk):
+            if frames is not None:
+                return frames[off:off + chunk]
+            views[0][:chunk] = arr[off:off + chunk]
+            return None
+
+        def read(views, off, chunk):
+            out[off:off + chunk] = views[0][:chunk]
+
+        with self._lock:
+            self._stream(self._runner("syndrome"), arr.shape[0], fill, read)
         return out[0] if single else out
 
     def tags(self, bits, tag_key, tag_bits: int = 64) -> np.ndarray:
@@ -193,45 +449,6 @@ class Reconciler:
         arr, single = self._frames(bits)
         out = toeplitz_hash(arr, tag_key, tag_bits, device=self.device).cpu().numpy()
         return out[0] if single else out
-
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        """A host array on the endpoint's device; onto the card through
-        pinned memory without waiting (torch keeps the pinned block until
-        the copy has run)."""
-        x = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type != "cuda":
-            return x.to(self.device)
-        return x.pin_memory().to(self.device, non_blocking=True)
-
-    def _dispatch(self, bob: np.ndarray, syn: np.ndarray, qber: float):
-        """Queue one padded chunk: decode on the device and the copy of its
-        results back to the host; returns what :meth:`_fetch` needs."""
-        b = self._to_device(bob)
-        s = self._to_device(syn).to(torch.int8)
-        if self.adapter is not None:
-            llr = self.adapter.llr(b, qber, self.shared_seed)
-        else:
-            llr = apriori_llr(b, qber)
-        z, iters, ok = bp_decode_batch_last(self.code, llr.T, s.T, self.opts)
-        bits = z.T
-        if self.adapter is not None:
-            bits = self.adapter.payload(bits)
-        outs = (bits.to(torch.uint8), iters, ok)
-        if self.device.type != "cuda":
-            return outs, None
-        host_outs = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs)
-        for h, o in zip(host_outs, outs):
-            h.copy_(o, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host_outs, done
-
-    @staticmethod
-    def _fetch(pending) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        outs, done = pending
-        if done is not None:
-            done.synchronize()
-        return tuple(o.numpy() for o in outs)
 
     def reconcile(self, bob_bits, alice_syndromes, qber: float) -> ServeResult:
         """Bob side: correct noisy frames toward received syndromes.
@@ -250,34 +467,28 @@ class Reconciler:
             )
         if not (0.0 < qber < 1.0):
             raise ValueError("qber must be in (0, 1)")
-        if self.max_inflight_chunks < 1:
-            raise ValueError("max_inflight_chunks must be >= 1")
 
         n = bob.shape[0]
         bits = np.empty((n, self.frame_bits), np.uint8)
         iters = np.empty((n,), np.int32)
         ok = np.empty((n,), bool)
-        # A bounded window of chunks in flight (each with output tensors of
-        # its own): chunk k+1's dispatch hides under chunk k's decode.
-        pending = collections.deque()
 
-        def fetch_one():
-            off, chunk, work = pending.popleft()
-            z, it, okc = self._fetch(work)
+        mag = chunk_header(qber, 0)[MAG]
+
+        def fill(views, off, chunk):
+            header, b, s = views
+            header[:] = (mag, chunk)
+            b[:chunk] = bob[off:off + chunk]
+            s[:chunk] = syn[off:off + chunk]
+
+        def read(views, off, chunk):
+            it, okc, z = views
             bits[off:off + chunk] = z[:chunk]
             iters[off:off + chunk] = it[:chunk]
             ok[off:off + chunk] = okc[:chunk]
 
-        for off in range(0, n, self.lanes):
-            chunk = min(self.lanes, n - off)
-            pad = ((0, self.lanes - chunk), (0, 0))
-            pending.append((off, chunk, self._dispatch(
-                np.pad(bob[off:off + chunk], pad), np.pad(syn[off:off + chunk], pad),
-                qber)))
-            if len(pending) >= self.max_inflight_chunks:
-                fetch_one()
-        while pending:
-            fetch_one()
+        with self._lock:
+            self._stream(self._runner("serve"), n, fill, read)
         res = ServeResult(bits=bits, iterations=iters, syndromes_match=ok)
         if single:
             res = ServeResult(res.bits[0], res.iterations[0], res.syndromes_match[0])
