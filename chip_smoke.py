@@ -39,8 +39,10 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    equal to ``run_point`` at each point; the capture's time, nodes,
    conditional nodes and pool bytes; the kernels of ``csrc/continuation.cu``
    bit-equal to their plain versions (a tail refill of n_new < K among the
-   cases) and timed; then the three paths' walls in turns, each beside its
-   eager kernel loop;
+   cases; the column copy and the banking on their edge cases, ragged widths
+   and every instance) and timed, the copy and the banking beside their
+   sector floors, with ptxas's registers and spills; then the three paths'
+   walls in turns, each beside its eager kernel loop;
    3d. (``device_loops``) every decode leg as a graph against the eager kernel
    loop, bit for bit and launch for launch, and against the plain versions:
    flooding and layered at the flagship (SP/bf16, min-sum/int8), with a
@@ -126,8 +128,11 @@ sweep A, and the host's launch calls per graph replay (per chunk on the trial
 paths, sweep A and the Reconciler, whose windows of 1 and 4 chunks it traces
 with their busy shares; ``profile_reconciler_here`` runs those two legs alone
 on another checkout's package); all tracing comes after
-every untraced timing.  Times are this card's, labelled with its name and power
-limit; they are a smoke measurement, not a benchmark.
+every untraced timing.  ``--turns PARENT`` runs only the continuation's
+steps and path (c) (``profile_continuation_here``) on the checkout at PARENT
+and on this one in turns (parent, change, change, parent), a process each.
+Times are this card's, labelled with its name and power limit; they are a
+smoke measurement, not a benchmark.
 """
 
 from __future__ import annotations
@@ -198,6 +203,8 @@ WATERFALL_QBER, WATERFALL_POINT_INDEX = 0.0825, 1
 SEGMENT, REFILL_FRAC = 4, 0.125
 # The continuation's three-point sweep (points 0, 1, 2 of the master seed).
 CONTINUATION_QBERS = (0.075, 0.08, WATERFALL_QBER)
+# The continuation's turns (``--turns``): calls timed a turn, seconds a turn.
+CONTINUATION_WALLS, TURN_TIMEOUT = 8, 600
 FRESH_THRESHOLD = 3.0  # K5's check: the Lq clip must bite where it is applied
 # Other widths of the two flooding kernels: the compacted batch (vector
 # instances) and a width no vector divides (scalar instances).
@@ -265,16 +272,21 @@ QC_NODE_MESHES = ((1, 2), (2, 2), (1, 3))
 ROW_PROCESS_TIMEOUT = 300
 
 
-def _time_ms(torch, fn, flush, repeats=20, warmup=3, prepare=None):
+def _time_ms(torch, fn, flush, repeats=20, warmup=3, prepare=None, clean=False):
     """Median time of ``fn`` in ms by CUDA events, L2 flushed before each run;
-    ``prepare`` (optional) runs before the flush, outside the timed window."""
+    ``prepare`` (optional) runs before the flush, outside the timed window.
+    The flush zeroes 1 GiB, which leaves the L2 full of dirty lines whose
+    write-back lands in the timed window; ``clean`` flushes by reading it."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(repeats):
         if prepare is not None:
             prepare()
-        flush.zero_()
+        if clean:
+            flush.sum(dtype=torch.int64)
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -386,6 +398,38 @@ def _kernel_resources(log, kernel, instance):
             "spill_store_bytes": int(frame.group(2)) if frame else None}
 
 
+def _instances_resources(log, kernel):
+    """Registers, stack frame and spills of every instance of ``kernel`` in
+    ptxas's report, keyed by its template arguments ("" for none)."""
+    out = {}
+    for m in re.finditer(r"Compiling entry function '(\S*?" + kernel + r"(\w*?))'", log):
+        args = re.match(r"I((?:Li\d+E)+)E", m.group(2))
+        key = ",".join(re.findall(r"Li(\d+)E", args.group(1))) if args else ""
+        out[key] = _kernel_resources(log[m.start():], kernel, "")
+    if not out:
+        raise AssertionError(f"no ptxas report for {kernel}")
+    return out
+
+
+def _sectors(torch, rows, row_bytes, cols, elem, partial=False):
+    """Distinct 32-byte sectors holding the elements at the ascending columns
+    ``cols`` (a tensor) of ``rows`` rows of ``row_bytes`` bytes, one after
+    another from an aligned base, ``elem`` bytes an element; ``partial``:
+    only those the elements do not fill (a write merges them with their old
+    bytes)."""
+    if rows == 0 or cols.numel() == 0:
+        return 0
+    r = torch.arange(rows, dtype=torch.int64, device=cols.device)[:, None]
+    sec = ((r * row_bytes + cols.long()[None, :] * elem) // 32).flatten()
+    _, counts = torch.unique_consecutive(sec, return_counts=True)
+    return int((counts < 32 // elem).sum()) if partial else counts.numel()
+
+
+def _floor(n_bytes):
+    """A sector floor: its bytes and their time at the data sheet's rate."""
+    return {"bytes": n_bytes, "ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+
+
 def _sweep_kernel_resources(log, instance):
     """Registers per thread of one sweep-kernel instance, from ptxas's report
     in the build log, and the blocks of ``threads`` threads and ``shared``
@@ -410,7 +454,7 @@ _STREAM_CALLS = ("cudaEventRecord", "cudaStreamWaitEvent")
 
 
 def _profile_path(torch, path, step, card, untraced_ms, iteration_starts=None,
-                  keygen_launches=0):
+                  keygen_launches=0, table_out=None):
     """``--profile``: trace one path and print the device time by kernel
     name and the device-busy share of the UNTRACED run's wall time (tracing
     slows the host, not the kernels).  The first traced run absorbs the
@@ -425,6 +469,8 @@ def _profile_path(torch, path, step, card, untraced_ms, iteration_starts=None,
     counted and not derived.  Beside them: the calls that launch or order
     work on a stream (those and event records or waits) and every call into
     CUDA (``cuda*`` and ``cu*`` entry points), with the mean count of each by name.
+    ``table_out`` (a dict, optional) receives {kernel name: (ms, launches)}
+    of one run.
     """
     import bisect
 
@@ -464,6 +510,8 @@ def _profile_path(torch, path, step, card, untraced_ms, iteration_starts=None,
     if not rows:
         raise AssertionError("the profiler recorded no device time")
     table = sorted(((ms, c, k) for k, (ms, c) in rows.items()), reverse=True)
+    if table_out is not None:
+        table_out.update(rows)
     busy_ms = sum(r[0] for r in table)
     n_launches = sum(r[1] for r in table)
     per_iteration = None
@@ -568,6 +616,122 @@ def profile_reconciler_here() -> int:
     _profile_reconciler(torch, torch.device("cuda"), card_name_and_power_limit(), code,
                         derive_point_key(MASTER_SEED, POINT_INDEX),
                         num_errors_for(code.n_vars, QBER))
+    return 0
+
+
+def profile_continuation_here() -> int:
+    """The continuation's steps and path (c) alone, on the package that
+    ``import qkd_ldpc_tpu_torch`` finds first (so an earlier checkout too,
+    as :func:`continuation_turns` runs it): every step kernel held to its
+    plain version on the cases of :func:`_continuation_kernels` and timed at
+    the flagship, ptxas's registers of ``bank`` and ``refill_copy``, then path
+    (c) (2048 trials at QBER 0.0825): launches a call, the walls of
+    CONTINUATION_WALLS calls, and one traced call's device time by kernel (the
+    tracer attached before the capture).  Prints one ``continuation_turn``
+    line."""
+    import torch
+
+    from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.channel.keys import derive_point_key
+    from qkd_ldpc_tpu_torch.codes import make_qc_code
+    from qkd_ldpc_tpu_torch.decoder import DecodeOptions, device_loop
+    from qkd_ldpc_tpu_torch.sim import cuda_continuation as steps
+    from qkd_ldpc_tpu_torch.sim import run_point_continuation
+    from qkd_ldpc_tpu_torch.utils import card_name_and_power_limit
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    _build.build_all()
+    card = card_name_and_power_limit()
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    code = make_qc_code(z=Z, nb=NB, mb=MB_ROWS, dv=DV, seed=CODE_SEED)
+    measured, held = _continuation_kernels(torch, dev, flush, code)
+    del flush
+    opts = DecodeOptions(algorithm="sum-product", max_iterations=100, clip_messages=True,
+                         message_threshold=100.0, message_dtype="bfloat16", backend="auto")
+    key = derive_point_key(MASTER_SEED, WATERFALL_POINT_INDEX)
+    trials = N_BATCHES * BATCH
+
+    def call():
+        return run_point_continuation(code, key, WATERFALL_QBER, trials, BATCH, opts,
+                                      segment=SEGMENT, refill_frac=REFILL_FRAC)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()  # attached once before the capture
+    call()  # captures the program's graph
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    partials, _ = call()
+    launches = _build.launch_counts()
+    walls = []
+    for _ in range(CONTINUATION_WALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    table = {}  # two calls a traced run, as main's trace of path (c)
+    _profile_path(torch, "continuation", lambda: (call(), call()), card,
+                  2 * statistics.median(walls), (device_loop.Graph, "replay"),
+                  table_out=table)
+
+    def traced(kernel):  # device ms and launches of one call
+        hits = [v for k, v in table.items() if kernel in k]
+        return {"ms": sum(v[0] for v in hits) / 2, "launches": sum(v[1] for v in hits) / 2}
+
+    print(json.dumps({"continuation_turn": {
+        "card": card, "package": str(Path(_build.__file__).resolve().parent),
+        "kernels": {name: {**measured[name], **{k: held[name].get(k) for k in (
+            "sector_floor", "sector_floor_with_merge_reads", "ptxas", "case_ms")}}
+            for name in (steps.KERNEL_BANK, steps.KERNEL_COPY)},
+        "launch_floor_ms": held["launch_floor_ms"],
+        "path_c": {"partials": dataclasses.asdict(partials),
+                   "launches_a_call": {k: launches.get(k, 0) for k in steps.KERNELS},
+                   "walls_ms": walls,
+                   "traced_ms_a_call": {"bank": traced("bank_kernel"),
+                                        "refill_copy": traced("refill_copy_kernel"),
+                                        "all": sum(v[0] for v in table.values()) / 2}},
+    }}), flush=True)
+    return 0
+
+
+def continuation_turns(parent: str) -> int:
+    """``--turns PARENT``: :func:`profile_continuation_here` on the checkout
+    at PARENT and on this one, in turns (parent, change, change, parent), a
+    process each, on one card; every turn's line, then one
+    ``continuation_turns`` line that fails unless both held their kernels,
+    launch each step as often a call and give equal partials."""
+    here = Path(__file__).resolve()
+    runner = (f"import runpy, sys; sys.exit(runpy.run_path({str(here)!r}, "
+              f"run_name='chip_smoke')['profile_continuation_here']())")
+    turns = []
+    for label, root in (("parent", parent), ("change", here.parent),
+                        ("change", here.parent), ("parent", parent)):
+        out = subprocess.run([sys.executable, "-c", runner], cwd=root, capture_output=True,
+                             text=True, timeout=TURN_TIMEOUT)
+        if out.returncode != 0:
+            raise AssertionError(f"{label} turn failed:\n{out.stdout[-3000:]}\n"
+                                 f"{out.stderr[-3000:]}")
+        lines = out.stdout.splitlines()
+        turn = json.loads([ln for ln in lines if ln.startswith('{"continuation_turn"')][-1])[
+            "continuation_turn"]
+        trace = json.loads([ln for ln in lines if ln.startswith('{"profile"')][-1])["profile"]
+        print(json.dumps({"turn": label, **turn, "trace": trace}), flush=True)
+        turns.append((label, turn["path_c"]))
+    first = turns[0][1]
+    for label, t in turns[1:]:
+        if t["launches_a_call"] != first["launches_a_call"] or t["partials"] != first[
+                "partials"]:
+            raise AssertionError(f"{label}: launches or partials differ from the parent's: "
+                                 f"{t['launches_a_call']} {first['launches_a_call']}")
+    print(json.dumps({"continuation_turns": {
+        "order": [label for label, _ in turns],
+        "walls_ms": [t["walls_ms"] for _, t in turns],
+        "traced_ms_a_call": [t["traced_ms_a_call"] for _, t in turns],
+        "launches_a_call": first["launches_a_call"]}}), flush=True)
     return 0
 
 
@@ -2812,9 +2976,17 @@ def _continuation_kernels(torch, dev, flush, code):
     loop's test on six carries, the stage step on the next block, a point's
     advance, the clamp at the last point and ids across 2**32, the stage fill
     of a real K4 / K3 block, refills of K trials, of a point's tail (n_new <
-    K) and of none, the pass step on a segment's first and later passes, and
-    the banking into three points; then each timed at the flagship.  Returns
-    {kernel name: measurement}."""
+    K) and of none, the column copy of K trials, of a tail, of none, of one
+    contiguous run, with lanes 0 and B - 1, with Lr in each storage type and
+    at a ragged B = 200 (K = 25), the pass step on a segment's first and later
+    passes, and the banking into three points, with no lane banking a
+    success, every live lane banking, mismatches in the first or last row
+    alone, one all-banking group of 16 lanes with one mismatch, and ragged
+    widths (each load instance); then each timed at the flagship, the copy
+    and the banking with their sector floors beside the element bounds and
+    ptxas's registers and spills.  Returns ({kernel name: measurement},
+    report)."""
+    from qkd_ldpc_tpu_torch import _build
     from qkd_ldpc_tpu_torch.channel import cuda_prng, cuda_select
     from qkd_ldpc_tpu_torch.channel.keys import derive_point_key, num_errors_for
     from qkd_ldpc_tpu_torch.sim import cuda_continuation as steps
@@ -2833,16 +3005,16 @@ def _continuation_kernels(torch, dev, flush, code):
     def inputs(offset=0, n=trials):
         return continuation_inputs(keys, n_errs, n, offset, 10**6, N).to(dev)
 
-    def flags_(p):
-        return torch.rand(B, device=dev, generator=g) < p
+    def flags_(p, width=B):
+        return torch.rand(width, device=dev, generator=g) < p
 
-    def lanes():
-        live = flags_(0.7)
-        age = torch.randint(-1, max_it + 1, (B,), dtype=i32, device=dev, generator=g)
-        done = live & flags_(0.3)
+    def lanes(width=B):
+        live = flags_(0.7, width)
+        age = torch.randint(-1, max_it + 1, (width,), dtype=i32, device=dev, generator=g)
+        done = live & flags_(0.3, width)
         return dict(live=live, run=live & ~done & (age < max_it), done=done,
-                    fresh=live & flags_(0.1), age=age,
-                    lane_p=torch.randint(0, P, (B,), dtype=i32, device=dev, generator=g))
+                    fresh=live & flags_(0.1, width), age=age,
+                    lane_p=torch.randint(0, P, (width,), dtype=i32, device=dev, generator=g))
 
     def carry(**slots):
         st = torch.zeros(steps.SLOTS, dtype=i32, device=dev)
@@ -2859,11 +3031,12 @@ def _continuation_kernels(torch, dev, flush, code):
 
     measured, report = {}, {}
 
-    def hold(name, cases, kernel, plain, n_bytes, n_ops):
+    def hold(name, cases, kernel, plain, n_bytes, n_ops, each_case=False):
         """``cases``: {case: state dict}; ``kernel(state, case)`` and
         ``plain(state, case)`` write into the state.  Bit-equal on every
         tensor of the state, then timed on the first case with the state
-        restored before each run."""
+        restored before each run (``each_case``: the kernel on every case
+        too, after the zeroing flush and after a reading one)."""
         diff = {}
         for case, state in cases.items():
             a = {k: v.clone() for k, v in state.items()}
@@ -2889,6 +3062,19 @@ def _continuation_kernels(torch, dev, flush, code):
                               bound_by=bound_by, library_ms=None)
         report[name] = {"cases": list(cases), "bits_differing": 0, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms}
+        if each_case:
+            report[name]["case_ms"] = {}
+            for case, state in cases.items():
+                w = {k: v.clone() for k, v in state.items()}
+
+                def reset(w=w, state=state):
+                    for k, v in state.items():
+                        w[k].copy_(v)
+
+                report[name]["case_ms"][case] = {
+                    clean_name: _time_ms(torch, lambda w=w, case=case: kernel(w, case), flush,
+                                         prepare=reset, clean=clean)
+                    for clean_name, clean in (("ms", False), ("ms_l2_clean", True))}
 
     flags0 = torch.zeros(4, dtype=u8, device=dev)
     acc0 = torch.randint(0, 50, (7, P), dtype=i32, device=dev, generator=g)
@@ -2957,29 +3143,60 @@ def _continuation_kernels(torch, dev, flush, code):
          lambda t, c: steps.refill_lanes_plain(t["x"], t["st"], lane_tuple(t), t["lane_of"], K),
          B + 4 * K + K * 12 + 4 * 8, B)
 
-    # refill_copy: K staged columns into chosen lanes, and a tail of 20
-    staged = dict(llr_s=torch.randn((N, S), device=dev, generator=g),
-                  syn_s=torch.randint(0, 2, (M, S), dtype=torch.int8, device=dev, generator=g),
-                  alice_s=torch.randint(0, 2, (N, S), dtype=torch.int8, device=dev,
-                                        generator=g))
-
-    def copy_case(n_new):
-        pool = dict(llr=torch.randn((N, B), device=dev, generator=g),
-                    syn=torch.randint(0, 2, (M, B), dtype=torch.int8, device=dev, generator=g),
-                    alice=torch.randint(0, 2, (N, B), dtype=torch.int8, device=dev,
-                                        generator=g),
-                    Lr=torch.randn((dc, M, B), device=dev, generator=g).to(torch.bfloat16))
-        lane_of = torch.full((K,), -1, dtype=i32, device=dev)
-        lane_of[:n_new] = torch.randperm(B, device=dev, generator=g)[:n_new].sort().values.to(
-            i32)
-        return dict(st=carry(COL0=128, N_NEW=n_new), lane_of=lane_of, **staged, **pool)
+    # refill_copy: K staged columns into random lanes (timed), a tail of 20,
+    # none, one contiguous run, lanes 0 and B - 1, Lr in each storage type, and
+    # a ragged B = S = 200 with K = 25
+    def copy_case(n_new, width=B, k=K, lane_of=None, lr=torch.bfloat16, col0=128):
+        pool = dict(  # the staging block holds S = B trials
+            llr_s=torch.randn((N, width), device=dev, generator=g),
+            syn_s=torch.randint(0, 2, (M, width), dtype=torch.int8, device=dev, generator=g),
+            alice_s=torch.randint(0, 2, (N, width), dtype=torch.int8, device=dev, generator=g),
+            llr=torch.randn((N, width), device=dev, generator=g),
+            syn=torch.randint(0, 2, (M, width), dtype=torch.int8, device=dev, generator=g),
+            alice=torch.randint(0, 2, (N, width), dtype=torch.int8, device=dev, generator=g),
+            Lr=(torch.randint(-100, 100, (dc, M, width), dtype=torch.int8, device=dev,
+                              generator=g) if lr == torch.int8 else
+                torch.randn((dc, M, width), device=dev, generator=g).to(lr)))
+        if lane_of is None:
+            lane_of = torch.randperm(width, device=dev, generator=g)[:n_new].sort().values
+        lanes_ = torch.full((k,), -1, dtype=i32, device=dev)
+        lanes_[:n_new] = lane_of.to(i32)
+        return dict(st=carry(COL0=col0, N_NEW=n_new), lane_of=lanes_, **pool)
 
     def copy(fn):
         return lambda t, c: fn(t["st"], t["lane_of"], (t["llr_s"], t["syn_s"], t["alice_s"]),
                             (t["llr"], t["syn"], t["alice"], t["Lr"]))
-    hold(steps.KERNEL_COPY, {"k_columns": copy_case(K), "tail_20": copy_case(20)},
-         copy(steps.refill_copy_cuda), copy(steps.refill_copy_plain),
-         K * (2 * (4 * N + N + M) + 2 * dc * M) + 4 * K, K * (2 * N + M + dc * M))
+    ends = torch.randperm(B - 2, device=dev, generator=g)[:K - 2].sort().values + 1
+    copy_cases = {
+        "k_columns": copy_case(K),
+        "tail_20": copy_case(20),
+        "n_new_0": copy_case(0),
+        "contiguous_run": copy_case(K, lane_of=torch.arange(100, 100 + K, device=dev)),
+        "lanes_0_and_B-1": copy_case(K, lane_of=torch.cat([
+            torch.tensor([0], device=dev), ends, torch.tensor([B - 1], device=dev)])),
+        "Lr_float32": copy_case(K, lr=torch.float32),
+        "Lr_int8": copy_case(K, lr=torch.int8),
+        "ragged_B200_K25": copy_case(25, width=200, k=25, col0=75),
+    }
+    first = copy_cases["k_columns"]
+    copy_lanes = first["lane_of"][:K].long()
+    copy_cols = torch.arange(128, 128 + K, device=dev)
+    e = first["Lr"].element_size()
+    written = ((N, 4 * B, 4), (N, B, 1), (M, B, 1), (dc * M, e * B, e))
+    copy_sectors = (  # staged columns read, lanes written
+        _sectors(torch, N, 4 * S, copy_cols, 4) + _sectors(torch, N, S, copy_cols, 1)
+        + _sectors(torch, M, S, copy_cols, 1)
+        + sum(_sectors(torch, r, rb, copy_lanes, el) for r, rb, el in written))
+    merged = sum(_sectors(torch, r, rb, copy_lanes, el, partial=True) for r, rb, el in written)
+    hold(steps.KERNEL_COPY, copy_cases, copy(steps.refill_copy_cuda),
+         copy(steps.refill_copy_plain),
+         K * (2 * (4 * N + N + M) + 2 * dc * M) + 4 * K, K * (2 * N + M + dc * M),
+         each_case=True)
+    report[steps.KERNEL_COPY]["sector_floor"] = _floor(32 * copy_sectors + 4 * K + 8)
+    # the partly written sectors read as well, to be merged
+    report[steps.KERNEL_COPY]["sector_floor_with_merge_reads"] = _floor(
+        32 * (copy_sectors + merged) + 4 * K + 8)
+    del copy_cases, first
 
     # pass_step: a segment's first pass (fresh cleared) and a later one
     def pass_case():
@@ -2993,24 +3210,71 @@ def _continuation_kernels(torch, dev, flush, code):
     hold(steps.KERNEL_PASS, {"first_pass": pass_case(), "later_pass": pass_case()},
          pass_(steps.pass_step_cuda), pass_(steps.pass_step_plain), B * 10, B * 4)
 
-    # bank: three points, z against Alice's bits with mismatches on some lanes
-    s = lanes()
-    z = torch.randint(0, 2, (N, B), dtype=torch.int8, device=dev, generator=g)
-    alice = z.clone()
-    alice[torch.randint(0, N, (B,), device=dev, generator=g), torch.arange(B, device=dev)] ^= (
-        flags_(0.2).to(torch.int8))
-    s.pop("fresh")
-    state = dict(x=inputs(), acc=acc0.clone(), st=carry(SP=1, NEXT_ID=100), z=z, alice=alice,
-                 mis=torch.zeros(B, dtype=i32, device=dev), flags=flags0.clone(), **s)
-    n_spr = int((s["live"] & ~s["run"] & s["done"]).sum())
+    # bank: three points (timed), z against Alice's bits with mismatches on
+    # some lanes; no lane banking a success; every live lane banking; the
+    # mismatches in row 0 or row N - 1 alone; one group of 16 lanes all
+    # banking with one mismatch; ragged widths B = 200, 100 and 101 (the 8-,
+    # 4- and 1-byte load instances)
+    def bank_case(width=B, kind="three_points"):
+        s_ = lanes(width)
+        s_.pop("fresh")
+        live, age = s_["live"], s_["age"]
+        if kind == "no_lane_banks":
+            s_["done"].zero_()
+            s_["run"] = live & (age < max_it)
+        elif kind == "every_live_lane_banks":
+            s_["done"] = live.clone()
+            s_["run"] = torch.zeros_like(live)
+        elif kind == "group_of_16_one_mismatch":
+            s_["live"][16:32], s_["done"][16:32], s_["run"][16:32] = True, True, False
+        z = torch.randint(0, 2, (N, width), dtype=torch.int8, device=dev, generator=g)
+        alice = z.clone()
+        cols = torch.arange(width, device=dev)
+        flip = flags_(0.2, width).to(torch.int8)
+        if kind == "mismatch_row_0":
+            alice[0] ^= flip
+        elif kind == "mismatch_row_last":
+            alice[N - 1] ^= flip
+        elif kind == "group_of_16_one_mismatch":
+            alice[N // 2, 23] ^= 1
+        else:
+            alice[torch.randint(0, N, (width,), device=dev, generator=g), cols] ^= flip
+        return dict(x=inputs(), acc=acc0.clone(), st=carry(SP=1, NEXT_ID=100), z=z,
+                    alice=alice, mis=torch.zeros(width, dtype=i32, device=dev),
+                    flags=flags0.clone(), **s_)
 
     def bank(fn):
         return lambda t, c: fn(t["x"], t["acc"], t["st"],
                             (t["live"], t["run"], t["done"], t["age"], t["lane_p"]), t["z"],
                             t["alice"], t["mis"], max_it, t["flags"])
-    hold(steps.KERNEL_BANK, {"three_points": state}, bank(steps.bank_cuda),
-         bank(steps.bank_plain), B * 11 + 2 * N * n_spr + 28 * P + B + 8, B * 8 + N * n_spr)
-    report[steps.KERNEL_BANK]["lanes_banking_a_success"] = n_spr
+    bank_cases = {kind: bank_case(kind=kind) for kind in (
+        "three_points", "no_lane_banks", "every_live_lane_banks", "mismatch_row_0",
+        "mismatch_row_last", "group_of_16_one_mismatch")}
+    bank_cases.update({f"ragged_B{w}": bank_case(w) for w in (200, 100, 101)})
+    # (an earlier checkout, measured by profile_continuation_here, has one instance)
+    width_of = getattr(steps, "bank_width", None)
+    widths = {c: width_of(t["z"], t["alice"]) for c, t in bank_cases.items()} if (
+        width_of) else None
+    if width_of and set(widths.values()) != {16, 8, 4, 1}:
+        raise AssertionError(f"bank's cases miss a load instance: {widths}")
+    first = bank_cases["three_points"]
+    banking = first["live"] & ~first["run"] & first["done"]
+    n_spr = int(banking.sum())
+    bank_lanes = banking.nonzero().flatten()
+    hold(steps.KERNEL_BANK, bank_cases, bank(steps.bank_cuda), bank(steps.bank_plain),
+         B * 11 + 2 * N * n_spr + 28 * P + B + 8, B * 8 + N * n_spr, each_case=True)
+    report[steps.KERNEL_BANK].update(
+        lanes_banking_a_success=n_spr, load_width_bytes=widths,
+        sector_floor=_floor(2 * 32 * _sectors(torch, N, B, bank_lanes, 1) + B * 11
+                            + 28 * P + B + 8))
+    del bank_cases, first
+    log = _build.build_log("continuation")
+    for name, kernel in ((steps.KERNEL_BANK, "bank_kernel"),
+                         (steps.KERNEL_COPY, "refill_copy_kernel")):
+        report[name]["ptxas"] = _instances_resources(log, kernel)
+    # what the event window reads for a launch that does nearly nothing
+    tiny = torch.empty(1, device=dev)
+    report["launch_floor_ms"] = _time_ms(torch, lambda: tiny.fill_(1.0), flush)
     return measured, report
 
 
@@ -4041,4 +4305,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--turns" in sys.argv[1:]:
+        sys.exit(continuation_turns(sys.argv[sys.argv.index("--turns") + 1]))
     sys.exit(main())

@@ -39,10 +39,10 @@
 // Bound on this card: launch latency for all but three; the carry is a few
 // bytes a lane.  stage_fill moves the staging block (S x N Alice and Bob bytes
 // in, 6 S N bytes out plus the syndrome), refill_copy the refilled columns,
-// bank reads z and Alice's bits of the lanes that bank a success.  These are
-// simple first versions: one thread an element, the copies coalesced along the
-// staged columns, the syndrome read through L2 (a staging block's Alice bits,
-// 5 MB at the flagship, stay there).
+// bank reads z and Alice's bits of the lanes that bank a success.  stage_fill
+// is a simple first version (one thread an element, the syndrome read through
+// L2: a staging block's Alice bits, 5 MB at the flagship, stay there);
+// refill_copy and bank were redesigned for this card, each with a note below.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -262,35 +262,72 @@ __global__ void refill_lanes_kernel(const int* __restrict__ x, int* __restrict__
     }
 }
 
-// Item (row, i), i fastest: staged column col0 + i into lane lane_of[i], for
-// i < n_new; rows are llr and Alice's bits [N], the syndrome [M], and the
-// messages Lr [dc * M] (zeroed; `elem` bytes an entry).
+// refill_copy: staged column col0 + i into lane lane_of[i], for i < n_new,
+// of the rows of llr and Alice's bits [N], the syndrome [M], and the messages
+// Lr [dc * M] (zeroed; ELEM bytes an entry, one instance per width).
+//
+// Bound on this card: the partly written 32-byte sectors.  The reads are
+// n_new contiguous columns of a staged row; the writes land one element a
+// lane at the freed lanes, so a row's writes touch nearly every sector of the
+// row (64 of 512 lanes at random: about 50 MB of sectors at the flagship,
+// Lr's [dc * M, B] rows most of it, against 11 MB of elements), and a sector
+// written in part is merged with its old bytes, which the memory must read.
+// The same copy into 64 contiguous lanes (whole sectors) runs in about a
+// third of the time.  The design: threadIdx.x runs over the K new trials (a
+// warp a row reads 32 adjacent staged columns and writes 32 ascending lanes),
+// rows over threadIdx.y and the blocks, two rows a thread, and each array has
+// its own range of blocks, so no item takes a division, a branch on its row
+// or a switch on the element width.  n_new, col0 and the lanes are read once
+// a block into shared memory, and the columns past n_new leave at once.  The
+// grid comes from the shapes alone: a replay repeats it whatever n_new is.
+constexpr int kCopyRowsPerThread = 2;
+
+template <int ELEM> struct Word;
+template <> struct Word<4> { using T = uint32_t; };
+template <> struct Word<2> { using T = uint16_t; };
+template <> struct Word<1> { using T = uint8_t; };
+
+template <int ELEM>
 __global__ void __launch_bounds__(kThreads)
 refill_copy_kernel(const int* __restrict__ st, const int* __restrict__ lane_of,
                    const float* __restrict__ llr_s, const int8_t* __restrict__ syn_s,
                    const int8_t* __restrict__ alice_s, float* __restrict__ llr,
                    int8_t* __restrict__ syn, int8_t* __restrict__ alice, void* __restrict__ Lr,
-                   int elem, int N, int M, int dcM, int B, int S, int K) {
-    const int n_new = st[kNNew], col0 = st[kCol0];
-    const long long items = static_cast<long long>(N + M + dcM) * K;
-    for (long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; t < items;
-         t += static_cast<long long>(gridDim.x) * kThreads) {
-        const int i = static_cast<int>(t % K);
-        if (i >= n_new) continue;
-        const int row = static_cast<int>(t / K);
-        const size_t lane = lane_of[i], col = col0 + i;
-        if (row < N) {
-            llr[row * static_cast<size_t>(B) + lane] = llr_s[row * static_cast<size_t>(S) + col];
-            alice[row * static_cast<size_t>(B) + lane] =
-                alice_s[row * static_cast<size_t>(S) + col];
-        } else if (row < N + M) {
-            const size_t r = row - N;
-            syn[r * B + lane] = syn_s[r * S + col];
+                   int N, int M, int dcM, int B, int S, int K, int blocks_n, int blocks_m) {
+    extern __shared__ int lanes[];  // lane_of[0 .. n_new)
+    __shared__ int n_new_s, col0_s;
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    if (tid == 0) {
+        n_new_s = st[kNNew];
+        col0_s = st[kCol0];
+    }
+    __syncthreads();
+    const int n_new = n_new_s, col0 = col0_s;
+    for (int i = tid; i < n_new; i += blockDim.x * blockDim.y) lanes[i] = lane_of[i];
+    __syncthreads();
+    const int rows_step = blockDim.y;
+    const int blk = blockIdx.x;
+    for (int i = threadIdx.x; i < n_new; i += blockDim.x) {
+        const int lane = lanes[i], col = col0 + i;
+        if (blk < blocks_n) {  // llr and Alice's bits share the row index
+            const int stride = blocks_n * rows_step;
+#pragma unroll 4
+            for (int r = blk * rows_step + threadIdx.y; r < N; r += stride) {
+                llr[r * B + lane] = llr_s[r * S + col];
+                alice[r * B + lane] = alice_s[r * S + col];
+            }
+        } else if (blk < blocks_n + blocks_m) {
+            const int b = blk - blocks_n, stride = blocks_m * rows_step;
+#pragma unroll 4
+            for (int r = b * rows_step + threadIdx.y; r < M; r += stride) {
+                syn[r * B + lane] = syn_s[r * S + col];
+            }
         } else {
-            const size_t o = static_cast<size_t>(row - N - M) * B + lane;
-            if (elem == 4) static_cast<uint32_t*>(Lr)[o] = 0;
-            else if (elem == 2) static_cast<uint16_t*>(Lr)[o] = 0;
-            else static_cast<uint8_t*>(Lr)[o] = 0;
+            const int b = blk - blocks_n - blocks_m;
+            const int stride = (gridDim.x - blocks_n - blocks_m) * rows_step;
+            typename Word<ELEM>::T* out = static_cast<typename Word<ELEM>::T*>(Lr);
+#pragma unroll 4
+            for (int r = b * rows_step + threadIdx.y; r < dcM; r += stride) out[r * B + lane] = 0;
         }
     }
 }
@@ -307,11 +344,75 @@ __global__ void pass_step_kernel(const uint8_t* __restrict__ ok, uint8_t* __rest
     if (first) fresh[b] = 0;  // a refilled lane is fresh for one pass only
 }
 
-// Every block marks the lanes that bank a success and whose decision differs
-// from Alice's bits somewhere (mis[b] = 1); the last block to finish banks
-// every finished lane into its point's accumulators (integer atomics: exact in
-// any order), frees the lanes, and writes live_n and the outer loop's test.
-__global__ void __launch_bounds__(kThreads)
+// bank: every block marks the lanes that bank a success and whose decision
+// differs from Alice's bits somewhere (mis[b] = 1); the last block to finish
+// banks every finished lane into its point's accumulators (integer atomics:
+// exact in any order), frees the lanes, and writes live_n and the outer
+// loop's test.
+//
+// Bound on this card: a chain of dependent steps more than the bytes.  Only
+// the lanes that bank a success (live, stopped, done) need their z and
+// Alice's bits read; those bytes alone are 0.65 us at the flagship (106 of
+// 512 lanes), but scattered over each row they leave few 32-byte sectors
+// untouched, so the sector floor is near the full read of both [N, B] arrays
+// (3.1 us).  Around the read lie the flags' load, the ticket that elects the
+// last block and the last block's banking, each a round trip to memory.  The
+// design: each block first builds in shared memory a 16-bit mask of the
+// banking lanes of each group of 16 adjacent lanes, and their count, from the
+// B flag bytes (L2); if no lane banks, nothing is read.  A thread owns one
+// group and walks rows with a stride, loading 16 bytes of z and of Alice's
+// bits a row (W bytes a load where B or a base address is not 16-byte
+// aligned: the row stride is B bytes), and ORs their XOR into a register; a
+// group with no banking lane is skipped.  The grid is a few blocks an SM, so
+// the ticket is taken a few hundred times, not thousands.  Index arithmetic
+// is 32-bit; the one division (a thread's group and first row) is made once
+// a thread.
+constexpr int kBankThreads = 512;
+constexpr int kBankBlocksPerSm = 2;
+
+// XOR of W-byte loads of z and a over one group's 16 lanes (`avail` lanes of
+// the row lie in it), ORed into the four words of `acc` (lane j in byte j).
+template <int W>
+__device__ __forceinline__ void xor_or(const int8_t* z, const int8_t* a, int avail,
+                                       uint32_t (&acc)[4]) {
+    if constexpr (W == 16) {
+        const uint4 u = *reinterpret_cast<const uint4*>(z);
+        const uint4 v = *reinterpret_cast<const uint4*>(a);
+        acc[0] |= u.x ^ v.x;
+        acc[1] |= u.y ^ v.y;
+        acc[2] |= u.z ^ v.z;
+        acc[3] |= u.w ^ v.w;
+    } else if constexpr (W == 8) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+            if (8 * k < avail) {
+                const uint2 u = reinterpret_cast<const uint2*>(z)[k];
+                const uint2 v = reinterpret_cast<const uint2*>(a)[k];
+                acc[2 * k] |= u.x ^ v.x;
+                acc[2 * k + 1] |= u.y ^ v.y;
+            }
+        }
+    } else if constexpr (W == 4) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            if (4 * k < avail) {
+                acc[k] |= reinterpret_cast<const uint32_t*>(z)[k] ^
+                          reinterpret_cast<const uint32_t*>(a)[k];
+            }
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+            if (k < avail) {
+                acc[k >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(z[k] ^ a[k]))
+                               << (8 * (k & 3));
+            }
+        }
+    }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kBankThreads)
 bank_kernel(const int* __restrict__ x, int* __restrict__ acc, int* __restrict__ st,
             uint8_t* __restrict__ live, const uint8_t* __restrict__ run,
             const uint8_t* __restrict__ done, const int* __restrict__ age,
@@ -319,15 +420,46 @@ bank_kernel(const int* __restrict__ x, int* __restrict__ acc, int* __restrict__ 
             const int8_t* __restrict__ alice, int* __restrict__ mis, int N, int B, int P,
             uint8_t* __restrict__ flags, long long* __restrict__ passes,
             cudaGraphConditionalHandle h_out, int set_handle) {
-    const long long items = static_cast<long long>(N) * B;
-    for (long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; t < items;
-         t += static_cast<long long>(gridDim.x) * kThreads) {
-        const int b = static_cast<int>(t % B);
-        if (live[b] != 0 && run[b] == 0 && done[b] != 0 && z[t] != alice[t]) mis[b] = 1;
+    extern __shared__ uint16_t group_mask[];  // [G]: bit j = lane 16 g + j banks a success
+    __shared__ int n_bank, last, live_n;
+    const int G = (B + 15) >> 4;
+    if (threadIdx.x == 0) n_bank = 0;
+    __syncthreads();
+    for (int b0 = 0; b0 < B; b0 += kBankThreads) {  // uniform: every warp ballots
+        const int b = b0 + threadIdx.x;
+        const bool banks = b < B && live[b] != 0 && run[b] == 0 && done[b] != 0;
+        const unsigned m = __ballot_sync(0xffffffffu, banks);
+        if ((threadIdx.x & 31) == 0) {
+            const int g = b >> 4;  // b is a multiple of 32 here
+            if (g < G) group_mask[g] = static_cast<uint16_t>(m & 0xffffu);
+            if (g + 1 < G) group_mask[g + 1] = static_cast<uint16_t>(m >> 16);
+            if (m != 0) atomicAdd(&n_bank, __popc(m));
+        }
+    }
+    __syncthreads();
+    if (n_bank > 0) {
+        const int t = blockIdx.x * kBankThreads + threadIdx.x;
+        const int row_step = (gridDim.x * kBankThreads) / G;
+        const int g = t % G, r0 = t / G;
+        const unsigned mask = group_mask[g];
+        if (r0 < row_step && mask != 0) {
+            const int lane0 = g << 4, avail = B - lane0;
+            uint32_t diff[4] = {0u, 0u, 0u, 0u};
+#pragma unroll 4
+            for (int r = r0; r < N; r += row_step) {
+                const int o = r * B + lane0;
+                xor_or<W>(z + o, alice + o, avail, diff);
+            }
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+                if (((mask >> j) & 1u) && ((diff[j >> 2] >> (8 * (j & 3))) & 0xffu)) {
+                    mis[lane0 + j] = 1;  // idempotent
+                }
+            }
+        }
     }
     __threadfence();
     __syncthreads();
-    __shared__ int last, live_n;
     if (threadIdx.x == 0) {
         last = atomicAdd(&st[kTicket], 1) == static_cast<int>(gridDim.x) - 1;
         live_n = 0;
@@ -337,7 +469,7 @@ bank_kernel(const int* __restrict__ x, int* __restrict__ acc, int* __restrict__ 
     __threadfence();
     volatile int* seen = mis;
     int mine = 0;
-    for (int b = threadIdx.x; b < B; b += kThreads) {
+    for (int b = threadIdx.x; b < B; b += kBankThreads) {
         const bool l = live[b] != 0;
         const bool finished = l && run[b] == 0;
         if (finished) {
@@ -440,14 +572,31 @@ extern "C" int refill_copy(const void* st, const void* lane_of, const void* llr_
                            const void* syn_s, const void* alice_s, void* llr, void* syn,
                            void* alice, void* Lr, int elem, int N, int M, int dcM, int B, int S,
                            int K, void* stream) {
-    const long long items = static_cast<long long>(N + M + dcM) * K;
-    const long long blocks = (items + kThreads - 1) / kThreads;
-    refill_copy_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(st), static_cast<const int*>(lane_of),
-        static_cast<const float*>(llr_s), static_cast<const int8_t*>(syn_s),
-        static_cast<const int8_t*>(alice_s), static_cast<float*>(llr),
-        static_cast<int8_t*>(syn), static_cast<int8_t*>(alice), Lr, elem, N, M, dcM, B, S, K);
+    // threadIdx.x over the K columns (a warp at least), threadIdx.y over rows
+    const int bx = K < kThreads ? (K + 31) / 32 * 32 : kThreads;
+    const dim3 block(bx, kThreads / bx);
+    const int rows_a_block = static_cast<int>(block.y) * kCopyRowsPerThread;
+    const int blocks_n = (N + rows_a_block - 1) / rows_a_block;
+    const int blocks_m = (M + rows_a_block - 1) / rows_a_block;
+    const int blocks_l = (dcM + rows_a_block - 1) / rows_a_block;
+    const unsigned grid = static_cast<unsigned>(blocks_n + blocks_m + blocks_l);
+    const size_t shared = static_cast<size_t>(K) * sizeof(int);
+    auto launch = [&](auto kernel) {
+        if (shared > 48 * 1024) {
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(shared));
+        }
+        kernel<<<grid, block, shared, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const int*>(st), static_cast<const int*>(lane_of),
+            static_cast<const float*>(llr_s), static_cast<const int8_t*>(syn_s),
+            static_cast<const int8_t*>(alice_s), static_cast<float*>(llr),
+            static_cast<int8_t*>(syn), static_cast<int8_t*>(alice), Lr, N, M, dcM, B, S, K,
+            blocks_n, blocks_m);
+    };
+    if (elem == 4) launch(refill_copy_kernel<4>);
+    else if (elem == 2) launch(refill_copy_kernel<2>);
+    else if (elem == 1) launch(refill_copy_kernel<1>);
+    else return static_cast<int>(cudaErrorInvalidValue);
     return last_error();
 }
 
@@ -461,19 +610,50 @@ extern "C" int pass_step(const void* ok, void* done, void* run, const void* age,
     return last_error();
 }
 
+// The widest load (16, 8, 4 or 1 bytes) that every row's groups of z and
+// Alice's bits allow: B and both base addresses divisible by it.
+static int bank_load_width(const void* z, const void* alice, int B) {
+    const auto bits = static_cast<unsigned long long>(B) |
+                      reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(alice);
+    return bits % 16 == 0 ? 16 : bits % 8 == 0 ? 8 : bits % 4 == 0 ? 4 : 1;
+}
+
+extern "C" int bank_width(const void* z, const void* alice, int B) {
+    return bank_load_width(z, alice, B);
+}
+
 extern "C" int bank(const void* x, void* acc, void* st, void* live, const void* run,
                     const void* done, const void* age, const void* lane_p, const void* z,
                     const void* alice, void* mis, int N, int B, int P, void* flags, void* passes,
                     unsigned long long h_out, int set_handle, void* stream) {
-    const long long items = static_cast<long long>(N) * B;
-    const long long blocks = (items + kThreads - 1) / kThreads;
-    bank_kernel<<<static_cast<unsigned>(blocks < 2048 ? blocks : 2048), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(x), static_cast<int*>(acc), static_cast<int*>(st),
-        static_cast<uint8_t*>(live), static_cast<const uint8_t*>(run),
-        static_cast<const uint8_t*>(done), static_cast<const int*>(age),
-        static_cast<const int*>(lane_p), static_cast<const int8_t*>(z),
-        static_cast<const int8_t*>(alice), static_cast<int*>(mis), N, B, P,
-        static_cast<uint8_t*>(flags), static_cast<long long*>(passes), h_out, set_handle);
+    int device = 0, sms = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    // a few blocks an SM, fewer where the rows' groups need fewer threads,
+    // never fewer than one thread a group
+    const long long G = (B + 15) / 16;
+    const long long need = (G * N + kBankThreads - 1) / kBankThreads;
+    const long long floor_blocks = (G + kBankThreads - 1) / kBankThreads;
+    long long blocks = need < static_cast<long long>(sms) * kBankBlocksPerSm
+                           ? need : static_cast<long long>(sms) * kBankBlocksPerSm;
+    if (blocks < floor_blocks) blocks = floor_blocks;
+    if (blocks < 1) blocks = 1;
+    const size_t shared = static_cast<size_t>(G) * sizeof(uint16_t);
+    auto launch = [&](auto kernel) {
+        kernel<<<static_cast<unsigned>(blocks), kBankThreads, shared,
+                 static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const int*>(x), static_cast<int*>(acc), static_cast<int*>(st),
+            static_cast<uint8_t*>(live), static_cast<const uint8_t*>(run),
+            static_cast<const uint8_t*>(done), static_cast<const int*>(age),
+            static_cast<const int*>(lane_p), static_cast<const int8_t*>(z),
+            static_cast<const int8_t*>(alice), static_cast<int*>(mis), N, B, P,
+            static_cast<uint8_t*>(flags), static_cast<long long*>(passes), h_out, set_handle);
+    };
+    switch (bank_load_width(z, alice, B)) {
+        case 16: launch(bank_kernel<16>); break;
+        case 8: launch(bank_kernel<8>); break;
+        case 4: launch(bank_kernel<4>); break;
+        default: launch(bank_kernel<1>); break;
+    }
     return last_error();
 }

@@ -102,6 +102,14 @@ def _more_ids(x: torch.Tensor, st: torch.Tensor, P: int) -> torch.Tensor:
     return (st[SP] < P - 1) | (st[NEXT_ID] < x[TRIALS])
 
 
+def _offsets_fit_int32(what: str, *sizes: int) -> None:
+    """The kernels index with 32-bit integers: raise where an array's element
+    count would not fit."""
+    if max(sizes) >= 2**31:
+        raise ValueError(f"{what}: arrays of 2**31 or more elements exceed the kernel's "
+                         "32-bit offsets")
+
+
 def _as_int32(v: torch.Tensor) -> torch.Tensor:
     """An int64 value in [0, 2**32) as the int32 with the same bits."""
     return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
@@ -339,6 +347,7 @@ def refill_copy_cuda(st, lane_of, staged, pool):
             syn_s.shape != (M, S) or alice_s.shape != (N, S)):
         raise ValueError("refill_copy: staging arrays [N | M, S], lanes [N | M, B], "
                          "Lr [dc, M, B]")
+    _offsets_fit_int32("refill_copy", N * S, N * B, dc * M * B)
     _launch(KERNEL_COPY, [_P] * 9 + [_I] * 7, (st, lane_of, *staged, *pool),
             st.data_ptr(), lane_of.data_ptr(), llr_s.data_ptr(), syn_s.data_ptr(),
             alice_s.data_ptr(), llr.data_ptr(), syn.data_ptr(), alice.data_ptr(),
@@ -418,12 +427,21 @@ def bank_cuda(x, acc, st, lanes, z, alice, mis, max_it, flags, passes=None, hand
     N, B = z.shape
     if alice.shape != (N, B) or mis.shape != (B,) or mis.dtype != torch.int32:
         raise ValueError("bank: z and alice [N, B] int8, mis int32 [B]")
+    _offsets_fit_int32("bank", N * B)
     _launch(KERNEL_BANK, [_P] * 11 + [_I] * 3 + [_P, _P, _H, _I],
             (x, acc, st, *lanes, z, alice, mis, flags, passes),
             x.data_ptr(), acc.data_ptr(), st.data_ptr(), live.data_ptr(), run.data_ptr(),
             done.data_ptr(), age.data_ptr(), lane_p.data_ptr(), z.data_ptr(),
             alice.data_ptr(), mis.data_ptr(), N, B, acc.shape[1], flags.data_ptr(),
             _ptr(passes), handle or 0, int(handle is not None))
+
+
+def bank_width(z, alice) -> int:
+    """Bytes a load of the banking kernel's instance for these tensors: 16,
+    or 8, 4, 1 where the row stride ``B`` or a base address is not 16-byte
+    aligned (chosen at launch, as :func:`bank_cuda` does)."""
+    fn = _build.function("continuation", "bank_width", [_P, _P, _I])
+    return int(fn(z.data_ptr(), alice.data_ptr(), z.shape[1]))
 
 
 def bank(x, acc, st, lanes, z, alice, mis, max_it, flags, *, use_kernel, passes=None,

@@ -213,8 +213,8 @@ S, P, B = 16, 3, 16
 RNG_SEED = 20261017
 
 
-def _carry(rng, **kw):
-    """A crafted carry: x, acc [7, P], st, and the lanes' flags."""
+def _carry(rng, b=B, **kw):
+    """A crafted carry: x, acc [7, P], st, and the flags of ``b`` lanes."""
     x = torch.zeros(steps.KEYS + 4 * P, dtype=torch.int32)
     x[steps.TRIALS] = kw.get("trials", 40)
     x[steps.OFFSET] = kw.get("offset", 0)
@@ -224,12 +224,12 @@ def _carry(rng, **kw):
     x[steps.KEYS + 2 * P:steps.KEYS + 3 * P] = torch.tensor([30, 40, 50])
     x[steps.KEYS + 3 * P:] = torch.tensor([2.5, 2.25, 2.0]).view(torch.int32)
     st = torch.zeros(steps.SLOTS, dtype=torch.int32)
-    live = torch.from_numpy(rng.random(B) < kw.get("live_frac", 0.5))
-    lanes = dict(live=live, run=live & torch.from_numpy(rng.random(B) < 0.5),
-                 fresh=torch.from_numpy(rng.random(B) < 0.3),
-                 age=torch.from_numpy(rng.integers(0, 9, B).astype(np.int32)),
-                 lane_p=torch.from_numpy(rng.integers(0, P, B).astype(np.int32)))
-    lanes["done"] = live & ~lanes["run"] & torch.from_numpy(rng.random(B) < 0.6)
+    live = torch.from_numpy(rng.random(b) < kw.get("live_frac", 0.5))
+    lanes = dict(live=live, run=live & torch.from_numpy(rng.random(b) < 0.5),
+                 fresh=torch.from_numpy(rng.random(b) < 0.3),
+                 age=torch.from_numpy(rng.integers(0, 9, b).astype(np.int32)),
+                 lane_p=torch.from_numpy(rng.integers(0, P, b).astype(np.int32)))
+    lanes["done"] = live & ~lanes["run"] & torch.from_numpy(rng.random(b) < 0.6)
     return x, st, lanes
 
 
@@ -325,32 +325,40 @@ def test_stage_fill_equals_jax_regen_arrays(codes):
     assert np.array_equal(alice_s.numpy(), alice.T)
 
 
-def test_refill_copy_equals_jax_blend(codes):
+@pytest.mark.parametrize("case", ["float32", "bfloat16", "int8", "n-new-0",
+                                  "lanes-at-both-ends"])
+def test_refill_copy_equals_jax_blend(codes, case):
     """``refill``'s blend (:156-188): the staged columns ``pos .. pos + n_new``
     land in the chosen lanes; their messages are zeroed; other lanes keep
-    theirs."""
+    theirs — with the messages in each storage type, no new trial, and lanes
+    0 and B - 1 among the chosen."""
     _, tc = codes
     rng = np.random.default_rng(RNG_SEED + 3)
     N, M, dc = tc.n_vars, tc.n_checks, tc.dc_max
     staged = (torch.from_numpy(rng.standard_normal((N, S)).astype(np.float32)),
               torch.from_numpy(rng.integers(0, 2, (M, S)).astype(np.int8)),
               torch.from_numpy(rng.integers(0, 2, (N, S)).astype(np.int8)))
+    messages = torch.from_numpy(rng.standard_normal((dc, M, B)).astype(np.float32))
+    if case == "bfloat16":
+        messages = messages.to(torch.bfloat16)
+    elif case == "int8":
+        messages = torch.from_numpy(rng.integers(-127, 128, (dc, M, B)).astype(np.int8))
     pool = (torch.from_numpy(rng.standard_normal((N, B)).astype(np.float32)),
             torch.from_numpy(rng.integers(0, 2, (M, B)).astype(np.int8)),
             torch.from_numpy(rng.integers(0, 2, (N, B)).astype(np.int8)),
-            torch.from_numpy(rng.standard_normal((dc, M, B)).astype(np.float32)))
+            messages)
     before = [t.clone() for t in pool]
+    lanes = {"n-new-0": [], "lanes-at-both-ends": [0, 7, B - 1]}.get(case, [1, 6, 7])
     st = torch.zeros(steps.SLOTS, dtype=torch.int32)
-    st[steps.COL0], st[steps.N_NEW] = 8, 3
-    lane_of = torch.tensor([1, 6, 7, -1], dtype=torch.int32)
+    st[steps.COL0], st[steps.N_NEW] = 8, len(lanes)
+    lane_of = torch.tensor(lanes + [-1] * (K - len(lanes)), dtype=torch.int32)
     steps.refill_copy_plain(st, lane_of, staged, pool)
-    lanes = [1, 6, 7]
+    rest = [b for b in range(B) if b not in lanes]
     for src, dst, old in zip(staged, pool, before):
-        assert torch.equal(dst[:, lanes], src[:, 8:11])
-        rest = [b for b in range(B) if b not in lanes]
+        assert torch.equal(dst[:, lanes], src[:, 8:8 + len(lanes)])
         assert torch.equal(dst[:, rest], old[:, rest])
     assert not pool[3][:, :, lanes].any()
-    assert torch.equal(pool[3][:, :, 0], before[3][:, :, 0])
+    assert torch.equal(pool[3][:, :, rest], before[3][:, :, rest])
 
 
 def test_pass_step_equals_jax_segment_bookkeeping():
@@ -372,26 +380,36 @@ def test_pass_step_equals_jax_segment_bookkeeping():
         assert torch.equal(fresh, torch.zeros_like(fresh) if first else fresh0)
 
 
-def test_bank_equals_jax_banking_into_points():
+@pytest.mark.parametrize("case", ["mixed", "no-success", "all-lanes-bank",
+                                  "mismatch-last-row", "ragged-b"])
+def test_bank_equals_jax_banking_into_points(case):
     """The banking (:241-259) into two points: ``finished = live & (done |
     age >= max_it)`` (the port's ``live & ~run``), scatter adds of trials,
     successes, keys matches, iterations and squares, scatter min/max over
-    the successes with neutral elements elsewhere; finished lanes freed."""
+    the successes with neutral elements elsewhere; finished lanes freed —
+    with no lane banking a success, every live lane banking one, the
+    mismatches in the last row alone, and a width no 16-lane group divides."""
     rng = np.random.default_rng(RNG_SEED + 5)
     max_it, N = 8, 64
+    width = 13 if case == "ragged-b" else B
     for _ in range(4):
-        x, st, lanes = _carry(rng, live_frac=0.8)
+        x, st, lanes = _carry(rng, b=width, live_frac=0.8)
         live, done, age, lane_p = (lanes[k] for k in ("live", "done", "age", "lane_p"))
         lane_p.clamp_(max=1)  # two points
+        if case == "no-success":
+            done.zero_()
+        elif case == "all-lanes-bank":
+            done.copy_(live)
         run = live & ~done & (age < max_it)
-        z = torch.from_numpy(rng.integers(0, 2, (N, B)).astype(np.int8))
+        z = torch.from_numpy(rng.integers(0, 2, (N, width)).astype(np.int8))
         alice = z.clone()
-        alice[0, rng.random(B) < 0.3] ^= 1
+        alice[N - 1 if case == "mismatch-last-row" else 0, rng.random(width) < 0.3] ^= 1
         acc = torch.zeros((7, P), dtype=torch.int32)
         acc[5] = max_it
         acc[0] = torch.tensor([3, 4, 0])  # earlier bankings stay
         # numpy statement of :241-259
-        lv, dn, ag, lp = live.numpy(), done.numpy(), age.numpy(), lane_p.numpy()
+        lv = live.numpy().copy()  # bank_plain frees lanes in place
+        dn, ag, lp = done.numpy(), age.numpy(), lane_p.numpy()
         fin = lv & (dn | (ag >= max_it))
         spr = fin & dn
         keys = (z.numpy() == alice.numpy()).all(axis=0)
@@ -405,7 +423,7 @@ def test_bank_equals_jax_banking_into_points():
         np.minimum.at(want[5], lp, np.where(spr, ag, max_it))
         np.maximum.at(want[6], lp, it)
         flags = torch.zeros(4, dtype=torch.uint8)
-        mis = torch.zeros(B, dtype=torch.int32)
+        mis = torch.zeros(width, dtype=torch.int32)
         steps.bank_plain(x, acc, st, (live, run, done, age, lane_p), z, alice, mis, max_it,
                          flags)
         assert np.array_equal(acc.numpy(), want)
@@ -414,6 +432,10 @@ def test_bank_equals_jax_banking_into_points():
         more = int(st[steps.SP]) < P - 1 or int(st[steps.NEXT_ID]) < int(x[steps.TRIALS])
         assert bool(flags[steps.OUTER_GO]) == (more or bool((lv & ~fin).any()))
         assert not mis.any()
+        if case == "no-success":
+            assert np.array_equal(acc.numpy()[1:5], np.stack([[0, 0, 0]] * 4))
+        elif case == "all-lanes-bank":
+            assert not live.any() and int(acc[1].sum()) == int(lv.sum())
 
 
 @pytest.mark.parametrize("sp,next_id,live_n,pos", [
@@ -456,3 +478,20 @@ def test_step_wrappers_refuse_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         steps.pass_step_cuda(lanes["done"], lanes["done"], lanes["run"], lanes["age"],
                              lanes["fresh"], 5, True)
+
+
+def test_copy_and_bank_refuse_offsets_past_32_bits():
+    """The two kernels index with 32-bit integers: their wrappers refuse an
+    array of 2**31 elements before any launch (views of one element here)."""
+    big = (2**16, 2**15)
+    z = torch.zeros(1, 1, dtype=torch.int8).expand(*big)
+    x, st, lanes = _carry(np.random.default_rng(RNG_SEED + 9))
+    acc, flags = torch.zeros((7, P), dtype=torch.int32), torch.zeros(4, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="32-bit"):
+        steps.bank_cuda(x, acc, st, tuple(lanes[k] for k in ("live", "run", "done", "age",
+                                                            "lane_p")),
+                        z, z, torch.zeros(big[1], dtype=torch.int32), 8, flags)
+    f32 = torch.zeros(1, 1).expand(*big)
+    with pytest.raises(ValueError, match="32-bit"):
+        steps.refill_copy_cuda(st, torch.zeros(K, dtype=torch.int32), (f32, z[:4], z),
+                               (f32, z[:4], z, torch.zeros(1, 1, 1).expand(1, 4, big[1])))
