@@ -40,9 +40,12 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    conditional nodes and pool bytes; the kernels of ``csrc/continuation.cu``
    bit-equal to their plain versions (a tail refill of n_new < K among the
    cases; the column copy and the banking on their edge cases, ragged widths
-   and every instance) and timed, the copy and the banking beside their
-   sector floors, with ptxas's registers and spills; then the three paths'
-   walls in turns, each beside its eager kernel loop;
+   and every instance; the staging fill on irregular codes, check degree 15,
+   ragged S and N and every access width; the variable update with the
+   previous pass's bookkeeping folded in, in each storage type) and timed,
+   the copy and the banking beside their sector floors, with ptxas's
+   registers and spills; then the three paths' walls in turns, each beside
+   its eager kernel loop;
    3d. (``device_loops``) every decode leg as a graph against the eager kernel
    loop, bit for bit and launch for launch, and against the plain versions:
    flooding and layered at the flagship (SP/bf16, min-sum/int8), with a
@@ -130,7 +133,9 @@ with their busy shares; ``profile_reconciler_here`` runs those two legs alone
 on another checkout's package); all tracing comes after
 every untraced timing.  ``--turns PARENT`` runs only the continuation's
 steps and path (c) (``profile_continuation_here``) on the checkout at PARENT
-and on this one in turns (parent, change, change, parent), a process each.
+and on this one in turns (parent, change, change, parent), a process each;
+``--trial-turns PARENT`` likewise the two trial paths' walls
+(``profile_trial_paths_here``), parent and change alternating in pairs.
 Times are this card's, labelled with its name and power limit; they are a
 smoke measurement, not a benchmark.
 """
@@ -140,6 +145,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import inspect
 import io
 import json
 import re
@@ -203,8 +209,16 @@ WATERFALL_QBER, WATERFALL_POINT_INDEX = 0.0825, 1
 SEGMENT, REFILL_FRAC = 4, 0.125
 # The continuation's three-point sweep (points 0, 1, 2 of the master seed).
 CONTINUATION_QBERS = (0.075, 0.08, WATERFALL_QBER)
+# Names under which _continuation_kernels reports the variable update: with
+# the previous pass's bookkeeping folded in (the continuation's passes 1 ..
+# segment - 1), and the plain update as the flooding path launches it.
+KERNEL_FOLD, KERNEL_VARIABLE_FLOODING = "variable_update_fold", "variable_update_flooding"
 # The continuation's turns (``--turns``): calls timed a turn, seconds a turn.
 CONTINUATION_WALLS, TURN_TIMEOUT = 8, 600
+# The trial paths' turns (``--trial-turns``): walls of each path a turn, and
+# the turns, parent and change alternating in pairs.
+TRIAL_WALLS = 20
+TRIAL_TURN_ORDER = ("parent", "change", "change", "parent") * 2
 FRESH_THRESHOLD = 3.0  # K5's check: the Lq clip must bite where it is applied
 # Other widths of the two flooding kernels: the compacted batch (vector
 # instances) and a width no vector divides (scalar instances).
@@ -403,8 +417,10 @@ def _instances_resources(log, kernel):
     ptxas's report, keyed by its template arguments ("" for none)."""
     out = {}
     for m in re.finditer(r"Compiling entry function '(\S*?" + kernel + r"(\w*?))'", log):
-        args = re.match(r"I((?:Li\d+E)+)E", m.group(2))
-        key = ",".join(re.findall(r"Li(\d+)E", args.group(1))) if args else ""
+        if m.group(2).startswith("_"):  # another kernel whose name begins with this one's
+            continue
+        args = re.match(r"I((?:L[ib]\d+E)+)E", m.group(2))  # int and bool arguments
+        key = ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) if args else ""
         out[key] = _kernel_resources(log[m.start():], kernel, "")
     if not out:
         raise AssertionError(f"no ptxas report for {kernel}")
@@ -423,6 +439,19 @@ def _sectors(torch, rows, row_bytes, cols, elem, partial=False):
     sec = ((r * row_bytes + cols.long()[None, :] * elem) // 32).flatten()
     _, counts = torch.unique_consecutive(sec, return_counts=True)
     return int((counts < 32 // elem).sum()) if partial else counts.numel()
+
+
+def _packed_bits(torch, rows):
+    """Alice's ``[S, N]`` rows packed as ``stage_fill``'s kernel packs them:
+    int32 ``[N, ceil(S / 32)]``, bit k of word g the low bit of trial 32 g +
+    k, 0 past S."""
+    S, N = rows.shape
+    G = -(-S // 32)
+    padded = torch.zeros((G * 32, N), dtype=torch.int64, device=rows.device)
+    padded[:S] = (rows & 1).to(torch.int64)
+    shifts = torch.arange(32, device=rows.device, dtype=torch.int64)[None, :, None]
+    w = (padded.view(G, 32, N) << shifts).sum(1)
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).T.contiguous()
 
 
 def _floor(n_bytes):
@@ -624,8 +653,9 @@ def profile_continuation_here() -> int:
     ``import qkd_ldpc_tpu_torch`` finds first (so an earlier checkout too,
     as :func:`continuation_turns` runs it): every step kernel held to its
     plain version on the cases of :func:`_continuation_kernels` and timed at
-    the flagship, ptxas's registers of ``bank`` and ``refill_copy``, then path
-    (c) (2048 trials at QBER 0.0825): launches a call, the walls of
+    the flagship, ptxas's registers of ``bank``, ``refill_copy``,
+    ``stage_fill``, ``pass_step`` and the variable update (plain and folded),
+    then path (c) (2048 trials at QBER 0.0825): launches a call, the walls of
     CONTINUATION_WALLS calls, and one traced call's device time by kernel (the
     tracer attached before the capture).  Prints one ``continuation_turn``
     line."""
@@ -634,7 +664,7 @@ def profile_continuation_here() -> int:
     from qkd_ldpc_tpu_torch import _build
     from qkd_ldpc_tpu_torch.channel.keys import derive_point_key
     from qkd_ldpc_tpu_torch.codes import make_qc_code
-    from qkd_ldpc_tpu_torch.decoder import DecodeOptions, device_loop
+    from qkd_ldpc_tpu_torch.decoder import DecodeOptions, cuda_kernels, device_loop
     from qkd_ldpc_tpu_torch.sim import cuda_continuation as steps
     from qkd_ldpc_tpu_torch.sim import run_point_continuation
     from qkd_ldpc_tpu_torch.utils import card_name_and_power_limit
@@ -682,20 +712,107 @@ def profile_continuation_here() -> int:
         hits = [v for k, v in table.items() if kernel in k]
         return {"ms": sum(v[0] for v in hits) / 2, "launches": sum(v[1] for v in hits) / 2}
 
+    fill = [traced(k) for k in ("stage_fill_kernel", "stage_syndrome_kernel")]
     print(json.dumps({"continuation_turn": {
         "card": card, "package": str(Path(_build.__file__).resolve().parent),
         "kernels": {name: {**measured[name], **{k: held[name].get(k) for k in (
-            "sector_floor", "sector_floor_with_merge_reads", "ptxas", "case_ms")}}
-            for name in (steps.KERNEL_BANK, steps.KERNEL_COPY)},
+            "sector_floor", "sector_floor_with_merge_reads", "ptxas", "ptxas_syndrome",
+            "case_ms", "access_width_bytes")}}
+            for name in (steps.KERNEL_BANK, steps.KERNEL_COPY, steps.KERNEL_FILL,
+                         steps.KERNEL_PASS, KERNEL_FOLD, KERNEL_VARIABLE_FLOODING)
+            if name in measured},
         "launch_floor_ms": held["launch_floor_ms"],
         "path_c": {"partials": dataclasses.asdict(partials),
-                   "launches_a_call": {k: launches.get(k, 0) for k in steps.KERNELS},
+                   "launches_a_call": {k: launches.get(k, 0) for k in (
+                       *steps.KERNELS, cuda_kernels.KERNEL_VARIABLE, cuda_kernels.KERNEL_FRESH)},
                    "walls_ms": walls,
                    "traced_ms_a_call": {"bank": traced("bank_kernel"),
                                         "refill_copy": traced("refill_copy_kernel"),
+                                        "stage_fill": {k: sum(f[k] for f in fill)
+                                                       for k in ("ms", "launches")},
+                                        "pass_step": traced("pass_step_kernel"),
+                                        "cont_want": traced("cont_want_kernel"),
+                                        "variable_update": traced("variable_update_kernel"),
                                         "all": sum(v[0] for v in table.values()) / 2}},
     }}), flush=True)
     return 0
+
+
+def profile_trial_paths_here() -> int:
+    """The two trial paths alone, on the package that ``import
+    qkd_ldpc_tpu_torch`` finds first (as :func:`profile_continuation_here`):
+    ``run_point`` flooding and layered at the main path's point and options
+    (2048 trials at QBER 0.05), a warm-up call of each that captures its chunk
+    graph, then TRIAL_WALLS walls of each in alternation; and the variable
+    update's time at the flagship as the flooding path launches it (all
+    frames active, bf16).  Prints one ``trial_turn`` line."""
+    import torch
+
+    from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.channel.keys import derive_point_key
+    from qkd_ldpc_tpu_torch.codes import make_qc_code
+    from qkd_ldpc_tpu_torch.decoder import DecodeOptions, cuda_kernels
+    from qkd_ldpc_tpu_torch.sim import run_point
+    from qkd_ldpc_tpu_torch.utils import card_name_and_power_limit
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    _build.build_all()
+    code = make_qc_code(z=Z, nb=NB, mb=MB_ROWS, dv=DV, seed=CODE_SEED)
+    base = dict(algorithm="sum-product", backend="auto", compact_lanes=BATCH // 4,
+                max_iterations=100, clip_messages=True, message_threshold=100.0,
+                message_dtype="bfloat16")
+    opts = {"flooding": DecodeOptions(compact_after=8, **base),
+            "layered": DecodeOptions(schedule="layered", compact_after=LAYERED_COMPACT_AFTER,
+                                     **base)}
+    key = derive_point_key(MASTER_SEED, POINT_INDEX)
+
+    def step(o):
+        return run_point(code, key, QBER, N_BATCHES * BATCH, BATCH, o, prng="pallas")[0]
+
+    partials = {path: dataclasses.asdict(step(o)) for path, o in opts.items()}
+    walls = {path: [] for path in opts}
+    for _ in range(TRIAL_WALLS):
+        for path, o in opts.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(o)
+            torch.cuda.synchronize()
+            walls[path].append((time.perf_counter() - t0) * 1e3)
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    x = _flooding_inputs(torch, dev, torch.Generator(device=dev).manual_seed(1234), code,
+                         BATCH, "bfloat16", None)
+    active, maps = torch.ones(BATCH, dtype=torch.bool, device=dev), code.to_device(dev)
+    kv_ms = _time_ms(torch, lambda: cuda_kernels.variable_update_cuda(
+        x["lrp"], x["llr"], x["z"], x["count"], active, maps, scale=None), flush)
+    print(json.dumps({"trial_turn": {
+        "card": card_name_and_power_limit(),
+        "package": str(Path(_build.__file__).resolve().parent), "partials": partials,
+        "walls_ms": walls, "variable_update_ms": kv_ms}}), flush=True)
+    return 0
+
+
+def _turns(parent: str, function: str, key: str, order) -> list:
+    """``function`` of this script on the checkout at PARENT and on this one,
+    a process each, in ``order`` of "parent" and "change"; prints each turn's
+    line and returns [(label, its ``key`` object, the process's stdout)]."""
+    here = Path(__file__).resolve()
+    runner = (f"import runpy, sys; sys.exit(runpy.run_path({str(here)!r}, "
+              f"run_name='chip_smoke')[{function!r}]())")
+    turns = []
+    for label in order:
+        root = parent if label == "parent" else here.parent
+        out = subprocess.run([sys.executable, "-c", runner], cwd=root, capture_output=True,
+                             text=True, timeout=TURN_TIMEOUT)
+        if out.returncode != 0:
+            raise AssertionError(f"{label} turn failed:\n{out.stdout[-3000:]}\n"
+                                 f"{out.stderr[-3000:]}")
+        lines = out.stdout.splitlines()
+        turn = json.loads([ln for ln in lines if ln.startswith('{"' + key + '"')][-1])[key]
+        turns.append((label, turn, out.stdout))
+    return turns
 
 
 def continuation_turns(parent: str) -> int:
@@ -704,34 +821,55 @@ def continuation_turns(parent: str) -> int:
     process each, on one card; every turn's line, then one
     ``continuation_turns`` line that fails unless both held their kernels,
     launch each step as often a call and give equal partials."""
-    here = Path(__file__).resolve()
-    runner = (f"import runpy, sys; sys.exit(runpy.run_path({str(here)!r}, "
-              f"run_name='chip_smoke')['profile_continuation_here']())")
     turns = []
-    for label, root in (("parent", parent), ("change", here.parent),
-                        ("change", here.parent), ("parent", parent)):
-        out = subprocess.run([sys.executable, "-c", runner], cwd=root, capture_output=True,
-                             text=True, timeout=TURN_TIMEOUT)
-        if out.returncode != 0:
-            raise AssertionError(f"{label} turn failed:\n{out.stdout[-3000:]}\n"
-                                 f"{out.stderr[-3000:]}")
-        lines = out.stdout.splitlines()
-        turn = json.loads([ln for ln in lines if ln.startswith('{"continuation_turn"')][-1])[
-            "continuation_turn"]
-        trace = json.loads([ln for ln in lines if ln.startswith('{"profile"')][-1])["profile"]
+    for label, turn, stdout in _turns(parent, "profile_continuation_here",
+                                      "continuation_turn",
+                                      ("parent", "change", "change", "parent")):
+        trace = json.loads([ln for ln in stdout.splitlines() if ln.startswith('{"profile"')][
+            -1])["profile"]
         print(json.dumps({"turn": label, **turn, "trace": trace}), flush=True)
         turns.append((label, turn["path_c"]))
+    # the partials and every kernel's launches a call equal the parent's, but
+    # pass_step's: once a pass in the parent, where this checkout folds all but
+    # the last pass's bookkeeping into the variable update (once an outer step)
     first = turns[0][1]
     for label, t in turns[1:]:
-        if t["launches_a_call"] != first["launches_a_call"] or t["partials"] != first[
-                "partials"]:
+        same = {k: v for k, v in t["launches_a_call"].items() if k != "pass_step"} == {
+            k: v for k, v in first["launches_a_call"].items() if k != "pass_step"}
+        if not same or t["partials"] != first["partials"]:
             raise AssertionError(f"{label}: launches or partials differ from the parent's: "
                                  f"{t['launches_a_call']} {first['launches_a_call']}")
+        if label == "change" and t["launches_a_call"]["pass_step"] != t["launches_a_call"][
+                "bank"]:
+            raise AssertionError(f"pass_step launched {t['launches_a_call']['pass_step']} "
+                                 f"times in {t['launches_a_call']['bank']} outer steps")
     print(json.dumps({"continuation_turns": {
         "order": [label for label, _ in turns],
         "walls_ms": [t["walls_ms"] for _, t in turns],
         "traced_ms_a_call": [t["traced_ms_a_call"] for _, t in turns],
-        "launches_a_call": first["launches_a_call"]}}), flush=True)
+        "launches_a_call": {label: t["launches_a_call"] for label, t in turns[:2]}}}),
+          flush=True)
+    return 0
+
+
+def trial_turns(parent: str) -> int:
+    """``--trial-turns PARENT``: :func:`profile_trial_paths_here` on the
+    checkout at PARENT and on this one in TRIAL_TURN_ORDER, a process each;
+    every turn's line, then one ``trial_turns`` line with each side's walls
+    and variable-update times.  Fails unless every turn gives the same
+    partials on both paths."""
+    turns = _turns(parent, "profile_trial_paths_here", "trial_turn", TRIAL_TURN_ORDER)
+    for label, turn, _ in turns:
+        print(json.dumps({"turn": label, **turn}), flush=True)
+        if turn["partials"] != turns[0][1]["partials"]:
+            raise AssertionError(f"{label}: partials differ from the first turn's")
+    print(json.dumps({"trial_turns": {
+        side: {"walls_ms": {path: [w for label, t, _ in turns if label == side
+                                   for w in t["walls_ms"][path]]
+                            for path in ("flooding", "layered")},
+               "variable_update_ms": [t["variable_update_ms"] for label, t, _ in turns
+                                      if label == side]}
+        for side in ("parent", "change")} | {"order": list(TRIAL_TURN_ORDER)}}), flush=True)
     return 0
 
 
@@ -2978,14 +3116,23 @@ def _continuation_kernels(torch, dev, flush, code):
     of a real K4 / K3 block, refills of K trials, of a point's tail (n_new <
     K) and of none, the column copy of K trials, of a tail, of none, of one
     contiguous run, with lanes 0 and B - 1, with Lr in each storage type and
-    at a ragged B = 200 (K = 25), the pass step on a segment's first and later
-    passes, and the banking into three points, with no lane banking a
+    at a ragged B = 200 (K = 25), the stage fill also on the reference alist
+    (padded check slots), at check degree 15, at ragged S = 200 / 100 / 101
+    and N = 1000 / 1004 / 1003 (each access width of its instances; its
+    packed words against numpy's), the pass step on a segment's first and
+    later passes in place and on the last bringing the lanes home, the
+    variable update with the previous pass's bookkeeping folded in against
+    ``pass_step_plain`` + ``variable_update_plain`` (passes 1, later and last,
+    f32 / bf16 / int8) and the plain one as the flooding path launches it,
+    and the banking into three points, with no lane banking a
     success, every live lane banking, mismatches in the first or last row
     alone, one all-banking group of 16 lanes with one mismatch, and ragged
     widths (each load instance); then each timed at the flagship, the copy
     and the banking with their sector floors beside the element bounds and
-    ptxas's registers and spills.  Returns ({kernel name: measurement},
-    report)."""
+    ptxas's registers and spills.  The cases an earlier checkout's package
+    cannot take (its stage fill without the packed words, its pass step in
+    place only, no folded update) are left out for it.  Returns ({kernel
+    name: measurement}, report)."""
     from qkd_ldpc_tpu_torch import _build
     from qkd_ldpc_tpu_torch.channel import cuda_prng, cuda_select
     from qkd_ldpc_tpu_torch.channel.keys import derive_point_key, num_errors_for
@@ -3113,22 +3260,73 @@ def _continuation_kernels(torch, dev, flush, code):
          lambda t, c: steps.stage_step_plain(t["x"], t["st"], S, P),
          4 * (6 + 2 * steps.SLOTS), 12)
 
-    # stage_fill on a real staging block: K4's Alice row and K3's Bob row
-    alice_rows, scores = cuda_prng.trial_words_cuda(keys[2], N, range(0, S),
-                                                    ("alice", "scores"), dev)
-    _, bob, _ = cuda_select.select_flip_cuda(scores, n_errs[2], alice_rows)
-    st_mag = carry()
-    st_mag[steps.MAG] = inputs()[steps.KEYS + 3 * P + 2]
-    s = dict(alice_rows=alice_rows, bob=bob, st=st_mag,
-             llr_s=torch.zeros((N, S), device=dev), syn_s=torch.zeros((M, S), dtype=torch.int8,
-                                                                     device=dev),
-             alice_s=torch.zeros((N, S), dtype=torch.int8, device=dev))
-    hold(steps.KERNEL_FILL, {"flagship_block": s},
-         lambda t, c: steps.stage_fill_cuda(t["alice_rows"], t["bob"], maps, t["st"], t["llr_s"],
-                                         t["syn_s"], t["alice_s"]),
-         lambda t, c: steps.stage_fill_plain(t["alice_rows"], t["bob"], maps, t["st"], t["llr_s"],
-                                          t["syn_s"], t["alice_s"]),
-         2 * S * N + 8 * dc * M + N * S * 5 + M * S, S * (N * 2 + M * dc))
+    # stage_fill on real staging blocks (K4's Alice rows, K3's Bob rows): the
+    # flagship (timed); ragged S = 200, 100 and 101 (the syndrome's 8-, 4- and
+    # 1-byte stores, the staging's 1-byte ones at 101); the reference alist
+    # (irregular: padded check slots);
+    # check degree 15; N = 1000, 1004 and 1003 (the 8-, 4- and 1-byte loads
+    # along n, N no multiple of the tile)
+    from qkd_ldpc_tpu_torch.codes import make_code, read_alist
+
+    fill_codes = {"flagship_block": code,
+                  "reference_alist_masked": read_alist(_reference_alist_and_example()[0]),
+                  "check_degree_15": make_code(n=10240, m=2048, dv=3, seed=8)}
+    fill_codes.update({f"n_{n}": make_code(n=n, m=n // 2, dv=3, seed=5)
+                       for n in (1000, 1004, 1003)})
+    fill_maps = {c: fill_codes.get(c, code).to_device(dev) for c in fill_codes}
+    if bool(fill_maps["reference_alist_masked"].chk_mask_T.all()):
+        raise AssertionError("the reference alist has no padded check slot")
+    if fill_codes["check_degree_15"].dc_max <= 8:
+        raise AssertionError("the high-degree stage_fill case has check degree <= 8")
+    fill_bits = "bits" in inspect.signature(steps.stage_fill_cuda).parameters
+
+    def fill_case(c, width=S):
+        cc = fill_codes.get(c, code)
+        n_c, m_c = cc.n_vars, cc.n_checks
+        rows, sc = cuda_prng.trial_words_cuda(keys[2], n_c, range(0, width), ("alice", "scores"),
+                                              dev)
+        _, bob_c, _ = cuda_select.select_flip_cuda(sc, num_errors_for(n_c, WATERFALL_QBER), rows)
+        st_c = carry()
+        st_c[steps.MAG] = inputs()[steps.KEYS + 3 * P + 2]
+        t = dict(alice_rows=rows, bob=bob_c, st=st_c,
+                 llr_s=torch.zeros((n_c, width), device=dev),
+                 syn_s=torch.zeros((m_c, width), dtype=torch.int8, device=dev),
+                 alice_s=torch.zeros((n_c, width), dtype=torch.int8, device=dev))
+        return t
+
+    fill_cases = {c: fill_case(c) for c in fill_codes}
+    fill_cases.update({f"ragged_S{w}": fill_case("flagship_block", w) for w in (200, 100, 101)})
+    # the packed words between the two launches: scratch made once a case,
+    # held to numpy's packing of Alice's rows after the runs
+    fill_scratch = {c: torch.full(steps.fill_bits_shape(*t["alice_rows"].shape), -1, dtype=i32,
+                                  device=dev) for c, t in fill_cases.items()} if fill_bits else {}
+
+    def fill_kernel(t, c):
+        extra = {"bits": fill_scratch[c]} if fill_bits else {}
+        steps.stage_fill_cuda(t["alice_rows"], t["bob"], fill_maps.get(c, maps), t["st"],
+                              t["llr_s"], t["syn_s"], t["alice_s"], **extra)
+
+    def fill_plain(t, c):
+        steps.stage_fill_plain(t["alice_rows"], t["bob"], fill_maps.get(c, maps), t["st"],
+                               t["llr_s"], t["syn_s"], t["alice_s"])
+    fill_widths_of = getattr(steps, "stage_fill_widths", None)
+    fill_widths = {c: fill_widths_of(t["alice_rows"], t["bob"], t["llr_s"], t["syn_s"],
+                                     t["alice_s"]) for c, t in fill_cases.items()} if (
+        fill_widths_of) else None
+    if fill_widths_of and any({w[k] for w in fill_widths.values()} != want for k, want in (
+            ("rows", {16, 8, 4, 1}), ("staging", {4, 1}), ("syndrome", {16, 8, 4, 1}))):
+        raise AssertionError(f"stage_fill's cases miss an instance: {fill_widths}")
+    hold(steps.KERNEL_FILL, fill_cases, fill_kernel, fill_plain,
+         2 * S * N + 8 * dc * M + N * S * 5 + M * S, S * (N * 2 + M * dc), each_case=True)
+    packed_diff = {c: int((w != _packed_bits(torch, fill_cases[c]["alice_rows"])).sum())
+                   for c, w in fill_scratch.items()}
+    if any(packed_diff.values()):
+        raise AssertionError(f"stage_fill's packed bits differ: {packed_diff}")
+    report[steps.KERNEL_FILL].update(access_width_bytes=fill_widths,
+                                     packed_words_differing=packed_diff if fill_bits else None,
+                                     check_degrees={c: fill_codes.get(c, code).dc_max
+                                                    for c in fill_cases})
+    del fill_cases
 
     # refill_lanes: K trials mid-point; of a point of 2000 trials, its tail
     # (n_new = 16 < K) and a refill past it (n_new = 0)
@@ -3198,17 +3396,103 @@ def _continuation_kernels(torch, dev, flush, code):
         32 * (copy_sectors + merged) + 4 * K + 8)
     del copy_cases, first
 
-    # pass_step: a segment's first pass (fresh cleared) and a later one
-    def pass_case():
-        s = lanes()
-        return dict(ok=flags_(0.4), done=s["done"], run=s["run"], age=s["age"],
-                    fresh=s["fresh"])
+    # pass_step: a segment's first pass (fresh cleared) and a later one, in
+    # place; the last pass's, bringing the lanes home from the second set of
+    # buffers (first pass or not)
+    pass_out = "out" in inspect.signature(steps.pass_step_cuda).parameters
+
+    def pass_case(home=False):
+        s_ = lanes()
+        age = s_["age"]
+        age[torch.rand(B, device=dev, generator=g) < 0.2] = max_it - 1  # reaching the cap
+        t = dict(ok=flags_(0.4), done=s_["done"], run=s_["run"], age=age, fresh=s_["fresh"])
+        if home:
+            t.update(run_h=flags_(0.5), age_h=torch.zeros_like(age), ok_h=flags_(0.5))
+        return t
 
     def pass_(fn):
-        return lambda t, c: fn(t["ok"], t["done"], t["run"], t["age"], t["fresh"], max_it,
-                               c == "first_pass")
-    hold(steps.KERNEL_PASS, {"first_pass": pass_case(), "later_pass": pass_case()},
-         pass_(steps.pass_step_cuda), pass_(steps.pass_step_plain), B * 10, B * 4)
+        def run(t, c):
+            out = (t["run_h"], t["age_h"], t["ok_h"]) if "run_h" in t else None
+            fn(t["ok"], t["done"], t["run"], t["age"], t["fresh"], max_it,
+               c.startswith("first_pass"), **({"out": out} if out is not None else {}))
+        return run
+    pass_cases = {"first_pass": pass_case(), "later_pass": pass_case()}
+    if pass_out:
+        pass_cases.update({"first_pass_home": pass_case(True), "last_pass_home": pass_case(True)})
+    hold(steps.KERNEL_PASS, pass_cases, pass_(steps.pass_step_cuda),
+         pass_(steps.pass_step_plain), B * 10, B * 4)
+
+    # the variable update with the previous pass's bookkeeping folded in,
+    # against pass_step_plain then variable_update_plain into the second set
+    # of buffers: pass 1 (fresh cleared), a later pass, and the last (then
+    # pass_step home); float32, bfloat16 and int8 messages (timed: bfloat16,
+    # a later pass); and the plain update as the flooding path launches it
+    from qkd_ldpc_tpu_torch.decoder import cuda_kernels
+
+    def kv_state(dtype_name, scale):
+        s_ = lanes()
+        age = s_["age"]
+        age[torch.rand(B, device=dev, generator=g) < 0.2] = max_it - 1
+        mdt = cuda_kernels.STORAGE_DTYPES[dtype_name]
+        return dict(
+            Lr=cuda_kernels._store(2.0 * torch.randn((dc, M, B), device=dev, generator=g), mdt,
+                                   scale),
+            llr=4.0 * torch.randn((N, B), device=dev, generator=g),
+            z=torch.randint(0, 2, (N, B), dtype=torch.int8, device=dev, generator=g),
+            total=torch.zeros((N, B), dtype=mdt, device=dev),
+            ok=flags_(0.4), done=s_["done"], run=s_["run"], age=age, fresh=s_["fresh"],
+            run2=flags_(0.5), age2=torch.zeros_like(age), ok2=flags_(0.5))
+
+    scales = {"float32": None, "bfloat16": None, "int8": 0.25}
+    kv_fold = hasattr(cuda_kernels, "PassFold")
+    if kv_fold:
+        kv_cases = {f"{pass_name}_{dtype_name}": kv_state(dtype_name, scale)
+                    for dtype_name, scale in scales.items()
+                    for pass_name in ("later_pass", "pass_1", "last_pass")}
+        kv_cases = {"later_pass_bfloat16": kv_cases.pop("later_pass_bfloat16"), **kv_cases}
+
+        def kv_fused(t, c):
+            scale = scales[c.rsplit("_", 1)[1]]
+            fold = cuda_kernels.PassFold(ok=t["ok"], done=t["done"], run=t["run2"],
+                                         count=t["age2"],
+                                         fresh=t["fresh"] if c.startswith("pass_1") else None,
+                                         max_it=max_it)
+            cuda_kernels.variable_update_cuda(t["Lr"], t["llr"], t["z"], t["age"], t["run"], maps,
+                                              scale=scale, out=(t["total"], t["ok2"]), fold=fold)
+            if c.startswith("last_pass"):
+                steps.pass_step_cuda(t["ok2"], t["done"], t["run2"], t["age2"], t["fresh"],
+                                     max_it, False, out=(t["run"], t["age"], t["ok"]))
+
+        def kv_sequence(t, c):
+            scale = scales[c.rsplit("_", 1)[1]]
+            steps.pass_step_plain(t["ok"], t["done"], t["run"], t["age"], t["fresh"], max_it,
+                                  c.startswith("pass_1"), out=(t["run2"], t["age2"], t["ok2"]))
+            cuda_kernels.variable_update_plain(t["Lr"], t["llr"], t["z"], t["age2"], t["run2"],
+                                               maps, scale=scale, out=(t["total"], t["ok2"]))
+            if c.startswith("last_pass"):
+                steps.pass_step_plain(t["ok2"], t["done"], t["run2"], t["age2"], t["fresh"],
+                                      max_it, False, out=(t["run"], t["age"], t["ok"]))
+        # the plain update's bytes (Lr and llr read, total and z written, the
+        # slot table, ok written, the counts read and written) and the fold's
+        # (ok, run, age, done, fresh read; run, age, done, fresh written)
+        kv_bytes = (dc * M * B * 2 + N * B * 4 + N * B * 2 + N * B + DV * N * 4 + B + 2 * B * 4
+                    + B * 8 + B * 7)
+        hold(KERNEL_FOLD, kv_cases, kv_fused, kv_sequence, kv_bytes,
+             dc * M * B + OPS_PER_VARIABLE * N * B + 6 * B)
+        del kv_cases
+    # the plain update, all frames active, as the flooding path launches it
+    kv_plain = dict(kv_state("bfloat16", None), all_active=torch.ones(B, dtype=torch.bool,
+                                                                      device=dev))
+    hold(KERNEL_VARIABLE_FLOODING, {"flooding_bfloat16": kv_plain},
+         lambda t, c: cuda_kernels.variable_update_cuda(
+             t["Lr"], t["llr"], t["z"], t["age"], t["all_active"], maps, scale=None,
+             out=(t["total"], t["ok"])),
+         lambda t, c: cuda_kernels.variable_update_plain(
+             t["Lr"], t["llr"], t["z"], t["age"], t["all_active"], maps, scale=None,
+             out=(t["total"], t["ok"])),
+         dc * M * B * 2 + N * B * 4 + N * B * 2 + N * B + DV * N * 4 + B + 2 * B * 4,
+         dc * M * B + OPS_PER_VARIABLE * N * B)
+    del kv_plain
 
     # bank: three points (timed), z against Alice's bits with mismatches on
     # some lanes; no lane banking a success; every live lane banking; the
@@ -3270,8 +3554,18 @@ def _continuation_kernels(torch, dev, flush, code):
     del bank_cases, first
     log = _build.build_log("continuation")
     for name, kernel in ((steps.KERNEL_BANK, "bank_kernel"),
-                         (steps.KERNEL_COPY, "refill_copy_kernel")):
+                         (steps.KERNEL_COPY, "refill_copy_kernel"),
+                         (steps.KERNEL_FILL, "stage_fill_kernel"),
+                         (steps.KERNEL_PASS, "pass_step_kernel")):
         report[name]["ptxas"] = _instances_resources(log, kernel)
+    if "stage_syndrome_kernel" in log:
+        report[steps.KERNEL_FILL]["ptxas_syndrome"] = _instances_resources(
+            log, "stage_syndrome_kernel")
+    kv_log = _build.build_log("check_update_bfloat16")
+    report[KERNEL_VARIABLE_FLOODING]["ptxas"] = _instances_resources(kv_log,
+                                                                     "variable_update_kernel")
+    if KERNEL_FOLD in report:
+        report[KERNEL_FOLD]["ptxas"] = _instances_resources(kv_log, "variable_update_kernel_fold")
     # what the event window reads for a launch that does nearly nothing
     tiny = torch.empty(1, device=dev)
     report["launch_floor_ms"] = _time_ms(torch, lambda: tiny.fill_(1.0), flush)
@@ -4018,7 +4312,7 @@ def main() -> int:
         raise AssertionError(f"continuation path launched K1/K2/K6: {launches_c}")
     # the program's own steps, each as often as its loop ran
     expect_c = {KC_START: 1, KC_STAGE: loops_c["generations"], KC_FILL: loops_c["generations"],
-                KC_LANES: launches_c.get(KC_COPY, 0), KC_PASS: fresh_launches,
+                KC_LANES: launches_c.get(KC_COPY, 0), KC_PASS: loops_c["outer_steps"],
                 KC_BANK: loops_c["outer_steps"]}
     # cont_want: once before each refill loop and once after each of its passes
     expect_c[KC_WANT] = loops_c["outer_steps"] + loops_c["generations"] + launches_c.get(
@@ -4307,4 +4601,6 @@ def main() -> int:
 if __name__ == "__main__":
     if "--turns" in sys.argv[1:]:
         sys.exit(continuation_turns(sys.argv[sys.argv.index("--turns") + 1]))
+    if "--trial-turns" in sys.argv[1:]:
+        sys.exit(trial_turns(sys.argv[sys.argv.index("--trial-turns") + 1]))
     sys.exit(main())

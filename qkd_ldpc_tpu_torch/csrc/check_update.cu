@@ -39,6 +39,10 @@
 // also writes the decision z = (total <= 0) and adds one to the frame's iteration
 // count, and it sets every frame's byte of ok to 1 for the check update that
 // follows, so the per-lane bookkeeping of the loop needs no passes of its own.
+// Its FOLD form (variable_update_kernel_fold) also runs, before its own work,
+// the bookkeeping of the continuation's previous segment pass (struct Fold),
+// which would otherwise be a launch of its own a pass; a null pointer selects
+// the plain kernel.
 //
 // Bound on this card: memory traffic.  Check update: total once (N * B), Lr read
 // and written (2 * DC * M * B), one syndrome byte per (check, frame).  Variable
@@ -291,20 +295,41 @@ __device__ __forceinline__ void slot_values(const storage_t* __restrict__ lr, in
     }
 }
 
-template <int VEC>
-__global__ void __launch_bounds__(kThreads)
-variable_update_kernel(const storage_t* __restrict__ lr,    // [rows, B] check messages
-                       const int* __restrict__ slot,        // [DV, N] row of lr, or >= rows
-                       const float* __restrict__ llr,       // [N, B]
-                       const uint8_t* __restrict__ active,  // [B]
-                       storage_t* __restrict__ total,       // [N, B]
-                       int8_t* __restrict__ z,              // [N, B], active frames only
-                       int* __restrict__ count,             // [B], += 1 on active frames
-                       uint8_t* __restrict__ ok,            // [B], set to 1
-                       int N, int B, int dv, int rows, float scale) {
+// The previous pass's bookkeeping that the continuation's segment folds into
+// the variable update (FOLD): from that pass's ok and the run and age given as
+// `active` and `count`, conv = ok & run and run' = run & !conv & (age <
+// max_it); run' is this update's `active`.  The v == 0 threads write done |=
+// conv, run_out = run', count_out = age + run' and (where `fresh` is given)
+// fresh = 0.  Every block reads run, age and ok while one thread a frame
+// vector writes their successors, so these are a second set of buffers
+// (the caller alternates the two sets pass by pass); done and fresh are read
+// and written by that one thread alone.
+struct Fold {
+    const uint8_t* ok;   // [B] the previous pass's flags
+    uint8_t* done;       // [B] |= conv
+    uint8_t* fresh;      // [B] cleared, or null
+    uint8_t* run_out;    // [B] run'
+    int* count_out;      // [B] age + run'
+    int max_it;
+};
+
+template <int VEC, bool FOLD>
+__device__ __forceinline__ void
+variable_update_body(const storage_t* __restrict__ lr,    // [rows, B] check messages
+                     const int* __restrict__ slot,        // [DV, N] row of lr, or >= rows
+                     const float* __restrict__ llr,       // [N, B]
+                     const uint8_t* __restrict__ active,  // [B]
+                     storage_t* __restrict__ total,       // [N, B]
+                     int8_t* __restrict__ z,              // [N, B], active frames only
+                     int* __restrict__ count,             // [B], += 1 on active frames;
+                                                          // FOLD: read (fold.count_out)
+                     uint8_t* __restrict__ ok,            // [B], set to 1
+                     const Fold& fold,                    // FOLD only
+                     int N, int B, int dv, int rows, float scale) {
     int v, b0;
     if (!locate<VEC>(N, B, &v, &b0)) return;
     const size_t e0 = static_cast<size_t>(v) * B + b0;
+    constexpr int FV = VEC < 4 ? VEC : 4;  // floats (or ints) per 16-byte access
 
     float acc[VEC], val[VEC];
     slot_values<VEC>(lr, slot[v], rows, B, b0, scale, acc);
@@ -314,7 +339,6 @@ variable_update_kernel(const storage_t* __restrict__ lr,    // [rows, B] check m
 #pragma unroll
         for (int f = 0; f < VEC; ++f) acc[f] = acc[f] + val[f];
     }
-    constexpr int FV = VEC < 4 ? VEC : 4;  // floats per 16-byte access
     Vec<storage_t, VEC> tv;
     Vec<int8_t, VEC> zv;
 #pragma unroll
@@ -330,7 +354,27 @@ variable_update_kernel(const storage_t* __restrict__ lr,    // [rows, B] check m
     }
     store_vec<VEC>(total + e0, tv);
 
-    const Vec<uint8_t, VEC> av = load_vec<VEC>(active + b0);
+    // The frames' flags are read last (L1 hits, but for the first warps of an
+    // SM); the fold keeps one bit a frame of them, so that it adds no
+    // registers to the sums above: an SM holds as many blocks as without it.
+    Vec<uint8_t, VEC> av = load_vec<VEC>(active + b0);
+    unsigned conv = 0;  // bit f: frame b0 + f converged in the previous pass
+    if constexpr (FOLD) {
+        const Vec<uint8_t, VEC> okv = load_vec<VEC>(fold.ok + b0);
+        unsigned below = 0;  // bit f: frame b0 + f is below the cap
+#pragma unroll
+        for (int c = 0; c < VEC / FV; ++c) {
+            const Vec<int, FV> a = load_vec<FV>(count + b0 + c * FV);
+#pragma unroll
+            for (int i = 0; i < FV; ++i) below |= a.v[i] < fold.max_it ? 1u << (c * FV + i) : 0u;
+        }
+#pragma unroll
+        for (int f = 0; f < VEC; ++f) {
+            const bool r = av.v[f] != 0, cv = r && okv.v[f] != 0;
+            conv |= cv ? 1u << f : 0u;
+            av.v[f] = r && !cv && ((below >> f) & 1u) ? 1 : 0;
+        }
+    }
     bool all = true;
 #pragma unroll
     for (int f = 0; f < VEC; ++f) all = all && av.v[f] != 0;
@@ -343,15 +387,62 @@ variable_update_kernel(const storage_t* __restrict__ lr,    // [rows, B] check m
         }
     }
     if (v == 0) {  // one thread per frame vector keeps the frames' counts and flags
-#pragma unroll
-        for (int f = 0; f < VEC; ++f) {
-            if (av.v[f] != 0) count[b0 + f] += 1;
-        }
         Vec<uint8_t, VEC> ones;
 #pragma unroll
         for (int f = 0; f < VEC; ++f) ones.v[f] = 1;
+        if constexpr (FOLD) {
+#pragma unroll
+            for (int c = 0; c < VEC / FV; ++c) {
+                Vec<int, FV> a = load_vec<FV>(count + b0 + c * FV);
+#pragma unroll
+                for (int i = 0; i < FV; ++i) a.v[i] += av.v[c * FV + i];
+                store_vec<FV>(fold.count_out + b0 + c * FV, a);
+            }
+#pragma unroll
+            for (int f = 0; f < VEC; ++f) {
+                if ((conv >> f) & 1u) fold.done[b0 + f] = 1;
+            }
+            store_vec<VEC>(fold.run_out + b0, av);
+            if (fold.fresh != nullptr) {
+                Vec<uint8_t, VEC> zeros;
+#pragma unroll
+                for (int f = 0; f < VEC; ++f) zeros.v[f] = 0;
+                store_vec<VEC>(fold.fresh + b0, zeros);
+            }
+        } else {
+#pragma unroll
+            for (int f = 0; f < VEC; ++f) {
+                if (av.v[f] != 0) count[b0 + f] += 1;
+            }
+        }
         store_vec<VEC>(ok + b0, ones);
     }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+variable_update_kernel(const storage_t* __restrict__ lr, const int* __restrict__ slot,
+                       const float* __restrict__ llr, const uint8_t* __restrict__ active,
+                       storage_t* __restrict__ total, int8_t* __restrict__ z,
+                       int* __restrict__ count, uint8_t* __restrict__ ok, int N, int B, int dv,
+                       int rows, float scale) {
+    variable_update_body<VEC, false>(lr, slot, llr, active, total, z, count, ok, Fold{}, N, B,
+                                     dv, rows, scale);
+}
+
+// The FOLD form keeps the plain kernel's 40 registers a thread (six blocks an
+// SM), so that it runs with as many warps.
+constexpr int kVariableFoldBlocks = 6;
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads, kVariableFoldBlocks)
+variable_update_kernel_fold(const storage_t* __restrict__ lr, const int* __restrict__ slot,
+                            const float* __restrict__ llr, const uint8_t* __restrict__ active,
+                            storage_t* __restrict__ total, int8_t* __restrict__ z,
+                            int* __restrict__ count, uint8_t* __restrict__ ok, const Fold fold,
+                            int N, int B, int dv, int rows, float scale) {
+    variable_update_body<VEC, true>(lr, slot, llr, active, total, z, count, ok, fold, N, B, dv,
+                                    rows, scale);
 }
 
 struct Args {
@@ -419,6 +510,20 @@ void launch_algorithm(int algorithm, bool first, int dc, const Args& p) {
 
 constexpr int kMaxUnrolledDegree = 8;
 
+template <int VEC>
+void launch_variable(bool fold_on, const storage_t* lr, const int* slot, const float* llr,
+                     const uint8_t* active, storage_t* total, int8_t* z, int* count,
+                     uint8_t* ok, const Fold& fold, int N, int B, int dv, int rows,
+                     float scale, cudaStream_t s) {
+    if (fold_on) {
+        variable_update_kernel_fold<VEC><<<blocks_for(N, B, VEC), kThreads, 0, s>>>(
+            lr, slot, llr, active, total, z, count, ok, fold, N, B, dv, rows, scale);
+    } else {
+        variable_update_kernel<VEC><<<blocks_for(N, B, VEC), kThreads, 0, s>>>(
+            lr, slot, llr, active, total, z, count, ok, N, B, dv, rows, scale);
+    }
+}
+
 }  // namespace
 
 // Frames per thread of the vector instances: the caller passes `vec` = this value
@@ -466,11 +571,16 @@ extern "C" int check_update(int algorithm, int first, int clip, int dc, int vec,
 }
 
 // Returns cudaGetLastError(), or -2 for a `vec` that is neither 1 nor the vector
-// width.  `rows` = DC * M: a slot index >= rows marks a padded slot.
+// width.  `rows` = DC * M: a slot index >= rows marks a padded slot.  `fold_ok`
+// null: the plain update; else the previous pass's bookkeeping is folded in
+// (Fold above): `active` and `count` are that pass's run and age (read only),
+// and done, fresh (may be null), run_out and count_out are written.
 extern "C" int variable_update(int vec, const void* lr, const void* slot,
                                const void* llr, const void* active, void* total,
-                               void* z, void* count, void* ok, int N, int B, int dv,
-                               int rows, float scale, void* stream) {
+                               void* z, void* count, void* ok, const void* fold_ok,
+                               void* done, void* fresh, void* run_out, void* count_out,
+                               int max_it, int N, int B, int dv, int rows, float scale,
+                               void* stream) {
     const auto s = static_cast<cudaStream_t>(stream);
     const auto* lr_p = static_cast<const storage_t*>(lr);
     const auto* slot_p = static_cast<const int*>(slot);
@@ -480,13 +590,16 @@ extern "C" int variable_update(int vec, const void* lr, const void* slot,
     auto* z_p = static_cast<int8_t*>(z);
     auto* count_p = static_cast<int*>(count);
     auto* ok_p = static_cast<uint8_t*>(ok);
+    const Fold fold{static_cast<const uint8_t*>(fold_ok), static_cast<uint8_t*>(done),
+                    static_cast<uint8_t*>(fresh), static_cast<uint8_t*>(run_out),
+                    static_cast<int*>(count_out), max_it};
+    const bool on = fold_ok != nullptr;
     if (vec == kVariableVec && B % kVariableVec == 0) {
-        variable_update_kernel<kVariableVec>
-            <<<blocks_for(N, B, kVariableVec), kThreads, 0, s>>>(
-                lr_p, slot_p, llr_p, act_p, total_p, z_p, count_p, ok_p, N, B, dv, rows, scale);
+        launch_variable<kVariableVec>(on, lr_p, slot_p, llr_p, act_p, total_p, z_p, count_p,
+                                      ok_p, fold, N, B, dv, rows, scale, s);
     } else if (vec == 1) {
-        variable_update_kernel<1><<<blocks_for(N, B, 1), kThreads, 0, s>>>(
-            lr_p, slot_p, llr_p, act_p, total_p, z_p, count_p, ok_p, N, B, dv, rows, scale);
+        launch_variable<1>(on, lr_p, slot_p, llr_p, act_p, total_p, z_p, count_p, ok_p, fold,
+                           N, B, dv, rows, scale, s);
     } else {
         return -2;
     }

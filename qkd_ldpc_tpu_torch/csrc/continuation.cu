@@ -16,11 +16,13 @@
 //   stage_step    regen's scalars (:111-131): the next block's base, point,
 //                 key, error count, LLR magnitude and first trial id;
 //   stage_fill    regen's staging arrays (:132-139) from K4's Alice row and
-//                 K3's Bob row (transposes and syndrome fused);
+//                 K3's Bob row (a transpose that packs Alice's bits, then
+//                 the syndrome from the packed words: two launches);
 //   refill_lanes  refill's lane choice (:154, :166-170) and the carry updates
 //                 of the refilled lanes (:189-197);
 //   refill_copy   refill's column copies into the chosen lanes (:156-188);
-//   pass_step     a segment pass's bookkeeping (:225-233);
+//   pass_step     the bookkeeping (:225-233) of a segment's last pass (the
+//                 other passes' runs in the next pass's variable update);
 //   bank          the banking (:241-259), live_n and the outer loop's test.
 //
 // The carry is int32 `st` (slots below, shared with sim/cuda_continuation.py)
@@ -39,10 +41,8 @@
 // Bound on this card: launch latency for all but three; the carry is a few
 // bytes a lane.  stage_fill moves the staging block (S x N Alice and Bob bytes
 // in, 6 S N bytes out plus the syndrome), refill_copy the refilled columns,
-// bank reads z and Alice's bits of the lanes that bank a success.  stage_fill
-// is a simple first version (one thread an element, the syndrome read through
-// L2: a staging block's Alice bits, 5 MB at the flagship, stay there);
-// refill_copy and bank were redesigned for this card, each with a note below.
+// bank reads z and Alice's bits of the lanes that bank a success.  The three
+// were redesigned for this card, each with a note below.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -150,48 +150,229 @@ __global__ void stage_step_kernel(const int* __restrict__ x, int* __restrict__ s
     count_pass(passes);
 }
 
-// Blocks [0, tiles) transpose 32 x 32 tiles of the [S, N] rows into the [N, S]
-// staging arrays (Alice's bits, and the a-priori LLR of Bob's); the others
-// compute syndrome bits (m, s), s fastest.
-__global__ void __launch_bounds__(kThreads)
+// stage_fill: the [S, N] rows of Alice's and Bob's bits into the staging
+// arrays alice_s [N, S] (int8) and llr_s [N, S] (float32, Bob's bit 1 -> -mag,
+// else +mag), and Alice's syndrome syn_s [M, S] (int8).
+//
+// Bound on this card: the bytes (2 S N in, 5 S N + M S out: 39.6 MB at the
+// flagship, 11.8 us).  A syndrome computed one thread a (check, trial), trials
+// fastest, reads 32 rows N bytes apart a warp, a sector a byte: 15.7 M sector
+// reads through L2 for 2.6 MB of syndrome at the flagship.  The design: two
+// kernels in stream order.
+//   stage_fill_kernel transposes tiles of kTileS trials x kTileN variables
+//   through shared memory.  It loads R bytes a thread along n (a warp: four
+//   rows of 128 bytes).  A lane then reads four rows of one 4-variable word
+//   and turns them into four columns of 4 trials by byte permutes; the 16
+//   lanes of a half-warp hold trials 0 .. 63 of one word, so each store of a
+//   column is 256 contiguous bytes of llr_s (a float4 a lane) and 64 of
+//   alice_s (4 bytes a lane), two rows a warp.  (Lanes that each store 16
+//   trials of one variable, 16 bytes, touch 32 lines a warp store: 53 us at
+//   the flagship on an H100.)  Word w of tile row r lies at w ^ (2 (r / 4 mod 16)),
+//   so the 16-byte loads of a row and the column reads of 16 rows both meet
+//   32 distinct banks.  While the columns are in registers, three shuffles
+//   gather the bits of 32 adjacent trials into one word: bits [N, G] (G =
+//   ceil(S / 32)), 655 KB at the flagship, which stay in L2.
+//   stage_syndrome_kernel gives one thread a (check, group of 32 trials),
+//   groups fastest: it XORs the words of the check's real slots (32 trials'
+//   parities an instruction) and writes the 32 syndrome bytes W2 bytes a store.
+//   So the syndrome reads M dc G words (0.49 M at the flagship) where it read
+//   M dc S bytes.
+// The syndrome needs every column of the transpose, so it runs as a second
+// launch; a ticket would leave one block to do all of it.  R (16, 8, 4 or 1),
+// W (4 or 1) and W2 (16, 8, 4 or 1) are the widest accesses that N, S and the
+// base addresses allow (stage_fill_widths); the grids follow the shapes alone,
+// as a replay repeats them.  Rows past S or N load zeros and store nothing, so
+// the bits of trials past S are 0.
+constexpr int kTileS = 64;                 // trials a tile: 16 lanes x 4
+constexpr int kTileN = 128;                // variables a tile: 32 words of 4
+constexpr int kFillThreads = 128;
+constexpr int kSyndromeThreads = 256;
+
+// v[0..3] <- 16 bytes at p, R bytes a load; bytes at or past `avail` read 0.
+template <int R>
+__device__ __forceinline__ void load16(const uint8_t* p, int avail, uint32_t (&v)[4]) {
+    if constexpr (R == 16) {
+        if (avail >= 16) {
+            const uint4 u = *reinterpret_cast<const uint4*>(p);
+            v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+        } else {
+            v[0] = v[1] = v[2] = v[3] = 0u;
+        }
+    } else if constexpr (R == 8) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+            const uint2 u = 8 * k < avail ? reinterpret_cast<const uint2*>(p)[k]
+                                          : make_uint2(0u, 0u);
+            v[2 * k] = u.x, v[2 * k + 1] = u.y;
+        }
+    } else if constexpr (R == 4) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = 4 * k < avail ? reinterpret_cast<const uint32_t*>(p)[k] : 0u;
+    } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            uint32_t w = 0u;
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+                if (4 * k + b < avail) w |= static_cast<uint32_t>(p[4 * k + b]) << (8 * b);
+            }
+            v[k] = w;
+        }
+    }
+}
+
+// 16 bytes v[0..3] to p, W bytes a store; the bytes at or past `avail` are
+// not stored (W divides S, so a store lies wholly before or past it).
+template <int W>
+__device__ __forceinline__ void store16(int8_t* p, int avail, const uint32_t (&v)[4]) {
+    if constexpr (W == 16) {
+        if (avail >= 16) *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+    } else if constexpr (W == 8) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+            if (8 * k < avail) reinterpret_cast<uint2*>(p)[k] = make_uint2(v[2 * k], v[2 * k + 1]);
+        }
+    } else if constexpr (W == 4) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            if (4 * k < avail) reinterpret_cast<uint32_t*>(p)[k] = v[k];
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+            if (k < avail) p[k] = static_cast<int8_t>(v[k >> 2] >> (8 * (k & 3)));
+        }
+    }
+}
+
+// Four rows w0..w3 of four bytes -> four columns c[0..3]: byte i of c[j] is
+// byte j of row i.
+__device__ __forceinline__ void transpose4x4(uint32_t w0, uint32_t w1, uint32_t w2,
+                                             uint32_t w3, uint32_t (&c)[4]) {
+    const uint32_t t0 = __byte_perm(w0, w1, 0x5140);  // w0.b0 w1.b0 w0.b1 w1.b1
+    const uint32_t t1 = __byte_perm(w2, w3, 0x5140);
+    const uint32_t t2 = __byte_perm(w0, w1, 0x7362);  // w0.b2 w1.b2 w0.b3 w1.b3
+    const uint32_t t3 = __byte_perm(w2, w3, 0x7362);
+    c[0] = __byte_perm(t0, t1, 0x5410);
+    c[1] = __byte_perm(t0, t1, 0x7632);
+    c[2] = __byte_perm(t2, t3, 0x5410);
+    c[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// The low bits of four bytes as a nibble (byte i -> bit i).
+__device__ __forceinline__ uint32_t nibble(uint32_t w) {
+    const uint32_t y = w & 0x01010101u;
+    return (y | y >> 7 | y >> 14 | y >> 21) & 0xfu;
+}
+
+// The swizzle of tile row r: word w lies at w ^ swizzle(r) (an even number,
+// so a 16-byte group stays a group, its two halves swapped where bit 1 is set).
+__device__ __forceinline__ int swizzle(int r) {
+    return ((r >> 2) & 15) << 1;
+}
+
+template <int R, int W>
+__global__ void __launch_bounds__(kFillThreads)
 stage_fill_kernel(const uint8_t* __restrict__ alice_rows, const uint8_t* __restrict__ bob,
-                  const int* __restrict__ adj_T, const int* __restrict__ mask_T,
                   const int* __restrict__ st, float* __restrict__ llr_s,
-                  int8_t* __restrict__ syn_s, int8_t* __restrict__ alice_s, int S, int N,
-                  int M, int dc, int tiles_n, int tiles) {
-    __shared__ uint8_t ta[32][33];
-    __shared__ uint8_t tb[32][33];
-    if (static_cast<int>(blockIdx.x) < tiles) {
-        const int n0 = (blockIdx.x % tiles_n) * 32, s0 = (blockIdx.x / tiles_n) * 32;
-        const int cx = threadIdx.x % 32, cy = threadIdx.x / 32;  // 32 x 8
-        for (int r = cy; r < 32; r += kThreads / 32) {
-            const int s = s0 + r, n = n0 + cx;
-            if (s < S && n < N) {
-                ta[r][cx] = alice_rows[static_cast<size_t>(s) * N + n];
-                tb[r][cx] = bob[static_cast<size_t>(s) * N + n];
+                  int8_t* __restrict__ alice_s, uint32_t* __restrict__ bits, int S, int N,
+                  int G) {
+    __shared__ __align__(16) uint32_t ta[kTileS][kTileN / 4];
+    __shared__ __align__(16) uint32_t tb[kTileS][kTileN / 4];
+    const int n0 = blockIdx.x * kTileN, s0 = blockIdx.y * kTileS;
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    // load: 16 bytes of one row a step, a row's 8 pieces on adjacent lanes
+    constexpr int kPieces = kTileN / 16;
+#pragma unroll
+    for (int k = 0; k < kTileS * kPieces / kFillThreads; ++k) {
+        const int i = t + k * kFillThreads;
+        const int r = i / kPieces, p = i % kPieces, n = n0 + 16 * p, s = s0 + r;
+        const int avail = s < S ? N - n : 0;
+        uint32_t a[4], b[4];
+        const size_t o = static_cast<size_t>(s) * N + n;
+        load16<R>(alice_rows + o, avail, a);
+        load16<R>(bob + o, avail, b);
+        const int sw = swizzle(r), at = 4 * p ^ sw;  // the group's words, halves swapped by bit 1
+        const bool swap = (sw & 2) != 0;
+        *reinterpret_cast<uint4*>(&ta[r][at & ~3]) =
+            swap ? make_uint4(a[2], a[3], a[0], a[1]) : make_uint4(a[0], a[1], a[2], a[3]);
+        *reinterpret_cast<uint4*>(&tb[r][at & ~3]) =
+            swap ? make_uint4(b[2], b[3], b[0], b[1]) : make_uint4(b[0], b[1], b[2], b[3]);
+    }
+    __syncthreads();
+    // store: a lane takes trials 4 q .. 4 q + 3 of the tile (q = lane mod 16) and
+    // the word w (variables 4 w .. 4 w + 3) of its half-warp, two words a warp
+    // an iteration
+    const float mag = __int_as_float(st[kMag]);
+    const int q = lane & 15, r0 = 4 * q, s = s0 + r0, avail = S - s;
+    const int h = (lane >> 3) & 1;  // the 32-trial group of the lane's trials
+#pragma unroll
+    for (int it = 0; it < kTileN / 4 / 2 / (kFillThreads / 32); ++it) {
+        const int w = 2 * (warp + it * (kFillThreads / 32)) + (lane >> 4);
+        const int pw = w ^ swizzle(r0);  // the same for rows r0 .. r0 + 3
+        uint32_t ac[4], bc[4];
+        transpose4x4(ta[r0][pw], ta[r0 + 1][pw], ta[r0 + 2][pw], ta[r0 + 3][pw], ac);
+        transpose4x4(tb[r0][pw], tb[r0 + 1][pw], tb[r0 + 2][pw], tb[r0 + 3][pw], bc);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int n = n0 + 4 * w + j;
+            // the bits of the group's 32 trials: 8 lanes' nibbles
+            uint32_t word = nibble(ac[j]) << (4 * (lane & 7));
+            word |= __shfl_xor_sync(0xffffffffu, word, 1);
+            word |= __shfl_xor_sync(0xffffffffu, word, 2);
+            word |= __shfl_xor_sync(0xffffffffu, word, 4);
+            const int g = s0 / 32 + h;
+            if ((lane & 7) == 0 && n < N && g < G) bits[static_cast<size_t>(n) * G + g] = word;
+            if (n >= N || avail <= 0) continue;
+            const size_t o = static_cast<size_t>(n) * S + s;
+            float f[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) f[k] = ((bc[j] >> (8 * k)) & 0xffu) == 1u ? -mag : mag;
+            if constexpr (W == 4) {
+                *reinterpret_cast<uint32_t*>(alice_s + o) = ac[j];
+                *reinterpret_cast<float4*>(llr_s + o) = make_float4(f[0], f[1], f[2], f[3]);
+            } else {
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    if (k < avail) {
+                        alice_s[o + k] = static_cast<int8_t>(ac[j] >> (8 * k));
+                        llr_s[o + k] = f[k];
+                    }
+                }
             }
         }
-        __syncthreads();
-        const float mag = __int_as_float(st[kMag]);
-        for (int r = cy; r < 32; r += kThreads / 32) {
-            const int n = n0 + r, s = s0 + cx;
-            if (s < S && n < N) {
-                const size_t o = static_cast<size_t>(n) * S + s;
-                alice_s[o] = static_cast<int8_t>(ta[cx][r]);
-                llr_s[o] = tb[cx][r] == 1 ? -mag : mag;
-            }
-        }
-        return;
     }
-    const long long i = static_cast<long long>(blockIdx.x - tiles) * kThreads + threadIdx.x;
-    if (i >= static_cast<long long>(M) * S) return;
-    const int m = static_cast<int>(i / S), s = static_cast<int>(i % S);
-    const uint8_t* row = alice_rows + static_cast<size_t>(s) * N;
-    int parity = 0;
-    for (int j = 0; j < dc; ++j) {
-        if (mask_T[j * M + m]) parity ^= row[adj_T[j * M + m]];
+}
+
+template <int W>
+__global__ void __launch_bounds__(kSyndromeThreads)
+stage_syndrome_kernel(const uint32_t* __restrict__ bits, const int* __restrict__ adj_T,
+                      const int* __restrict__ mask_T, int8_t* __restrict__ syn_s, int S, int M,
+                      int dc, int G) {
+    const int i = blockIdx.x * kSyndromeThreads + threadIdx.x;
+    if (i >= M * G) return;
+    const int m = i / G, g = i - m * G;
+    uint32_t parity = 0u;
+#pragma unroll 4
+    for (int j = 0; j < dc; ++j) {  // a padded slot's index is 0, a row that exists
+        const uint32_t w = bits[adj_T[j * M + m] * G + g];
+        parity ^= mask_T[j * M + m] ? w : 0u;
     }
-    syn_s[i] = static_cast<int8_t>(parity & 1);
+    const int s = 32 * g, avail = S - s;
+    int8_t* out = syn_s + static_cast<size_t>(m) * S + s;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // 16 trials a half: byte k of the half <- bit 16 h + k
+        uint32_t v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = ((parity >> (16 * h + 4 * k)) & 0xfu) * 0x00204081u & 0x01010101u;
+        store16<W>(out + 16 * h, avail - 16 * h, v);
+    }
+}
+
+// The widest access (16, 8, 4 or 1 bytes) that divides `bits` (a row
+// stride ORed with the base addresses).
+int access_width(unsigned long long bits) {
+    return bits % 16 == 0 ? 16 : bits % 8 == 0 ? 8 : bits % 4 == 0 ? 4 : 1;
 }
 
 // Exclusive prefix sum of `v` over the block (blockDim a multiple of 32, at
@@ -332,15 +513,25 @@ refill_copy_kernel(const int* __restrict__ st, const int* __restrict__ lane_of,
     }
 }
 
-__global__ void pass_step_kernel(const uint8_t* __restrict__ ok, uint8_t* __restrict__ done,
-                                 uint8_t* __restrict__ run, const int* __restrict__ age,
-                                 uint8_t* __restrict__ fresh, int max_it, int first, int B) {
+// The segment's last pass's bookkeeping, from that pass's run, age and ok to
+// the lane buffers that bank and refill_lanes read (run_out, age_out, ok_out;
+// each may be its input: a thread reads its lane before it writes it).  The
+// segment's earlier passes run theirs inside the next pass's variable update
+// (csrc/check_update.cu, FOLD).
+__global__ void pass_step_kernel(const uint8_t* ok, uint8_t* __restrict__ done,
+                                 const uint8_t* run, const int* age, uint8_t* __restrict__ fresh,
+                                 uint8_t* run_out, int* age_out, uint8_t* ok_out, int max_it,
+                                 int first, int B) {
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
     const bool r = run[b] != 0;
-    const bool conv = ok[b] != 0 && r;
+    const uint8_t o = ok[b];
+    const int a = age[b];
+    const bool conv = o != 0 && r;
     if (conv) done[b] = 1;
-    run[b] = (r && !conv && age[b] < max_it) ? 1 : 0;
+    run_out[b] = (r && !conv && a < max_it) ? 1 : 0;
+    age_out[b] = a;
+    ok_out[b] = o;
     if (first) fresh[b] = 0;  // a refilled lane is fresh for one pass only
 }
 
@@ -542,18 +733,79 @@ extern "C" int stage_step(const void* x, void* st, int S, int P, void* passes, v
     return last_error();
 }
 
+// The access widths stage_fill launches with, packed as R | W << 8 | W2 << 16:
+// R along the [S, N] rows (N and both row bases), W along alice_s (4 where S
+// and alice_s's base allow it and llr_s is 16-byte aligned, its float4 a lane,
+// else 1), W2 along syn_s (S and its base).
+static int fill_widths(const void* alice_rows, const void* bob, const void* llr_s,
+                       const void* syn_s, const void* alice_s, int S, int N) {
+    const int R = access_width(static_cast<unsigned long long>(N) |
+                               reinterpret_cast<uintptr_t>(alice_rows) |
+                               reinterpret_cast<uintptr_t>(bob));
+    const int W = access_width(static_cast<unsigned long long>(S) |
+                               reinterpret_cast<uintptr_t>(alice_s)) >= 4 &&
+                  reinterpret_cast<uintptr_t>(llr_s) % 16 == 0 ? 4 : 1;
+    const int W2 = access_width(static_cast<unsigned long long>(S) |
+                                reinterpret_cast<uintptr_t>(syn_s));
+    return R | W << 8 | W2 << 16;
+}
+
+extern "C" int stage_fill_widths(const void* alice_rows, const void* bob, const void* llr_s,
+                                 const void* syn_s, const void* alice_s, int S, int N) {
+    return fill_widths(alice_rows, bob, llr_s, syn_s, alice_s, S, N);
+}
+
+template <int R>
+static void launch_fill(int W, dim3 grid, cudaStream_t stream, const uint8_t* alice_rows,
+                        const uint8_t* bob, const int* st, float* llr_s, int8_t* alice_s,
+                        uint32_t* bits, int S, int N, int G) {
+    if (W == 4) {
+        stage_fill_kernel<R, 4><<<grid, kFillThreads, 0, stream>>>(
+            alice_rows, bob, st, llr_s, alice_s, bits, S, N, G);
+    } else {
+        stage_fill_kernel<R, 1><<<grid, kFillThreads, 0, stream>>>(
+            alice_rows, bob, st, llr_s, alice_s, bits, S, N, G);
+    }
+}
+
+// `bits`: uint32 [N, ceil(S / 32)], the packed bits between the two kernels.
 extern "C" int stage_fill(const void* alice_rows, const void* bob, const void* adj_T,
                           const void* mask_T, const void* st, void* llr_s, void* syn_s,
-                          void* alice_s, int S, int N, int M, int dc, void* stream) {
-    const int tiles_n = (N + 31) / 32;
-    const int tiles = tiles_n * ((S + 31) / 32);
-    const long long syn_blocks = (static_cast<long long>(M) * S + kThreads - 1) / kThreads;
-    stage_fill_kernel<<<static_cast<unsigned>(tiles + syn_blocks), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(alice_rows), static_cast<const uint8_t*>(bob),
-        static_cast<const int*>(adj_T), static_cast<const int*>(mask_T),
-        static_cast<const int*>(st), static_cast<float*>(llr_s), static_cast<int8_t*>(syn_s),
-        static_cast<int8_t*>(alice_s), S, N, M, dc, tiles_n, tiles);
+                          void* alice_s, void* bits, int S, int N, int M, int dc, void* stream) {
+    const auto s = static_cast<cudaStream_t>(stream);
+    const int G = (S + 31) / 32;
+    const int widths = fill_widths(alice_rows, bob, llr_s, syn_s, alice_s, S, N);
+    const int R = widths & 0xff, W = (widths >> 8) & 0xff, W2 = widths >> 16;
+    const dim3 grid((N + kTileN - 1) / kTileN, (S + kTileS - 1) / kTileS);
+    const auto* a = static_cast<const uint8_t*>(alice_rows);
+    const auto* b = static_cast<const uint8_t*>(bob);
+    const auto* st_p = static_cast<const int*>(st);
+    auto* llr = static_cast<float*>(llr_s);
+    auto* al = static_cast<int8_t*>(alice_s);
+    auto* words = static_cast<uint32_t*>(bits);
+    switch (R) {
+        case 16: launch_fill<16>(W, grid, s, a, b, st_p, llr, al, words, S, N, G); break;
+        case 8: launch_fill<8>(W, grid, s, a, b, st_p, llr, al, words, S, N, G); break;
+        case 4: launch_fill<4>(W, grid, s, a, b, st_p, llr, al, words, S, N, G); break;
+        default: launch_fill<1>(W, grid, s, a, b, st_p, llr, al, words, S, N, G); break;
+    }
+    const int err = last_error();
+    if (err != 0) return err;
+    const unsigned blocks = static_cast<unsigned>(
+        (static_cast<long long>(M) * G + kSyndromeThreads - 1) / kSyndromeThreads);
+    const auto* adj = static_cast<const int*>(adj_T);
+    const auto* mask = static_cast<const int*>(mask_T);
+    auto* syn = static_cast<int8_t*>(syn_s);
+    switch (W2) {
+        case 16: stage_syndrome_kernel<16><<<blocks, kSyndromeThreads, 0, s>>>(
+                     words, adj, mask, syn, S, M, dc, G); break;
+        case 8: stage_syndrome_kernel<8><<<blocks, kSyndromeThreads, 0, s>>>(
+                    words, adj, mask, syn, S, M, dc, G); break;
+        case 4: stage_syndrome_kernel<4><<<blocks, kSyndromeThreads, 0, s>>>(
+                    words, adj, mask, syn, S, M, dc, G); break;
+        default: stage_syndrome_kernel<1><<<blocks, kSyndromeThreads, 0, s>>>(
+                     words, adj, mask, syn, S, M, dc, G); break;
+    }
     return last_error();
 }
 
@@ -600,22 +852,23 @@ extern "C" int refill_copy(const void* st, const void* lane_of, const void* llr_
     return last_error();
 }
 
-extern "C" int pass_step(const void* ok, void* done, void* run, const void* age, void* fresh,
-                         int max_it, int first, int B, void* stream) {
+extern "C" int pass_step(const void* ok, void* done, const void* run, const void* age,
+                         void* fresh, void* run_out, void* age_out, void* ok_out, int max_it,
+                         int first, int B, void* stream) {
     pass_step_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(ok), static_cast<uint8_t*>(done),
-        static_cast<uint8_t*>(run), static_cast<const int*>(age), static_cast<uint8_t*>(fresh),
-        max_it, first, B);
+        static_cast<const uint8_t*>(run), static_cast<const int*>(age),
+        static_cast<uint8_t*>(fresh), static_cast<uint8_t*>(run_out), static_cast<int*>(age_out),
+        static_cast<uint8_t*>(ok_out), max_it, first, B);
     return last_error();
 }
 
 // The widest load (16, 8, 4 or 1 bytes) that every row's groups of z and
 // Alice's bits allow: B and both base addresses divisible by it.
 static int bank_load_width(const void* z, const void* alice, int B) {
-    const auto bits = static_cast<unsigned long long>(B) |
-                      reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(alice);
-    return bits % 16 == 0 ? 16 : bits % 8 == 0 ? 8 : bits % 4 == 0 ? 4 : 1;
+    return access_width(static_cast<unsigned long long>(B) | reinterpret_cast<uintptr_t>(z) |
+                        reinterpret_cast<uintptr_t>(alice));
 }
 
 extern "C" int bank_width(const void* z, const void* alice, int B) {

@@ -202,15 +202,16 @@ class _DecodeCore:
             scratch=scratch, **self.kernel_args
         )
 
-    def variable_update(self, Lr, llr, z, count, active, out=None):
+    def variable_update(self, Lr, llr, z, count, active, out=None, fold=None):
         """Route -> totals -> decision: ``(total, z, count, ok)`` with ``z``
         and ``count`` moved on the ``active`` frames only (in place by the
         kernel) and ``ok`` all True, for the check update to clear.  Decisions and the syndrome that the next check update
         returns derive from the SAME storage-rounded totals, so they are
-        exactly consistent."""
+        exactly consistent.  ``fold`` (``cuda_kernels.PassFold``) runs the
+        previous pass's bookkeeping first (the continuation's segment)."""
         return cuda_kernels.variable_update(
             Lr, llr, z, count, active, self.maps, backend=self.backend,
-            scale=self.scale, out=out,
+            scale=self.scale, out=out, fold=fold,
         )
 
 

@@ -28,6 +28,9 @@ storage and writes ``total [N, B]``; on the frames whose ``active`` flag is
 set it also writes the decision ``z`` and adds one to the frame's iteration
 count, and it hands the check update its flag buffer ``ok``, all True.  So the loop of ``decoder/bp.py`` carries ``(total, Lr)`` and an
 iteration is two launches with no tensor pass over the messages between.
+The continuation's segment folds its previous pass's bookkeeping into the
+update as well (``fold=``, :class:`PassFold`: the kernel's FOLD instances),
+so a pass is two launches there too.
 
 What bounds both on the card is memory traffic, and what the design does
 about it is in the header of ``csrc/check_update.cu``: each thread takes a
@@ -51,6 +54,7 @@ the default 0.25, and the port divides everywhere.)
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -329,14 +333,51 @@ def check_update_fused(total, Lr_prev, syn, maps, *, backend="auto", fresh=None,
               scratch=scratch, **kw)
 
 
-def variable_update_plain(Lr, llr, z, count, active, maps, *, scale, out=None):
+class PassFold(NamedTuple):
+    """The previous pass's bookkeeping, folded into a variable update (the
+    continuation's segment): the update's ``active`` and ``count`` are that
+    pass's ``run`` and ``age`` (read only), ``ok`` its flags.  Before its own
+    work the update forms ``conv = ok & active``, ``done |= conv``, ``run =
+    active & ~conv & (count < max_it)`` (its ``active`` from then on) and
+    ``count + run`` in ``count``, and clears ``fresh`` unless it is None.
+    ``run``, ``count`` and the update's ``ok`` output are a second set of
+    buffers, never the inputs: all of the kernel's blocks read the inputs."""
+    ok: torch.Tensor
+    done: torch.Tensor
+    run: torch.Tensor
+    count: torch.Tensor
+    fresh: torch.Tensor | None
+    max_it: int
+
+
+def fold_plain(fold, count, active):
+    """The bookkeeping of :class:`PassFold` in plain PyTorch, from the
+    previous pass's ``active`` (its run) and ``count`` (its age); ``fold.run``
+    and ``fold.count`` may be those tensors themselves.  Returns the update's
+    (count, active)."""
+    conv = fold.ok & active
+    fold.done.bitwise_or_(conv)
+    torch.bitwise_and(active ^ conv, count < fold.max_it, out=fold.run)
+    fold.count.copy_(count)
+    if fold.fresh is not None:
+        fold.fresh.zero_()
+    return fold.count, fold.run
+
+
+def variable_update_plain(Lr, llr, z, count, active, maps, *, scale, out=None, fold=None):
     """Plain PyTorch version of the variable kernel.  ``Lr [dc, M, B]`` in
     storage type, ``llr [N, B]`` float32, ``z [N, B]`` int8, ``count [B]``
     int32, ``active [B]`` bool.  Returns new ``(total [N, B], z, count, ok)``:
     the totals of every frame, decisions and counts moved on active frames,
     and ``ok [B]`` all True — the flags that the check update of these totals
     clears.  With ``out = (total, ok)`` it writes into those, and into ``z``
-    and ``count``, in place, as the kernel does."""
+    and ``count``, in place, as the kernel does.  With ``fold``
+    (:class:`PassFold`, ``out`` required) it first runs the previous pass's
+    bookkeeping and moves ``fold.count`` in place of ``count``."""
+    if fold is not None:
+        if out is None:
+            raise ValueError("the folded update writes into out")
+        count, active = fold_plain(fold, count, active)
     dc, M, B = Lr.shape
     dv = maps.var_slot_T.shape[0] // llr.shape[0]
     flat = Lr.view(dc * M, B)
@@ -358,11 +399,27 @@ def variable_update_plain(Lr, llr, z, count, active, maps, *, scale, out=None):
             ok.fill_(True))
 
 
-def variable_update_cuda(Lr, llr, z, count, active, maps, *, scale, out=None):
+def _check_fold(fold, count, active, ok_out):
+    """A fold's buffers: [B] bool flags and int32 counts on the update's
+    device, none of its outputs an input of the kernel's blocks."""
+    B = active.shape[0]
+    flags = [fold.ok, fold.done, fold.run] + ([] if fold.fresh is None else [fold.fresh])
+    if any(t.shape != (B,) or t.dtype != torch.bool for t in flags) or (
+            fold.count.shape != (B,) or fold.count.dtype != torch.int32):
+        raise ValueError("fold: ok, done, run, fresh bool [B], count int32 [B]")
+    _on_device_contiguous(active, flags + [fold.count])
+    ins = {t.data_ptr() for t in (fold.ok, active, count)}
+    if any(t.data_ptr() in ins for t in (fold.run, fold.count, ok_out)):
+        raise ValueError("fold: run, count and ok are written into a second set of buffers")
+
+
+def variable_update_cuda(Lr, llr, z, count, active, maps, *, scale, out=None, fold=None):
     """Launch the variable kernel on the current stream (no synchronisation).
     Same arguments as :func:`variable_update_plain`; ``z`` and ``count`` are
     updated IN PLACE and returned beside the new ``total`` and ``ok`` (or
-    the given ``out = (total, ok)``)."""
+    the given ``out = (total, ok)``).  With ``fold`` the kernel's FOLD
+    instance runs the previous pass's bookkeeping first and returns
+    ``fold.count`` as the count."""
     _check_storage(Lr, scale)
     dv, N = maps.var_slot_T_i32.shape
     if Lr.ndim != 3 or Lr.shape[:2] != maps.chk_adj_T_i32.shape or Lr.shape[2] < 1:
@@ -380,6 +437,8 @@ def variable_update_cuda(Lr, llr, z, count, active, maps, *, scale, out=None):
         raise ValueError("active must be bool [B]")
     _need_cuda(Lr)
     if out is None:
+        if fold is not None:
+            raise ValueError("the folded update writes into out")
         total = torch.empty((N, B), dtype=Lr.dtype, device=Lr.device)
         ok = torch.empty((B,), dtype=torch.bool, device=Lr.device)
     else:
@@ -388,27 +447,37 @@ def variable_update_cuda(Lr, llr, z, count, active, maps, *, scale, out=None):
                 or ok.dtype != torch.bool):
             raise ValueError("out must be (total [N, B] in storage type, ok bool [B])")
         _on_device_contiguous(Lr, [total, ok])
-    vec = vector_width("variable_update", B, Lr.dtype, *tensors, total, ok)
+    fold_tensors = []
+    if fold is not None:
+        _check_fold(fold, count, active, ok)
+        fold_tensors = [t for t in (fold.ok, fold.done, fold.fresh, fold.run, fold.count)
+                        if t is not None]
+    vec = vector_width("variable_update", B, Lr.dtype, *tensors, total, ok, *fold_tensors)
     fn = _build.function(
         "check_update_" + _STORAGE_NAMES[Lr.dtype], "variable_update",
-        [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+        [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p],
     )
     with torch.cuda.device(Lr.device):
         err = fn(
             vec, Lr.data_ptr(), maps.var_slot_T_i32.data_ptr(), llr.data_ptr(),
             active.data_ptr(), total.data_ptr(), z.data_ptr(), count.data_ptr(),
-            ok.data_ptr(), N, B, dv, dc * M, scale if scale is not None else 1.0,
+            ok.data_ptr(), *((fold.ok.data_ptr(), fold.done.data_ptr(),
+                              None if fold.fresh is None else fold.fresh.data_ptr(),
+                              fold.run.data_ptr(), fold.count.data_ptr(), fold.max_it)
+                             if fold is not None else (None,) * 5 + (0,)),
+            N, B, dv, dc * M, scale if scale is not None else 1.0,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(KERNEL_VARIABLE, err)
-    return total, z, count, ok
+    return total, z, (count if fold is None else fold.count), ok
 
 
 def variable_update(Lr, llr, z, count, active, maps, *, backend="auto", scale,
-                    out=None):
+                    out=None, fold=None):
     """Variable-node update: ``Lr`` -> ``(total, z, count, ok)`` (see the
     plain version); the kernel updates ``z`` and ``count`` in place, and
-    writes into ``out = (total, ok)`` when given."""
+    writes into ``out = (total, ok)`` when given; ``fold``
+    (:class:`PassFold`) runs the previous pass's bookkeeping first."""
     fn = variable_update_cuda if _build.use_kernel(backend, Lr.device) else variable_update_plain
-    return fn(Lr, llr, z, count, active, maps, scale=scale, out=out)
+    return fn(Lr, llr, z, count, active, maps, scale=scale, out=out, fold=fold)

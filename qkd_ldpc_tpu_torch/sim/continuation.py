@@ -32,8 +32,9 @@ points) as one CUDA graph (``decoder/device_loop.py``): the outer
 ``while_loop`` is a WHILE node, the refill ``while_loop`` inside it another,
 and ``lax.cond(pos >= S, regen, refill)`` two IF nodes whose predicates one
 kernel writes before either runs; the segment's ``fori_loop`` is unrolled
-(``segment`` passes of the variable update, the check update with the
-``fresh`` flags, and the pass bookkeeping) and the banking is one kernel.
+(``segment`` passes of the variable update, which runs the previous
+pass's bookkeeping first, and the check update with the ``fresh`` flags;
+then the last pass's bookkeeping) and the banking is one kernel.
 Every step around the decode is a kernel of ``csrc/continuation.cu``
 (``sim/cuda_continuation.py``), and regen's channel is K4, K3, K4's gated tie
 row and KT writing into buffers made before the capture.  A call copies one
@@ -69,6 +70,7 @@ from qkd_ldpc_tpu_torch.channel.keys import make_trials_from_ids, num_errors_for
 from qkd_ldpc_tpu_torch.codes.ldpc_code import LDPCCode
 from qkd_ldpc_tpu_torch.decoder import device_loop
 from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions, _DecodeCore
+from qkd_ldpc_tpu_torch.decoder.cuda_kernels import PassFold
 from qkd_ldpc_tpu_torch.decoder.reconcile import llr_magnitude
 from qkd_ldpc_tpu_torch.sim import cuda_continuation as steps
 from qkd_ldpc_tpu_torch.sim.runner import _HostCopy
@@ -160,6 +162,11 @@ class _ContinuationProgram:
         b.age = zeros((B,), torch.int32)  # iterations completed; -1 on a fresh lane
         b.done, b.live = zeros((B,), torch.bool), zeros((B,), torch.bool)
         b.run = zeros((B,), torch.bool)  # live & ~done & (age < max_it)
+        # the segment's passes alternate between (run, age, ok) and this second
+        # set (see _segment_and_bank); the last pass's bookkeeping brings the
+        # lanes home to the first
+        b.run2, b.age2 = zeros((B,), torch.bool), zeros((B,), torch.int32)
+        b.ok2 = torch.ones((B,), dtype=torch.bool, device=dev)
         b.fresh = zeros((B,), torch.bool)
         b.lane_p = zeros((B,), torch.int32)  # sweep-point index of each lane's trial
         b.total = torch.empty((N, B), dtype=self.core.mdt, device=dev)
@@ -168,6 +175,8 @@ class _ContinuationProgram:
         # the staging block: S fresh trials of point st[SP], slot i = id st[BASE] + i
         b.llr_s = zeros((N, S), torch.float32)
         b.syn_s, b.alice_s = zeros((M, S), torch.int8), zeros((N, S), torch.int8)
+        b.fill_bits = (zeros(steps.fill_bits_shape(S, N), torch.int32) if self.use_kernel
+                       else None)  # stage_fill's packed bits
         # regen's channel: K4's rows, K3's threshold and Bob's rows
         b.a_rows, b.bob = zeros((S, N), torch.uint8), zeros((S, N), torch.uint8)
         b.scores, b.ties = zeros((S, N), torch.int32), zeros((S, N), torch.int32)
@@ -200,7 +209,7 @@ class _ContinuationProgram:
             b.a_rows.copy_(a)
             b.bob.copy_(bob)
         steps.stage_fill(b.a_rows, b.bob, self.core.maps, st, b.llr_s, b.syn_s, b.alice_s,
-                         use_kernel=kern)
+                         use_kernel=kern, bits=b.fill_bits)
 
     def _refill(self, x, b, passes=None):
         """``refill``: the next K staged trials (fewer at the tail of a point)
@@ -220,14 +229,32 @@ class _ContinuationProgram:
         bookkeeping as in decoder.bp: stopped lanes keep computing, masked out
         of the statistics; the variable update moves z and age on the running
         lanes, the check update's ok is the syndrome of those totals), then
-        the banking of the finished lanes into their points' accumulators."""
+        the banking of the finished lanes into their points' accumulators.
+
+        A pass's bookkeeping (JAX's :225-233) runs inside the next pass's
+        variable update (``PassFold``), which reads the lanes' (run, age, ok)
+        from one set of buffers and writes their successors into the other;
+        the sets alternate pass by pass, and the last pass's bookkeeping
+        (``pass_step``) brings the lanes home to (run, age, ok), whatever the
+        parity of ``segment``.  Pass 0's update is the plain one."""
         core, kern, max_it = self.core, self.use_kernel, self.opts.max_iterations
+        home = (b.run, b.age, b.ok)
+        lanes = home
         for i in range(self.segment):
-            core.variable_update(b.Lr, b.llr, b.z, b.age, b.run, out=(b.total, b.ok))
-            core.check_update_fused(b.total, b.Lr, b.syn, fresh=b.fresh, ok=b.ok, out=b.Lr,
+            if i == 0:
+                core.variable_update(b.Lr, b.llr, b.z, b.age, b.run, out=(b.total, b.ok))
+            else:
+                run, age, ok = lanes
+                lanes = (b.run2, b.age2, b.ok2) if i % 2 else home
+                # pass 1 ends the refilled lanes' fresh pass
+                fold = PassFold(ok=ok, done=b.done, run=lanes[0], count=lanes[1],
+                                fresh=b.fresh if i == 1 else None, max_it=max_it)
+                core.variable_update(b.Lr, b.llr, b.z, age, run, out=(b.total, lanes[2]),
+                                     fold=fold)
+            core.check_update_fused(b.total, b.Lr, b.syn, fresh=b.fresh, ok=lanes[2], out=b.Lr,
                                     scratch=b.scratch)
-            steps.pass_step(b.ok, b.done, b.run, b.age, b.fresh, max_it, i == 0,
-                            use_kernel=kern)
+        steps.pass_step(lanes[2], b.done, lanes[0], lanes[1], b.fresh, max_it,
+                        self.segment == 1, use_kernel=kern, out=home)
         steps.bank(x, b.acc, b.st, (b.live, b.run, b.done, b.age, b.lane_p), b.z, b.alice,
                    b.mis, max_it, b.flags, use_kernel=kern, passes=passes, handle=handle)
 

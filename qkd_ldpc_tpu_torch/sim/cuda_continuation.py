@@ -18,7 +18,9 @@ step                  JAX lines (``sim/continuation.py``)             kernel
 :func:`stage_fill`    ``regen``'s staging arrays :132-139              stage_fill
 :func:`refill_lanes`  ``refill``'s lanes :154, :166-170, :189-197      refill_lanes
 :func:`refill_copy`   ``refill``'s blends :156-188                     refill_copy
-:func:`pass_step`     the segment pass's bookkeeping :225-233          pass_step
+:func:`pass_step`     the segment pass's bookkeeping :225-233 (the     pass_step
+                      last pass's; the others in the next pass's
+                      variable update, ``cuda_kernels.PassFold``)
 :func:`bank`          the banking :241-259, ``outer_cond`` :262        bank
 ====================  ==============================================  ============
 
@@ -44,6 +46,7 @@ import ctypes
 import torch
 
 from qkd_ldpc_tpu_torch import _build
+from qkd_ldpc_tpu_torch.decoder.cuda_kernels import PassFold, fold_plain
 
 # Slots of the int32 carry (csrc/continuation.cu names them alike).  BASE, POS
 # and SP are the staging block's first trial id, read position and point;
@@ -249,23 +252,50 @@ def stage_fill_plain(alice_rows, bob, maps, st, llr_s, syn_s, alice_s):
     syn_s.copy_((gathered.sum(dim=-1, dtype=torch.int32) & 1).T)
 
 
-def stage_fill_cuda(alice_rows, bob, maps, st, llr_s, syn_s, alice_s):
+def fill_bits_shape(S: int, N: int) -> tuple[int, int]:
+    """The kernel's packed bits between its two launches: int32 ``[N,
+    ceil(S / 32)]``, Alice's bits of 32 adjacent trials a word."""
+    return N, -(-S // 32)
+
+
+def stage_fill_cuda(alice_rows, bob, maps, st, llr_s, syn_s, alice_s, bits=None):
+    """Two launches (the transpose that packs Alice's bits, then the syndrome
+    from the words; ``csrc/continuation.cu``), one count.  ``bits``
+    (:func:`fill_bits_shape`, int32) is made when not given."""
     S, N = alice_rows.shape
     dc, M = maps.chk_adj_T_i32.shape
     if bob.shape != (S, N) or llr_s.shape != (N, S) or alice_s.shape != (N, S) or (
             syn_s.shape != (M, S)):
         raise ValueError("stage_fill: the rows are [S, N], the staging arrays [N, S] / [M, S]")
-    _launch(KERNEL_FILL, [_P] * 8 + [_I] * 4,
+    _offsets_fit_int32("stage_fill", N * S, M * S)
+    if bits is None:
+        bits = torch.empty(fill_bits_shape(S, N), dtype=torch.int32, device=alice_rows.device)
+    elif bits.shape != fill_bits_shape(S, N) or bits.dtype != torch.int32:
+        raise ValueError(f"stage_fill: bits must be int32 {fill_bits_shape(S, N)}")
+    _launch(KERNEL_FILL, [_P] * 9 + [_I] * 4,
             (alice_rows, bob, maps.chk_adj_T_i32, maps.chk_mask_T_i32, st, llr_s, syn_s,
-             alice_s),
+             alice_s, bits),
             alice_rows.data_ptr(), bob.data_ptr(), maps.chk_adj_T_i32.data_ptr(),
             maps.chk_mask_T_i32.data_ptr(), st.data_ptr(), llr_s.data_ptr(),
-            syn_s.data_ptr(), alice_s.data_ptr(), S, N, M, dc)
+            syn_s.data_ptr(), alice_s.data_ptr(), bits.data_ptr(), S, N, M, dc)
 
 
-def stage_fill(alice_rows, bob, maps, st, llr_s, syn_s, alice_s, *, use_kernel):
+def stage_fill_widths(alice_rows, bob, llr_s, syn_s, alice_s) -> dict[str, int]:
+    """Bytes an access of the instances :func:`stage_fill_cuda` launches for
+    these tensors, from N, S and the base addresses: ``rows`` along Alice's
+    and Bob's ``[S, N]`` rows (16, 8, 4 or 1), ``staging`` along ``alice_s``
+    (4, with a float4 of ``llr_s``, or 1), ``syndrome`` along ``syn_s`` (16,
+    8, 4 or 1)."""
+    fn = _build.function("continuation", "stage_fill_widths", [_P] * 5 + [_I, _I])
+    S, N = alice_rows.shape
+    w = int(fn(alice_rows.data_ptr(), bob.data_ptr(), llr_s.data_ptr(), syn_s.data_ptr(),
+               alice_s.data_ptr(), S, N))
+    return {"rows": w & 0xFF, "staging": (w >> 8) & 0xFF, "syndrome": w >> 16}
+
+
+def stage_fill(alice_rows, bob, maps, st, llr_s, syn_s, alice_s, *, use_kernel, bits=None):
     if use_kernel:
-        stage_fill_cuda(alice_rows, bob, maps, st, llr_s, syn_s, alice_s)
+        stage_fill_cuda(alice_rows, bob, maps, st, llr_s, syn_s, alice_s, bits)
     else:
         stage_fill_plain(alice_rows, bob, maps, st, llr_s, syn_s, alice_s)
 
@@ -362,29 +392,37 @@ def refill_copy(st, lane_of, staged, pool, *, use_kernel):
 
 
 # ---------------------------------------------------------------------------
-# pass_step: a segment pass's bookkeeping
+# pass_step: the bookkeeping of a segment's last pass
 
-def pass_step_plain(ok, done, run, age, fresh, max_it, first):
+def pass_step_plain(ok, done, run, age, fresh, max_it, first, out=None):
     """``conv = ok & run``; ``done |= conv``; ``run = (run ^ conv) & (age <
-    max_it)``; the first pass of a segment clears ``fresh``."""
-    conv = ok & run
-    done |= conv
-    torch.bitwise_and(run ^ conv, age < max_it, out=run)  # conv is a subset of run
-    if first:
-        fresh.zero_()
+    max_it)``; the first pass of a segment clears ``fresh``.  ``out = (run,
+    age, ok)``: the lane buffers that receive the new ``run`` and copies of
+    ``age`` and ``ok`` (the inputs themselves when None).  The segment's
+    earlier passes run this inside the next pass's variable update
+    (``cuda_kernels.PassFold``), into the other set of buffers; the last one
+    brings the lanes home."""
+    run_out, age_out, ok_out = (run, age, ok) if out is None else out
+    fold_plain(PassFold(ok=ok, done=done, run=run_out, count=age_out,
+                        fresh=fresh if first else None, max_it=max_it), age, run)
+    if ok_out is not ok:
+        ok_out.copy_(ok)
 
 
-def pass_step_cuda(ok, done, run, age, fresh, max_it, first):
-    _launch(KERNEL_PASS, [_P] * 5 + [_I] * 3, (ok, done, run, age, fresh),
+def pass_step_cuda(ok, done, run, age, fresh, max_it, first, out=None):
+    run_out, age_out, ok_out = (run, age, ok) if out is None else out
+    _launch(KERNEL_PASS, [_P] * 8 + [_I] * 3,
+            (ok, done, run, age, fresh, run_out, age_out, ok_out),
             ok.data_ptr(), done.data_ptr(), run.data_ptr(), age.data_ptr(), fresh.data_ptr(),
-            max_it, int(first), done.shape[0])
+            run_out.data_ptr(), age_out.data_ptr(), ok_out.data_ptr(), max_it, int(first),
+            done.shape[0])
 
 
-def pass_step(ok, done, run, age, fresh, max_it, first, *, use_kernel):
+def pass_step(ok, done, run, age, fresh, max_it, first, *, use_kernel, out=None):
     if use_kernel:
-        pass_step_cuda(ok, done, run, age, fresh, max_it, first)
+        pass_step_cuda(ok, done, run, age, fresh, max_it, first, out)
     else:
-        pass_step_plain(ok, done, run, age, fresh, max_it, first)
+        pass_step_plain(ok, done, run, age, fresh, max_it, first, out)
 
 
 # ---------------------------------------------------------------------------
