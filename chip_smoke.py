@@ -24,13 +24,16 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    statistics, the four batches one replay of the chunk's captured CUDA graph
    — on the flagship quasi-cyclic code at its operating point and checks the
    statistics and the launch counts (K4 twice, K3, the tie kernel, K1 and
-   the three loop-entry tests once per batch; K2, the variable update and the
-   loop's bookkeeping once per pass, read from the graph's device counters;
-   no plain threefry tree on the card);
-   3b. the same point with ``schedule="layered"`` (the sweep kernel);
+   the three loop-entry tests once per batch; K2 and the variable update once
+   per pass, read from the graph's device counters, the loop's bookkeeping in
+   K2's last block with no launch of its own; no plain threefry tree on the
+   card);
+   3b. the same point with ``schedule="layered"`` (the sweep kernel, the
+   loop's bookkeeping in its last block);
    3c. ``run_point_continuation`` at a waterfall point — the whole
    continuation one graph replay per call: the outer loop and the refill loop
-   WHILE nodes, regen and refill IF nodes, the ``segment`` passes (the
+   WHILE nodes, regen and refill IF nodes (the refill loop's whole body; its
+   test runs in the steps before it), the ``segment`` passes (the
    fresh-lane kernel) and the banking inside — against ``run_point`` on the
    same point key: seven equal partial sums, launches per outer step, the
    staging blocks and the program's own steps counted from the card; the
@@ -42,7 +45,9 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    cases; the column copy and the banking on their edge cases, ragged widths
    and every instance; the staging fill on irregular codes, check degree 15,
    ragged S and N and every access width; the variable update with the
-   previous pass's bookkeeping folded in, in each storage type) and timed,
+   previous pass's bookkeeping folded in, in each storage type; the start,
+   the stage step, the refill's lane step and the banking with the refill
+   loop's test folded in, against the step and ``want_plain``) and timed,
    the copy and the banking beside their sector floors, with ptxas's
    registers and spills; then the three paths' walls in turns, each beside
    its eager kernel loop;
@@ -52,7 +57,8 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    forced phase-C overflow, with every lane converged in phase A, and at
    check degree 15 (the loop instance and its scratch); four host threads
    sharing one graph; K2 in place over its input; the continuation program
-   against its eager program (7/7, equal launches of every kernel); the tie
+   against its eager program (7/7, equal launches of every kernel, the whole
+   carry bit for bit); the tie
    path gated on the card against
    ``_uniform_ties`` on a forced-tie flagship batch and on rows of many ties
    sharing their second words across the row; ``point_batch_partials`` and
@@ -65,9 +71,12 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    of different sizes and QBERs and none after other decodes filled the
    shared graph cache, one replay a chunk, a 4-chunk window dispatched under
    the sync gate up to its first fetch, each capture's time, nodes and pool;
-   the Reconciler with 1 and 4 chunks in flight; the new
-   kernels (loop entry, loop step, sweep step, tie completion) held to their
-   plain versions and timed;
+   the Reconciler with 1 and 4 chunks in flight; the loop-entry and tie
+   kernels held to their plain versions and timed; the loop's bookkeeping in
+   the last block of K2 and of K6 against the plain pass and
+   ``loop_step_plain`` (check and base-row degrees 6, 15, 60; B = 512, 200,
+   101; every storage type, both algorithms, four states of the loop) and
+   K2 / K5 / K6 timed with and without it;
    3e. (``chunk_graph``) the trial chunk as one CUDA graph: sweep A through
    ``batch_simulation`` captures once per code; the chunk graph against the
    eager chunk 7/7 and launch for launch on the ``run_point`` legs (flooding
@@ -95,7 +104,8 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    crossover, layered, a rate-0.8 code (check degree 15) under the config's
    0.8 row, a min-sum identity of kernels and plain versions, and
    interactive mode at B = 1 — each sweep counted on its own; sweep A also
-   in turns with the eager kernel loop;
+   in turns with the eager kernel loop, and its reference-alist rows against
+   ``PARITY.md`` (FER and mean iterations within stated bounds, reported);
 6. drives the protocol surface on the flagship (``protocol``): the keys
    (the flat-block kernel, its tie block gated on K3's flag, held against its
    plain version on a forced-tie batch and timed), the
@@ -134,8 +144,9 @@ on another checkout's package); all tracing comes after
 every untraced timing.  ``--turns PARENT`` runs only the continuation's
 steps and path (c) (``profile_continuation_here``) on the checkout at PARENT
 and on this one in turns (parent, change, change, parent), a process each;
-``--trial-turns PARENT`` likewise the two trial paths' walls
-(``profile_trial_paths_here``), parent and change alternating in pairs.
+``--trial-turns PARENT`` likewise the two trial paths' walls, K2 / K5 / K6
+with and without the loop's bookkeeping folded in and one traced run of each
+path (``profile_trial_paths_here``), parent and change alternating in pairs.
 Times are this card's, labelled with its name and power limit; they are a
 smoke measurement, not a benchmark.
 """
@@ -284,6 +295,45 @@ CLI_PROCESS_TRIALS, CLI_PROCESS_TIMEOUT = 1000, 180
 # the card (each given ROW_PROCESS_TIMEOUT s).
 QC_NODE_MESHES = ((1, 2), (2, 2), (1, 3))
 ROW_PROCESS_TIMEOUT = 300
+# Bookkeeping kernels that were folded into a kernel already running at that
+# point: their names in the launch counts (which must read 0) -> the kernels
+# that run the work now.  The kernels line keeps a row for each.
+FOLDED = {"loop_step": ("check_update_fused",), "sweep_step": ("layered_sweep",),
+          "cont_want": ("cont_start", "stage_step", "refill_lanes", "bank")}
+KS, KW, KC_WANT = FOLDED
+# The folds held on the card (device_loops): the loop's bookkeeping in the last
+# block of K2 and of K6 against the plain pass and loop_step_plain, at check
+# degrees (K2) and base-row degrees (K6) 6, 15 and 60, at the vector, a
+# compacted and the scalar instances' widths, in every storage type, both
+# algorithms, and four states of the loop.  (n, m, dv) of make_code and (z, nb,
+# mb) of make_qc_code for the degrees above the flagship's.
+FOLD_WIDTHS = (BATCH, 200, RAGGED_BATCH)
+FOLD_REGIMES = ("frozen_lanes", "it_reaches_the_limit", "no_active_lane",
+                "every_lane_converges")
+FOLD_LIMIT = 100
+FOLD_CHECK_CODES = {15: (10240, 2048, 3), 60: (10240, 512, 3)}
+FOLD_SWEEP_CODES = {15: (512, 20, 4), 60: (128, 80, 4)}
+# Timed with and without the fold at the flagship's and these check degrees
+# (the loop instance's), and K6 at the flagship's and these base-row degrees.
+FOLD_TIMED_CHECK = {6: None, 12: (10240, 2560, 3), 15: (10240, 2048, 3),
+                    60: (10240, 512, 3)}
+FOLD_TIMED_SWEEP = {6: None, 15: (512, 20, 4), 60: (128, 80, 4)}
+# and the flagship's K2 in the other storage types and algorithms
+FOLD_TIMED_MODES = (("bfloat16", "min-sum"), ("float32", "sum-product"),
+                    ("float32", "min-sum"), ("int8", "sum-product"), ("int8", "min-sum"))
+# V1: sweep A's reference-alist rows against PARITY.md at the QBERs the two
+# share: (FER, mean SP iterations, trials) of the bf16 table (PARITY.md:46-52,
+# 768-1536 trials a point: 768 taken, the widest bound) where it has the
+# point, else of the 1000-trial table (PARITY.md:8-24).  A point agrees when
+# its FER lies within 4 sigma of the pooled binomial estimate and its mean
+# iterations within 4 standard errors (the CSV's standard deviation over both
+# samples' successes).
+PARITY_POINTS = {0.03: (0.0, 4.08, 768), 0.04: (0.0, 5.11, 1000), 0.05: (0.0, 6.45, 768),
+                 0.06: (0.0, 8.32, 1000), 0.065: (0.0, 9.74, 1000),
+                 0.07: (0.0, 11.63, 768), 0.075: (0.0, 14.74, 1000),
+                 0.08: (0.0, 21.19, 1000), 0.085: (0.2422, 42.55, 768),
+                 0.09: (0.9935, 66.80, 768)}
+PARITY_SIGMAS = 4.0
 
 
 def _time_ms(torch, fn, flush, repeats=20, warmup=3, prepare=None, clean=False):
@@ -719,12 +769,17 @@ def profile_continuation_here() -> int:
             "sector_floor", "sector_floor_with_merge_reads", "ptxas", "ptxas_syndrome",
             "case_ms", "access_width_bytes")}}
             for name in (steps.KERNEL_BANK, steps.KERNEL_COPY, steps.KERNEL_FILL,
-                         steps.KERNEL_PASS, KERNEL_FOLD, KERNEL_VARIABLE_FLOODING)
+                         steps.KERNEL_PASS, KERNEL_FOLD, KERNEL_VARIABLE_FLOODING,
+                         steps.KERNEL_START, steps.KERNEL_STAGE, steps.KERNEL_LANES,
+                         *(k + "_with_test" for k in (steps.KERNEL_START, steps.KERNEL_STAGE,
+                                                       steps.KERNEL_LANES, steps.KERNEL_BANK)),
+                         KC_WANT)
             if name in measured},
         "launch_floor_ms": held["launch_floor_ms"],
         "path_c": {"partials": dataclasses.asdict(partials),
-                   "launches_a_call": {k: launches.get(k, 0) for k in (
-                       *steps.KERNELS, cuda_kernels.KERNEL_VARIABLE, cuda_kernels.KERNEL_FRESH)},
+                   "launches_a_call": {k: launches.get(k, 0) for k in dict.fromkeys((
+                       *steps.KERNELS, KC_WANT, cuda_kernels.KERNEL_VARIABLE,
+                       cuda_kernels.KERNEL_FRESH))},
                    "walls_ms": walls,
                    "traced_ms_a_call": {"bank": traced("bank_kernel"),
                                         "refill_copy": traced("refill_copy_kernel"),
@@ -743,9 +798,14 @@ def profile_trial_paths_here() -> int:
     qkd_ldpc_tpu_torch`` finds first (as :func:`profile_continuation_here`):
     ``run_point`` flooding and layered at the main path's point and options
     (2048 trials at QBER 0.05), a warm-up call of each that captures its chunk
-    graph, then TRIAL_WALLS walls of each in alternation; and the variable
+    graph, then TRIAL_WALLS walls of each in alternation; the variable
     update's time at the flagship as the flooding path launches it (all
-    frames active, bf16).  Prints one ``trial_turn`` line."""
+    frames active, bf16); K2, K5 and K6 with and without the loop's
+    bookkeeping folded in (:func:`_fold_timings`); last, each path traced in
+    chunks of two batches (as ``main``'s ``--profile``, the tracer attached
+    before their capture): its device time and launches by kernel.
+    Prints one ``trial_turn`` line."""
+    import numpy as np
     import torch
 
     from qkd_ldpc_tpu_torch import _build
@@ -754,6 +814,7 @@ def profile_trial_paths_here() -> int:
     from qkd_ldpc_tpu_torch.decoder import DecodeOptions, cuda_kernels
     from qkd_ldpc_tpu_torch.sim import run_point
     from qkd_ldpc_tpu_torch.utils import card_name_and_power_limit
+    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -787,10 +848,33 @@ def profile_trial_paths_here() -> int:
     active, maps = torch.ones(BATCH, dtype=torch.bool, device=dev), code.to_device(dev)
     kv_ms = _time_ms(torch, lambda: cuda_kernels.variable_update_cuda(
         x["lrp"], x["llr"], x["z"], x["count"], active, maps, scale=None), flush)
+    kernels_ms = _fold_timings(torch, np, dev, flush)
+    del flush, x
+    card = card_name_and_power_limit()
+    # CUPTI records the kernels inside conditional bodies only of graphs
+    # captured after it was first attached: attach it, then trace each path
+    # in chunks of two batches (a graph captured now)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+    traced = {}
+    for path, o in opts.items():
+        def two_chunks(o=o):
+            return run_point(code, key, QBER, N_BATCHES * BATCH, BATCH, o, prng="pallas",
+                             max_batches_per_dispatch=N_BATCHES // 2)
+
+        two_chunks()  # captures the two-batch chunk's graph
+        table = {}
+        _profile_path(torch, path, two_chunks, card, statistics.median(walls[path]),
+                      table_out=table)
+        traced[path] = {"busy_ms": sum(v[0] for v in table.values()),
+                        "launches": sum(v[1] for v in table.values()),
+                        "by_kernel": {k[:60]: v for k, v in sorted(
+                            table.items(), key=lambda kv: -kv[1][0])[:12]}}
     print(json.dumps({"trial_turn": {
-        "card": card_name_and_power_limit(),
+        "card": card,
         "package": str(Path(_build.__file__).resolve().parent), "partials": partials,
-        "walls_ms": walls, "variable_update_ms": kv_ms}}), flush=True)
+        "walls_ms": walls, "variable_update_ms": kv_ms, "kernels_ms": kernels_ms,
+        "traced_a_run": traced}}), flush=True)
     return 0
 
 
@@ -830,19 +914,17 @@ def continuation_turns(parent: str) -> int:
         print(json.dumps({"turn": label, **turn, "trace": trace}), flush=True)
         turns.append((label, turn["path_c"]))
     # the partials and every kernel's launches a call equal the parent's, but
-    # pass_step's: once a pass in the parent, where this checkout folds all but
-    # the last pass's bookkeeping into the variable update (once an outer step)
+    # cont_want's: a kernel of its own in the parent, where this checkout runs
+    # the refill loop's test in the steps before it (no launch)
     first = turns[0][1]
     for label, t in turns[1:]:
-        same = {k: v for k, v in t["launches_a_call"].items() if k != "pass_step"} == {
-            k: v for k, v in first["launches_a_call"].items() if k != "pass_step"}
+        same = {k: v for k, v in t["launches_a_call"].items() if k != KC_WANT} == {
+            k: v for k, v in first["launches_a_call"].items() if k != KC_WANT}
         if not same or t["partials"] != first["partials"]:
             raise AssertionError(f"{label}: launches or partials differ from the parent's: "
                                  f"{t['launches_a_call']} {first['launches_a_call']}")
-        if label == "change" and t["launches_a_call"]["pass_step"] != t["launches_a_call"][
-                "bank"]:
-            raise AssertionError(f"pass_step launched {t['launches_a_call']['pass_step']} "
-                                 f"times in {t['launches_a_call']['bank']} outer steps")
+        if label == "change" and t["launches_a_call"][KC_WANT]:
+            raise AssertionError(f"cont_want launched {t['launches_a_call'][KC_WANT]} times")
     print(json.dumps({"continuation_turns": {
         "order": [label for label, _ in turns],
         "walls_ms": [t["walls_ms"] for _, t in turns],
@@ -868,7 +950,16 @@ def trial_turns(parent: str) -> int:
                                    for w in t["walls_ms"][path]]
                             for path in ("flooding", "layered")},
                "variable_update_ms": [t["variable_update_ms"] for label, t, _ in turns
-                                      if label == side]}
+                                      if label == side],
+               "kernels_ms": {k: [t["kernels_ms"][k] for label, t, _ in turns
+                                  if label == side and k in t["kernels_ms"]]
+                              for k in turns[-1][1]["kernels_ms"] | turns[1][1]["kernels_ms"]},
+               "traced_busy_ms": {path: [t["traced_a_run"][path]["busy_ms"]
+                                         for label, t, _ in turns if label == side]
+                                  for path in ("flooding", "layered")},
+               "traced_launches": {path: [t["traced_a_run"][path]["launches"]
+                                          for label, t, _ in turns if label == side]
+                                   for path in ("flooding", "layered")}}
         for side in ("parent", "change")} | {"order": list(TRIAL_TURN_ORDER)}}), flush=True)
     return 0
 
@@ -1862,7 +1953,8 @@ def _cli_sweep(torch, np, dev, card, code, names):
         report["A"] = {"wall_s": wall_a, "points": 2 * points, "batches": batches,
                        "trials": 2 * points * example["trials_number"],
                        "rows_per_s": 2 * points / wall_a, "launches": launches_a,
-                       "graph_replays": replays_a[0], "compact_after": 8}
+                       "graph_replays": replays_a[0], "compact_after": 8,
+                       "parity": _parity(rows_a[:points], example["trials_number"])}
 
         # A's wall with the decode graphs and with the eager kernel loop, in
         # turns (graph, eager, eager, graph), each run a fresh sweep.
@@ -1975,6 +2067,40 @@ def _cli_sweep(torch, np, dev, card, code, names):
         return wall_a
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _parity(rows, trials):
+    """Sweep A's rows of the reference alist (CSV fields: QBER 6, mean SP
+    iterations 7, their standard deviation 8, FER 13) against PARITY.md at
+    the QBERs both have (PARITY_POINTS): the FER within PARITY_SIGMAS of the
+    pooled binomial estimate's standard deviation, the mean iterations within
+    PARITY_SIGMAS standard errors (this run's standard deviation over both
+    samples' successes).  A point outside its bound is reported, not raised:
+    it is a finding about the decoder's statistics (recorded in ROADMAP C)."""
+    out = {}
+    for r in rows:
+        q = round(float(r[6]) * 200) / 200  # the row's QBER (floor(N q) / N) on the 0.005 grid
+        if q not in PARITY_POINTS:
+            continue
+        fer_ref, it_ref, n_ref = PARITY_POINTS[q]
+        fer, mean, std = float(r[13]), float(r[7]), float(r[8])
+        pooled = (fer * trials + fer_ref * n_ref) / (trials + n_ref)
+        fer_bound = PARITY_SIGMAS * (pooled * (1 - pooled) * (1 / trials + 1 / n_ref)) ** 0.5
+        n_sp, n_sp_ref = round((1 - fer) * trials), round((1 - fer_ref) * n_ref)
+        it_bound = (PARITY_SIGMAS * std * (1 / n_sp + 1 / n_sp_ref) ** 0.5
+                    if n_sp and n_sp_ref else None)
+        out[str(q)] = {
+            "fer": fer, "fer_parity": fer_ref, "fer_bound": fer_bound,
+            "fer_within": abs(fer - fer_ref) <= fer_bound,
+            "mean_iterations": mean, "std": std, "mean_iterations_parity": it_ref,
+            "iterations_bound": it_bound,
+            "iterations_within": it_bound is not None and abs(mean - it_ref) <= it_bound,
+            "trials": trials, "parity_trials": n_ref}
+    if len(out) != len(PARITY_POINTS):
+        raise AssertionError(f"sweep A holds {sorted(out)} of PARITY.md's {sorted(PARITY_POINTS)}")
+    return {"points": out, "all_within": all(p["fer_within"] and p["iterations_within"]
+                                             for p in out.values()),
+            "sigmas": PARITY_SIGMAS}
 
 
 def _trace_cli_sweep(torch, code, card, untraced_ms):
@@ -2586,6 +2712,382 @@ def _many_ties(torch, scores, k, dev):
     return many, second, need.tolist(), n_at.tolist()
 
 
+def _fold_timings(torch, np, dev, flush):
+    """K2 at check degree 6 (the flagship's) and 12, 15, 60 (the loop instance),
+    K5 at 6, and K6 at base-row degree 6 (the flagship's), 15 and 60, at B =
+    512, sum-product, bfloat16 (K2 at 6 also in FOLD_TIMED_MODES); each with
+    the loop's bookkeeping folded in too
+    (``_fold``) where the package has the fold (an earlier checkout's has
+    not).  K2 and K5 on a state one pass into the decode of a batch of trials
+    at QBER 0.05, K6 two sweeps in, every frame active.  Returns {name: ms}."""
+    from qkd_ldpc_tpu_torch.channel.keys import (
+        derive_point_key,
+        make_trial_batch,
+        num_errors_for,
+    )
+    from qkd_ldpc_tpu_torch.codes import make_code, make_qc_code
+    from qkd_ldpc_tpu_torch.decoder import cuda_kernels, cuda_layered, device_loop, layered
+    from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr
+    from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
+
+    tails = "step" in inspect.signature(cuda_kernels.check_update_cuda).parameters
+    key = derive_point_key(MASTER_SEED, POINT_INDEX)
+    kw = dict(threshold=100.0, clip=True, algorithm="sum-product", min_sum_alpha=0.8,
+              min_sum_beta=0.0, scale=None)
+    bf16, B = torch.bfloat16, BATCH
+    out = {}
+
+    def batch(c):
+        n_err = num_errors_for(c.n_vars, QBER)
+        alice, bob = make_trial_batch(key, c.n_vars, B, n_err, 0)
+        q32 = np.float32(n_err) / np.float32(c.n_vars)
+        return (apriori_llr(bob, q32).T.contiguous(),
+                syndrome(c, alice).T.contiguous().to(torch.int8))
+
+    def loop_state():
+        return dict(done=torch.zeros(B, dtype=torch.bool, device=dev),
+                    active=torch.ones(B, dtype=torch.bool, device=dev),
+                    it=torch.tensor([5], dtype=torch.int32, device=dev),
+                    iters=torch.zeros(B, dtype=torch.int32, device=dev),
+                    go=torch.zeros(1, dtype=torch.bool, device=dev),
+                    passes=torch.zeros((), dtype=torch.int64, device=dev),
+                    ticket=torch.zeros(1, dtype=torch.int32, device=dev))
+
+    def timed(name, run, mode, prepare=None):
+        out[name] = _time_ms(torch, lambda: run(None), flush, prepare=prepare)
+        if not tails:
+            return
+        first, w = loop_state(), loop_state()
+        tail = device_loop.LoopTail(mode, w["done"], w["active"], None, w["it"],
+                                    w["iters"] if mode == device_loop.LAYERED else None,
+                                    FOLD_LIMIT, w["go"], w["ticket"], w["passes"])
+
+        def restore():
+            if prepare is not None:
+                prepare()
+            for k, v in first.items():
+                w[k].copy_(v)
+
+        out[name + "_fold"] = _time_ms(torch, lambda: run(tail), flush, prepare=restore)
+
+    flagship = make_qc_code(z=Z, nb=NB, mb=MB_ROWS, dv=DV, seed=CODE_SEED)
+    for dc, spec in FOLD_TIMED_CHECK.items():
+        c = flagship if spec is None else make_code(n=spec[0], m=spec[1], dv=spec[2], seed=5)
+        if c.dc_max != dc:
+            raise AssertionError(f"{c.name} has check degree {c.dc_max}, not {dc}")
+        maps = c.to_device(dev)
+        llr, syn = batch(c)
+        need = cuda_kernels.check_scratch_shape(dc, c.n_checks, B, "sum-product", bf16)
+        scratch = None if need is None else torch.empty(need, device=dev)
+        lrp = cuda_kernels.check_update_cuda(cuda_kernels._store(llr, bf16, None), None, syn,
+                                             maps, first=True, scratch=scratch, **kw)[0]
+        tot = cuda_kernels.variable_update_cuda(
+            lrp, llr, torch.zeros((c.n_vars, B), dtype=torch.int8, device=dev),
+            torch.zeros(B, dtype=torch.int32, device=dev),
+            torch.ones(B, dtype=torch.bool, device=dev), maps, scale=None)[0]
+        buf = torch.ones(B, dtype=torch.bool, device=dev)
+        msgs = lrp.clone()
+
+        def k2(step, tot=tot, lrp=lrp, syn=syn, maps=maps, scratch=scratch, buf=buf,
+               msgs=msgs):
+            cuda_kernels.check_update_cuda(tot, lrp, syn, maps, first=False, ok=buf, out=msgs,
+                                           scratch=scratch, **kw,
+                                           **({} if step is None else {"step": step}))
+
+        timed(f"check_update_fused_dc{dc}", k2, device_loop.FLOODING,
+              prepare=lambda buf=buf: buf.fill_(True))
+        if spec is None:  # the other storage types and min-sum, flagship, one pass in
+            for dtype_name, algorithm in FOLD_TIMED_MODES:
+                scale = 0.25 if dtype_name == "int8" else None
+                mdt = cuda_kernels.STORAGE_DTYPES[dtype_name]
+                kw_m = dict(kw, algorithm=algorithm, scale=scale)
+                lrp_m = cuda_kernels.check_update_cuda(
+                    cuda_kernels._store(llr, mdt, scale), None, syn, maps, first=True,
+                    **kw_m)[0]
+                tot_m = cuda_kernels.variable_update_cuda(
+                    lrp_m, llr, torch.zeros((c.n_vars, B), dtype=torch.int8, device=dev),
+                    torch.zeros(B, dtype=torch.int32, device=dev),
+                    torch.ones(B, dtype=torch.bool, device=dev), maps, scale=scale)[0]
+                msgs_m = lrp_m.clone()
+
+                def k2m(step, tot=tot_m, lrp=lrp_m, kw_m=kw_m, msgs=msgs_m, maps=maps,
+                        syn=syn, buf=buf):
+                    cuda_kernels.check_update_cuda(
+                        tot, lrp, syn, maps, first=False, ok=buf, out=msgs, **kw_m,
+                        **({} if step is None else {"step": step}))
+
+                timed(f"check_update_fused_dc6_{dtype_name}_{algorithm}", k2m,
+                      device_loop.FLOODING, prepare=lambda buf=buf: buf.fill_(True))
+                del lrp_m, tot_m, msgs_m
+        if spec is None:  # K5 as the continuation launches it
+            fresh = torch.rand(B, device=dev) < 0.1
+            out["check_update_fresh_dc6"] = _time_ms(
+                torch, lambda: cuda_kernels.check_update_cuda(
+                    tot, lrp, syn, maps, first=False, fresh=fresh, ok=buf, out=msgs, **kw),
+                flush, prepare=lambda: buf.fill_(True))
+        del lrp, tot, msgs, scratch
+    for deg, spec in FOLD_TIMED_SWEEP.items():
+        qc = flagship if spec is None else make_qc_code(z=spec[0], nb=spec[1], mb=spec[2],
+                                                        dv=DV, seed=CODE_SEED)
+        tables = layered.layer_tables(qc, dev)
+        if tables.max_row_degree != deg:
+            raise AssertionError(f"{qc.name} has row degree {tables.max_row_degree}")
+        llr, syn = batch(qc)
+        t, lr, syn3 = layered.initial_state(tables, llr, syn, bf16)
+        act = torch.ones(B, dtype=torch.bool, device=dev)
+        for _ in range(2):
+            t, lr, _ = layered.layered_sweep_plain(t, lr, syn3, act, tables, **kw)
+        need = cuda_layered.sweep_scratch_shape(tables, B, "sum-product", bf16)
+        scratch = None if need is None else torch.empty(need, device=dev)
+        ok = torch.zeros(B, dtype=torch.bool, device=dev)
+
+        def k6(step, t=t, lr=lr, syn3=syn3, tables=tables, scratch=scratch, ok=ok, act=act):
+            cuda_layered.layered_sweep_cuda(
+                t, lr, syn3, act if step is None else step.active, tables, out=ok,
+                scratch=scratch, **kw, **({} if step is None else {"step": step}))
+
+        timed(f"layered_sweep_row_degree{deg}", k6, device_loop.LAYERED)
+        del t, lr, syn3, scratch
+    return out
+
+
+def _loop_folds(torch, np, dev, flush, code, timings):
+    """The loop's bookkeeping in the last block of K2 and of K6 against the
+    plain pass followed by ``loop_step_plain``, bit for bit on every tensor
+    either writes (messages, totals, flags; done, active, iters, it, go,
+    passes and the ticket), on the cases of FOLD_WIDTHS x FOLD_REGIMES x the
+    storage types x both algorithms at check degrees (K2) and base-row
+    degrees (K6) 6, 15 and 60; then their measurements for the kernels line
+    (``timings`` from :func:`_fold_timings`: each host kernel with the fold,
+    and without it) and ptxas's registers and spills of the flagship's folded
+    instances.  Returns ({KS: ..., KW: ...}, report)."""
+    from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.channel.keys import derive_point_key, make_trial_batch, num_errors_for
+    from qkd_ldpc_tpu_torch.codes import make_code, make_qc_code
+    from qkd_ldpc_tpu_torch.decoder import cuda_kernels, cuda_layered, device_loop, layered
+    from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr
+    from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
+
+    key = derive_point_key(MASTER_SEED, POINT_INDEX)
+    g = torch.Generator(device=dev).manual_seed(31)
+    scales = {"float32": None, "bfloat16": None, "int8": 0.25}
+    FLOODING, LAYERED = device_loop.FLOODING, device_loop.LAYERED
+
+    def loop_state(b, regime):
+        if regime == "no_active_lane":
+            done = torch.ones(b, dtype=torch.bool, device=dev)
+        elif regime == "every_lane_converges":
+            done = torch.zeros(b, dtype=torch.bool, device=dev)
+        else:
+            done = torch.rand(b, device=dev, generator=g) < 0.3
+        frozen = (torch.rand(b, device=dev, generator=g) < 0.3
+                  if regime == "frozen_lanes" else None)
+        active = ~done if frozen is None else ~done & ~frozen
+        it0 = FOLD_LIMIT - 1 if regime == "it_reaches_the_limit" else 5
+        return dict(done=done, active=active, frozen=frozen,
+                    it=torch.tensor([it0], dtype=torch.int32, device=dev),
+                    iters=torch.randint(0, 9, (b,), dtype=torch.int32, device=dev, generator=g),
+                    go=torch.zeros(1, dtype=torch.bool, device=dev),
+                    passes=torch.zeros((), dtype=torch.int64, device=dev),
+                    ticket=torch.zeros(1, dtype=torch.int32, device=dev))
+
+    def clone(st):
+        return {k: None if v is None else v.clone() for k, v in st.items()}
+
+    def tail(mode, st):
+        return device_loop.LoopTail(mode, st["done"], st["active"], st["frozen"], st["it"],
+                                    st["iters"] if mode == LAYERED else None, FOLD_LIMIT,
+                                    st["go"], st["ticket"], st["passes"])
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else (
+            t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+
+    def differ(a, b):
+        return sum(int((bits(a[k]) != bits(b[k])).sum()) for k in a if a[k] is not None)
+
+    verdicts = collections.Counter()
+
+    def count(kernel, regime, st, ok, active):
+        go = bool(st["go"])
+        want_go = {"it_reaches_the_limit": False, "no_active_lane": False,
+                   "every_lane_converges": False}.get(regime)
+        if want_go is not None and go != want_go or (
+                regime == "every_lane_converges" and not bool(ok[active].all())):
+            raise AssertionError(f"{kernel} fold, {regime}: the case is not what it names "
+                                 f"(go {go})")
+        verdicts[f"{kernel}_{regime}_go_{go}"] += 1
+
+    cases = {"check_update_fused": 0, "layered_sweep": 0}
+    # ---- K2: the bookkeeping in the check update's last block
+    check_codes = {6: code, **{d: make_code(n=n, m=m, dv=dv, seed=5)
+                               for d, (n, m, dv) in FOLD_CHECK_CODES.items()}}
+    for dc, c in check_codes.items():
+        if c.dc_max != dc:
+            raise AssertionError(f"{c.name} has check degree {c.dc_max}, not {dc}")
+        maps = c.to_device(dev)
+        for width in FOLD_WIDTHS:
+            for algorithm in ("sum-product", "min-sum"):
+                for dtype_name, scale in scales.items():
+                    mdt = cuda_kernels.STORAGE_DTYPES[dtype_name]
+                    kw = dict(threshold=100.0, clip=True, algorithm=algorithm,
+                              min_sum_alpha=0.8, min_sum_beta=0.0, scale=scale)
+                    x = _flooding_inputs(torch, dev, g, c, width, dtype_name, scale)
+                    need = cuda_kernels.check_scratch_shape(dc, c.n_checks, width, algorithm,
+                                                            mdt)
+                    scratch = None if need is None else torch.empty(need, device=dev)
+                    # the targets that every frame's decisions meet
+                    a_chk = cuda_kernels._load(cuda_kernels._gathered(x["tot"], maps), scale)
+                    met = ((((a_chk <= 0) & maps.chk_mask_T[:, :, None]).sum(
+                        0, dtype=torch.int32) & 1)).to(torch.int8)
+                    for regime in FOLD_REGIMES:
+                        syn = met if regime == "every_lane_converges" else x["syn"]
+                        st0 = loop_state(width, regime)
+                        a, b = clone(st0), clone(st0)
+                        a["Lr"], a["ok"] = x["lrp"].clone(), torch.ones(width, dtype=torch.bool,
+                                                                       device=dev)
+                        b["Lr"], b["ok"] = x["lrp"].clone(), a["ok"].clone()
+                        cuda_kernels.check_update_cuda(
+                            x["tot"], a["Lr"], syn, maps, first=False, ok=a["ok"], out=a["Lr"],
+                            scratch=scratch, step=tail(FLOODING, a), **kw)
+                        cuda_kernels.check_update_plain(
+                            x["tot"], b["Lr"], syn, maps, first=False, ok=b["ok"], out=b["Lr"],
+                            **kw)
+                        tail(FLOODING, b).plain(b["ok"])
+                        torch.cuda.synchronize()
+                        n_diff = differ(a, b)
+                        if n_diff:
+                            raise AssertionError(
+                                f"K2 with the fold differs from K2 + loop_step_plain on "
+                                f"{n_diff} entries: dc {dc}, B {width}, {algorithm} "
+                                f"{dtype_name}, {regime}")
+                        count("check_update_fused", regime, a, b["ok"], st0["active"])
+                        cases["check_update_fused"] += 1
+                    del x, scratch, a_chk, met
+    # ---- K6: the bookkeeping in the sweep's last block
+    sweep_codes = {6: code, **{d: make_qc_code(z=z, nb=nb, mb=mb, dv=DV, seed=CODE_SEED)
+                               for d, (z, nb, mb) in FOLD_SWEEP_CODES.items()}}
+    for deg, qc in sweep_codes.items():
+        tables = layered.layer_tables(qc, dev)
+        if tables.max_row_degree != deg:
+            raise AssertionError(f"{qc.name} has row degree {tables.max_row_degree}")
+        for width in FOLD_WIDTHS:
+            frames = {}
+            for label, n_err in (("waterfall", num_errors_for(qc.n_vars, QBER)), ("few", 2)):
+                alice, bob = make_trial_batch(key, qc.n_vars, width, n_err, 0)
+                q32 = np.float32(n_err) / np.float32(qc.n_vars)
+                frames[label] = (apriori_llr(bob, q32).T.contiguous(),
+                                 syndrome(qc, alice).T.contiguous().to(torch.int8))
+            act = torch.ones(width, dtype=torch.bool, device=dev)
+            for algorithm in ("sum-product", "min-sum"):
+                for dtype_name, scale in scales.items():
+                    mdt = cuda_kernels.STORAGE_DTYPES[dtype_name]
+                    kw = dict(threshold=100.0, clip=True, algorithm=algorithm,
+                              min_sum_alpha=0.8, min_sum_beta=0.0, scale=scale)
+                    need = cuda_layered.sweep_scratch_shape(tables, width, algorithm, mdt)
+                    scratch = None if need is None else torch.empty(need, device=dev)
+                    states = {}
+                    for label, (llr, syn) in frames.items():
+                        t, lr, syn3 = layered.initial_state(tables, llr, syn, mdt)
+                        for i in range(10):  # two sweeps in; the few-error frames converged
+                            t, lr, ok = layered.layered_sweep_plain(t, lr, syn3, act, tables,
+                                                                    **kw)
+                            if i >= 1 and (label == "waterfall" or bool(ok.all())):
+                                break
+                        states[label] = (t, lr, syn3)
+                    for regime in FOLD_REGIMES:
+                        t, lr, syn3 = states["few" if regime == "every_lane_converges"
+                                             else "waterfall"]
+                        st0 = loop_state(width, regime)
+                        a, b = clone(st0), clone(st0)
+                        a["t"], a["Lr"] = t.clone(), lr.clone()
+                        b["t"], b["Lr"] = t.clone(), lr.clone()
+                        ok_a = torch.zeros(width, dtype=torch.bool, device=dev)
+                        ok_b = torch.zeros(width, dtype=torch.bool, device=dev)
+                        cuda_layered.layered_sweep_cuda(
+                            a["t"], a["Lr"], syn3, a["active"], tables, out=ok_a,
+                            scratch=scratch, step=tail(LAYERED, a), **kw)
+                        layered.layered_sweep_plain(b["t"], b["Lr"], syn3, b["active"], tables,
+                                                    out=ok_b, in_place=True, **kw)
+                        tail(LAYERED, b).plain(ok_b)
+                        torch.cuda.synchronize()
+                        # the kernel reports ok only for active frames (False elsewhere)
+                        on = st0["active"]
+                        n_diff = differ(a, b) + int((ok_a[on] != ok_b[on]).sum()) + int(
+                            ok_a[~on].sum())
+                        if n_diff:
+                            raise AssertionError(
+                                f"K6 with the fold differs from the sweep + loop_step_plain on "
+                                f"{n_diff} entries: row degree {deg}, B {width}, {algorithm} "
+                                f"{dtype_name}, {regime}")
+                        count("layered_sweep", regime, a, ok_b, on)
+                        cases["layered_sweep"] += 1
+                    del states, scratch
+    # ---- their measurements: each host kernel with the fold, beside it alone
+    B = BATCH
+    bf16 = torch.bfloat16
+    x = _flooding_inputs(torch, dev, g, code, B, "bfloat16", None)
+    maps = code.to_device(dev)
+    kw = dict(threshold=100.0, clip=True, algorithm="sum-product", min_sum_alpha=0.8,
+              min_sum_beta=0.0, scale=None)
+    st0 = loop_state(B, "frozen_lanes")
+    w = clone(st0)
+
+    def restore():
+        for k, v in st0.items():
+            if v is not None:
+                w[k].copy_(v)
+
+    plain_k2 = _time_ms(torch, lambda: tail(FLOODING, w).plain(cuda_kernels.check_update_plain(
+        x["tot"], x["lrp"], x["syn"], maps, first=False, **kw)[1]), flush, repeats=5, warmup=1,
+        prepare=restore)
+    N, M, dc = code.n_vars, code.n_checks, code.dc_max
+    n_edge = dc * M * B
+    # the check update's bytes (main's matrix) and the bookkeeping's: ok, done,
+    # active, frozen read, done and active written, it, passes, go
+    step_bytes = B * 6 + 17
+    k2_bytes = N * B * 2 + 2 * n_edge * 2 + M * B + 2 * dc * M * 4 + B + step_bytes
+    k2_bound = _bound(k2_bytes, (OPS_PER_EDGE["sum-product"] + OPS_PER_EDGE_SYNDROME) * n_edge)
+    tables = layered.layer_tables(code, dev)
+    ncells = tables.col.shape[0]
+    t_s, lr_s, syn3 = layered.initial_state(tables, x["llr"], x["syn"], bf16)
+    w6 = clone(loop_state(B, "frozen_lanes"))
+    plain_k6 = _time_ms(torch, lambda: tail(LAYERED, w6).plain(layered.layered_sweep_plain(
+        t_s, lr_s, syn3, w6["active"], tables, **kw)[2]), flush, repeats=3, warmup=1)
+    k6_bytes = B * (2 * NB * Z * 4 + 2 * ncells * Z * 2 + MB_ROWS * Z + 2) + step_bytes + 4 * B
+    k6_bound = _bound(k6_bytes, (OPS_PER_EDGE["sum-product"] + OPS_PER_EDGE_LAYERED_EXTRA)
+                      * ncells * Z * B)
+    measured = {
+        KS: dict(max_abs_err=0.0, ms=timings["check_update_fused_dc6_fold"], plain_ms=plain_k2,
+                 bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=None,
+                 host_kernel_ms_without_fold=timings["check_update_fused_dc6"]),
+        KW: dict(max_abs_err=0.0, ms=timings["layered_sweep_row_degree6_fold"],
+                 plain_ms=plain_k6, bound_ms=k6_bound[0], bound_by=k6_bound[1], library_ms=None,
+                 host_kernel_ms_without_fold=timings["layered_sweep_row_degree6"]),
+    }
+    resources = {}
+    for dtype_name in scales:
+        vec = _build.constant("check_update_" + dtype_name, "check_update_vector_width")
+        log = _build.build_log("check_update_" + dtype_name)
+        for alg in (0, 1):  # the plain kernels <ALG, FIRST, ...>, the folded <ALG, ...>
+            for fold, suffix, first in ((0, "", "ELb0"), (1, "_fold", "")):
+                resources[f"K2_{dtype_name}_alg{alg}_dc6_vec{vec}_fold{fold}"] = (
+                    _kernel_resources(log, "check_update_kernel" + suffix,
+                                      f"ILi{alg}{first}ELi6ELi{vec}EE"))
+                resources[f"K2_{dtype_name}_alg{alg}_loop_vec{vec}_fold{fold}"] = (
+                    _kernel_resources(log, "check_update_any_kernel" + suffix,
+                                      f"ILi{alg}{first}ELi{vec}EE"))
+        log6 = _build.build_log("layered_sweep_" + dtype_name)
+        for fold in (0, 1):
+            for deg in (6, 0):  # the flagship's instance and the loop instance, shared totals
+                resources[f"K6_{dtype_name}_sp_dc{deg}_fold{fold}"] = _kernel_resources(
+                    log6, "layered_sweep_kernel", f"ILi0ELb1ELi{deg}ELb1ELb{fold}EE")
+    spills = {k: r for k, r in resources.items() if r["spill_store_bytes"]}
+    report = {"cases": cases, "verdicts": dict(verdicts), "bits_differing": 0,
+              "timings_ms": timings, "ptxas": resources, "instances_that_spill": spills}
+    return measured, report
+
+
 def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, counted,
                   as_stats):
     """The port's device-resident control flow (``device_loops``): every
@@ -2656,7 +3158,6 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
                                   dict(sp, compact_after=8, compact_lanes=128), None),
     }
     K2, KV, K6 = cuda_kernels.KERNEL_FUSED, cuda_kernels.KERNEL_VARIABLE, cuda_layered.KERNEL_NAME
-    KS, KW = device_loop.KERNEL_STEP, device_loop.KERNEL_SWEEP_STEP
     for name, (c, (llr, syn), kw, regime) in legs.items():
         o = DecodeOptions(**base, **kw)
 
@@ -2674,9 +3175,11 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
         for what, a, b in zip(("z", "iterations", "verdicts"), graph, eager):
             if not torch.equal(a, b):
                 raise AssertionError(f"device_loops {name}: graph and eager {what} differ")
-        body = (K6, KW) if o.schedule == "layered" else (K2, KV, KS)
+        # a pass's bookkeeping runs in its last kernel: no KS / KW launch
+        body = (K6,) if o.schedule == "layered" else (K2, KV)
         if any(graph_counts.get(k, 0) != eager_counts.get(k, 0) for k in body) or (
-                graph_counts.get(body[0], 0) <= 0):
+                graph_counts.get(body[0], 0) <= 0) or any(
+                counts.get(k, 0) for counts in (graph_counts, eager_counts) for k in (KS, KW)):
             raise AssertionError(f"device_loops {name}: graph launches {graph_counts} "
                                  f"against eager {eager_counts}")
         z, it, ok = graph
@@ -2770,9 +3273,34 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
     if as_stats(p_graph) != as_stats(p_eager) or cont_counts != cont_eager_counts:
         raise AssertionError(f"continuation: graph {as_stats(p_graph)} / {cont_counts} "
                              f"against eager {as_stats(p_eager)} / {cont_eager_counts}")
+    # the whole carry (statistics and every slot of st: the loops' counts, the
+    # refill loop's passes, the fault bits) of the program as one graph and
+    # as the eager program, where a regeneration and the refill its test
+    # enables share a pass of the refill loop in both
+    from qkd_ldpc_tpu_torch.sim import continuation as cont_mod
+    from qkd_ldpc_tpu_torch.sim import cuda_continuation as steps
+
+    n_err_c = keys.num_errors_for(N, WATERFALL_QBER)
+    k_c = cont_mod._refill_quantum(BATCH, REFILL_FRAC)
+    cap = steps.loop_caps(2 * BATCH, 1, BATCH, BATCH, k_c, opts_c.max_iterations, SEGMENT)[0]
+    x_c = cont_mod.continuation_inputs([key_c], [n_err_c], 2 * BATCH, 0, cap, N)
+    prog = cont_mod._ContinuationProgram(code, 1, BATCH, SEGMENT, k_c, opts_c, "threefry", dev)
+    carry_graph = device_loop.run_graph(
+        ("continuation_carry_check", code.fingerprint), lambda v, graph: (prog(v, graph),),
+        (x_c,), keep=prog, device=dev, loops=4,
+        warmup=lambda v: prog(v, None, outer_limit=1))[0]
+    with device_loop.eager_loops():
+        carry_eager = prog(x_c.to(dev))
+    torch.cuda.synchronize()
+    if not torch.equal(carry_graph, carry_eager) or int(carry_graph[7 + steps.FAULT]):
+        raise AssertionError(f"continuation: the graph's carry {carry_graph.tolist()} against "
+                             f"the eager program's {carry_eager.tolist()}")
     report["continuation_program_equals_eager"] = {
         "partials": as_stats(p_graph), "launches": cont_counts,
-        "launches_equal_for_every_kernel": True, "graph_s": cont_s, "eager_s": cont_eager_s}
+        "launches_equal_for_every_kernel": True, "graph_s": cont_s, "eager_s": cont_eager_s,
+        "carry_equal_bit_for_bit": True,
+        "st": dict(zip(("base", "pos", "sp", "next_id", "live_n", "outer", "refills", "gens"),
+                       carry_graph[7:15].tolist()), inner=int(carry_graph[7 + steps.INNER]))}
 
     # ---- the tie path, gated on the card ---------------------------------------
     alice, scores = cuda_prng.trial_words_cuda(point_key, N, range(0, BATCH),
@@ -2839,40 +3367,41 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
         max_abs_err=max_tie_err, ms=tie_ms, plain_ms=tie_plain_ms, bound_ms=tie_bound,
         bound_by=tie_by, library_ms=None)}
 
-    # ---- the bookkeeping kernels against their plain versions, timed -----------
+    # ---- the loop's entry test against its plain version, timed; the pass's
+    # bookkeeping folded into K2 and K6 (their last blocks) against the plain
+    # pass and loop_step_plain, timed with and without the fold
     g2 = torch.Generator(device=dev).manual_seed(7)
-    for mode, kernel in ((device_loop.ENTRY, device_loop.KERNEL_ENTRY),
-                         (device_loop.FLOODING, device_loop.KERNEL_STEP),
-                         (device_loop.LAYERED, device_loop.KERNEL_SWEEP_STEP)):
-        state = dict(
-            ok=torch.rand(BATCH, device=dev, generator=g2) < 0.5,
-            done=torch.rand(BATCH, device=dev, generator=g2) < 0.3,
-            active=torch.rand(BATCH, device=dev, generator=g2) < 0.6,
-            frozen=torch.rand(BATCH, device=dev, generator=g2) < 0.2,
-            it=torch.tensor([5], dtype=torch.int32, device=dev),
-            iters=torch.randint(0, 9, (BATCH,), dtype=torch.int32, device=dev,
-                                generator=g2),
-            passes=torch.zeros((), dtype=torch.int64, device=dev),
-            go=torch.zeros(1, dtype=torch.bool, device=dev))
-        a = {k: v.clone() for k, v in state.items()}
-        b = {k: v.clone() for k, v in state.items()}
-        args = ("ok", "done", "active", "frozen", "it", "iters")
-        device_loop.loop_step_cuda(mode, *(a[k] for k in args), 9, a["passes"], a["go"])
-        device_loop.loop_step_plain(mode, *(b[k] for k in args), 9, b["passes"], b["go"])
-        torch.cuda.synchronize()
-        diff = sum(int((a[k] != b[k]).sum()) for k in a)
-        if diff:
-            raise AssertionError(f"{kernel} differs from its plain version: {diff}")
-        ms = _time_ms(torch, lambda: device_loop.loop_step_cuda(
-            mode, *(a[k] for k in args), 9, a["passes"], a["go"]), flush)
-        plain_ms = _time_ms(torch, lambda: device_loop.loop_step_plain(
-            mode, *(b[k] for k in args), 9, b["passes"], b["go"]), flush)
-        # read ok, done, active, frozen (and iters); write done, active (and
-        # iters); it read and written, passes, go
-        n_bytes = BATCH * (4 + 2) + (8 * BATCH if mode == device_loop.LAYERED else 0) + 17
-        bound_ms, bound_by = _bound(n_bytes, 6 * BATCH)
-        measured[kernel] = dict(max_abs_err=float(diff), ms=ms, plain_ms=plain_ms,
-                                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    state = dict(
+        ok=torch.rand(BATCH, device=dev, generator=g2) < 0.5,
+        done=torch.rand(BATCH, device=dev, generator=g2) < 0.3,
+        active=torch.rand(BATCH, device=dev, generator=g2) < 0.6,
+        frozen=torch.rand(BATCH, device=dev, generator=g2) < 0.2,
+        it=torch.tensor([5], dtype=torch.int32, device=dev),
+        iters=torch.randint(0, 9, (BATCH,), dtype=torch.int32, device=dev, generator=g2),
+        passes=torch.zeros((), dtype=torch.int64, device=dev),
+        go=torch.zeros(1, dtype=torch.bool, device=dev))
+    a = {k: v.clone() for k, v in state.items()}
+    b = {k: v.clone() for k, v in state.items()}
+    args = ("ok", "done", "active", "frozen", "it", "iters")
+    entry = device_loop.ENTRY
+    device_loop.loop_step_cuda(entry, *(a[k] for k in args), 9, a["passes"], a["go"])
+    device_loop.loop_step_plain(entry, *(b[k] for k in args), 9, b["passes"], b["go"])
+    torch.cuda.synchronize()
+    diff = sum(int((a[k] != b[k]).sum()) for k in a)
+    if diff:
+        raise AssertionError(f"{device_loop.KERNEL_ENTRY} differs from its plain version: {diff}")
+    ms = _time_ms(torch, lambda: device_loop.loop_step_cuda(
+        entry, *(a[k] for k in args), 9, a["passes"], a["go"]), flush)
+    plain_ms = _time_ms(torch, lambda: device_loop.loop_step_plain(
+        entry, *(b[k] for k in args), 9, b["passes"], b["go"]), flush)
+    # read done, active, frozen; write active; it read, go
+    bound_ms, bound_by = _bound(BATCH * 4 + 5, 3 * BATCH)
+    measured[device_loop.KERNEL_ENTRY] = dict(
+        max_abs_err=float(diff), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None)
+    fold_timings = _fold_timings(torch, np, dev, flush)
+    folds, report["loop_folds"] = _loop_folds(torch, np, dev, flush, code, fold_timings)
+    measured.update(folds)
 
     # ---- no host round trip: the trial step and the decodes under sync debug ---
     sync_legs = {}
@@ -2951,8 +3480,7 @@ def _serve_program(torch, np, dev, card, code, point_key, counted):
                   "ms_int8": dict(algorithm="min-sum", message_dtype="int8")}
     kernels = (cuda_kernels.KERNEL_FIRST, cuda_kernels.KERNEL_FUSED,
                cuda_kernels.KERNEL_VARIABLE, cuda_layered.KERNEL_NAME,
-               device_loop.KERNEL_ENTRY, device_loop.KERNEL_STEP,
-               device_loop.KERNEL_SWEEP_STEP)
+               device_loop.KERNEL_ENTRY, KS, KW)
     captured = []  # what each capture cost: the legs of 128 lanes, SP/bf16, in full
     real_capture = device_loop.Graph.capture
     what = ["?"]
@@ -3236,17 +3764,19 @@ def _continuation_kernels(torch, dev, flush, code):
                                      t["flags"]),
          B * 12 + 28 * P + 4 * steps.SLOTS + 1, B)
 
-    # cont_want: ids left or not, lanes free or not, the block used up or not
-    cases = {}
-    for sp, nid, live_n, pos in ((0, 100, 300, 64), (2, trials, 300, 64), (2, 64, 480, 64),
-                                 (2, 64, 0, S), (1, 2048, 449, S), (2, 64, 448, 128)):
-        cases[f"sp{sp}_next{nid}_live{live_n}_pos{pos}"] = dict(
-            x=inputs(), st=carry(SP=sp, NEXT_ID=nid, LIVE_N=live_n, POS=pos, INNER=3),
-            flags=flags0.clone())
-    hold(steps.KERNEL_WANT, cases,
-         lambda t, c: steps.want_cuda(t["x"], t["st"], B, P, K, S, 40, False, t["flags"]),
-         lambda t, c: steps.want_plain(t["x"], t["st"], B, P, K, S, 40, False, t["flags"]),
-         4 * 6 + 3 + 4, 8)
+    # cont_want, in an earlier checkout's package (it was a kernel of its own
+    # there): ids left or not, lanes free or not, the block used up or not
+    if hasattr(steps, "want_cuda"):
+        cases = {}
+        for sp, nid, live_n, pos in ((0, 100, 300, 64), (2, trials, 300, 64), (2, 64, 480, 64),
+                                     (2, 64, 0, S), (1, 2048, 449, S), (2, 64, 448, 128)):
+            cases[f"sp{sp}_next{nid}_live{live_n}_pos{pos}"] = dict(
+                x=inputs(), st=carry(SP=sp, NEXT_ID=nid, LIVE_N=live_n, POS=pos, INNER=3),
+                flags=flags0.clone())
+        hold("cont_want", cases,
+             lambda t, c: steps.want_cuda(t["x"], t["st"], B, P, K, S, 40, False, t["flags"]),
+             lambda t, c: steps.want_plain(t["x"], t["st"], B, P, K, S, 40, False, t["flags"]),
+             4 * 6 + 3 + 4, 8)
 
     # stage_step: the next block, a point's advance, the clamp, ids across 2**32
     cases = {
@@ -3552,11 +4082,18 @@ def _continuation_kernels(torch, dev, flush, code):
         sector_floor=_floor(2 * 32 * _sectors(torch, N, B, bank_lanes, 1) + B * 11
                             + 28 * P + B + 8))
     del bank_cases, first
+    if hasattr(steps, "RefillTest"):
+        _refill_tests(torch, dev, code, steps, hold, measured, report, dict(
+            inputs=inputs, carry=carry, lanes=lanes, lane_tuple=lane_tuple,
+            lanes_case=lanes_case, bank_case=bank_case, flags0=flags0, acc0=acc0))
     log = _build.build_log("continuation")
     for name, kernel in ((steps.KERNEL_BANK, "bank_kernel"),
                          (steps.KERNEL_COPY, "refill_copy_kernel"),
                          (steps.KERNEL_FILL, "stage_fill_kernel"),
-                         (steps.KERNEL_PASS, "pass_step_kernel")):
+                         (steps.KERNEL_PASS, "pass_step_kernel"),
+                         (steps.KERNEL_START, "cont_start_kernel"),
+                         (steps.KERNEL_STAGE, "stage_step_kernel"),
+                         (steps.KERNEL_LANES, "refill_lanes_kernel")):
         report[name]["ptxas"] = _instances_resources(log, kernel)
     if "stage_syndrome_kernel" in log:
         report[steps.KERNEL_FILL]["ptxas_syndrome"] = _instances_resources(
@@ -3570,6 +4107,192 @@ def _continuation_kernels(torch, dev, flush, code):
     tiny = torch.empty(1, device=dev)
     report["launch_floor_ms"] = _time_ms(torch, lambda: tiny.fill_(1.0), flush)
     return measured, report
+
+
+def _refill_tests(torch, dev, code, steps, hold, measured, report, make):
+    """The refill loop's test folded into the four steps before it: each step
+    with the test (``test=``, ``RefillTest``) against its plain version then
+    ``want_plain``, every tensor equal, at the flagship (B = S = 512, K = 64,
+    three points: the test wants a refill, a regeneration, nothing, or stops
+    at the refill loop's bound) and on the carries of
+    ``test_want_equals_jax_want_lanes`` (B = S = 16, K = 4, 40 trials a
+    point); each timed on its first case.  The banking's measurement stands
+    for cont_want in the kernels line (its test runs once an outer step)."""
+    from qkd_ldpc_tpu_torch.channel.keys import derive_point_key
+    from qkd_ldpc_tpu_torch.sim.continuation import continuation_inputs
+
+    B = S = BATCH
+    K, P, max_it, cap = int(BATCH * REFILL_FRAC), 3, 100, 40
+    i32 = torch.int32
+    inputs, carry, lanes, lane_tuple = (make[k] for k in ("inputs", "carry", "lanes",
+                                                           "lane_tuple"))
+    g = torch.Generator(device=dev).manual_seed(13)
+    params = {}  # case -> (B, P, K, S) of its test
+
+    def flagship(case, state, p=P):
+        params[case] = (B, p, K, S)
+        return state
+
+    def grid(case, sp, next_id, live_n, pos, kind):
+        """A carry of the CPU test's grid at B = S = 16, K = 4."""
+        b = 16
+        params[case] = (b, P, 4, b)
+        x = continuation_inputs([derive_point_key(MASTER_SEED, i) for i in range(P)],
+                                [30, 40, 50], 40, 0, 10**6, code.n_vars).to(dev)
+        st = carry(SP=sp, NEXT_ID=next_id, LIVE_N=live_n, POS=pos, BASE=16, INNER=3)
+        s_ = lanes(b)
+        live = torch.zeros(b, dtype=torch.bool, device=dev)
+        live[torch.randperm(b, device=dev, generator=g)[:live_n]] = True
+        s_.update(live=live, run=s_["run"] & live, done=s_["done"] & live & ~s_["run"])
+        t = dict(x=x, st=st, flags=make["flags0"].clone(), **s_)
+        if kind == "lanes":
+            t["lane_of"] = torch.zeros(4, dtype=i32, device=dev)
+        if kind == "bank":
+            t.pop("fresh")
+            z = torch.randint(0, 2, (code.n_vars, b), dtype=torch.int8, device=dev, generator=g)
+            t.update(acc=make["acc0"].clone(), z=z, alice=z.clone(),
+                     mis=torch.zeros(b, dtype=i32, device=dev))
+        return t
+
+    grid_points = ((0, 10, 3, 4), (2, 40, 3, 4), (2, 39, 15, 4), (2, 39, 0, 16), (1, 40, 12, 16))
+
+    def test_of(t, c):
+        b, p, k, s_ = params[c]
+        return steps.RefillTest(b, p, k, s_, cap, t["flags"])
+
+    def then_want(t, c, entry):
+        b, p, k, s_ = params[c]
+        if not entry or bool(t["flags"][steps.OUTER_GO]):
+            steps.want_plain(t["x"], t["st"], b, p, k, s_, cap, entry, t["flags"])
+
+    verdicts = collections.Counter()
+
+    def tally(name, cases, kernel):
+        for c, t in cases.items():
+            probe = {k: v.clone() for k, v in t.items()}
+            kernel(probe, c)
+            torch.cuda.synchronize()
+            f = probe["flags"].tolist()
+            verdicts[(f"{name}: ends the outer loop" if not f[steps.OUTER_GO] and name in (
+                "start", "bank") else "fault" if int(probe["st"][steps.FAULT])
+                else "regen" if f[steps.REGEN] else "refill" if f[steps.REFILL]
+                else "no refill")] += 1
+
+    # cont_start: three points; one point of no trials (the outer loop never starts)
+    one = continuation_inputs([derive_point_key(MASTER_SEED, 0)], [30], 0, 0, 10**6,
+                              code.n_vars).to(dev)
+    start_cases = {
+        "flagship": flagship("flagship", dict(x=inputs(), acc=make["acc0"].clone(),
+                                              st=carry(BASE=5, POS=3, OUTER=9),
+                                              flags=make["flags0"].clone(), **lanes())),
+        "one_point_no_trials": flagship("one_point_no_trials", dict(
+            x=one, acc=make["acc0"][:, :1].clone(), st=carry(), flags=make["flags0"].clone(),
+            **lanes()), p=1)}
+
+    def start_k(t, c):
+        steps.start_cuda(t["x"], t["acc"], t["st"], lane_tuple(t), params[c][3], max_it,
+                         t["flags"], test=test_of(t, c))
+
+    def start_p(t, c):
+        steps.start_plain(t["x"], t["acc"], t["st"], lane_tuple(t), params[c][3], max_it,
+                          t["flags"])
+        then_want(t, c, True)
+
+    tally("start", start_cases, start_k)
+    hold("cont_start_with_test", start_cases, start_k, start_p,
+         B * 12 + 28 * P + 4 * steps.SLOTS + 8, B)
+
+    # stage_step (the test after a regeneration): the next block, a point's
+    # advance, the lanes too full for a refill, the refill loop at its bound
+    stage_cases = {c: flagship(c, dict(x=inputs(), st=st, flags=make["flags0"].clone()))
+                   for c, st in (
+        ("next_block", carry(BASE=512, SP=0, NEXT_ID=900, POS=S, INNER=3, LIVE_N=300)),
+        ("advance", carry(BASE=1536, SP=0, NEXT_ID=2048, POS=S, INNER=3, LIVE_N=0)),
+        ("lanes_full", carry(BASE=512, SP=1, NEXT_ID=900, POS=S, INNER=3, LIVE_N=B - K + 1)),
+        ("at_the_bound", carry(BASE=512, SP=1, NEXT_ID=900, POS=S, INNER=cap - 1)))}
+    stage_cases.update({f"grid_{i}": grid(f"grid_{i}", *gp, "stage")
+                        for i, gp in enumerate(grid_points)})
+    for c in stage_cases:  # the stage step reads only x and st
+        stage_cases[c] = {k: stage_cases[c][k] for k in ("x", "st", "flags")}
+
+    def stage_k(t, c):
+        steps.stage_step_cuda(t["x"], t["st"], params[c][3], params[c][1], test=test_of(t, c))
+
+    def stage_p(t, c):
+        steps.stage_step_plain(t["x"], t["st"], params[c][3], params[c][1])
+        then_want(t, c, False)
+
+    tally("stage", stage_cases, stage_k)
+    hold("stage_step_with_test", stage_cases, stage_k, stage_p, 4 * (6 + 2 * steps.SLOTS) + 4,
+         12)
+
+    # refill_lanes (the test after a refill): K trials, a point's tail, the
+    # block used up (a regeneration next), the refill loop at its bound
+    lanes_case = make["lanes_case"]
+    lane_cases = {"k_trials": flagship("k_trials", lanes_case(512, 128)),
+                  "tail_n_new_16": flagship("tail_n_new_16", lanes_case(1536, 448, 2000)),
+                  "block_used_up": flagship("block_used_up", lanes_case(512, S - K))}
+    bound = flagship("at_the_bound", lanes_case(512, 128))
+    bound["st"][steps.INNER] = cap - 1
+    lane_cases["at_the_bound"] = bound
+    for c in lane_cases.values():
+        c["flags"] = make["flags0"].clone()
+    lane_cases.update({f"grid_{i}": grid(f"grid_{i}", *gp, "lanes")
+                       for i, gp in enumerate(grid_points)})
+
+    def lanes_k(t, c):
+        steps.refill_lanes_cuda(t["x"], t["st"], lane_tuple(t), t["lane_of"], params[c][2],
+                                test=test_of(t, c))
+
+    def lanes_p(t, c):
+        steps.refill_lanes_plain(t["x"], t["st"], lane_tuple(t), t["lane_of"], params[c][2])
+        then_want(t, c, False)
+
+    tally("lanes", lane_cases, lanes_k)
+    hold("refill_lanes_with_test", lane_cases, lanes_k, lanes_p, B + 4 * K + K * 12 + 4 * 8 + 4,
+         B)
+
+    # bank (the test before the next outer step's refill loop): three points,
+    # no lane banking, every live lane banking, the block used up, the last
+    # point's ids used up and every lane finished (the outer loop ends)
+    bank_case = make["bank_case"]
+    bank_cases = {kind: flagship(kind, bank_case(kind=kind)) for kind in (
+        "three_points", "no_lane_banks", "every_live_lane_banks")}
+    used_up = flagship("block_used_up", bank_case())
+    used_up["st"][steps.POS] = S
+    bank_cases["block_used_up"] = used_up
+    ends = flagship("outer_loop_ends", bank_case(kind="every_live_lane_banks"))
+    ends["st"][steps.SP], ends["st"][steps.NEXT_ID] = P - 1, 2048
+    ends["run"].zero_()
+    bank_cases["outer_loop_ends"] = ends
+    bank_cases.update({f"grid_{i}": grid(f"grid_{i}", *gp, "bank")
+                       for i, gp in enumerate(grid_points)})
+
+    def bank_k(t, c):
+        steps.bank_cuda(t["x"], t["acc"], t["st"],
+                        (t["live"], t["run"], t["done"], t["age"], t["lane_p"]), t["z"],
+                        t["alice"], t["mis"], max_it, t["flags"], test=test_of(t, c))
+
+    def bank_p(t, c):
+        steps.bank_plain(t["x"], t["acc"], t["st"],
+                         (t["live"], t["run"], t["done"], t["age"], t["lane_p"]), t["z"],
+                         t["alice"], t["mis"], max_it, t["flags"])
+        then_want(t, c, True)
+
+    tally("bank", bank_cases, bank_k)
+    first = bank_cases["three_points"]
+    n_spr = int((first["live"] & ~first["run"] & first["done"]).sum())
+    hold("bank_with_test", bank_cases, bank_k, bank_p,
+         B * 11 + 2 * code.n_vars * n_spr + 28 * P + B + 8 + 8, B * 8 + code.n_vars * n_spr)
+    want = {"regen", "refill", "no refill", "fault", "start: ends the outer loop",
+            "bank: ends the outer loop"}
+    if not want <= set(verdicts):
+        raise AssertionError(f"the refill test's cases miss a verdict: {dict(verdicts)}")
+    measured[KC_WANT] = dict(measured["bank_with_test"], folded_into=list(FOLDED[KC_WANT]),
+                             host_kernel_ms_without_fold=measured[steps.KERNEL_BANK]["ms"])
+    report[KC_WANT] = {"folded_into": list(FOLDED[KC_WANT]), "verdicts": dict(verdicts),
+                       "ms_with_test": {k: measured[k + "_with_test"]["ms"] for k in (
+                           "cont_start", "stage_step", "refill_lanes", "bank")}}
 
 
 def _pool_bytes(torch, graph):
@@ -3663,7 +4386,7 @@ def _chunk_graph(torch, np, dev, card, code, names, point_key, key_c, opts, opts
                 code, point_key, QBER, trials, BATCH, opts, mesh), PARALLEL_SHARDS),
         }
         kernels = (K1, K2, K3, K4, KV, K6, cuda_select.KERNEL_TIES, device_loop.KERNEL_ENTRY,
-                   device_loop.KERNEL_STEP, device_loop.KERNEL_SWEEP_STEP)
+                   KS, KW)
         legs_report = {}
         for name, (step, chunks) in legs.items():
             what[0] = name
@@ -4039,7 +4762,7 @@ def main() -> int:
     # SP, clip, row degree 6, shared totals: one thread per lifted check
     sweep_threads = -(-Z // 32) * 32
     sweep_shared = NB * Z * 4 + -(-(MB_ROWS + 1 + 2 * ncells) * 4 // 16) * 16
-    flagship_instance = ("Li0ELb1ELi6ELb1E", sweep_threads, sweep_shared)
+    flagship_instance = ("Li0ELb1ELi6ELb1ELb0E", sweep_threads, sweep_shared)
     print(json.dumps({"kernel_matrix": matrix}), flush=True)
     print(json.dumps({"channel_kernels": dict(
         card=card, trial_words=k4, kth_smallest=k3, **channel_details)}), flush=True)
@@ -4077,8 +4800,8 @@ def main() -> int:
              cuda_kernels.KERNEL_VARIABLE)
     K1, K2, K3, K4, K5, K6, KV = names
     KT, KB = cuda_select.KERNEL_TIES, cuda_prng.KERNEL_BLOCK
-    KE, KS, KW = device_loop.KERNEL_ENTRY, device_loop.KERNEL_STEP, device_loop.KERNEL_SWEEP_STEP
-    (KC_START, KC_WANT, KC_STAGE, KC_FILL, KC_LANES, KC_COPY, KC_PASS,
+    KE = device_loop.KERNEL_ENTRY
+    (KC_START, KC_STAGE, KC_FILL, KC_LANES, KC_COPY, KC_PASS,
      KC_BANK) = cuda_continuation.KERNELS
 
     def counted(step):
@@ -4149,8 +4872,9 @@ def main() -> int:
     if replays_main != 1:
         raise AssertionError(f"main path: {replays_main} graph replays for one chunk of "
                              f"{N_BATCHES} batches")
-    # every batch's decode: one replay; its loops' bookkeeping on the card
-    if launches.get(KE, 0) != 3 * N_BATCHES or launches.get(KS, 0) != launches.get(K2, 0):
+    # every batch's decode: one replay; its loops' entry tests on the card, and
+    # each pass's bookkeeping in K2's last block (no launch of its own)
+    if launches.get(KE, 0) != 3 * N_BATCHES or launches.get(KS, 0) != 0:
         raise AssertionError(f"main path: loop kernels {launches}")
 
     stats = as_stats(partials)
@@ -4234,7 +4958,8 @@ def main() -> int:
         raise AssertionError(
             f"layered_sweep launched {sweeps} times, iteration counts say "
             f"{sum(worst_l)} (overflow: {overflowed_l})")
-    if launches_l.get(KW, 0) != sweeps or launches_l.get(KE, 0) != 3 * N_BATCHES:
+    # each sweep's bookkeeping in K6's last block (no launch of its own)
+    if launches_l.get(KW, 0) != 0 or launches_l.get(KE, 0) != 3 * N_BATCHES:
         raise AssertionError(f"layered path: loop kernels {launches_l}")
     print(json.dumps({"layered_path": {
         "card": card, "qber": actual_qber, "trials": trials, "batch": BATCH,
@@ -4314,9 +5039,9 @@ def main() -> int:
     expect_c = {KC_START: 1, KC_STAGE: loops_c["generations"], KC_FILL: loops_c["generations"],
                 KC_LANES: launches_c.get(KC_COPY, 0), KC_PASS: loops_c["outer_steps"],
                 KC_BANK: loops_c["outer_steps"]}
-    # cont_want: once before each refill loop and once after each of its passes
-    expect_c[KC_WANT] = loops_c["outer_steps"] + loops_c["generations"] + launches_c.get(
-        KC_LANES, 0)
+    # the refill loop's test runs in the start, the banking, the stage step and
+    # the refill's lane step: no launch of its own
+    expect_c[KC_WANT] = 0
     if any(launches_c.get(k, 0) != v for k, v in expect_c.items()) or (
             launches_c.get(KC_LANES, 0) < loops_c["refills"]):
         raise AssertionError(f"continuation path: step launches {launches_c} for {loops_c}")
@@ -4540,15 +5265,20 @@ def main() -> int:
         # the check degrees (K1/K2/K5/KV) and base-row degrees (K6) at which
         # the kernel was held to its plain version; the channel kernels have none
         degrees = {K6: sorted({6, *layered_degrees}), K3: None, K4: None, KT: None,
-                   KB: None, KE: None, KS: None, KW: None,
+                   KB: None, KE: None, KS: sorted(FOLD_CHECK_CODES) + [6],
+                   KW: sorted(FOLD_SWEEP_CODES) + [6], KC_WANT: None,
                    **dict.fromkeys(cuda_continuation.KERNELS)}.get(name, flooding_degrees)
-        return {
+        line = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": meas["max_abs_err"],
+            "launches": counts.get(name, 0), "max_abs_err": meas["max_abs_err"],
             "ms": meas["ms"], "plain_ms": meas["plain_ms"],
             "bound_ms": meas["bound_ms"], "bound_by": meas["bound_by"],
             "library_ms": meas.get("library_ms"), "degrees_held": degrees,
         }
+        if name in FOLDED:  # no launch of its own: its numbers are its host kernel's
+            line.update(folded_into=list(FOLDED[name]),
+                        host_kernel_ms_without_fold=meas["host_kernel_ms_without_fold"])
+        return line
 
     csrc = "qkd_ldpc_tpu_torch/csrc/"
     print(card, flush=True)
@@ -4581,15 +5311,18 @@ def main() -> int:
                     protocol_report["keygen_launches"]),
         kernel_line(KE, csrc + "device_loop.cu",
                     "qkd_ldpc_tpu/decoder/bp.py:447", loop_kernels[KE], launches),
-        kernel_line(KS, csrc + "device_loop.cu",
+        # a pass's bookkeeping, run in the last block of K2 / K6
+        kernel_line(KS, csrc + "loop_step.cuh",
                     "qkd_ldpc_tpu/decoder/bp.py:434", loop_kernels[KS], launches),
-        kernel_line(KW, csrc + "device_loop.cu",
+        kernel_line(KW, csrc + "loop_step.cuh",
                     "qkd_ldpc_tpu/decoder/layered.py:218", loop_kernels[KW], launches_l),
-        # the continuation's outer loop, one program as JAX's _continuation_core
+        # the continuation's outer loop, one program as JAX's _continuation_core;
+        # the refill loop's test runs in the steps before it
         *(kernel_line(name, csrc + "continuation.cu", f"qkd_ldpc_tpu/sim/continuation.py:{line}",
                       cont_kernels[name], launches_c)
-          for name, line in zip(cuda_continuation.KERNELS,
-                                (266, 205, 111, 132, 154, 179, 225, 242))),
+          for name, line in ((KC_START, 266), (KC_WANT, 205), (KC_STAGE, 111), (KC_FILL, 132),
+                             (KC_LANES, 154), (KC_COPY, 179), (KC_PASS, 225),
+                             (KC_BANK, 242))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,6 +59,14 @@
 // not a multiple of the vector or a pointer that is not 16-byte aligned; the caller
 // chooses by shape and alignment.
 //
+// Inside a decode loop (decoder/bp.py) the check update ends each flooding pass,
+// and its FOLD kernels also run the pass's bookkeeping (loop_step.cuh: done,
+// active, it, the condition of the loop's WHILE node) in the launch's last
+// block, once every other block has counted itself with its flags stored; the
+// pass then needs no bookkeeping launch.  The plain kernels (the peeled first
+// update, the continuation's, any call outside a loop) are the same update
+// without the count.
+//
 // Check degrees.  The instances above unroll the slots of a check (DC = 2..8, the
 // degrees of the flagship codes): every slot's inputs sit in registers at once.
 // Any other dc_max runs check_update_any_kernel, the loop form of the same update
@@ -70,6 +78,7 @@
 // Arithmetic is float32 with the plain version's rounding points; compiled without
 // fast-math and without fma contraction, once per storage type (-DSTORAGE=0|1|2).
 #include "check_math.cuh"
+#include "loop_step.cuh"
 
 namespace {
 
@@ -120,33 +129,36 @@ __device__ __forceinline__ bool locate(int rows, int B, int* row, int* b0) {
 // stores do not reach): a look made with the other loads, when no check has
 // finished yet, sees every byte standing and measured 15 % slower.
 template <int VEC>
-__device__ __forceinline__ void clear_flags(uint8_t* __restrict__ ok, int b0,
-                                            unsigned bad) {
+__device__ __forceinline__ bool clear_flags(uint8_t* __restrict__ ok, int b0, unsigned bad) {
     const Vec<uint8_t, VEC> seen = load_bytes_l2<VEC>(ok + b0);
+    bool stored = false;  // whether a byte was cleared here (the loop's tail fences then)
 #pragma unroll
     for (int f = 0; f < VEC; ++f) {
-        if (((bad >> f) & 1u) && seen.v[f] != 0) ok[b0 + f] = 0;
+        if (((bad >> f) & 1u) && seen.v[f] != 0) {
+            ok[b0 + f] = 0;
+            stored = true;
+        }
     }
+    return stored;
 }
 
+// The messages of check m for the frames b0 .. b0 + VEC - 1 into ov; returns
+// the frames (bit f: b0 + f) whose decisions do not meet the target, or that
+// are fresh.
 template <int ALG, bool FIRST, int DC, int VEC>
-__global__ void __launch_bounds__(kThreads)
-check_update_kernel(const storage_t* __restrict__ total,    // [N, B]
-                    const int* __restrict__ adj,            // [DC, M] variable of a slot
-                    const int* __restrict__ mask,           // [DC, M] 0 = padded slot
-                    const storage_t* __restrict__ lr_prev,  // [DC, M, B]; unused when FIRST
-                    const uint8_t* __restrict__ fresh,      // [B] or null
-                    const int8_t* __restrict__ syn,         // [M, B] target syndrome bits
-                    storage_t* __restrict__ out,            // [DC, M, B]
-                    uint8_t* __restrict__ ok,               // [B] preset to 1, or null
-                    int M, int B, bool clip, float threshold, float alpha, float beta,
-                    float scale) {
-    int m, b0;
-    if (!locate<VEC>(M, B, &m, &b0)) return;
+__device__ __forceinline__ unsigned
+check_messages_of(const storage_t* __restrict__ total,    // [N, B]
+                  const int* __restrict__ adj,            // [DC, M] variable of a slot
+                  const int* __restrict__ mask,           // [DC, M] 0 = padded slot
+                  const storage_t* __restrict__ lr_prev,  // [DC, M, B]; unused when FIRST
+                  const uint8_t* __restrict__ fresh,      // [B] or null
+                  const int8_t* __restrict__ syn,         // [M, B] target syndrome bits
+                  int m, int b0, int M, int B, bool clip, float threshold, float alpha,
+                  float beta, float scale, Vec<storage_t, VEC> (&ov)[DC]) {
     const size_t MB = static_cast<size_t>(M) * B;
     const size_t e0 = static_cast<size_t>(m) * B + b0;
 
-    Vec<storage_t, VEC> tv[DC], pv[DC], ov[DC];
+    Vec<storage_t, VEC> tv[DC], pv[DC];
     bool valid[DC];
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
@@ -187,9 +199,73 @@ check_update_kernel(const storage_t* __restrict__ total,    // [N, B]
         }
         if (parity != target || is_fresh) bad |= 1u << f;
     }
+    return bad;
+}
+
+// The update of this thread's check and frames, stored; returns whether it
+// cleared a flag (false where the thread has no check).
+template <int ALG, bool FIRST, int DC, int VEC>
+__device__ __forceinline__ bool
+check_update_body(const storage_t* __restrict__ total, const int* __restrict__ adj,
+                  const int* __restrict__ mask, const storage_t* __restrict__ lr_prev,
+                  const uint8_t* __restrict__ fresh, const int8_t* __restrict__ syn,
+                  storage_t* __restrict__ out, uint8_t* __restrict__ ok, int M, int B,
+                  bool clip, float threshold, float alpha, float beta, float scale) {
+    int m, b0;
+    if (!locate<VEC>(M, B, &m, &b0)) return false;
+    Vec<storage_t, VEC> ov[DC];
+    const unsigned bad = check_messages_of<ALG, FIRST, DC, VEC>(
+        total, adj, mask, lr_prev, fresh, syn, m, b0, M, B, clip, threshold, alpha, beta,
+        scale, ov);
+    const size_t MB = static_cast<size_t>(M) * B;
+    const size_t e0 = static_cast<size_t>(m) * B + b0;
 #pragma unroll
     for (int j = 0; j < DC; ++j) store_vec<VEC>(out + j * MB + e0, ov[j]);
-    if (!FIRST && ok != nullptr && bad != 0) clear_flags<VEC>(ok, b0, bad);
+    return !FIRST && ok != nullptr && bad != 0 && clear_flags<VEC>(ok, b0, bad);
+}
+
+template <int ALG, bool FIRST, int DC, int VEC>
+__global__ void __launch_bounds__(kThreads)
+check_update_kernel(const storage_t* __restrict__ total,    // [N, B]
+                    const int* __restrict__ adj,            // [DC, M] variable of a slot
+                    const int* __restrict__ mask,           // [DC, M] 0 = padded slot
+                    const storage_t* __restrict__ lr_prev,  // [DC, M, B]; unused when FIRST
+                    const uint8_t* __restrict__ fresh,      // [B] or null
+                    const int8_t* __restrict__ syn,         // [M, B] target syndrome bits
+                    storage_t* __restrict__ out,            // [DC, M, B]
+                    uint8_t* __restrict__ ok,               // [B] preset to 1, or null
+                    int M, int B, bool clip, float threshold, float alpha, float beta,
+                    float scale) {
+    check_update_body<ALG, FIRST, DC, VEC>(total, adj, mask, lr_prev, fresh, syn, out, ok, M,
+                                           B, clip, threshold, alpha, beta, scale);
+}
+
+// The FOLD kernels' occupancy, held to the plain kernels' at the unrolled degrees
+// up to the flagship's (ptxas on sm_90a at DC 6: float32 80, bfloat16 62-75, int8
+// 48 registers a thread, so 3, 3-4 and 5 blocks of 256 an SM): the count and the
+// tail's control flow would otherwise cost registers that lose a block an SM
+// (measured on an H100: int8 and float32 min-sum 7-25 % slower).
+template <int DC>
+constexpr int fold_min_blocks() {
+    return DC >= 2 && DC <= 6 ? (sizeof(storage_t) == 1 ? 5 : 3) : 1;
+}
+
+// The fused update, then the loop's bookkeeping over `ok` (step) in the
+// launch's last block.
+template <int ALG, int DC, int VEC>
+__global__ void __launch_bounds__(kThreads, fold_min_blocks<DC>())
+check_update_kernel_fold(const storage_t* __restrict__ total, const int* __restrict__ adj,
+                         const int* __restrict__ mask, const storage_t* __restrict__ lr_prev,
+                         const uint8_t* __restrict__ fresh, const int8_t* __restrict__ syn,
+                         storage_t* __restrict__ out, uint8_t* __restrict__ ok, int M, int B,
+                         bool clip, float threshold, float alpha, float beta, float scale,
+                         const LoopStep step) {
+    const bool stored = check_update_body<ALG, false, DC, VEC>(
+        total, adj, mask, lr_prev, fresh, syn, out, ok, M, B, clip, threshold, alpha, beta,
+        scale);
+    if (count_unless_elected(step.ticket, __syncthreads_or(stored) != 0)) {  // all threads
+        elected_tail<kLoopFlooding>(ok, step);
+    }
 }
 
 // Slot j of check m for this thread's frames: whether it is real, Lq per frame
@@ -223,9 +299,10 @@ __device__ __forceinline__ bool slot_inputs(
 // check_update_kernel for any dc: the slots in loops, nothing per slot in
 // registers (see the header).  `scratch` [dc, M, B] float32 holds the prefix
 // products of sum-product; min-sum does not use it.
+// Returns whether this thread cleared a flag.
 template <int ALG, bool FIRST, int VEC>
-__global__ void __launch_bounds__(kThreads)
-check_update_any_kernel(const storage_t* __restrict__ total,    // [N, B]
+__device__ __forceinline__ bool
+check_update_any_body(const storage_t* __restrict__ total,    // [N, B]
                         const int* __restrict__ adj,            // [dc, M]
                         const int* __restrict__ mask,           // [dc, M]
                         const storage_t* __restrict__ lr_prev,  // [dc, M, B]; unused when FIRST
@@ -237,7 +314,7 @@ check_update_any_kernel(const storage_t* __restrict__ total,    // [N, B]
                         int dc, int M, int B, bool clip, float threshold, float alpha,
                         float beta, float scale) {
     int m, b0;
-    if (!locate<VEC>(M, B, &m, &b0)) return;
+    if (!locate<VEC>(M, B, &m, &b0)) return false;
     const size_t MB = static_cast<size_t>(M) * B;
     const size_t e0 = static_cast<size_t>(m) * B + b0;
     const Vec<int8_t, VEC> sv = load_vec<VEC>(syn + e0);
@@ -276,7 +353,37 @@ check_update_any_kernel(const storage_t* __restrict__ total,    // [N, B]
     for (int f = 0; f < VEC; ++f) {
         if (parity[f] != sv.v[f] || is_fresh[f]) bad |= 1u << f;
     }
-    if (!FIRST && ok != nullptr && bad != 0) clear_flags<VEC>(ok, b0, bad);
+    return !FIRST && ok != nullptr && bad != 0 && clear_flags<VEC>(ok, b0, bad);
+}
+
+template <int ALG, bool FIRST, int VEC>
+__global__ void __launch_bounds__(kThreads)
+check_update_any_kernel(const storage_t* __restrict__ total, const int* __restrict__ adj,
+                        const int* __restrict__ mask, const storage_t* __restrict__ lr_prev,
+                        const uint8_t* __restrict__ fresh, const int8_t* __restrict__ syn,
+                        storage_t* __restrict__ out, uint8_t* __restrict__ ok,
+                        float* __restrict__ scratch, int dc, int M, int B, bool clip,
+                        float threshold, float alpha, float beta, float scale) {
+    check_update_any_body<ALG, FIRST, VEC>(total, adj, mask, lr_prev, fresh, syn, out, ok,
+                                           scratch, dc, M, B, clip, threshold, alpha, beta,
+                                           scale);
+}
+
+template <int ALG, int VEC>
+__global__ void __launch_bounds__(kThreads)
+check_update_any_kernel_fold(const storage_t* __restrict__ total, const int* __restrict__ adj,
+                             const int* __restrict__ mask, const storage_t* __restrict__ lr_prev,
+                             const uint8_t* __restrict__ fresh, const int8_t* __restrict__ syn,
+                             storage_t* __restrict__ out, uint8_t* __restrict__ ok,
+                             float* __restrict__ scratch, int dc, int M, int B, bool clip,
+                             float threshold, float alpha, float beta, float scale,
+                             const LoopStep step) {
+    const bool stored = check_update_any_body<ALG, false, VEC>(
+        total, adj, mask, lr_prev, fresh, syn, out, ok, scratch, dc, M, B, clip, threshold,
+        alpha, beta, scale);
+    if (count_unless_elected(step.ticket, __syncthreads_or(stored) != 0)) {  // all threads
+        elected_tail<kLoopFlooding>(ok, step);
+    }
 }
 
 // The check messages of one variable slot for this thread's frames; a padded slot
@@ -455,6 +562,7 @@ struct Args {
     storage_t* out;
     uint8_t* ok;
     float* scratch;
+    const LoopStep* step;  // null: no bookkeeping (the plain instances)
     int M, B;
     bool clip;
     float threshold, alpha, beta, scale;
@@ -466,20 +574,38 @@ unsigned blocks_for(int rows, int B, int vec) {
     return static_cast<unsigned>((work + kThreads - 1) / kThreads);
 }
 
+// The FOLD kernel where a step is given (never with FIRST: iteration 1 is
+// peeled before the loop).
 template <int ALG, bool FIRST, int DC, int VEC>
 void launch(const Args& p) {
-    check_update_kernel<ALG, FIRST, DC, VEC>
-        <<<blocks_for(p.M, p.B, VEC), kThreads, 0, p.stream>>>(
-            p.total, p.adj, p.mask, p.lr_prev, p.fresh, p.syn, p.out, p.ok, p.M, p.B,
-            p.clip, p.threshold, p.alpha, p.beta, p.scale);
+    const unsigned grid = blocks_for(p.M, p.B, VEC);
+    if constexpr (!FIRST) {
+        if (p.step != nullptr) {
+            check_update_kernel_fold<ALG, DC, VEC><<<grid, kThreads, 0, p.stream>>>(
+                p.total, p.adj, p.mask, p.lr_prev, p.fresh, p.syn, p.out, p.ok, p.M, p.B,
+                p.clip, p.threshold, p.alpha, p.beta, p.scale, *p.step);
+            return;
+        }
+    }
+    check_update_kernel<ALG, FIRST, DC, VEC><<<grid, kThreads, 0, p.stream>>>(
+        p.total, p.adj, p.mask, p.lr_prev, p.fresh, p.syn, p.out, p.ok, p.M, p.B, p.clip,
+        p.threshold, p.alpha, p.beta, p.scale);
 }
 
 template <int ALG, bool FIRST, int VEC>
 void launch_any(int dc, const Args& p) {
-    check_update_any_kernel<ALG, FIRST, VEC>
-        <<<blocks_for(p.M, p.B, VEC), kThreads, 0, p.stream>>>(
-            p.total, p.adj, p.mask, p.lr_prev, p.fresh, p.syn, p.out, p.ok, p.scratch,
-            dc, p.M, p.B, p.clip, p.threshold, p.alpha, p.beta, p.scale);
+    const unsigned grid = blocks_for(p.M, p.B, VEC);
+    if constexpr (!FIRST) {
+        if (p.step != nullptr) {
+            check_update_any_kernel_fold<ALG, VEC><<<grid, kThreads, 0, p.stream>>>(
+                p.total, p.adj, p.mask, p.lr_prev, p.fresh, p.syn, p.out, p.ok, p.scratch, dc,
+                p.M, p.B, p.clip, p.threshold, p.alpha, p.beta, p.scale, *p.step);
+            return;
+        }
+    }
+    check_update_any_kernel<ALG, FIRST, VEC><<<grid, kThreads, 0, p.stream>>>(
+        p.total, p.adj, p.mask, p.lr_prev, p.fresh, p.syn, p.out, p.ok, p.scratch, dc, p.M,
+        p.B, p.clip, p.threshold, p.alpha, p.beta, p.scale);
 }
 
 template <int ALG, bool FIRST, int VEC>
@@ -536,16 +662,18 @@ extern "C" int variable_update_vector_width() { return kVariableVec; }
 extern "C" int check_update_max_unrolled_degree() { return kMaxUnrolledDegree; }
 
 // Returns cudaGetLastError(); -1 when dc < 1, -2 when `vec` is neither of the two,
-// -3 when the loop instance of sum-product is given no scratch.  `lr_prev` is
-// null exactly when `first`; `fresh` ([B] bytes, nonzero = the frame restarts) and
-// `ok` ([B] bytes, preset to 1 by the caller) may be null; `scratch` is float32
-// [dc, M, B] and may be null where it is not used.
+// -3 when the loop instance of sum-product is given no scratch, -4 when `step` is
+// given with `first` or without `ok`.  `lr_prev` is null exactly when `first`;
+// `fresh` ([B] bytes, nonzero = the frame restarts) and `ok` ([B] bytes, preset
+// to 1 by the caller) may be null; `scratch` is float32 [dc, M, B] and may be null
+// where it is not used; `step` (loop_step.cuh, may be null) is the loop's
+// bookkeeping after this pass, run in the launch's last block.
 extern "C" int check_update(int algorithm, int first, int clip, int dc, int vec,
                             const void* total, const void* adj, const void* mask,
                             const void* lr_prev, const void* fresh, const void* syn,
                             void* out, void* ok, void* scratch, int M, int B,
                             float threshold, float alpha, float beta, float scale,
-                            void* stream) {
+                            const void* step, void* stream) {
     const Args p{static_cast<const storage_t*>(total),
                  static_cast<const int*>(adj),
                  static_cast<const int*>(mask),
@@ -555,9 +683,11 @@ extern "C" int check_update(int algorithm, int first, int clip, int dc, int vec,
                  static_cast<storage_t*>(out),
                  static_cast<uint8_t*>(ok),
                  static_cast<float*>(scratch),
+                 static_cast<const LoopStep*>(step),
                  M, B, clip != 0, threshold, alpha, beta, scale,
                  static_cast<cudaStream_t>(stream)};
     if (dc < 1) return -1;
+    if (step != nullptr && (first != 0 || ok == nullptr)) return -4;
     const bool unrolled = dc >= 2 && dc <= kMaxUnrolledDegree;
     if (!unrolled && algorithm != kMinSum && scratch == nullptr) return -3;
     if (vec == kCheckVec && B % kCheckVec == 0) {

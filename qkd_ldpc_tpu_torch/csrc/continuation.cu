@@ -11,8 +11,6 @@
 // memory, so no host value reaches the program after its capture:
 //
 //   cont_start    the initial carry (:266-292) and the outer loop's entry test;
-//   cont_want     want_lanes (:205-209) and the pos >= S predicate of the cond,
-//                 written together before either branch runs;
 //   stage_step    regen's scalars (:111-131): the next block's base, point,
 //                 key, error count, LLR magnitude and first trial id;
 //   stage_fill    regen's staging arrays (:132-139) from K4's Alice row and
@@ -34,9 +32,21 @@
 // raises, so a fault in the program cannot spin the card forever.  Lane flags
 // are bytes (torch.bool).  Every kernel that ends a conditional body adds one
 // to `passes` (an int64, may be null), so the host can count the body's
-// launches afterwards; the test kernels write their verdicts to `flags` (the
-// eager loop fetches them) and, inside a graph, set the conditional nodes'
-// handles with cudaGraphSetConditional.
+// launches afterwards; the tests write their verdicts to `flags` (the eager
+// loop fetches them) and, inside a graph, set the conditional nodes' handles
+// with cudaGraphSetConditional.
+//
+// The refill loop's test (want_lanes, :205-209, and the cond's pos >= S,
+// :211-213; want_test below) has no kernel of its own: the kernel that ends
+// each step the test follows runs it, as its last work.  Before the refill
+// loop that is cont_start (the first outer step) or bank's last block (the
+// next one, where the outer loop goes on); after a refill, refill_lanes; after
+// a regeneration, stage_step.  A regeneration's test sets the refill IF node
+// that follows it in the same pass of the refill loop: the pass's body is the
+// two IF nodes alone, regen then refill, so a pass is a regeneration and the
+// refill after it, or a refill alone (JAX's steps in JAX's order, two of its
+// passes in one).  The refill loop's bound counts JAX's passes (st[kInner],
+// one a test) as before.
 //
 // Bound on this card: launch latency for all but three; the carry is a few
 // bytes a lane.  stage_fill moves the staging block (S x N Alice and Bob bytes
@@ -71,6 +81,39 @@ __device__ __forceinline__ void count_pass(long long* passes) {
     if (passes != nullptr) *passes += 1;
 }
 
+// The refill loop's test, which the kernels that end its steps run (null
+// `flags`: none).  Layout: sim/cuda_continuation.py's _WantArgs (ctypes).
+struct WantTest {
+    uint8_t* flags;  // [4] the verdicts
+    unsigned long long h_in, h_regen, h_refill;  // the refill loop's, regen's, refill's
+    int B, P, K, S, inner_cap;
+    int set_handle;  // inside a graph
+};
+
+// want_lanes (:205-209) and the cond's predicates (:211-213), by one thread.
+// `entry`: the test before the refill loop (its count of passes starts at 0);
+// else the test after a regeneration or a refill.
+__device__ void want_test(const int* x, int* st, const WantTest& w, bool entry) {
+    const int live_n = st[kLiveN];
+    bool want = more_ids(x, st, w.P) && (w.B - live_n >= w.K || live_n == 0);
+    const int inner = entry ? 0 : st[kInner] + 1;
+    st[kInner] = inner;
+    if (want && inner >= w.inner_cap) {
+        want = false;
+        st[kFault] |= kFaultInner;
+    }
+    const bool regen = want && st[kPos] >= w.S;
+    const bool refill = want && st[kPos] < w.S;
+    w.flags[kInGo] = want ? 1 : 0;
+    w.flags[kRegen] = regen ? 1 : 0;
+    w.flags[kRefill] = refill ? 1 : 0;
+    if (w.set_handle) {
+        cudaGraphSetConditional(w.h_in, want ? 1u : 0u);
+        cudaGraphSetConditional(w.h_regen, regen ? 1u : 0u);
+        cudaGraphSetConditional(w.h_refill, refill ? 1u : 0u);
+    }
+}
+
 int lane_threads(int B) {
     return B < 1024 ? ((B + 31) / 32) * 32 : 1024;
 }
@@ -81,7 +124,8 @@ __global__ void cont_start_kernel(const int* __restrict__ x, int* __restrict__ a
                                   uint8_t* __restrict__ fresh, int* __restrict__ age,
                                   int* __restrict__ lane_p, int B, int P, int S, int max_it,
                                   uint8_t* __restrict__ flags,
-                                  cudaGraphConditionalHandle h_out, int set_handle) {
+                                  cudaGraphConditionalHandle h_out, int set_handle,
+                                  const WantTest want) {
     for (int b = threadIdx.x; b < B; b += blockDim.x) {
         live[b] = run[b] = done[b] = fresh[b] = 0;
         age[b] = lane_p[b] = 0;
@@ -95,40 +139,12 @@ __global__ void cont_start_kernel(const int* __restrict__ x, int* __restrict__ a
         const bool go = more_ids(x, st, P);  // outer_cond with no lane live
         flags[kOuterGo] = go ? 1 : 0;
         if (set_handle) cudaGraphSetConditional(h_out, go ? 1u : 0u);
-    }
-}
-
-// `entry`: the test before the refill loop (starts its count of passes);
-// else the test after a pass.
-__global__ void cont_want_kernel(const int* __restrict__ x, int* __restrict__ st, int B, int P,
-                                 int K, int S, int inner_cap, int entry,
-                                 uint8_t* __restrict__ flags, long long* __restrict__ passes,
-                                 cudaGraphConditionalHandle h_in,
-                                 cudaGraphConditionalHandle h_regen,
-                                 cudaGraphConditionalHandle h_refill, int set_handle) {
-    const int live_n = st[kLiveN];
-    bool want = more_ids(x, st, P) && (B - live_n >= K || live_n == 0);
-    const int inner = entry ? 0 : st[kInner] + 1;
-    st[kInner] = inner;
-    if (want && inner >= inner_cap) {
-        want = false;
-        st[kFault] |= kFaultInner;
-    }
-    const bool regen = want && st[kPos] >= S;
-    const bool refill = want && st[kPos] < S;
-    flags[kInGo] = want ? 1 : 0;
-    flags[kRegen] = regen ? 1 : 0;
-    flags[kRefill] = refill ? 1 : 0;
-    count_pass(passes);
-    if (set_handle) {
-        cudaGraphSetConditional(h_in, want ? 1u : 0u);
-        cudaGraphSetConditional(h_regen, regen ? 1u : 0u);
-        cudaGraphSetConditional(h_refill, refill ? 1u : 0u);
+        if (go && want.flags != nullptr) want_test(x, st, want, true);
     }
 }
 
 __global__ void stage_step_kernel(const int* __restrict__ x, int* __restrict__ st, int S, int P,
-                                  long long* __restrict__ passes) {
+                                  long long* __restrict__ passes, const WantTest want) {
     int base = st[kBase] + S;
     int sp = st[kSp];
     if (base >= x[kTrials]) {  // the current point's ids are exhausted: advance
@@ -148,6 +164,7 @@ __global__ void stage_step_kernel(const int* __restrict__ x, int* __restrict__ s
     st[kExcess] = 0;  // K3 only raises its flag
     st[kGens] += 1;
     count_pass(passes);
+    if (want.flags != nullptr) want_test(x, st, want, false);
 }
 
 // stage_fill: the [S, N] rows of Alice's and Bob's bits into the staging
@@ -409,7 +426,7 @@ __global__ void refill_lanes_kernel(const int* __restrict__ x, int* __restrict__
                                     uint8_t* __restrict__ done, uint8_t* __restrict__ fresh,
                                     int* __restrict__ age, int* __restrict__ lane_p,
                                     int* __restrict__ lane_of, int B, int K,
-                                    long long* __restrict__ passes) {
+                                    long long* __restrict__ passes, const WantTest want) {
     __shared__ int warp_sums[32];
     const int pos = st[kPos], sp = st[kSp];
     const int n_new = min(max(x[kTrials] - (st[kBase] + pos), 0), K);
@@ -440,6 +457,7 @@ __global__ void refill_lanes_kernel(const int* __restrict__ x, int* __restrict__
         st[kPos] = pos + K;  // by K even at a point's tail (:197)
         if (n_new > 0) st[kRefills] += 1;
         count_pass(passes);
+        if (want.flags != nullptr) want_test(x, st, want, false);
     }
 }
 
@@ -610,7 +628,7 @@ bank_kernel(const int* __restrict__ x, int* __restrict__ acc, int* __restrict__ 
             const int* __restrict__ lane_p, const int8_t* __restrict__ z,
             const int8_t* __restrict__ alice, int* __restrict__ mis, int N, int B, int P,
             uint8_t* __restrict__ flags, long long* __restrict__ passes,
-            cudaGraphConditionalHandle h_out, int set_handle) {
+            cudaGraphConditionalHandle h_out, int set_handle, const WantTest want) {
     extern __shared__ uint16_t group_mask[];  // [G]: bit j = lane 16 g + j banks a success
     __shared__ int n_bank, last, live_n;
     const int G = (B + 15) >> 4;
@@ -694,6 +712,8 @@ bank_kernel(const int* __restrict__ x, int* __restrict__ acc, int* __restrict__ 
         }
         flags[kOuterGo] = go ? 1 : 0;
         if (set_handle) cudaGraphSetConditional(h_out, go ? 1u : 0u);
+        // the next outer step's refill loop: its test before the first pass
+        if (go && want.flags != nullptr) want_test(x, st, want, true);
     }
 }
 
@@ -703,33 +723,30 @@ int last_error() {
 
 }  // namespace
 
-// Each entry launches one kernel on `stream` and returns cudaGetLastError().
+// The refill loop's test that a kernel runs last: `want` may be null (none).
+static WantTest want_or_none(const void* want) {
+    return want != nullptr ? *static_cast<const WantTest*>(want) : WantTest{};
+}
+
+// Each entry launches one kernel on `stream` and returns cudaGetLastError();
+// `want` (WantTest, may be null) is the refill loop's test, run last.
 extern "C" int cont_start(const void* x, void* acc, void* st, void* live, void* run, void* done,
                           void* fresh, void* age, void* lane_p, int B, int P, int S, int max_it,
-                          void* flags, unsigned long long h_out, int set_handle, void* stream) {
+                          void* flags, unsigned long long h_out, int set_handle,
+                          const void* want, void* stream) {
     cont_start_kernel<<<1, lane_threads(B), 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(x), static_cast<int*>(acc), static_cast<int*>(st),
         static_cast<uint8_t*>(live), static_cast<uint8_t*>(run), static_cast<uint8_t*>(done),
         static_cast<uint8_t*>(fresh), static_cast<int*>(age), static_cast<int*>(lane_p), B, P,
-        S, max_it, static_cast<uint8_t*>(flags), h_out, set_handle);
+        S, max_it, static_cast<uint8_t*>(flags), h_out, set_handle, want_or_none(want));
     return last_error();
 }
 
-extern "C" int cont_want(const void* x, void* st, int B, int P, int K, int S, int inner_cap,
-                         int entry, void* flags, void* passes, unsigned long long h_in,
-                         unsigned long long h_regen, unsigned long long h_refill,
-                         int set_handle, void* stream) {
-    cont_want_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(x), static_cast<int*>(st), B, P, K, S, inner_cap, entry,
-        static_cast<uint8_t*>(flags), static_cast<long long*>(passes), h_in, h_regen, h_refill,
-        set_handle);
-    return last_error();
-}
-
-extern "C" int stage_step(const void* x, void* st, int S, int P, void* passes, void* stream) {
+extern "C" int stage_step(const void* x, void* st, int S, int P, void* passes, const void* want,
+                          void* stream) {
     stage_step_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(x), static_cast<int*>(st), S, P,
-        static_cast<long long*>(passes));
+        static_cast<long long*>(passes), want_or_none(want));
     return last_error();
 }
 
@@ -811,12 +828,12 @@ extern "C" int stage_fill(const void* alice_rows, const void* bob, const void* a
 
 extern "C" int refill_lanes(const void* x, void* st, void* live, void* run, void* done,
                             void* fresh, void* age, void* lane_p, void* lane_of, int B, int K,
-                            void* passes, void* stream) {
+                            void* passes, const void* want, void* stream) {
     refill_lanes_kernel<<<1, lane_threads(B), 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(x), static_cast<int*>(st), static_cast<uint8_t*>(live),
         static_cast<uint8_t*>(run), static_cast<uint8_t*>(done), static_cast<uint8_t*>(fresh),
         static_cast<int*>(age), static_cast<int*>(lane_p), static_cast<int*>(lane_of), B, K,
-        static_cast<long long*>(passes));
+        static_cast<long long*>(passes), want_or_none(want));
     return last_error();
 }
 
@@ -878,7 +895,8 @@ extern "C" int bank_width(const void* z, const void* alice, int B) {
 extern "C" int bank(const void* x, void* acc, void* st, void* live, const void* run,
                     const void* done, const void* age, const void* lane_p, const void* z,
                     const void* alice, void* mis, int N, int B, int P, void* flags, void* passes,
-                    unsigned long long h_out, int set_handle, void* stream) {
+                    unsigned long long h_out, int set_handle, const void* want,
+                    void* stream) {
     int device = 0, sms = 0;
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -900,7 +918,8 @@ extern "C" int bank(const void* x, void* acc, void* st, void* live, const void* 
             static_cast<const uint8_t*>(done), static_cast<const int*>(age),
             static_cast<const int*>(lane_p), static_cast<const int8_t*>(z),
             static_cast<const int8_t*>(alice), static_cast<int*>(mis), N, B, P,
-            static_cast<uint8_t*>(flags), static_cast<long long*>(passes), h_out, set_handle);
+            static_cast<uint8_t*>(flags), static_cast<long long*>(passes), h_out, set_handle,
+            want_or_none(want));
     };
     switch (bank_load_width(z, alice, B)) {
         case 16: launch(bank_kernel<16>); break;

@@ -5,22 +5,15 @@
 // lax.while_loop (qkd_ldpc_tpu/decoder/bp.py:454, layered.py:225) around the
 // iteration, lax.cond (bp.py:546) around the compaction's fallback phase.  Here
 // the decode is captured into one CUDA graph, and each while_loop becomes a
-// conditional WHILE node (CUDA 12.4+) whose body holds the iteration's kernels
-// and, last, loop_step_kernel.  A cond whose branches are "run the loop" and "do
+// conditional WHILE node (CUDA 12.4+) whose body holds the iteration's kernels,
+// the last of which also runs the pass's bookkeeping (loop_step.cuh).  A cond whose branches are "run the loop" and "do
 // nothing" is the same node, its entry test being the cond's predicate.
 //
-// loop_step_kernel is the loop's bookkeeping, one block over the B frames:
-//   ENTRY    active = ~done & ~frozen; go = it < limit && any(active)
-//            (JAX's `cond` before the first pass);
-//   FLOODING the carry of bp.py:434-452 after a pass: done |= active & ok,
-//            it += 1 (the variable update already moved z and the frames'
-//            counts), then the ENTRY test;
-//   LAYERED  the carry of layered.py:215-225: the same, and iters = it where a
-//            frame newly converged.
-// It writes `go` to a byte (the eager loop fetches it) and, inside a graph, sets
-// the WHILE node's condition with cudaGraphSetConditional.  Bound: launch
-// latency; it moves a few bytes a frame.  `passes` (an int64, may be null)
-// counts the passes, so the host can count the body's launches afterwards.
+// loop_entry_kernel is the test before a loop (loop_step.cuh's ENTRY), one
+// block over the B frames.  The test after each pass runs in the last block of
+// the pass's last kernel (check_update.cu, layered_sweep.cu), which sets the
+// WHILE node's condition there: a pass launches no bookkeeping kernel.
+// Bound: launch latency; it moves a few bytes a frame.
 //
 // while_handle / while_begin (or if_begin) / while_end insert a WHILE (or IF)
 // node into the graph that a stream is capturing, as PyTorch's own IF-node
@@ -34,47 +27,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "loop_step.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
-constexpr int kEntry = 0;
-constexpr int kFlooding = 1;
-constexpr int kLayered = 2;
 
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-loop_step_kernel(const uint8_t* __restrict__ ok,      // [B] this pass's flags
-                 uint8_t* __restrict__ done,          // [B]
-                 uint8_t* __restrict__ active,        // [B] this pass's, then the next
-                 const uint8_t* __restrict__ frozen,  // [B] or null
-                 int* __restrict__ it,                // [1] passes so far
-                 int* __restrict__ iters,             // [B] (LAYERED)
-                 long long* __restrict__ passes,      // [1] or null
-                 uint8_t* __restrict__ go_out,        // [1] or null
-                 int limit, int B, cudaGraphConditionalHandle handle, int set_handle) {
-    const int it_new = *it + (MODE == kEntry ? 0 : 1);
-    int any = 0;
-    for (int b = threadIdx.x; b < B; b += blockDim.x) {
-        bool d = done[b] != 0;
-        if (MODE != kEntry && !d && active[b] != 0 && ok[b] != 0) {
-            d = true;
-            done[b] = 1;
-            if (MODE == kLayered) iters[b] = it_new;
-        }
-        const bool a = !d && (frozen == nullptr || frozen[b] == 0);
-        active[b] = a ? 1 : 0;
-        any |= a ? 1 : 0;
-    }
-    any = __syncthreads_or(any);  // every thread has read *it
-    if (threadIdx.x == 0) {
-        const bool go = any != 0 && it_new < limit;
-        if (MODE != kEntry) {
-            *it = it_new;
-            if (passes != nullptr) *passes += 1;
-        }
-        if (go_out != nullptr) *go_out = go ? 1 : 0;
-        if (set_handle) cudaGraphSetConditional(handle, go ? 1u : 0u);
-    }
+__global__ void __launch_bounds__(kThreads) loop_entry_kernel(const LoopStep step) {
+    loop_step_block<kLoopEntry>(nullptr, step);
 }
 
 cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph, const cudaGraphNode_t** deps,
@@ -93,42 +53,17 @@ cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph, const cudaGraphNode
 
 }  // namespace
 
-// Returns cudaGetLastError(), or -1 for an unknown mode.  `frozen`, `iters`
-// (unless mode is LAYERED), `passes` and `go` may be null; `handle` is set only
-// when `set_handle` (inside a graph).
-extern "C" int loop_step(int mode, const void* ok, void* done, void* active,
-                         const void* frozen, void* it, void* iters, void* passes,
-                         void* go, int limit, int B, unsigned long long handle,
-                         int set_handle, void* stream) {
-    const auto s = static_cast<cudaStream_t>(stream);
-    const auto* ok_p = static_cast<const uint8_t*>(ok);
-    auto* done_p = static_cast<uint8_t*>(done);
-    auto* act_p = static_cast<uint8_t*>(active);
-    const auto* frz_p = static_cast<const uint8_t*>(frozen);
-    auto* it_p = static_cast<int*>(it);
-    auto* iters_p = static_cast<int*>(iters);
-    auto* passes_p = static_cast<long long*>(passes);
-    auto* go_p = static_cast<uint8_t*>(go);
+// The test before a loop.  Returns cudaGetLastError().  `frozen` and `go` may
+// be null; `handle` is set only when `set_handle` (inside a graph).
+extern "C" int loop_entry(void* done, void* active, const void* frozen, void* it, void* go,
+                          int limit, int B, unsigned long long handle, int set_handle,
+                          void* stream) {
+    const LoopStep step{static_cast<uint8_t*>(done), static_cast<uint8_t*>(active),
+                        static_cast<const uint8_t*>(frozen), static_cast<int*>(it),
+                        nullptr, nullptr, static_cast<uint8_t*>(go), nullptr, handle,
+                        limit, B, set_handle};
     const int threads = B < kThreads ? ((B + 31) / 32) * 32 : kThreads;
-    switch (mode) {
-        case kEntry:
-            loop_step_kernel<kEntry><<<1, threads, 0, s>>>(
-                ok_p, done_p, act_p, frz_p, it_p, iters_p, passes_p, go_p, limit, B, handle,
-                set_handle);
-            break;
-        case kFlooding:
-            loop_step_kernel<kFlooding><<<1, threads, 0, s>>>(
-                ok_p, done_p, act_p, frz_p, it_p, iters_p, passes_p, go_p, limit, B, handle,
-                set_handle);
-            break;
-        case kLayered:
-            loop_step_kernel<kLayered><<<1, threads, 0, s>>>(
-                ok_p, done_p, act_p, frz_p, it_p, iters_p, passes_p, go_p, limit, B, handle,
-                set_handle);
-            break;
-        default:
-            return -1;
-    }
+    loop_entry_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(step);
     return static_cast<int>(cudaGetLastError());
 }
 

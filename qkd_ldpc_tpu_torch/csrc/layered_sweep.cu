@@ -53,6 +53,12 @@
 // its own checks (z above 1024) one after the other.  One __syncthreads() separates
 // layers.  Any z and any alignment is taken; only the copy of t narrows.
 //
+// Inside a decode loop (decoder/layered.py) the sweep is the whole pass, and its
+// TAIL instances also run the pass's bookkeeping (loop_step.cuh: done, active,
+// iters, it, the condition of the loop's WHILE node) in the launch's last block,
+// once every other block has counted itself on a ticket, which each does as
+// soon as its frame's ok is stored.  The pass then needs no bookkeeping launch.
+//
 // Gating: a frame whose act flag is 0 is left untouched (its block returns at
 // once) and its ok is written as 0; the plain version multiplies the update by
 // the flag instead, which is the same for finite state.  The caller uses ok only
@@ -64,6 +70,7 @@
 #include <type_traits>
 
 #include "check_math.cuh"
+#include "loop_step.cuh"
 
 namespace {
 
@@ -97,7 +104,9 @@ __device__ __forceinline__ void fetch_step(const storage_t* __restrict__ lr,
     out->syn = syn[i * Bz + frame + r];
 }
 
-template <int ALG, bool CLIP, int DC, bool SHARED>
+// TAIL: every block counts itself once its ok is stored, and the launch's last
+// block runs the loop's bookkeeping over ok (step).
+template <int ALG, bool CLIP, int DC, bool SHARED, bool TAIL>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 layered_sweep_kernel(float* __restrict__ t,             // [nb, B, z]
                      storage_t* __restrict__ lr,        // [ncells, B, z]
@@ -109,12 +118,16 @@ layered_sweep_kernel(float* __restrict__ t,             // [nb, B, z]
                      const int* __restrict__ shift_g,    // [ncells]
                      float* __restrict__ scratch,        // [dc_max, B, z] (DC = 0, SP)
                      int nb, int mb, int ncells, int z, int B, bool wide_copy,
-                     float threshold, float alpha, float beta, float scale) {
+                     float threshold, float alpha, float beta, float scale,
+                     const LoopStep step) {
     // [nb * z floats of t when SHARED][mb + 1 | ncells | ncells ints of tables]
     extern __shared__ __align__(16) unsigned char smem[];
     const int b = blockIdx.x;
     if (act[b] == 0) {
         if (threadIdx.x == 0) ok[b] = 0;
+        if constexpr (TAIL) {  // thread 0 stored the block's one flag
+            if (count_unless_elected(step.ticket, true)) elected_tail<kLoopLayered>(ok, step);
+        }
         return;
     }
     const size_t Bz = static_cast<size_t>(B) * z;
@@ -274,11 +287,14 @@ layered_sweep_kernel(float* __restrict__ t,             // [nb, B, z]
     // also the barrier between the parity reads and nothing later writing t
     const int any_bad = __syncthreads_or(bad);
     if (threadIdx.x == 0) ok[b] = any_bad == 0 ? 1 : 0;
+    // thread 0 stored the block's one flag, and counts the block at once
+    const bool elected = TAIL && count_unless_elected(step.ticket, true);
 
     if (SHARED) {
         if (wide_copy) copy_t(std::integral_constant<int, 4>{}, false);
         else copy_t(std::integral_constant<int, 1>{}, false);
     }
+    if (elected) elected_tail<kLoopLayered>(ok, step);
 }
 
 struct Args {
@@ -291,6 +307,7 @@ struct Args {
     const int* col;
     const int* shift;
     float* scratch;
+    const LoopStep* step;  // null: no bookkeeping (the plain instances)
     int nb, mb, ncells, z, B;
     bool wide_copy;  // t starts on a 16-byte boundary and z is a multiple of 4
     float threshold, alpha, beta, scale;
@@ -313,10 +330,10 @@ bool totals_in_shared(const Args& p) {
     return totals_bytes(p) + table_bytes(p) <= kBlockSharedLimit;
 }
 
-template <int ALG, bool CLIP, int DC, bool SHARED>
+template <int ALG, bool CLIP, int DC, bool SHARED, bool TAIL>
 int launch_kernel(const Args& p) {
     const size_t shared = (SHARED ? totals_bytes(p) : 0) + table_bytes(p);
-    const auto kernel = layered_sweep_kernel<ALG, CLIP, DC, SHARED>;
+    const auto kernel = layered_sweep_kernel<ALG, CLIP, DC, SHARED, TAIL>;
     if (shared > kStaticSharedLimit) {
         const cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
@@ -327,14 +344,21 @@ int launch_kernel(const Args& p) {
     kernel<<<p.B, threads, shared, p.stream>>>(
         p.t, p.lr, p.syn, p.act, p.ok, p.row_ptr, p.col, p.shift, p.scratch, p.nb, p.mb,
         p.ncells,
-        p.z, p.B, p.wide_copy, p.threshold, p.alpha, p.beta, p.scale);
+        p.z, p.B, p.wide_copy, p.threshold, p.alpha, p.beta, p.scale,
+        p.step != nullptr ? *p.step : LoopStep{});
     return static_cast<int>(cudaGetLastError());
+}
+
+template <int ALG, bool CLIP, int DC, bool SHARED>
+int launch_tail(const Args& p) {
+    return p.step != nullptr ? launch_kernel<ALG, CLIP, DC, SHARED, true>(p)
+                             : launch_kernel<ALG, CLIP, DC, SHARED, false>(p);
 }
 
 template <int ALG, bool CLIP, int DC>
 int launch(const Args& p) {
-    return totals_in_shared(p) ? launch_kernel<ALG, CLIP, DC, true>(p)
-                               : launch_kernel<ALG, CLIP, DC, false>(p);
+    return totals_in_shared(p) ? launch_tail<ALG, CLIP, DC, true>(p)
+                               : launch_tail<ALG, CLIP, DC, false>(p);
 }
 
 template <int ALG, bool CLIP>
@@ -368,15 +392,16 @@ extern "C" int layered_sweep_max_unrolled_degree() { return kMaxUnrolledDegree; 
 
 // `aligned`: t starts on a 16-byte boundary (the 16-byte copies of t need it, and a z
 // that is a multiple of 4).  `dc` is the largest row degree; `scratch` is float32
-// [dc, B, z] and may be null where it is not used.  Returns cudaGetLastError() (or
-// the error of raising the shared-memory limit), -1 when dc < 2, or -3 when the loop
-// instance of sum-product is given no scratch.
+// [dc, B, z] and may be null where it is not used; `step` (loop_step.cuh, may be
+// null) is the loop's bookkeeping after this sweep, run in the launch's last block.
+// Returns cudaGetLastError() (or the error of raising the shared-memory limit), -1
+// when dc < 2, or -3 when the loop instance of sum-product is given no scratch.
 extern "C" int layered_sweep(int algorithm, int clip, int dc, int aligned, void* t,
                              void* lr, const void* syn, const void* act, void* ok,
                              const void* row_ptr, const void* col, const void* shift,
                              void* scratch, int nb, int mb, int ncells, int z, int B,
                              float threshold, float alpha, float beta, float scale,
-                             void* stream) {
+                             const void* step, void* stream) {
     if (dc < 2) return -1;
     if (dc > kMaxUnrolledDegree && algorithm != kMinSum && scratch == nullptr) return -3;
     const Args p{static_cast<float*>(t),
@@ -388,6 +413,7 @@ extern "C" int layered_sweep(int algorithm, int clip, int dc, int aligned, void*
                  static_cast<const int*>(col),
                  static_cast<const int*>(shift),
                  static_cast<float*>(scratch),
+                 static_cast<const LoopStep*>(step),
                  nb, mb, ncells, z, B, aligned != 0 && z % 4 == 0, threshold, alpha, beta, scale,
                  static_cast<cudaStream_t>(stream)};
     return launch_flags(algorithm, clip, dc, p);

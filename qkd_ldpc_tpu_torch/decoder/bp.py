@@ -34,9 +34,10 @@ package's, restated for PyTorch:
   and replays it, so a decode makes no host round trip between its input
   and its output; a trial chunk (``sim/runner.py``) captures the same
   program once per batch inside its own graph (:func:`decode_program`).
-  ``lax.while_loop`` becomes a WHILE node whose condition a bookkeeping
-  kernel sets on the card, ``lax.cond`` (phase C) a WHILE node whose entry
-  test is the cond's predicate (``decoder/device_loop.py``).
+  ``lax.while_loop`` becomes a WHILE node whose condition the pass's check
+  update sets on the card (its last block runs the loop's bookkeeping),
+  ``lax.cond`` (phase C) a WHILE node whose entry test is the cond's
+  predicate (``decoder/device_loop.py``).
   The same program runs eagerly on the CPU, under ``backend="xla"``, and in
   ``device_loop.eager_loops()`` (the eager kernel loop the graph is held
   against); there the loop fetches its condition after every pass.
@@ -185,7 +186,7 @@ class _DecodeCore:
         )
 
     def check_update_fused(self, total, Lr_prev, syn, fresh=None, ok=None, out=None,
-                           scratch=None):
+                           scratch=None, step=None):
         """Bit-node update (Lq = clip(total - Lr), in registers) + check
         update + decision syndrome of ``total``; returns ``(Lr, ok)``.
 
@@ -196,10 +197,12 @@ class _DecodeCore:
         Used by the continuation runner, where refilled lanes restart
         mid-batch.  ``ok`` is the all-True flag buffer that
         :meth:`variable_update` returned (the kernel clears flags in it).
+        ``step`` (``device_loop.LoopTail``) is the loop's bookkeeping over
+        those flags, run after the update.
         """
         return cuda_kernels.check_update_fused(
             total, Lr_prev, syn, self.maps, fresh=fresh, ok=ok, out=out,
-            scratch=scratch, **self.kernel_args
+            scratch=scratch, step=step, **self.kernel_args
         )
 
     def variable_update(self, Lr, llr, z, count, active, out=None, fold=None):
@@ -227,15 +230,16 @@ class _Lanes:
         self.total = torch.empty(llr.shape, dtype=core.mdt, device=llr.device)
         self.scratch = core.scratch(llr.shape[1])
 
-    def iteration(self):
+    def iteration(self, tail):
         """One pass of the loop body: variable update (z and iters move on
         the active lanes), then the check update IN PLACE over ``Lr``, whose
-        flags land in ``loop.ok``.  Allocates nothing."""
+        flags land in ``loop.ok`` and which runs the loop's bookkeeping
+        ``tail`` after them.  Allocates nothing."""
         core, loop = self.core, self.loop
         core.variable_update(self.Lr, self.llr, self.z, self.iters, loop.active,
                              out=(self.total, loop.ok))
         core.check_update_fused(self.total, self.Lr, self.syn, ok=loop.ok, out=self.Lr,
-                                scratch=self.scratch)
+                                scratch=self.scratch, step=tail)
 
     def run(self, limit, graph, frozen=None):
         """The early-exit loop (``lax.while_loop``) up to ``limit`` passes

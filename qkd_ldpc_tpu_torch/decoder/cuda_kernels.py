@@ -27,7 +27,10 @@ variable's check messages in slot order, adds the a-priori LLR, rounds to
 storage and writes ``total [N, B]``; on the frames whose ``active`` flag is
 set it also writes the decision ``z`` and adds one to the frame's iteration
 count, and it hands the check update its flag buffer ``ok``, all True.  So the loop of ``decoder/bp.py`` carries ``(total, Lr)`` and an
-iteration is two launches with no tensor pass over the messages between.
+iteration is two launches with no tensor pass over the messages between;
+inside the decode loop the check update also runs the loop's bookkeeping
+after the pass (``step=``, ``device_loop.LoopTail``: the FOLD kernels,
+in their last block), so a pass launches nothing else.
 The continuation's segment folds its previous pass's bookkeeping into the
 update as well (``fold=``, :class:`PassFold`: the kernel's FOLD instances),
 so a pass is two launches there too.
@@ -166,14 +169,16 @@ def _gathered(total, maps):
 
 def check_update_plain(total, lr_prev, syn, maps, *, first, threshold, clip,
                        algorithm, min_sum_alpha, min_sum_beta, scale, fresh=None,
-                       ok=None, out=None, scratch=None):
+                       ok=None, out=None, scratch=None, step=None):
     """Plain PyTorch version of the check kernel (``first`` and ``fresh``
     select which; ``fresh`` is a [B] bool mask of frames whose ``Lq`` is not
     clipped).  ``total`` is [N, B] in storage type, ``syn`` the [M, B] integer
     target syndrome, ``maps`` the code's ``DeviceCode``.  Returns ``(Lr, ok)``;
     ``ok`` is None when ``first``.  As the kernel's wrapper, it writes ``Lr``
     into ``out`` when given (which may be ``lr_prev`` itself) and the flags
-    into ``ok`` when given; ``scratch`` is the kernel's and unused here."""
+    into ``ok`` when given; ``scratch`` is the kernel's and unused here.
+    ``step`` (``device_loop.LoopTail``, not with ``first``) runs the loop's
+    bookkeeping over the flags afterwards."""
     a = _gathered(total, maps)
     dc = a.shape[0]
     masks = [maps.chk_mask_T[j][:, None] for j in range(dc)]
@@ -194,14 +199,18 @@ def check_update_plain(total, lr_prev, syn, maps, *, first, threshold, clip,
         lr_out = _sp_messages(lq, masks, syn_sign, threshold, clip)
     Lr = torch.stack([_store(o, a.dtype, scale) for o in lr_out])
     if first:
+        if step is not None:
+            raise ValueError("iteration 1 is peeled before the loop: no step")
         return (Lr if out is None else out.copy_(Lr)), None
     # Decisions and their syndrome derive from the same storage-rounded totals.
     z_chk = (a <= 0) & maps.chk_mask_T[:, :, None]
     flags = ((z_chk.sum(dim=0, dtype=torch.int32) & 1) == syn).all(dim=0)
     if fresh is not None:
         flags = flags & ~fresh
-    return (Lr if out is None else out.copy_(Lr)), (
-        flags if ok is None else ok.copy_(flags))
+    flags = flags if ok is None else ok.copy_(flags)
+    if step is not None:
+        step.plain(flags)
+    return (Lr if out is None else out.copy_(Lr)), flags
 
 
 def _need_cuda(ref):
@@ -225,7 +234,7 @@ def _on_device_contiguous(ref, tensors):
 
 def check_update_cuda(total, lr_prev, syn, maps, *, first, threshold, clip,
                       algorithm, min_sum_alpha, min_sum_beta, scale, fresh=None,
-                      ok=None, out=None, scratch=None):
+                      ok=None, out=None, scratch=None, step=None):
     """Launch the check kernel on the current stream (no synchronisation);
     same arguments and results as :func:`check_update_plain`, with ``syn``
     int8.  ``ok`` ([B] bool, all True — as the variable update leaves it) is
@@ -234,7 +243,9 @@ def check_update_cuda(total, lr_prev, syn, maps, *, first, threshold, clip,
     thread reads each message it overwrites before it writes it, and no other
     thread touches it) and ``scratch`` (:func:`check_scratch_shape`) are used
     instead of new tensors when given, so a call inside a CUDA graph's loop
-    allocates nothing."""
+    allocates nothing.  ``step`` (``device_loop.LoopTail``, with ``ok``)
+    launches the FOLD kernel, whose last block runs the loop's bookkeeping
+    over the flags."""
     _check_storage(total, scale, algorithm)
     dc, M = maps.chk_adj_T_i32.shape
     N = maps.var_slot_T_i32.shape[1]
@@ -244,6 +255,8 @@ def check_update_cuda(total, lr_prev, syn, maps, *, first, threshold, clip,
     B = total.shape[1]
     if first and fresh is not None:
         raise ValueError("fresh belongs to the fused update, not to iteration 1")
+    if step is not None and (first or ok is None):
+        raise ValueError("a step runs after a fused update, over its given ok buffer")
     tensors = [total, maps.chk_adj_T_i32, maps.chk_mask_T_i32, syn]
     tensors += [] if first else [lr_prev]
     tensors += [] if fresh is None else [fresh]
@@ -281,11 +294,12 @@ def check_update_cuda(total, lr_prev, syn, maps, *, first, threshold, clip,
     # the scratch included
     vec = vector_width("check_update", B, total.dtype, *tensors, out,
                        *([] if first else [ok]), *([] if scratch is None else [scratch]))
+    step_args = None if step is None else ctypes.byref(step.args(ok))
     library = "check_update_" + _STORAGE_NAMES[total.dtype]
     fn = _build.function(
         library, "check_update",
         [ctypes.c_int] * 5 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
-        + [ctypes.c_float] * 4 + [ctypes.c_void_p],
+        + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 2,
     )
     with torch.cuda.device(total.device):
         err = fn(
@@ -296,7 +310,7 @@ def check_update_cuda(total, lr_prev, syn, maps, *, first, threshold, clip,
             out.data_ptr(), 0 if first else ok.data_ptr(),
             0 if scratch is None else scratch.data_ptr(), M, B,
             threshold, min_sum_alpha, min_sum_beta,
-            scale if scale is not None else 1.0,
+            scale if scale is not None else 1.0, step_args,
             torch.cuda.current_stream().cuda_stream,
         )
     name = KERNEL_FIRST if first else (KERNEL_FUSED if fresh is None else KERNEL_FRESH)
@@ -322,15 +336,17 @@ def check_update_first(total0, syn, maps, *, backend="auto", out=None, scratch=N
 
 
 def check_update_fused(total, Lr_prev, syn, maps, *, backend="auto", fresh=None,
-                       ok=None, out=None, scratch=None, **kw):
+                       ok=None, out=None, scratch=None, step=None, **kw):
     """Fused bit-node + check update: ``(total, Lr_prev)`` -> ``(Lr, ok)``;
     with ``fresh`` ([B] bool) the frames it marks skip the clip of ``Lq``.
     ``ok`` is the all-True flag buffer that the variable update returned;
     ``out`` (may be ``Lr_prev``: an update in place) and ``scratch`` replace
-    the new tensors of the kernel's wrapper."""
+    the new tensors of the kernel's wrapper; ``step``
+    (``device_loop.LoopTail``) is the loop's bookkeeping over ``ok``, run
+    after the update."""
     fn = check_update_cuda if _build.use_kernel(backend, total.device) else check_update_plain
     return fn(total, Lr_prev, syn, maps, first=False, fresh=fresh, ok=ok, out=out,
-              scratch=scratch, **kw)
+              scratch=scratch, step=step, **kw)
 
 
 class PassFold(NamedTuple):

@@ -17,7 +17,8 @@ instance that walks them in loops (its sum-product keeps the prefix
 products in a float32 scratch ``[dc_max, B, z]`` that the wrapper
 allocates); both equal the plain sweep bit for bit.  Its plain version is
 ``decoder.layered.layered_sweep_plain`` (same arguments, same results);
-the decode loop around both is ``decoder.layered``.
+the decode loop around both is ``decoder.layered``, whose loop's
+bookkeeping after a sweep the kernel runs in its last block (``step=``).
 
 State layout (z fastest): ``t [nb, B, z]`` float32, ``Lr [ncells, B, z]``
 in the message storage type, ``syn [mb, B, z]`` int8, ``act [B]`` bool.
@@ -84,12 +85,15 @@ def sweep_scratch_shape(tables, B: int, algorithm: str, dtype: torch.dtype):
 
 
 def layered_sweep_cuda(t, Lr, syn, act, tables, *, threshold, clip, algorithm,
-                       min_sum_alpha, min_sum_beta, scale, out=None, scratch=None):
+                       min_sum_alpha, min_sum_beta, scale, out=None, scratch=None,
+                       step=None):
     """Launch one sweep on the current stream (no synchronisation); updates
     ``t`` and ``Lr`` in place and returns ``(t, Lr, ok [B] bool)``.  ``ok``
     is written into ``out`` and the loop instance's prefix products into
     ``scratch`` (:func:`sweep_scratch_shape`) when they are given, so a
-    call inside a CUDA graph's loop allocates nothing.
+    call inside a CUDA graph's loop allocates nothing.  ``step``
+    (``device_loop.LoopTail``, LAYERED) launches the TAIL instance, whose
+    last block runs the loop's bookkeeping over ``ok``.
 
     ``tables`` carries the code's static layer tables on the tensors' device:
     ``nb``, ``mb``, ``z``, ``max_row_degree`` and the int32 tensors ``row_ptr
@@ -138,10 +142,11 @@ def layered_sweep_cuda(t, Lr, syn, act, tables, *, threshold, clip, algorithm,
     elif (scratch.dtype != torch.float32 or scratch.numel() < dc * B * z
           or scratch.device != t.device or not scratch.is_contiguous()):
         raise ValueError(f"scratch must be contiguous float32 of {dc * B * z} elements")
+    step_args = None if step is None else ctypes.byref(step.args(ok))
     fn = _build.function(
         library, "layered_sweep",
         [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-        + [ctypes.c_float] * 4 + [ctypes.c_void_p],
+        + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 2,
     )
     with torch.cuda.device(t.device):
         err = fn(
@@ -151,7 +156,7 @@ def layered_sweep_cuda(t, Lr, syn, act, tables, *, threshold, clip, algorithm,
             tables.shift.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
             nb, mb, ncells, z, B,
             threshold, min_sum_alpha, min_sum_beta,
-            scale if scale is not None else 1.0,
+            scale if scale is not None else 1.0, step_args,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(KERNEL_NAME, err)

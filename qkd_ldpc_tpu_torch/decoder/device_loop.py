@@ -7,16 +7,20 @@ The JAX package runs a decode as one compiled device program:
 (``bp.py:546``), ``fori_loop`` around the continuation's segment
 (``sim/continuation.py:235``).  The port's counterparts:
 
-- :func:`loop_step` — the loop's carry and condition (``csrc/device_loop.cu``
-  ``loop_step_kernel``; plain version :func:`loop_step_plain`, which the CPU
-  loop runs): after a pass ``done |= active & ok``, ``it += 1`` (the layered
-  carry also sets ``iters = it`` where a frame newly converged), then
-  ``active = ~done & ~frozen`` and the condition ``it < limit &&
-  any(active)``; the ENTRY mode only tests.
+- :func:`loop_step_plain` — the loop's carry and condition
+  (``csrc/loop_step.cuh``): after a pass ``done |= active & ok``, ``it += 1``
+  (the layered carry also sets ``iters = it`` where a frame newly converged),
+  then ``active = ~done & ~frozen`` and the condition ``it < limit &&
+  any(active)``; the ENTRY mode only tests.  On the card the ENTRY test is a
+  kernel of its own (:func:`loop_step`, ``csrc/device_loop.cu``); the test
+  after a pass is a :class:`LoopTail` handed to the pass's last kernel (the
+  check update of a flooding pass, the sweep of a layered one), whose last
+  block runs it, so a pass launches no bookkeeping kernel.  The plain
+  versions of those kernels run :func:`loop_step_plain` after the plain pass.
 - :func:`run_loop` — ``lax.while_loop``.  Eagerly (the CPU, ``backend="xla"``,
   or :func:`eager_loops`) it is a Python ``while`` that fetches the condition
   byte after every pass.  Inside a capture it is a conditional WHILE node:
-  the entry kernel sets the node's condition before it and the body's last
+  the entry kernel sets the node's condition before it and the pass's last
   kernel after every pass, so the card runs the loop with no host round
   trip.  A ``lax.cond`` whose branches are "run the loop" and "nothing" (phase
   C) is the same node with the cond's predicate as its entry test.
@@ -31,7 +35,7 @@ The JAX package runs a decode as one compiled device program:
   launches are not counted.  A capture that fails raises: nothing falls back
   to the eager loop.  :meth:`Graph.conditional` adds a WHILE or an IF node
   on a handle that a kernel sets before it; a body may hold such nodes
-  itself (the continuation's outer loop holds its refill loop, which holds
+  itself (the continuation's outer loop holds its refill loop, whose body is
   one IF node for ``regen`` and one for ``refill``: ``sim/continuation.py``).
 - :func:`run_graph` — a bounded cache of captured programs per device (a
   decode, or a whole trial chunk of ``sim/runner.py``), one per program key:
@@ -46,7 +50,8 @@ Launch counts: a capture lists its kernel nodes (``_build.recording``);
 every replay counts the outer graph's nodes, and each conditional body's
 kernels are counted by the passes one of its kernels adds to a device counter
 (read when the counts are read, and folded into the host's counts when the
-graph leaves the cache).
+graph leaves the cache); a body that holds only conditional nodes has no
+kernel of its own to count.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ import collections
 import contextlib
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -62,11 +68,8 @@ from qkd_ldpc_tpu_torch import _build
 from qkd_ldpc_tpu_torch.utils import canonical_device
 
 ENTRY, FLOODING, LAYERED = 0, 1, 2
-# Kernel names the launch counts use for the three modes of loop_step_kernel.
+# The name the launch counts use for the entry test's kernel.
 KERNEL_ENTRY = "loop_entry"
-KERNEL_STEP = "loop_step"
-KERNEL_SWEEP_STEP = "sweep_step"
-_KERNEL_NAMES = {ENTRY: KERNEL_ENTRY, FLOODING: KERNEL_STEP, LAYERED: KERNEL_SWEEP_STEP}
 # WHILE nodes one decode holds (phases A, B and C); a program of several
 # decodes (a trial chunk) sizes its graph with LOOPS_PER_DECODE each.
 LOOPS_PER_DECODE = 3
@@ -105,14 +108,73 @@ def graphs_on(use_kernel: bool, device: torch.device) -> bool:
 class LoopState:
     """The per-loop buffers a pass and its bookkeeping share: ``ok`` (the
     pass's convergence flags), ``done``, ``active``, ``it`` ([1] int32,
-    passes so far), ``go`` ([1] bool, the eager loop's condition)."""
+    passes so far), ``go`` ([1] bool, the eager loop's condition), ``ticket``
+    ([1] int32, 0: the blocks of the pass's last kernel count themselves on
+    it to elect the one that runs the bookkeeping)."""
 
     def __init__(self, done: torch.Tensor, it: torch.Tensor):
         B, device = done.shape[0], done.device
         self.done, self.it = done, it
         self.ok = torch.ones((B,), dtype=torch.bool, device=device)
-        self.active = torch.zeros((B,), dtype=torch.bool, device=device)
+        # active and the ticket (on a 16-byte boundary) zeroed by one fill
+        b16 = -(-B // 16) * 16
+        zeros = torch.zeros((b16 + 4,), dtype=torch.uint8, device=device)
+        self.active = zeros[:B].view(torch.bool)
+        self.ticket = zeros[b16:].view(torch.int32)
         self.go = torch.zeros((1,), dtype=torch.bool, device=device)
+
+
+class _LoopStepArgs(ctypes.Structure):
+    """``struct LoopStep`` of ``csrc/loop_step.cuh``, field for field."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "done", "active", "frozen", "it", "iters", "passes", "go", "ticket")] + [
+        ("handle", ctypes.c_ulonglong), ("limit", ctypes.c_int), ("B", ctypes.c_int),
+        ("set_handle", ctypes.c_int)]
+
+
+class LoopTail(NamedTuple):
+    """The bookkeeping after a pass (FLOODING or LAYERED), handed to the
+    pass's last kernel: its wrapper runs it over the pass's flags, in the
+    kernel's last block on the card (the kernel's tail) or as
+    :func:`loop_step_plain` after the plain pass.  ``passes`` (the WHILE
+    body's counter) and ``handle`` (its condition) inside a capture."""
+
+    mode: int
+    done: torch.Tensor
+    active: torch.Tensor
+    frozen: torch.Tensor | None
+    it: torch.Tensor
+    iters: torch.Tensor | None
+    limit: int
+    go: torch.Tensor
+    ticket: torch.Tensor
+    passes: torch.Tensor | None = None
+    handle: int | None = None
+
+    def plain(self, ok: torch.Tensor) -> None:
+        """The bookkeeping over ``ok`` in plain PyTorch."""
+        loop_step_plain(self.mode, ok, self.done, self.active, self.frozen, self.it,
+                        self.iters, self.limit, self.passes, self.go)
+
+    def args(self, ok: torch.Tensor) -> _LoopStepArgs:
+        """The kernel's argument, after checking that the tail's buffers fit
+        the pass's flags ``ok`` (bool ``[B]`` on the card)."""
+        B = ok.shape[0]
+        _check_step(self.mode, ok, self.done, self.active, self.frozen, self.it, self.iters,
+                    self.passes, self.go)
+        if self.mode == ENTRY:
+            raise ValueError("a pass's tail is the FLOODING or LAYERED bookkeeping")
+        if self.ticket.shape != (1,) or self.ticket.dtype != torch.int32 or (
+                self.ticket.device != ok.device):
+            raise ValueError("ticket must be int32 [1] on the device of ok")
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        return _LoopStepArgs(ptr(self.done), ptr(self.active), ptr(self.frozen), ptr(self.it),
+                             ptr(self.iters), ptr(self.passes), ptr(self.go), ptr(self.ticket),
+                             self.handle or 0, self.limit, B, int(self.handle is not None))
 
 
 def loop_step_plain(mode, ok, done, active, frozen, it, iters, limit, passes=None,
@@ -134,10 +196,7 @@ def loop_step_plain(mode, ok, done, active, frozen, it, iters, limit, passes=Non
         go.copy_((it_new < limit) & act.any())
 
 
-def loop_step_cuda(mode, ok, done, active, frozen, it, iters, limit, passes=None,
-                   go=None, handle=None):
-    """Launch the bookkeeping kernel on the current stream; ``handle`` (a
-    WHILE node's condition, inside a capture) is set as well as ``go``."""
+def _check_step(mode, ok, done, active, frozen, it, iters, passes, go):
     B = done.shape[0]
     flags = [ok, done, active] + ([] if frozen is None else [frozen])
     if any(t.shape != (B,) or t.dtype != torch.bool for t in flags):
@@ -151,10 +210,21 @@ def loop_step_cuda(mode, ok, done, active, frozen, it, iters, limit, passes=None
     if any(t.device != done.device or not t.is_contiguous() for t in tensors):
         raise ValueError("inputs must be contiguous and on one device")
     if done.device.type != "cuda":
-        raise ValueError("loop_step_cuda needs CUDA tensors")
+        raise ValueError("the loop's bookkeeping on the card needs CUDA tensors")
+
+
+def loop_step_cuda(mode, ok, done, active, frozen, it, iters, limit, passes=None,
+                   go=None, handle=None):
+    """Launch the entry test's kernel on the current stream (``mode`` ENTRY:
+    a pass's bookkeeping runs in the pass's last kernel, :class:`LoopTail`);
+    ``handle`` (a WHILE node's condition, inside a capture) is set as well
+    as ``go``."""
+    if mode != ENTRY:
+        raise ValueError("a pass's bookkeeping runs in the pass's last kernel (LoopTail)")
+    _check_step(mode, ok, done, active, frozen, it, iters, passes, go)
     fn = _build.function(
-        "device_loop", "loop_step",
-        [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+        "device_loop", "loop_entry",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
         + [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p],
     )
 
@@ -162,16 +232,16 @@ def loop_step_cuda(mode, ok, done, active, frozen, it, iters, limit, passes=None
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(done.device):
-        err = fn(mode, ptr(ok), ptr(done), ptr(active), ptr(frozen), ptr(it), ptr(iters),
-                 ptr(passes), ptr(go), limit, B, 0 if handle is None else handle,
-                 int(handle is not None), torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(_KERNEL_NAMES[mode], err)
+        err = fn(ptr(done), ptr(active), ptr(frozen), ptr(it), ptr(go), limit, done.shape[0],
+                 0 if handle is None else handle, int(handle is not None),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(KERNEL_ENTRY, err)
 
 
 def loop_step(mode, ok, done, active, frozen, it, iters, limit, *, use_kernel,
               passes=None, go=None, handle=None):
-    """The bookkeeping of one pass (or the entry test): the kernel when
-    ``use_kernel`` (raises for a CPU tensor), else the plain version."""
+    """The entry test (the kernel when ``use_kernel``, which raises for a CPU
+    tensor), or any mode's plain version."""
     if use_kernel:
         loop_step_cuda(mode, ok, done, active, frozen, it, iters, limit, passes, go, handle)
     else:
@@ -181,24 +251,29 @@ def loop_step(mode, ok, done, active, frozen, it, iters, limit, *, use_kernel,
 def run_loop(body, state: LoopState, limit: int, mode: int, *, use_kernel: bool,
              frozen=None, iters=None, graph=None):
     """``lax.while_loop``: while ``state.it < limit`` and some frame is
-    active (not done, not frozen), run ``body()`` — one pass, which writes
-    its convergence flags into ``state.ok`` — then the bookkeeping.
+    active (not done, not frozen), run ``body(tail)`` — one pass, which
+    writes its convergence flags into ``state.ok`` and hands ``tail`` (the
+    bookkeeping of ``mode``, a :class:`LoopTail`) to its last kernel.
 
     ``graph`` (a :class:`Graph` being captured) makes it a WHILE node;
     otherwise the loop fetches the condition byte after every pass."""
 
-    def step(m, handle=None, passes=None):
-        loop_step(m, state.ok, state.done, state.active, frozen, state.it, iters, limit,
-                  use_kernel=use_kernel, passes=passes, go=state.go, handle=handle)
+    def tail(handle=None, passes=None):
+        return LoopTail(mode, state.done, state.active, frozen, state.it, iters, limit,
+                        state.go, state.ticket, passes, handle)
+
+    def entry(handle=None):
+        loop_step(ENTRY, state.ok, state.done, state.active, frozen, state.it, iters, limit,
+                  use_kernel=use_kernel, go=state.go, handle=handle)
 
     if graph is not None:
-        graph.while_loop(lambda h: step(ENTRY, h), body,
-                         lambda h, passes: step(mode, h, passes))
+        handle = graph.handle()
+        entry(handle)
+        graph.conditional(WHILE, handle, lambda passes: body(tail(handle, passes)))
         return
-    step(ENTRY)
+    entry()
     while bool(state.go):  # the eager loop's host sync, one a pass
-        body()
-        step(mode)
+        body(tail())
 
 
 def _call(fn, *args) -> None:
@@ -280,7 +355,8 @@ class Graph:
         current stream; ``body(passes)`` launches the body on this depth's
         body stream, and one of its kernels adds one to ``passes`` (an int64
         ``[1]`` device counter) every time the body runs.  ``body`` may
-        capture conditional nodes itself."""
+        capture conditional nodes itself; a body made of them alone launches
+        no kernel of its own and leaves ``passes`` unused."""
         k = len(self.bodies)
         if k == self.passes.shape[0]:
             raise RuntimeError(f"this captured program holds at most {k} conditional bodies")
@@ -303,19 +379,6 @@ class Graph:
             _call(_build.function("device_loop", "while_end", [ctypes.c_void_p]),
                   body_stream.cuda_stream)
         self.bodies[k] = names
-
-    def while_loop(self, entry, body, step):
-        """Capture a WHILE node: ``entry(handle)`` launches the entry test on
-        the capturing stream, ``body()`` and ``step(handle, passes)`` the
-        body on the body stream."""
-        handle = self.handle()
-        entry(handle)
-
-        def run(passes):
-            body()
-            step(handle, passes)
-
-        self.conditional(WHILE, handle, run)
 
     def replay(self) -> None:
         """Launch the graph on the current stream (no synchronisation)."""

@@ -32,8 +32,9 @@ numbered by ``(i, j)`` in lexicographic order.
 what runs for CPU tensors and under ``backend="xla"``.  The early-exit loop
 is ``decoder.device_loop.run_loop`` with the layered carry: on the card the
 kernel backend captures the whole decode as one CUDA graph (one WHILE node a
-phase, the carry and the condition kept by a kernel), elsewhere the same
-program runs eagerly and fetches the condition after every sweep.
+phase, the carry and the condition kept by the sweep kernel's last block),
+elsewhere the same program runs eagerly and fetches the condition after
+every sweep.
 """
 
 from __future__ import annotations
@@ -121,14 +122,15 @@ def _rot(x: torch.Tensor, s: int) -> torch.Tensor:
 
 def layered_sweep_plain(t, Lr, syn, act, tables, *, threshold, clip, algorithm,
                         min_sum_alpha, min_sum_beta, scale, out=None, scratch=None,
-                        in_place=False):
+                        in_place=False, step=None):
     """One serial pass over all layers plus the decision-syndrome check: the
     plain PyTorch version of ``cuda_layered.layered_sweep_cuda`` (same
     arguments).  Returns new ``(t, Lr, ok [B] bool)``; ``act`` [B] bool gates
     the updates (an inactive frame's state does not change).  With
     ``in_place`` it updates ``t`` and ``Lr`` where they lie, as the kernel
     does, and ``ok`` goes into ``out`` when given (``scratch`` is the
-    kernel's and unused here)."""
+    kernel's and unused here); ``step`` (``device_loop.LoopTail``) runs the
+    loop's bookkeeping over ``ok`` afterwards."""
     z = tables.z
     t_in, Lr_in = t, Lr
     t, Lr = t.clone(), Lr.clone()
@@ -155,7 +157,10 @@ def layered_sweep_plain(t, Lr, syn, act, tables, *, threshold, clip, algorithm,
     ok = syndrome_ok(t, syn, tables)
     if in_place:
         t, Lr = t_in.copy_(t), Lr_in.copy_(Lr)
-    return t, Lr, (ok if out is None else out.copy_(ok))
+    ok = ok if out is None else out.copy_(ok)
+    if step is not None:
+        step.plain(ok)
+    return t, Lr, ok
 
 
 def syndrome_ok(t, syn, tables) -> torch.Tensor:
@@ -192,11 +197,12 @@ class _SweepLanes:
         self.loop = device_loop.LoopState(done, it)
         self.scratch = scratch
 
-    def pass_(self):
+    def pass_(self, tail):
         """One sweep of the active lanes, in place; its flags land in
-        ``loop.ok``.  Allocates nothing on the kernel."""
+        ``loop.ok``, and the sweep runs the loop's bookkeeping ``tail`` after
+        them.  Allocates nothing on the kernel."""
         self.sweep(self.t, self.Lr, self.syn, self.loop.active, out=self.loop.ok,
-                   scratch=self.scratch)
+                   scratch=self.scratch, step=tail)
 
     def run(self, limit, graph, use_kernel, frozen=None):
         """Early-exit sweeps up to ``limit`` in all.  ``frozen`` ([B] bool)
@@ -278,8 +284,8 @@ def _layered_program(tables, llr, syndrome, opts, use_kernel, graph):
     else:  # the plain sweep updates in place as the kernel does
         sweep_fn = functools.partial(layered_sweep_plain, in_place=True)
 
-    def sweep(t, Lr, syn, act, out, scratch):
-        return sweep_fn(t, Lr, syn, act, tables, out=out, scratch=scratch, **kw)
+    def sweep(t, Lr, syn, act, out, scratch, step):
+        return sweep_fn(t, Lr, syn, act, tables, out=out, scratch=scratch, step=step, **kw)
 
     def scratch(width):
         shape = (cuda_layered.sweep_scratch_shape(tables, width, opts.algorithm, mdt)

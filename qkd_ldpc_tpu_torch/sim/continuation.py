@@ -30,8 +30,12 @@ and whose carry lives on the device.  On the card under the kernel backend it
 is captured once per (code, batch, segment, refill quantum, options, prng,
 points) as one CUDA graph (``decoder/device_loop.py``): the outer
 ``while_loop`` is a WHILE node, the refill ``while_loop`` inside it another,
-and ``lax.cond(pos >= S, regen, refill)`` two IF nodes whose predicates one
-kernel writes before either runs; the segment's ``fori_loop`` is unrolled
+and ``lax.cond(pos >= S, regen, refill)`` two IF nodes, the refill loop's
+whole body; the loop's test runs in the step before it (the start or the
+banking before the loop, the regeneration or refill of the last pass), so a
+regeneration's test enables the refill in its own pass — JAX's regen pass
+and the refill pass after it are one pass here, in JAX's order, and no
+kernel tests on its own; the segment's ``fori_loop`` is unrolled
 (``segment`` passes of the variable update, which runs the previous
 pass's bookkeeping first, and the check update with the ``fresh`` flags;
 then the last pass's bookkeeping) and the banking is one kernel.
@@ -188,12 +192,18 @@ class _ContinuationProgram:
         b.flags = zeros((4,), torch.uint8)
         return b
 
-    def _regen(self, x, b, passes=None):
+    def _test(self, b, handles=None) -> steps.RefillTest:
+        """The refill loop's test, which the step before each of its tests
+        runs (``handles`` inside a capture)."""
+        return steps.RefillTest(self.B, self.P, self.K, self.S, self.inner_cap, b.flags, handles)
+
+    def _regen(self, x, b, passes=None, test=None):
         """``regen``: the next S staged trials — of the next point once the
         current one's ids are exhausted.  Ids past ``trials`` are generated
-        but never consumed (at most one block a point)."""
+        but never consumed (at most one block a point).  Its step runs the
+        refill loop's ``test`` (which may enable the refill that follows)."""
         kern, st, N = self.use_kernel, b.st, self.code.n_vars
-        steps.stage_step(x, st, self.S, self.P, use_kernel=kern, passes=passes)
+        steps.stage_step(x, st, self.S, self.P, use_kernel=kern, passes=passes, test=test)
         key, k = st[steps.KEY0:steps.KEY1 + 1], st[steps.K:steps.K + 1]
         ids = DeviceRange(st[steps.ID_BASE:steps.ID_BASE + 1], range(self.S))
         if kern:
@@ -211,25 +221,25 @@ class _ContinuationProgram:
         steps.stage_fill(b.a_rows, b.bob, self.core.maps, st, b.llr_s, b.syn_s, b.alice_s,
                          use_kernel=kern, bits=b.fill_bits)
 
-    def _refill(self, x, b, passes=None):
+    def _refill(self, x, b, passes=None, test=None):
         """``refill``: the next K staged trials (fewer at the tail of a point)
-        into the first empty lanes; the read position moves by K."""
+        into the first empty lanes; the read position moves by K.  Its lane
+        step runs the refill loop's ``test``."""
         kern = self.use_kernel
         lanes = (b.live, b.run, b.done, b.fresh, b.age, b.lane_p)
-        steps.refill_lanes(x, b.st, lanes, b.lane_of, self.K, use_kernel=kern, passes=passes)
+        steps.refill_lanes(x, b.st, lanes, b.lane_of, self.K, use_kernel=kern, passes=passes,
+                           test=test)
         steps.refill_copy(b.st, b.lane_of, (b.llr_s, b.syn_s, b.alice_s),
                           (b.llr, b.syn, b.alice, b.Lr), use_kernel=kern)
 
-    def _want(self, x, b, entry, passes=None, handles=None):
-        steps.want(x, b.st, self.B, self.P, self.K, self.S, self.inner_cap, entry, b.flags,
-                   use_kernel=self.use_kernel, passes=passes, handles=handles)
-
-    def _segment_and_bank(self, x, b, passes=None, handle=None):
+    def _segment_and_bank(self, x, b, passes=None, handle=None, test=None):
         """``segment`` decode iterations of every lane, in place (per-lane
         bookkeeping as in decoder.bp: stopped lanes keep computing, masked out
         of the statistics; the variable update moves z and age on the running
         lanes, the check update's ok is the syndrome of those totals), then
-        the banking of the finished lanes into their points' accumulators.
+        the banking of the finished lanes into their points' accumulators,
+        which runs the next refill loop's ``test`` where the outer loop goes
+        on.
 
         A pass's bookkeeping (JAX's :225-233) runs inside the next pass's
         variable update (``PassFold``), which reads the lanes' (run, age, ok)
@@ -256,7 +266,8 @@ class _ContinuationProgram:
         steps.pass_step(lanes[2], b.done, lanes[0], lanes[1], b.fresh, max_it,
                         self.segment == 1, use_kernel=kern, out=home)
         steps.bank(x, b.acc, b.st, (b.live, b.run, b.done, b.age, b.lane_p), b.z, b.alice,
-                   b.mis, max_it, b.flags, use_kernel=kern, passes=passes, handle=handle)
+                   b.mis, max_it, b.flags, use_kernel=kern, passes=passes, handle=handle,
+                   test=test)
 
     def __call__(self, x: torch.Tensor, graph=None, outer_limit=None) -> torch.Tensor:
         """Run (or capture into ``graph``) the program on the input vector
@@ -267,43 +278,46 @@ class _ContinuationProgram:
         lanes = (b.live, b.run, b.done, b.fresh, b.age, b.lane_p)
         kern, max_it = self.use_kernel, self.opts.max_iterations
         if graph is None:
-            steps.start(x, b.acc, b.st, lanes, self.S, max_it, b.flags, use_kernel=kern)
+            test = self._test(b)
+            steps.start(x, b.acc, b.st, lanes, self.S, max_it, b.flags, use_kernel=kern,
+                        test=test)
             done_steps = 0
             while b.flags[steps.OUTER_GO]:  # the eager program's host read, an outer step
                 # 1. refill empty lanes, K at a time, while enough have retired
                 # (or none are live at all); regenerate the staging block when
                 # it runs dry — advancing to the next point's ids as needed.
-                self._want(x, b, entry=True)
+                # A pass is the graph's: a regeneration and the refill its
+                # test enables, or a refill.
                 while True:
                     go, regen, refill = b.flags[steps.IN_GO:].tolist()  # one host read
                     if not go:
                         break
                     if regen:
-                        self._regen(x, b)
+                        self._regen(x, b, test=test)
+                        refill = bool(b.flags[steps.REFILL])  # the regeneration's test
                     if refill:
-                        self._refill(x, b)
-                    self._want(x, b, entry=False)
+                        self._refill(x, b, test=test)
                 # 2. decode `segment` iterations; 3. bank finished trials.
-                self._segment_and_bank(x, b)
+                self._segment_and_bank(x, b, test=test)
                 done_steps += 1
                 if outer_limit is not None and done_steps >= outer_limit:
                     break
             return b.carry
         h_out, h_in, h_regen, h_refill = (graph.handle() for _ in range(4))
+        test = self._test(b, (h_in, h_regen, h_refill))
         steps.start(x, b.acc, b.st, lanes, self.S, max_it, b.flags, use_kernel=kern,
-                    handle=h_out)
+                    handle=h_out, test=test)
 
-        def refill_loop(passes):
-            # the cond's two branches; cont_want wrote both predicates before
-            # either runs, so a regeneration never enables a refill in its pass
-            graph.conditional(device_loop.IF, h_regen, lambda p: self._regen(x, b, p))
-            graph.conditional(device_loop.IF, h_refill, lambda p: self._refill(x, b, p))
-            self._want(x, b, False, passes, (h_in, h_regen, h_refill))
+        def refill_loop(_passes):
+            # the body is the cond's two branches alone, no kernel of its own:
+            # the test before each pass ran in the step before it, and a
+            # regeneration's test sets the refill's node that follows it
+            graph.conditional(device_loop.IF, h_regen, lambda p: self._regen(x, b, p, test))
+            graph.conditional(device_loop.IF, h_refill, lambda p: self._refill(x, b, p, test))
 
         def outer_step(passes):
-            self._want(x, b, True, None, (h_in, h_regen, h_refill))
             graph.conditional(device_loop.WHILE, h_in, refill_loop)
-            self._segment_and_bank(x, b, passes, h_out)
+            self._segment_and_bank(x, b, passes, h_out, test)
 
         graph.conditional(device_loop.WHILE, h_out, outer_step)
         return b.carry

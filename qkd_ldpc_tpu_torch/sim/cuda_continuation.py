@@ -12,8 +12,6 @@ CPU and ``backend="xla"`` run and which the card holds each kernel against:
 step                  JAX lines (``sim/continuation.py``)             kernel
 ====================  ==============================================  ============
 :func:`start`         the initial carry :266-292, ``outer_cond`` :262  cont_start
-:func:`want`          ``want_lanes`` :205-209, the cond's ``pos >= S``  cont_want
-                      :211-213
 :func:`stage_step`    ``regen``'s scalars :111-131                     stage_step
 :func:`stage_fill`    ``regen``'s staging arrays :132-139              stage_fill
 :func:`refill_lanes`  ``refill``'s lanes :154, :166-170, :189-197      refill_lanes
@@ -32,16 +30,25 @@ bits).  Each loop has a bound that its structure never reaches (see
 :func:`loop_caps`); a loop past it stops and raises a bit of ``st[FAULT]``,
 which the caller turns into an error — a fault of the program cannot spin
 the card forever.  The lanes' flags are bool ``[B]``, their ages and points
-int32 ``[B]``.  The test steps write their verdicts into the uint8 ``flags
+int32 ``[B]``.  The loops' tests write their verdicts into the uint8 ``flags
 [4]`` (the eager program fetches them) and, inside a capture, set the
 conditional nodes' handles.
 ``passes`` (int64 ``[1]`` on the card, or None) is a conditional body's
 counter: the kernel adds one to it each time the body runs.
+
+The refill loop's test (``want_lanes`` :205-209 and the cond's ``pos >= S``
+:211-213, :func:`want_plain`) has no kernel of its own: ``test=``
+(:class:`RefillTest`) hands it to the step it follows, which runs it last —
+:func:`start` and :func:`bank` the test before the refill loop (where the
+outer loop goes on), :func:`refill_lanes` and :func:`stage_step` the test
+after a refill or a regeneration.  A plain version runs :func:`want_plain`
+after its own work.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -68,15 +75,14 @@ TRIALS, OFFSET, OUTER_CAP, KEYS = 0, 1, 2, 3
 OUTER_GO, IN_GO, REGEN, REFILL = range(4)
 
 KERNEL_START = "cont_start"
-KERNEL_WANT = "cont_want"
 KERNEL_STAGE = "stage_step"
 KERNEL_FILL = "stage_fill"
 KERNEL_LANES = "refill_lanes"
 KERNEL_COPY = "refill_copy"
 KERNEL_PASS = "pass_step"
 KERNEL_BANK = "bank"
-KERNELS = (KERNEL_START, KERNEL_WANT, KERNEL_STAGE, KERNEL_FILL, KERNEL_LANES, KERNEL_COPY,
-           KERNEL_PASS, KERNEL_BANK)
+KERNELS = (KERNEL_START, KERNEL_STAGE, KERNEL_FILL, KERNEL_LANES, KERNEL_COPY, KERNEL_PASS,
+           KERNEL_BANK)
 
 _I = ctypes.c_int
 _P = ctypes.c_void_p
@@ -119,40 +125,7 @@ def _as_int32(v: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# cont_start: the initial carry and the outer loop's entry test
-
-def start_plain(x, acc, st, lanes, S, max_it, flags):
-    """``lanes`` = (live, run, done, fresh, age, lane_p)."""
-    live, run, done, fresh, age, lane_p = lanes
-    for t in (live, run, done, fresh, age, lane_p):
-        t.zero_()
-    acc.zero_()
-    acc[5].fill_(max_it)  # min_it's neutral element
-    st.zero_()
-    st[BASE] = -S  # the first regenerated block holds trials 0..S-1
-    st[POS] = S  # an empty staging block: the first pass regenerates
-    flags[OUTER_GO] = _more_ids(x, st, acc.shape[1])
-
-
-def start_cuda(x, acc, st, lanes, S, max_it, flags, handle=None):
-    live, run, done, fresh, age, lane_p = lanes
-    _launch(KERNEL_START, [_P] * 9 + [_I] * 4 + [_P, _H, _I],
-            (x, acc, st, *lanes, flags),
-            x.data_ptr(), acc.data_ptr(), st.data_ptr(), live.data_ptr(), run.data_ptr(),
-            done.data_ptr(), fresh.data_ptr(), age.data_ptr(), lane_p.data_ptr(),
-            live.shape[0], acc.shape[1], S, max_it, flags.data_ptr(),
-            handle or 0, int(handle is not None))
-
-
-def start(x, acc, st, lanes, S, max_it, flags, *, use_kernel, handle=None):
-    if use_kernel:
-        start_cuda(x, acc, st, lanes, S, max_it, flags, handle)
-    else:
-        start_plain(x, acc, st, lanes, S, max_it, flags)
-
-
-# ---------------------------------------------------------------------------
-# cont_want: the refill loop's test and the cond's predicate, together
+# the refill loop's test and the cond's predicate, run by the step before it
 
 def loop_caps(trials: int, P: int, B: int, S: int, K: int, max_it: int,
               segment: int) -> tuple[int, int]:
@@ -164,14 +137,18 @@ def loop_caps(trials: int, P: int, B: int, S: int, K: int, max_it: int,
     An outer step's refill loop fills at most ``B`` lanes (``B / K + 1``
     refills of trials), regenerates once per ``S / K`` refills, and crosses
     each point boundary with at most ``S / K + 2`` passes (a tail, refills
-    past the tail, the regeneration that advances)."""
+    past the tail, the regeneration that advances).  A pass here is JAX's:
+    one regeneration or one refill."""
     L = -(-(max_it + 1) // segment)
     outer = min((P * trials + 1) * (L + 1), 2**31 - 1)
     inner = 2 * (B // K + 1) + P * (S // K + 3) + 4
     return outer, inner
 
 
-def want_plain(x, st, B, P, K, S, inner_cap, entry, flags, passes=None):
+def want_plain(x, st, B, P, K, S, inner_cap, entry, flags):
+    """``want_lanes`` and the cond's predicates into ``flags[IN_GO:]``;
+    ``entry``: the test before the refill loop (``st[INNER]`` starts at 0),
+    else the test after a regeneration or a refill."""
     live_n = st[LIVE_N]
     go = _more_ids(x, st, P) & ((B - live_n >= K) | (live_n == 0))
     st[INNER] = 0 if entry else st[INNER] + 1
@@ -181,32 +158,83 @@ def want_plain(x, st, B, P, K, S, inner_cap, entry, flags, passes=None):
     flags[IN_GO] = go
     flags[REGEN] = go & (st[POS] >= S)
     flags[REFILL] = go & (st[POS] < S)
-    if passes is not None:
-        passes += 1
 
 
-def want_cuda(x, st, B, P, K, S, inner_cap, entry, flags, passes=None, handles=None):
-    """``handles`` = (refill loop, regen, refill) inside a capture; ``entry``:
-    the test before the refill loop, else the test after a pass."""
-    h = handles or (0, 0, 0)
-    _launch(KERNEL_WANT, [_P, _P] + [_I] * 6 + [_P, _P, _H, _H, _H, _I],
-            (x, st, flags, passes),
-            x.data_ptr(), st.data_ptr(), B, P, K, S, inner_cap, int(entry), flags.data_ptr(),
-            _ptr(passes), *h, int(handles is not None))
+class _WantArgs(ctypes.Structure):
+    """``struct WantTest`` of ``csrc/continuation.cu``, field for field."""
+
+    _fields_ = [("flags", ctypes.c_void_p), ("h_in", ctypes.c_ulonglong),
+                ("h_regen", ctypes.c_ulonglong), ("h_refill", ctypes.c_ulonglong)] + [
+        (name, ctypes.c_int) for name in ("B", "P", "K", "S", "inner_cap", "set_handle")]
 
 
-def want(x, st, B, P, K, S, inner_cap, entry, flags, *, use_kernel, passes=None,
-         handles=None):
+class RefillTest(NamedTuple):
+    """The refill loop's test (:func:`want_plain`), handed to the step that
+    runs it last; ``handles`` = (the refill loop's, regen's, refill's)
+    inside a capture."""
+
+    B: int
+    P: int
+    K: int
+    S: int
+    inner_cap: int
+    flags: torch.Tensor  # uint8 [4]
+    handles: tuple | None = None
+
+    def plain(self, x, st, entry: bool) -> None:
+        want_plain(x, st, self.B, self.P, self.K, self.S, self.inner_cap, entry, self.flags)
+
+    def args(self):
+        """The kernel's argument (a pointer to it), or None without a test."""
+        h = self.handles or (0, 0, 0)
+        return ctypes.byref(_WantArgs(self.flags.data_ptr(), *h, self.B, self.P, self.K,
+                                      self.S, self.inner_cap, int(self.handles is not None)))
+
+
+def _args(test):
+    return None if test is None else test.args()
+
+
+# ---------------------------------------------------------------------------
+# cont_start: the initial carry and the outer loop's entry test
+
+def start_plain(x, acc, st, lanes, S, max_it, flags, test=None):
+    """``lanes`` = (live, run, done, fresh, age, lane_p); ``test`` (where
+    the outer loop starts) the refill loop's test before its first pass."""
+    live, run, done, fresh, age, lane_p = lanes
+    for t in (live, run, done, fresh, age, lane_p):
+        t.zero_()
+    acc.zero_()
+    acc[5].fill_(max_it)  # min_it's neutral element
+    st.zero_()
+    st[BASE] = -S  # the first regenerated block holds trials 0..S-1
+    st[POS] = S  # an empty staging block: the first pass regenerates
+    flags[OUTER_GO] = _more_ids(x, st, acc.shape[1])
+    if test is not None and bool(flags[OUTER_GO]):
+        test.plain(x, st, True)
+
+
+def start_cuda(x, acc, st, lanes, S, max_it, flags, handle=None, test=None):
+    live, run, done, fresh, age, lane_p = lanes
+    _launch(KERNEL_START, [_P] * 9 + [_I] * 4 + [_P, _H, _I, _P],
+            (x, acc, st, *lanes, flags),
+            x.data_ptr(), acc.data_ptr(), st.data_ptr(), live.data_ptr(), run.data_ptr(),
+            done.data_ptr(), fresh.data_ptr(), age.data_ptr(), lane_p.data_ptr(),
+            live.shape[0], acc.shape[1], S, max_it, flags.data_ptr(),
+            handle or 0, int(handle is not None), _args(test))
+
+
+def start(x, acc, st, lanes, S, max_it, flags, *, use_kernel, handle=None, test=None):
     if use_kernel:
-        want_cuda(x, st, B, P, K, S, inner_cap, entry, flags, passes, handles)
+        start_cuda(x, acc, st, lanes, S, max_it, flags, handle, test)
     else:
-        want_plain(x, st, B, P, K, S, inner_cap, entry, flags, passes)
+        start_plain(x, acc, st, lanes, S, max_it, flags, test)
 
 
 # ---------------------------------------------------------------------------
 # stage_step: regen's scalars
 
-def stage_step_plain(x, st, S, P, passes=None):
+def stage_step_plain(x, st, S, P, passes=None, test=None):
     base = st[BASE] + S
     adv = base >= x[TRIALS]  # the current point's ids are exhausted: advance
     st[BASE] = torch.where(adv, 0, base)
@@ -223,18 +251,20 @@ def stage_step_plain(x, st, S, P, passes=None):
     st[GENS] += 1
     if passes is not None:
         passes += 1
+    if test is not None:
+        test.plain(x, st, False)
 
 
-def stage_step_cuda(x, st, S, P, passes=None):
-    _launch(KERNEL_STAGE, [_P, _P, _I, _I, _P], (x, st, passes),
-            x.data_ptr(), st.data_ptr(), S, P, _ptr(passes))
+def stage_step_cuda(x, st, S, P, passes=None, test=None):
+    _launch(KERNEL_STAGE, [_P, _P, _I, _I, _P, _P], (x, st, passes),
+            x.data_ptr(), st.data_ptr(), S, P, _ptr(passes), _args(test))
 
 
-def stage_step(x, st, S, P, *, use_kernel, passes=None):
+def stage_step(x, st, S, P, *, use_kernel, passes=None, test=None):
     if use_kernel:
-        stage_step_cuda(x, st, S, P, passes)
+        stage_step_cuda(x, st, S, P, passes, test)
     else:
-        stage_step_plain(x, st, S, P, passes)
+        stage_step_plain(x, st, S, P, passes, test)
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +333,7 @@ def stage_fill(alice_rows, bob, maps, st, llr_s, syn_s, alice_s, *, use_kernel, 
 # ---------------------------------------------------------------------------
 # refill_lanes: the first n_new empty lanes, and their carry
 
-def refill_lanes_plain(x, st, lanes, lane_of, K, passes=None):
+def refill_lanes_plain(x, st, lanes, lane_of, K, passes=None, test=None):
     """``lane_of [K]`` int32 gets the chosen lanes in lane order (-1 past
     n_new); the refilled lanes start with age -1, not done, live, running,
     fresh, on point ``st[SP]``."""
@@ -330,23 +360,25 @@ def refill_lanes_plain(x, st, lanes, lane_of, K, passes=None):
     st[REFILLS] += (n_new > 0).to(torch.int32)
     if passes is not None:
         passes += 1
+    if test is not None:
+        test.plain(x, st, False)
 
 
-def refill_lanes_cuda(x, st, lanes, lane_of, K, passes=None):
+def refill_lanes_cuda(x, st, lanes, lane_of, K, passes=None, test=None):
     live, run, done, fresh, age, lane_p = lanes
     if lane_of.shape != (K,) or lane_of.dtype != torch.int32:
         raise ValueError("lane_of must be int32 [K]")
-    _launch(KERNEL_LANES, [_P] * 9 + [_I, _I, _P], (x, st, *lanes, lane_of, passes),
+    _launch(KERNEL_LANES, [_P] * 9 + [_I, _I, _P, _P], (x, st, *lanes, lane_of, passes),
             x.data_ptr(), st.data_ptr(), live.data_ptr(), run.data_ptr(), done.data_ptr(),
             fresh.data_ptr(), age.data_ptr(), lane_p.data_ptr(), lane_of.data_ptr(),
-            live.shape[0], K, _ptr(passes))
+            live.shape[0], K, _ptr(passes), _args(test))
 
 
-def refill_lanes(x, st, lanes, lane_of, K, *, use_kernel, passes=None):
+def refill_lanes(x, st, lanes, lane_of, K, *, use_kernel, passes=None, test=None):
     if use_kernel:
-        refill_lanes_cuda(x, st, lanes, lane_of, K, passes)
+        refill_lanes_cuda(x, st, lanes, lane_of, K, passes, test)
     else:
-        refill_lanes_plain(x, st, lanes, lane_of, K, passes)
+        refill_lanes_plain(x, st, lanes, lane_of, K, passes, test)
 
 
 # ---------------------------------------------------------------------------
@@ -428,9 +460,10 @@ def pass_step(ok, done, run, age, fresh, max_it, first, *, use_kernel, out=None)
 # ---------------------------------------------------------------------------
 # bank: finished lanes into their points' accumulators, and the outer test
 
-def bank_plain(x, acc, st, lanes, z, alice, mis, max_it, flags, passes=None):
+def bank_plain(x, acc, st, lanes, z, alice, mis, max_it, flags, passes=None, test=None):
     """``lanes`` = (live, run, done, age, lane_p); ``mis [B]`` int32 is the
-    kernel's scratch (all 0 before and after)."""
+    kernel's scratch (all 0 before and after); ``test`` (where the outer
+    loop goes on) the next refill loop's test before its first pass."""
     live, run, done, age, lane_p = lanes
     P = acc.shape[1]
     finished = live & ~run
@@ -458,20 +491,23 @@ def bank_plain(x, acc, st, lanes, z, alice, mis, max_it, flags, passes=None):
     flags[OUTER_GO] = go & ~stop
     if passes is not None:
         passes += 1
+    if test is not None and bool(flags[OUTER_GO]):
+        test.plain(x, st, True)
 
 
-def bank_cuda(x, acc, st, lanes, z, alice, mis, max_it, flags, passes=None, handle=None):
+def bank_cuda(x, acc, st, lanes, z, alice, mis, max_it, flags, passes=None, handle=None,
+              test=None):
     live, run, done, age, lane_p = lanes
     N, B = z.shape
     if alice.shape != (N, B) or mis.shape != (B,) or mis.dtype != torch.int32:
         raise ValueError("bank: z and alice [N, B] int8, mis int32 [B]")
     _offsets_fit_int32("bank", N * B)
-    _launch(KERNEL_BANK, [_P] * 11 + [_I] * 3 + [_P, _P, _H, _I],
+    _launch(KERNEL_BANK, [_P] * 11 + [_I] * 3 + [_P, _P, _H, _I, _P],
             (x, acc, st, *lanes, z, alice, mis, flags, passes),
             x.data_ptr(), acc.data_ptr(), st.data_ptr(), live.data_ptr(), run.data_ptr(),
             done.data_ptr(), age.data_ptr(), lane_p.data_ptr(), z.data_ptr(),
             alice.data_ptr(), mis.data_ptr(), N, B, acc.shape[1], flags.data_ptr(),
-            _ptr(passes), handle or 0, int(handle is not None))
+            _ptr(passes), handle or 0, int(handle is not None), _args(test))
 
 
 def bank_width(z, alice) -> int:
@@ -483,8 +519,8 @@ def bank_width(z, alice) -> int:
 
 
 def bank(x, acc, st, lanes, z, alice, mis, max_it, flags, *, use_kernel, passes=None,
-         handle=None):
+         handle=None, test=None):
     if use_kernel:
-        bank_cuda(x, acc, st, lanes, z, alice, mis, max_it, flags, passes, handle)
+        bank_cuda(x, acc, st, lanes, z, alice, mis, max_it, flags, passes, handle, test)
     else:
-        bank_plain(x, acc, st, lanes, z, alice, mis, max_it, flags, passes)
+        bank_plain(x, acc, st, lanes, z, alice, mis, max_it, flags, passes, test)

@@ -142,7 +142,8 @@ def test_loop_step_plain_is_the_carry(mode, with_frozen):
 
 def test_run_loop_counts_passes_and_tests_before_the_first():
     """``lax.while_loop`` semantics: the condition is tested before the first
-    pass, a loop at its limit or with every lane done runs no pass."""
+    pass, a loop at its limit or with every lane done runs no pass.  A pass
+    runs the bookkeeping it is handed after its flags."""
     B = 4
     for it0, done0, limit, want_passes in ((5, [0, 0, 0, 0], 5, 0), (0, [1, 1, 1, 1], 9, 0),
                                            (0, [0, 0, 0, 0], 3, 3)):
@@ -150,9 +151,10 @@ def test_run_loop_counts_passes_and_tests_before_the_first():
                                    torch.tensor([it0], dtype=torch.int32))
         bodies = []
 
-        def body():
+        def body(tail):
             bodies.append(1)
             st.ok.fill_(False)
+            tail.plain(st.ok)
 
         device_loop.run_loop(body, st, limit, device_loop.FLOODING, use_kernel=False)
         assert len(bodies) == want_passes and int(st.it) == it0 + want_passes

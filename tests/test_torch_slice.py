@@ -256,7 +256,7 @@ PINS = [
 ]
 
 
-@pytest.mark.slow  # builds the N=10240 code and decodes it on the CPU: ~1 min
+# builds the N=10240 code and decodes 8 trials on the CPU: a few seconds a case
 @pytest.mark.parametrize("point,qber,expected", PINS)
 def test_pinned_iteration_counts_through_the_port(point, qber, expected):
     code = tcodes.make_code(n=10240, m=5231, dv=3, seed=666, name="flagship-n10240")
