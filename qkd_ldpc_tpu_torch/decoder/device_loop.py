@@ -65,6 +65,7 @@ from typing import NamedTuple
 import torch
 
 from qkd_ldpc_tpu_torch import _build
+from qkd_ldpc_tpu_torch.spans import span
 from qkd_ldpc_tpu_torch.utils import canonical_device
 
 ENTRY, FLOODING, LAYERED = 0, 1, 2
@@ -313,7 +314,8 @@ class Graph:
         its return value becomes :attr:`outputs`."""
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
-        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+        with (span("qkd.graph.capture"), torch.cuda.device(self.device),
+              torch.cuda.stream(self.stream)):
             with _build.recording():
                 (warmup or (lambda: program(None)))()
             with _build.recording() as outer:
@@ -382,7 +384,8 @@ class Graph:
 
     def replay(self) -> None:
         """Launch the graph on the current stream (no synchronisation)."""
-        self.graph.replay()
+        with span("qkd.graph.replay"):
+            self.graph.replay()
         _build.count_replay(self.outer)
 
 

@@ -73,6 +73,7 @@ from qkd_ldpc_tpu_torch.postprocess import (
     privacy_amplify,
     toeplitz_hash,
 )
+from qkd_ldpc_tpu_torch.spans import span
 from qkd_ldpc_tpu_torch.utils import host, resolve_device
 
 
@@ -265,8 +266,9 @@ class _Runner:
 
     def fetch(self, slot: _Slot) -> list:
         """The slot's output fields (numpy), once its chunk has run."""
-        if slot.event is not None:
-            slot.event.synchronize()
+        with span("qkd.serve.wait"):
+            if slot.event is not None:
+                slot.event.synchronize()
         return slot.out_views
 
     def _capture(self) -> device_loop.Graph:
@@ -388,12 +390,17 @@ class Reconciler:
 
         def fetch_oldest():
             off, chunk, slot = pending.popleft()
-            read(runner.fetch(slot), off, chunk)
+            views = runner.fetch(slot)
+            with span("qkd.serve.read"):
+                read(views, off, chunk)
 
         for k, off in enumerate(range(0, n, self.lanes)):
             chunk = min(self.lanes, n - off)
             slot = ring[k % window]  # its previous chunk was fetched
-            runner.dispatch(slot, fill(slot.inp_views, off, chunk))
+            with span("qkd.serve.fill"):
+                rows = fill(slot.inp_views, off, chunk)
+            with span("qkd.serve.dispatch"):
+                runner.dispatch(slot, rows)
             pending.append((off, chunk, slot))
             if len(pending) == window:
                 fetch_oldest()
@@ -416,31 +423,32 @@ class Reconciler:
         1-D).  Rate-adapted endpoints assemble the full mother-code frame
         first; ``frame_key`` supplies Alice's PRIVATE randomness for
         punctured positions (required when the adapter punctures)."""
-        arr, single = self._frames(bits)
-        frames = None
-        if self.adapter is not None:
-            if self.adapter.punct_idx.size and frame_key is None:
-                raise ValueError(
-                    "frame_key (Alice's private randomness for punctured "
-                    "bits) is required on a punctured endpoint"
-                )
-            frames = self.adapter.build_frames(
-                torch.as_tensor(arr, device=self.device),
-                frame_key if frame_key is not None else prng_key(0), self.shared_seed)
-        out = np.empty((arr.shape[0], self.code.n_checks), np.int8)
+        with span("qkd.serve.syndromes"):
+            arr, single = self._frames(bits)
+            frames = None
+            if self.adapter is not None:
+                if self.adapter.punct_idx.size and frame_key is None:
+                    raise ValueError(
+                        "frame_key (Alice's private randomness for punctured "
+                        "bits) is required on a punctured endpoint"
+                    )
+                frames = self.adapter.build_frames(
+                    torch.as_tensor(arr, device=self.device),
+                    frame_key if frame_key is not None else prng_key(0), self.shared_seed)
+            out = np.empty((arr.shape[0], self.code.n_checks), np.int8)
 
-        def fill(views, off, chunk):
-            if frames is not None:
-                return frames[off:off + chunk]
-            views[0][:chunk] = arr[off:off + chunk]
-            return None
+            def fill(views, off, chunk):
+                if frames is not None:
+                    return frames[off:off + chunk]
+                views[0][:chunk] = arr[off:off + chunk]
+                return None
 
-        def read(views, off, chunk):
-            out[off:off + chunk] = views[0][:chunk]
+            def read(views, off, chunk):
+                out[off:off + chunk] = views[0][:chunk]
 
-        with self._lock:
-            self._stream(self._runner("syndrome"), arr.shape[0], fill, read)
-        return out[0] if single else out
+            with self._lock:
+                self._stream(self._runner("syndrome"), arr.shape[0], fill, read)
+            return out[0] if single else out
 
     def tags(self, bits, tag_key, tag_bits: int = 64) -> np.ndarray:
         """Verification tags over key frames (either side; Alice transmits
@@ -456,43 +464,44 @@ class Reconciler:
         ``syndromes_match[i]`` False means frame i did NOT verify — it must
         be discarded (or retried at a lower rate), never used as key
         material."""
-        bob, single = self._frames(bob_bits)
-        syn = host(alice_syndromes)
-        if single:
-            syn = syn[None]
-        if syn.shape != (bob.shape[0], self.syndrome_bits):
-            raise ValueError(
-                f"expected syndromes [{bob.shape[0]}, {self.syndrome_bits}], "
-                f"got {syn.shape}"
-            )
-        if not (0.0 < qber < 1.0):
-            raise ValueError("qber must be in (0, 1)")
+        with span("qkd.serve.reconcile"):
+            bob, single = self._frames(bob_bits)
+            syn = host(alice_syndromes)
+            if single:
+                syn = syn[None]
+            if syn.shape != (bob.shape[0], self.syndrome_bits):
+                raise ValueError(
+                    f"expected syndromes [{bob.shape[0]}, {self.syndrome_bits}], "
+                    f"got {syn.shape}"
+                )
+            if not (0.0 < qber < 1.0):
+                raise ValueError("qber must be in (0, 1)")
 
-        n = bob.shape[0]
-        bits = np.empty((n, self.frame_bits), np.uint8)
-        iters = np.empty((n,), np.int32)
-        ok = np.empty((n,), bool)
+            n = bob.shape[0]
+            bits = np.empty((n, self.frame_bits), np.uint8)
+            iters = np.empty((n,), np.int32)
+            ok = np.empty((n,), bool)
 
-        mag = chunk_header(qber, 0)[MAG]
+            mag = chunk_header(qber, 0)[MAG]
 
-        def fill(views, off, chunk):
-            header, b, s = views
-            header[:] = (mag, chunk)
-            b[:chunk] = bob[off:off + chunk]
-            s[:chunk] = syn[off:off + chunk]
+            def fill(views, off, chunk):
+                header, b, s = views
+                header[:] = (mag, chunk)
+                b[:chunk] = bob[off:off + chunk]
+                s[:chunk] = syn[off:off + chunk]
 
-        def read(views, off, chunk):
-            it, okc, z = views
-            bits[off:off + chunk] = z[:chunk]
-            iters[off:off + chunk] = it[:chunk]
-            ok[off:off + chunk] = okc[:chunk]
+            def read(views, off, chunk):
+                it, okc, z = views
+                bits[off:off + chunk] = z[:chunk]
+                iters[off:off + chunk] = it[:chunk]
+                ok[off:off + chunk] = okc[:chunk]
 
-        with self._lock:
-            self._stream(self._runner("serve"), n, fill, read)
-        res = ServeResult(bits=bits, iterations=iters, syndromes_match=ok)
-        if single:
-            res = ServeResult(res.bits[0], res.iterations[0], res.syndromes_match[0])
-        return res
+            with self._lock:
+                self._stream(self._runner("serve"), n, fill, read)
+            res = ServeResult(bits=bits, iterations=iters, syndromes_match=ok)
+            if single:
+                res = ServeResult(res.bits[0], res.iterations[0], res.syndromes_match[0])
+            return res
 
     def reconcile_secure(self, bob_bits, alice_syndromes, qber: float, alice_tags,
                          tag_key, pa_key, tag_bits: int = 64,

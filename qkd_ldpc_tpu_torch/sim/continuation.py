@@ -79,6 +79,7 @@ from qkd_ldpc_tpu_torch.decoder.reconcile import llr_magnitude
 from qkd_ldpc_tpu_torch.sim import cuda_continuation as steps
 from qkd_ldpc_tpu_torch.sim.runner import _HostCopy
 from qkd_ldpc_tpu_torch.sim.stats import PointPartials, partials_from_stacked
+from qkd_ldpc_tpu_torch.spans import span
 from qkd_ldpc_tpu_torch.utils import canonical_device, resolve_device
 
 
@@ -341,22 +342,24 @@ def _continuation_core(
     int32 stat matrix on the host and the loops' counts.  On the card under
     the kernel backend one replay of the program's captured graph; elsewhere
     the same program eagerly."""
-    device = canonical_device(resolve_device(device))
-    P = len(point_keys)
-    outer_cap, _ = steps.loop_caps(trials, P, batch, batch, refill_min, opts.max_iterations,
-                                   segment)
-    x = continuation_inputs(point_keys, num_errors, trials, trial_offset, outer_cap,
-                            code.n_vars)
-    program = _ContinuationProgram(code, P, batch, segment, refill_min, opts, prng, device)
-    if device_loop.graphs_on(program.use_kernel, device):
-        key = ("continuation", code.fingerprint, batch, segment, refill_min, opts, prng, P)
-        carry = device_loop.run_graph(
-            key, lambda v, graph: (program(v, graph),), (x,), keep=program, device=device,
-            loops=_BODIES, warmup=lambda v: program(v, None, outer_limit=1))[0]
-    else:
-        carry = program(x.to(device))
-    # one copy into pinned memory, the run's only wait for the card
-    carry = _HostCopy(carry).get()
+    with span("qkd.cont.dispatch"):
+        device = canonical_device(resolve_device(device))
+        P = len(point_keys)
+        outer_cap, _ = steps.loop_caps(trials, P, batch, batch, refill_min,
+                                       opts.max_iterations, segment)
+        x = continuation_inputs(point_keys, num_errors, trials, trial_offset, outer_cap,
+                                code.n_vars)
+        program = _ContinuationProgram(code, P, batch, segment, refill_min, opts, prng, device)
+        if device_loop.graphs_on(program.use_kernel, device):
+            key = ("continuation", code.fingerprint, batch, segment, refill_min, opts, prng, P)
+            carry = device_loop.run_graph(
+                key, lambda v, graph: (program(v, graph),), (x,), keep=program, device=device,
+                loops=_BODIES, warmup=lambda v: program(v, None, outer_limit=1))[0]
+        else:
+            carry = program(x.to(device))
+        # one copy into pinned memory, the run's only wait for the card
+        copy = _HostCopy(carry)
+    carry = copy.get()
     fault = int(carry[7 * P + steps.FAULT])
     if fault:
         raise RuntimeError(f"the continuation program stopped a loop at its bound (fault "
@@ -486,16 +489,17 @@ def run_point_continuation(
     wherever per-frame iteration residency varies widely (the waterfall).
     ``device=None`` means the card and raises when there is none.
     """
-    (n_err,) = _check_point(code, [qber], trials, opts,
-                            "split the point or use the plain runner")
-    host = _run_shards(code, [point_key], [n_err], trials, batch, segment,
-                       _refill_quantum(batch, refill_frac), opts, "threefry", device, None)
-    # Merging into an empty PointPartials applies the n_sp == 0 min/max
-    # convention, so partials compare bit-equal with the plain runner.
-    total = PointPartials().merge(partials_from_stacked(host[:, 0]))
-    if tick is not None:
-        tick(total.n_trials)
-    return total, n_err / code.n_vars
+    with span("qkd.cont.run"):
+        (n_err,) = _check_point(code, [qber], trials, opts,
+                                "split the point or use the plain runner")
+        host = _run_shards(code, [point_key], [n_err], trials, batch, segment,
+                           _refill_quantum(batch, refill_frac), opts, "threefry", device, None)
+        # Merging into an empty PointPartials applies the n_sp == 0 min/max
+        # convention, so partials compare bit-equal with the plain runner.
+        total = PointPartials().merge(partials_from_stacked(host[:, 0]))
+        if tick is not None:
+            tick(total.n_trials)
+        return total, n_err / code.n_vars
 
 
 def dispatch_point_continuation_sharded(

@@ -14,6 +14,7 @@ from pathlib import Path
 from typing import Sequence
 
 from qkd_ldpc_tpu_torch.sim.stats import SimResult
+from qkd_ldpc_tpu_torch.spans import span
 
 CSV_HEADER = (
     "№;MATRIX_FILENAME;TYPE;CODE_RATE;M;N;QBER;"
@@ -84,6 +85,7 @@ def write_results(
     seed: int,
 ) -> Path:
     """Write the results CSV; returns the (dedup-suffixed) path."""
-    path = results_file_path(directory, trials_number, max_iterations, seed)
-    path.write_text(format_rows(results))
+    with span("qkd.sweep.write"):
+        path = results_file_path(directory, trials_number, max_iterations, seed)
+        path.write_text(format_rows(results))
     return path

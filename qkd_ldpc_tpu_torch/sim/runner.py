@@ -68,6 +68,7 @@ from qkd_ldpc_tpu_torch.sim.stats import (
     reduce_trials,
     stack_partials,
 )
+from qkd_ldpc_tpu_torch.spans import span
 from qkd_ldpc_tpu_torch.utils import canonical_device, resolve_device
 
 
@@ -250,37 +251,38 @@ def _dispatch_point(
 ) -> tuple[list, float]:
     """Run all trials of one point chunk by chunk WITHOUT fetching the
     statistics; returns (list of stacked device stats, actual QBER)."""
-    device = resolve_device(device)
-    n_err = num_errors_for(code.n_vars, qber)
-    if n_err == 0:
-        raise ValueError(f"Key size '{code.n_vars}' is too small for QBER.")
-    actual_qber = n_err / code.n_vars
+    with span("qkd.point.dispatch"):
+        device = resolve_device(device)
+        n_err = num_errors_for(code.n_vars, qber)
+        if n_err == 0:
+            raise ValueError(f"Key size '{code.n_vars}' is too small for QBER.")
+        actual_qber = n_err / code.n_vars
 
-    # The device-side sum of iters^2 accumulates in exact int32; bound the
-    # trials per chunk so chunk_trials * max_iterations^2 < 2^31 (host-side
-    # merges across chunks are exact Python ints).
-    mi2 = max(opts.max_iterations, 1) ** 2
-    if batch * mi2 > 2**31 - 1:
-        raise ValueError(
-            f"batch ({batch}) x max_iterations^2 ({opts.max_iterations}^2) "
-            "overflows the int32 iteration statistics; lower batch_size"
-        )
-    safe_batches = max(1, (2**31 - 1) // (batch * mi2))
+        # The device-side sum of iters^2 accumulates in exact int32; bound the
+        # trials per chunk so chunk_trials * max_iterations^2 < 2^31 (host-side
+        # merges across chunks are exact Python ints).
+        mi2 = max(opts.max_iterations, 1) ** 2
+        if batch * mi2 > 2**31 - 1:
+            raise ValueError(
+                f"batch ({batch}) x max_iterations^2 ({opts.max_iterations}^2) "
+                "overflows the int32 iteration statistics; lower batch_size"
+            )
+        safe_batches = max(1, (2**31 - 1) // (batch * mi2))
 
-    futures = []
-    offset = 0
-    while offset < trials:
-        remaining = trials - offset
-        n_batches = min(
-            -(-remaining // batch), max_batches_per_dispatch, safe_batches
-        )
-        valid = min(n_batches * batch, remaining)
-        futures.append(
-            _point_chunk(code, point_key, n_err, offset, valid, batch,
-                         n_batches, opts, prng, device)
-        )
-        offset += valid
-    return [_HostCopy(f) for f in futures], actual_qber
+        futures = []
+        offset = 0
+        while offset < trials:
+            remaining = trials - offset
+            n_batches = min(
+                -(-remaining // batch), max_batches_per_dispatch, safe_batches
+            )
+            valid = min(n_batches * batch, remaining)
+            futures.append(
+                _point_chunk(code, point_key, n_err, offset, valid, batch,
+                             n_batches, opts, prng, device)
+            )
+            offset += valid
+        return [_HostCopy(f) for f in futures], actual_qber
 
 
 class _HostCopy:
@@ -299,8 +301,9 @@ class _HostCopy:
             self.host = t
 
     def get(self) -> torch.Tensor:
-        if self.event is not None:
-            self.event.synchronize()
+        with span("qkd.fetch.wait"):
+            if self.event is not None:
+                self.event.synchronize()
         return self.host
 
 
@@ -325,14 +328,15 @@ def run_point(
 ) -> tuple[PointPartials, float]:
     """Run all trials of one (matrix, QBER) point; returns (partials, actual
     QBER).  ``device=None`` means the card and raises when there is none."""
-    futures, actual_qber = _dispatch_point(
-        code, point_key, qber, trials, batch, opts, max_batches_per_dispatch,
-        prng, device,
-    )
-    total = _collect_point(futures)
-    if tick is not None:
-        tick(total.n_trials)
-    return total, actual_qber
+    with span("qkd.point.run"):
+        futures, actual_qber = _dispatch_point(
+            code, point_key, qber, trials, batch, opts, max_batches_per_dispatch,
+            prng, device,
+        )
+        total = _collect_point(futures)
+        if tick is not None:
+            tick(total.n_trials)
+        return total, actual_qber
 
 
 def auto_batch_size(cfg: Config, code: LDPCCode) -> int:
@@ -402,7 +406,7 @@ def _load_checkpoint(path: Path | None) -> dict[int, dict]:
 def _append_checkpoint(path: Path | None, record: dict) -> None:
     if path is None:
         return
-    with path.open("a") as f:
+    with span("qkd.sweep.checkpoint"), path.open("a") as f:
         f.write(json.dumps(record) + "\n")
 
 
@@ -436,108 +440,110 @@ def batch_simulation(
     reads the checkpoint (multi-process resume needs ``checkpoint_dir`` on a
     shared file system); only process 0 appends to it and shows progress.
     """
-    unpinned = device is None or torch.device(device) == torch.device("cuda")
-    device = resolve_device(device)
-    opts = decode_options_from_config(cfg)
-    if cfg.schedule == "layered" and any(si.code.qc is None for si in sim_inputs):
-        # The JAX package raises this at the first decode of such a code,
-        # after the sweep's earlier points; here before any point runs.
-        raise ValueError(NOT_QC_MESSAGE)
-    ckpt_path = _checkpoint_path(cfg, sim_inputs)
-    done = _load_checkpoint(ckpt_path)
-    master = master_key(cfg.simulation_seed, cfg.prng)
-    mesh = _sweep_mesh(cfg, device, unpinned)
-    if mesh is not None and mesh.process_index != 0:
-        ckpt_path, progress = None, False
+    with span("qkd.sweep.run"):
+        with span("qkd.sweep.setup"):
+            unpinned = device is None or torch.device(device) == torch.device("cuda")
+            device = resolve_device(device)
+            opts = decode_options_from_config(cfg)
+            if cfg.schedule == "layered" and any(si.code.qc is None for si in sim_inputs):
+                # The JAX package raises this at the first decode of such a code,
+                # after the sweep's earlier points; here before any point runs.
+                raise ValueError(NOT_QC_MESSAGE)
+            ckpt_path = _checkpoint_path(cfg, sim_inputs)
+            done = _load_checkpoint(ckpt_path)
+            master = master_key(cfg.simulation_seed, cfg.prng)
+            mesh = _sweep_mesh(cfg, device, unpinned)
+            if mesh is not None and mesh.process_index != 0:
+                ckpt_path, progress = None, False
+            total_trials = sum(len(si.qber) for si in sim_inputs) * cfg.trials_number
+            bar = ProgressBar(total_trials, enabled=progress)
 
-    total_trials = sum(len(si.qber) for si in sim_inputs) * cfg.trials_number
-    bar = ProgressBar(total_trials, enabled=progress)
-    results: dict[int, SimResult] = {}
-    pending: list[tuple] = []  # (sim_number, si, actual_qber, collect)
+        results: dict[int, SimResult] = {}
+        pending: list[tuple] = []  # (sim_number, si, actual_qber, collect)
 
-    def flush_one() -> None:
-        num, si, actual_qber, collect = pending.pop(0)
-        finish(num, si, actual_qber, collect())
+        def flush_one() -> None:
+            num, si, actual_qber, collect = pending.pop(0)
+            finish(num, si, actual_qber, collect())
 
-    def finish(num, si, actual_qber, partials) -> None:
-        result = finalize_point(
-            partials,
-            sim_number=num,
-            matrix_filename=si.matrix_filename,
-            is_regular=si.code.is_regular,
-            num_bit_nodes=si.code.n_vars,
-            num_check_nodes=si.code.n_checks,
-            initial_qber=actual_qber,
-            max_iterations=opts.max_iterations,
-        )
-        results[num] = result
-        _append_checkpoint(
-            ckpt_path, dict(sim_number=num, result=dataclasses.asdict(result))
-        )
-        bar.tick(partials.n_trials)
-
-    sim_number = 0
-    for si in sim_inputs:
-        batch = auto_batch_size(cfg, si.code)
-        # Per-matrix options derive from the config-derived base every time
-        # (compaction is sized by the per-matrix batch and must not leak
-        # from one matrix into the next).
-        m_opts = opts
-        if cfg.compact_after > 0 and batch >= 8:
-            # Residency compaction: schedule-only, bit-identical.  Lanes =
-            # batch/4; waterfall points overflow into the exact full-batch
-            # fallback.
-            m_opts = dataclasses.replace(
-                opts, compact_after=cfg.compact_after, compact_lanes=batch // 4,
+        def finish(num, si, actual_qber, partials) -> None:
+            result = finalize_point(
+                partials,
+                sim_number=num,
+                matrix_filename=si.matrix_filename,
+                is_regular=si.code.is_regular,
+                num_bit_nodes=si.code.n_vars,
+                num_check_nodes=si.code.n_checks,
+                initial_qber=actual_qber,
+                max_iterations=opts.max_iterations,
             )
-        if mesh is not None:
-            from qkd_ldpc_tpu_torch.parallel.sweep import _collect as collect_sharded
-            from qkd_ldpc_tpu_torch.parallel.sweep import make_point_dispatcher
+            results[num] = result
+            _append_checkpoint(
+                ckpt_path, dict(sim_number=num, result=dataclasses.asdict(result))
+            )
+            bar.tick(partials.n_trials)
 
-            mesh_dispatch = make_point_dispatcher(si.code, batch, m_opts, mesh,
-                                                  prng=cfg.prng)
-        cont_entries = []  # (sim_number, qber, point_key) waterfall points
-        for qber in si.qber:
-            if sim_number in done:
-                results[sim_number] = SimResult(**done[sim_number]["result"])
-                bar.tick(cfg.trials_number)
-                sim_number += 1
-                continue
-            point_key = fold_in(master, sim_number)
-            if cfg.continuation_qber > 0 and qber >= cfg.continuation_qber:
-                cont_entries.append((sim_number, qber, point_key))
-            elif mesh is not None:  # finished in place: the mesh's own order
-                futures, actual_qber = mesh_dispatch(point_key, qber, cfg.trials_number)
-                finish(sim_number, si, actual_qber, collect_sharded(futures, mesh))
-            else:
-                futures, actual_qber = _dispatch_point(
-                    si.code, point_key, qber, cfg.trials_number, batch, m_opts,
-                    prng=cfg.prng, device=device,
+        sim_number = 0
+        for si in sim_inputs:
+            batch = auto_batch_size(cfg, si.code)
+            # Per-matrix options derive from the config-derived base every time
+            # (compaction is sized by the per-matrix batch and must not leak
+            # from one matrix into the next).
+            m_opts = opts
+            if cfg.compact_after > 0 and batch >= 8:
+                # Residency compaction: schedule-only, bit-identical.  Lanes =
+                # batch/4; waterfall points overflow into the exact full-batch
+                # fallback.
+                m_opts = dataclasses.replace(
+                    opts, compact_after=cfg.compact_after, compact_lanes=batch // 4,
                 )
-                pending.append((sim_number, si, actual_qber,
-                                lambda f=futures: _collect_point(f)))
-                if len(pending) > 1:  # keep one point in flight
-                    flush_one()
-            sim_number += 1
+            if mesh is not None:
+                from qkd_ldpc_tpu_torch.parallel.sweep import _collect as collect_sharded
+                from qkd_ldpc_tpu_torch.parallel.sweep import make_point_dispatcher
 
-        if cont_entries:
-            from qkd_ldpc_tpu_torch.sim.continuation import dispatch_sweep_continuation
+                mesh_dispatch = make_point_dispatcher(si.code, batch, m_opts, mesh,
+                                                      prng=cfg.prng)
+            cont_entries = []  # (sim_number, qber, point_key) waterfall points
+            for qber in si.qber:
+                if sim_number in done:
+                    results[sim_number] = SimResult(**done[sim_number]["result"])
+                    bar.tick(cfg.trials_number)
+                    sim_number += 1
+                    continue
+                point_key = fold_in(master, sim_number)
+                if cfg.continuation_qber > 0 and qber >= cfg.continuation_qber:
+                    cont_entries.append((sim_number, qber, point_key))
+                elif mesh is not None:  # finished in place: the mesh's own order
+                    futures, actual_qber = mesh_dispatch(point_key, qber, cfg.trials_number)
+                    finish(sim_number, si, actual_qber, collect_sharded(futures, mesh))
+                else:
+                    futures, actual_qber = _dispatch_point(
+                        si.code, point_key, qber, cfg.trials_number, batch, m_opts,
+                        prng=cfg.prng, device=device,
+                    )
+                    pending.append((sim_number, si, actual_qber,
+                                    lambda f=futures: _collect_point(f)))
+                    if len(pending) > 1:  # keep one point in flight
+                        flush_one()
+                sim_number += 1
 
-            futs, actuals = dispatch_sweep_continuation(
-                si.code, [k for _, _, k in cont_entries],
-                [q for _, q, _ in cont_entries], cfg.trials_number,
-                batch, m_opts, mesh=mesh, prng=cfg.prng, device=device,
-            )
-            for (num, _, _), (piece,), aq in zip(cont_entries, futs, actuals):
-                # the points' slices share one fetch
-                pending.append((num, si, aq,
-                                lambda p=piece: partials_from_stacked(p.fetch())))
-                if len(pending) > 1:
-                    flush_one()
-    while pending:
-        flush_one()
-    bar.close()
-    return [results[i] for i in sorted(results)]
+            if cont_entries:
+                from qkd_ldpc_tpu_torch.sim.continuation import dispatch_sweep_continuation
+
+                futs, actuals = dispatch_sweep_continuation(
+                    si.code, [k for _, _, k in cont_entries],
+                    [q for _, q, _ in cont_entries], cfg.trials_number,
+                    batch, m_opts, mesh=mesh, prng=cfg.prng, device=device,
+                )
+                for (num, _, _), (piece,), aq in zip(cont_entries, futs, actuals):
+                    # the points' slices share one fetch
+                    pending.append((num, si, aq,
+                                    lambda p=piece: partials_from_stacked(p.fetch())))
+                    if len(pending) > 1:
+                        flush_one()
+        while pending:
+            flush_one()
+        bar.close()
+        return [results[i] for i in sorted(results)]
 
 
 def _sweep_mesh(cfg: Config, device: torch.device, unpinned: bool):
