@@ -85,6 +85,13 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    inputs that differ in key, error count, first trial and tail, each equal
    to its eager chunk; ``_dispatch_point`` under the sync-debug gate; each
    capture's time, nodes and pool bytes;
+   3f. (``chunk_glue``) the chunk's work around its decode: ``stage_fill``
+   reading the LLR magnitude from the chunk's input vector against the glue
+   it replaced, and the statistics kernel ``trial_stats`` against its plain
+   version (flagship and reference alist, every load instance, decoded and
+   crafted batches, tails valid in part, three batches merged), both timed
+   beside their byte bounds; a flooding chunk's glue launches a batch (at
+   most GLUE_LAUNCH_LIMIT) and its traced kernels a batch;
 4. repeats the paths through the plain versions (``backend="xla"``) and
    compares the seven partial sums;
    2b. (``f1_degrees``) the flooding kernels K1, K2, K5 and the variable
@@ -146,7 +153,8 @@ steps and path (c) (``profile_continuation_here``) on the checkout at PARENT
 and on this one in turns (parent, change, change, parent), a process each;
 ``--trial-turns PARENT`` likewise the two trial paths' walls, K2 / K5 / K6
 with and without the loop's bookkeeping folded in and one traced run of each
-path (``profile_trial_paths_here``), parent and change alternating in pairs.
+path (``profile_trial_paths_here``), parent and change alternating in pairs;
+``--chunk-glue`` runs the build and phase 3f alone.
 Times are this card's, labelled with its name and power limit; they are a
 smoke measurement, not a benchmark.
 """
@@ -237,6 +245,11 @@ COMPACT_BATCH, RAGGED_BATCH = BATCH // 4, 101
 # One batch of trials on the card: K4, the flag's fill, K3, K4's gated tie row
 # and the gated tie kernel.
 KEYGEN_LAUNCH_LIMIT = 10
+# The trial chunk's work around its decode (chunk_glue): the statistics kernel
+# held at these widths (its 16-, 8-, 4- and 1-byte loads), and the launches a
+# batch its glue (stage_fill's two kernels and trial_stats) may take.
+GLUE_WIDTHS = (BATCH, 1000, 100, RAGGED_BATCH)
+GLUE_LAUNCH_LIMIT = 5
 # Rows of the N = 4096 codes: K3's instances of 8 words a thread.
 SHORT_N = 4096
 # A code whose frame of totals (116 x 512 floats) exceeds a block's shared
@@ -3831,13 +3844,20 @@ def _continuation_kernels(torch, dev, flush, code):
     fill_scratch = {c: torch.full(steps.fill_bits_shape(*t["alice_rows"].shape), -1, dtype=i32,
                                   device=dev) for c, t in fill_cases.items()} if fill_bits else {}
 
+    # the magnitude: the carry's slot where stage_fill reads it from the carry
+    # (an earlier checkout), else the slot itself
+    fill_mag = "mag" in inspect.signature(steps.stage_fill_cuda).parameters
+
+    def mag_of(t):
+        return t["st"][steps.MAG:steps.MAG + 1] if fill_mag else t["st"]
+
     def fill_kernel(t, c):
         extra = {"bits": fill_scratch[c]} if fill_bits else {}
-        steps.stage_fill_cuda(t["alice_rows"], t["bob"], fill_maps.get(c, maps), t["st"],
+        steps.stage_fill_cuda(t["alice_rows"], t["bob"], fill_maps.get(c, maps), mag_of(t),
                               t["llr_s"], t["syn_s"], t["alice_s"], **extra)
 
     def fill_plain(t, c):
-        steps.stage_fill_plain(t["alice_rows"], t["bob"], fill_maps.get(c, maps), t["st"],
+        steps.stage_fill_plain(t["alice_rows"], t["bob"], fill_maps.get(c, maps), mag_of(t),
                                t["llr_s"], t["syn_s"], t["alice_s"])
     fill_widths_of = getattr(steps, "stage_fill_widths", None)
     fill_widths = {c: fill_widths_of(t["alice_rows"], t["bob"], t["llr_s"], t["syn_s"],
@@ -4295,6 +4315,210 @@ def _refill_tests(torch, dev, code, steps, hold, measured, report, make):
                            "cont_start", "stage_step", "refill_lanes", "bank")}}
 
 
+def _chunk_glue(torch, np, dev, flush, card):
+    """The trial chunk's work around its decode (``chunk_glue``): the
+    continuation's ``stage_fill`` reading the magnitude from the chunk's
+    input vector, held to the glue it replaced (``torch.where`` LLRs,
+    ``decoder/syndrome.py``, Alice's bits transposed); the statistics kernel
+    ``trial_stats`` held to its plain version (``reduce_trials`` and
+    ``merge_partials_tree``) on the flagship and the reference alist at
+    GLUE_WIDTHS (every load instance), on decoded batches (a point below the
+    waterfall and one in it) and on crafted ones (keys differing in the first
+    or the last row, every lane valid, a tail valid in part, a batch past
+    the valid trials), merged over three batches, the scratch left at 0;
+    both timed at the flagship beside their byte bounds and their plain
+    versions; and a flooding chunk's launches a batch from the launch counts
+    (the glue at most GLUE_LAUNCH_LIMIT kernels) and from a trace (every
+    PyTorch kernel a batch)."""
+    from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.channel.keys import (
+        derive_point_key,
+        make_trials_from_ids,
+        num_errors_for,
+    )
+    from qkd_ldpc_tpu_torch.codes import make_qc_code, read_alist
+    from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions, bp_decode_batch_last
+    from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
+    from qkd_ldpc_tpu_torch.sim import cuda_continuation as steps
+    from qkd_ldpc_tpu_torch.sim import runner
+    from torch.profiler import ProfilerActivity, profile
+
+    i32 = torch.int32
+    codes = {"flagship": make_qc_code(z=Z, nb=NB, mb=MB_ROWS, dv=DV, seed=CODE_SEED),
+             "reference_alist": read_alist(_reference_alist_and_example()[0])}
+    qbers = {"flagship": (QBER, WATERFALL_QBER), "reference_alist": (0.05, 0.085)}
+    key = derive_point_key(MASTER_SEED, POINT_INDEX)
+    opts = DecodeOptions(algorithm="sum-product", max_iterations=100, clip_messages=True,
+                         message_threshold=100.0, message_dtype="bfloat16", backend="auto")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    report = {"card": card, "staging": {}, "stats": {}, "widths": set()}
+
+    def stage(code, width, qber):
+        """A batch of real trials staged by the kernel, and by the replaced glue."""
+        N, M = code.n_vars, code.n_checks
+        n_err = num_errors_for(N, qber)
+        x = runner.chunk_inputs(key, 0, width, n_err, N).to(dev)
+        alice, bob = make_trials_from_ids(key, N, range(width), n_err, "threefry", "auto", dev)
+        llr = torch.full((N, width), float("nan"), device=dev)
+        syn = torch.full((M, width), 7, dtype=torch.int8, device=dev)
+        alice_s = torch.full((N, width), 7, dtype=torch.int8, device=dev)
+        steps.stage_fill_cuda(alice, bob, code.to_device(dev), x[runner.LLR], llr, syn, alice_s)
+        mag = x[runner.LLR].view(torch.float32)
+        differ = {
+            "llr": int((llr.view(i32) != torch.where(bob.T == 1, -mag, mag).view(i32)).sum()),
+            "syn": int((syn != syndrome(code, alice).T).sum()),
+            "alice": int((alice_s != alice.T.to(torch.int8)).sum())}
+        if any(differ.values()):
+            raise AssertionError(f"stage_fill with the chunk's magnitude differs: {differ}")
+        return llr, syn, alice_s
+
+    def hold(name, z, alice_s, ok, iters, batches):
+        """``batches`` = [(valid, offset)]: the kernel and the plain version
+        merge the same batch into their [7] after each step."""
+        width = z.shape[1]
+        out_k, out_p = (torch.full((7,), -9, dtype=i32, device=dev) for _ in range(2))
+        scratch = torch.zeros(width + 1, dtype=i32, device=dev)
+        for i, (valid, offset) in enumerate(batches):
+            v = torch.tensor([valid], dtype=i32, device=dev)
+            runner.trial_stats_cuda(z, alice_s, ok, iters, v, offset, opts.max_iterations,
+                                    out_k, scratch, i == 0)
+            runner.trial_stats_plain(z, alice_s, ok, iters, v, offset, opts.max_iterations,
+                                     out_p, None, i == 0)
+            torch.cuda.synchronize()
+            if out_k.tolist() != out_p.tolist() or bool(scratch.any()):
+                raise AssertionError(f"trial_stats {name} batch {i}: kernel {out_k.tolist()} "
+                                     f"plain {out_p.tolist()} scratch left "
+                                     f"{int(scratch.count_nonzero())}")
+        report["widths"].add(runner.trial_stats_width(z, alice_s))
+        report["stats"][name] = out_k.tolist()
+
+    for which, code in codes.items():
+        N = code.n_vars
+        for width in GLUE_WIDTHS:
+            for q in qbers[which]:
+                llr, syn, alice_s = stage(code, width, q)
+                report["staging"][f"{which}_B{width}_q{q}"] = "equal"
+                z, iters, ok = bp_decode_batch_last(code, llr, syn, opts)
+                tail = width // 3 + 1
+                hold(f"{which}_B{width}_q{q}", z, alice_s, ok, iters,
+                     [(width, 0), (width + tail, width), (width, 2 * width)])
+            # crafted: keys differing in the first or the last row, flags and
+            # counts at random, the valid count between two batches
+            ok = torch.rand(width, generator=gen, device=dev) < 0.7
+            iters = torch.randint(0, opts.max_iterations + 1, (width,), generator=gen,
+                                  device=dev, dtype=i32)
+            z = alice_s.clone()
+            lanes = torch.arange(width, device=dev)
+            z[0, lanes % 3 == 1] ^= 1
+            z[N - 1, lanes % 5 == 2] ^= 1
+            hold(f"{which}_B{width}_crafted", z, alice_s, ok, iters,
+                 [(width, 0), (width // 2, 0), (7, 0)])
+    if report["widths"] != {16, 8, 4, 1}:
+        raise AssertionError(f"trial_stats's cases miss a load instance: {report['widths']}")
+    report["widths"] = sorted(report["widths"])
+
+    # timings at the flagship, B = 512: the staging as the chunk launches it,
+    # and the statistics of a batch whose every lane succeeds (every group read)
+    code = codes["flagship"]
+    N, M, dc = code.n_vars, code.n_checks, code.dc_max
+    maps = code.to_device(dev)
+    x = runner.chunk_inputs(key, 0, BATCH, num_errors_for(N, QBER), N).to(dev)
+    alice, bob = make_trials_from_ids(key, N, range(BATCH), int(x[runner.ERRORS]), "threefry",
+                                      "auto", dev)
+    llr, syn, alice_s = (torch.empty((N, BATCH), device=dev),
+                         torch.empty((M, BATCH), dtype=torch.int8, device=dev),
+                         torch.empty((N, BATCH), dtype=torch.int8, device=dev))
+    bits = torch.empty(steps.fill_bits_shape(BATCH, N), dtype=i32, device=dev)
+    fill_args = (alice, bob, maps, x[runner.LLR], llr, syn, alice_s)
+    fill_ms = _time_ms(torch, lambda: steps.stage_fill_cuda(*fill_args, bits=bits), flush)
+    fill_plain_ms = _time_ms(torch, lambda: steps.stage_fill_plain(*fill_args), flush)
+    fill_bound = _bound(2 * BATCH * N + 8 * dc * M + N * BATCH * 5 + M * BATCH,
+                        BATCH * (N * 2 + M * dc))
+    z, iters, ok = bp_decode_batch_last(code, llr, syn, opts)
+    if not bool(ok.all()):
+        raise AssertionError("the timed statistics batch has a lane that did not converge")
+    out, scratch = torch.empty(7, dtype=i32, device=dev), torch.zeros(BATCH + 1, dtype=i32,
+                                                                       device=dev)
+    v = x[runner.VALID]
+    stats_args = (z, alice_s, ok, iters, v, 0, opts.max_iterations, out, scratch, True)
+    stats_ms = _time_ms(torch, lambda: runner.trial_stats_cuda(*stats_args), flush)
+    stats_plain_ms = _time_ms(torch, lambda: runner.trial_stats_plain(*stats_args), flush)
+    # z and Alice's bits read once, the flags, counts and marks, the partials
+    stats_bound = _bound(2 * N * BATCH + BATCH + 4 * BATCH + 2 * 4 * (BATCH + 1) + 28,
+                         N * BATCH * 2 + 12 * BATCH)
+    # ptxas's registers and spills of the statistics kernel's instances
+    report["ptxas"] = _instances_resources(_build.build_log("trial_stats"), "trial_stats_kernel")
+
+    # a flooding chunk of N_BATCHES batches (the main path's options): the
+    # glue's launches a batch from the counts, and every kernel a batch from
+    # a trace (the tracer attached before the capture, as profile_trial_paths_here)
+    n_err = num_errors_for(N, QBER)
+    chunk_opts = DecodeOptions(compact_after=8, compact_lanes=BATCH // 4, **{
+        k: getattr(opts, k) for k in ("algorithm", "max_iterations", "clip_messages",
+                                      "message_threshold", "message_dtype", "backend")})
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+
+    def chunk():
+        return runner._point_chunk(code, key, n_err, 0, N_BATCHES * BATCH, BATCH, N_BATCHES,
+                                   chunk_opts, "pallas", dev)
+
+    chunk()  # captures the chunk's graph
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    chunk()
+    counts = _build.launch_counts()
+    fills, stats = counts.get(steps.KERNEL_FILL, 0), counts.get(runner.KERNEL_STATS, 0)
+    if fills != N_BATCHES or stats != N_BATCHES:
+        raise AssertionError(f"a chunk of {N_BATCHES} batches: {fills} stage_fill and {stats} "
+                             f"trial_stats launches")
+    glue = (2 * fills + stats) / N_BATCHES  # stage_fill is two kernels, one count
+    if glue > GLUE_LAUNCH_LIMIT:
+        raise AssertionError(f"the chunk's glue takes {glue} launches a batch")
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    table = {}
+    _profile_path(torch, "chunk_glue", chunk, card, statistics.median(walls), table_out=table)
+    torch_ops = {k[:80]: v[1] / N_BATCHES for k, v in table.items() if "at::native" in k}
+    report.update(
+        stage_fill={"ms": fill_ms, "plain_ms": fill_plain_ms, "bound_ms": fill_bound[0],
+                    "bound_by": fill_bound[1], "launches": 2, "max_abs_err": 0},
+        trial_stats={"ms": stats_ms, "plain_ms": stats_plain_ms, "bound_ms": stats_bound[0],
+                     "bound_by": stats_bound[1], "launches": 1, "max_abs_err": 0},
+        chunk={"batches": N_BATCHES, "launch_counts": counts,
+               "glue_kernels_a_batch": glue, "walls_ms": walls,
+               "traced_kernels_a_batch": sum(v[1] for v in table.values()) / N_BATCHES,
+               "traced_torch_kernels_a_batch": torch_ops,
+               "traced_ms_a_batch": {k[:60]: v[0] / N_BATCHES for k, v in sorted(
+                   table.items(), key=lambda kv: -kv[1][0])[:12]}})
+    return report
+
+
+def chunk_glue_here() -> int:
+    """``--chunk-glue``: the build and the ``chunk_glue`` phase alone; prints
+    one ``chunk_glue`` line."""
+    import numpy as np
+    import torch
+
+    from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.utils import card_name_and_power_limit
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    _build.build_all()
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    print(json.dumps({"chunk_glue": _chunk_glue(torch, np, dev, flush,
+                                                card_name_and_power_limit())}), flush=True)
+    return 0
+
+
 def _pool_bytes(torch, graph):
     """Bytes of the segments of a captured graph's private memory pool, or
     None where the allocator's snapshot does not name the pool."""
@@ -4505,6 +4729,7 @@ def main() -> int:
         run_point_continuation,
     )
     from qkd_ldpc_tpu_torch.sim.continuation import run_point_continuation_sharded
+    from qkd_ldpc_tpu_torch.sim.runner import KERNEL_STATS
     from qkd_ldpc_tpu_torch.sim.stats import STAT_KEYS, PointPartials, partials_from_stacked
     from qkd_ldpc_tpu_torch.utils import card_name_and_power_limit
 
@@ -4890,6 +5115,10 @@ def main() -> int:
         raise AssertionError(f"{K1}: {launches[K1]} launches, "
                              f"expected one per batch ({N_BATCHES})")
     channel_launches("main path", launches, N_BATCHES)
+    # the glue around each batch's decode: stage_fill (two kernels, one count)
+    # and trial_stats, once a batch
+    if (launches.get(KC_FILL, 0), launches.get(KERNEL_STATS, 0)) != (N_BATCHES, N_BATCHES):
+        raise AssertionError(f"main path: glue launches {launches}")
 
     # An iteration is one variable update and one check update (K2), whose
     # syndrome flag belongs to that iteration and whose messages are the next
@@ -5153,6 +5382,11 @@ def main() -> int:
         torch, np, dev, card, code, names, point_key, key_c, opts, opts_l, opts_c,
         counted, as_stats)}), flush=True)
 
+    # ---- phase 3f: the trial chunk's work around its decode (chunk_glue) -----
+    phase_start("chunk_glue")
+    glue_report = _chunk_glue(torch, np, dev, flush, card)
+    print(json.dumps({"chunk_glue": glue_report}), flush=True)
+
     # ---- phase 4: identity against the plain versions on the card ----------
     phase_start("identity")
     def seven(alg, backend, path):
@@ -5266,7 +5500,7 @@ def main() -> int:
         # the kernel was held to its plain version; the channel kernels have none
         degrees = {K6: sorted({6, *layered_degrees}), K3: None, K4: None, KT: None,
                    KB: None, KE: None, KS: sorted(FOLD_CHECK_CODES) + [6],
-                   KW: sorted(FOLD_SWEEP_CODES) + [6], KC_WANT: None,
+                   KW: sorted(FOLD_SWEEP_CODES) + [6], KC_WANT: None, KERNEL_STATS: None,
                    **dict.fromkeys(cuda_continuation.KERNELS)}.get(name, flooding_degrees)
         line = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5323,6 +5557,10 @@ def main() -> int:
           for name, line in ((KC_START, 266), (KC_WANT, 205), (KC_STAGE, 111), (KC_FILL, 132),
                              (KC_LANES, 154), (KC_COPY, 179), (KC_PASS, 225),
                              (KC_BANK, 242))),
+        # the trial chunk's statistics and merge, as JAX's point_batch_partials
+        # and the scan's merge_partials_tree
+        kernel_line(KERNEL_STATS, csrc + "trial_stats.cu", "qkd_ldpc_tpu/sim/runner.py:127",
+                    glue_report["trial_stats"], launches),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5336,4 +5574,6 @@ if __name__ == "__main__":
         sys.exit(continuation_turns(sys.argv[sys.argv.index("--turns") + 1]))
     if "--trial-turns" in sys.argv[1:]:
         sys.exit(trial_turns(sys.argv[sys.argv.index("--trial-turns") + 1]))
+    if "--chunk-glue" in sys.argv[1:]:
+        sys.exit(chunk_glue_here())
     sys.exit(main())

@@ -50,6 +50,7 @@ LIBRARIES = {
     "kth_smallest": ("kth_smallest.cu", ()),
     "device_loop": ("device_loop.cu", ()),
     "continuation": ("continuation.cu", ()),
+    "trial_stats": ("trial_stats.cu", ()),
     **{
         f"{stem}_{storage}": (f"{stem}.cu", (define,))
         for stem in ("check_update", "layered_sweep")

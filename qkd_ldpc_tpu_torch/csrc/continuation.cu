@@ -56,6 +56,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lane_groups.cuh"
+
 namespace {
 
 // Slots of the int32 carry `st` (sim/cuda_continuation.py names them alike).
@@ -169,7 +171,10 @@ __global__ void stage_step_kernel(const int* __restrict__ x, int* __restrict__ s
 
 // stage_fill: the [S, N] rows of Alice's and Bob's bits into the staging
 // arrays alice_s [N, S] (int8) and llr_s [N, S] (float32, Bob's bit 1 -> -mag,
-// else +mag), and Alice's syndrome syn_s [M, S] (int8).
+// else +mag), and Alice's syndrome syn_s [M, S] (int8).  The magnitude's
+// float32 bits are read on the card from `mag`: the continuation's st[kMag],
+// the trial chunk's input vector (sim/runner.py, whose batches of S trials
+// it stages the same way).
 //
 // Bound on this card: the bytes (2 S N in, 5 S N + M S out: 39.6 MB at the
 // flagship, 11.8 us).  A syndrome computed one thread a (check, trial), trials
@@ -291,7 +296,7 @@ __device__ __forceinline__ int swizzle(int r) {
 template <int R, int W>
 __global__ void __launch_bounds__(kFillThreads)
 stage_fill_kernel(const uint8_t* __restrict__ alice_rows, const uint8_t* __restrict__ bob,
-                  const int* __restrict__ st, float* __restrict__ llr_s,
+                  const int* __restrict__ mag_bits, float* __restrict__ llr_s,
                   int8_t* __restrict__ alice_s, uint32_t* __restrict__ bits, int S, int N,
                   int G) {
     __shared__ __align__(16) uint32_t ta[kTileS][kTileN / 4];
@@ -320,7 +325,7 @@ stage_fill_kernel(const uint8_t* __restrict__ alice_rows, const uint8_t* __restr
     // store: a lane takes trials 4 q .. 4 q + 3 of the tile (q = lane mod 16) and
     // the word w (variables 4 w .. 4 w + 3) of its half-warp, two words a warp
     // an iteration
-    const float mag = __int_as_float(st[kMag]);
+    const float mag = __int_as_float(*mag_bits);
     const int q = lane & 15, r0 = 4 * q, s = s0 + r0, avail = S - s;
     const int h = (lane >> 3) & 1;  // the 32-trial group of the lane's trials
 #pragma unroll
@@ -384,12 +389,6 @@ stage_syndrome_kernel(const uint32_t* __restrict__ bits, const int* __restrict__
         for (int k = 0; k < 4; ++k) v[k] = ((parity >> (16 * h + 4 * k)) & 0xfu) * 0x00204081u & 0x01010101u;
         store16<W>(out + 16 * h, avail - 16 * h, v);
     }
-}
-
-// The widest access (16, 8, 4 or 1 bytes) that divides `bits` (a row
-// stride ORed with the base addresses).
-int access_width(unsigned long long bits) {
-    return bits % 16 == 0 ? 16 : bits % 8 == 0 ? 8 : bits % 4 == 0 ? 4 : 1;
 }
 
 // Exclusive prefix sum of `v` over the block (blockDim a multiple of 32, at
@@ -579,47 +578,6 @@ __global__ void pass_step_kernel(const uint8_t* ok, uint8_t* __restrict__ done,
 constexpr int kBankThreads = 512;
 constexpr int kBankBlocksPerSm = 2;
 
-// XOR of W-byte loads of z and a over one group's 16 lanes (`avail` lanes of
-// the row lie in it), ORed into the four words of `acc` (lane j in byte j).
-template <int W>
-__device__ __forceinline__ void xor_or(const int8_t* z, const int8_t* a, int avail,
-                                       uint32_t (&acc)[4]) {
-    if constexpr (W == 16) {
-        const uint4 u = *reinterpret_cast<const uint4*>(z);
-        const uint4 v = *reinterpret_cast<const uint4*>(a);
-        acc[0] |= u.x ^ v.x;
-        acc[1] |= u.y ^ v.y;
-        acc[2] |= u.z ^ v.z;
-        acc[3] |= u.w ^ v.w;
-    } else if constexpr (W == 8) {
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-            if (8 * k < avail) {
-                const uint2 u = reinterpret_cast<const uint2*>(z)[k];
-                const uint2 v = reinterpret_cast<const uint2*>(a)[k];
-                acc[2 * k] |= u.x ^ v.x;
-                acc[2 * k + 1] |= u.y ^ v.y;
-            }
-        }
-    } else if constexpr (W == 4) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            if (4 * k < avail) {
-                acc[k] |= reinterpret_cast<const uint32_t*>(z)[k] ^
-                          reinterpret_cast<const uint32_t*>(a)[k];
-            }
-        }
-    } else {
-#pragma unroll
-        for (int k = 0; k < 16; ++k) {
-            if (k < avail) {
-                acc[k >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(z[k] ^ a[k]))
-                               << (8 * (k & 3));
-            }
-        }
-    }
-}
-
 template <int W>
 __global__ void __launch_bounds__(kBankThreads)
 bank_kernel(const int* __restrict__ x, int* __restrict__ acc, int* __restrict__ st,
@@ -774,20 +732,21 @@ extern "C" int stage_fill_widths(const void* alice_rows, const void* bob, const 
 
 template <int R>
 static void launch_fill(int W, dim3 grid, cudaStream_t stream, const uint8_t* alice_rows,
-                        const uint8_t* bob, const int* st, float* llr_s, int8_t* alice_s,
+                        const uint8_t* bob, const int* mag, float* llr_s, int8_t* alice_s,
                         uint32_t* bits, int S, int N, int G) {
     if (W == 4) {
         stage_fill_kernel<R, 4><<<grid, kFillThreads, 0, stream>>>(
-            alice_rows, bob, st, llr_s, alice_s, bits, S, N, G);
+            alice_rows, bob, mag, llr_s, alice_s, bits, S, N, G);
     } else {
         stage_fill_kernel<R, 1><<<grid, kFillThreads, 0, stream>>>(
-            alice_rows, bob, st, llr_s, alice_s, bits, S, N, G);
+            alice_rows, bob, mag, llr_s, alice_s, bits, S, N, G);
     }
 }
 
-// `bits`: uint32 [N, ceil(S / 32)], the packed bits between the two kernels.
+// `bits`: uint32 [N, ceil(S / 32)], the packed bits between the two kernels;
+// `mag`: the int32 bits of the float32 LLR magnitude.
 extern "C" int stage_fill(const void* alice_rows, const void* bob, const void* adj_T,
-                          const void* mask_T, const void* st, void* llr_s, void* syn_s,
+                          const void* mask_T, const void* mag, void* llr_s, void* syn_s,
                           void* alice_s, void* bits, int S, int N, int M, int dc, void* stream) {
     const auto s = static_cast<cudaStream_t>(stream);
     const int G = (S + 31) / 32;
@@ -796,15 +755,15 @@ extern "C" int stage_fill(const void* alice_rows, const void* bob, const void* a
     const dim3 grid((N + kTileN - 1) / kTileN, (S + kTileS - 1) / kTileS);
     const auto* a = static_cast<const uint8_t*>(alice_rows);
     const auto* b = static_cast<const uint8_t*>(bob);
-    const auto* st_p = static_cast<const int*>(st);
+    const auto* mag_p = static_cast<const int*>(mag);
     auto* llr = static_cast<float*>(llr_s);
     auto* al = static_cast<int8_t*>(alice_s);
     auto* words = static_cast<uint32_t*>(bits);
     switch (R) {
-        case 16: launch_fill<16>(W, grid, s, a, b, st_p, llr, al, words, S, N, G); break;
-        case 8: launch_fill<8>(W, grid, s, a, b, st_p, llr, al, words, S, N, G); break;
-        case 4: launch_fill<4>(W, grid, s, a, b, st_p, llr, al, words, S, N, G); break;
-        default: launch_fill<1>(W, grid, s, a, b, st_p, llr, al, words, S, N, G); break;
+        case 16: launch_fill<16>(W, grid, s, a, b, mag_p, llr, al, words, S, N, G); break;
+        case 8: launch_fill<8>(W, grid, s, a, b, mag_p, llr, al, words, S, N, G); break;
+        case 4: launch_fill<4>(W, grid, s, a, b, mag_p, llr, al, words, S, N, G); break;
+        default: launch_fill<1>(W, grid, s, a, b, mag_p, llr, al, words, S, N, G); break;
     }
     const int err = last_error();
     if (err != 0) return err;

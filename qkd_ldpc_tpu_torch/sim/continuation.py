@@ -219,8 +219,8 @@ class _ContinuationProgram:
                                           self.device)
             b.a_rows.copy_(a)
             b.bob.copy_(bob)
-        steps.stage_fill(b.a_rows, b.bob, self.core.maps, st, b.llr_s, b.syn_s, b.alice_s,
-                         use_kernel=kern, bits=b.fill_bits)
+        steps.stage_fill(b.a_rows, b.bob, self.core.maps, st[steps.MAG:steps.MAG + 1], b.llr_s,
+                         b.syn_s, b.alice_s, use_kernel=kern, bits=b.fill_bits)
 
     def _refill(self, x, b, passes=None, test=None):
         """``refill``: the next K staged trials (fewer at the tail of a point)

@@ -270,12 +270,14 @@ def stage_step(x, st, S, P, *, use_kernel, passes=None, test=None):
 # ---------------------------------------------------------------------------
 # stage_fill: regen's staging arrays, transposed, with Alice's syndrome
 
-def stage_fill_plain(alice_rows, bob, maps, st, llr_s, syn_s, alice_s):
+def stage_fill_plain(alice_rows, bob, maps, mag, llr_s, syn_s, alice_s):
     """From Alice's and Bob's ``[S, N]`` uint8 rows: ``llr_s [N, S]`` float32
-    (the a-priori LLR, the magnitude's bits in ``st[MAG]``), ``syn_s [M, S]``
-    int8 (Alice's syndrome, ``decoder/syndrome.py``'s parity) and ``alice_s
-    [N, S]`` int8.  ``maps`` is the code's ``LDPCCode.to_device``."""
-    mag = st[MAG:MAG + 1].view(torch.float32)
+    (the a-priori LLR; ``mag`` is the int32 ``[1]`` holding its magnitude's
+    float32 bits: the continuation's ``st[MAG]``, the trial chunk's input
+    vector), ``syn_s [M, S]`` int8 (Alice's syndrome, ``decoder/syndrome.py``'s
+    parity) and ``alice_s [N, S]`` int8.  ``maps`` is the code's
+    ``LDPCCode.to_device``."""
+    mag = mag.view(torch.float32)
     llr_s.copy_(torch.where(bob.T == 1, -mag, mag))
     alice_s.copy_(alice_rows.T)
     gathered = torch.where(maps.chk_mask, alice_rows.to(torch.int32)[:, maps.chk_adj], 0)
@@ -288,7 +290,7 @@ def fill_bits_shape(S: int, N: int) -> tuple[int, int]:
     return N, -(-S // 32)
 
 
-def stage_fill_cuda(alice_rows, bob, maps, st, llr_s, syn_s, alice_s, bits=None):
+def stage_fill_cuda(alice_rows, bob, maps, mag, llr_s, syn_s, alice_s, bits=None):
     """Two launches (the transpose that packs Alice's bits, then the syndrome
     from the words; ``csrc/continuation.cu``), one count.  ``bits``
     (:func:`fill_bits_shape`, int32) is made when not given."""
@@ -297,16 +299,18 @@ def stage_fill_cuda(alice_rows, bob, maps, st, llr_s, syn_s, alice_s, bits=None)
     if bob.shape != (S, N) or llr_s.shape != (N, S) or alice_s.shape != (N, S) or (
             syn_s.shape != (M, S)):
         raise ValueError("stage_fill: the rows are [S, N], the staging arrays [N, S] / [M, S]")
+    if mag.shape != (1,) or mag.dtype != torch.int32:
+        raise ValueError("stage_fill: mag is the int32 [1] of the magnitude's float32 bits")
     _offsets_fit_int32("stage_fill", N * S, M * S)
     if bits is None:
         bits = torch.empty(fill_bits_shape(S, N), dtype=torch.int32, device=alice_rows.device)
     elif bits.shape != fill_bits_shape(S, N) or bits.dtype != torch.int32:
         raise ValueError(f"stage_fill: bits must be int32 {fill_bits_shape(S, N)}")
     _launch(KERNEL_FILL, [_P] * 9 + [_I] * 4,
-            (alice_rows, bob, maps.chk_adj_T_i32, maps.chk_mask_T_i32, st, llr_s, syn_s,
+            (alice_rows, bob, maps.chk_adj_T_i32, maps.chk_mask_T_i32, mag, llr_s, syn_s,
              alice_s, bits),
             alice_rows.data_ptr(), bob.data_ptr(), maps.chk_adj_T_i32.data_ptr(),
-            maps.chk_mask_T_i32.data_ptr(), st.data_ptr(), llr_s.data_ptr(),
+            maps.chk_mask_T_i32.data_ptr(), mag.data_ptr(), llr_s.data_ptr(),
             syn_s.data_ptr(), alice_s.data_ptr(), bits.data_ptr(), S, N, M, dc)
 
 
@@ -323,11 +327,11 @@ def stage_fill_widths(alice_rows, bob, llr_s, syn_s, alice_s) -> dict[str, int]:
     return {"rows": w & 0xFF, "staging": (w >> 8) & 0xFF, "syndrome": w >> 16}
 
 
-def stage_fill(alice_rows, bob, maps, st, llr_s, syn_s, alice_s, *, use_kernel, bits=None):
+def stage_fill(alice_rows, bob, maps, mag, llr_s, syn_s, alice_s, *, use_kernel, bits=None):
     if use_kernel:
-        stage_fill_cuda(alice_rows, bob, maps, st, llr_s, syn_s, alice_s, bits)
+        stage_fill_cuda(alice_rows, bob, maps, mag, llr_s, syn_s, alice_s, bits)
     else:
-        stage_fill_plain(alice_rows, bob, maps, st, llr_s, syn_s, alice_s)
+        stage_fill_plain(alice_rows, bob, maps, mag, llr_s, syn_s, alice_s)
 
 
 # ---------------------------------------------------------------------------

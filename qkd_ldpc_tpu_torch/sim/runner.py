@@ -22,8 +22,10 @@ A chunk of up to ``max_batches_per_dispatch`` trial batches is one device
 program, as the JAX package's ``_point_chunk_step`` (``lax.scan`` under one
 ``jit``).  On the card it is one CUDA graph per (code, batch, batches a
 chunk, options, prng, card) that holds, batch after batch, keygen (K4, K3
-and the tie path gated on the card), syndrome, a-priori LLRs, the decode
-(its loops WHILE nodes) and the statistics; a call copies one int32 input
+and the tie path gated on the card), the a-priori LLRs and Alice's syndrome
+(the continuation's staging kernel ``stage_fill``), the decode (its loops
+WHILE nodes) and the statistics (:func:`trial_stats`, merged into the chunk's
+partials on the card); a call copies one int32 input
 vector in (point key, first trial id, valid trials, error count, LLR
 magnitude: :func:`chunk_inputs`), replays the graph once and copies the
 seven partials out.  Points differ only in that vector, so a sweep captures
@@ -38,6 +40,7 @@ checkpoint and shows progress.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import hashlib
 import json
@@ -47,6 +50,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from qkd_ldpc_tpu_torch import _build
 from qkd_ldpc_tpu_torch.channel.cuda_prng import DeviceRange
 from qkd_ldpc_tpu_torch.channel.keys import make_trials_from_ids, master_key, num_errors_for
 from qkd_ldpc_tpu_torch.channel.threefry import fold_in
@@ -56,7 +60,7 @@ from qkd_ldpc_tpu_torch.decoder import device_loop
 from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions, decode_program
 from qkd_ldpc_tpu_torch.decoder.layered import NOT_QC_MESSAGE
 from qkd_ldpc_tpu_torch.decoder.reconcile import llr_magnitude
-from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
+from qkd_ldpc_tpu_torch.sim.cuda_continuation import fill_bits_shape, stage_fill
 from qkd_ldpc_tpu_torch.sim.planner import rate_based_qber_range
 from qkd_ldpc_tpu_torch.sim.progress import ProgressBar
 from qkd_ldpc_tpu_torch.sim.stats import (
@@ -177,6 +181,76 @@ def chunk_inputs(point_key: torch.Tensor, first: int, total_valid: int, num_erro
     return torch.from_numpy(vec)
 
 
+# ---------------------------------------------------------------------------
+# trial_stats: a batch's key check and statistics, merged into the chunk's [7]
+
+KERNEL_STATS = "trial_stats"
+
+
+def trial_stats_plain(z, alice_s, ok, iters, valid, offset, max_it, out, scratch=None,
+                      first=True):
+    """Batch statistics into ``out``, the chunk's int32 ``[7]`` partials
+    (``STAT_KEYS``): the trials whose decision ``z [N, B]`` int8 equals
+    Alice's bits ``alice_s [N, B]`` int8, the lanes below ``valid[0] -
+    offset`` counted (``valid`` an int32 ``[1]``), reduced by
+    ``reduce_trials`` with ``ok [B]`` and ``iters [B]``; the first batch's
+    written, a later one's merged as ``merge_partials_tree`` merges.
+    ``scratch`` is the kernel's (unused here)."""
+    B = z.shape[1]
+    keys_match = (z == alice_s).all(dim=0)
+    lanes = torch.arange(B, dtype=torch.int32, device=z.device)
+    red = reduce_trials(ok, keys_match, iters, max_it, lanes < valid[0] - offset)
+    if not first:
+        red = merge_partials_tree(dict(zip(STAT_KEYS, out)), red)
+    out.copy_(stack_partials(red))
+
+
+def trial_stats_cuda(z, alice_s, ok, iters, valid, offset, max_it, out, scratch, first=True):
+    """One launch (``csrc/trial_stats.cu``); ``scratch`` is int32 ``[B + 1]``,
+    all 0 before the launch, which leaves it so."""
+    N, B = z.shape
+    if alice_s.shape != (N, B) or z.dtype != torch.int8 or alice_s.dtype != torch.int8:
+        raise ValueError("trial_stats: z and alice_s are int8 [N, B]")
+    if ok.shape != (B,) or ok.dtype != torch.bool or iters.shape != (B,) or (
+            iters.dtype != torch.int32):
+        raise ValueError("trial_stats: ok is bool [B], iters int32 [B]")
+    if valid.shape != (1,) or valid.dtype != torch.int32 or out.shape != (7,) or (
+            out.dtype != torch.int32):
+        raise ValueError("trial_stats: valid is int32 [1], out int32 [7]")
+    if scratch.shape != (B + 1,) or scratch.dtype != torch.int32:
+        raise ValueError(f"trial_stats: scratch must be int32 [{B + 1}]")
+    if N * B >= 2**31 or B > 8 * 48 * 1024:
+        raise ValueError("trial_stats: N * B must fit 32-bit offsets and B a block's "
+                         "48 KiB of lane masks")
+    tensors = (z, alice_s, ok, iters, valid, out, scratch)
+    dev = z.device
+    if dev.type != "cuda" or any(t.device != dev or not t.is_contiguous() for t in tensors):
+        raise ValueError("trial_stats needs contiguous CUDA tensors on one device")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("trial_stats", "trial_stats", [P] * 7 + [I] * 5 + [P])
+    with torch.cuda.device(dev):
+        err = fn(*(t.data_ptr() for t in tensors), offset, max_it, N, B, int(first),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(KERNEL_STATS, err)
+
+
+def trial_stats_width(z, alice_s) -> int:
+    """Bytes a load of the instance :func:`trial_stats_cuda` launches for
+    these tensors: 16, or 8, 4, 1 where ``B`` or a base address is not
+    16-byte aligned."""
+    fn = _build.function("trial_stats", "trial_stats_width",
+                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int])
+    return int(fn(z.data_ptr(), alice_s.data_ptr(), z.shape[1]))
+
+
+def trial_stats(z, alice_s, ok, iters, valid, offset, max_it, out, scratch, first, *,
+                use_kernel):
+    if use_kernel:
+        trial_stats_cuda(z, alice_s, ok, iters, valid, offset, max_it, out, scratch, first)
+    else:
+        trial_stats_plain(z, alice_s, ok, iters, valid, offset, max_it, out, scratch, first)
+
+
 class _ChunkProgram:
     """``n_batches`` trial batches of ``width`` lanes, merged on the device:
     the runner's one program, eager (``graph=None``) or captured into a
@@ -185,35 +259,49 @@ class _ChunkProgram:
     ``valid - i * stride``; everything that varies per call is read from the
     input vector ``x`` (:func:`chunk_inputs`) on the device, so one capture
     serves every point and chunk of the code (``stride`` is the global batch
-    of a trial shard, else ``width``)."""
+    of a trial shard, else ``width``).  Around the decode a batch is two
+    kernels of the continuation's staging (``stage_fill``: the LLRs, Alice's
+    syndrome and bits, transposed) and :func:`trial_stats`; the CPU and
+    ``backend="xla"`` run their plain versions."""
 
     def __init__(self, code, width, stride, n_batches, opts, prng, device):
         self.code, self.width, self.stride, self.n_batches = code, width, stride, n_batches
         self.opts, self.prng, self.device = opts, prng, device
         self.decode, self.use_kernel, _ = decode_program(code, opts, device)
+        self.maps = code.to_device(device)
 
-    def batch(self, x: torch.Tensor, i: int, graph) -> dict[str, torch.Tensor]:
+    def buffers(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The chunk's ``[7]`` partials (the first batch writes them) and the
+        statistics kernel's scratch (zeros, left so by every launch)."""
+        return (torch.empty(7, dtype=torch.int32, device=self.device),
+                torch.zeros(self.width + 1, dtype=torch.int32, device=self.device))
+
+    def batch(self, x: torch.Tensor, i: int, graph, out: torch.Tensor,
+              scratch: torch.Tensor) -> None:
         """Batch ``i``: keygen and channel (K4, K3, the gated tie path),
-        syndrome, a-priori LLRs, decode, statistics."""
-        code, B, opts, dev = self.code, self.width, self.opts, self.device
+        staging (a-priori LLRs, Alice's syndrome and bits), decode, and its
+        statistics into ``out``."""
+        code, B, opts, dev, kern = self.code, self.width, self.opts, self.device, self.use_kernel
+        N, M = code.n_vars, code.n_checks
         ids = DeviceRange(x[FIRST], range(i * self.stride, i * self.stride + B))
-        alice, bob = make_trials_from_ids(x[KEY], code.n_vars, ids, x[ERRORS], self.prng,
+        alice, bob = make_trials_from_ids(x[KEY], N, ids, x[ERRORS], self.prng,
                                           opts.backend, dev)
-        mag = x[LLR].view(torch.float32)
-        llr = torch.where(bob.T == 1, -mag, mag).contiguous()  # [N, B]
-        syn = syndrome(code, alice).T.contiguous()  # [M, B] int8
+        llr = torch.empty((N, B), dtype=torch.float32, device=dev)
+        syn = torch.empty((M, B), dtype=torch.int8, device=dev)
+        alice_s = torch.empty((N, B), dtype=torch.int8, device=dev)
+        bits = (torch.empty(fill_bits_shape(B, N), dtype=torch.int32, device=dev) if kern
+                else None)
+        stage_fill(alice, bob, self.maps, x[LLR], llr, syn, alice_s, use_kernel=kern, bits=bits)
         z, iters, ok = self.decode(llr, syn, graph)
-        keys_match = (z.T == alice.to(torch.int8)).all(dim=-1)
-        valid = torch.arange(B, dtype=torch.int32, device=dev) < x[VALID] - i * self.stride
-        return reduce_trials(ok, keys_match, iters, opts.max_iterations, valid)
+        trial_stats(z, alice_s, ok, iters, x[VALID], i * self.stride, opts.max_iterations,
+                    out, scratch, i == 0, use_kernel=kern)
 
     def __call__(self, x: torch.Tensor, graph=None) -> torch.Tensor:
         """The chunk's stacked ``[7]`` int32 partials."""
-        out = None
+        out, scratch = self.buffers()
         for i in range(self.n_batches):
-            red = self.batch(x, i, graph)
-            out = red if out is None else merge_partials_tree(out, red)
-        return stack_partials(out)
+            self.batch(x, i, graph, out, scratch)
+        return out
 
 
 def _point_chunk(code, point_key, num_errors, start_offset, total_valid,
@@ -235,7 +323,7 @@ def _point_chunk(code, point_key, num_errors, start_offset, total_valid,
     return device_loop.run_graph(
         key, lambda v, graph: (program(v, graph),), (x,), keep=program, device=device,
         loops=device_loop.LOOPS_PER_DECODE * n_batches,
-        warmup=lambda v: program.batch(v, 0, None))[0]
+        warmup=lambda v: program.batch(v, 0, None, *program.buffers()))[0]
 
 
 def _dispatch_point(

@@ -219,8 +219,8 @@ def test_stage_fill_equals_jax_regen_on_padded_slots(which, width):
     llr_s = torch.zeros((N, width))
     syn_s, alice_s = (torch.zeros((M, width), dtype=torch.int8),
                       torch.zeros((N, width), dtype=torch.int8))
-    steps.stage_fill_plain(torch.from_numpy(alice), torch.from_numpy(bob), maps, st, llr_s,
-                           syn_s, alice_s)
+    steps.stage_fill_plain(torch.from_numpy(alice), torch.from_numpy(bob), maps,
+                           st[steps.MAG:steps.MAG + 1], llr_s, syn_s, alice_s)
     want_llr = np.asarray(j_apriori_llr(jnp.asarray(bob), q)).T.astype(np.float32)
     want_syn = np.asarray(j_syndrome(jc, jnp.asarray(alice))).T.astype(np.int32)
     assert np.array_equal(llr_s.numpy(), want_llr)
@@ -237,7 +237,7 @@ def test_stage_fill_bits_scratch():
     tc = tcodes.make_code(**IRREGULAR)
     S, N, M = 40, tc.n_vars, tc.n_checks
     rows = torch.zeros((S, N), dtype=torch.uint8)
-    args = (rows, rows, tc.to_device(CPU), torch.zeros(steps.SLOTS, dtype=torch.int32),
+    args = (rows, rows, tc.to_device(CPU), torch.zeros(1, dtype=torch.int32),
             torch.zeros((N, S)), torch.zeros((M, S), dtype=torch.int8),
             torch.zeros((N, S), dtype=torch.int8))
     with pytest.raises(ValueError, match="bits must be int32"):

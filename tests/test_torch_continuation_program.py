@@ -319,7 +319,7 @@ def test_stage_fill_equals_jax_regen_arrays(codes):
     syn_s, alice_s = torch.zeros((M, S), dtype=torch.int8), torch.zeros((N, S),
                                                                          dtype=torch.int8)
     steps.stage_fill_plain(torch.from_numpy(alice), torch.from_numpy(bob), tc.to_device(CPU),
-                           st, llr_s, syn_s, alice_s)
+                           st[steps.MAG:steps.MAG + 1], llr_s, syn_s, alice_s)
     assert np.array_equal(llr_s.numpy(), np.where(bob.T == 1, -2.5, 2.5).astype(np.float32))
     assert np.array_equal(syn_s.numpy(), ((tc.dense.astype(np.int64) @ alice.T) % 2))
     assert np.array_equal(alice_s.numpy(), alice.T)
