@@ -118,7 +118,11 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    plain version on a forced-tie batch and timed), the
    ``Reconciler`` at 128 and 101 lanes against ``backend="xla"``,
    ``reconcile_secure``, the rate-adapted endpoint (flooding and layered) and
-   the four decoder kernels on its erasure/pinned LLRs, a blind session, and
+   the four decoder kernels on its erasure/pinned LLRs, the rate-agile
+   endpoint (``rate_family``: one ``Reconciler(rates=...)`` over the 17 steps
+   of a family of 1,024 modulated positions, each step's syndromes, decode and
+   secure chain bit-equal to an endpoint bound to that step's member, one
+   capture of the serve program across all steps), a blind session, and
    the four Toeplitz methods at the flagship and at a 262,144-bit frame;
 7. drives ``parallel/`` on the one card (``parallel``): a trial mesh
    of four shards on the card (``run_point_sharded`` flooding and layered, the
@@ -154,7 +158,8 @@ and on this one in turns (parent, change, change, parent), a process each;
 ``--trial-turns PARENT`` likewise the two trial paths' walls, K2 / K5 / K6
 with and without the loop's bookkeeping folded in and one traced run of each
 path (``profile_trial_paths_here``), parent and change alternating in pairs;
-``--chunk-glue`` runs the build and phase 3f alone.
+``--chunk-glue`` runs the build and phase 3f alone; ``--rate-family`` the
+build and the protocol phase's ``rate_family`` hold alone.
 Times are this card's, labelled with its name and power limit; they are a
 smoke measurement, not a benchmark.
 """
@@ -289,6 +294,9 @@ RATE08_POINTS = 10  # 0.005, 0.0075, ... 0.0275
 PROTOCOL_SEED, PROTOCOL_FRAMES = 4242, 512
 PROTOCOL_LANES = (128, RAGGED_BATCH)
 ADAPT_PUNCTURED, ADAPT_SHORTENED, ADAPT_SEED, ADAPT_QBER = 512, 512, 3, 0.04
+# The rate-agile endpoint: a family over the adapter's d = 1,024 positions on a
+# grid of 64 (17 steps; step 8 is the adapter above), payloads at QBER 0.06.
+FAMILY_GRID, FAMILY_QBER = 64, 0.06
 BLIND_PUNCTURED, BLIND_STEP, BLIND_QBER = 1024, 256, 0.065
 AMPLIFY_FRAMES, BIG_FRAME, BIG_LEAK = 32, 262144, 131072
 AMPLIFY_BLOCKS, AMPLIFY_ROWS_CHECKED = (128, 256, 512), 64
@@ -1658,6 +1666,10 @@ def _protocol(torch, np, dev, card, code, names):
         adapted[schedule] = {"wall_s": s_a, "frames_per_s": PROTOCOL_FRAMES / s_a,
                              "mean_iterations": float(out_a.iterations.mean()),
                              "launches": launches_a}
+    report["rate_family"] = _rate_family(
+        torch, np, dev, code, DecodeOptions(algorithm="sum-product", **base),
+        keys(fold_in(key, 8), N - ADAPT_PUNCTURED - ADAPT_SHORTENED, FAMILY_QBER),
+        fold_in(key, 9), counted)
     report["adapted_endpoint"] = {"n_punctured": ADAPT_PUNCTURED,
                                   "n_shortened": ADAPT_SHORTENED, "qber": ne / l,
                                   "effective_rate": ad.effective_rate, **adapted}
@@ -1785,6 +1797,111 @@ def _protocol(torch, np, dev, card, code, names):
     report["amplification"] = amp
     report["seconds"] = time.perf_counter() - t_phase
     return report, block_measured
+
+
+def _rate_family(torch, np, dev, code, opts, payloads, key, counted):
+    """One rate-agile endpoint over every step of a family against an
+    endpoint bound to each step's member: syndromes, decode and the secure
+    chain bit for bit, and the agile endpoint's captures over all steps (one
+    syndrome and one serve program).  Returns the report's dict."""
+    from qkd_ldpc_tpu_torch.channel.threefry import fold_in
+    from qkd_ldpc_tpu_torch.decoder import RateFamily, device_loop
+    from qkd_ldpc_tpu_torch.serve import Reconciler
+
+    family = RateFamily.make(code, d=ADAPT_PUNCTURED + ADAPT_SHORTENED, seed=ADAPT_SEED,
+                             grid=FAMILY_GRID)
+    a_t, b_t, ne = payloads
+    a_pay, b_pay = a_t.cpu().numpy(), b_t.cpu().numpy()
+    q = ne / family.payload_bits
+    agile = Reconciler(code, opts, lanes=PROTOCOL_LANES[0], rates=family, device=dev)
+    captures = [0]
+    real = device_loop.Graph.capture
+
+    def capture(graph, *a, **kw):
+        captures[0] += 1
+        return real(graph, *a, **kw)
+
+    device_loop.Graph.capture = capture
+    try:
+        got = []
+        for i in range(family.steps):
+            fk, tk, pk = (fold_in(fold_in(key, i), j) for j in range(3))
+            syn = agile.syndromes(a_pay, fk, rate=i)
+            tags = agile.tags(a_pay, tk)
+            sec, wall, _ = counted(
+                lambda: agile.reconcile_secure(b_pay, syn, q, tags, tk, pk, rate=i))
+            got.append((syn, tags, sec, wall))
+    finally:
+        device_loop.Graph.capture = real
+    want = 2 if dev.type == "cuda" else 0  # the CPU runs the programs eagerly
+    if captures[0] != want or sorted(k[0] for k in agile._runners) != ["serve", "syndrome"]:
+        raise AssertionError(f"rate-agile endpoint: {captures[0]} captures over "
+                             f"{family.steps} steps")
+    steps = []
+    for i, (syn, tags, sec, wall) in enumerate(got):
+        fk, tk, pk = (fold_in(fold_in(key, i), j) for j in range(3))
+        one = Reconciler(code, opts, lanes=PROTOCOL_LANES[0], adapter=family.member(i),
+                         device=dev)
+        if not np.array_equal(syn, one.syndromes(a_pay, fk)):
+            raise AssertionError(f"rate-agile endpoint, step {i}: syndromes differ")
+        want = one.reconcile_secure(b_pay, syn, q, tags, tk, pk)
+        for f in sec._fields:
+            if not np.array_equal(np.asarray(getattr(sec, f)), np.asarray(getattr(want, f))):
+                raise AssertionError(f"rate-agile endpoint, step {i}: {f} differs from "
+                                     "the member's endpoint")
+        if (sec.verified & ~sec.syndromes_match).any() or sec.key.shape[1] != sec.final_bits:
+            raise AssertionError(f"rate-agile endpoint, step {i}: verification")
+        steps.append({"step": i, "n_punctured": int(family.member(i).punct_idx.size),
+                      "effective_rate": family.member(i).effective_rate,
+                      "verified": int(sec.verified.sum()),
+                      "mean_iterations": float(sec.iterations.mean()),
+                      "final_bits": sec.final_bits, "secure_wall_s": wall})
+        del one
+    return {"steps": family.steps, "d": family.d, "grid": family.grid, "qber": q,
+            "captures_over_all_steps": captures[0], "equal_to_member_endpoints": True,
+            "by_step": steps}
+
+
+def rate_family_here() -> int:
+    """``--rate-family``: the build and the protocol phase's ``rate_family``
+    hold alone; prints one ``rate_family`` line."""
+    import numpy as np
+    import torch
+
+    from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.channel import generate_random_bits, introduce_errors
+    from qkd_ldpc_tpu_torch.channel.keys import num_errors_for
+    from qkd_ldpc_tpu_torch.channel.threefry import fold_in, prng_key
+    from qkd_ldpc_tpu_torch.codes import make_qc_code
+    from qkd_ldpc_tpu_torch.decoder import DecodeOptions
+    from qkd_ldpc_tpu_torch.utils import card_name_and_power_limit
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    _build.build_all()
+    code = make_qc_code(z=512, nb=20, mb=10, dv=3, seed=666)
+    key = prng_key(PROTOCOL_SEED)
+    l = code.n_vars - ADAPT_PUNCTURED - ADAPT_SHORTENED
+    k = fold_in(key, 8)
+    a = generate_random_bits(k, l, PROTOCOL_FRAMES, device=dev)
+    n_err = num_errors_for(l, FAMILY_QBER)
+    payloads = (a, introduce_errors(fold_in(k, 1), a, n_err), n_err)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {}
+
+    opts = DecodeOptions(algorithm="sum-product", max_iterations=100, clip_messages=True,
+                         message_threshold=100.0, message_dtype="bfloat16")
+    print(json.dumps({"rate_family": dict(
+        _rate_family(torch, np, dev, code, opts, payloads, fold_in(key, 9), counted),
+        card=card_name_and_power_limit())}), flush=True)
+    return 0
 
 
 def _reference_alist_and_example():
@@ -5576,4 +5693,6 @@ if __name__ == "__main__":
         sys.exit(trial_turns(sys.argv[sys.argv.index("--trial-turns") + 1]))
     if "--chunk-glue" in sys.argv[1:]:
         sys.exit(chunk_glue_here())
+    if "--rate-family" in sys.argv[1:]:
+        sys.exit(rate_family_here())
     sys.exit(main())

@@ -21,7 +21,7 @@ from qkd_ldpc_tpu_torch.decoder.oracle import (
     oracle_reconcile,
     oracle_syndrome,
 )
-from qkd_ldpc_tpu_torch.decoder.rate_adapt import RateAdapter
+from qkd_ldpc_tpu_torch.decoder.rate_adapt import RateAdapter, RateFamily, rate_step
 from qkd_ldpc_tpu_torch.decoder.reconcile import (
     ReconcileResult,
     apriori_llr,
@@ -42,6 +42,8 @@ __all__ = [
     "reconcile_with_syndrome",
     "ReconcileResult",
     "RateAdapter",
+    "RateFamily",
+    "rate_step",
     "BlindSession",
     "BlindResult",
     "SecureBlindResult",

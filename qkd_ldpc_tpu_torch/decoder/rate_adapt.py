@@ -19,6 +19,13 @@ bookkeeping over the unmodified decoder:
 - Effective rate on the payload channel: ``R_eff = 1 - (M - p) / (N - p -
   s)``; the conservative leakage is ``M - p`` bits per frame.
 
+A link whose QBER drifts changes rate block by block with a
+:class:`RateFamily`: a fixed number ``d = p + s`` of modulated positions
+whose split between punctured and shortened moves on a grid, the split
+chosen by both sides from the QBER estimate (:func:`rate_step`).  Its members
+share the payload positions, so one serving program takes the step as data
+(``serve.Reconciler(rates=...)``).
+
 Both sides derive the positions from a seeded numpy permutation and the
 random bits from the threefry stream of ``channel/threefry.py`` — the same
 positions and bits as the JAX package for the same seeds and keys, so a
@@ -31,6 +38,7 @@ the card, which raises without one).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -200,3 +208,95 @@ class RateAdapter:
         if single:
             return key[0], res.iterations[0], res.syndromes_match[0]
         return key, res.iterations, res.syndromes_match
+
+
+def binary_entropy(q: float) -> float:
+    """``h(q) = -q log2 q - (1 - q) log2 (1 - q)`` for ``0 < q < 1``."""
+    if not 0.0 < q < 1.0:
+        raise ValueError("qber must be in (0, 1)")
+    return -q * math.log2(q) - (1.0 - q) * math.log2(1.0 - q)
+
+
+def rate_step(n_vars: int, n_checks: int, d: int, grid: int, qber: float,
+              efficiency: float) -> int:
+    """The step of a rate family for a QBER estimate: the punctured count
+    ``p = M - f h(q) (N - d)`` that makes ``R_eff = 1 - f h(q)``, rounded
+    DOWN to the grid (the lower rate, the safe side) and clamped to
+    ``[0, d]``; returns ``p // grid``.  Both sides call it with the same
+    arguments."""
+    if efficiency <= 0:
+        raise ValueError("efficiency must be positive")
+    p = n_checks - efficiency * binary_entropy(qber) * (n_vars - d)
+    p = math.floor(p / grid) * grid
+    return min(max(p, 0), d) // grid
+
+
+@dataclasses.dataclass(frozen=True)
+class RateFamily:
+    """Rate-compatible members over one mother code and one set of ``d``
+    modulated positions: member ``i`` punctures ``p_i = i * grid`` of them and
+    shortens the other ``d - p_i``, exactly
+    ``RateAdapter.make(code, n_punctured=p_i, n_shortened=d - p_i, seed)``.
+    The modulated positions are the seeded permutation's first ``d`` whatever
+    the split, so every member has the same payload positions and differs
+    only in which modulated positions are erasures and which are pins.  A
+    family of one member (:meth:`single`) is that adapter."""
+
+    code: LDPCCode
+    d: int
+    grid: int
+    members: tuple  # RateAdapter of step i at index i
+
+    @staticmethod
+    def make(code: LDPCCode, d: int, seed: int = 0, grid: int = 64) -> "RateFamily":
+        if grid < 1 or d < 0 or d % grid:
+            raise ValueError("the grid must be a positive divisor of d")
+        members = tuple(RateAdapter.make(code, n_punctured=p, n_shortened=d - p, seed=seed)
+                        for p in range(0, d + 1, grid))
+        return RateFamily(code=code, d=d, grid=grid, members=members)
+
+    @staticmethod
+    def single(adapter: RateAdapter) -> "RateFamily":
+        """The family whose one member (step 0) is ``adapter``."""
+        d = adapter.punct_idx.size + adapter.short_idx.size
+        return RateFamily(code=adapter.code, d=d, grid=max(d, 1), members=(adapter,))
+
+    @property
+    def steps(self) -> int:
+        return len(self.members)
+
+    @property
+    def key_idx(self) -> np.ndarray:
+        return self.members[0].key_idx
+
+    @property
+    def payload_bits(self) -> int:
+        return self.members[0].payload_bits
+
+    def member(self, step: int) -> RateAdapter:
+        if not 0 <= step < self.steps:
+            raise ValueError(f"rate step {step} outside [0, {self.steps})")
+        return self.members[step]
+
+    def step(self, qber: float, efficiency: float) -> int:
+        """:func:`rate_step` for this family's code, ``d`` and grid."""
+        if self.steps == 1:
+            return 0
+        return rate_step(self.code.n_vars, self.code.n_checks, self.d, self.grid, qber,
+                         efficiency)
+
+    def pin_templates(self, shared_seed: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(mod_idx [d] int64, templates [steps, d] float32)`` on ``device``:
+        the modulated positions in ascending order and, for each step, the
+        LLR each of them takes — 0 where the member punctures it (an
+        erasure), the shared seed's pinned +-64 where it shortens it."""
+        mod = np.sort(np.concatenate([self.members[0].punct_idx,
+                                      self.members[0].short_idx]))
+        mod_idx = torch.as_tensor(mod, dtype=torch.int64, device=device)
+        templates = torch.zeros((self.steps, self.code.n_vars), dtype=torch.float32,
+                                device=device)
+        for i, ad in enumerate(self.members):
+            if ad.short_idx.size:
+                templates[i, ad._index("short_idx", device)] = pinned_llr(
+                    ad.short_pattern(shared_seed, device))
+        return mod_idx, templates.index_select(1, mod_idx).contiguous()

@@ -4,7 +4,8 @@ Counterpart of ``examples/rate_adaptive_example.py``: the same decoder
 serving a drifting channel from a single code —
 
 1. fixed-rate reconciliation through the serving endpoint,
-2. shortening the code when the channel degrades past its waterfall,
+2. shortening the code when the channel degrades past its waterfall: the
+   rate family's step for the QBER estimate, served by a rate-agile endpoint,
 3. blind reconciliation when no QBER estimate exists at all,
 4. verification and privacy amplification of the corrected keys.
 
@@ -27,7 +28,7 @@ from qkd_ldpc_tpu_torch.channel.keys import (
 )
 from qkd_ldpc_tpu_torch.channel.threefry import fold_in, prng_key
 from qkd_ldpc_tpu_torch.codes import make_code
-from qkd_ldpc_tpu_torch.decoder import DecodeOptions, RateAdapter
+from qkd_ldpc_tpu_torch.decoder import DecodeOptions, RateFamily
 from qkd_ldpc_tpu_torch.decoder.blind import blind_reconcile_sim
 from qkd_ldpc_tpu_torch.postprocess import (
     amplified_key_bits,
@@ -74,17 +75,24 @@ def main(argv=None):
     print(f"QBER {qber_bad:.1%}: mother code verifies "
           f"{int(out.syndromes_match.sum())}/8 frames — shorten instead:")
 
-    ad = RateAdapter.make(code, n_shortened=512, seed=2)
-    l = ad.payload_bits
+    # One rate family over the mother code: d = 512 modulated positions,
+    # split between punctured and shortened on a grid of 64; both sides pick
+    # the step from the QBER estimate (R_eff = 1 - f h(q), rounded down).
+    family = RateFamily.make(code, d=512, seed=2, grid=64)
+    step = family.step(qber_bad, efficiency=1.6)
+    ad = family.member(step)
+    l = family.payload_bits
     a_key = generate_random_bits(fold_in(rng, 3), l, 8, device=dev)
     ne = num_errors_for(l, qber_bad)
     b_key = introduce_errors(fold_in(rng, 4), a_key, ne)
-    frames = ad.build_frames(a_key, fold_in(rng, 5))
-    key_hat, iters, ok = ad.reconcile(b_key, ad.syndromes(frames), ne / l, opts)
-    assert bool(ok.all())
-    assert bool((key_hat == a_key).all())
-    print(f"  shortened s=512 (R_eff = {ad.effective_rate:.3f}): 8/8 frames, "
-          f"mean {iters.float().mean().item():.1f} iterations")
+    agile = Reconciler(code, opts, lanes=8, rates=family, device=dev)
+    out = agile.reconcile(b_key, agile.syndromes(a_key, fold_in(rng, 5), rate=step),
+                          ne / l, rate=step)
+    assert out.syndromes_match.all()
+    assert (out.bits == a_key.cpu().numpy()).all()
+    print(f"  shortened s={ad.short_idx.size} (R_eff = {ad.effective_rate:.3f}, step "
+          f"{step} of {family.steps}): 8/8 frames, "
+          f"mean {out.iterations.mean():.1f} iterations")
 
     # --- 3. no QBER estimate at all: blind reconciliation ---------------
     d = 256

@@ -35,6 +35,11 @@ serving-shaped contract:
   follows the adapter.  Adapters bind to the endpoint's code by CONTENT
   fingerprint (``LDPCCode.fingerprint``), not shape.  The LLR assembly and
   the payload gather are part of the chunk's program.
+- **A rate that changes block by block**: ``rates=RateFamily(...)`` serves
+  every member of a rate family from one program: the chunk's header carries
+  the step, and the program takes that step's erasures and pins from a
+  template on the card, so a change of rate captures nothing.  Each call
+  names its step (``rate=``); the leak and the final key length follow it.
 
 ``device=None`` means the card and raises without one; keys are the port's
 int64 keys (``channel.threefry.key_from_words`` converts a JAX key).  The
@@ -65,7 +70,7 @@ from qkd_ldpc_tpu_torch.channel.threefry import prng_key
 from qkd_ldpc_tpu_torch.codes.ldpc_code import LDPCCode
 from qkd_ldpc_tpu_torch.decoder import device_loop
 from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions, decode_program
-from qkd_ldpc_tpu_torch.decoder.rate_adapt import RateAdapter, pinned_llr
+from qkd_ldpc_tpu_torch.decoder.rate_adapt import RateAdapter, RateFamily, pinned_llr
 from qkd_ldpc_tpu_torch.decoder.reconcile import llr_magnitude
 from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome as syndrome_fn
 from qkd_ldpc_tpu_torch.postprocess import (
@@ -125,16 +130,34 @@ class _Layout:
 
 
 # The int32 header of a chunk's input: the float32 bits of the a-priori LLR
-# magnitude, and the chunk's valid lanes.
-MAG, VALID = 0, 1
+# magnitude, the chunk's valid lanes and, on a rate-agile endpoint, the step.
+MAG, VALID, STEP = 0, 1, 2
 
 
-def chunk_header(qber: float, valid: int) -> np.ndarray:
-    """The int32 ``[2]`` header of a chunk: the bits of
+def chunk_header(qber: float, valid: int, step: int | None = None) -> np.ndarray:
+    """The int32 header of a chunk: the bits of
     ``reconcile.llr_magnitude(qber)`` (so the rounding is ``apriori_llr``'s)
-    and the valid lane count."""
+    and the valid lane count (``[2]``), then the rate step where one is given
+    (``[3]``)."""
     mag = np.asarray(llr_magnitude(qber), np.float32).reshape(1)
-    return np.array([mag.view(np.int32)[0], valid], np.int32)
+    head = [mag.view(np.int32)[0], valid] + ([] if step is None else [step])
+    return np.array(head, np.int32)
+
+
+class ServeCounters:
+    """An endpoint's cumulative counts since it was made or :meth:`reset`:
+    blocks (calls of ``reconcile``) by rate step (``None`` on an endpoint
+    without a family), frames, frame-iterations (a frame's iterations, the
+    cap for a frame that did not converge), and from ``reconcile_secure``
+    the frames verified and the final key bits of the verified frames."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.blocks_by_rate: dict = {}
+        self.frames = self.frame_iterations = 0
+        self.frames_verified = self.final_key_bits = 0
 
 
 class _ServeProgram:
@@ -143,20 +166,32 @@ class _ServeProgram:
     static byte buffers: eager (``graph=None``) or captured into a
     :class:`~qkd_ldpc_tpu_torch.decoder.device_loop.Graph`.
 
-    Input (:attr:`inputs`): the header (:func:`chunk_header`), Bob's bits
+    Input (:attr:`inputs`): the header (:func:`chunk_header`, with the step
+    where ``rates`` is a family of several members), Bob's bits
     ``[lanes, frame_bits]`` uint8 and Alice's syndromes ``[lanes, M]``;
     output (:attr:`outputs`): iterations int32, flags bool and the corrected
     bits uint8 (payload bits on an adapted endpoint).  Lanes at or past the
     valid count decode zeros toward a zero syndrome, as JAX's padding does,
     and so converge at once whatever the buffer held before.  Everything that
     varies per chunk is read on the device, so one capture serves every
-    request and QBER."""
+    request, QBER and rate step.
 
-    def __init__(self, code, opts, lanes, adapter, shared_seed, device):
+    With ``rates`` the LLRs are the step's member's: 0 at its punctured
+    positions, the shared seed's +-64 at its shortened ones (both one row of
+    ``RateFamily.pin_templates``, selected by the header's step on the
+    device) and the channel's at the payload positions, which every member
+    shares."""
+
+    def __init__(self, code, opts, lanes, adapter, shared_seed, device, rates=None):
         self.decode, self.use_kernel, _ = decode_program(code, opts, device)
-        self.code, self.lanes, self.adapter = code, lanes, adapter
-        F = code.n_vars if adapter is None else adapter.payload_bits
-        self.inputs = _Layout((np.int32, (2,)), (np.uint8, (lanes, F)),
+        self.code, self.lanes, self.adapter, self.rates = code, lanes, adapter, rates
+        if rates is not None:
+            F = rates.payload_bits
+            self.key_idx = torch.as_tensor(rates.key_idx, dtype=torch.int64, device=device)
+            self.mod_idx, self.templates = rates.pin_templates(shared_seed, device)
+        else:
+            F = code.n_vars if adapter is None else adapter.payload_bits
+        self.inputs = _Layout((np.int32, (2 if rates is None else 3,)), (np.uint8, (lanes, F)),
                               (np.uint8, (lanes, code.n_checks)))
         self.outputs = _Layout((np.int32, (lanes,)), (bool, (lanes,)),
                                (np.uint8, (lanes, F)))
@@ -175,7 +210,13 @@ class _ServeProgram:
         mag = x[MAG:MAG + 1].view(torch.float32)
         keep = self.lane < x[VALID]
         channel = torch.where((bob.T == 1) & keep, -mag, mag)  # [frame_bits, B]
-        if self.adapter is None:
+        if self.rates is not None:  # the step's erasures and pins, the channel
+            llr = torch.zeros((self.code.n_vars, self.lanes), dtype=torch.float32,
+                              device=inp.device)
+            llr.index_copy_(0, self.key_idx, channel)
+            pins = self.templates.index_select(0, x[STEP:STEP + 1])  # [1, d]
+            llr.index_copy_(0, self.mod_idx, pins.T.expand(-1, self.lanes).contiguous())
+        elif self.adapter is None:
             llr = channel.contiguous()
         else:  # zeros (the punctured erasures), channel LLRs, the pins
             llr = torch.zeros((self.code.n_vars, self.lanes), dtype=torch.float32,
@@ -185,7 +226,7 @@ class _ServeProgram:
                 llr.index_copy_(0, self.short_idx, self.short_llr)
         s = torch.where(keep, syn.T, 0).to(torch.int8).contiguous()  # [M, B]
         z, iters, ok = self.decode(llr, s, graph)
-        if self.adapter is not None:
+        if self.adapter is not None or self.rates is not None:
             z = z.index_select(0, self.key_idx)
         bits_out.copy_(z.T)
         iters_out.copy_(iters)
@@ -297,18 +338,28 @@ class Reconciler:
         adapter: RateAdapter | None = None,
         shared_seed: int = 0,
         device=None,
+        rates: RateFamily | None = None,
     ):
         """``adapter`` serves an adapted rate over the mother ``code``:
         requests then carry PAYLOAD bits (``adapter.payload_bits`` per
         frame), punctured positions are erasures recovered by the decoder,
-        and ``shared_seed`` fixes the shortened pattern both sides derive."""
+        and ``shared_seed`` fixes the shortened pattern both sides derive.
+        ``rates`` serves every member of a rate family instead, one program
+        for all of them: each call names its step (``rate=``).  A family of
+        one member is that member's ``adapter``."""
         if lanes < 1:
             raise ValueError("lanes must be >= 1")
-        if adapter is not None and adapter.code is not code:
-            if adapter.code.fingerprint != code.fingerprint:
+        if adapter is not None and rates is not None:
+            raise ValueError("pass an adapter or a rate family, not both")
+        self.rates = rates
+        if rates is not None and rates.steps == 1:
+            adapter = rates.members[0]
+        bound = adapter if adapter is not None else rates
+        if bound is not None and bound.code is not code:
+            if bound.code.fingerprint != code.fingerprint:
                 raise ValueError(
                     "adapter was built for a different code (parity-check "
-                    f"fingerprint {adapter.code.fingerprint} != "
+                    f"fingerprint {bound.code.fingerprint} != "
                     f"{code.fingerprint})"
                 )
         self.device = resolve_device(device)
@@ -317,6 +368,7 @@ class Reconciler:
         self.lanes = lanes
         self.adapter = adapter
         self.shared_seed = shared_seed
+        self.counters = ServeCounters()
         # Chunks allowed in flight before the oldest is fetched: enough to
         # hide the host's dispatch and fetch under the card's decode, small
         # enough that device memory stays constant in the request size.
@@ -326,8 +378,16 @@ class Reconciler:
         self._runners: dict = {}
 
     @property
+    def agile(self) -> bool:
+        """Whether the endpoint serves several rate steps (a family of more
+        than one member): its calls then name their step."""
+        return self.rates is not None and self.rates.steps > 1
+
+    @property
     def frame_bits(self) -> int:
         """Bits per request frame (payload bits when rate-adapted)."""
+        if self.agile:
+            return self.rates.payload_bits
         if self.adapter is not None:
             return self.adapter.payload_bits
         return self.code.n_vars
@@ -336,18 +396,41 @@ class Reconciler:
     def syndrome_bits(self) -> int:
         return self.code.n_checks
 
+    def _step(self, rate) -> int | None:
+        """The call's rate step, checked: an agile endpoint needs one in
+        ``[0, steps)``; any other endpoint takes none (a family of one
+        member also takes 0)."""
+        if self.agile:
+            if rate is None:
+                raise ValueError("a rate-agile endpoint needs the block's step (rate=)")
+            if isinstance(rate, bool) or int(rate) != rate:
+                raise ValueError(f"rate step {rate!r} is not a whole number")
+            self.rates.member(int(rate))  # raises outside [0, steps)
+            return int(rate)
+        if rate is not None and not (self.rates is not None and rate == 0):
+            raise ValueError("this endpoint serves one rate: pass no rate=")
+        return None
+
+    def _adapter_at(self, step: int | None) -> RateAdapter | None:
+        return self.adapter if step is None else self.rates.member(step)
+
+    def leak(self, rate: int | None = None) -> int:
+        """Information disclosed per frame by RECONCILIATION at ``rate``
+        (syndrome bits, net of punctured entropy when rate-adapted: ``M -
+        p``).  The secure chain adds tag bits on top (``reconcile_secure``)."""
+        ad = self._adapter_at(self._step(rate))
+        return self.code.n_checks if ad is None else ad.leak_bits
+
     @property
     def leak_bits(self) -> int:
-        """Information disclosed per frame by RECONCILIATION (syndrome
-        bits, net of punctured entropy when rate-adapted).  The secure
-        chain adds tag bits on top (``reconcile_secure``)."""
-        if self.adapter is not None:
-            return self.adapter.leak_bits
-        return self.code.n_checks
+        """:meth:`leak` of an endpoint that serves one rate (a rate-agile
+        endpoint raises: its leak is the step's, ``leak(rate)``)."""
+        return self.leak()
 
-    def final_key_bits(self, tag_bits: int = 64, security_bits: int = 100) -> int:
-        """Post-amplification key length per verified frame."""
-        return amplified_key_bits(self.frame_bits, self.leak_bits, tag_bits,
+    def final_key_bits(self, tag_bits: int = 64, security_bits: int = 100,
+                       rate: int | None = None) -> int:
+        """Post-amplification key length per verified frame (at ``rate``)."""
+        return amplified_key_bits(self.frame_bits, self.leak(rate), tag_bits,
                                   security_bits)
 
     def warmup(self) -> "Reconciler":
@@ -355,21 +438,24 @@ class Reconciler:
         kernels and captures both programs, which the first calls would
         otherwise pay for)."""
         bob = np.zeros((1, self.frame_bits), np.uint8)
-        syn = self.syndromes(bob, frame_key=prng_key(0))
-        self.reconcile(bob, syn, qber=0.01)
+        rate = 0 if self.agile else None
+        syn = self.syndromes(bob, frame_key=prng_key(0), rate=rate)
+        self.reconcile(bob, syn, qber=0.01, rate=rate)
         return self
 
     def _runner(self, kind: str) -> _Runner:
         """The endpoint's program ``kind`` ("serve" or "syndrome"): one per
-        (schedule and options, lanes, adapter, shared seed), kept for the
-        endpoint's lifetime (a program holds its adapter, so the adapter's id
-        in the key stays unique)."""
-        key = (kind, self.opts, self.lanes, id(self.adapter), self.shared_seed)
+        (schedule and options, lanes, adapter or family, shared seed), kept
+        for the endpoint's lifetime (a program holds its adapter or family,
+        so the id in the key stays unique)."""
+        key = (kind, self.opts, self.lanes, id(self.adapter), id(self.rates),
+               self.shared_seed)
         runner = self._runners.get(key)
         if runner is None:
             if kind == "serve":
                 runner = _Runner(_ServeProgram(self.code, self.opts, self.lanes,
-                                               self.adapter, self.shared_seed, self.device),
+                                               self.adapter, self.shared_seed, self.device,
+                                               self.rates if self.agile else None),
                                  self.device, device_loop.LOOPS_PER_DECODE)
             else:
                 runner = _Runner(_SyndromeProgram(self.code, self.opts, self.lanes, self.device),
@@ -418,21 +504,23 @@ class Reconciler:
             )
         return arr, single
 
-    def syndromes(self, bits, frame_key=None) -> np.ndarray:
+    def syndromes(self, bits, frame_key=None, rate: int | None = None) -> np.ndarray:
         """Alice side: syndromes [n, M] of key frames [n, frame_bits] (or
         1-D).  Rate-adapted endpoints assemble the full mother-code frame
-        first; ``frame_key`` supplies Alice's PRIVATE randomness for
-        punctured positions (required when the adapter punctures)."""
+        first (a rate-agile one with the member of step ``rate``);
+        ``frame_key`` supplies Alice's PRIVATE randomness for punctured
+        positions (required when the adapter punctures)."""
         with span("qkd.serve.syndromes"):
+            adapter = self._adapter_at(self._step(rate))
             arr, single = self._frames(bits)
             frames = None
-            if self.adapter is not None:
-                if self.adapter.punct_idx.size and frame_key is None:
+            if adapter is not None:
+                if adapter.punct_idx.size and frame_key is None:
                     raise ValueError(
                         "frame_key (Alice's private randomness for punctured "
                         "bits) is required on a punctured endpoint"
                     )
-                frames = self.adapter.build_frames(
+                frames = adapter.build_frames(
                     torch.as_tensor(arr, device=self.device),
                     frame_key if frame_key is not None else prng_key(0), self.shared_seed)
             out = np.empty((arr.shape[0], self.code.n_checks), np.int8)
@@ -458,13 +546,16 @@ class Reconciler:
         out = toeplitz_hash(arr, tag_key, tag_bits, device=self.device).cpu().numpy()
         return out[0] if single else out
 
-    def reconcile(self, bob_bits, alice_syndromes, qber: float) -> ServeResult:
-        """Bob side: correct noisy frames toward received syndromes.
+    def reconcile(self, bob_bits, alice_syndromes, qber: float,
+                  rate: int | None = None) -> ServeResult:
+        """Bob side: correct noisy frames toward received syndromes (a
+        rate-agile endpoint at the block's step ``rate``).
 
         ``syndromes_match[i]`` False means frame i did NOT verify — it must
         be discarded (or retried at a lower rate), never used as key
         material."""
         with span("qkd.serve.reconcile"):
+            step = self._step(rate)
             bob, single = self._frames(bob_bits)
             syn = host(alice_syndromes)
             if single:
@@ -482,11 +573,12 @@ class Reconciler:
             iters = np.empty((n,), np.int32)
             ok = np.empty((n,), bool)
 
-            mag = chunk_header(qber, 0)[MAG]
+            head = chunk_header(qber, 0, step if self.agile else None)
 
             def fill(views, off, chunk):
                 header, b, s = views
-                header[:] = (mag, chunk)
+                head[VALID] = chunk
+                header[:] = head
                 b[:chunk] = bob[off:off + chunk]
                 s[:chunk] = syn[off:off + chunk]
 
@@ -498,6 +590,11 @@ class Reconciler:
 
             with self._lock:
                 self._stream(self._runner("serve"), n, fill, read)
+                c = self.counters
+                c.blocks_by_rate[step] = c.blocks_by_rate.get(step, 0) + 1
+                c.frames += n
+                c.frame_iterations += int(np.where(ok, iters, self.opts.max_iterations).sum(
+                    dtype=np.int64))
             res = ServeResult(bits=bits, iterations=iters, syndromes_match=ok)
             if single:
                 res = ServeResult(res.bits[0], res.iterations[0], res.syndromes_match[0])
@@ -505,38 +602,46 @@ class Reconciler:
 
     def reconcile_secure(self, bob_bits, alice_syndromes, qber: float, alice_tags,
                          tag_key, pa_key, tag_bits: int = 64,
-                         security_bits: int = 100) -> SecureResult:
+                         security_bits: int = 100, rate: int | None = None) -> SecureResult:
         """The full Bob-side post-processing chain in one call: reconcile ->
         verification tags (compare against Alice's) -> privacy
         amplification, with the per-frame leakage ledger (syndrome
-        disclosure + tag bits) setting the final key length.
+        disclosure + tag bits) setting the final key length (on a rate-agile
+        endpoint, those of the block's step ``rate``).
 
         ``alice_tags`` [n, tag_bits] arrive over the classical channel;
         ``tag_key``/``pa_key`` are the shared hash seeds (fresh per
         exchange).  Returns amplified key material; use row i only where
         ``verified[i]``."""
-        res = self.reconcile(bob_bits, alice_syndromes, qber)
-        single = host(bob_bits).ndim == 1
-        bits = np.atleast_2d(res.bits)
-        syn_ok = np.atleast_1d(res.syndromes_match)
-        a_tags = np.atleast_2d(host(alice_tags, np.uint8))
-        n = bits.shape[0]
-        if a_tags.shape != (n, tag_bits):
-            raise ValueError(
-                f"expected alice_tags [{n}, {tag_bits}], got {a_tags.shape}"
-            )
-        x = torch.as_tensor(bits, device=self.device)
-        bob_tags = toeplitz_hash(x, tag_key, tag_bits).cpu().numpy()
-        verified = syn_ok & (bob_tags == a_tags).all(axis=-1)
+        with span("qkd.serve.secure"):
+            res = self.reconcile(bob_bits, alice_syndromes, qber, rate=rate)
+            single = host(bob_bits).ndim == 1
+            bits = np.atleast_2d(res.bits)
+            syn_ok = np.atleast_1d(res.syndromes_match)
+            a_tags = np.atleast_2d(host(alice_tags, np.uint8))
+            n = bits.shape[0]
+            if a_tags.shape != (n, tag_bits):
+                raise ValueError(
+                    f"expected alice_tags [{n}, {tag_bits}], got {a_tags.shape}"
+                )
+            x = torch.as_tensor(bits, device=self.device)
+            with span("qkd.secure.tags"):
+                bob_tags = toeplitz_hash(x, tag_key, tag_bits).cpu().numpy()
+                verified = syn_ok & (bob_tags == a_tags).all(axis=-1)
 
-        final_bits = self.final_key_bits(tag_bits, security_bits)
-        key = privacy_amplify(x, pa_key, final_bits).cpu().numpy()
-        leak = np.full((n,), self.leak_bits + tag_bits, np.int32)
-        out = SecureResult(
-            key=key, verified=verified, iterations=np.atleast_1d(res.iterations),
-            syndromes_match=syn_ok, leak_bits=leak, final_bits=final_bits,
-        )
-        if single:
-            out = SecureResult(out.key[0], out.verified[0], out.iterations[0],
-                               out.syndromes_match[0], out.leak_bits[0], final_bits)
-        return out
+            final_bits = self.final_key_bits(tag_bits, security_bits, rate)
+            with span("qkd.secure.amplify"):
+                key = privacy_amplify(x, pa_key, final_bits).cpu().numpy()
+            leak = np.full((n,), self.leak(rate) + tag_bits, np.int32)
+            with self._lock:
+                n_ok = int(verified.sum())
+                self.counters.frames_verified += n_ok
+                self.counters.final_key_bits += n_ok * final_bits
+            out = SecureResult(
+                key=key, verified=verified, iterations=np.atleast_1d(res.iterations),
+                syndromes_match=syn_ok, leak_bits=leak, final_bits=final_bits,
+            )
+            if single:
+                out = SecureResult(out.key[0], out.verified[0], out.iterations[0],
+                                   out.syndromes_match[0], out.leak_bits[0], final_bits)
+            return out

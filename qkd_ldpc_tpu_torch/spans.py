@@ -39,6 +39,10 @@ SPANS = {
     "qkd.serve.dispatch": "_Runner.dispatch: copy in, program or replay, copy out, event",
     "qkd.serve.wait": "_Runner.fetch: the host waits for the slot's event",
     "qkd.serve.read": "a chunk's results out of its slot",
+    # the secure chain (serve.py, Reconciler.reconcile_secure)
+    "qkd.serve.secure": "Reconciler.reconcile_secure: one call, reconcile, tags and amplification",
+    "qkd.secure.tags": "Bob's verification tags, their fetch and the comparison with Alice's",
+    "qkd.secure.amplify": "the block's privacy amplification and the fetch of its keys",
     # the sweep runner (sim/runner.py, sim/csv_writer.py)
     "qkd.sweep.run": "batch_simulation: a whole sweep",
     "qkd.sweep.setup": "batch_simulation up to its first point: options, checkpoint, key, mesh",
