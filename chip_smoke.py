@@ -255,6 +255,15 @@ KEYGEN_LAUNCH_LIMIT = 10
 # batch its glue (stage_fill's two kernels and trial_stats) may take.
 GLUE_WIDTHS = (BATCH, 1000, 100, RAGGED_BATCH)
 GLUE_LAUNCH_LIMIT = 5
+# The layered chunk's staging and statistics held at these codes ((z, nb, mb,
+# dv, seed) of make_qc_code; each kernel's instance of 4 positions a thread,
+# then of 1: z odd, and the flagship's tensors off their 16-byte alignment)
+# and widths.
+LAYERED_GLUE_CODES = (("flagship", (512, 20, 10, 3, 666), False),
+                      ("z20", (20, 6, 3, 2, 4), False),
+                      ("z13", (13, 10, 5, 3, 3), False),
+                      ("flagship_misaligned", (512, 20, 10, 3, 666), True))
+LAYERED_GLUE_WIDTHS = (BATCH, RAGGED_BATCH)
 # Rows of the N = 4096 codes: K3's instances of 8 words a thread.
 SHORT_N = 4096
 # A code whose frame of totals (116 x 512 floats) exceeds a block's shared
@@ -4432,6 +4441,47 @@ def _refill_tests(torch, dev, code, steps, hold, measured, report, make):
                            "cont_start", "stage_step", "refill_lanes", "bank")}}
 
 
+def _hold_stats(torch, kernel, plain, name, z, alice, ok, iters, batches, max_it):
+    """A statistics kernel held to its plain version: ``batches`` = [(valid,
+    offset)], both merge the same batch into their [7] after each step, and
+    the kernel leaves its scratch at 0.  Returns the kernel's [7]."""
+    i32, dev, width = torch.int32, z.device, ok.shape[0]
+    out_k, out_p = (torch.full((7,), -9, dtype=i32, device=dev) for _ in range(2))
+    scratch = torch.zeros(width + 1, dtype=i32, device=dev)
+    for i, (valid, offset) in enumerate(batches):
+        v = torch.tensor([valid], dtype=i32, device=dev)
+        kernel(z, alice, ok, iters, v, offset, max_it, out_k, scratch, i == 0)
+        plain(z, alice, ok, iters, v, offset, max_it, out_p, None, i == 0)
+        torch.cuda.synchronize()
+        if out_k.tolist() != out_p.tolist() or bool(scratch.any()):
+            raise AssertionError(f"{kernel.__name__} {name} batch {i}: kernel "
+                                 f"{out_k.tolist()} plain {out_p.tolist()} scratch left "
+                                 f"{int(scratch.count_nonzero())}")
+    return out_k.tolist()
+
+
+def _counted_and_traced_chunk(torch, chunk, card, path):
+    """A chunk's launches from the counts (after the capture), five walls,
+    and its kernels from one trace: (counts, walls, {kernel: (ms, launches)})."""
+    from qkd_ldpc_tpu_torch import _build
+
+    chunk()  # captures the chunk's graph
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    chunk()
+    counts = _build.launch_counts()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    table = {}
+    _profile_path(torch, path, chunk, card, statistics.median(walls), table_out=table)
+    return counts, walls, table
+
+
 def _chunk_glue(torch, np, dev, flush, card):
     """The trial chunk's work around its decode (``chunk_glue``): the
     continuation's ``stage_fill`` reading the magnitude from the chunk's
@@ -4490,24 +4540,10 @@ def _chunk_glue(torch, np, dev, flush, card):
         return llr, syn, alice_s
 
     def hold(name, z, alice_s, ok, iters, batches):
-        """``batches`` = [(valid, offset)]: the kernel and the plain version
-        merge the same batch into their [7] after each step."""
-        width = z.shape[1]
-        out_k, out_p = (torch.full((7,), -9, dtype=i32, device=dev) for _ in range(2))
-        scratch = torch.zeros(width + 1, dtype=i32, device=dev)
-        for i, (valid, offset) in enumerate(batches):
-            v = torch.tensor([valid], dtype=i32, device=dev)
-            runner.trial_stats_cuda(z, alice_s, ok, iters, v, offset, opts.max_iterations,
-                                    out_k, scratch, i == 0)
-            runner.trial_stats_plain(z, alice_s, ok, iters, v, offset, opts.max_iterations,
-                                     out_p, None, i == 0)
-            torch.cuda.synchronize()
-            if out_k.tolist() != out_p.tolist() or bool(scratch.any()):
-                raise AssertionError(f"trial_stats {name} batch {i}: kernel {out_k.tolist()} "
-                                     f"plain {out_p.tolist()} scratch left "
-                                     f"{int(scratch.count_nonzero())}")
+        report["stats"][name] = _hold_stats(torch, runner.trial_stats_cuda,
+                                            runner.trial_stats_plain, name, z, alice_s, ok,
+                                            iters, batches, opts.max_iterations)
         report["widths"].add(runner.trial_stats_width(z, alice_s))
-        report["stats"][name] = out_k.tolist()
 
     for which, code in codes.items():
         N = code.n_vars
@@ -4580,11 +4616,7 @@ def _chunk_glue(torch, np, dev, flush, card):
         return runner._point_chunk(code, key, n_err, 0, N_BATCHES * BATCH, BATCH, N_BATCHES,
                                    chunk_opts, "pallas", dev)
 
-    chunk()  # captures the chunk's graph
-    torch.cuda.synchronize()
-    _build.reset_launch_counts()
-    chunk()
-    counts = _build.launch_counts()
+    counts, walls, table = _counted_and_traced_chunk(torch, chunk, card, "chunk_glue")
     fills, stats = counts.get(steps.KERNEL_FILL, 0), counts.get(runner.KERNEL_STATS, 0)
     if fills != N_BATCHES or stats != N_BATCHES:
         raise AssertionError(f"a chunk of {N_BATCHES} batches: {fills} stage_fill and {stats} "
@@ -4592,15 +4624,6 @@ def _chunk_glue(torch, np, dev, flush, card):
     glue = (2 * fills + stats) / N_BATCHES  # stage_fill is two kernels, one count
     if glue > GLUE_LAUNCH_LIMIT:
         raise AssertionError(f"the chunk's glue takes {glue} launches a batch")
-    walls = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        chunk()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    table = {}
-    _profile_path(torch, "chunk_glue", chunk, card, statistics.median(walls), table_out=table)
     torch_ops = {k[:80]: v[1] / N_BATCHES for k, v in table.items() if "at::native" in k}
     report.update(
         stage_fill={"ms": fill_ms, "plain_ms": fill_plain_ms, "bound_ms": fill_bound[0],
@@ -4613,6 +4636,186 @@ def _chunk_glue(torch, np, dev, flush, card):
                "traced_torch_kernels_a_batch": torch_ops,
                "traced_ms_a_batch": {k[:60]: v[0] / N_BATCHES for k, v in sorted(
                    table.items(), key=lambda kv: -kv[1][0])[:12]}})
+    return report
+
+
+def _chunk_glue_layered(torch, np, dev, flush, card):
+    """The layered chunk's work around its decode (``chunk_glue``'s
+    ``layered`` key): the staging in the sweep's layout
+    (``stage_fill_layered``) and its statistics from the final totals
+    (``trial_stats_layered``), each held to its plain version bit for bit on
+    LAYERED_GLUE_CODES at LAYERED_GLUE_WIDTHS (both instances of each: z a
+    multiple of 4 with aligned tensors, z odd, and the flagship's tensors
+    one element off their alignment), the statistics on decoded batches
+    (the layered decode in that layout, a point below the waterfall and one
+    in it) and on crafted ones (keys differing in the first or the last
+    position, a tail valid in part, a batch past the valid trials), merged
+    over three batches, the scratch left at 0; both timed at the flagship
+    beside their byte bounds and their plain versions; and a layered chunk
+    of N_BATCHES batches (the cell's options): its launches from the counts
+    (each layered instance once a batch, no [N, B] one) and its PyTorch
+    kernels a batch from a trace."""
+    from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.channel.keys import (
+        derive_point_key,
+        make_trials_from_ids,
+        num_errors_for,
+    )
+    from qkd_ldpc_tpu_torch.codes import make_qc_code
+    from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions
+    from qkd_ldpc_tpu_torch.decoder.layered import layer_tables, layered_state_program
+    from qkd_ldpc_tpu_torch.sim import cuda_continuation as steps
+    from qkd_ldpc_tpu_torch.sim import runner
+    from torch.profiler import ProfilerActivity, profile
+
+    i32 = torch.int32
+    key = derive_point_key(MASTER_SEED, POINT_INDEX)
+    opts = DecodeOptions(algorithm="sum-product", max_iterations=100, clip_messages=True,
+                         message_threshold=100.0, message_dtype="bfloat16", backend="auto",
+                         schedule="layered")
+    gen = torch.Generator(device=dev).manual_seed(4322)
+    report = {"card": card, "staging": {}, "stats": {}, "fill_widths": set(),
+              "stats_widths": set()}
+
+    def empty(shape, dtype, misaligned):
+        """A contiguous tensor, one element past a 256-byte boundary if asked."""
+        n = int(np.prod(shape))
+        flat = torch.empty(n + int(misaligned), dtype=dtype, device=dev)
+        return flat[int(misaligned):].view(shape)
+
+    def stage(code, tables, width, qber, misaligned):
+        """A batch of real trials staged by the kernel and by its plain version."""
+        nb, mb, z = tables.nb, tables.mb, tables.z
+        n_err = num_errors_for(code.n_vars, qber)
+        x = runner.chunk_inputs(key, 0, width, n_err, code.n_vars).to(dev)
+        alice, bob = make_trials_from_ids(key, code.n_vars, range(width), n_err, "threefry",
+                                          "auto", dev)
+        got = (empty((nb, width, z), torch.float32, misaligned).fill_(float("nan")),
+               empty((mb, width, z), torch.int8, misaligned).fill_(7),
+               empty((nb, width, z), torch.int8, misaligned).fill_(7))
+        want = (torch.empty((nb, width, z), device=dev),
+                torch.empty((mb, width, z), dtype=torch.int8, device=dev),
+                torch.empty((nb, width, z), dtype=torch.int8, device=dev))
+        steps.stage_fill_layered_cuda(alice, bob, tables, x[runner.LLR], *got)
+        steps.stage_fill_layered_plain(alice, bob, tables, x[runner.LLR], *want)
+        torch.cuda.synchronize()
+        differ = {name: int((g.view(torch.int8) != w.view(torch.int8)).sum())
+                  for name, g, w in zip(("t", "syn", "alice"), got, want)}
+        if any(differ.values()):
+            raise AssertionError(f"stage_fill_layered differs from its plain version: {differ}")
+        report["fill_widths"].add(steps.stage_fill_layered_width(alice, bob, *got))
+        return got
+
+    def hold(name, t, alice_l, ok, iters, batches):
+        report["stats"][name] = _hold_stats(torch, runner.trial_stats_layered_cuda,
+                                            runner.trial_stats_layered_plain, name, t, alice_l,
+                                            ok, iters, batches, opts.max_iterations)
+        report["stats_widths"].add(runner.trial_stats_layered_width(t, alice_l))
+
+    for which, (z, nb, mb, dv, seed), misaligned in LAYERED_GLUE_CODES:
+        code = make_qc_code(z=z, nb=nb, mb=mb, dv=dv, seed=seed)
+        tables = layer_tables(code, dev)
+        decode, use_kernel, _ = layered_state_program(code, opts, dev)
+        assert use_kernel
+        for width in LAYERED_GLUE_WIDTHS:
+            for q in (QBER, WATERFALL_QBER):
+                leg = f"{which}_B{width}_q{q}"
+                t, syn, alice_l = stage(code, tables, width, q, misaligned)
+                report["staging"][leg] = "equal"
+                t, iters, ok = decode(t, syn, None)
+                tail = width // 3 + 1
+                hold(leg, t, alice_l, ok, iters,
+                     [(width, 0), (width + tail, width), (width, 2 * width)])
+            # crafted: keys differing in the first or the last position, flags
+            # and counts at random, the valid count between two batches
+            ok = torch.rand(width, generator=gen, device=dev) < 0.7
+            iters = torch.randint(0, opts.max_iterations + 1, (width,), generator=gen,
+                                  device=dev, dtype=i32)
+            alice_c = (t <= 0).to(torch.int8)
+            lanes = torch.arange(width, device=dev)
+            alice_c[0, lanes % 3 == 1, 0] ^= 1
+            alice_c[-1, lanes % 5 == 2, -1] ^= 1
+            hold(f"{which}_B{width}_crafted", t, alice_c, ok, iters,
+                 [(width, 0), (width // 2, 0), (7, 0)])
+    for what, want in (("fill_widths", {4, 1}), ("stats_widths", {4, 1})):
+        if report[what] != want:
+            raise AssertionError(f"the layered glue's cases miss an instance: {what} "
+                                 f"{report[what]}")
+        report[what] = sorted(report[what])
+
+    # timings at the flagship, B = 512: the staging, and the statistics of a
+    # batch whose every lane succeeds (every run read)
+    code = make_qc_code(z=Z, nb=NB, mb=MB_ROWS, dv=DV, seed=CODE_SEED)
+    tables = layer_tables(code, dev)
+    N, M, dc = code.n_vars, code.n_checks, code.dc_max
+    nb, mb, z = tables.nb, tables.mb, tables.z
+    x = runner.chunk_inputs(key, 0, BATCH, num_errors_for(N, QBER), N).to(dev)
+    alice, bob = make_trials_from_ids(key, N, range(BATCH), int(x[runner.ERRORS]), "threefry",
+                                      "auto", dev)
+    t, syn, alice_l = (torch.empty((nb, BATCH, z), device=dev),
+                       torch.empty((mb, BATCH, z), dtype=torch.int8, device=dev),
+                       torch.empty((nb, BATCH, z), dtype=torch.int8, device=dev))
+    fill_args = (alice, bob, tables, x[runner.LLR], t, syn, alice_l)
+    fill_ms = _time_ms(torch, lambda: steps.stage_fill_layered_cuda(*fill_args), flush)
+    fill_plain_ms = _time_ms(torch, lambda: steps.stage_fill_layered_plain(*fill_args), flush)
+    # the rows in; t, Alice's bits and the syndrome out; a check's dc bytes
+    # and its XORs as operations
+    fill_bound = _bound(2 * BATCH * N + 4 * BATCH * N + BATCH * N + BATCH * M,
+                        BATCH * (N * 2 + M * dc))
+    decode, _, _ = layered_state_program(code, opts, dev)
+    t, iters, ok = decode(t, syn, None)
+    if not bool(ok.all()):
+        raise AssertionError("the timed statistics batch has a lane that did not converge")
+    out, scratch = torch.empty(7, dtype=i32, device=dev), torch.zeros(BATCH + 1, dtype=i32,
+                                                                       device=dev)
+    stats_args = (t, alice_l, ok, iters, x[runner.VALID], 0, opts.max_iterations, out, scratch,
+                  True)
+    stats_ms = _time_ms(torch, lambda: runner.trial_stats_layered_cuda(*stats_args), flush)
+    stats_plain_ms = _time_ms(torch, lambda: runner.trial_stats_layered_plain(*stats_args),
+                              flush)
+    # t and Alice's bits read once, the flags, counts and marks, the partials
+    stats_bound = _bound(5 * N * BATCH + BATCH + 4 * BATCH + 2 * 4 * (BATCH + 1) + 28,
+                         N * BATCH * 3 + 12 * BATCH)
+    report["ptxas"] = {
+        "stage_fill_layered": _instances_resources(_build.build_log("continuation"),
+                                                   "stage_fill_layered_kernel"),
+        "trial_stats_layered": _instances_resources(_build.build_log("trial_stats"),
+                                                    "trial_stats_layered_kernel")}
+
+    # a layered chunk of N_BATCHES batches with the cell's options: the
+    # launches from the counts, and every kernel a batch from a trace
+    n_err = num_errors_for(N, QBER)
+    chunk_opts = DecodeOptions(compact_after=8, compact_lanes=BATCH // 4, **{
+        k: getattr(opts, k) for k in ("algorithm", "max_iterations", "clip_messages",
+                                      "message_threshold", "message_dtype", "backend",
+                                      "schedule")})
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()  # the tracer attached before the capture
+
+    def chunk():
+        return runner._point_chunk(code, key, n_err, 0, N_BATCHES * BATCH, BATCH, N_BATCHES,
+                                   chunk_opts, "pallas", dev)
+
+    counts, walls, table = _counted_and_traced_chunk(torch, chunk, card, "chunk_glue_layered")
+    want = {steps.KERNEL_FILL_LAYERED: N_BATCHES, runner.KERNEL_STATS_LAYERED: N_BATCHES,
+            steps.KERNEL_FILL: 0, runner.KERNEL_STATS: 0}
+    seen = {k: counts.get(k, 0) for k in want}
+    if seen != want:
+        raise AssertionError(f"a layered chunk of {N_BATCHES} batches launched {seen}")
+    torch_ops = {k[:160]: [v[1] / N_BATCHES, v[0] / N_BATCHES * 1e3]
+                 for k, v in table.items() if "at::native" in k}
+    report.update(
+        stage_fill_layered={"ms": fill_ms, "plain_ms": fill_plain_ms, "bound_ms": fill_bound[0],
+                            "bound_by": fill_bound[1], "launches": 1, "max_abs_err": 0},
+        trial_stats_layered={"ms": stats_ms, "plain_ms": stats_plain_ms,
+                             "bound_ms": stats_bound[0], "bound_by": stats_bound[1],
+                             "launches": 1, "max_abs_err": 0},
+        chunk={"batches": N_BATCHES, "launch_counts": counts, "walls_ms": walls,
+               "traced_kernels_a_batch": sum(v[1] for v in table.values()) / N_BATCHES,
+               "traced_torch_kernels_launches_and_us_a_batch": torch_ops,
+               "traced_ms_a_batch": {k[:60]: v[0] / N_BATCHES for k, v in sorted(
+                   table.items(), key=lambda kv: -kv[1][0])[:14]}})
     return report
 
 
@@ -4631,8 +4834,10 @@ def chunk_glue_here() -> int:
     dev = torch.device("cuda")
     _build.build_all()
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
-    print(json.dumps({"chunk_glue": _chunk_glue(torch, np, dev, flush,
-                                                card_name_and_power_limit())}), flush=True)
+    card = card_name_and_power_limit()
+    print(json.dumps({"chunk_glue": _chunk_glue(torch, np, dev, flush, card)}), flush=True)
+    print(json.dumps({"chunk_glue": {"layered": _chunk_glue_layered(torch, np, dev, flush,
+                                                                    card)}}), flush=True)
     return 0
 
 
@@ -4846,7 +5051,7 @@ def main() -> int:
         run_point_continuation,
     )
     from qkd_ldpc_tpu_torch.sim.continuation import run_point_continuation_sharded
-    from qkd_ldpc_tpu_torch.sim.runner import KERNEL_STATS
+    from qkd_ldpc_tpu_torch.sim.runner import KERNEL_STATS, KERNEL_STATS_LAYERED
     from qkd_ldpc_tpu_torch.sim.stats import STAT_KEYS, PointPartials, partials_from_stacked
     from qkd_ldpc_tpu_torch.utils import card_name_and_power_limit
 
@@ -5292,6 +5497,12 @@ def main() -> int:
         raise AssertionError(f"layered path: implausible mean sweeps {mean_sweeps}")
     if any(launches_l.get(name, 0) for name in (K1, K2, K5, KV)):
         raise AssertionError(f"layered path launched a flooding kernel: {launches_l}")
+    # the glue in the sweep's layout: its staging and statistics once a batch,
+    # and no [N, B] instance
+    glue_l = [launches_l.get(name, 0) for name in (cuda_continuation.KERNEL_FILL_LAYERED,
+                                                   KERNEL_STATS_LAYERED, KC_FILL, KERNEL_STATS)]
+    if glue_l != [N_BATCHES, N_BATCHES, 0, 0]:
+        raise AssertionError(f"layered path: glue launches {launches_l}")
     channel_launches("layered path", launches_l, N_BATCHES)
     # One launch per sweep: without compaction overflow a batch costs
     # max(iterations) sweeps (phase A's plus phase B's).
@@ -5502,6 +5713,7 @@ def main() -> int:
     # ---- phase 3f: the trial chunk's work around its decode (chunk_glue) -----
     phase_start("chunk_glue")
     glue_report = _chunk_glue(torch, np, dev, flush, card)
+    glue_report["layered"] = _chunk_glue_layered(torch, np, dev, flush, card)
     print(json.dumps({"chunk_glue": glue_report}), flush=True)
 
     # ---- phase 4: identity against the plain versions on the card ----------
@@ -5618,6 +5830,7 @@ def main() -> int:
         degrees = {K6: sorted({6, *layered_degrees}), K3: None, K4: None, KT: None,
                    KB: None, KE: None, KS: sorted(FOLD_CHECK_CODES) + [6],
                    KW: sorted(FOLD_SWEEP_CODES) + [6], KC_WANT: None, KERNEL_STATS: None,
+                   KERNEL_STATS_LAYERED: None, cuda_continuation.KERNEL_FILL_LAYERED: None,
                    **dict.fromkeys(cuda_continuation.KERNELS)}.get(name, flooding_degrees)
         line = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5678,6 +5891,13 @@ def main() -> int:
         # and the scan's merge_partials_tree
         kernel_line(KERNEL_STATS, csrc + "trial_stats.cu", "qkd_ldpc_tpu/sim/runner.py:127",
                     glue_report["trial_stats"], launches),
+        # their instances in the layered sweep's layout, on the layered path
+        kernel_line(cuda_continuation.KERNEL_FILL_LAYERED, csrc + "continuation.cu",
+                    "qkd_ldpc_tpu/sim/continuation.py:132",
+                    glue_report["layered"]["stage_fill_layered"], launches_l),
+        kernel_line(KERNEL_STATS_LAYERED, csrc + "trial_stats.cu",
+                    "qkd_ldpc_tpu/sim/runner.py:127",
+                    glue_report["layered"]["trial_stats_layered"], launches_l),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

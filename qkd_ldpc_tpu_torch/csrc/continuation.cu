@@ -15,7 +15,9 @@
 //                 key, error count, LLR magnitude and first trial id;
 //   stage_fill    regen's staging arrays (:132-139) from K4's Alice row and
 //                 K3's Bob row (a transpose that packs Alice's bits, then
-//                 the syndrome from the packed words: two launches);
+//                 the syndrome from the packed words: two launches); its
+//                 instance stage_fill_layered stages the layered trial
+//                 chunk's batches in the sweep's [nb, S, z] layout instead;
 //   refill_lanes  refill's lane choice (:154, :166-170) and the carry updates
 //                 of the refilled lanes (:189-197);
 //   refill_copy   refill's column copies into the chosen lanes (:156-188);
@@ -388,6 +390,89 @@ stage_syndrome_kernel(const uint32_t* __restrict__ bits, const int* __restrict__
 #pragma unroll
         for (int k = 0; k < 4; ++k) v[k] = ((parity >> (16 * h + 4 * k)) & 0xfu) * 0x00204081u & 0x01010101u;
         store16<W>(out + 16 * h, avail - 16 * h, v);
+    }
+}
+
+// stage_fill_layered: the trial chunk's staging in the layered sweep's own
+// layout (decoder/layered.py), from the same [S, N] rows, for a QC code of nb
+// base columns and mb base rows lifted by z (N = nb z):
+//   t [nb, S, z] float32     t[(j S + b) z + k] = Bob's bit (b, j z + k) == 1 ? -mag : mag
+//   alice_l [nb, S, z] int8  Alice's bit (b, j z + k)
+//   syn [mb, S, z] int8      syn[(i S + b) z + k] = the parity of Alice's bits
+//                            (b, j z + (k + s) mod z) over the cells (j, s) of row i
+// (the cells: the layer tables' CSR, row_ptr / col / shift).  A trial's row
+// [N] = [nb, z] is already z-contiguous, so t and alice_l reorder whole runs
+// of z positions (2 KB of t at z = 512) and need no transpose; and each of a
+// trial's checks reads that trial's row alone, so the syndrome needs no
+// packed words.  Bound on this card: the bytes, as the [N, S] staging's (2 S
+// N in, 5 S N + M S out: 39.3 MB at the flagship, 11.7 us).  The design: a
+// block a trial (blockIdx.x; blockIdx.y splits a trial's work where S alone
+// gives fewer than two blocks an SM), V positions a thread: 4 where z and the
+// base addresses allow it (a 4-byte load of each row, a float4 of t and 4
+// bytes of alice_l: a warp stores 512 and 128 contiguous bytes), else 1.  The
+// same block then computes its trial's syndrome, V adjacent checks of one
+// base row a thread: for each cell the V bytes at (k + s) mod z of run j, two
+// aligned words funnel-shifted (V = 4), XORed over the row's cells and stored
+// at once (a warp: 128 contiguous bytes).  It re-reads the row its block has
+// just streamed, through L1 (2 M dc / V words a trial).  The grid follows the
+// shapes alone, as a replay repeats it.
+constexpr int kLayeredThreads = 256;
+
+template <int V>
+__global__ void __launch_bounds__(kLayeredThreads)
+stage_fill_layered_kernel(const uint8_t* __restrict__ alice_rows, const uint8_t* __restrict__ bob,
+                          const int* __restrict__ row_ptr, const int* __restrict__ col,
+                          const int* __restrict__ shift, const int* __restrict__ mag_bits,
+                          float* __restrict__ t, int8_t* __restrict__ syn,
+                          int8_t* __restrict__ alice_l, int S, int nb, int mb, int z) {
+    const int b = blockIdx.x, zv = z / V;  // groups of V positions a run
+    const size_t row = static_cast<size_t>(b) * nb * z;
+    const uint8_t* a_row = alice_rows + row;
+    const uint8_t* b_row = bob + row;
+    const float mag = __int_as_float(*mag_bits);
+    const int first = blockIdx.y * kLayeredThreads + threadIdx.x;
+    const int step = gridDim.y * kLayeredThreads;
+    // the LLRs and Alice's bits: positions k .. k + V - 1 of run j
+#pragma unroll 4
+    for (int g = first; g < nb * zv; g += step) {
+        const int j = g / zv, k = (g - j * zv) * V, n = j * z + k;
+        const size_t o = (static_cast<size_t>(j) * S + b) * z + k;
+        if constexpr (V == 4) {
+            const uint32_t a = *reinterpret_cast<const uint32_t*>(a_row + n);
+            const uint32_t w = *reinterpret_cast<const uint32_t*>(b_row + n);
+            float f[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) f[q] = ((w >> (8 * q)) & 0xffu) == 1u ? -mag : mag;
+            *reinterpret_cast<float4*>(t + o) = make_float4(f[0], f[1], f[2], f[3]);
+            *reinterpret_cast<uint32_t*>(alice_l + o) = a;
+        } else {
+            t[o] = b_row[n] == 1 ? -mag : mag;
+            alice_l[o] = static_cast<int8_t>(a_row[n]);
+        }
+    }
+    // the syndrome: checks k .. k + V - 1 of base row i
+    for (int g = first; g < mb * zv; g += step) {
+        const int i = g / zv, k = (g - i * zv) * V;
+        uint32_t parity = 0u;
+        for (int c = row_ptr[i]; c < row_ptr[i + 1]; ++c) {
+            const uint8_t* run = a_row + static_cast<size_t>(col[c]) * z;
+            int p = k + shift[c];
+            if (p >= z) p -= z;
+            if constexpr (V == 4) {
+                const int a0 = p & ~3, a1 = a0 + 4 == z ? 0 : a0 + 4;
+                const uint32_t w0 = __ldg(reinterpret_cast<const unsigned int*>(run + a0));
+                const uint32_t w1 = __ldg(reinterpret_cast<const unsigned int*>(run + a1));
+                parity ^= __funnelshift_r(w0, w1, 8 * (p & 3));
+            } else {
+                parity ^= __ldg(run + p);
+            }
+        }
+        const size_t o = (static_cast<size_t>(i) * S + b) * z + k;
+        if constexpr (V == 4) {
+            *reinterpret_cast<uint32_t*>(syn + o) = parity & 0x01010101u;
+        } else {
+            syn[o] = static_cast<int8_t>(parity & 1u);
+        }
     }
 }
 
@@ -781,6 +866,47 @@ extern "C" int stage_fill(const void* alice_rows, const void* bob, const void* a
                     words, adj, mask, syn, S, M, dc, G); break;
         default: stage_syndrome_kernel<1><<<blocks, kSyndromeThreads, 0, s>>>(
                      words, adj, mask, syn, S, M, dc, G); break;
+    }
+    return last_error();
+}
+
+// The positions a thread of stage_fill_layered takes: 4 where z and the base
+// addresses allow it (t 16-byte aligned, the rest 4), else 1.
+static int fill_layered_width(const void* alice_rows, const void* bob, const void* t,
+                              const void* syn, const void* alice_l, int z) {
+    const auto words = static_cast<unsigned long long>(z) |
+                       reinterpret_cast<uintptr_t>(alice_rows) |
+                       reinterpret_cast<uintptr_t>(bob) | reinterpret_cast<uintptr_t>(syn) |
+                       reinterpret_cast<uintptr_t>(alice_l);
+    return words % 4 == 0 && reinterpret_cast<uintptr_t>(t) % 16 == 0 ? 4 : 1;
+}
+
+extern "C" int stage_fill_layered_width(const void* alice_rows, const void* bob, const void* t,
+                                        const void* syn, const void* alice_l, int z) {
+    return fill_layered_width(alice_rows, bob, t, syn, alice_l, z);
+}
+
+// `row_ptr` [mb + 1], `col` and `shift` [cells]: the layer tables; `mag`: the
+// int32 bits of the float32 LLR magnitude.
+extern "C" int stage_fill_layered(const void* alice_rows, const void* bob, const void* row_ptr,
+                                  const void* col, const void* shift, const void* mag, void* t,
+                                  void* syn, void* alice_l, int S, int nb, int mb, int z,
+                                  void* stream) {
+    int device = 0, sms = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    const dim3 grid(S, (2 * sms + S - 1) / S);
+    auto launch = [&](auto kernel) {
+        kernel<<<grid, kLayeredThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const uint8_t*>(alice_rows), static_cast<const uint8_t*>(bob),
+            static_cast<const int*>(row_ptr), static_cast<const int*>(col),
+            static_cast<const int*>(shift), static_cast<const int*>(mag), static_cast<float*>(t),
+            static_cast<int8_t*>(syn), static_cast<int8_t*>(alice_l), S, nb, mb, z);
+    };
+    if (fill_layered_width(alice_rows, bob, t, syn, alice_l, z) == 4) {
+        launch(stage_fill_layered_kernel<4>);
+    } else {
+        launch(stage_fill_layered_kernel<1>);
     }
     return last_error();
 }

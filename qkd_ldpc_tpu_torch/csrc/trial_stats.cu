@@ -10,7 +10,8 @@
 // one, a node of the chunk's graph.
 //
 //   sp[b]   = ok[b] && b < valid - offset            (a counted success)
-//   keys[b] = z[:, b] == alice[:, b]                 (read only where sp[b])
+//   keys[b] = z[:, b] == alice[:, b]                 (read only where sp[b];
+//             the layered chunk's instance below: (t[:, b, :] <= 0) == alice[:, b, :])
 //   n_trials, n_sp, n_ldpc, sum_it, sum_it2, min_it, max_it as
 //   sim/stats.py's reduce_trials, in the same int32 arithmetic (sums wrap as
 //   torch's int32 sums do; min over sp ? it : max_it, max over sp ? it : 0),
@@ -66,57 +67,17 @@ __device__ __forceinline__ unsigned block_reduce(unsigned v, unsigned* red, Op o
     return v;
 }
 
-template <int W>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-trial_stats_kernel(const int8_t* __restrict__ z, const int8_t* __restrict__ alice,
-                   const uint8_t* __restrict__ ok, const int* __restrict__ iters,
-                   const int* __restrict__ valid_total, int* __restrict__ out,
-                   int* __restrict__ mis, int* __restrict__ ticket, int offset, int max_it,
-                   int N, int B, int first) {
-    extern __shared__ uint16_t group_mask[];  // [G]: bit j = lane 16 g + j counts a success
-    __shared__ int n_sp;
-    __shared__ unsigned red[kWarps];
-    const int G = (B + 15) >> 4;
-    const int n_valid = *valid_total - offset;  // the lanes below it count
-    if (threadIdx.x == 0) n_sp = 0;
-    __syncthreads();
-    for (int b0 = 0; b0 < B; b0 += kThreads) {  // uniform: every warp ballots
-        const int b = b0 + threadIdx.x;
-        const bool sp = b < B && b < n_valid && ok[b] != 0;
-        const unsigned m = __ballot_sync(0xffffffffu, sp);
-        if ((threadIdx.x & 31) == 0) {
-            const int g = b >> 4;  // b is a multiple of 32 here
-            if (g < G) group_mask[g] = static_cast<uint16_t>(m & 0xffffu);
-            if (g + 1 < G) group_mask[g + 1] = static_cast<uint16_t>(m >> 16);
-            if (m != 0) atomicAdd(&n_sp, __popc(m));
-        }
-    }
-    __syncthreads();
-    int stored = 0;
-    if (n_sp > 0) {
-        const int t = blockIdx.x * kThreads + threadIdx.x;
-        const int row_step = (gridDim.x * kThreads) / G;
-        const int g = t % G, r0 = t / G;
-        const unsigned mask = group_mask[g];
-        if (r0 < row_step && mask != 0) {
-            const int lane0 = g << 4, avail = B - lane0;
-            uint32_t diff[4] = {0u, 0u, 0u, 0u};
-#pragma unroll 4
-            for (int r = r0; r < N; r += row_step) {
-                const int o = r * B + lane0;
-                xor_or<W>(z + o, alice + o, avail, diff);
-            }
-#pragma unroll
-            for (int j = 0; j < 16; ++j) {
-                if (((mask >> j) & 1u) && ((diff[j >> 2] >> (8 * (j & 3))) & 0xffu)) {
-                    mis[lane0 + j] = 1;  // idempotent
-                    stored = 1;
-                }
-            }
-        }
-    }
-    stored = __syncthreads_or(stored);
-    if (!count_unless_elected(ticket, stored != 0)) return;
+// Every block of a statistics launch calls this once its marks are stored
+// (`stored`: a thread of the block stored one): every block but the last by
+// index counts itself on the ticket; the last waits for the count, reduces the
+// B lanes' seven values over the block, writes (first batch) or merges them
+// into out, and leaves the marks and the ticket at 0 for the next launch.
+__device__ __forceinline__ void merge_statistics(bool stored, const uint8_t* __restrict__ ok,
+                                                 const int* __restrict__ iters,
+                                                 int* __restrict__ out, int* __restrict__ mis,
+                                                 int* __restrict__ ticket, int n_valid, int max_it,
+                                                 int B, int first, unsigned* red) {
+    if (!count_unless_elected(ticket, stored)) return;
     if (threadIdx.x == 0) {
         const volatile int* count = ticket;
         while (*count < static_cast<int>(gridDim.x) - 1) {
@@ -169,6 +130,111 @@ trial_stats_kernel(const int8_t* __restrict__ z, const int8_t* __restrict__ alic
     }
 }
 
+template <int W>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+trial_stats_kernel(const int8_t* __restrict__ z, const int8_t* __restrict__ alice,
+                   const uint8_t* __restrict__ ok, const int* __restrict__ iters,
+                   const int* __restrict__ valid_total, int* __restrict__ out,
+                   int* __restrict__ mis, int* __restrict__ ticket, int offset, int max_it,
+                   int N, int B, int first) {
+    extern __shared__ uint16_t group_mask[];  // [G]: bit j = lane 16 g + j counts a success
+    __shared__ int n_sp;
+    __shared__ unsigned red[kWarps];
+    const int G = (B + 15) >> 4;
+    const int n_valid = *valid_total - offset;  // the lanes below it count
+    if (threadIdx.x == 0) n_sp = 0;
+    __syncthreads();
+    for (int b0 = 0; b0 < B; b0 += kThreads) {  // uniform: every warp ballots
+        const int b = b0 + threadIdx.x;
+        const bool sp = b < B && b < n_valid && ok[b] != 0;
+        const unsigned m = __ballot_sync(0xffffffffu, sp);
+        if ((threadIdx.x & 31) == 0) {
+            const int g = b >> 4;  // b is a multiple of 32 here
+            if (g < G) group_mask[g] = static_cast<uint16_t>(m & 0xffffu);
+            if (g + 1 < G) group_mask[g + 1] = static_cast<uint16_t>(m >> 16);
+            if (m != 0) atomicAdd(&n_sp, __popc(m));
+        }
+    }
+    __syncthreads();
+    int stored = 0;
+    if (n_sp > 0) {
+        const int t = blockIdx.x * kThreads + threadIdx.x;
+        const int row_step = (gridDim.x * kThreads) / G;
+        const int g = t % G, r0 = t / G;
+        const unsigned mask = group_mask[g];
+        if (r0 < row_step && mask != 0) {
+            const int lane0 = g << 4, avail = B - lane0;
+            uint32_t diff[4] = {0u, 0u, 0u, 0u};
+#pragma unroll 4
+            for (int r = r0; r < N; r += row_step) {
+                const int o = r * B + lane0;
+                xor_or<W>(z + o, alice + o, avail, diff);
+            }
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+                if (((mask >> j) & 1u) && ((diff[j >> 2] >> (8 * (j & 3))) & 0xffu)) {
+                    mis[lane0 + j] = 1;  // idempotent
+                    stored = 1;
+                }
+            }
+        }
+    }
+    stored = __syncthreads_or(stored);
+    merge_statistics(stored != 0, ok, iters, out, mis, ticket, n_valid, max_it, B, first, red);
+}
+
+// The layered trial chunk's instance: it keeps the sweep's layout to the end,
+// so the decisions are t <= 0 read from the final totals t [nb, B, z] float32
+// and Alice's bits come as alice [nb, B, z] int8 (sim/cuda_continuation.py's
+// stage_fill_layered); the marks, the ticket and the reduction are the
+// [N, B] instance's.  Bound on this card: the bytes of the counted successes'
+// runs of t and Alice's bits, 26.2 MB at the flagship when every lane
+// succeeds, 7.8 us (the [N, B] instance reads 10.5 MB, but its decisions cost
+// the decode three PyTorch passes over t: the compare, the cast and the
+// transpose).  A warp takes one run (block column j of lane b: z positions,
+// contiguous in both arrays) at a time, runs in memory order, and skips a run
+// whose lane does not count a success; its lanes load V floats of t and V
+// bytes of Alice's bits a step (V = 4 where z and the base addresses allow
+// it: a warp's load is 512 contiguous bytes of t), turn the floats into
+// decision bytes and OR their XOR with Alice's into a register; a run that
+// differs anywhere marks mis[b].
+template <int V>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+trial_stats_layered_kernel(const float* __restrict__ t, const int8_t* __restrict__ alice,
+                           const uint8_t* __restrict__ ok, const int* __restrict__ iters,
+                           const int* __restrict__ valid_total, int* __restrict__ out,
+                           int* __restrict__ mis, int* __restrict__ ticket, int offset,
+                           int max_it, int nb, int B, int z, int first) {
+    __shared__ unsigned red[kWarps];
+    const int n_valid = *valid_total - offset;  // the lanes below it count
+    const int lane = threadIdx.x & 31;
+    int stored = 0;
+    for (int r = blockIdx.x * kWarps + (threadIdx.x >> 5); r < nb * B; r += gridDim.x * kWarps) {
+        const int b = r % B;  // run r = j B + b
+        if (b >= n_valid || ok[b] == 0) continue;  // uniform over the warp
+        const float* tr = t + static_cast<size_t>(r) * z;
+        const int8_t* ar = alice + static_cast<size_t>(r) * z;
+        uint32_t diff = 0u;
+#pragma unroll 4
+        for (int k = V * lane; k < z; k += 32 * V) {
+            if constexpr (V == 4) {
+                const float4 f = *reinterpret_cast<const float4*>(tr + k);
+                const uint32_t d = (f.x <= 0.f ? 1u : 0u) | (f.y <= 0.f ? 1u : 0u) << 8 |
+                                   (f.z <= 0.f ? 1u : 0u) << 16 | (f.w <= 0.f ? 1u : 0u) << 24;
+                diff |= d ^ *reinterpret_cast<const uint32_t*>(ar + k);
+            } else {
+                diff |= (tr[k] <= 0.f ? 1u : 0u) ^ static_cast<uint8_t>(ar[k]);
+            }
+        }
+        if (__any_sync(0xffffffffu, diff != 0u)) {
+            if (lane == 0) mis[b] = 1;  // idempotent
+            stored = 1;
+        }
+    }
+    stored = __syncthreads_or(stored);
+    merge_statistics(stored != 0, ok, iters, out, mis, ticket, n_valid, max_it, B, first, red);
+}
+
 // The widest load (16, 8, 4 or 1 bytes) that every row's groups of z and
 // Alice's bits allow: B and both base addresses divisible by it.
 int load_width(const void* z, const void* alice, int B) {
@@ -214,6 +280,46 @@ extern "C" int trial_stats(const void* z, const void* alice, const void* ok, con
         case 8: launch(trial_stats_kernel<8>); break;
         case 4: launch(trial_stats_kernel<4>); break;
         default: launch(trial_stats_kernel<1>); break;
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The floats of t a lane of trial_stats_layered loads a step: 4 where z and
+// the base addresses allow it (t 16-byte aligned, Alice's bits 4), else 1.
+static int layered_width(const void* t, const void* alice, int z) {
+    return z % 4 == 0 && reinterpret_cast<uintptr_t>(t) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(alice) % 4 == 0 ? 4 : 1;
+}
+
+extern "C" int trial_stats_layered_width(const void* t, const void* alice, int z) {
+    return layered_width(t, alice, z);
+}
+
+// The layered instance: `t` float32 and `alice` int8 [nb, B, z]; the rest as
+// trial_stats.  A warp a run: a few blocks an SM, fewer where the runs need
+// fewer warps.
+extern "C" int trial_stats_layered(const void* t, const void* alice, const void* ok,
+                                   const void* iters, const void* valid_total, void* out,
+                                   void* scratch, int offset, int max_it, int nb, int B, int z,
+                                   int first, void* stream) {
+    int device = 0, sms = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    const long long need = (static_cast<long long>(nb) * B + kWarps - 1) / kWarps;
+    const long long most = static_cast<long long>(sms) * kBlocksPerSm;
+    const long long blocks = need < 1 ? 1 : need < most ? need : most;
+    auto* marks = static_cast<int*>(scratch);
+    auto launch = [&](auto kernel) {
+        kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(t), static_cast<const int8_t*>(alice),
+            static_cast<const uint8_t*>(ok), static_cast<const int*>(iters),
+            static_cast<const int*>(valid_total), static_cast<int*>(out), marks, marks + B,
+            offset, max_it, nb, B, z, first);
+    };
+    if (layered_width(t, alice, z) == 4) {
+        launch(trial_stats_layered_kernel<4>);
+    } else {
+        launch(trial_stats_layered_kernel<1>);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -24,9 +24,11 @@ differ from flooding's by construction.
 State layout: ``t [nb, B, z]`` float32 totals, ``Lr [ncells, B, z]``
 messages in storage type, ``syn [mb, B, z]`` int8 — frames in the middle,
 ``z`` last.  It is the layout of the CUDA sweep kernel
-(``decoder/cuda_layered.py``), and ``llr``/``syndrome`` are converted to it
-once per decode; compaction selects along the frame axis.  Cells are
-numbered by ``(i, j)`` in lexicographic order.
+(``decoder/cuda_layered.py``).  :func:`layered_program` takes ``[N, B]``
+``llr``/``syndrome``, converts them to it once per decode and the decisions
+back; :func:`layered_state_program` takes and returns the state in this
+layout, as the trial chunk stages it.  Compaction selects along the frame
+axis.  Cells are numbered by ``(i, j)`` in lexicographic order.
 
 :func:`layered_sweep_plain` is the plain PyTorch version of the kernel and
 what runs for CPU tensors and under ``backend="xla"``.  The early-exit loop
@@ -179,13 +181,20 @@ def initial_state(tables: LayerTables, llr, syndrome, mdt):
     """``llr [N, B]`` and ``syndrome [M, B]`` in the sweep's layout, with zero
     messages: ``(t [nb, B, z], Lr [ncells, B, z], syn [mb, B, z])``.  ``t`` is
     a buffer of its own, never a view of ``llr``: the kernel updates it in
-    place."""
+    place.  The ``[N, B]`` callers (:func:`layered_decode_batch_last`, the
+    serving endpoints, the public API) come through here; the trial chunk
+    stages ``t`` and ``syn`` in this layout itself (:func:`layered_state_program`)."""
     z, B = tables.z, llr.shape[1]
     t = llr.reshape(tables.nb, z, B).permute(0, 2, 1).clone(
         memory_format=torch.contiguous_format)
     syn = syndrome.to(torch.int8).reshape(tables.mb, z, B).permute(0, 2, 1).contiguous()
-    Lr = torch.zeros((tables.col.shape[0], B, z), dtype=mdt, device=llr.device)
-    return t, Lr, syn
+    return t, zero_messages(tables, B, mdt, llr.device), syn
+
+
+def zero_messages(tables: LayerTables, B: int, mdt, device) -> torch.Tensor:
+    """A batch's check-to-bit messages before the first sweep: ``Lr
+    [ncells, B, z]`` zeros in storage type ``mdt``."""
+    return torch.zeros((tables.col.shape[0], B, tables.z), dtype=mdt, device=device)
 
 
 class _SweepLanes:
@@ -222,11 +231,9 @@ NOT_QC_MESSAGE = (
 )
 
 
-def layered_program(code: LDPCCode, opts, device):
-    """The layered decode of ``code`` on ``device`` as one program:
-    ``(run, use_kernel, keep)``, ``run(llr [N, B] float32, syn [M, B] int8,
-    graph)`` decoding eagerly (``graph=None``) or as the capture into
-    ``graph``, ``keep`` what its captured pointers point into."""
+def _checked_tables(code: LDPCCode, opts, device) -> tuple[LayerTables, bool]:
+    """``code``'s layer tables on ``device`` and whether its sweeps run the
+    kernel; raises for a code without a QC layout or a row the kernel refuses."""
     if code.qc is None:
         raise ValueError(NOT_QC_MESSAGE)
     device = torch.device(device)
@@ -238,9 +245,46 @@ def layered_program(code: LDPCCode, opts, device):
         why = cuda_layered.refusal(tables.max_row_degree)
         if why is not None:
             raise ValueError(why)
+    return tables, use_kernel
+
+
+def layered_state_program(code: LDPCCode, opts, device):
+    """The layered decode of ``code`` on ``device`` in the sweep's own layout:
+    ``(run, use_kernel, tables)``, ``run(t [nb, B, z] float32, syn [mb, B, z]
+    int8, graph)`` decoding eagerly (``graph=None``) or as the capture into
+    ``graph`` and returning ``(t, iters [B] int32, done [B] bool)``: ``t`` the
+    final totals, updated in place (a decision is ``t <= 0``), ``iters`` as
+    :func:`layered_decode_batch_last` reports them.  ``tables`` is what its
+    captured pointers point into.  The trial chunk (``sim/runner.py``) stages
+    its trials in this layout and reads its statistics from ``t``; the
+    ``[N, B]`` callers take :func:`layered_program`."""
+    tables, use_kernel = _checked_tables(code, opts, device)
+    mdt = cuda_kernels.STORAGE_DTYPES[opts.message_dtype]
+
+    def run(t, syn, graph):
+        Lr = zero_messages(tables, t.shape[1], mdt, t.device)
+        return _layered_program(tables, t, Lr, syn, opts, use_kernel, graph)
+
+    return run, use_kernel, tables
+
+
+def layered_program(code: LDPCCode, opts, device):
+    """The layered decode of ``code`` on ``device`` as one program over
+    ``[N, B]`` tensors: ``(run, use_kernel, keep)``, ``run(llr [N, B]
+    float32, syn [M, B] int8, graph)`` returning ``(z [N, B] int8, iters,
+    ok)``, eagerly (``graph=None``) or as the capture into ``graph``, ``keep``
+    what its captured pointers point into.  It is :func:`layered_state_program`
+    between :func:`initial_state`'s copies into the sweep's layout and the
+    decisions' copy back: the layout of ``decode_program``, which the serving
+    endpoints, :func:`layered_decode_batch_last` and the public API take."""
+    tables, use_kernel = _checked_tables(code, opts, device)
+    mdt = cuda_kernels.STORAGE_DTYPES[opts.message_dtype]
 
     def run(llr, syn, graph):
-        return _layered_program(tables, llr, syn, opts, use_kernel, graph)
+        t, iters, done = _layered_program(tables, *initial_state(tables, llr, syn, mdt), opts,
+                                          use_kernel, graph)
+        z = (t <= 0).to(torch.int8).permute(0, 2, 1).reshape(tables.nb * tables.z, llr.shape[1])
+        return z, iters, done
 
     return run, use_kernel, tables
 
@@ -266,12 +310,12 @@ def layered_decode_batch_last(
     return run(llr, syn, None)
 
 
-def _layered_program(tables, llr, syndrome, opts, use_kernel, graph):
-    """The layered decode, eagerly (``graph=None``) or as the capture into
-    ``graph``."""
-    device = llr.device
-    z, nb = tables.z, tables.nb
-    B = llr.shape[1]
+def _layered_program(tables, t0, Lr0, syn3, opts, use_kernel, graph):
+    """The layered decode of ``t0 [nb, B, z]`` with messages ``Lr0`` (both
+    updated in place) toward ``syn3 [mb, B, z]``, eagerly (``graph=None``) or
+    as the capture into ``graph``: ``(t, iters, done)``."""
+    device = t0.device
+    B = t0.shape[1]
     mdt = cuda_kernels.STORAGE_DTYPES[opts.message_dtype]
     kw = dict(
         threshold=opts.message_threshold, clip=opts.clip_messages,
@@ -296,16 +340,13 @@ def _layered_program(tables, llr, syndrome, opts, use_kernel, graph):
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    t0, Lr0, syn3 = initial_state(tables, llr, syndrome, mdt)
     lanes = _SweepLanes(sweep, t0, Lr0, syn3, zeros((B,), torch.int32),
                         zeros((B,), torch.bool), zeros((1,), torch.int32), scratch(B))
 
     def finalize(t, iters, done):
         # A converged frame reports the sweep at which its decision syndrome
         # first matched; failures report max_iterations.
-        z_out = (t <= 0).to(torch.int8).permute(0, 2, 1).reshape(nb * z, B)
-        iters = torch.where(done, iters.clamp_min(1), opts.max_iterations)
-        return z_out, iters, done
+        return t, torch.where(done, iters.clamp_min(1), opts.max_iterations), done
 
     B2 = opts.compact_lanes
     if not (0 < B2 < B and opts.compact_after < opts.max_iterations):

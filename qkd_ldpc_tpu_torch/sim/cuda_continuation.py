@@ -77,6 +77,7 @@ OUTER_GO, IN_GO, REGEN, REFILL = range(4)
 KERNEL_START = "cont_start"
 KERNEL_STAGE = "stage_step"
 KERNEL_FILL = "stage_fill"
+KERNEL_FILL_LAYERED = "stage_fill_layered"  # the layered trial chunk's staging
 KERNEL_LANES = "refill_lanes"
 KERNEL_COPY = "refill_copy"
 KERNEL_PASS = "pass_step"
@@ -327,8 +328,63 @@ def stage_fill_widths(alice_rows, bob, llr_s, syn_s, alice_s) -> dict[str, int]:
     return {"rows": w & 0xFF, "staging": (w >> 8) & 0xFF, "syndrome": w >> 16}
 
 
+def stage_fill_layered_plain(alice_rows, bob, tables, mag, t, syn, alice_l):
+    """The staging in the layered sweep's own layout (``decoder/layered.py``),
+    for the layered trial chunk: from Alice's and Bob's ``[S, N]`` uint8
+    rows, ``t [nb, S, z]`` float32 (the a-priori LLRs, ``mag`` as in
+    :func:`stage_fill_plain`), ``syn [mb, S, z]`` int8 (Alice's syndrome:
+    check ``k`` of base row ``i`` is the parity of her bits ``j z + (k + s)
+    mod z`` over the row's cells ``(j, s)``) and ``alice_l [nb, S, z]`` int8.
+    ``tables`` is the code's ``layered.layer_tables``.  The ``[N, S]``
+    staging's arrays, each row ``j z + k`` moved to ``[j, :, k]``."""
+    nb, S, z = t.shape
+    mag = mag.view(torch.float32)
+    t.copy_(torch.where(bob == 1, -mag, mag).view(S, nb, z).transpose(0, 1))
+    runs = alice_rows.view(S, nb, z).transpose(0, 1)
+    alice_l.copy_(runs)
+    for i, row in enumerate(tables.rows):
+        parity = torch.zeros_like(runs[0])
+        for _, j, s in row:
+            parity = parity ^ torch.roll(runs[j], -s, dims=-1)
+        syn[i].copy_(parity & 1)
+
+
+def stage_fill_layered_cuda(alice_rows, bob, tables, mag, t, syn, alice_l):
+    """One launch (``csrc/continuation.cu``'s ``stage_fill_layered``)."""
+    S, N = alice_rows.shape
+    nb, mb, z = tables.nb, tables.mb, tables.z
+    if bob.shape != (S, N) or N != nb * z or t.shape != (nb, S, z) or (
+            alice_l.shape != (nb, S, z) or syn.shape != (mb, S, z)):
+        raise ValueError("stage_fill: the rows are [S, nb z], the layered staging "
+                         "[nb, S, z] / [mb, S, z]")
+    if t.dtype != torch.float32 or syn.dtype != torch.int8 or alice_l.dtype != torch.int8:
+        raise ValueError("stage_fill: t is float32, syn and alice_l int8")
+    if mag.shape != (1,) or mag.dtype != torch.int32:
+        raise ValueError("stage_fill: mag is the int32 [1] of the magnitude's float32 bits")
+    _offsets_fit_int32("stage_fill", N * S, mb * z * S)
+    _launch(KERNEL_FILL_LAYERED, [_P] * 9 + [_I] * 4,
+            (alice_rows, bob, tables.row_ptr, tables.col, tables.shift, mag, t, syn, alice_l),
+            alice_rows.data_ptr(), bob.data_ptr(), tables.row_ptr.data_ptr(),
+            tables.col.data_ptr(), tables.shift.data_ptr(), mag.data_ptr(), t.data_ptr(),
+            syn.data_ptr(), alice_l.data_ptr(), S, nb, mb, z)
+
+
+def stage_fill_layered_width(alice_rows, bob, t, syn, alice_l) -> int:
+    """Positions a thread of :func:`stage_fill_layered_cuda` takes: 4 where
+    ``z`` and the base addresses allow it, else 1."""
+    fn = _build.function("continuation", "stage_fill_layered_width", [_P] * 5 + [_I])
+    return int(fn(alice_rows.data_ptr(), bob.data_ptr(), t.data_ptr(), syn.data_ptr(),
+                  alice_l.data_ptr(), t.shape[2]))
+
+
 def stage_fill(alice_rows, bob, maps, mag, llr_s, syn_s, alice_s, *, use_kernel, bits=None):
-    if use_kernel:
+    """The staging in the layout of ``llr_s``: ``[N, S]`` (``maps`` the
+    code's ``LDPCCode.to_device``), or the layered sweep's ``[nb, S, z]``
+    (``maps`` its ``layered.layer_tables``; ``bits`` unused)."""
+    if llr_s.ndim == 3:
+        fill = stage_fill_layered_cuda if use_kernel else stage_fill_layered_plain
+        fill(alice_rows, bob, maps, mag, llr_s, syn_s, alice_s)
+    elif use_kernel:
         stage_fill_cuda(alice_rows, bob, maps, mag, llr_s, syn_s, alice_s, bits)
     else:
         stage_fill_plain(alice_rows, bob, maps, mag, llr_s, syn_s, alice_s)

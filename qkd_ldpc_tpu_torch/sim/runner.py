@@ -25,7 +25,8 @@ chunk, options, prng, card) that holds, batch after batch, keygen (K4, K3
 and the tie path gated on the card), the a-priori LLRs and Alice's syndrome
 (the continuation's staging kernel ``stage_fill``), the decode (its loops
 WHILE nodes) and the statistics (:func:`trial_stats`, merged into the chunk's
-partials on the card); a call copies one int32 input
+partials on the card), the staging and the statistics in the decode's own
+layout (:class:`_ChunkProgram`); a call copies one int32 input
 vector in (point key, first trial id, valid trials, error count, LLR
 magnitude: :func:`chunk_inputs`), replays the graph once and copies the
 seven partials out.  Points differ only in that vector, so a sweep captures
@@ -58,7 +59,7 @@ from qkd_ldpc_tpu_torch.codes import LDPCCode, list_matrix_files, load_code
 from qkd_ldpc_tpu_torch.config import Config
 from qkd_ldpc_tpu_torch.decoder import device_loop
 from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions, decode_program
-from qkd_ldpc_tpu_torch.decoder.layered import NOT_QC_MESSAGE
+from qkd_ldpc_tpu_torch.decoder.layered import NOT_QC_MESSAGE, layered_state_program
 from qkd_ldpc_tpu_torch.decoder.reconcile import llr_magnitude
 from qkd_ldpc_tpu_torch.sim.cuda_continuation import fill_bits_shape, stage_fill
 from qkd_ldpc_tpu_torch.sim.planner import rate_based_qber_range
@@ -185,6 +186,17 @@ def chunk_inputs(point_key: torch.Tensor, first: int, total_valid: int, num_erro
 # trial_stats: a batch's key check and statistics, merged into the chunk's [7]
 
 KERNEL_STATS = "trial_stats"
+KERNEL_STATS_LAYERED = "trial_stats_layered"  # the layered trial chunk's instance
+
+
+def _merge_batch(out, ok, keys_match, iters, valid, offset, max_it, first):
+    """``reduce_trials`` over the lanes below ``valid[0] - offset``, written
+    into ``out`` (``first``) or merged into it as ``merge_partials_tree``."""
+    lanes = torch.arange(ok.shape[0], dtype=torch.int32, device=ok.device)
+    red = reduce_trials(ok, keys_match, iters, max_it, lanes < valid[0] - offset)
+    if not first:
+        red = merge_partials_tree(dict(zip(STAT_KEYS, out)), red)
+    out.copy_(stack_partials(red))
 
 
 def trial_stats_plain(z, alice_s, ok, iters, valid, offset, max_it, out, scratch=None,
@@ -196,21 +208,19 @@ def trial_stats_plain(z, alice_s, ok, iters, valid, offset, max_it, out, scratch
     ``reduce_trials`` with ``ok [B]`` and ``iters [B]``; the first batch's
     written, a later one's merged as ``merge_partials_tree`` merges.
     ``scratch`` is the kernel's (unused here)."""
-    B = z.shape[1]
-    keys_match = (z == alice_s).all(dim=0)
-    lanes = torch.arange(B, dtype=torch.int32, device=z.device)
-    red = reduce_trials(ok, keys_match, iters, max_it, lanes < valid[0] - offset)
-    if not first:
-        red = merge_partials_tree(dict(zip(STAT_KEYS, out)), red)
-    out.copy_(stack_partials(red))
+    _merge_batch(out, ok, (z == alice_s).all(dim=0), iters, valid, offset, max_it, first)
 
 
-def trial_stats_cuda(z, alice_s, ok, iters, valid, offset, max_it, out, scratch, first=True):
-    """One launch (``csrc/trial_stats.cu``); ``scratch`` is int32 ``[B + 1]``,
-    all 0 before the launch, which leaves it so."""
-    N, B = z.shape
-    if alice_s.shape != (N, B) or z.dtype != torch.int8 or alice_s.dtype != torch.int8:
-        raise ValueError("trial_stats: z and alice_s are int8 [N, B]")
+def trial_stats_layered_plain(t, alice_l, ok, iters, valid, offset, max_it, out, scratch=None,
+                              first=True):
+    """:func:`trial_stats_plain` for the layered chunk, which keeps the
+    sweep's layout: the decisions are ``t <= 0`` of the final totals ``t [nb,
+    B, z]`` float32, compared with Alice's bits ``alice_l [nb, B, z]`` int8."""
+    keys_match = ((t <= 0).to(torch.int8) == alice_l).all(dim=2).all(dim=0)
+    _merge_batch(out, ok, keys_match, iters, valid, offset, max_it, first)
+
+
+def _check_stats_args(ok, iters, valid, out, scratch, B):
     if ok.shape != (B,) or ok.dtype != torch.bool or iters.shape != (B,) or (
             iters.dtype != torch.int32):
         raise ValueError("trial_stats: ok is bool [B], iters int32 [B]")
@@ -219,19 +229,46 @@ def trial_stats_cuda(z, alice_s, ok, iters, valid, offset, max_it, out, scratch,
         raise ValueError("trial_stats: valid is int32 [1], out int32 [7]")
     if scratch.shape != (B + 1,) or scratch.dtype != torch.int32:
         raise ValueError(f"trial_stats: scratch must be int32 [{B + 1}]")
-    if N * B >= 2**31 or B > 8 * 48 * 1024:
-        raise ValueError("trial_stats: N * B must fit 32-bit offsets and B a block's "
-                         "48 KiB of lane masks")
-    tensors = (z, alice_s, ok, iters, valid, out, scratch)
-    dev = z.device
+
+
+def _launch_stats(name, tensors, *sizes):
+    dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev or not t.is_contiguous() for t in tensors):
         raise ValueError("trial_stats needs contiguous CUDA tensors on one device")
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("trial_stats", "trial_stats", [P] * 7 + [I] * 5 + [P])
+    fn = _build.function("trial_stats", name, [P] * 7 + [I] * len(sizes) + [P])
     with torch.cuda.device(dev):
-        err = fn(*(t.data_ptr() for t in tensors), offset, max_it, N, B, int(first),
+        err = fn(*(t.data_ptr() for t in tensors), *sizes,
                  torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(KERNEL_STATS, err)
+    _build.check_launch(name, err)
+
+
+def trial_stats_cuda(z, alice_s, ok, iters, valid, offset, max_it, out, scratch, first=True):
+    """One launch (``csrc/trial_stats.cu``); ``scratch`` is int32 ``[B + 1]``,
+    all 0 before the launch, which leaves it so."""
+    N, B = z.shape
+    if alice_s.shape != (N, B) or z.dtype != torch.int8 or alice_s.dtype != torch.int8:
+        raise ValueError("trial_stats: z and alice_s are int8 [N, B]")
+    _check_stats_args(ok, iters, valid, out, scratch, B)
+    if N * B >= 2**31 or B > 8 * 48 * 1024:
+        raise ValueError("trial_stats: N * B must fit 32-bit offsets and B a block's "
+                         "48 KiB of lane masks")
+    _launch_stats(KERNEL_STATS, (z, alice_s, ok, iters, valid, out, scratch), offset, max_it,
+                  N, B, int(first))
+
+
+def trial_stats_layered_cuda(t, alice_l, ok, iters, valid, offset, max_it, out, scratch,
+                             first=True):
+    """One launch of the layered instance (``csrc/trial_stats.cu``); ``scratch``
+    as :func:`trial_stats_cuda`'s."""
+    nb, B, z = t.shape
+    if alice_l.shape != (nb, B, z) or t.dtype != torch.float32 or alice_l.dtype != torch.int8:
+        raise ValueError("trial_stats: t is float32 and alice_l int8 [nb, B, z]")
+    _check_stats_args(ok, iters, valid, out, scratch, B)
+    if nb * B * z >= 2**31:
+        raise ValueError("trial_stats: nb * B * z must fit 32-bit offsets")
+    _launch_stats(KERNEL_STATS_LAYERED, (t, alice_l, ok, iters, valid, out, scratch), offset,
+                  max_it, nb, B, z, int(first))
 
 
 def trial_stats_width(z, alice_s) -> int:
@@ -243,12 +280,23 @@ def trial_stats_width(z, alice_s) -> int:
     return int(fn(z.data_ptr(), alice_s.data_ptr(), z.shape[1]))
 
 
+def trial_stats_layered_width(t, alice_l) -> int:
+    """Floats of ``t`` a lane of :func:`trial_stats_layered_cuda` loads a
+    step: 4 where ``z`` and the base addresses allow it, else 1."""
+    fn = _build.function("trial_stats", "trial_stats_layered_width",
+                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int])
+    return int(fn(t.data_ptr(), alice_l.data_ptr(), t.shape[2]))
+
+
 def trial_stats(z, alice_s, ok, iters, valid, offset, max_it, out, scratch, first, *,
                 use_kernel):
-    if use_kernel:
-        trial_stats_cuda(z, alice_s, ok, iters, valid, offset, max_it, out, scratch, first)
+    """The instance for the layout of ``z``: decisions ``[N, B]`` int8, or the
+    layered sweep's final totals ``[nb, B, z]`` float32."""
+    if z.ndim == 3:
+        stats = trial_stats_layered_cuda if use_kernel else trial_stats_layered_plain
     else:
-        trial_stats_plain(z, alice_s, ok, iters, valid, offset, max_it, out, scratch, first)
+        stats = trial_stats_cuda if use_kernel else trial_stats_plain
+    stats(z, alice_s, ok, iters, valid, offset, max_it, out, scratch, first)
 
 
 class _ChunkProgram:
@@ -259,16 +307,27 @@ class _ChunkProgram:
     ``valid - i * stride``; everything that varies per call is read from the
     input vector ``x`` (:func:`chunk_inputs`) on the device, so one capture
     serves every point and chunk of the code (``stride`` is the global batch
-    of a trial shard, else ``width``).  Around the decode a batch is two
-    kernels of the continuation's staging (``stage_fill``: the LLRs, Alice's
-    syndrome and bits, transposed) and :func:`trial_stats`; the CPU and
-    ``backend="xla"`` run their plain versions."""
+    of a trial shard, else ``width``).  Around the decode a batch is the
+    continuation's staging (``stage_fill``: the LLRs, Alice's syndrome and
+    bits) and :func:`trial_stats`, in the decode's layout: the flooding
+    decode (``decode_program``) takes ``[N, B]`` tensors, and the staging
+    transposes the trials' ``[B, N]`` rows into them (two kernels); the
+    layered decode keeps its own ``[nb, B, z]`` state from the staging to the
+    statistics (``layered.layered_state_program``: one staging kernel, the
+    statistics read the final totals), so no copy touches it.  The CPU and
+    ``backend="xla"`` run the plain versions."""
 
     def __init__(self, code, width, stride, n_batches, opts, prng, device):
         self.code, self.width, self.stride, self.n_batches = code, width, stride, n_batches
         self.opts, self.prng, self.device = opts, prng, device
-        self.decode, self.use_kernel, _ = decode_program(code, opts, device)
-        self.maps = code.to_device(device)
+        if opts.schedule == "layered":
+            self.decode, self.use_kernel, self.maps = layered_state_program(code, opts, device)
+            z, nb, mb = self.maps.z, self.maps.nb, self.maps.mb
+            self.shapes = (nb, width, z), (mb, width, z)
+        else:
+            self.decode, self.use_kernel, _ = decode_program(code, opts, device)
+            self.maps = code.to_device(device)
+            self.shapes = (code.n_vars, width), (code.n_checks, width)
 
     def buffers(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The chunk's ``[7]`` partials (the first batch writes them) and the
@@ -282,15 +341,16 @@ class _ChunkProgram:
         staging (a-priori LLRs, Alice's syndrome and bits), decode, and its
         statistics into ``out``."""
         code, B, opts, dev, kern = self.code, self.width, self.opts, self.device, self.use_kernel
-        N, M = code.n_vars, code.n_checks
+        N = code.n_vars
         ids = DeviceRange(x[FIRST], range(i * self.stride, i * self.stride + B))
         alice, bob = make_trials_from_ids(x[KEY], N, ids, x[ERRORS], self.prng,
                                           opts.backend, dev)
-        llr = torch.empty((N, B), dtype=torch.float32, device=dev)
-        syn = torch.empty((M, B), dtype=torch.int8, device=dev)
-        alice_s = torch.empty((N, B), dtype=torch.int8, device=dev)
-        bits = (torch.empty(fill_bits_shape(B, N), dtype=torch.int32, device=dev) if kern
-                else None)
+        bits_shape, checks_shape = self.shapes
+        llr = torch.empty(bits_shape, dtype=torch.float32, device=dev)
+        syn = torch.empty(checks_shape, dtype=torch.int8, device=dev)
+        alice_s = torch.empty(bits_shape, dtype=torch.int8, device=dev)
+        bits = (torch.empty(fill_bits_shape(B, N), dtype=torch.int32, device=dev)
+                if kern and llr.ndim == 2 else None)
         stage_fill(alice, bob, self.maps, x[LLR], llr, syn, alice_s, use_kernel=kern, bits=bits)
         z, iters, ok = self.decode(llr, syn, graph)
         trial_stats(z, alice_s, ok, iters, x[VALID], i * self.stride, opts.max_iterations,
