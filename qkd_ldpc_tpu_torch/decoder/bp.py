@@ -28,6 +28,9 @@ package's, restated for PyTorch:
   the same calls run the plain versions.
 - **Early exit** with per-frame convergence masks: frame b stops counting
   on the iteration where its decision syndrome first equals the target.
+  The loop and the residency compaction around it are
+  ``device_loop.run_schedule``, which the layered schedule shares; this
+  module supplies the flooding pass and state (``_Lanes``).
 - **One device program per decode**, as the JAX package's ``jit``: on the
   card the kernel backend captures the whole decode (peeled K1, the loops,
   the compaction's ops) as one CUDA graph per (code, B, options, card)
@@ -55,7 +58,7 @@ import torch
 from qkd_ldpc_tpu_torch import _build
 from qkd_ldpc_tpu_torch.codes.ldpc_code import LDPCCode
 from qkd_ldpc_tpu_torch.decoder import cuda_kernels, device_loop
-from qkd_ldpc_tpu_torch.decoder.layered import layered_decode_batch_last, layered_program
+from qkd_ldpc_tpu_torch.decoder.layered import layered_program
 from qkd_ldpc_tpu_torch.utils import resolve_device
 
 
@@ -218,35 +221,40 @@ class _DecodeCore:
         )
 
 
-class _Lanes:
-    """A batch's decode state on its lanes: messages ``Lr``, the totals
+class _Lanes(device_loop.Lanes):
+    """A batch's flooding state on its lanes: messages ``Lr``, the totals
     buffer, decisions ``z``, counts ``iters``, the loop's flags, and the
     inputs they decode."""
+
+    mode = device_loop.FLOODING
 
     def __init__(self, core, llr, syn, Lr, z, iters, done, it):
         self.core, self.llr, self.syn = core, llr, syn
         self.Lr, self.z, self.iters = Lr, z, iters
-        self.loop = device_loop.LoopState(done, it)
+        super().__init__(done, it, core.use_kernel)
         self.total = torch.empty(llr.shape, dtype=core.mdt, device=llr.device)
         self.scratch = core.scratch(llr.shape[1])
 
-    def iteration(self, tail):
-        """One pass of the loop body: variable update (z and iters move on
-        the active lanes), then the check update IN PLACE over ``Lr``, whose
-        flags land in ``loop.ok`` and which runs the loop's bookkeeping
-        ``tail`` after them.  Allocates nothing."""
+    def pass_(self, tail):
+        """One iteration: variable update (z and iters move on the active
+        lanes), then the check update IN PLACE over ``Lr``, whose flags land
+        in ``loop.ok`` and which runs the loop's bookkeeping ``tail`` after
+        them.  Allocates nothing."""
         core, loop = self.core, self.loop
         core.variable_update(self.Lr, self.llr, self.z, self.iters, loop.active,
                              out=(self.total, loop.ok))
         core.check_update_fused(self.total, self.Lr, self.syn, ok=loop.ok, out=self.Lr,
                                 scratch=self.scratch, step=tail)
 
-    def run(self, limit, graph, frozen=None):
-        """The early-exit loop (``lax.while_loop``) up to ``limit`` passes
-        in all; ``frozen`` ([B] bool) marks lanes whose bookkeeping must not
-        change although their stale messages are recomputed (phase C)."""
-        device_loop.run_loop(self.iteration, self.loop, limit, device_loop.FLOODING,
-                             use_kernel=self.core.use_kernel, frozen=frozen, graph=graph)
+    def gather(self, idx, done):
+        return _Lanes(self.core, self.llr.index_select(1, idx), self.syn.index_select(1, idx),
+                      self.Lr.index_select(2, idx), self.z.index_select(1, idx),
+                      self.iters.index_select(0, idx), done.index_select(0, idx),
+                      self.loop.it.clone())
+
+    def scatter(self, idx, part):
+        self.z.index_copy_(1, idx, part.z)
+        self.iters.index_copy_(0, idx, part.iters)
 
 
 def _flooding_program(core, llr, syn, opts, graph):
@@ -265,44 +273,10 @@ def _flooding_program(core, llr, syn, opts, graph):
                    zeros((B,), torch.int32), zeros((B,), torch.bool),
                    zeros((1,), torch.int32))
     lanes.Lr = core.check_update_first(core.to_storage(llr), syn, scratch=lanes.scratch)
-
-    B2 = opts.compact_lanes
-    if not (0 < B2 < B and opts.compact_after < opts.max_iterations):
-        lanes.run(opts.max_iterations, graph)
-        done = lanes.loop.done
-        # Frames that never converged report max_iterations.
-        return lanes.z, torch.where(done, lanes.iters, opts.max_iterations), done
-
-    # ---- residency-compaction schedule.  Phase A runs compact_after
-    # iterations on the full batch; phase B gathers the unconverged
-    # minority into compact_lanes lanes and finishes only those; phase C
-    # (a full-batch fallback that runs only if more than compact_lanes
-    # lanes were unconverged) continues any overflow lanes from their
-    # phase-A state with the compacted lanes' bookkeeping frozen.  Every
-    # lane's trajectory is the plain loop's, merely re-scheduled.
-    lanes.run(opts.compact_after, graph)
-    done_a = lanes.loop.done
-
-    # Unconverged lanes first (the sort is stable: ties keep lane order);
-    # when fewer than compact_lanes are unconverged the tail picks
-    # already-done lanes, which the loop's masks keep inert.  Phase B's
-    # count of passes starts from phase A's, on the device.
-    idx = torch.argsort(done_a.to(torch.int32), stable=True)[:B2]
-    part = _Lanes(core, llr.index_select(1, idx), syn.index_select(1, idx),
-                  lanes.Lr.index_select(2, idx), lanes.z.index_select(1, idx),
-                  lanes.iters.index_select(0, idx), done_a.index_select(0, idx),
-                  lanes.loop.it.clone())
-    part.run(opts.max_iterations, graph)
-
-    # Scatter phase B back in place; phase C (the lax.cond: its loop's
-    # entry test is the overflow predicate) continues from phase A's
-    # messages and count, the compacted lanes frozen.
-    lanes.z.index_copy_(1, idx, part.z)
-    lanes.iters.index_copy_(0, idx, part.iters)
-    done_a.index_copy_(0, idx, part.loop.done)
-    frozen = zeros((B,), torch.bool).index_fill_(0, idx, True)
-    lanes.run(opts.max_iterations, graph, frozen=frozen)
-    return lanes.z, torch.where(done_a, lanes.iters, opts.max_iterations), done_a
+    device_loop.run_schedule(lanes, opts, graph)
+    done = lanes.loop.done
+    # Frames that never converged report max_iterations.
+    return lanes.z, torch.where(done, lanes.iters, opts.max_iterations), done
 
 
 def decode_program(code: LDPCCode, opts: DecodeOptions, device):
@@ -327,19 +301,11 @@ def bp_decode_batch_last(
     syndrome: torch.Tensor,  # [M, B] int target syndrome (batch last)
     opts: DecodeOptions,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Core batched decode loop on the tensors' device; returns
-    (z [N,B] int8, iters [B] int32, ok [B] bool).  On the card under the
-    kernel backend the decode is one replay of a captured CUDA graph."""
-    if opts.schedule == "layered":
-        return layered_decode_batch_last(code, llr, syndrome, opts)
-    if llr.dtype != torch.float32 or llr.ndim != 2:
-        raise ValueError("llr must be float32 [N, B]")
-    run, use_kernel, core = decode_program(code, opts, llr.device)
-    syn = syndrome.to(torch.int8)
-    if device_loop.graphs_on(use_kernel, llr.device):
-        return device_loop.run_graph(
-            ("flooding", code.fingerprint, llr.shape[1], opts), run, (llr, syn), keep=core)
-    return run(llr.contiguous(), syn.contiguous(), None)
+    """Core batched decode loop of ``opts.schedule`` on the tensors' device;
+    returns (z [N,B] int8, iters [B] int32, ok [B] bool).  On the card under
+    the kernel backend the decode is one replay of a captured CUDA graph."""
+    return device_loop.batch_last_decode(opts.schedule, decode_program, code, llr, syndrome,
+                                         opts)
 
 
 def decode(

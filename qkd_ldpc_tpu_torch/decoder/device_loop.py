@@ -24,6 +24,13 @@ The JAX package runs a decode as one compiled device program:
   kernel after every pass, so the card runs the loop with no host round
   trip.  A ``lax.cond`` whose branches are "run the loop" and "nothing" (phase
   C) is the same node with the cond's predicate as its entry test.
+- :func:`run_schedule` — a decode's loops, for both decode schedules: one
+  early-exit loop, or the residency-compaction phases A, B and C (three
+  WHILE nodes, with torch's ``argsort``, gathers and scatters between them).
+  A schedule's state is a :class:`Lanes` that supplies one pass and how its
+  state is gathered into the compacted lanes and scattered back
+  (``bp._Lanes``, ``layered._SweepLanes``).  :func:`batch_last_decode` runs
+  either schedule's decode of ``[N, B]`` tensors as a graph or eagerly.
 - :class:`Graph` — one program captured on a side stream with
   ``torch.cuda.CUDAGraph`` (``thread_local`` error mode, so shards in other
   threads may synchronise meanwhile): torch's ops between the loops
@@ -277,6 +284,60 @@ def run_loop(body, state: LoopState, limit: int, mode: int, *, use_kernel: bool,
         body(tail())
 
 
+class Lanes:
+    """A batch's decode state on its lanes under one schedule, with the
+    loop's flags (:class:`LoopState`).  A schedule's subclass supplies
+    ``mode`` (its bookkeeping: FLOODING, or LAYERED, which also carries
+    ``iters``), ``pass_(tail)`` (one pass over the active lanes, allocating
+    nothing), ``gather(idx, done)`` (its state on the lanes ``idx`` as a new
+    instance whose count of passes starts from this one's) and ``scatter(idx,
+    part)`` (what phase B moved, back in place)."""
+
+    mode: int
+    iters: torch.Tensor
+
+    def __init__(self, done: torch.Tensor, it: torch.Tensor, use_kernel: bool):
+        self.loop = LoopState(done, it)
+        self.use_kernel = use_kernel
+
+    def run(self, limit: int, graph, frozen=None) -> None:
+        """The early-exit loop (``lax.while_loop``) up to ``limit`` passes in
+        all; ``frozen`` ([B] bool) marks lanes whose bookkeeping must not
+        change (phase C: the compacted lanes)."""
+        run_loop(self.pass_, self.loop, limit, self.mode, use_kernel=self.use_kernel,
+                 frozen=frozen, iters=self.iters if self.mode == LAYERED else None,
+                 graph=graph)
+
+
+def run_schedule(lanes: Lanes, opts, graph) -> None:
+    """A decode's loops over ``lanes`` under ``opts`` (``DecodeOptions``):
+    one early-exit loop up to ``max_iterations``, or the residency-compaction
+    schedule when ``0 < compact_lanes < B`` and ``compact_after <
+    max_iterations``.  Its phase A runs ``compact_after`` passes on the full
+    batch; phase B gathers the unconverged minority into ``compact_lanes``
+    lanes and finishes only those; phase C (``lax.cond``: a loop whose entry
+    test is the overflow predicate) continues any lanes left over from their
+    phase-A state, the compacted lanes frozen.  Every lane's trajectory is
+    the plain loop's, merely re-scheduled.  ``lanes.loop.done`` holds the
+    flags afterwards."""
+    B, B2 = lanes.loop.done.shape[0], opts.compact_lanes
+    if not (0 < B2 < B and opts.compact_after < opts.max_iterations):
+        lanes.run(opts.max_iterations, graph)
+        return
+    lanes.run(opts.compact_after, graph)
+    done_a = lanes.loop.done
+    # Unconverged lanes first (the sort is stable: ties keep lane order);
+    # when fewer than compact_lanes are unconverged the tail picks
+    # already-done lanes, which the loop's masks keep inert.
+    idx = torch.argsort(done_a.to(torch.int32), stable=True)[:B2]
+    part = lanes.gather(idx, done_a)
+    part.run(opts.max_iterations, graph)
+    lanes.scatter(idx, part)
+    done_a.index_copy_(0, idx, part.loop.done)
+    frozen = torch.zeros((B,), dtype=torch.bool, device=done_a.device).index_fill_(0, idx, True)
+    lanes.run(opts.max_iterations, graph, frozen=frozen)
+
+
 def _call(fn, *args) -> None:
     err = fn(*args)
     if err != 0:
@@ -442,3 +503,20 @@ def run_graph(key: tuple, program, inputs: tuple, keep=None, device=None,
         outs = tuple(out.clone() for out in g.outputs)
         g.free.record(stream)
     return outs
+
+
+def batch_last_decode(kind: str, build, code, llr: torch.Tensor, syndrome: torch.Tensor,
+                      opts) -> tuple:
+    """The decode by ``build(code, opts, device)`` (``(run, use_kernel,
+    keep)``, as ``bp.decode_program``) of ``llr [N, B]`` float32 toward
+    ``syndrome [M, B]`` on their device: ``(z [N, B] int8, iters [B] int32,
+    ok [B] bool)``.  Where :func:`graphs_on`, one replay of the graph cached
+    under ``(kind, code, B, opts)``; otherwise eagerly."""
+    run, use_kernel, keep = build(code, opts, llr.device)
+    if llr.dtype != torch.float32 or llr.ndim != 2:
+        raise ValueError("llr must be float32 [N, B]")
+    syn = syndrome.to(torch.int8)
+    if graphs_on(use_kernel, llr.device):
+        return run_graph((kind, code.fingerprint, llr.shape[1], opts), run, (llr, syn),
+                         keep=keep)
+    return run(llr.contiguous(), syn.contiguous(), None)

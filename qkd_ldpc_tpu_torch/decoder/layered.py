@@ -17,9 +17,9 @@ all ``mb`` layers; the decision syndrome is checked after each sweep,
 converged frames freeze, failures report ``max_iterations``; both message
 directions clip (there is no unclipped first iteration); storage type,
 min-sum alpha/beta and the int8 quantization points follow
-``DecodeOptions``; residency compaction composes as with flooding (phases
-A/B/C) and is bit-identical to the plain loop per lane.  Trajectories
-differ from flooding's by construction.
+``DecodeOptions``; residency compaction is the flooding schedule's
+(``device_loop.run_schedule``, phases A/B/C) and is bit-identical to the
+plain loop per lane.  Trajectories differ from flooding's by construction.
 
 State layout: ``t [nb, B, z]`` float32 totals, ``Lr [ncells, B, z]``
 messages in storage type, ``syn [mb, B, z]`` int8 — frames in the middle,
@@ -32,7 +32,8 @@ axis.  Cells are numbered by ``(i, j)`` in lexicographic order.
 
 :func:`layered_sweep_plain` is the plain PyTorch version of the kernel and
 what runs for CPU tensors and under ``backend="xla"``.  The early-exit loop
-is ``decoder.device_loop.run_loop`` with the layered carry: on the card the
+and the compaction are ``decoder.device_loop.run_schedule`` over the sweep's
+lanes (``_SweepLanes``), with the layered carry: on the card the
 kernel backend captures the whole decode as one CUDA graph (one WHILE node a
 phase, the carry and the condition kept by the sweep kernel's last block),
 elsewhere the same program runs eagerly and fetches the condition after
@@ -197,31 +198,39 @@ def zero_messages(tables: LayerTables, B: int, mdt, device) -> torch.Tensor:
     return torch.zeros((tables.col.shape[0], B, tables.z), dtype=mdt, device=device)
 
 
-class _SweepLanes:
+class _SweepLanes(device_loop.Lanes):
     """A batch's layered state on its lanes: ``t``, ``Lr``, ``syn``, the
-    counts ``iters`` and the loop's flags."""
+    counts ``iters``, the loop's flags, the sweep and the factory of its
+    scratch (by lane count)."""
 
-    def __init__(self, sweep, t, Lr, syn, iters, done, it, scratch):
-        self.sweep, self.t, self.Lr, self.syn, self.iters = sweep, t, Lr, syn, iters
-        self.loop = device_loop.LoopState(done, it)
-        self.scratch = scratch
+    mode = device_loop.LAYERED
+
+    def __init__(self, sweep, make_scratch, use_kernel, t, Lr, syn, iters, done, it):
+        self.sweep, self.make_scratch = sweep, make_scratch
+        self.t, self.Lr, self.syn, self.iters = t, Lr, syn, iters
+        self.scratch = make_scratch(t.shape[1])
+        super().__init__(done, it, use_kernel)
 
     def pass_(self, tail):
         """One sweep of the active lanes, in place; its flags land in
         ``loop.ok``, and the sweep runs the loop's bookkeeping ``tail`` after
-        them.  Allocates nothing on the kernel."""
+        them.  Allocates nothing on the kernel.  A frozen lane's ``t`` stays
+        put too, because decisions derive from the final ``t``."""
         self.sweep(self.t, self.Lr, self.syn, self.loop.active, out=self.loop.ok,
                    scratch=self.scratch, step=tail)
 
-    def run(self, limit, graph, use_kernel, frozen=None):
-        """Early-exit sweeps up to ``limit`` in all.  ``frozen`` ([B] bool)
-        marks lanes whose state and bookkeeping must never change — the
-        full-batch fallback phase of the compaction schedule runs with the
-        compacted lanes frozen; their ``t`` must stay put too, because
-        decisions derive from the final ``t``."""
-        device_loop.run_loop(self.pass_, self.loop, limit, device_loop.LAYERED,
-                             use_kernel=use_kernel, frozen=frozen, iters=self.iters,
-                             graph=graph)
+    def gather(self, idx, done):
+        return _SweepLanes(
+            self.sweep, self.make_scratch, self.use_kernel, self.t.index_select(1, idx),
+            self.Lr.index_select(1, idx), self.syn.index_select(1, idx),
+            self.iters.index_select(0, idx), done.index_select(0, idx), self.loop.it.clone())
+
+    def scatter(self, idx, part):
+        # Decisions derive from t, so the compacted lanes' final t lands in
+        # the full slab, where phase C's frozen mask keeps it.
+        self.t.index_copy_(1, idx, part.t)
+        self.Lr.index_copy_(1, idx, part.Lr)
+        self.iters.index_copy_(0, idx, part.iters)
 
 
 # The JAX package's text for a layered decode of a code without a QC layout.
@@ -298,16 +307,7 @@ def layered_decode_batch_last(
     """Layered decode on the tensors' device; returns
     (z [N,B] int8, iters [B] int32, ok [B] bool).  On the card under the
     kernel backend the decode is one replay of a captured CUDA graph."""
-    if code.qc is None:
-        raise ValueError(NOT_QC_MESSAGE)
-    if llr.dtype != torch.float32 or llr.ndim != 2:
-        raise ValueError("llr must be float32 [N, B]")
-    run, use_kernel, tables = layered_program(code, opts, llr.device)
-    syn = syndrome.to(torch.int8)
-    if device_loop.graphs_on(use_kernel, llr.device):
-        return device_loop.run_graph(
-            ("layered", code.fingerprint, llr.shape[1], opts), run, (llr, syn), keep=tables)
-    return run(llr, syn, None)
+    return device_loop.batch_last_decode("layered", layered_program, code, llr, syndrome, opts)
 
 
 def _layered_program(tables, t0, Lr0, syn3, opts, use_kernel, graph):
@@ -340,43 +340,10 @@ def _layered_program(tables, t0, Lr0, syn3, opts, use_kernel, graph):
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    lanes = _SweepLanes(sweep, t0, Lr0, syn3, zeros((B,), torch.int32),
-                        zeros((B,), torch.bool), zeros((1,), torch.int32), scratch(B))
-
-    def finalize(t, iters, done):
-        # A converged frame reports the sweep at which its decision syndrome
-        # first matched; failures report max_iterations.
-        return t, torch.where(done, iters.clamp_min(1), opts.max_iterations), done
-
-    B2 = opts.compact_lanes
-    if not (0 < B2 < B and opts.compact_after < opts.max_iterations):
-        lanes.run(opts.max_iterations, graph, use_kernel)
-        return finalize(lanes.t, lanes.iters, lanes.loop.done)
-
-    # ---- residency-compaction schedule: the phases A/B/C of the flooding
-    # loop (decoder/bp.py).  Frames are independent, so re-scheduling lanes
-    # is exact.
-    lanes.run(opts.compact_after, graph, use_kernel)
-    done_a = lanes.loop.done
-
-    # Unconverged lanes first (the sort is stable: ties keep lane order);
-    # when fewer than compact_lanes are unconverged the tail picks
-    # already-done lanes, which the loop's masks keep inert.
-    idx = torch.argsort(done_a.to(torch.int32), stable=True)[:B2]
-    part = _SweepLanes(
-        sweep, lanes.t.index_select(1, idx), lanes.Lr.index_select(1, idx),
-        syn3.index_select(1, idx), lanes.iters.index_select(0, idx),
-        done_a.index_select(0, idx), lanes.loop.it.clone(), scratch(B2))
-    part.run(opts.max_iterations, graph, use_kernel)
-
-    # Scatter phase B back (in place: the phase-A tensors are dead after
-    # this point).  Decisions derive from t, so the compacted lanes' final t
-    # must land in the full slab; phase C's frozen mask keeps it untouched.
-    lanes.t.index_copy_(1, idx, part.t)
-    lanes.Lr.index_copy_(1, idx, part.Lr)
-    lanes.iters.index_copy_(0, idx, part.iters)
-    done_a.index_copy_(0, idx, part.loop.done)
-    frozen = zeros((B,), torch.bool).index_fill_(0, idx, True)
-    # phase C, the overflow (its loop's entry test is the lax.cond's predicate)
-    lanes.run(opts.max_iterations, graph, use_kernel, frozen=frozen)
-    return finalize(lanes.t, lanes.iters, done_a)
+    lanes = _SweepLanes(sweep, scratch, use_kernel, t0, Lr0, syn3, zeros((B,), torch.int32),
+                        zeros((B,), torch.bool), zeros((1,), torch.int32))
+    device_loop.run_schedule(lanes, opts, graph)
+    # A converged frame reports the sweep at which its decision syndrome
+    # first matched; failures report max_iterations.
+    done = lanes.loop.done
+    return lanes.t, torch.where(done, lanes.iters.clamp_min(1), opts.max_iterations), done

@@ -29,17 +29,17 @@ serving-shaped contract:
   with a per-frame leakage ledger (syndrome + tag bits) driving the final
   key length (``postprocess``); :meth:`Reconciler.tags` serves the Alice
   side of verification.
-- **Rate adaptation**: ``adapter=RateAdapter(...)`` serves an adapted rate
-  over the mother code — requests then carry payload bits, punctured
-  positions are decoder-recovered erasures, and the leakage accounting
-  follows the adapter.  Adapters bind to the endpoint's code by CONTENT
-  fingerprint (``LDPCCode.fingerprint``), not shape.  The LLR assembly and
-  the payload gather are part of the chunk's program.
-- **A rate that changes block by block**: ``rates=RateFamily(...)`` serves
-  every member of a rate family from one program: the chunk's header carries
-  the step, and the program takes that step's erasures and pins from a
-  template on the card, so a change of rate captures nothing.  Each call
-  names its step (``rate=``); the leak and the final key length follow it.
+- **Rate adaptation**: ``rates=RateFamily(...)`` serves every member of a
+  rate family over the mother code from one program — requests then carry
+  payload bits, punctured positions are decoder-recovered erasures, and the
+  leakage accounting follows the member.  The chunk's header carries the
+  step, and the program takes that step's erasures and pins from a template
+  on the card, so a change of rate captures nothing; a family of several
+  members names its step in each call (``rate=``).  ``adapter=RateAdapter(...)``
+  serves one adapted rate as the family of that one member
+  (``RateFamily.single``, step 0).  A family binds to the endpoint's code by
+  CONTENT fingerprint (``LDPCCode.fingerprint``), not shape.  The LLR
+  assembly and the payload gather are part of the chunk's program.
 
 ``device=None`` means the card and raises without one; keys are the port's
 int64 keys (``channel.threefry.key_from_words`` converts a JAX key).  The
@@ -70,7 +70,7 @@ from qkd_ldpc_tpu_torch.channel.threefry import prng_key
 from qkd_ldpc_tpu_torch.codes.ldpc_code import LDPCCode
 from qkd_ldpc_tpu_torch.decoder import device_loop
 from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions, decode_program
-from qkd_ldpc_tpu_torch.decoder.rate_adapt import RateAdapter, RateFamily, pinned_llr
+from qkd_ldpc_tpu_torch.decoder.rate_adapt import RateAdapter, RateFamily
 from qkd_ldpc_tpu_torch.decoder.reconcile import llr_magnitude
 from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome as syndrome_fn
 from qkd_ldpc_tpu_torch.postprocess import (
@@ -130,7 +130,7 @@ class _Layout:
 
 
 # The int32 header of a chunk's input: the float32 bits of the a-priori LLR
-# magnitude, the chunk's valid lanes and, on a rate-agile endpoint, the step.
+# magnitude, the chunk's valid lanes and, on a rate-adapted endpoint, the step.
 MAG, VALID, STEP = 0, 1, 2
 
 
@@ -147,7 +147,7 @@ def chunk_header(qber: float, valid: int, step: int | None = None) -> np.ndarray
 class ServeCounters:
     """An endpoint's cumulative counts since it was made or :meth:`reset`:
     blocks (calls of ``reconcile``) by rate step (``None`` on an endpoint
-    without a family), frames, frame-iterations (a frame's iterations, the
+    that serves one rate), frames, frame-iterations (a frame's iterations, the
     cap for a frame that did not converge), and from ``reconcile_secure``
     the frames verified and the final key bits of the verified frames."""
 
@@ -167,7 +167,7 @@ class _ServeProgram:
     :class:`~qkd_ldpc_tpu_torch.decoder.device_loop.Graph`.
 
     Input (:attr:`inputs`): the header (:func:`chunk_header`, with the step
-    where ``rates`` is a family of several members), Bob's bits
+    where ``rates`` is a family), Bob's bits
     ``[lanes, frame_bits]`` uint8 and Alice's syndromes ``[lanes, M]``;
     output (:attr:`outputs`): iterations int32, flags bool and the corrected
     bits uint8 (payload bits on an adapted endpoint).  Lanes at or past the
@@ -176,33 +176,27 @@ class _ServeProgram:
     varies per chunk is read on the device, so one capture serves every
     request, QBER and rate step.
 
-    With ``rates`` the LLRs are the step's member's: 0 at its punctured
-    positions, the shared seed's +-64 at its shortened ones (both one row of
+    With ``rates`` (a :class:`RateFamily`; ``None`` is the mother code) the
+    LLRs are the step's member's: 0 at its punctured positions, the shared
+    seed's +-64 at its shortened ones (both one row of
     ``RateFamily.pin_templates``, selected by the header's step on the
     device) and the channel's at the payload positions, which every member
     shares."""
 
-    def __init__(self, code, opts, lanes, adapter, shared_seed, device, rates=None):
+    def __init__(self, code, opts, lanes, rates, shared_seed, device):
         self.decode, self.use_kernel, _ = decode_program(code, opts, device)
-        self.code, self.lanes, self.adapter, self.rates = code, lanes, adapter, rates
+        self.code, self.lanes, self.rates = code, lanes, rates
         if rates is not None:
             F = rates.payload_bits
             self.key_idx = torch.as_tensor(rates.key_idx, dtype=torch.int64, device=device)
             self.mod_idx, self.templates = rates.pin_templates(shared_seed, device)
         else:
-            F = code.n_vars if adapter is None else adapter.payload_bits
+            F = code.n_vars
         self.inputs = _Layout((np.int32, (2 if rates is None else 3,)), (np.uint8, (lanes, F)),
                               (np.uint8, (lanes, code.n_checks)))
         self.outputs = _Layout((np.int32, (lanes,)), (bool, (lanes,)),
                                (np.uint8, (lanes, F)))
         self.lane = torch.arange(lanes, dtype=torch.int32, device=device)
-        if adapter is not None:
-            self.key_idx = torch.as_tensor(adapter.key_idx, dtype=torch.int64, device=device)
-            self.short_idx = torch.as_tensor(adapter.short_idx, dtype=torch.int64,
-                                             device=device)
-            # the shared seed's pinned +-64, [s, lanes], made once
-            self.short_llr = pinned_llr(adapter.short_pattern(shared_seed, device))[
-                :, None].expand(-1, lanes).contiguous()
 
     def __call__(self, inp: torch.Tensor, out: torch.Tensor, graph=None) -> None:
         x, bob, syn = self.inputs.views(inp)
@@ -210,23 +204,17 @@ class _ServeProgram:
         mag = x[MAG:MAG + 1].view(torch.float32)
         keep = self.lane < x[VALID]
         channel = torch.where((bob.T == 1) & keep, -mag, mag)  # [frame_bits, B]
-        if self.rates is not None:  # the step's erasures and pins, the channel
+        if self.rates is None:
+            llr = channel.contiguous()
+        else:  # the channel, then the step's erasures and pins
             llr = torch.zeros((self.code.n_vars, self.lanes), dtype=torch.float32,
                               device=inp.device)
             llr.index_copy_(0, self.key_idx, channel)
             pins = self.templates.index_select(0, x[STEP:STEP + 1])  # [1, d]
             llr.index_copy_(0, self.mod_idx, pins.T.expand(-1, self.lanes).contiguous())
-        elif self.adapter is None:
-            llr = channel.contiguous()
-        else:  # zeros (the punctured erasures), channel LLRs, the pins
-            llr = torch.zeros((self.code.n_vars, self.lanes), dtype=torch.float32,
-                              device=inp.device)
-            llr.index_copy_(0, self.key_idx, channel)
-            if self.short_idx.shape[0]:
-                llr.index_copy_(0, self.short_idx, self.short_llr)
         s = torch.where(keep, syn.T, 0).to(torch.int8).contiguous()  # [M, B]
         z, iters, ok = self.decode(llr, s, graph)
-        if self.adapter is not None or self.rates is not None:
+        if self.rates is not None:
             z = z.index_select(0, self.key_idx)
         bits_out.copy_(z.T)
         iters_out.copy_(iters)
@@ -340,33 +328,31 @@ class Reconciler:
         device=None,
         rates: RateFamily | None = None,
     ):
-        """``adapter`` serves an adapted rate over the mother ``code``:
-        requests then carry PAYLOAD bits (``adapter.payload_bits`` per
-        frame), punctured positions are erasures recovered by the decoder,
-        and ``shared_seed`` fixes the shortened pattern both sides derive.
-        ``rates`` serves every member of a rate family instead, one program
-        for all of them: each call names its step (``rate=``).  A family of
-        one member is that member's ``adapter``."""
+        """``rates`` serves every member of a rate family over the mother
+        ``code``, one program for all of them: requests then carry PAYLOAD
+        bits (``rates.payload_bits`` per frame), punctured positions are
+        erasures recovered by the decoder, ``shared_seed`` fixes the
+        shortened pattern both sides derive, and each call of a family of
+        several members names its step (``rate=``).  ``adapter`` serves one
+        adapted rate: the family of that one member."""
         if lanes < 1:
             raise ValueError("lanes must be >= 1")
         if adapter is not None and rates is not None:
             raise ValueError("pass an adapter or a rate family, not both")
-        self.rates = rates
-        if rates is not None and rates.steps == 1:
-            adapter = rates.members[0]
-        bound = adapter if adapter is not None else rates
-        if bound is not None and bound.code is not code:
-            if bound.code.fingerprint != code.fingerprint:
+        if adapter is not None:
+            rates = RateFamily.single(adapter)
+        if rates is not None and rates.code is not code:
+            if rates.code.fingerprint != code.fingerprint:
                 raise ValueError(
                     "adapter was built for a different code (parity-check "
-                    f"fingerprint {bound.code.fingerprint} != "
+                    f"fingerprint {rates.code.fingerprint} != "
                     f"{code.fingerprint})"
                 )
         self.device = resolve_device(device)
         self.code = code
         self.opts = opts
         self.lanes = lanes
-        self.adapter = adapter
+        self.rates = rates
         self.shared_seed = shared_seed
         self.counters = ServeCounters()
         # Chunks allowed in flight before the oldest is fetched: enough to
@@ -384,13 +370,15 @@ class Reconciler:
         return self.rates is not None and self.rates.steps > 1
 
     @property
+    def adapter(self) -> RateAdapter | None:
+        """The one adapter of an endpoint that serves one adapted rate (else
+        ``None``)."""
+        return None if self.rates is None or self.agile else self.rates.members[0]
+
+    @property
     def frame_bits(self) -> int:
         """Bits per request frame (payload bits when rate-adapted)."""
-        if self.agile:
-            return self.rates.payload_bits
-        if self.adapter is not None:
-            return self.adapter.payload_bits
-        return self.code.n_vars
+        return self.code.n_vars if self.rates is None else self.rates.payload_bits
 
     @property
     def syndrome_bits(self) -> int:
@@ -398,8 +386,8 @@ class Reconciler:
 
     def _step(self, rate) -> int | None:
         """The call's rate step, checked: an agile endpoint needs one in
-        ``[0, steps)``; any other endpoint takes none (a family of one
-        member also takes 0)."""
+        ``[0, steps)``; any other endpoint takes none (one that serves a
+        family of one member also takes 0)."""
         if self.agile:
             if rate is None:
                 raise ValueError("a rate-agile endpoint needs the block's step (rate=)")
@@ -411,14 +399,16 @@ class Reconciler:
             raise ValueError("this endpoint serves one rate: pass no rate=")
         return None
 
-    def _adapter_at(self, step: int | None) -> RateAdapter | None:
-        return self.adapter if step is None else self.rates.member(step)
+    def _member(self, step: int | None) -> RateAdapter | None:
+        """The family's member at ``step`` (step 0 for a family of one), or
+        ``None`` on the mother code."""
+        return None if self.rates is None else self.rates.member(step or 0)
 
     def leak(self, rate: int | None = None) -> int:
         """Information disclosed per frame by RECONCILIATION at ``rate``
         (syndrome bits, net of punctured entropy when rate-adapted: ``M -
         p``).  The secure chain adds tag bits on top (``reconcile_secure``)."""
-        ad = self._adapter_at(self._step(rate))
+        ad = self._member(self._step(rate))
         return self.code.n_checks if ad is None else ad.leak_bits
 
     @property
@@ -445,17 +435,15 @@ class Reconciler:
 
     def _runner(self, kind: str) -> _Runner:
         """The endpoint's program ``kind`` ("serve" or "syndrome"): one per
-        (schedule and options, lanes, adapter or family, shared seed), kept
-        for the endpoint's lifetime (a program holds its adapter or family,
-        so the id in the key stays unique)."""
-        key = (kind, self.opts, self.lanes, id(self.adapter), id(self.rates),
-               self.shared_seed)
+        (schedule and options, lanes, family, shared seed), kept for the
+        endpoint's lifetime (a program holds its family, so the id in the key
+        stays unique)."""
+        key = (kind, self.opts, self.lanes, id(self.rates), self.shared_seed)
         runner = self._runners.get(key)
         if runner is None:
             if kind == "serve":
-                runner = _Runner(_ServeProgram(self.code, self.opts, self.lanes,
-                                               self.adapter, self.shared_seed, self.device,
-                                               self.rates if self.agile else None),
+                runner = _Runner(_ServeProgram(self.code, self.opts, self.lanes, self.rates,
+                                               self.shared_seed, self.device),
                                  self.device, device_loop.LOOPS_PER_DECODE)
             else:
                 runner = _Runner(_SyndromeProgram(self.code, self.opts, self.lanes, self.device),
@@ -511,7 +499,7 @@ class Reconciler:
         ``frame_key`` supplies Alice's PRIVATE randomness for punctured
         positions (required when the adapter punctures)."""
         with span("qkd.serve.syndromes"):
-            adapter = self._adapter_at(self._step(rate))
+            adapter = self._member(self._step(rate))
             arr, single = self._frames(bits)
             frames = None
             if adapter is not None:
@@ -573,7 +561,7 @@ class Reconciler:
             iters = np.empty((n,), np.int32)
             ok = np.empty((n,), bool)
 
-            head = chunk_header(qber, 0, step if self.agile else None)
+            head = chunk_header(qber, 0, None if self.rates is None else step or 0)
 
             def fill(views, off, chunk):
                 header, b, s = views

@@ -129,22 +129,33 @@ def test_decode_equals_jax_pallas_backend(algorithm):
         assert_same_decisions(rj, rt, plus_minus_one=[3])
 
 
+# Each schedule's compaction cases: (code, frames, seed base, max_iterations,
+# [(n_err, compact_after, compact_lanes)]).  The last case of each leaves more
+# unconverged lanes than compact_lanes at compact_after (the overflow
+# fallback, phase C); on the flooding code 5 errors converge inside phase A
+# and 13 run the intended phase-B schedule.
+COMPACTION = {
+    "flooding": ("irregular", 32, 100, 40, [(5, 4, 8), (13, 4, 8), (23, 3, 4)]),
+    "layered": ("qc", 24, 200, 30, [(8, 3, 6), (19, 3, 8), (24, 2, 4)]),
+}
+
+
+@pytest.mark.parametrize("schedule", sorted(COMPACTION))
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("algorithm", ["sum-product", "min-sum"])
-def test_compaction_bit_identical(algorithm, dtype):
-    """Residency compaction is a schedule change only: phase-A lanes,
-    compacted phase-B lanes and overflow lanes of the full-batch fallback
-    (phase C) all equal the plain loop, as in the JAX package's test."""
-    _, tc = code_pair("irregular")
-    B = 32
-    # (n_err, compact_after, compact_lanes): 23 errors x 4 lanes forces the
-    # overflow fallback; 5 errors converge inside phase A; 13 exercise the
-    # intended phase-B schedule.
-    for n_err, k1, b2 in [(5, 4, 8), (13, 4, 8), (23, 3, 4)]:
-        alice, bob = make_frames(tc.n_vars, B, n_err, seed=100 + n_err)
+def test_compaction_bit_identical(algorithm, dtype, schedule):
+    """Residency compaction (``device_loop.run_schedule``, one for both
+    schedules) is a schedule change only: phase-A lanes, compacted phase-B
+    lanes and overflow lanes of the full-batch fallback (phase C) all equal
+    the plain loop, port against port, as in the JAX package's own tests."""
+    which, B, seed, max_it, cases = COMPACTION[schedule]
+    _, tc = code_pair(which)
+    for n_err, k1, b2 in cases:
+        alice, bob = make_frames(tc.n_vars, B, n_err, seed=seed + n_err)
         llr = apriori_llr(torch.from_numpy(bob), n_err / tc.n_vars)
         syn = syndrome(tc, torch.from_numpy(alice))
-        base = dict(max_iterations=40, algorithm=algorithm, message_dtype=dtype)
+        base = dict(max_iterations=max_it, algorithm=algorithm, message_dtype=dtype,
+                    schedule=schedule)
         plain = tbp.decode(tc, llr, syn, tbp.DecodeOptions(**base), device="cpu")
         comp = tbp.decode(
             tc, llr, syn,
@@ -154,7 +165,7 @@ def test_compaction_bit_identical(algorithm, dtype):
         assert torch.equal(plain.bits, comp.bits), (algorithm, dtype, n_err)
         assert torch.equal(plain.iterations, comp.iterations)
         assert torch.equal(plain.syndromes_match, comp.syndromes_match)
-        if n_err == 23:  # more unconverged lanes than compact_lanes at k1
+        if (n_err, k1, b2) == cases[-1]:  # more unconverged lanes than compact_lanes at k1
             assert int((plain.iterations > k1).sum()) > b2
 
 

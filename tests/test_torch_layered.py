@@ -130,31 +130,6 @@ def test_min_sum_layered_variants_exact(name):
         assert (rt.iterations[~rt.syndromes_match] == 30).all()
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("algorithm", ["sum-product", "min-sum"])
-def test_layered_compaction_bit_identical(algorithm, dtype):
-    """Compaction is a schedule change only: phase-A lanes, compacted phase-B
-    lanes and the overflow lanes of the full-batch fallback all equal the
-    plain loop (port against port, as the JAX package's own test)."""
-    _, tc = code_pair("qc")
-    for n_err, k1, b2 in [(8, 3, 6), (19, 3, 8), (24, 2, 4)]:
-        alice, bob = make_frames(tc.n_vars, 24, n_err, seed=200 + n_err)
-        llr = apriori_llr(torch.from_numpy(bob), n_err / tc.n_vars)
-        syn = syndrome(tc, torch.from_numpy(alice))
-        base = dict(max_iterations=30, algorithm=algorithm, message_dtype=dtype,
-                    schedule="layered")
-        plain = tbp.decode(tc, llr, syn, tbp.DecodeOptions(**base), device="cpu")
-        comp = tbp.decode(
-            tc, llr, syn,
-            tbp.DecodeOptions(**base, compact_after=k1, compact_lanes=b2),
-            device="cpu")
-        assert torch.equal(plain.bits, comp.bits), (algorithm, dtype, n_err)
-        assert torch.equal(plain.iterations, comp.iterations)
-        assert torch.equal(plain.syndromes_match, comp.syndromes_match)
-        if n_err == 24:  # more unconverged lanes than compact_lanes at k1
-            assert int((plain.iterations > k1).sum()) > b2
-
-
 def test_layered_equals_jax_pallas_sweep_kernel():
     """The JAX decoder through its fused Pallas sweep kernel (interpret mode)
     == the port's plain loop, compaction included."""

@@ -106,8 +106,9 @@ def test_a_one_member_family_is_that_adapter(code):
     q = ERRORS / ad.payload_bits
     for a, b in zip(rec.reconcile(bob, syn, q), one.reconcile(bob, syn, q)):
         np.testing.assert_array_equal(a, b)
-    prog = rec._runner("serve").program
-    assert prog.rates is None and prog.inputs.fields[0][3] == (2,)
+    prog, one_prog = rec._runner("serve").program, one._runner("serve").program
+    assert prog.rates is fam and one_prog.rates.steps == 1 and one_prog.rates.member(0) is ad
+    assert prog.inputs.fields[0][3] == one_prog.inputs.fields[0][3] == (3,)
 
 
 def test_rate_arguments_are_checked(code, family, agile):

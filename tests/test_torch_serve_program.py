@@ -25,7 +25,7 @@ from qkd_ldpc_tpu.serve import _serve_step, _serve_step_adapted, _syndrome_step
 from qkd_ldpc_tpu_torch import codes as tcodes
 from qkd_ldpc_tpu_torch.channel.threefry import prng_key
 from qkd_ldpc_tpu_torch.decoder import DecodeOptions as TOpts
-from qkd_ldpc_tpu_torch.decoder import RateAdapter
+from qkd_ldpc_tpu_torch.decoder import RateAdapter, RateFamily
 from qkd_ldpc_tpu_torch.decoder.reconcile import llr_magnitude
 from qkd_ldpc_tpu_torch.serve import (
     Reconciler,
@@ -52,14 +52,14 @@ def _syndromes(code, bits):
     return ((bits.astype(np.int64) @ code.dense.T.astype(np.int64)) % 2).astype(np.uint8)
 
 
-def _run(program, bob, syn, qber, valid):
+def _run(program, bob, syn, qber, valid, step=None):
     """One chunk through ``program`` eagerly: the input buffer as a slot
     holds it (rows past ``valid`` are whatever ``bob`` / ``syn`` hold there),
     and the outputs ``(bits, iterations, flags)``."""
     inp = torch.zeros(program.inputs.nbytes, dtype=torch.uint8)
     out = torch.zeros(program.outputs.nbytes, dtype=torch.uint8)
     header, b, s = program.inputs.views(inp.numpy())
-    header[:], b[:], s[:] = chunk_header(qber, valid), bob, syn
+    header[:], b[:], s[:] = chunk_header(qber, valid, step), bob, syn
     program(inp, out)
     it, ok, bits = program.outputs.views(out.numpy())
     return bits.copy(), it.copy(), ok.copy()
@@ -148,15 +148,16 @@ def test_ragged_tail_pad_lanes_decode_as_zeros(medium):
     ("min-sum", 0, 96), ("sum-product", 64, 0), ("min-sum", 32, 64)],
     ids=["shortened-min-sum", "punctured-sum-product", "both-min-sum"])
 def test_adapted_program_equals_serve_step_adapted(medium, algorithm, p, s):
-    """The adapted step: zeros, channel LLRs at the payload, the shared
-    seed's pinned +-64 at the shortened positions, decode, payload gather —
-    equal to JAX's ``_serve_step_adapted`` on a ragged chunk."""
+    """The adapted step, as the family of the adapter alone with step 0 in
+    the header: zeros, channel LLRs at the payload, the shared seed's pinned
+    +-64 at the shortened positions, decode, payload gather — equal to JAX's
+    ``_serve_step_adapted`` on a ragged chunk."""
     jc, tc = medium
     opts = dict(KW, algorithm=algorithm)
     jad = JAdapter.make(jc, n_punctured=p, n_shortened=s, seed=2)
     tad = RateAdapter.make(tc, n_punctured=p, n_shortened=s, seed=2)
     jrec = JReconciler(jc, JOpts(**opts), lanes=LANES, adapter=jad, shared_seed=3)
-    program = _ServeProgram(tc, TOpts(**opts), LANES, tad, 3, CPU)
+    program = _ServeProgram(tc, TOpts(**opts), LANES, RateFamily.single(tad), 3, CPU)
     l = tad.payload_bits
     n_errors = 10 if p else 14
     alice, bob = make_frames(l, LANES, n_errors, 5)
@@ -166,7 +167,7 @@ def test_adapted_program_equals_serve_step_adapted(medium, algorithm, p, s):
     valid = 6
     bob[valid:], syn[valid:] = 0, 0
     q = n_errors / l
-    got = _run(program, bob, syn, q, valid)
+    got = _run(program, bob, syn, q, valid, step=0)
     want = _jax(_serve_step_adapted, jrec, bob, syn, q, JOpts(**opts), adapted=True)
     _assert_equal(got, want, algorithm)
     assert want[2][:valid].all()
