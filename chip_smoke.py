@@ -23,8 +23,10 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    syndrome, flooding BP decode with compaction (its loops WHILE nodes),
    statistics, the four batches one replay of the chunk's captured CUDA graph
    — on the flagship quasi-cyclic code at its operating point and checks the
-   statistics and the launch counts (K4 twice, K3, the tie kernel, K1 and
-   the three loop-entry tests once per batch; K2 and the variable update once
+   statistics and the launch counts (K4 twice, K3, the tie kernel, K1, the
+   compaction's partition and phases A and C's loop-entry tests once per
+   batch, phase B's test, gather and scatter once a batch with a lane left
+   after phase A; K2 and the variable update once
    per pass, read from the graph's device counters, the loop's bookkeeping in
    K2's last block with no launch of its own; no plain threefry tree on the
    card);
@@ -76,7 +78,13 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    the last block of K2 and of K6 against the plain pass and
    ``loop_step_plain`` (check and base-row degrees 6, 15, 60; B = 512, 200,
    101; every storage type, both algorithms, four states of the loop) and
-   K2 / K5 / K6 timed with and without it;
+   K2 / K5 / K6 timed with and without it; (``compaction``) residency
+   compaction's partition, gather and scatter against their plain versions
+   bit for bit (both layouts, bf16 and int8, B 512 -> 128 and 101 -> 25, no
+   lane left, some, exactly the compacted lanes and an overflow), timed
+   beside their byte bounds and the PyTorch ops they replaced, and their
+   launches a batch and the compaction counter on a flooding and a layered
+   point of the cells;
    3e. (``chunk_graph``) the trial chunk as one CUDA graph: sweep A through
    ``batch_simulation`` captures once per code; the chunk graph against the
    eager chunk 7/7 and launch for launch on the ``run_point`` legs (flooding
@@ -158,8 +166,9 @@ and on this one in turns (parent, change, change, parent), a process each;
 ``--trial-turns PARENT`` likewise the two trial paths' walls, K2 / K5 / K6
 with and without the loop's bookkeeping folded in and one traced run of each
 path (``profile_trial_paths_here``), parent and change alternating in pairs;
-``--chunk-glue`` runs the build and phase 3f alone; ``--rate-family`` the
-build and the protocol phase's ``rate_family`` hold alone.
+``--chunk-glue`` runs the build and phase 3f alone; ``--compaction`` the
+build and ``compaction`` alone; ``--rate-family`` the build and the protocol
+phase's ``rate_family`` hold alone.
 Times are this card's, labelled with its name and power limit; they are a
 smoke measurement, not a benchmark.
 """
@@ -3321,6 +3330,17 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
                 counts.get(k, 0) for counts in (graph_counts, eager_counts) for k in (KS, KW)):
             raise AssertionError(f"device_loops {name}: graph launches {graph_counts} "
                                  f"against eager {eager_counts}")
+        # phase B's kernels: a partition a decode; the gather and the scatter
+        # only where a lane was left after phase A (none when all converged in
+        # it, one each on a forced overflow); the graph's as the eager loop's
+        phase_b = (device_loop.KERNEL_PARTITION, device_loop.KERNEL_GATHER,
+                   device_loop.KERNEL_SCATTER)
+        want_b = {"phase_a": (1, 0, 0), "overflow": (1, 1, 1)}.get(regime)
+        got_b = tuple(graph_counts.get(k, 0) for k in phase_b)
+        if got_b != tuple(eager_counts.get(k, 0) for k in phase_b) or got_b[0] != 1 or (
+                want_b is not None and got_b != want_b):
+            raise AssertionError(f"device_loops {name}: phase B's launches {got_b} "
+                                 f"(eager {eager_counts}), expected {want_b}")
         z, it, ok = graph
         if o.algorithm == "min-sum":
             moved = [] if all(torch.equal(a, b) for a, b in zip(graph, plain)) else None
@@ -3587,6 +3607,258 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
     report["reconciler_window_walls_s"] = {
         "frames": PROTOCOL_FRAMES, "lanes": 128, "window_1": walls[1], "window_4": walls[4]}
     return report, measured
+
+
+# Phase B's lanes held and timed (``_compaction``): (B, compacted lanes) and
+# the unconverged lanes after phase A (k = 0, inside, k = B2, an overflow).
+COMPACTION_SHAPES = ((BATCH, BATCH // 4), (101, 25))
+# The moved lanes at which the gather and the scatter are timed.
+COMPACTION_TIMED_K = (8, 32, BATCH // 4)
+
+
+def _compaction_state(torch, dev, gen, layout, storage, B, ncells):
+    """Phase B's tensors of a batch of B lanes at the flagship, random: the
+    flooding state batch-last (llr, syn, Lr [6, M, B], z) or the layered
+    [rows, B, z] (t, Lr, syn), plus a narrow layered run (z = 13) whose
+    units fall below 16 bytes."""
+    from qkd_ldpc_tpu_torch.decoder import cuda_kernels
+
+    mdt = cuda_kernels.STORAGE_DTYPES[storage]
+    N, M = NB * Z, MB_ROWS * Z
+
+    def rand(shape, dtype):
+        if dtype in (torch.int8, torch.uint8):
+            return torch.randint(-128 if dtype == torch.int8 else 0, 128, shape, dtype=dtype,
+                                 device=dev, generator=gen)
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    if layout == "flooding":
+        return [rand((N, B), torch.float32), rand((M, B), torch.int8),
+                rand((6, M, B), mdt), rand((N, B), torch.int8)]
+    return [rand((NB, B, Z), torch.float32), rand((ncells, B, Z), mdt),
+            rand((MB_ROWS, B, Z), torch.int8), rand((3, B, 13), torch.int8)]
+
+
+def _compaction(torch, np, dev, flush, card, code, point_key):
+    """Residency compaction's phase B on the card (``compaction``): the
+    partition, the gather and the scatter (``csrc/device_loop.cu``) held to
+    their plain versions bit for bit at the flagship (B 512 -> 128) and a
+    ragged batch (101 -> 25), both layouts, bf16 and int8 messages, with no
+    lane, some, exactly B2 and more than B2 left after phase A (the moved
+    slots of the gather, every byte of the scattered tensors, every output
+    of the partition and the counter's four counts); each kernel timed at
+    the flagship beside its byte bound, its plain version and the PyTorch
+    ops it replaced; and a flooding and a layered point of the cells
+    (QBER 0.05, 32,768 trials, 512 lanes compacted to 128 after 8) counted:
+    the three kernels' launches a batch and the counter's readings.
+    Returns (report, {kernel name: measurement})."""
+    from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.decoder import DecodeOptions, device_loop, layered
+    from qkd_ldpc_tpu_torch.sim import run_point
+
+    dl = device_loop
+    gen = torch.Generator(device=dev).manual_seed(23)
+    ncells = layered.layer_tables(code, dev).col.shape[0]
+    report = {"card": card, "held": 0}
+
+    def batch(B, B2, n):
+        done = torch.ones(B, dtype=torch.bool, device=dev)
+        done[torch.randperm(B, device=dev, generator=gen)[:n]] = False
+        iters = torch.randint(0, 100, (B,), dtype=torch.int32, device=dev, generator=gen)
+        lanes = dl.Lanes(done, torch.tensor([8], dtype=torch.int32, device=dev), True)
+        lanes.iters = iters
+
+        def part():
+            p = dl.Lanes(torch.empty(B2, dtype=torch.bool, device=dev),
+                         torch.empty(1, dtype=torch.int32, device=dev), True, fill=False)
+            p.iters = torch.empty(B2, dtype=torch.int32, device=dev)
+            return p, dl.Selection(B, B2, dev)
+
+        return lanes, part
+
+    counter = dl.compaction_counter(dev)
+    for layout in ("flooding", "layered"):
+        for storage in ("bfloat16", "int8"):
+            for B, B2 in COMPACTION_SHAPES:
+                for n in (0, B2 // 3, B2, B2 + 40):
+                    where = f"{layout} {storage} B {B} -> {B2}, {n} unconverged"
+                    lanes, make = batch(B, B2, n)
+                    (pk, sk), (pp, sp) = make(), make()
+                    before = counter.clone()
+                    dl.partition(lanes, pk, sk, use_kernel=True)
+                    torch.cuda.synchronize()
+                    counted_k = (counter - before).tolist()
+                    dl.partition(lanes, pp, sp, use_kernel=False)
+                    k = min(n, B2)
+                    outs = [(sk.idx, sp.idx), (sk.k, sp.k), (sk.go, sp.go),
+                            (sk.frozen, sp.frozen), (pk.loop.done, pp.loop.done),
+                            (pk.iters, pp.iters), (pk.loop.it, pp.loop.it),
+                            (pk.loop.ok, pp.loop.ok), (pk.loop.active, pp.loop.active),
+                            (pk.loop.ticket, pp.loop.ticket)]
+                    if not all(torch.equal(a, b) for a, b in outs) or int(sk.k) != k or (
+                            counted_k != [1, int(k > 0), k, int(n > B2)]):
+                        raise AssertionError(f"compact_partition differs from its plain "
+                                             f"version: {where}, counts {counted_k}")
+                    full = _compaction_state(torch, dev, gen, layout, storage, B, ncells)
+                    parts_k = [dl.lanes_like(x, 1 if layout == "layered" else -1, B2)
+                               for x in full]
+                    parts_p = [x.clone() for x in parts_k]
+                    passes = torch.zeros(1, dtype=torch.int64, device=dev)
+                    dl.compact_copy(list(zip(full, parts_k)), sk, scatter=False,
+                                    use_kernel=True, passes=passes)
+                    dl.compact_copy(list(zip(full, parts_p)), sp, scatter=False,
+                                    use_kernel=False)
+                    torch.cuda.synchronize()
+                    for x, a, b in zip(full, parts_k, parts_p):
+                        d = dl.lane_axis(x, a)
+                        if not torch.equal(a.narrow(d, 0, k), b.narrow(d, 0, k)):
+                            raise AssertionError(f"compact_gather differs: {where}, "
+                                                 f"{tuple(x.shape)} {x.dtype}")
+                    if int(passes) != 1:
+                        raise AssertionError(f"compact_gather counted {int(passes)} passes")
+                    # the scatter of fresh part values into equal copies of the batch,
+                    # with the counts and the flags as run_schedule scatters them
+                    news = _compaction_state(torch, dev, gen, layout, storage, B2, ncells)
+                    pairs_k = [(x.clone(), y) for x, y in zip(full, news)] + [
+                        (lanes.iters.clone(), torch.randint(0, 99, (B2,), dtype=torch.int32,
+                                                            device=dev, generator=gen)),
+                        (lanes.loop.done.clone(), torch.rand(B2, device=dev,
+                                                             generator=gen) < 0.5)]
+                    pairs_p = [(x.clone(), y) for x, y in pairs_k]
+                    dl.compact_copy(pairs_k, sk, scatter=True, use_kernel=True)
+                    dl.compact_copy(pairs_p, sp, scatter=True, use_kernel=False)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a[0], b[0]) for a, b in zip(pairs_k, pairs_p)):
+                        raise AssertionError(f"compact_scatter differs: {where}")
+                    report["held"] += 1
+    report["units"] = {
+        layout: [list(dl.copy_run(x, dl.lanes_like(x, 1 if layout == "layered" else -1,
+                                                   BATCH // 4)))
+                 for x in _compaction_state(torch, dev, gen, layout, "bfloat16", BATCH, ncells)]
+        for layout in ("flooding", "layered")}
+
+    # ---- timings at the flagship -------------------------------------------------
+    B, B2 = BATCH, BATCH // 4
+    measured, timed = {}, {}
+    lanes, make = batch(B, B2, 30)
+    part, sel = make()
+    done_bytes = B + 4 * B + B + 4 * B2 + 3 * B2  # flags, counts in; frozen, idx, the part's out
+    ms = _time_ms(torch, lambda: dl.partition(lanes, part, sel, use_kernel=True), flush)
+    plain_ms = _time_ms(torch, lambda: dl.partition(lanes, part, sel, use_kernel=False), flush)
+    argsort_ms = _time_ms(torch, lambda: torch.argsort(lanes.loop.done.to(torch.int32),
+                                                       stable=True)[:B2], flush)
+    bound_ms, by = _bound(done_bytes, 0)
+    measured[dl.KERNEL_PARTITION] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                         bound_ms=bound_ms, bound_by=by, library_ms=argsort_ms)
+    for layout in ("flooding", "layered"):
+        full = _compaction_state(torch, dev, gen, layout, "bfloat16", B, ncells)[:3 + (
+            layout == "flooding")]
+        parts = [dl.lanes_like(x, 1 if layout == "layered" else -1, B2) for x in full]
+        lane_bytes = sum(x.numel() // B * x.element_size() for x in full)
+        back = [(full[0 if layout == "layered" else 3], parts[0 if layout == "layered" else 3]),
+                (lanes.iters, part.iters), (lanes.loop.done, part.loop.done)]
+        back_bytes = sum(x.numel() // B * x.element_size() for x, _ in back)
+        rows = {}
+        for k in COMPACTION_TIMED_K:
+            lanes_k, make_k = batch(B, B2, k)
+            part_k, sel_k = make_k()
+            dl.partition(lanes_k, part_k, sel_k, use_kernel=True)
+            gather = list(zip(full, parts))
+            g_ms = _time_ms(torch, lambda: dl.compact_copy(gather, sel_k, scatter=False,
+                                                           use_kernel=True), flush)
+            s_ms = _time_ms(torch, lambda: dl.compact_copy(back, sel_k, scatter=True,
+                                                           use_kernel=True), flush)
+            g_plain = _time_ms(torch, lambda: dl.compact_copy(gather, sel_k, scatter=False,
+                                                              use_kernel=False), flush)
+            s_plain = _time_ms(torch, lambda: dl.compact_copy(back, sel_k, scatter=True,
+                                                              use_kernel=False), flush)
+            # what the parent ran: index_select of every tensor into B2 lanes, and
+            # index_copy_ of the returned state back
+            idx = sel_k.idx.long()
+
+            def selects():
+                for x, y in gather:
+                    torch.index_select(x, dl.lane_axis(x, y), idx, out=y)
+
+            def copies():
+                for x, y in back:
+                    x.index_copy_(dl.lane_axis(x, y), idx, y)
+
+            rows[k] = dict(
+                gather_ms=g_ms, gather_bound_ms=_bound(2 * k * lane_bytes, 0)[0],
+                gather_plain_ms=g_plain, index_select_b2_ms=_time_ms(torch, selects, flush),
+                scatter_ms=s_ms, scatter_bound_ms=_bound(2 * k * back_bytes, 0)[0],
+                scatter_plain_ms=s_plain, index_copy_b2_ms=_time_ms(torch, copies, flush))
+        timed[layout] = {"lane_bytes_in": lane_bytes, "lane_bytes_back": back_bytes, **rows}
+        if layout == "flooding":
+            r = rows[COMPACTION_TIMED_K[0]]
+            measured[dl.KERNEL_GATHER] = dict(
+                max_abs_err=0.0, ms=r["gather_ms"], plain_ms=r["gather_plain_ms"],
+                bound_ms=r["gather_bound_ms"], bound_by="bytes",
+                library_ms=r["index_select_b2_ms"])
+            measured[dl.KERNEL_SCATTER] = dict(
+                max_abs_err=0.0, ms=r["scatter_ms"], plain_ms=r["scatter_plain_ms"],
+                bound_ms=r["scatter_bound_ms"], bound_by="bytes",
+                library_ms=r["index_copy_b2_ms"])
+    report["partition_ms"] = {"kernel": ms, "plain": plain_ms, "argsort": argsort_ms,
+                              "bound": bound_ms}
+    report["timed"] = timed
+
+    # ---- the cells' points: launches a batch and the counter -----------------------
+    base = dict(algorithm="sum-product", backend="auto", max_iterations=100,
+                clip_messages=True, message_threshold=100.0, message_dtype="bfloat16",
+                compact_after=8, compact_lanes=BATCH // 4)
+    points = {}
+    for path, o in (("flooding", DecodeOptions(**base)),
+                    ("layered", DecodeOptions(schedule="layered", **base))):
+        def point(o=o):
+            return run_point(code, point_key, QBER, 32768, BATCH, o, prng="pallas",
+                             max_batches_per_dispatch=64)[0]
+
+        point()  # captures the chunk's graph
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        stats = point()
+        counts = _build.launch_counts()
+        batches = 32768 // BATCH
+        points[path] = {
+            "batches": batches, "mean_iterations": stats.sum_it / stats.n_trials,
+            "max_iterations": stats.max_it,
+            "launches_a_batch": {name: counts.get(name, 0) / batches for name in (
+                dl.KERNEL_PARTITION, dl.KERNEL_GATHER, dl.KERNEL_SCATTER, dl.KERNEL_ENTRY)},
+            "counter": {name: counts.get(name, 0) for name in dl.COMPACTION_COUNTS}}
+        c = points[path]["counter"]
+        if c["compaction_batches"] != batches or counts.get(dl.KERNEL_PARTITION, 0) != batches \
+                or counts.get(dl.KERNEL_GATHER, 0) != c["compaction_engaged"] \
+                or counts.get(dl.KERNEL_SCATTER, 0) != c["compaction_engaged"]:
+            raise AssertionError(f"compaction counts of a {path} point: {counts}")
+    report["points"] = points
+    return report, measured
+
+
+def compaction_here() -> int:
+    """``--compaction``: the build and the ``compaction`` phase alone; prints
+    one ``compaction`` line."""
+    import numpy as np
+    import torch
+
+    from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.channel.keys import derive_point_key
+    from qkd_ldpc_tpu_torch.codes import make_qc_code
+    from qkd_ldpc_tpu_torch.utils import card_name_and_power_limit
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    _build.build_all()
+    print(_build.build_log("device_loop"), flush=True)
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    code = make_qc_code(z=Z, nb=NB, mb=MB_ROWS, dv=DV, seed=CODE_SEED)
+    report, _ = _compaction(torch, np, dev, flush, card_name_and_power_limit(), code,
+                            derive_point_key(MASTER_SEED, POINT_INDEX))
+    print(json.dumps({"compaction": report}), flush=True)
+    return 0
 
 
 def _serve_program(torch, np, dev, card, code, point_key, counted):
@@ -4932,7 +5204,8 @@ def _chunk_graph(torch, np, dev, card, code, names, point_key, key_c, opts, opts
                 code, point_key, QBER, trials, BATCH, opts, mesh), PARALLEL_SHARDS),
         }
         kernels = (K1, K2, K3, K4, KV, K6, cuda_select.KERNEL_TIES, device_loop.KERNEL_ENTRY,
-                   KS, KW)
+                   KS, KW, device_loop.KERNEL_PARTITION, device_loop.KERNEL_GATHER,
+                   device_loop.KERNEL_SCATTER)
         legs_report = {}
         for name, (step, chunks) in legs.items():
             what[0] = name
@@ -5419,10 +5692,24 @@ def main() -> int:
     if replays_main != 1:
         raise AssertionError(f"main path: {replays_main} graph replays for one chunk of "
                              f"{N_BATCHES} batches")
-    # every batch's decode: one replay; its loops' entry tests on the card, and
-    # each pass's bookkeeping in K2's last block (no launch of its own)
-    if launches.get(KE, 0) != 3 * N_BATCHES or launches.get(KS, 0) != 0:
+    # every batch's decode: one replay; each pass's bookkeeping in K2's last
+    # block (no launch of its own); its loops' entry tests below
+    if launches.get(KS, 0) != 0:
         raise AssertionError(f"main path: loop kernels {launches}")
+
+    def phase_b_launches(path, counts, worst, compact_after):
+        """Each batch's loop-entry tests on the card (phases A and C, and
+        phase B's inside its IF node where a lane was left after phase A: a
+        batch whose slowest lane needed more than compact_after passes), one
+        partition a batch, a gather and a scatter a batch with a lane to
+        move, and the compaction counter's reading of the same."""
+        engaged = sum(w > compact_after for w in worst)
+        got = [counts.get(name, 0) for name in (
+            KE, device_loop.KERNEL_PARTITION, device_loop.KERNEL_GATHER,
+            device_loop.KERNEL_SCATTER, "compaction_batches", "compaction_engaged")]
+        if got != [2 * N_BATCHES + engaged, N_BATCHES, engaged, engaged, N_BATCHES, engaged]:
+            raise AssertionError(f"{path}: loop and compaction launches {counts}, "
+                                 f"{engaged} batches with a lane past {compact_after}")
 
     stats = as_stats(partials)
     mean_it = partials.sum_it / max(partials.n_sp, 1)
@@ -5457,6 +5744,7 @@ def main() -> int:
             f"check_update_fused launched {fused} times and variable_update "
             f"{launches[KV]} times, iteration counts say {expected_fused} "
             f"(overflow: {overflowed})")
+    phase_b_launches("main path", launches, worst, opts.compact_after)
     # The eager kernel loop (the version the graphs are held against) fetches
     # one flag per pass; on an idle stream that fetch costs this much (its
     # floor — in the loop it also waits for the pass's kernels).
@@ -5516,8 +5804,9 @@ def main() -> int:
             f"layered_sweep launched {sweeps} times, iteration counts say "
             f"{sum(worst_l)} (overflow: {overflowed_l})")
     # each sweep's bookkeeping in K6's last block (no launch of its own)
-    if launches_l.get(KW, 0) != 0 or launches_l.get(KE, 0) != 3 * N_BATCHES:
+    if launches_l.get(KW, 0) != 0:
         raise AssertionError(f"layered path: loop kernels {launches_l}")
+    phase_b_launches("layered path", launches_l, worst_l, opts_l.compact_after)
     print(json.dumps({"layered_path": {
         "card": card, "qber": actual_qber, "trials": trials, "batch": BATCH,
         "compact_after": LAYERED_COMPACT_AFTER, "partials": stats_l,
@@ -5703,6 +5992,9 @@ def main() -> int:
     loops_report, loop_kernels = _device_loops(
         torch, np, dev, card, flush, code, point_key, key_c, opts_c, counted, as_stats)
     print(json.dumps({"device_loops": loops_report}), flush=True)
+    compaction_report, compaction_kernels = _compaction(torch, np, dev, flush, card, code,
+                                                        point_key)
+    print(json.dumps({"compaction": compaction_report}), flush=True)
 
     # ---- phase 3e: the trial chunk as one CUDA graph (chunk_graph) -------------
     phase_start("chunk_graph")
@@ -5831,6 +6123,8 @@ def main() -> int:
                    KB: None, KE: None, KS: sorted(FOLD_CHECK_CODES) + [6],
                    KW: sorted(FOLD_SWEEP_CODES) + [6], KC_WANT: None, KERNEL_STATS: None,
                    KERNEL_STATS_LAYERED: None, cuda_continuation.KERNEL_FILL_LAYERED: None,
+                   device_loop.KERNEL_PARTITION: None, device_loop.KERNEL_GATHER: None,
+                   device_loop.KERNEL_SCATTER: None,
                    **dict.fromkeys(cuda_continuation.KERNELS)}.get(name, flooding_degrees)
         line = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5898,6 +6192,13 @@ def main() -> int:
         kernel_line(KERNEL_STATS_LAYERED, csrc + "trial_stats.cu",
                     "qkd_ldpc_tpu/sim/runner.py:127",
                     glue_report["layered"]["trial_stats_layered"], launches_l),
+        # residency compaction's phase B: the argsort, _take_lanes and
+        # .at[idx].set of JAX's compaction schedule
+        *(kernel_line(name, csrc + "device_loop.cu", f"qkd_ldpc_tpu/decoder/bp.py:{line}",
+                      compaction_kernels[name], launches)
+          for name, line in ((device_loop.KERNEL_PARTITION, 516),
+                             (device_loop.KERNEL_GATHER, 518),
+                             (device_loop.KERNEL_SCATTER, 529))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5913,6 +6214,8 @@ if __name__ == "__main__":
         sys.exit(trial_turns(sys.argv[sys.argv.index("--trial-turns") + 1]))
     if "--chunk-glue" in sys.argv[1:]:
         sys.exit(chunk_glue_here())
+    if "--compaction" in sys.argv[1:]:
+        sys.exit(compaction_here())
     if "--rate-family" in sys.argv[1:]:
         sys.exit(rate_family_here())
     sys.exit(main())

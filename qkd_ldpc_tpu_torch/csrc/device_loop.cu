@@ -24,6 +24,12 @@
 // continuation's outer loop holds its refill loop, which holds two IF nodes:
 // sim/continuation.py); a handle made on the top-level graph serves a node at
 // any depth below it.
+//
+// compact_partition, compact_gather and compact_scatter (the end of this file)
+// are residency compaction's phase B: the lanes left unconverged after phase A,
+// moved into the compacted lanes and back, under an IF node that a batch with
+// no such lane skips.
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -151,4 +157,247 @@ extern "C" int capture_nodes(void* stream, unsigned long long* count) {
     e = cudaGraphGetNodes(graph, nullptr, &nodes);
     *count = nodes;
     return static_cast<int>(e);
+}
+
+// ---------------------------------------------------------------------------
+// Residency compaction's phase B (decoder/device_loop.py::run_schedule).  The
+// JAX package sorts the flags, takes the first B2 lanes of every state array
+// and sets them back (qkd_ldpc_tpu/decoder/bp.py:516-532: argsort, _take_lanes,
+// .at[idx].set); PyTorch ran that as a radix sort, an index_select of every
+// state tensor into B2 lanes and an index_copy_ back, every batch, whether or
+// not any lane was left to finish.  Here:
+//
+//   compact_partition  one block after phase A: the flags' stable order
+//                      (unconverged lanes first, each group in lane order) by
+//                      a ballot and a prefix count, its first B2 lanes as
+//                      idx, k = min(#unconverged, B2), the part's flags,
+//                      counts and loop state (what index_select and
+//                      LoopState's fills left), `frozen` (true on the k moved
+//                      lanes: a done lane is inert in phase C either way),
+//                      the engagement counts, and the condition of the IF
+//                      node around phase B (k > 0).  A batch with no lane
+//                      left runs this kernel alone.
+//   compact_gather     inside the IF node: lane idx[s] -> slot s, for s < k,
+//                      of every state tensor phase B reads.
+//   compact_scatter    inside the IF node, after phase B: slot s -> lane
+//                      idx[s], for s < k, of the state the decode returns and
+//                      the flags.
+//
+// Slots k .. B2 are neither written nor read back: their lanes were done, and
+// a done lane is inert in every pass (its flag never changes, its decisions
+// and counts never move), so copying it changed nothing.
+//
+// Bound: the bytes of the k moved lanes; the partition moves a few bytes a
+// lane and is bound by its launch.  A tensor is [rows, lanes, run]: the
+// flooding state is batch-last (a run of one element, so the k lanes of a row
+// are read scattered and their k slots written adjacent), the layered state
+// [rows, B, z] (a run of z elements, copied in 16-byte units where the run and
+// the base addresses allow it).  Units are numbered by row, then slot, then
+// place in the run, and consecutive threads take consecutive units, so a
+// warp's accesses to the part's arrays are contiguous.  The grid comes from
+// the shapes and the card alone (a replay repeats it); blocks past the k
+// lanes' units return at once.
+
+namespace {
+
+// decoder/device_loop.py's _PartitionArgs, field for field.
+struct Partition {
+    const uint8_t* done;         // [B] after phase A
+    const int* iters;            // [B]
+    const int* it;               // [1] passes so far
+    int* idx;                    // [B2] the stable order's first B2 lanes
+    int* k;                      // [1] lanes moved
+    uint8_t* go;                 // [1] k > 0 (the eager program reads it)
+    uint8_t* frozen;             // [B]
+    uint8_t* part_done;          // [B2] the part's loop state
+    int* part_iters;             // [B2]
+    int* part_it;                // [1]
+    uint8_t* part_ok;            // [B2]
+    uint8_t* part_active;        // [B2]
+    int* part_ticket;            // [1]
+    unsigned long long* counts;  // [4] or null: batches, batches with k > 0, lanes, overflows
+    unsigned long long handle;   // the IF node's condition (when set_handle)
+    int B;
+    int B2;
+    int set_handle;
+};
+
+__global__ void __launch_bounds__(kThreads) compact_partition_kernel(const Partition p) {
+    __shared__ int warp_u[kThreads / 32];
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const int warps = static_cast<int>(blockDim.x) >> 5;
+    int n_u = 0;  // unconverged lanes in all
+    for (int base = 0; base < p.B; base += blockDim.x) {
+        const int b = base + t;
+        n_u += __syncthreads_count(b < p.B && p.done[b] == 0);
+    }
+    int before = 0;  // unconverged lanes of the earlier tiles
+    for (int base = 0; base < p.B; base += blockDim.x) {
+        const int b = base + t;
+        const bool u = b < p.B && p.done[b] == 0;
+        const unsigned ballot = __ballot_sync(0xffffffffu, u);
+        if (lane == 0) warp_u[warp] = __popc(ballot);
+        __syncthreads();
+        int rank = before + __popc(ballot & ((1u << lane) - 1u));  // unconverged before b
+        int tile = 0;
+        for (int w = 0; w < warps; ++w) {
+            const int c = warp_u[w];
+            if (w < warp) rank += c;
+            tile += c;
+        }
+        if (b < p.B) {
+            // b's place in the stable order: the unconverged lanes, then the done
+            const int pos = u ? rank : n_u + (b - rank);
+            if (pos < p.B2) {
+                p.idx[pos] = b;
+                p.part_done[pos] = u ? 0 : 1;
+                p.part_iters[pos] = p.iters[b];
+            }
+            p.frozen[b] = (u && rank < p.B2) ? 1 : 0;
+        }
+        before += tile;
+        __syncthreads();  // the next tile rewrites warp_u
+    }
+    for (int s = t; s < p.B2; s += blockDim.x) {
+        p.part_ok[s] = 1;
+        p.part_active[s] = 0;
+    }
+    if (t == 0) {
+        const int k = min(n_u, p.B2);
+        *p.k = k;
+        *p.go = k > 0 ? 1 : 0;
+        *p.part_it = *p.it;
+        *p.part_ticket = 0;
+        if (p.counts != nullptr) {
+            atomicAdd(p.counts, 1ull);
+            if (k > 0) atomicAdd(p.counts + 1, 1ull);
+            atomicAdd(p.counts + 2, static_cast<unsigned long long>(k));
+            if (n_u > p.B2) atomicAdd(p.counts + 3, 1ull);
+        }
+        if (p.set_handle) cudaGraphSetConditional(p.handle, k > 0 ? 1u : 0u);
+    }
+}
+
+constexpr int kMaxCopies = 6;        // tensors one launch copies
+constexpr int kCopyThreads = 256;
+constexpr int kCopyBlocksPerSm = 8;
+constexpr int kSharedLanes = 2048;   // idx staged in shared memory up to this k
+
+// One tensor's lanes: `rows` x lanes x `units` units of `unit` bytes; src and
+// dst are the full batch's tensor and the part's (gather), or the reverse.
+struct CopyRun {
+    const void* src;
+    void* dst;
+    int rows;
+    int units;
+    int unit;  // 16, 8, 4, 2 or 1
+};
+
+// decoder/device_loop.py's _CopyPlanArgs, field for field.
+struct CopyPlan {
+    CopyRun run[kMaxCopies];
+    const int* idx;     // [B2]
+    const int* k;       // [1]
+    long long* passes;  // [1] or null: the IF body's count (the gather adds one)
+    int n;              // tensors
+    int B;              // lanes of the full batch
+    int B2;             // lanes of the part
+};
+
+template <typename W, bool SCATTER>
+__device__ __forceinline__ void copy_units(const CopyRun& r, const int* lanes, int k, int B,
+                                           int B2, int first, int stride) {
+    const W* __restrict__ src = static_cast<const W*>(r.src);
+    W* __restrict__ dst = static_cast<W*>(r.dst);
+    const int units = r.units, per_row = k * units, total = r.rows * per_row;
+    for (int g = first; g < total; g += stride) {
+        const int row = g / per_row;
+        const int in_row = g - row * per_row;
+        const int s = in_row / units;
+        const int j = in_row - s * units;
+        const int full = (row * B + lanes[s]) * units + j;
+        const int part = (row * B2 + s) * units + j;
+        if (SCATTER) {
+            dst[full] = src[part];
+        } else {
+            dst[part] = src[full];
+        }
+    }
+}
+
+template <bool SCATTER>
+__device__ __forceinline__ void copy_lanes(const CopyPlan& plan) {
+    __shared__ int lane_s[kSharedLanes];
+    if (plan.passes != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *plan.passes += 1;
+    const int k = *plan.k;
+    int most = 0;  // units of the largest tensor's k lanes
+    for (int e = 0; e < plan.n; ++e) most = max(most, plan.run[e].rows * plan.run[e].units);
+    if (static_cast<long long>(blockIdx.x) * blockDim.x >= static_cast<long long>(most) * k) {
+        return;  // the whole block lies past the k lanes' units
+    }
+    const int* lanes = plan.idx;
+    if (k <= kSharedLanes) {
+        for (int i = threadIdx.x; i < k; i += blockDim.x) lane_s[i] = plan.idx[i];
+        __syncthreads();
+        lanes = lane_s;
+    }
+    const int first = blockIdx.x * blockDim.x + threadIdx.x;
+    const int stride = gridDim.x * blockDim.x;
+    for (int e = 0; e < plan.n; ++e) {
+        const CopyRun& r = plan.run[e];
+        switch (r.unit) {
+            case 16: copy_units<uint4, SCATTER>(r, lanes, k, plan.B, plan.B2, first, stride); break;
+            case 8: copy_units<uint2, SCATTER>(r, lanes, k, plan.B, plan.B2, first, stride); break;
+            case 4: copy_units<uint32_t, SCATTER>(r, lanes, k, plan.B, plan.B2, first, stride); break;
+            case 2: copy_units<uint16_t, SCATTER>(r, lanes, k, plan.B, plan.B2, first, stride); break;
+            default: copy_units<uint8_t, SCATTER>(r, lanes, k, plan.B, plan.B2, first, stride);
+        }
+    }
+}
+
+// The plan stays in the launch's parameter space (__grid_constant__): its
+// tensors are indexed at run time.
+__global__ void __launch_bounds__(kCopyThreads)
+compact_gather_kernel(const __grid_constant__ CopyPlan plan) {
+    copy_lanes<false>(plan);
+}
+
+__global__ void __launch_bounds__(kCopyThreads)
+compact_scatter_kernel(const __grid_constant__ CopyPlan plan) {
+    copy_lanes<true>(plan);
+}
+
+}  // namespace
+
+// The partition after phase A (`args` a Partition).  Returns cudaGetLastError().
+extern "C" int compact_partition(const void* args, void* stream) {
+    const Partition& p = *static_cast<const Partition*>(args);
+    const int threads = p.B < kThreads ? ((p.B + 31) / 32) * 32 : kThreads;
+    compact_partition_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Phase B's gather (scatter = 0) or scatter (scatter = 1) of the tensors of
+// `plan` (a CopyPlan).  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a plan of no tensor or more than kMaxCopies.
+extern "C" int compact_copy(const void* plan, int scatter, void* stream) {
+    const CopyPlan& c = *static_cast<const CopyPlan*>(plan);
+    if (c.n < 1 || c.n > kMaxCopies) return static_cast<int>(cudaErrorInvalidValue);
+    long long most = 0;  // units of the largest tensor at k = B2
+    for (int e = 0; e < c.n; ++e) {
+        most = std::max(most, static_cast<long long>(c.run[e].rows) * c.run[e].units * c.B2);
+    }
+    int device = 0, sms = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    const long long want = std::max(1LL, (most + kCopyThreads - 1) / kCopyThreads);
+    const unsigned grid =
+        static_cast<unsigned>(std::min(want, static_cast<long long>(sms) * kCopyBlocksPerSm));
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (scatter) {
+        compact_scatter_kernel<<<grid, kCopyThreads, 0, s>>>(c);
+    } else {
+        compact_gather_kernel<<<grid, kCopyThreads, 0, s>>>(c);
+    }
+    return static_cast<int>(cudaGetLastError());
 }

@@ -33,7 +33,7 @@ package's, restated for PyTorch:
   module supplies the flooding pass and state (``_Lanes``).
 - **One device program per decode**, as the JAX package's ``jit``: on the
   card the kernel backend captures the whole decode (peeled K1, the loops,
-  the compaction's ops) as one CUDA graph per (code, B, options, card)
+  the compaction's kernels) as one CUDA graph per (code, B, options, card)
   and replays it, so a decode makes no host round trip between its input
   and its output; a trial chunk (``sim/runner.py``) captures the same
   program once per batch inside its own graph (:func:`decode_program`).
@@ -228,10 +228,10 @@ class _Lanes(device_loop.Lanes):
 
     mode = device_loop.FLOODING
 
-    def __init__(self, core, llr, syn, Lr, z, iters, done, it):
+    def __init__(self, core, llr, syn, Lr, z, iters, done, it, fill=True):
         self.core, self.llr, self.syn = core, llr, syn
         self.Lr, self.z, self.iters = Lr, z, iters
-        super().__init__(done, it, core.use_kernel)
+        super().__init__(done, it, core.use_kernel, fill)
         self.total = torch.empty(llr.shape, dtype=core.mdt, device=llr.device)
         self.scratch = core.scratch(llr.shape[1])
 
@@ -246,15 +246,17 @@ class _Lanes(device_loop.Lanes):
         core.check_update_fused(self.total, self.Lr, self.syn, ok=loop.ok, out=self.Lr,
                                 scratch=self.scratch, step=tail)
 
-    def gather(self, idx, done):
-        return _Lanes(self.core, self.llr.index_select(1, idx), self.syn.index_select(1, idx),
-                      self.Lr.index_select(2, idx), self.z.index_select(1, idx),
-                      self.iters.index_select(0, idx), done.index_select(0, idx),
-                      self.loop.it.clone())
+    def compacted(self, n):
+        like = device_loop.lanes_like
+        return _Lanes(self.core, *(like(x, -1, n) for x in (self.llr, self.syn, self.Lr, self.z)),
+                      like(self.iters, 0, n), like(self.loop.done, 0, n),
+                      torch.empty_like(self.loop.it), fill=False)
 
-    def scatter(self, idx, part):
-        self.z.index_copy_(1, idx, part.z)
-        self.iters.index_copy_(0, idx, part.iters)
+    def gathered(self):
+        return self.llr, self.syn, self.Lr, self.z
+
+    def returned(self):
+        return (self.z,)
 
 
 def _flooding_program(core, llr, syn, opts, graph):

@@ -26,17 +26,24 @@ The JAX package runs a decode as one compiled device program:
   C) is the same node with the cond's predicate as its entry test.
 - :func:`run_schedule` — a decode's loops, for both decode schedules: one
   early-exit loop, or the residency-compaction phases A, B and C (three
-  WHILE nodes, with torch's ``argsort``, gathers and scatters between them).
-  A schedule's state is a :class:`Lanes` that supplies one pass and how its
-  state is gathered into the compacted lanes and scattered back
-  (``bp._Lanes``, ``layered._SweepLanes``).  :func:`batch_last_decode` runs
-  either schedule's decode of ``[N, B]`` tensors as a graph or eagerly.
+  WHILE nodes; phase B's inside an IF node).  A schedule's state is a
+  :class:`Lanes` that supplies one pass, its compacted twin and the tensors
+  that phase B moves in and back (``bp._Lanes``, ``layered._SweepLanes``).
+- Phase B's lanes (``csrc/device_loop.cu``): :func:`partition` (one block:
+  the flags' stable order, the moved count ``k``, the part's loop state,
+  ``frozen``, the IF node's condition ``k > 0``), then inside the IF node
+  :func:`compact_copy`'s gather of the ``k`` unconverged lanes, phase B's
+  loop and the scatter back.  A batch whose lanes all converged in phase A
+  runs the partition alone.  The device counter :data:`COMPACTION_COUNTS`
+  says how often the mechanism engages (:func:`compaction_counter`).
+  :func:`batch_last_decode` runs either schedule's decode of ``[N, B]``
+  tensors as a graph or eagerly.
 - :class:`Graph` — one program captured on a side stream with
   ``torch.cuda.CUDAGraph`` (``thread_local`` error mode, so shards in other
-  threads may synchronise meanwhile): torch's ops between the loops
-  (``argsort``, ``index_select``, ``index_copy_``, ``where``) take their
-  memory from the graph's pool; a WHILE body allocates nothing and holds only
-  the port's kernels, launched through ctypes into buffers made before it.
+  threads may synchronise meanwhile): the buffers made between the loops
+  (phase B's lanes, the finalize's ``where``) take their memory from the
+  graph's pool; a conditional body allocates nothing and holds only the
+  port's kernels, launched through ctypes into buffers made before it.
   The program runs once eagerly on a side stream before its capture (so the
   kernel libraries are loaded and torch's workspaces exist); that run's
   launches are not counted.  A capture that fails raises: nothing falls back
@@ -66,6 +73,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import math
 import threading
 from typing import NamedTuple
 
@@ -76,11 +84,22 @@ from qkd_ldpc_tpu_torch.spans import span
 from qkd_ldpc_tpu_torch.utils import canonical_device
 
 ENTRY, FLOODING, LAYERED = 0, 1, 2
-# The name the launch counts use for the entry test's kernel.
+# The names the launch counts use for the entry test's kernel and phase B's.
 KERNEL_ENTRY = "loop_entry"
-# WHILE nodes one decode holds (phases A, B and C); a program of several
-# decodes (a trial chunk) sizes its graph with LOOPS_PER_DECODE each.
-LOOPS_PER_DECODE = 3
+KERNEL_PARTITION = "compact_partition"
+KERNEL_GATHER = "compact_gather"
+KERNEL_SCATTER = "compact_scatter"
+# The compaction's device counter, read with the launch counts: batches that
+# reached phase B, those with a lane to move (k > 0), lanes moved, and
+# batches whose unconverged lanes overflowed the compacted ones (phase C).
+COMPACTION_COUNTS = ("compaction_batches", "compaction_engaged", "compaction_lanes",
+                     "compaction_overflows")
+# Tensors one gather or scatter moves at most (csrc/device_loop.cu).
+MAX_COPIES = 6
+# Conditional bodies one decode holds (the WHILE nodes of phases A, B and C,
+# and the IF node around phase B); a program of several decodes (a trial
+# chunk) sizes its graph with LOOPS_PER_DECODE each.
+LOOPS_PER_DECODE = 4
 # Kinds of conditional node, and how deep they nest (the continuation: its
 # outer loop, the refill loop inside it, and the two IF nodes inside that).
 WHILE, IF = "while", "if"
@@ -120,16 +139,18 @@ class LoopState:
     ([1] int32, 0: the blocks of the pass's last kernel count themselves on
     it to elect the one that runs the bookkeeping)."""
 
-    def __init__(self, done: torch.Tensor, it: torch.Tensor):
+    def __init__(self, done: torch.Tensor, it: torch.Tensor, fill: bool = True):
         B, device = done.shape[0], done.device
         self.done, self.it = done, it
-        self.ok = torch.ones((B,), dtype=torch.bool, device=device)
+        # fill=False: left unset, for the compaction's partition to write
+        ones, zeros = (torch.ones, torch.zeros) if fill else (torch.empty, torch.empty)
+        self.ok = ones((B,), dtype=torch.bool, device=device)
         # active and the ticket (on a 16-byte boundary) zeroed by one fill
         b16 = -(-B // 16) * 16
-        zeros = torch.zeros((b16 + 4,), dtype=torch.uint8, device=device)
-        self.active = zeros[:B].view(torch.bool)
-        self.ticket = zeros[b16:].view(torch.int32)
-        self.go = torch.zeros((1,), dtype=torch.bool, device=device)
+        flags = zeros((b16 + 4,), dtype=torch.uint8, device=device)
+        self.active = flags[:B].view(torch.bool)
+        self.ticket = flags[b16:].view(torch.int32)
+        self.go = zeros((1,), dtype=torch.bool, device=device)
 
 
 class _LoopStepArgs(ctypes.Structure):
@@ -289,15 +310,19 @@ class Lanes:
     loop's flags (:class:`LoopState`).  A schedule's subclass supplies
     ``mode`` (its bookkeeping: FLOODING, or LAYERED, which also carries
     ``iters``), ``pass_(tail)`` (one pass over the active lanes, allocating
-    nothing), ``gather(idx, done)`` (its state on the lanes ``idx`` as a new
-    instance whose count of passes starts from this one's) and ``scatter(idx,
-    part)`` (what phase B moved, back in place)."""
+    nothing), ``compacted(n)`` (an instance of the same schedule over ``n``
+    lanes, its tensors and loop state unset: ``fill=False``),
+    ``gathered()`` (the tensors phase B reads, each with its lane axis) and
+    ``returned()`` (those of the decode's result that phase B changes, its
+    counts ``iters`` and flags apart), both in the same order on the
+    compacted instance."""
 
     mode: int
     iters: torch.Tensor
 
-    def __init__(self, done: torch.Tensor, it: torch.Tensor, use_kernel: bool):
-        self.loop = LoopState(done, it)
+    def __init__(self, done: torch.Tensor, it: torch.Tensor, use_kernel: bool,
+                 fill: bool = True):
+        self.loop = LoopState(done, it, fill)
         self.use_kernel = use_kernel
 
     def run(self, limit: int, graph, frozen=None) -> None:
@@ -309,33 +334,264 @@ class Lanes:
                  graph=graph)
 
 
+def lanes_like(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """An unset tensor shaped as ``x`` with ``n`` lanes on axis ``dim``."""
+    shape = list(x.shape)
+    shape[dim] = n
+    return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+
 def run_schedule(lanes: Lanes, opts, graph) -> None:
     """A decode's loops over ``lanes`` under ``opts`` (``DecodeOptions``):
     one early-exit loop up to ``max_iterations``, or the residency-compaction
     schedule when ``0 < compact_lanes < B`` and ``compact_after <
     max_iterations``.  Its phase A runs ``compact_after`` passes on the full
-    batch; phase B gathers the unconverged minority into ``compact_lanes``
-    lanes and finishes only those; phase C (``lax.cond``: a loop whose entry
-    test is the overflow predicate) continues any lanes left over from their
-    phase-A state, the compacted lanes frozen.  Every lane's trajectory is
-    the plain loop's, merely re-scheduled.  ``lanes.loop.done`` holds the
-    flags afterwards."""
+    batch; the partition picks the unconverged lanes, at most
+    ``compact_lanes`` of them (``k``); phase B, an IF node that runs only
+    when ``k > 0``, gathers them into the compacted lanes, finishes them and
+    scatters them back; phase C (``lax.cond``: a loop whose entry test is the
+    overflow predicate) continues any lanes left over from their phase-A
+    state, the moved lanes frozen.  Every lane's trajectory is the plain
+    loop's, merely re-scheduled.  ``lanes.loop.done`` holds the flags
+    afterwards."""
     B, B2 = lanes.loop.done.shape[0], opts.compact_lanes
     if not (0 < B2 < B and opts.compact_after < opts.max_iterations):
         lanes.run(opts.max_iterations, graph)
         return
     lanes.run(opts.compact_after, graph)
-    done_a = lanes.loop.done
-    # Unconverged lanes first (the sort is stable: ties keep lane order);
-    # when fewer than compact_lanes are unconverged the tail picks
-    # already-done lanes, which the loop's masks keep inert.
-    idx = torch.argsort(done_a.to(torch.int32), stable=True)[:B2]
-    part = lanes.gather(idx, done_a)
-    part.run(opts.max_iterations, graph)
-    lanes.scatter(idx, part)
-    done_a.index_copy_(0, idx, part.loop.done)
-    frozen = torch.zeros((B,), dtype=torch.bool, device=done_a.device).index_fill_(0, idx, True)
-    lanes.run(opts.max_iterations, graph, frozen=frozen)
+    part = lanes.compacted(B2)
+    sel = Selection(B, B2, lanes.loop.done.device)
+    handle = None if graph is None else graph.handle()
+    kern = lanes.use_kernel
+    partition(lanes, part, sel, use_kernel=kern, handle=handle)
+    into = list(zip(lanes.gathered(), part.gathered()))
+    back = list(zip(lanes.returned(), part.returned())) + [
+        (lanes.iters, part.iters), (lanes.loop.done, part.loop.done)]
+
+    def phase_b(passes=None):
+        compact_copy(into, sel, scatter=False, use_kernel=kern, passes=passes)
+        part.run(opts.max_iterations, graph)
+        compact_copy(back, sel, scatter=True, use_kernel=kern)
+
+    if graph is not None:
+        graph.conditional(IF, handle, phase_b)
+    elif bool(sel.go):  # the eager program's host read, one a batch
+        phase_b()
+    lanes.run(opts.max_iterations, graph, frozen=sel.frozen)
+
+
+class Selection:
+    """Phase B's choice of lanes over a batch of ``B``: ``idx [B2]`` int32
+    (the flags' stable order, unconverged lanes first, cut to ``B2``), ``k``
+    ([1] int32: the lanes moved, ``min(#unconverged, B2)``), ``go`` ([1]
+    bool: ``k > 0``), ``frozen [B]`` bool (the moved lanes) and ``counts``
+    (:func:`compaction_counter`).  The partition writes every one of them."""
+
+    def __init__(self, B: int, B2: int, device):
+        def empty(n, dtype):
+            return torch.empty((n,), dtype=dtype, device=device)
+
+        self.idx, self.k = empty(B2, torch.int32), empty(1, torch.int32)
+        self.go, self.frozen = empty(1, torch.bool), empty(B, torch.bool)
+        self.counts = compaction_counter(device)
+
+
+_counters: dict = {}
+_counters_lock = threading.Lock()
+
+
+def compaction_counter(device) -> torch.Tensor:
+    """The device's int64 ``[4]`` counter of :data:`COMPACTION_COUNTS`, made
+    at first use (before any capture: :class:`Graph` asks for it) and read
+    with the launch counts (``_build.launch_counts``, which a reset zeroes).
+    Every partition on the device adds to it, in a graph or eagerly."""
+    device = canonical_device(device)
+    with _counters_lock:
+        counter = _counters.get(device)
+        if counter is None:
+            counter = torch.zeros((len(COMPACTION_COUNTS),), dtype=torch.int64, device=device)
+            for i, name in enumerate(COMPACTION_COUNTS):
+                _build.add_device_counter((name,), counter[i])
+            _counters[device] = counter
+    return counter
+
+
+class _PartitionArgs(ctypes.Structure):
+    """``struct Partition`` of ``csrc/device_loop.cu``, field for field."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "done", "iters", "it", "idx", "k", "go", "frozen", "part_done", "part_iters",
+        "part_it", "part_ok", "part_active", "part_ticket", "counts")] + [
+        ("handle", ctypes.c_ulonglong), ("B", ctypes.c_int), ("B2", ctypes.c_int),
+        ("set_handle", ctypes.c_int)]
+
+
+def partition_plain(lanes: Lanes, part: Lanes, sel: Selection) -> None:
+    """Plain version of the partition kernel, as the kernel computes it: each
+    lane's place in the stable order from the count of unconverged lanes
+    before it; the order's first ``B2`` lanes into ``sel.idx``, their
+    flags and counts into the part's, ``k``, ``go``, ``frozen``, the part's
+    pass count and loop state, and the counter."""
+    done, B2 = lanes.loop.done, sel.idx.shape[0]
+    B, device = done.shape[0], done.device
+    u = ~done
+    before = torch.cumsum(u, 0, dtype=torch.int32) - u.to(torch.int32)
+    n = u.sum(dtype=torch.int32)
+    pos = torch.where(u, before, n + torch.arange(B, dtype=torch.int32, device=device) - before)
+    order = torch.empty((B,), dtype=torch.int32, device=device)
+    order[pos.long()] = torch.arange(B, dtype=torch.int32, device=device)
+    idx = order[:B2]
+    k = n.clamp(max=B2)
+    sel.idx.copy_(idx)
+    sel.k.copy_(k.reshape(1))
+    sel.go.copy_((k > 0).reshape(1))
+    sel.frozen.copy_(u & (before < B2))
+    ploop = part.loop
+    ploop.done.copy_(done[idx.long()])
+    part.iters.copy_(lanes.iters[idx.long()])
+    ploop.it.copy_(lanes.loop.it)
+    ploop.ok.fill_(True)
+    ploop.active.zero_()
+    ploop.ticket.zero_()
+    sel.counts += torch.stack([torch.ones_like(k), (k > 0).to(k.dtype), k,
+                               (n > B2).to(k.dtype)]).to(torch.int64)
+
+
+def partition_cuda(lanes: Lanes, part: Lanes, sel: Selection, handle=None) -> None:
+    done, ploop = lanes.loop.done, part.loop
+    B, B2 = done.shape[0], sel.idx.shape[0]
+    flags = [(done, B), (sel.frozen, B), (ploop.done, B2), (ploop.ok, B2),
+             (ploop.active, B2), (sel.go, 1)]
+    ints = [(lanes.iters, B), (lanes.loop.it, 1), (sel.idx, B2), (sel.k, 1),
+            (part.iters, B2), (ploop.it, 1), (ploop.ticket, 1)]
+    if any(t.shape != (n,) or t.dtype != torch.bool for t, n in flags) or any(
+            t.shape != (n,) or t.dtype != torch.int32 for t, n in ints):
+        raise ValueError("partition: bool flags and int32 counts of B, B2 or 1 lanes")
+    tensors = [t for t, _ in flags + ints] + [sel.counts]
+    if done.device.type != "cuda" or any(
+            t.device != done.device or not t.is_contiguous() for t in tensors):
+        raise ValueError("partition needs contiguous CUDA tensors on one device")
+    args = _PartitionArgs(
+        done.data_ptr(), lanes.iters.data_ptr(), lanes.loop.it.data_ptr(), sel.idx.data_ptr(),
+        sel.k.data_ptr(), sel.go.data_ptr(), sel.frozen.data_ptr(), ploop.done.data_ptr(),
+        part.iters.data_ptr(), ploop.it.data_ptr(), ploop.ok.data_ptr(),
+        ploop.active.data_ptr(), ploop.ticket.data_ptr(), sel.counts.data_ptr(),
+        handle or 0, B, B2, int(handle is not None))
+    fn = _build.function("device_loop", KERNEL_PARTITION, [ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(done.device):
+        err = fn(ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(KERNEL_PARTITION, err)
+
+
+def partition(lanes: Lanes, part: Lanes, sel: Selection, *, use_kernel: bool,
+              handle=None) -> None:
+    """Phase B's choice of lanes after phase A: the kernel when
+    ``use_kernel`` (``handle``, inside a capture, the IF node's condition),
+    else the plain version."""
+    if use_kernel:
+        partition_cuda(lanes, part, sel, handle)
+    else:
+        partition_plain(lanes, part, sel)
+
+
+def lane_axis(full: torch.Tensor, part: torch.Tensor) -> int:
+    """The axis on which ``part`` holds the compacted lanes of ``full``: the
+    one whose sizes differ (every other equal)."""
+    axes = [d for d, (a, b) in enumerate(zip(full.shape, part.shape)) if a != b]
+    if full.ndim != part.ndim or len(axes) != 1 or full.dtype != part.dtype:
+        raise ValueError("a phase-B tensor and its compacted twin differ in their lanes alone")
+    return axes[0]
+
+
+def copy_run(full: torch.Tensor, part: torch.Tensor) -> tuple[int, int, int]:
+    """A tensor's shape as the copy kernels see it: ``(rows, units, unit)``,
+    ``rows`` the size before the lane axis and each lane's run of a row
+    ``units`` units of ``unit`` bytes, the widest of 16, 8, 4, 2 and 1 that
+    divides the run's bytes and both base addresses.  Batch-last tensors
+    have a run of one element; the layered ``[rows, B, z]`` ones a run of
+    ``z``."""
+    d = lane_axis(full, part)
+    rows, run = math.prod(full.shape[:d]), math.prod(full.shape[d + 1:])
+    nbytes = run * full.element_size()
+    unit = next(u for u in (16, 8, 4, 2, 1)
+                if nbytes % u == 0 and full.data_ptr() % u == 0 and part.data_ptr() % u == 0)
+    return rows, nbytes // unit, unit
+
+
+class _CopyRunArgs(ctypes.Structure):
+    """``struct CopyRun`` of ``csrc/device_loop.cu``."""
+
+    _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p), ("rows", ctypes.c_int),
+                ("units", ctypes.c_int), ("unit", ctypes.c_int)]
+
+
+class _CopyPlanArgs(ctypes.Structure):
+    """``struct CopyPlan`` of ``csrc/device_loop.cu``, field for field."""
+
+    _fields_ = [("run", _CopyRunArgs * MAX_COPIES), ("idx", ctypes.c_void_p),
+                ("k", ctypes.c_void_p), ("passes", ctypes.c_void_p), ("n", ctypes.c_int),
+                ("B", ctypes.c_int), ("B2", ctypes.c_int)]
+
+
+def compact_copy_plain(pairs, sel: Selection, scatter: bool, passes=None) -> None:
+    """Plain version of the gather (lane ``idx[s]`` of each ``(full, part)``
+    pair into slot ``s``, for ``s < k``; the other slots zeroed) or the
+    scatter (slot ``s`` back into lane ``idx[s]``, for ``s < k``)."""
+    k = int(sel.k)  # the plain version's host read
+    lanes = sel.idx[:k].long()
+    for full, part in pairs:
+        d = lane_axis(full, part)
+        if scatter:
+            full.index_copy_(d, lanes, part.narrow(d, 0, k))
+        else:
+            part.zero_()
+            part.narrow(d, 0, k).copy_(full.index_select(d, lanes))
+    if passes is not None:
+        passes += 1
+
+
+def compact_copy_cuda(pairs, sel: Selection, scatter: bool, passes=None) -> None:
+    B, B2 = sel.frozen.shape[0], sel.idx.shape[0]
+    if not 0 < len(pairs) <= MAX_COPIES:
+        raise ValueError(f"one launch moves 1 to {MAX_COPIES} tensors")
+    plan = _CopyPlanArgs()
+    dev = sel.idx.device
+    for i, (full, part) in enumerate(pairs):
+        d = lane_axis(full, part)
+        if full.shape[d] != B or part.shape[d] != B2:
+            raise ValueError(f"phase B's tensors hold {B} and {B2} lanes")
+        if dev.type != "cuda" or any(t.device != dev or not t.is_contiguous()
+                                     for t in (full, part)):
+            raise ValueError("the compaction's copies need contiguous CUDA tensors on one device")
+        rows, units, unit = copy_run(full, part)
+        if rows * B * units >= 2 ** 31:
+            raise ValueError("the compaction's copies take tensors of under 2**31 units")
+        src, dst = (part, full) if scatter else (full, part)
+        plan.run[i] = _CopyRunArgs(src.data_ptr(), dst.data_ptr(), rows, units, unit)
+    if passes is not None and (passes.device != dev or passes.dtype != torch.int64):
+        raise ValueError("passes must be an int64 counter on the tensors' device")
+    plan.idx, plan.k = sel.idx.data_ptr(), sel.k.data_ptr()
+    plan.passes = None if passes is None else passes.data_ptr()
+    plan.n, plan.B, plan.B2 = len(pairs), B, B2
+    name = KERNEL_SCATTER if scatter else KERNEL_GATHER
+    fn = _build.function("device_loop", "compact_copy",
+                         [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        err = fn(ctypes.byref(plan), int(scatter), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(name, err)
+
+
+def compact_copy(pairs, sel: Selection, *, scatter: bool, use_kernel: bool,
+                 passes=None) -> None:
+    """Phase B's gather (``scatter`` False: the full batch's lanes ``idx[:k]``
+    into the part's first ``k`` slots) or scatter (back), over ``pairs`` of
+    (full batch's tensor, part's tensor) in either layout: the kernel when
+    ``use_kernel``, else the plain version.  ``passes`` (the IF body's
+    counter) gains one."""
+    if use_kernel:
+        compact_copy_cuda(pairs, sel, scatter, passes)
+    else:
+        compact_copy_plain(pairs, sel, scatter, passes)
 
 
 def _call(fn, *args) -> None:
@@ -358,6 +614,7 @@ class Graph:
         self.depth = 0
         # one device counter of passes for each conditional body the program holds
         self.passes = torch.zeros((loops,), dtype=torch.int64, device=self.device)
+        compaction_counter(self.device)  # made now: a capture cannot
         self.outer: list[str] = []  # kernel nodes of the outer graph
         self.nodes = 0  # all nodes of the outer graph (torch's ops and conditional nodes too)
         self.bodies: list[list[str]] = []  # kernel nodes of each conditional body

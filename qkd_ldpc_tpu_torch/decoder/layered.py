@@ -205,11 +205,12 @@ class _SweepLanes(device_loop.Lanes):
 
     mode = device_loop.LAYERED
 
-    def __init__(self, sweep, make_scratch, use_kernel, t, Lr, syn, iters, done, it):
+    def __init__(self, sweep, make_scratch, use_kernel, t, Lr, syn, iters, done, it,
+                 fill=True):
         self.sweep, self.make_scratch = sweep, make_scratch
         self.t, self.Lr, self.syn, self.iters = t, Lr, syn, iters
         self.scratch = make_scratch(t.shape[1])
-        super().__init__(done, it, use_kernel)
+        super().__init__(done, it, use_kernel, fill)
 
     def pass_(self, tail):
         """One sweep of the active lanes, in place; its flags land in
@@ -219,18 +220,21 @@ class _SweepLanes(device_loop.Lanes):
         self.sweep(self.t, self.Lr, self.syn, self.loop.active, out=self.loop.ok,
                    scratch=self.scratch, step=tail)
 
-    def gather(self, idx, done):
-        return _SweepLanes(
-            self.sweep, self.make_scratch, self.use_kernel, self.t.index_select(1, idx),
-            self.Lr.index_select(1, idx), self.syn.index_select(1, idx),
-            self.iters.index_select(0, idx), done.index_select(0, idx), self.loop.it.clone())
+    def compacted(self, n):
+        like = device_loop.lanes_like
+        return _SweepLanes(self.sweep, self.make_scratch, self.use_kernel,
+                           *(like(x, 1, n) for x in (self.t, self.Lr, self.syn)),
+                           like(self.iters, 0, n), like(self.loop.done, 0, n),
+                           torch.empty_like(self.loop.it), fill=False)
 
-    def scatter(self, idx, part):
-        # Decisions derive from t, so the compacted lanes' final t lands in
-        # the full slab, where phase C's frozen mask keeps it.
-        self.t.index_copy_(1, idx, part.t)
-        self.Lr.index_copy_(1, idx, part.Lr)
-        self.iters.index_copy_(0, idx, part.iters)
+    def gathered(self):
+        return self.t, self.Lr, self.syn
+
+    def returned(self):
+        # Decisions derive from t, so the moved lanes' final t lands in the
+        # full slab, where phase C's frozen mask keeps it; phase C reads no
+        # moved lane's messages.
+        return (self.t,)
 
 
 # The JAX package's text for a layered decode of a code without a QC layout.
@@ -311,9 +315,10 @@ def layered_decode_batch_last(
 
 
 def _layered_program(tables, t0, Lr0, syn3, opts, use_kernel, graph):
-    """The layered decode of ``t0 [nb, B, z]`` with messages ``Lr0`` (both
-    updated in place) toward ``syn3 [mb, B, z]``, eagerly (``graph=None``) or
-    as the capture into ``graph``: ``(t, iters, done)``."""
+    """The layered decode of ``t0 [nb, B, z]`` (updated in place) with
+    messages ``Lr0`` (its working buffer) toward ``syn3 [mb, B, z]``,
+    eagerly (``graph=None``) or as the capture into ``graph``: ``(t, iters,
+    done)``."""
     device = t0.device
     B = t0.shape[1]
     mdt = cuda_kernels.STORAGE_DTYPES[opts.message_dtype]

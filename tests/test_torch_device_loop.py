@@ -7,6 +7,8 @@ every compaction regime, and the pieces of the graph path that do not need
 a card (wrappers' ``out=`` forms, launch recording, device counters, the
 gated tie path's plain version) are held to their eager counterparts."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -88,16 +90,160 @@ def test_decode_program_equals_jax_per_lane(schedule, regime, algorithm, monkeyp
     if regime == "plain":
         assert len(loops) == 1
         return
+    if regime == "all-in-phase-a":
+        # no lane left after phase A: phase B's IF node skips its loop
+        assert len(loops) == 2  # phases A and C
+        (lim_a, _, it_a), (_, pass_c, _) = loops
+        assert lim_a == k1 and it_a <= k1
+        assert ok.all() and iters.max() <= k1 and pass_c == 0
+        return
     assert len(loops) == 3  # phases A, B and C
     (lim_a, _, it_a), (_, pass_b, _), (_, pass_c, _) = loops
     assert lim_a == k1 and it_a <= k1
     unconverged_after_a = int(((iters > it_a) | ~ok).sum())
-    if regime == "all-in-phase-a":
-        assert ok.all() and iters.max() <= k1 and pass_b == pass_c == 0
-    elif regime == "phase-b":
+    if regime == "phase-b":
         assert pass_b > 0 and pass_c == 0 and unconverged_after_a <= b2
     else:
         assert pass_c > 0 and int((iters > k1).sum()) > b2
+
+
+# (B, B2, unconverged lanes after phase A): k = 0; 0 < k < B2; k = B2
+# exactly; more unconverged lanes than B2 (phase C's overflow); at the
+# flagship's batch and compacted width and at a ragged batch.
+PARTITIONS = {
+    f"B{B}-{name}": (B, B2, n)
+    for B, B2 in ((512, 128), (101, 25))
+    for name, n in (("k0", 0), ("k-inside", B2 // 3), ("k-full", B2), ("overflow", B2 + 7))
+}
+
+
+def _lanes(done, iters, it, fill=True):
+    lanes = device_loop.Lanes(done, it, use_kernel=False, fill=fill)
+    lanes.iters = iters
+    return lanes
+
+
+def _partitioned(B, B2, n, seed):
+    """A batch of B lanes, n of them unconverged at random places, its
+    compacted twin of B2 lanes (unset) and the partition's choice."""
+    g = torch.Generator().manual_seed(seed)
+    done = torch.ones(B, dtype=torch.bool)
+    done[torch.randperm(B, generator=g)[:n]] = False
+    iters = torch.randint(0, 50, (B,), dtype=torch.int32, generator=g)
+    lanes = _lanes(done, iters, torch.tensor([7], dtype=torch.int32))
+    part = _lanes(torch.empty(B2, dtype=torch.bool), torch.empty(B2, dtype=torch.int32),
+                  torch.empty(1, dtype=torch.int32), fill=False)
+    sel = device_loop.Selection(B, B2, "cpu")
+    return lanes, part, sel
+
+
+@pytest.mark.parametrize("case", sorted(PARTITIONS))
+def test_plain_partition_is_the_stable_argsort(case):
+    """The partition's plain version (a prefix count, as the kernel) picks
+    the lanes that the parent's ``argsort(done, stable=True)[:B2]`` picked,
+    moves k = min(#unconverged, B2) of them, freezes exactly those, gives
+    the part the flags, counts and pass count ``index_select`` gave it and
+    the loop state ``LoopState``'s fills gave it, and counts the batch."""
+    B, B2, n = PARTITIONS[case]
+    lanes, part, sel = _partitioned(B, B2, n, seed=B + n)
+    done = lanes.loop.done
+    before = sel.counts.clone()
+    device_loop.partition(lanes, part, sel, use_kernel=False)
+    want = torch.argsort(done.to(torch.int32), stable=True)[:B2]
+    k = min(n, B2)
+    assert torch.equal(sel.idx.long(), want)
+    assert int(sel.k) == k and bool(sel.go) == (k > 0)
+    frozen = torch.zeros(B, dtype=torch.bool).index_fill_(0, want[:k], True)
+    assert torch.equal(sel.frozen, frozen)
+    assert torch.equal(part.loop.done, done[want])
+    assert torch.equal(part.iters, lanes.iters[want])
+    assert int(part.loop.it) == 7
+    assert bool(part.loop.ok.all()) and not bool(part.loop.active.any())
+    assert int(part.loop.ticket) == 0
+    assert (sel.counts - before).tolist() == [1, int(k > 0), k, int(n > B2)]
+
+
+# Phase B's tensors in each layout: batch-last (the flooding state: [N, B],
+# [M, B], [dc, M, B]) and the layered [rows, B, z] (z 32 and 20: 16-byte and
+# narrower units).
+LAYOUTS = {
+    "batch-last": [(40,), (24,), (6, 24)],
+    "layered": [(12, None, 32), (6, None, 20)],
+}
+
+
+def _pair(shape, B, B2, dtype, g):
+    full_shape = tuple(B if d is None else d for d in shape) if None in shape else shape + (B,)
+    part_shape = tuple(B2 if d is None else d for d in shape) if None in shape else shape + (B2,)
+    if dtype == torch.int8:
+        full = torch.randint(-128, 128, full_shape, dtype=torch.int8, generator=g)
+    else:
+        full = torch.randn(full_shape, generator=g).to(dtype)
+    return full, torch.empty(part_shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_plain_gather_and_scatter_move_the_chosen_lanes(layout, dtype):
+    """The plain gather equals ``index_select`` on the k moved slots and the
+    plain scatter ``index_copy_`` on their lanes, leaving every other lane
+    as it was; the copy kernels' view of each tensor is (rows, a lane's run
+    in units): one element a lane in the batch-last layout, a run of z in
+    the layered one, 16-byte units where the run allows them."""
+    g = torch.Generator().manual_seed(3)
+    for B, B2, n in ((64, 16, 9), (64, 16, 30)):  # phase B alone; an overflow
+        lanes, part, sel = _partitioned(B, B2, n, seed=n)
+        device_loop.partition(lanes, part, sel, use_kernel=False)
+        k, moved = min(n, B2), sel.idx[:min(n, B2)].long()
+        pairs = [_pair(shape, B, B2, dtype, g) for shape in LAYOUTS[layout]]
+        passes = torch.zeros(1, dtype=torch.int64)
+        device_loop.compact_copy(pairs, sel, scatter=False, use_kernel=False, passes=passes)
+        assert int(passes) == 1
+        for full, p in pairs:
+            d = device_loop.lane_axis(full, p)
+            assert torch.equal(p.narrow(d, 0, k), full.index_select(d, moved))
+            rows, units, unit = device_loop.copy_run(full, p)
+            run = math.prod(full.shape[d + 1:]) * full.element_size()
+            assert rows == math.prod(full.shape[:d]) and units * unit == run
+            if layout == "batch-last":
+                assert units == 1 and unit == full.element_size()
+            else:
+                assert unit == (16 if run % 16 == 0 else math.gcd(run, 16))
+        want = []
+        for full, p in pairs:
+            d = device_loop.lane_axis(full, p)
+            p.narrow(d, 0, k).copy_(torch.flip(p.narrow(d, 0, k), [0]))  # phase B's work
+            want.append(full.clone().index_copy_(d, moved, p.narrow(d, 0, k)))
+        device_loop.compact_copy(pairs, sel, scatter=True, use_kernel=False)
+        for (full, _), w in zip(pairs, want):
+            assert torch.equal(full, w)
+
+
+@pytest.mark.parametrize("regime", ["plain", "phase-b", "phase-c", "all-in-phase-a"])
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+def test_compacted_decode_equals_the_plain_loop_per_lane(schedule, regime):
+    """Compaction through the partition, the gather of the unconverged
+    lanes alone and the scatter of the decode's result gives every lane the
+    plain loop's decisions, iterations and verdict bit for bit, and the
+    device counter counts what moved: one batch, engaged where a lane was
+    left after phase A, the lanes moved, an overflow past the compacted
+    lanes."""
+    n_err, k1, b2, cap = REGIMES[schedule][regime]
+    _, tc = code_pair(CODES[schedule])
+    llr, syn = decode_frames(tc, n_err, 16, seed=40)  # REGIMES' frames
+    kw = dict(algorithm="min-sum", max_iterations=cap, schedule=schedule)
+    plain = tbp.decode(tc, llr, syn, tbp.DecodeOptions(**kw), device="cpu")
+    counter = device_loop.compaction_counter("cpu")
+    before = counter.clone()
+    got = tbp.decode(tc, llr, syn, tbp.DecodeOptions(**kw, compact_after=k1, compact_lanes=b2),
+                     device="cpu")
+    assert_equal(tuple(x.numpy() for x in got), tuple(x.numpy() for x in plain))
+    left = int(((got.iterations > k1) | ~got.syndromes_match).sum())
+    want = [0, 0, 0, 0] if regime == "plain" else [1, int(left > 0), min(left, b2),
+                                                   int(left > b2)]
+    assert (counter - before).tolist() == want
+    assert {"plain": left >= 0, "phase-b": 0 < left <= b2, "phase-c": left > b2,
+            "all-in-phase-a": left == 0}[regime]
 
 
 def _reference_step(mode, ok, done, active, frozen, it, iters, limit):
