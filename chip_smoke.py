@@ -315,7 +315,7 @@ ADAPT_PUNCTURED, ADAPT_SHORTENED, ADAPT_SEED, ADAPT_QBER = 512, 512, 3, 0.04
 # The rate-agile endpoint: a family over the adapter's d = 1,024 positions on a
 # grid of 64 (17 steps; step 8 is the adapter above), payloads at QBER 0.06.
 FAMILY_GRID, FAMILY_QBER = 64, 0.06
-BLIND_PUNCTURED, BLIND_STEP, BLIND_QBER = 1024, 256, 0.065
+BLIND_PUNCTURED, BLIND_STEP, BLIND_QBER = 1024, 128, 0.065
 AMPLIFY_FRAMES, BIG_FRAME, BIG_LEAK = 32, 262144, 131072
 AMPLIFY_BLOCKS, AMPLIFY_ROWS_CHECKED = (128, 256, 512), 64
 # The parallel phase: four trial shards on the one card (a global batch of
@@ -1526,8 +1526,8 @@ def _protocol(torch, np, dev, card, code, names):
     min-sum equal per lane, sum-product on decisions and iterations),
     reconcile_secure (keys equal to Alice's amplification), the rate-adapted
     endpoint in flooding and layered, K1/K2/K5/KV and K6 against their plain
-    versions on its LLRs (erasures and +-64 pins), a blind session (min-sum,
-    equal to backend="xla" per frame) and the four amplification methods
+    versions on its LLRs (erasures and +-64 pins), blind sessions on the
+    endpoint (``_blind_endpoint``) and the four amplification methods
     (bit-equal at the flagship and, blocked ones, at a 262,144-bit frame, 64
     rows against a numpy GF(2) product).  Returns the line's dict."""
     from qkd_ldpc_tpu_torch import _build
@@ -1542,7 +1542,6 @@ def _protocol(torch, np, dev, card, code, names):
     from qkd_ldpc_tpu_torch.decoder import (
         DecodeOptions,
         RateAdapter,
-        blind_reconcile_sim,
         cuda_kernels,
         cuda_layered,
         layered,
@@ -1748,35 +1747,8 @@ def _protocol(torch, np, dev, card, code, names):
             del x, total0, total1, lr1, t_s, lr_s, syn3, ref, got
     report["kernels_on_adapter_llrs"] = held
 
-    # ---- blind: min-sum, kernels against the plain versions per frame -------
-    d = BLIND_PUNCTURED
-    a_b, b_b, _ = keys(fold_in(key, 5), N - d, BLIND_QBER)
-    blind = {}
-    for backend in ("auto", "xla"):
-        o = DecodeOptions(algorithm="min-sum", backend=backend, **base)
-        blind[backend] = counted(lambda: blind_reconcile_sim(
-            code, a_b, b_b, n_punctured=d, qber_hint=BLIND_QBER, opts=o,
-            reveal_step=BLIND_STEP, device=dev))
-    (res_k, km_k), blind_s, blind_launches = blind["auto"]
-    (res_p, km_p), blind_plain_s, _ = blind["xla"]
-    # the first blind run captured its decode graph; a second replays it
-    o = DecodeOptions(algorithm="min-sum", **base)
-    _, blind_warm_s, _ = counted(lambda: blind_reconcile_sim(
-        code, a_b, b_b, n_punctured=d, qber_hint=BLIND_QBER, opts=o,
-        reveal_step=BLIND_STEP, device=dev))
-    for f in res_k._fields:
-        if not np.array_equal(getattr(res_k, f), getattr(res_p, f)):
-            raise AssertionError(f"blind session: {f} differs from backend='xla'")
-    if not (res_k.rounds > 0).any() or not np.array_equal(km_k, km_p) or (
-            not km_k[res_k.ok].all()) or blind_launches.get(K2, 0) <= 0:
-        raise AssertionError(f"blind session: rounds {np.bincount(res_k.rounds)}, "
-                             f"launches {blind_launches}")
-    report["blind"] = {"n_punctured": d, "reveal_step": BLIND_STEP, "qber": BLIND_QBER,
-                       "frames_by_rounds": np.bincount(res_k.rounds).tolist(),
-                       "verified": int(res_k.ok.sum()), "keys_match": int(km_k.sum()),
-                       "wall_s": blind_s, "warm_wall_s": blind_warm_s,
-                       "plain_wall_s": blind_plain_s,
-                       "equal_to_plain_per_frame": True, "launches": blind_launches}
+    # ---- blind: the endpoint's rounds, graph == eager == plain per frame -----
+    report["blind"] = _blind_endpoint(torch, np, dev, code, base, fold_in(key, 5))
 
     # ---- amplification --------------------------------------------------------
     methods = ("dense", "blocked", "blocked-xor", "blocked-diag")
@@ -1815,6 +1787,135 @@ def _protocol(torch, np, dev, card, code, names):
     report["amplification"] = amp
     report["seconds"] = time.perf_counter() - t_phase
     return report, block_measured
+
+
+def _blind_endpoint(torch, np, dev, code, base, key):
+    """Blind sessions on the serving endpoint at the flagship (d =
+    BLIND_PUNCTURED all punctured, BLIND_STEP revealed a round, payloads at
+    BLIND_QBER), sum-product and min-sum: the captured graph, the eager
+    program (``eager_loops()``) and ``backend="xla"`` equal per frame in every
+    field of the rounds and of ``finalize``, ``BlindSession`` (its own
+    endpoint) equal to them; each round's live frames, chunks, captures,
+    launches and wall.  One capture a (graph) endpoint, at round 0.  Returns
+    the report's dict."""
+    import contextlib
+
+    from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.channel import generate_random_bits, introduce_errors
+    from qkd_ldpc_tpu_torch.channel.keys import num_errors_for
+    from qkd_ldpc_tpu_torch.channel.threefry import fold_in
+    from qkd_ldpc_tpu_torch.decoder import BlindSession, DecodeOptions, RateAdapter
+    from qkd_ldpc_tpu_torch.decoder import device_loop
+    from qkd_ldpc_tpu_torch.postprocess import toeplitz_hash
+    from qkd_ldpc_tpu_torch.serve import Reconciler
+
+    d = BLIND_PUNCTURED
+    ad = RateAdapter.make(code, n_punctured=d, seed=0)
+    a_t = generate_random_bits(key, ad.payload_bits, PROTOCOL_FRAMES, device=dev)
+    n_err = num_errors_for(ad.payload_bits, BLIND_QBER)
+    bob = introduce_errors(fold_in(key, 1), a_t, n_err).cpu().numpy()
+    frames = ad.build_frames(a_t, fold_in(key, 2), device=dev)
+    syn = ad.syndromes(frames).cpu().numpy()
+    full = frames.cpu().numpy()
+    tk, pk = fold_in(key, 3), fold_in(key, 4)
+    a_tags = toeplitz_hash(a_t, tk, 64).cpu().numpy()
+    captures = [0]
+    real = device_loop.Graph.capture
+
+    def capture(graph, *a, **kw):
+        captures[0] += 1
+        return real(graph, *a, **kw)
+
+    def rounds_of(s):
+        """The session's rounds one by one: live frames, chunks, captures,
+        launches and wall of each."""
+        per_round, r, pos = [], 0, None
+        while r == 0 or pos is not None:
+            live = int(s.live.size)
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            c0, t0 = captures[0], time.perf_counter()
+            pos = s.begin() if r == 0 else s.provide(full[np.ix_(s.live, pos)])
+            torch.cuda.synchronize()
+            per_round.append({"round": r, "live": live, "chunks": -(-live // 128),
+                              "captures": captures[0] - c0,
+                              "launches": _build.launch_counts(),
+                              "wall_s": time.perf_counter() - t0})
+            r += 1
+        return per_round
+
+    report = {"n_punctured": d, "reveal_step": BLIND_STEP, "qber": n_err / ad.payload_bits,
+              "lanes": 128}
+    device_loop.Graph.capture = capture
+    try:
+        for algorithm in ("sum-product", "min-sum"):
+            legs = {}
+            for leg in ("graph", "eager", "xla"):
+                opts = DecodeOptions(algorithm=algorithm,
+                                     backend="xla" if leg == "xla" else "auto", **base)
+                rec = Reconciler(code, opts, lanes=128, adapter=ad, device=dev)
+                with (device_loop.eager_loops() if leg == "eager"
+                      else contextlib.nullcontext()):
+                    s = rec.blind_session(bob, syn, BLIND_QBER, reveal_step=BLIND_STEP)
+                    per_round = rounds_of(s)
+                    res = s.result()
+                    sec = s.finalize(a_tags, tk, pk)
+                legs[leg] = (res, sec, per_round)
+            opts = DecodeOptions(algorithm=algorithm, **base)
+            old = BlindSession(ad, bob, syn, qber_hint=BLIND_QBER, opts=opts,
+                               reveal_step=BLIND_STEP, device=dev)
+            pos = old.begin()
+            while pos is not None:
+                pos = old.provide(full[:, pos])
+            res_g, sec_g, rounds_g = legs["graph"]
+            for leg, other in (("eager", legs["eager"][:2]), ("xla", legs["xla"][:2]),
+                               ("BlindSession", (old.result(), None))):
+                for a, b in zip((res_g, sec_g), other):
+                    for f in (a._fields if b is not None else ()):
+                        if not np.array_equal(getattr(a, f), getattr(b, f)):
+                            raise AssertionError(f"blind endpoint, {algorithm}: {f} of the "
+                                                 f"graph differs from {leg}")
+            first = 1 if dev.type == "cuda" else 0  # the CPU runs the program eagerly
+            if [r["captures"] for r in rounds_g] != [first] + [0] * (len(rounds_g) - 1) or (
+                    not (res_g.rounds > 0).any()) or not sec_g.verified.any() or any(
+                    legs[x][2][0]["captures"] for x in ("eager", "xla")):
+                raise AssertionError(f"blind endpoint, {algorithm}: rounds {rounds_g}")
+            report[algorithm] = {
+                "frames_by_round": np.bincount(res_g.rounds).tolist(),
+                "verified": int(sec_g.verified.sum()),
+                "keys_match": int((res_g.ok & (res_g.key == a_t.cpu().numpy()).all(1)).sum()),
+                "final_bits": sorted(set(sec_g.final_bits.tolist())),
+                "graph_equals_eager_and_xla_per_frame": True,
+                "rounds": rounds_g,
+                "eager_wall_s": [r["wall_s"] for r in legs["eager"][2]],
+                "xla_wall_s": [r["wall_s"] for r in legs["xla"][2]]}
+    finally:
+        device_loop.Graph.capture = real
+    return report
+
+
+def blind_here() -> int:
+    """``--blind``: the build and the protocol phase's ``blind`` hold alone;
+    prints one ``blind`` line."""
+    import numpy as np
+    import torch
+
+    from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.channel.threefry import fold_in, prng_key
+    from qkd_ldpc_tpu_torch.codes import make_qc_code
+    from qkd_ldpc_tpu_torch.utils import card_name_and_power_limit
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    _build.build_all()
+    code = make_qc_code(z=512, nb=20, mb=10, dv=3, seed=666)
+    base = dict(max_iterations=100, clip_messages=True, message_threshold=100.0,
+                message_dtype="bfloat16")
+    report = _blind_endpoint(torch, np, dev, code, base, fold_in(prng_key(PROTOCOL_SEED), 5))
+    print(json.dumps({"blind": dict(report, card=card_name_and_power_limit())}), flush=True)
+    return 0
 
 
 def _rate_family(torch, np, dev, code, opts, payloads, key, counted):
@@ -6218,4 +6319,6 @@ if __name__ == "__main__":
         sys.exit(compaction_here())
     if "--rate-family" in sys.argv[1:]:
         sys.exit(rate_family_here())
+    if "--blind" in sys.argv[1:]:
+        sys.exit(blind_here())
     sys.exit(main())

@@ -29,6 +29,16 @@ serving-shaped contract:
   with a per-frame leakage ledger (syndrome + tag bits) driving the final
   key length (``postprocess``); :meth:`Reconciler.tags` serves the Alice
   side of verification.
+- **Blind reconciliation** (Martinez-Mateo, Elkouss and Martin, "Blind
+  reconciliation"): on an endpoint made with an all-punctured adapter,
+  :meth:`Reconciler.blind_session` reconciles a block without a QBER
+  estimate.  Every frame starts with all ``d`` modulated positions
+  punctured; after each round Alice reveals the next ``step`` punctured bits
+  of the frames that failed, which the next round pins, and only those
+  frames are decoded again, packed densely into chunks.  One blind program
+  (the chunk's header carries the reveal count, its input Alice's revealed
+  bits) serves every round; each frame's leak, so its final key length, is
+  its own.
 - **Rate adaptation**: ``rates=RateFamily(...)`` serves every member of a
   rate family over the mother code from one program — requests then carry
   payload bits, punctured positions are decoder-recovered erasures, and the
@@ -70,7 +80,7 @@ from qkd_ldpc_tpu_torch.channel.threefry import prng_key
 from qkd_ldpc_tpu_torch.codes.ldpc_code import LDPCCode
 from qkd_ldpc_tpu_torch.decoder import device_loop
 from qkd_ldpc_tpu_torch.decoder.bp import DecodeOptions, decode_program
-from qkd_ldpc_tpu_torch.decoder.rate_adapt import RateAdapter, RateFamily
+from qkd_ldpc_tpu_torch.decoder.rate_adapt import RateAdapter, RateFamily, pinned_llr
 from qkd_ldpc_tpu_torch.decoder.reconcile import llr_magnitude
 from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome as syndrome_fn
 from qkd_ldpc_tpu_torch.postprocess import (
@@ -89,6 +99,31 @@ class ServeResult(NamedTuple):
     # bits on a rate-adapted endpoint)
     iterations: np.ndarray  # [n] int32
     syndromes_match: np.ndarray  # [n] bool — verify before using the key!
+
+
+class BlindResult(NamedTuple):
+    """Outcome of a blind session's rounds (NumPy)."""
+
+    key: np.ndarray  # [B, l] uint8 corrected payload
+    ok: np.ndarray  # [B] bool — verified frames (use ONLY these)
+    rounds: np.ndarray  # [B] int32 — reveal rounds consumed per frame
+    leak_bits: np.ndarray  # [B] int32 — per-frame disclosure
+    iterations: np.ndarray  # [B] int32 — decode iterations of the final round
+
+
+class SecureBlindResult(NamedTuple):
+    """Outcome of the full blind post-processing chain.  Frames carry RAGGED
+    final key lengths: row i's key material is ``key[i, :final_bits[i]]``,
+    everything past it is zeroed (a prefix of Toeplitz rows is itself a
+    2-universal Toeplitz hash)."""
+
+    key: np.ndarray  # [B, max(final_bits)] uint8 amplified key material
+    final_bits: np.ndarray  # [B] int32 per-frame length (0 if unverified)
+    verified: np.ndarray  # [B] bool: syndromes AND tags matched
+    rounds: np.ndarray  # [B] int32 reveal rounds consumed
+    leak_bits: np.ndarray  # [B] int32 ledger: syndrome net of punctured
+    # entropy + 2x reveals + tag bits
+    iterations: np.ndarray  # [B] int32
 
 
 class SecureResult(NamedTuple):
@@ -130,26 +165,43 @@ class _Layout:
 
 
 # The int32 header of a chunk's input: the float32 bits of the a-priori LLR
-# magnitude, the chunk's valid lanes and, on a rate-adapted endpoint, the step.
-MAG, VALID, STEP = 0, 1, 2
+# magnitude, the chunk's valid lanes, on a rate-adapted endpoint the step, and
+# in a blind round the number of punctured bits Alice has revealed.
+MAG, VALID, STEP, REVEALED = 0, 1, 2, 3
 
 
-def chunk_header(qber: float, valid: int, step: int | None = None) -> np.ndarray:
+def chunk_header(qber: float, valid: int, step: int | None = None,
+                 revealed: int | None = None) -> np.ndarray:
     """The int32 header of a chunk: the bits of
     ``reconcile.llr_magnitude(qber)`` (so the rounding is ``apriori_llr``'s)
     and the valid lane count (``[2]``), then the rate step where one is given
-    (``[3]``)."""
+    (``[3]``), then a blind round's reveal count where one is given
+    (``[4]``)."""
     mag = np.asarray(llr_magnitude(qber), np.float32).reshape(1)
     head = [mag.view(np.int32)[0], valid] + ([] if step is None else [step])
-    return np.array(head, np.int32)
+    return np.array(head + ([] if revealed is None else [revealed]), np.int32)
+
+
+def blind_leak_bits(n_checks: int, d: int, revealed) -> np.ndarray:
+    """Blind reconciliation's per-frame disclosure (int32): the syndrome net
+    of the ``d`` punctured bits' entropy, ``M - d``, plus each revealed bit
+    twice (disclosed itself, and no longer hiding a syndrome bit)."""
+    return (n_checks - d + 2 * np.asarray(revealed)).astype(np.int32)
 
 
 class ServeCounters:
     """An endpoint's cumulative counts since it was made or :meth:`reset`:
     blocks (calls of ``reconcile``) by rate step (``None`` on an endpoint
-    that serves one rate), frames, frame-iterations (a frame's iterations, the
-    cap for a frame that did not converge), and from ``reconcile_secure``
-    the frames verified and the final key bits of the verified frames."""
+    that serves one rate), frames (a blind session's too), frame-iterations
+    (a frame's iterations, the cap for a frame that did not converge; every
+    blind round's), and from ``reconcile_secure`` or a blind ``finalize``
+    the frames verified and the final key bits of the verified frames.
+
+    Blind sessions also count their rounds dispatched (``blind_rounds``),
+    every frame by the round it finished in (``frames_by_round``: a failed
+    frame at its last), the bits revealed (each reveal's positions times the
+    frames it was for), the lanes dispatched (chunks times ``lanes``) and
+    the live frame-rounds (frames decoded, a frame once a round)."""
 
     def __init__(self):
         self.reset()
@@ -158,6 +210,9 @@ class ServeCounters:
         self.blocks_by_rate: dict = {}
         self.frames = self.frame_iterations = 0
         self.frames_verified = self.final_key_bits = 0
+        self.blind_rounds = self.bits_revealed = 0
+        self.lanes_dispatched = self.live_frame_rounds = 0
+        self.frames_by_round: dict = {}
 
 
 class _ServeProgram:
@@ -181,25 +236,37 @@ class _ServeProgram:
     seed's +-64 at its shortened ones (both one row of
     ``RateFamily.pin_templates``, selected by the header's step on the
     device) and the channel's at the payload positions, which every member
-    shares."""
+    shares.
 
-    def __init__(self, code, opts, lanes, rates, shared_seed, device):
+    The ``blind`` layout (a family of one all-punctured member) adds the
+    reveal count to the header and Alice's revealed bits ``[lanes, d]``
+    uint8, in reveal order (the member's punctured positions, ascending), to
+    the input: the LLRs are the channel's at the payload, Alice's bit pinned
+    (``pinned_llr``) at the first ``revealed`` positions of the reveal order
+    and 0 past them, so one capture serves every round and reveal count."""
+
+    def __init__(self, code, opts, lanes, rates, shared_seed, device, blind=False):
         self.decode, self.use_kernel, _ = decode_program(code, opts, device)
-        self.code, self.lanes, self.rates = code, lanes, rates
+        self.code, self.lanes, self.rates, self.blind = code, lanes, rates, blind
+        fields = [(np.uint8, (lanes, code.n_checks))]
         if rates is not None:
             F = rates.payload_bits
             self.key_idx = torch.as_tensor(rates.key_idx, dtype=torch.int64, device=device)
             self.mod_idx, self.templates = rates.pin_templates(shared_seed, device)
+            if blind:  # mod_idx is the all-punctured member's reveal order
+                d = self.mod_idx.numel()
+                self.rank = torch.arange(d, dtype=torch.int32, device=device)[:, None]
+                fields.append((np.uint8, (lanes, d)))
         else:
             F = code.n_vars
-        self.inputs = _Layout((np.int32, (2 if rates is None else 3,)), (np.uint8, (lanes, F)),
-                              (np.uint8, (lanes, code.n_checks)))
+        self.inputs = _Layout((np.int32, (2 if rates is None else 3 + blind,)),
+                              (np.uint8, (lanes, F)), *fields)
         self.outputs = _Layout((np.int32, (lanes,)), (bool, (lanes,)),
                                (np.uint8, (lanes, F)))
         self.lane = torch.arange(lanes, dtype=torch.int32, device=device)
 
     def __call__(self, inp: torch.Tensor, out: torch.Tensor, graph=None) -> None:
-        x, bob, syn = self.inputs.views(inp)
+        x, bob, syn, *revealed = self.inputs.views(inp)
         iters_out, ok_out, bits_out = self.outputs.views(out)
         mag = x[MAG:MAG + 1].view(torch.float32)
         keep = self.lane < x[VALID]
@@ -210,8 +277,13 @@ class _ServeProgram:
             llr = torch.zeros((self.code.n_vars, self.lanes), dtype=torch.float32,
                               device=inp.device)
             llr.index_copy_(0, self.key_idx, channel)
-            pins = self.templates.index_select(0, x[STEP:STEP + 1])  # [1, d]
-            llr.index_copy_(0, self.mod_idx, pins.T.expand(-1, self.lanes).contiguous())
+            if self.blind:  # Alice's bits at the revealed positions, erasures past them
+                alice = pinned_llr(torch.where(keep, revealed[0].T, 0))  # [d, B]
+                pins = torch.where(self.rank < x[REVEALED], alice, 0.0)
+            else:
+                pins = self.templates.index_select(0, x[STEP:STEP + 1])  # [1, d]
+                pins = pins.T.expand(-1, self.lanes).contiguous()
+            llr.index_copy_(0, self.mod_idx, pins)
         s = torch.where(keep, syn.T, 0).to(torch.int8).contiguous()  # [M, B]
         z, iters, ok = self.decode(llr, s, graph)
         if self.rates is not None:
@@ -434,16 +506,17 @@ class Reconciler:
         return self
 
     def _runner(self, kind: str) -> _Runner:
-        """The endpoint's program ``kind`` ("serve" or "syndrome"): one per
+        """The endpoint's program ``kind`` ("serve", "blind" or "syndrome"): one per
         (schedule and options, lanes, family, shared seed), kept for the
         endpoint's lifetime (a program holds its family, so the id in the key
         stays unique)."""
         key = (kind, self.opts, self.lanes, id(self.rates), self.shared_seed)
         runner = self._runners.get(key)
         if runner is None:
-            if kind == "serve":
+            if kind in ("serve", "blind"):
                 runner = _Runner(_ServeProgram(self.code, self.opts, self.lanes, self.rates,
-                                               self.shared_seed, self.device),
+                                               self.shared_seed, self.device,
+                                               blind=kind == "blind"),
                                  self.device, device_loop.LOOPS_PER_DECODE)
             else:
                 runner = _Runner(_SyndromeProgram(self.code, self.opts, self.lanes, self.device),
@@ -633,3 +706,246 @@ class Reconciler:
                 out = SecureResult(out.key[0], out.verified[0], out.iterations[0],
                                    out.syndromes_match[0], out.leak_bits[0], final_bits)
             return out
+
+    def blind_session(self, bob_payload, alice_syndromes, qber_hint: float = 0.05,
+                      reveal_step: int | None = None,
+                      max_rounds: int | None = None) -> "BlindRounds":
+        """Bob's side of blind reconciliation of one block (``[B, l]`` payloads
+        and Alice's ``[B, M]`` syndromes) on an endpoint made with an
+        all-punctured adapter: a :class:`BlindRounds` whose rounds run through
+        this endpoint's blind program.  ``qber_hint`` only sets the channel
+        LLRs' magnitude; Alice reveals ``reveal_step`` punctured bits a round
+        (``d // 4`` by default), for at most ``max_rounds`` rounds after the
+        first (by default until all ``d`` are revealed)."""
+        return BlindRounds(self, bob_payload, alice_syndromes, qber_hint, reveal_step,
+                           max_rounds)
+
+    def reconcile_blind_secure(self, bob_payload, alice_syndromes, qber_hint: float,
+                               alice_tags, tag_key, pa_key, reveal,
+                               reveal_step: int | None = None, max_rounds: int | None = None,
+                               tag_bits: int = 64,
+                               security_bits: int = 100) -> SecureBlindResult:
+        """The whole blind chain in one call: :meth:`blind_session`, its rounds
+        with Alice answering through ``reveal`` (:meth:`BlindRounds.run`), then
+        verification tags and privacy amplification at each frame's own length
+        (:meth:`BlindRounds.finalize`)."""
+        s = self.blind_session(bob_payload, alice_syndromes, qber_hint, reveal_step,
+                               max_rounds)
+        s.run(reveal)
+        return s.finalize(alice_tags, tag_key, pa_key, tag_bits, security_bits)
+
+    def _blind_adapter(self) -> RateAdapter:
+        """The endpoint's all-punctured adapter, whose punctured positions are
+        a blind session's reveal budget (else raises)."""
+        ad = self.adapter
+        if ad is None:
+            raise ValueError("blind reconciliation needs an endpoint made with an "
+                             "all-punctured adapter")
+        if ad.short_idx.size:
+            raise ValueError("blind reconciliation starts all-punctured")
+        if ad.punct_idx.size == 0:
+            raise ValueError("adapter has no punctured budget to reveal")
+        return ad
+
+
+class BlindRounds:
+    """One block's blind reconciliation on an endpoint
+    (:meth:`Reconciler.blind_session`), with control INVERTED for serving: the
+    caller owns the classical channel::
+
+        s = rec.blind_session(bob_payload, alice_syndromes, qber_hint)
+        pos = s.begin()                 # None, or positions to request
+        while pos is not None:
+            pos = s.provide(values)     # Alice's bits at `pos`
+        out = s.result()                # BlindResult (or s.finalize(...))
+
+    Round 0 decodes every frame with all ``d`` modulated positions punctured
+    (the highest rate).  Each later round first takes Alice's next
+    ``step`` punctured bits (in the adapter's punctured order) of the frames
+    not yet verified, then decodes only those frames, packed densely into
+    chunks of the endpoint's lanes, with every bit revealed so far pinned:
+    one replay of the endpoint's blind program a chunk, chunks in flight as in
+    :meth:`Reconciler.reconcile`.  Lanes are independent, so dropping the
+    verified frames changes no frame's result.  A frame keeps the key, the
+    round and the iterations of its first verifying round; a frame that never
+    verifies keeps its last round's and is never released.  The session ends
+    when every frame verified, all ``d`` bits are revealed or the round limit
+    is reached.  Its leak is :func:`blind_leak_bits` of each frame's reveals.
+
+    ``values`` for ``provide`` are ``[B, k]`` (every frame) or
+    ``[len(live), k]`` (the frames still decoding, :attr:`live`, in order);
+    only the live frames' rows are used.  The spans ``qkd.blind.session``
+    (begin to the last round), ``qkd.blind.round`` (a round's fills,
+    dispatches and fetches) and ``qkd.blind.turn`` (a round's end to the next
+    round's start: the request and Alice's answer) stay open across these
+    calls, so a session left unfinished leaves them open."""
+
+    def __init__(self, rec: Reconciler, bob_payload, alice_syndromes, qber_hint: float,
+                 reveal_step: int | None, max_rounds: int | None):
+        self.adapter = ad = rec._blind_adapter()
+        self.rec = rec
+        self.d = d = ad.punct_idx.size
+        self.step = reveal_step or max(1, d // 4)
+        self.n_rounds = max_rounds if max_rounds is not None else -(-d // self.step)
+        self.bob, _ = rec._frames(bob_payload)
+        B = self.bob.shape[0]
+        self.syn = np.atleast_2d(host(alice_syndromes))
+        if self.syn.shape != (B, rec.syndrome_bits):
+            raise ValueError(f"expected syndromes [{B}, {rec.syndrome_bits}], "
+                             f"got {self.syn.shape}")
+        if not (0.0 < qber_hint < 1.0):
+            raise ValueError("qber must be in (0, 1)")
+        self.head = chunk_header(qber_hint, 0, 0, 0)
+        self.alice = np.zeros((B, d), np.uint8)  # Alice's revealed bits, in reveal order
+        self.key = np.zeros((B, rec.frame_bits), np.uint8)
+        self.ok = np.zeros((B,), bool)
+        self.rounds = np.zeros((B,), np.int32)
+        self.iters = np.zeros((B,), np.int32)
+        self.live = np.arange(B)  # the frames still decoding
+        self.revealed = self.r = 0
+        self._pending: np.ndarray | None = None
+        self._begun = self._finished = False
+        self._session = self._turn = None  # the spans open across calls
+
+    def begin(self) -> np.ndarray | None:
+        """Run round 0; returns positions to request from Alice, or None
+        when every frame already verified (or no budget/rounds)."""
+        if self._begun:
+            raise RuntimeError("begin() must be the first call, once")
+        self._begun = True
+        self._session = span("qkd.blind.session")
+        self._session.__enter__()
+        with self.rec._lock:
+            self.rec.counters.frames += self.bob.shape[0]
+        return self._decode_round()
+
+    def provide(self, values) -> np.ndarray | None:
+        """Feed Alice's bits for the last requested positions (``[B, k]`` or
+        the live frames' ``[len(live), k]``); runs the next round.  Returns
+        the next request or None (done)."""
+        if self._pending is None:
+            raise RuntimeError("no pending reveal request")
+        k, live = self._pending.size, self.live
+        v = np.atleast_2d(host(values, np.uint8))
+        if v.shape == (self.bob.shape[0], k):
+            v = v[live]
+        elif v.shape != (live.size, k):
+            raise ValueError(f"expected Alice's bits [{live.size}, {k}] (the live frames) or "
+                             f"[{self.bob.shape[0]}, {k}], got {v.shape}")
+        self._pending = None
+        self.alice[live, self.revealed:self.revealed + k] = v
+        self.revealed += k
+        self.r += 1
+        with self.rec._lock:
+            self.rec.counters.bits_revealed += k * live.size
+        self._turn.__exit__(None, None, None)
+        self._turn = None
+        return self._decode_round()
+
+    def run(self, reveal) -> BlindResult:
+        """Every round, Alice answering through ``reveal(positions, frames)``:
+        her bits ``[len(frames), len(positions)]`` at the requested punctured
+        positions of the frames (indices into the block) still decoding."""
+        pos = self.begin()
+        while pos is not None:
+            with span("qkd.blind.reveal"):
+                values = reveal(pos, self.live)
+            pos = self.provide(values)
+        return self.result()
+
+    def result(self) -> BlindResult:
+        if not self._finished:
+            raise RuntimeError("session still has pending rounds")
+        leak = blind_leak_bits(self.rec.syndrome_bits, self.d,
+                               np.minimum(self.rounds * self.step, self.d))
+        return BlindResult(key=self.key, ok=self.ok, rounds=self.rounds, leak_bits=leak,
+                           iterations=self.iters)
+
+    def finalize(self, alice_tags, tag_key, pa_key, tag_bits: int = 64,
+                 security_bits: int = 100) -> SecureBlindResult:
+        """Complete the secure chain on a finished session: verification tags
+        (compared against Alice's) -> privacy amplification, with the
+        per-frame ADAPTIVE leakage ledger (reveals included) setting each
+        frame's final key length.  All frames hash through the same
+        longest-length Toeplitz matrix; frame i keeps its first
+        ``final_bits[i]`` output bits."""
+        res = self.result()  # raises unless finished
+        B = res.key.shape[0]
+        a_tags = np.atleast_2d(host(alice_tags, np.uint8))
+        if a_tags.shape != (B, tag_bits):
+            raise ValueError(f"expected alice_tags [{B}, {tag_bits}], got {a_tags.shape}")
+        x = torch.as_tensor(res.key, device=self.rec.device)
+        with span("qkd.secure.tags"):
+            bob_tags = toeplitz_hash(x, tag_key, tag_bits).cpu().numpy()
+            verified = res.ok & (bob_tags == a_tags).all(axis=-1)
+        lengths = {int(n): amplified_key_bits(self.rec.frame_bits, int(n), tag_bits,
+                                              security_bits)
+                   for n in np.unique(res.leak_bits)}
+        final = np.array([lengths[int(n)] for n in res.leak_bits], np.int32)
+        final[~verified] = 0
+        max_bits = int(final.max()) if B else 0
+        with span("qkd.secure.amplify"):
+            if max_bits > 0:
+                key = privacy_amplify(x, pa_key, max_bits)
+                cut = torch.as_tensor(final, device=key.device)[:, None]
+                col = torch.arange(max_bits, device=key.device)[None, :]
+                key = key.masked_fill_(col >= cut, 0).cpu().numpy()
+            else:
+                key = np.zeros((B, 0), np.uint8)
+        with self.rec._lock:
+            self.rec.counters.frames_verified += int(verified.sum())
+            self.rec.counters.final_key_bits += int(final.sum(dtype=np.int64))
+        return SecureBlindResult(key=key, final_bits=final, verified=verified,
+                                 rounds=res.rounds, leak_bits=res.leak_bits + tag_bits,
+                                 iterations=res.iterations)
+
+    def _decode_round(self) -> np.ndarray | None:
+        rec, live, revealed = self.rec, self.live, self.revealed
+        cap = rec.opts.max_iterations
+        head = self.head
+        head[REVEALED] = revealed
+        frame_iterations = [0]
+
+        def fill(views, off, chunk):
+            header, b, s, a = views
+            rows = live[off:off + chunk]
+            head[VALID] = chunk
+            header[:] = head
+            b[:chunk] = self.bob[rows]
+            s[:chunk] = self.syn[rows]
+            if revealed:
+                a[:chunk, :revealed] = self.alice[rows, :revealed]
+
+        def read(views, off, chunk):
+            it, okc, z = views
+            rows, okc = live[off:off + chunk], okc[:chunk]
+            self.iters[rows] = it[:chunk]
+            won = rows[okc]
+            self.key[won] = z[:chunk][okc]
+            self.ok[won] = True
+            self.rounds[won] = self.r
+            frame_iterations[0] += int(np.where(okc, it[:chunk], cap).sum(dtype=np.int64))
+
+        with span("qkd.blind.round"), rec._lock:
+            rec._stream(rec._runner("blind"), live.size, fill, read)
+            c = rec.counters
+            c.blind_rounds += 1
+            c.live_frame_rounds += live.size
+            c.lanes_dispatched += -(-live.size // rec.lanes) * rec.lanes
+            c.frame_iterations += frame_iterations[0]
+        self.live = live[~self.ok[live]]
+        if not self.live.size or self.revealed >= self.d or self.r == self.n_rounds:
+            self.rounds[self.live] = self.r
+            self._finished = True
+            with rec._lock:
+                for r, n in enumerate(np.bincount(self.rounds)):
+                    if n:
+                        c.frames_by_round[r] = c.frames_by_round.get(r, 0) + int(n)
+            self._session.__exit__(None, None, None)
+            self._session = None
+            return None
+        self._pending = np.asarray(self.adapter.punct_idx[self.revealed:
+                                                          self.revealed + self.step])
+        self._turn = span("qkd.blind.turn")
+        self._turn.__enter__()
+        return self._pending

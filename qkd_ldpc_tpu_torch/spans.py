@@ -43,6 +43,12 @@ SPANS = {
     "qkd.serve.secure": "Reconciler.reconcile_secure: one call, reconcile, tags and amplification",
     "qkd.secure.tags": "Bob's verification tags, their fetch and the comparison with Alice's",
     "qkd.secure.amplify": "the block's privacy amplification and the fetch of its keys",
+    # blind reconciliation (serve.py, BlindRounds; the tags and amplification
+    # of its finalize are qkd.secure.tags and qkd.secure.amplify)
+    "qkd.blind.session": "a blind session's rounds: begin() to the end of its last round",
+    "qkd.blind.round": "a blind round: its chunks' fills, dispatches and fetches",
+    "qkd.blind.turn": "a round's end to the next round's start: the request and Alice's bits",
+    "qkd.blind.reveal": "BlindRounds.run: the reveal callback (Alice's answer)",
     # the sweep runner (sim/runner.py, sim/csv_writer.py)
     "qkd.sweep.run": "batch_simulation: a whole sweep",
     "qkd.sweep.setup": "batch_simulation up to its first point: options, checkpoint, key, mesh",
