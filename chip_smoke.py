@@ -56,7 +56,8 @@ NVIDIA Hopper GPU, ``nvcc`` and PyTorch built for CUDA.  It
    3d. (``device_loops``) every decode leg as a graph against the eager kernel
    loop, bit for bit and launch for launch, and against the plain versions:
    flooding and layered at the flagship (SP/bf16, min-sum/int8), with a
-   forced phase-C overflow, with every lane converged in phase A, and at
+   forced overflow (the ladder of halving widths), with every lane converged
+   in phase A, and at
    check degree 15 (the loop instance and its scratch); four host threads
    sharing one graph; K2 in place over its input; the continuation program
    against its eager program (7/7, equal launches of every kernel, the whole
@@ -348,7 +349,7 @@ KS, KW, KC_WANT = FOLDED
 # mb) of make_qc_code for the degrees above the flagship's.
 FOLD_WIDTHS = (BATCH, 200, RAGGED_BATCH)
 FOLD_REGIMES = ("frozen_lanes", "it_reaches_the_limit", "no_active_lane",
-                "every_lane_converges")
+                "every_lane_converges", "ladder_floor")
 FOLD_LIMIT = 100
 FOLD_CHECK_CODES = {15: (10240, 2048, 3), 60: (10240, 512, 3)}
 FOLD_SWEEP_CODES = {15: (512, 20, 4), 60: (128, 80, 4)}
@@ -3133,7 +3134,10 @@ def _loop_folds(torch, np, dev, flush, code, timings):
                   if regime == "frozen_lanes" else None)
         active = ~done if frozen is None else ~done & ~frozen
         it0 = FOLD_LIMIT - 1 if regime == "it_reaches_the_limit" else 5
-        return dict(done=done, active=active, frozen=frozen,
+        # the ladder's loop: a floor of half the lanes, and its lane-pass counter
+        lanes = (torch.zeros(1, dtype=torch.int64, device=dev) if regime == "ladder_floor"
+                 else None)
+        return dict(done=done, active=active, frozen=frozen, lanes=lanes,
                     it=torch.tensor([it0], dtype=torch.int32, device=dev),
                     iters=torch.randint(0, 9, (b,), dtype=torch.int32, device=dev, generator=g),
                     go=torch.zeros(1, dtype=torch.bool, device=dev),
@@ -3144,9 +3148,11 @@ def _loop_folds(torch, np, dev, flush, code, timings):
         return {k: None if v is None else v.clone() for k, v in st.items()}
 
     def tail(mode, st):
+        floor = 0 if st["lanes"] is None else st["done"].shape[0] // 2
         return device_loop.LoopTail(mode, st["done"], st["active"], st["frozen"], st["it"],
                                     st["iters"] if mode == LAYERED else None, FOLD_LIMIT,
-                                    st["go"], st["ticket"], st["passes"])
+                                    st["go"], st["ticket"], st["passes"], None, floor,
+                                    st["lanes"])
 
     def bits(t):
         return t.view(torch.int32) if t.dtype == torch.float32 else (
@@ -3393,9 +3399,9 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
                                                  compact_lanes=128), None),
         "layered_ms_int8": (code, flagship, dict(ms, schedule="layered", compact_after=4,
                                                  compact_lanes=128), None),
-        "flooding_phase_c_overflow": (code, flagship, dict(sp, compact_after=2,
+        "flooding_ladder_overflow": (code, flagship, dict(sp, compact_after=2,
                                                            compact_lanes=8), "overflow"),
-        "layered_phase_c_overflow": (code, flagship, dict(sp, schedule="layered",
+        "layered_ladder_overflow": (code, flagship, dict(sp, schedule="layered",
                                                           compact_after=1, compact_lanes=8),
                                      "overflow"),
         "flooding_all_in_phase_a": (code, flagship, dict(sp, compact_after=60,
@@ -3431,18 +3437,22 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
                 counts.get(k, 0) for counts in (graph_counts, eager_counts) for k in (KS, KW)):
             raise AssertionError(f"device_loops {name}: graph launches {graph_counts} "
                                  f"against eager {eager_counts}")
-        # phase B's kernels: a partition a decode; the gather and the scatter
-        # only where a lane was left after phase A (none when all converged in
-        # it, one each on a forced overflow); the graph's as the eager loop's
+        # the lane moves: a partition after phase A, and one a rung of the ladder
+        # on an overflow; a gather and a scatter a rung engaged (phase B's one
+        # where the lanes left fit, none where all converged in phase A); the
+        # graph's as the eager loop's
         phase_b = (device_loop.KERNEL_PARTITION, device_loop.KERNEL_GATHER,
                    device_loop.KERNEL_SCATTER)
-        want_b = {"phase_a": (1, 0, 0), "overflow": (1, 1, 1)}.get(regime)
-        got_b = tuple(graph_counts.get(k, 0) for k in phase_b)
-        if got_b != tuple(eager_counts.get(k, 0) for k in phase_b) or got_b[0] != 1 or (
-                want_b is not None and got_b != want_b):
-            raise AssertionError(f"device_loops {name}: phase B's launches {got_b} "
-                                 f"(eager {eager_counts}), expected {want_b}")
         z, it, ok = graph
+        left = int(((it > o.compact_after) | ~ok).sum())
+        over = left > o.compact_lanes
+        got_b = tuple(graph_counts.get(k, 0) for k in phase_b)
+        want_p = 1 + (len(device_loop.ladder(BATCH, o.compact_lanes)) if over else 0)
+        if got_b != tuple(eager_counts.get(k, 0) for k in phase_b) or got_b[0] != want_p or (
+                got_b[1] != got_b[2]) or (got_b[1] > 0) != (left > 0) or (
+                not over and got_b[1] > 1):
+            raise AssertionError(f"device_loops {name}: the lane moves' launches {got_b} "
+                                 f"(eager {eager_counts}), {left} lanes left after phase A")
         if o.algorithm == "min-sum":
             moved = [] if all(torch.equal(a, b) for a, b in zip(graph, plain)) else None
         else:
@@ -3457,7 +3467,7 @@ def _device_loops(torch, np, dev, card, flush, code, point_key, key_c, opts_c, c
                                  "against the plain versions")
         k, lanes = o.compact_after, o.compact_lanes
         if regime == "overflow" and not int((it > k).sum()) > lanes:
-            raise AssertionError(f"device_loops {name}: no phase-C overflow")
+            raise AssertionError(f"device_loops {name}: no overflow into the ladder")
         if regime == "phase_a" and not (bool(ok.all()) and int(it.max()) <= k):
             raise AssertionError(f"device_loops {name}: not every lane converged in phase A")
         report[name] = {
@@ -3741,20 +3751,27 @@ def _compaction_state(torch, dev, gen, layout, storage, B, ncells):
 
 
 def _compaction(torch, np, dev, flush, card, code, point_key):
-    """Residency compaction's phase B on the card (``compaction``): the
+    """Residency compaction's lane moves on the card (``compaction``): the
     partition, the gather and the scatter (``csrc/device_loop.cu``) held to
     their plain versions bit for bit at the flagship (B 512 -> 128) and a
     ragged batch (101 -> 25), both layouts, bf16 and int8 messages, with no
-    lane, some, exactly B2 and more than B2 left after phase A (the moved
-    slots of the gather, every byte of the scattered tensors, every output
-    of the partition and the counter's four counts); each kernel timed at
+    lane, some, exactly B2 and more than B2 left (the moved slots of the
+    gather, every byte of the scattered tensors, every output of the
+    partition after phase A and of a rung's, and the counter's counts); each
+    kernel timed at
     the flagship beside its byte bound, its plain version and the PyTorch
-    ops it replaced; and a flooding and a layered point of the cells
-    (QBER 0.05, 32,768 trials, 512 lanes compacted to 128 after 8) counted:
-    the three kernels' launches a batch and the counter's readings.
+    ops it replaced; and a flooding and a layered point at each of the
+    cells' QBERs (0.05 and 0.0825, 32,768 trials, 512 lanes compacted to 128
+    after 8): statistics equal without compaction, one batch per lane as a
+    graph, eagerly and without compaction, the launches a batch, the
+    counter, and at 0.0825 K2's and KV's time by width.
     Returns (report, {kernel name: measurement})."""
     from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.channel import keys
     from qkd_ldpc_tpu_torch.decoder import DecodeOptions, device_loop, layered
+    from qkd_ldpc_tpu_torch.decoder.bp import bp_decode_batch_last
+    from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr
+    from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
     from qkd_ldpc_tpu_torch.sim import run_point
 
     dl = device_loop
@@ -3769,11 +3786,11 @@ def _compaction(torch, np, dev, flush, card, code, point_key):
         lanes = dl.Lanes(done, torch.tensor([8], dtype=torch.int32, device=dev), True)
         lanes.iters = iters
 
-        def part():
-            p = dl.Lanes(torch.empty(B2, dtype=torch.bool, device=dev),
-                         torch.empty(1, dtype=torch.int32, device=dev), True, fill=False)
+        def part(below=0, limit=2 ** 31 - 1):
+            p = dl.Lanes(torch.empty(B2, dtype=torch.bool, device=dev), lanes.loop.it, True,
+                         fill=False)
             p.iters = torch.empty(B2, dtype=torch.int32, device=dev)
-            return p, dl.Selection(B, B2, dev)
+            return p, dl.Selection(B, B2, dev, below=below, limit=limit)
 
         return lanes, part
 
@@ -3784,22 +3801,36 @@ def _compaction(torch, np, dev, flush, card, code, point_key):
                 for n in (0, B2 // 3, B2, B2 + 40):
                     where = f"{layout} {storage} B {B} -> {B2}, {n} unconverged"
                     lanes, make = batch(B, B2, n)
-                    (pk, sk), (pp, sp) = make(), make()
-                    before = counter.clone()
-                    dl.partition(lanes, pk, sk, use_kernel=True)
-                    torch.cuda.synchronize()
-                    counted_k = (counter - before).tolist()
-                    dl.partition(lanes, pp, sp, use_kernel=False)
                     k = min(n, B2)
-                    outs = [(sk.idx, sp.idx), (sk.k, sp.k), (sk.go, sp.go),
-                            (sk.frozen, sp.frozen), (pk.loop.done, pp.loop.done),
-                            (pk.iters, pp.iters), (pk.loop.it, pp.loop.it),
-                            (pk.loop.ok, pp.loop.ok), (pk.loop.active, pp.loop.active),
-                            (pk.loop.ticket, pp.loop.ticket)]
-                    if not all(torch.equal(a, b) for a, b in outs) or int(sk.k) != k or (
-                            counted_k != [1, int(k > 0), k, int(n > B2)]):
-                        raise AssertionError(f"compact_partition differs from its plain "
-                                             f"version: {where}, counts {counted_k}")
+                    # after phase A; then a rung's partition with a next rung below
+                    # it, and one past the cap
+                    for first, below, limit in ((True, 0, 100), (False, B2 // 2, 100),
+                                                (False, 0, 8)):
+                        (pk, sk), (pp, sp) = make(below, limit), make(below, limit)
+                        ok_, op_ = (torch.empty(1, dtype=torch.bool, device=dev)
+                                    for _ in range(2))
+                        pass_k, pass_p = (torch.zeros(1, dtype=torch.int64, device=dev)
+                                          for _ in range(2))
+                        before = counter.clone()
+                        dl.partition(lanes, pk, sk, use_kernel=True, first=first,
+                                     over=ok_ if first else None, passes=pass_k)
+                        torch.cuda.synchronize()
+                        counted_k = (counter - before).tolist()
+                        dl.partition(lanes, pp, sp, use_kernel=False, first=first,
+                                     over=op_ if first else None, passes=pass_p)
+                        go = 0 < n <= B2 and n > below and 8 < limit
+                        want = ([1, int(k > 0), k, int(n > B2), int(n > B2), 0, 0, 0] if first
+                                else [0] * 5 + [int(go), k * go, 0])
+                        outs = [(sk.idx, sp.idx), (sk.k, sp.k), (sk.go, sp.go),
+                                (pk.loop.done, pp.loop.done), (pk.iters, pp.iters),
+                                (pk.loop.ok, pp.loop.ok), (pk.loop.active, pp.loop.active),
+                                (pk.loop.ticket, pp.loop.ticket), (pass_k, pass_p)] + (
+                            [(ok_, op_)] if first else [])
+                        if not all(torch.equal(a, b) for a, b in outs) or int(sk.k) != k or (
+                                counted_k != want) or bool(sk.go) != go or int(pass_k) != 1:
+                            raise AssertionError(f"compact_partition differs from its plain "
+                                                 f"version: {where}, first {first}, below "
+                                                 f"{below}, limit {limit}, counts {counted_k}")
                     full = _compaction_state(torch, dev, gen, layout, storage, B, ncells)
                     parts_k = [dl.lanes_like(x, 1 if layout == "layered" else -1, B2)
                                for x in full]
@@ -3843,7 +3874,7 @@ def _compaction(torch, np, dev, flush, card, code, point_key):
     measured, timed = {}, {}
     lanes, make = batch(B, B2, 30)
     part, sel = make()
-    done_bytes = B + 4 * B + B + 4 * B2 + 3 * B2  # flags, counts in; frozen, idx, the part's out
+    done_bytes = B + 4 * B + 4 * B2 + 3 * B2  # flags, counts in; idx, the part's out
     ms = _time_ms(torch, lambda: dl.partition(lanes, part, sel, use_kernel=True), flush)
     plain_ms = _time_ms(torch, lambda: dl.partition(lanes, part, sel, use_kernel=False), flush)
     argsort_ms = _time_ms(torch, lambda: torch.argsort(lanes.loop.done.to(torch.int32),
@@ -3905,41 +3936,119 @@ def _compaction(torch, np, dev, flush, card, code, point_key):
                               "bound": bound_ms}
     report["timed"] = timed
 
-    # ---- the cells' points: launches a batch and the counter -----------------------
+    # ---- the cells' points: launches a batch, the counter, each width's time ------
+    # At QBER 0.05 (the cells' flood and layered points: phase B alone) and
+    # 0.0825 (the waterfall cell: every batch overflows into the ladder): the
+    # chunk's statistics equal the plain loop's; one batch decoded as a graph,
+    # eagerly and by the plain loop (no compaction) equal per lane, the graph's
+    # counter the eager program's; the launches a batch and the counter of a
+    # 64-batch point; on the waterfall's flood point, K2's and KV's time by
+    # the width of their launches, from a profiler trace.
     base = dict(algorithm="sum-product", backend="auto", max_iterations=100,
                 clip_messages=True, message_threshold=100.0, message_dtype="bfloat16",
                 compact_after=8, compact_lanes=BATCH // 4)
     points = {}
+    batches = 32768 // BATCH
+    rungs = len(dl.ladder(BATCH, BATCH // 4))
     for path, o in (("flooding", DecodeOptions(**base)),
                     ("layered", DecodeOptions(schedule="layered", **base))):
-        def point(o=o):
-            return run_point(code, point_key, QBER, 32768, BATCH, o, prng="pallas",
-                             max_batches_per_dispatch=64)[0]
+        plain_o = dataclasses.replace(o, compact_after=0, compact_lanes=0)
+        for q in (QBER, WATERFALL_QBER):
+            where = f"{path} at QBER {q}"
 
-        point()  # captures the chunk's graph
-        torch.cuda.synchronize()
-        _build.reset_launch_counts()
-        stats = point()
-        counts = _build.launch_counts()
-        batches = 32768 // BATCH
-        points[path] = {
-            "batches": batches, "mean_iterations": stats.sum_it / stats.n_trials,
-            "max_iterations": stats.max_it,
-            "launches_a_batch": {name: counts.get(name, 0) / batches for name in (
-                dl.KERNEL_PARTITION, dl.KERNEL_GATHER, dl.KERNEL_SCATTER, dl.KERNEL_ENTRY)},
-            "counter": {name: counts.get(name, 0) for name in dl.COMPACTION_COUNTS}}
-        c = points[path]["counter"]
-        if c["compaction_batches"] != batches or counts.get(dl.KERNEL_PARTITION, 0) != batches \
-                or counts.get(dl.KERNEL_GATHER, 0) != c["compaction_engaged"] \
-                or counts.get(dl.KERNEL_SCATTER, 0) != c["compaction_engaged"]:
-            raise AssertionError(f"compaction counts of a {path} point: {counts}")
+            def point(o=o, q=q):
+                return run_point(code, point_key, q, 32768, BATCH, o, prng="pallas",
+                                 max_batches_per_dispatch=64)[0]
+
+            point()  # captures the chunk's graph
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            stats = point()
+            counts = _build.launch_counts()
+            if dataclasses.asdict(point(plain_o)) != dataclasses.asdict(stats):
+                raise AssertionError(f"compaction changed the point's statistics: {where}")
+            c = {name: counts.get(name, 0) for name in dl.COMPACTION_COUNTS}
+            moves = c["compaction_engaged"] - c["compaction_overflows"] + c["ladder_rungs"]
+            if c["compaction_batches"] != batches or c["ladder_batches"] != c[
+                    "compaction_overflows"] or counts.get(dl.KERNEL_PARTITION, 0) != (
+                    batches + rungs * c["ladder_batches"]) or any(
+                    counts.get(k, 0) != moves for k in (dl.KERNEL_GATHER, dl.KERNEL_SCATTER)):
+                raise AssertionError(f"compaction counts, {where}: {counts}")
+            # one batch, per lane: the graph, the eager program, the plain loop
+            ne = keys.num_errors_for(code.n_vars, q)
+            alice, bob = keys.make_trial_batch(point_key, code.n_vars, BATCH, ne, 0)
+            llr = apriori_llr(bob, np.float32(ne) / np.float32(code.n_vars)).T.contiguous()
+            syn = syndrome(code, alice).T.contiguous()
+            legs = {}
+            for leg, ctx, lo in (("graph", contextlib.nullcontext, o),
+                                 ("eager", dl.eager_loops, o), ("plain", contextlib.nullcontext,
+                                                                plain_o)):
+                with ctx():
+                    bp_decode_batch_last(code, llr, syn, lo)  # capture, warm-up
+                    torch.cuda.synchronize()
+                    before = counter.clone()
+                    legs[leg] = bp_decode_batch_last(code, llr, syn, lo)
+                    torch.cuda.synchronize()
+                    legs[leg + "_counter"] = (counter - before).tolist()
+            for leg in ("eager", "plain"):
+                if not all(torch.equal(a, b) for a, b in zip(legs["graph"], legs[leg])):
+                    raise AssertionError(f"the graph's decode differs from the {leg} "
+                                         f"program's per lane: {where}")
+            if legs["graph_counter"] != legs["eager_counter"]:
+                raise AssertionError(f"the graph's counter {legs['graph_counter']} against "
+                                     f"the eager program's {legs['eager_counter']}: {where}")
+            points[f"{path}_{q}"] = {
+                "qber": q, "batches": batches, "n_sp": stats.n_sp,
+                "mean_iterations": stats.sum_it / stats.n_trials, "max_iterations": stats.max_it,
+                "launches_a_batch": {name: n / batches for name, n in sorted(counts.items())
+                                     if name not in c},
+                "counter": c, "lane_passes_a_batch": c["compaction_lane_passes"] / batches,
+                "batch_counter": dict(zip(dl.COMPACTION_COUNTS, legs["graph_counter"])),
+                "batch_converged": int(legs["graph"][2].sum())}
+            if path == "flooding" and q == WATERFALL_QBER:
+                points[f"{path}_{q}"]["by_width"] = _time_by_width(torch, point)
     report["points"] = points
     return report, measured
 
 
+def _time_by_width(torch, point):
+    """K2's and KV's device time a launch in one traced ``point()``, by the
+    lanes each launch covers (its grid against the widest's, a batch's).  The
+    profiler lists one launch a WHILE-node run of the chunk's graph (its first
+    pass), so its ``launches`` are not the chunk's: those are the counters'."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        point()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = [e for e in json.loads(path.read_text()).get("traceEvents", [])
+                  if e.get("cat") == "kernel"]
+    out = {}
+    for tag, name in (("K2", "check_update_kernel_fold"), ("KV", "variable_update_kernel")):
+        ev = [e for e in events if name in e.get("name", "")
+              and ("_fold" in e["name"]) == ("_fold" in name)]
+        grids = [e.get("args", {}).get("grid", [0])[0] for e in ev]
+        if not ev or not max(grids):
+            out[tag] = None
+            continue
+        rows = {}
+        for e, g in zip(ev, grids):
+            r = rows.setdefault(round(BATCH * g / max(grids)), {"launches": 0, "ms": 0.0})
+            r["launches"] += 1
+            r["ms"] += e.get("dur", 0.0) / 1e3
+        for r in rows.values():
+            r["us_a_launch"] = 1e3 * r["ms"] / r["launches"]
+        out[tag] = dict(sorted(rows.items(), reverse=True))
+    return out
+
+
 def compaction_here() -> int:
-    """``--compaction``: the build and the ``compaction`` phase alone; prints
-    one ``compaction`` line."""
+    """``--compaction``: the build, the loop tail in K2's and K6's last block
+    against its plain version (``loop_folds``, the ladder's floor among its
+    regimes) and the ``compaction`` phase alone; prints a ``loop_folds``
+    line and a ``compaction`` line."""
     import numpy as np
     import torch
 
@@ -3956,6 +4065,9 @@ def compaction_here() -> int:
     print(_build.build_log("device_loop"), flush=True)
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
     code = make_qc_code(z=Z, nb=NB, mb=MB_ROWS, dv=DV, seed=CODE_SEED)
+    folds, folds_report = _loop_folds(torch, np, dev, flush, code,
+                                      _fold_timings(torch, np, dev, flush))
+    print(json.dumps({"loop_folds": folds_report, "measured": folds}), flush=True)
     report, _ = _compaction(torch, np, dev, flush, card_name_and_power_limit(), code,
                             derive_point_key(MASTER_SEED, POINT_INDEX))
     print(json.dumps({"compaction": report}), flush=True)
@@ -5799,16 +5911,17 @@ def main() -> int:
         raise AssertionError(f"main path: loop kernels {launches}")
 
     def phase_b_launches(path, counts, worst, compact_after):
-        """Each batch's loop-entry tests on the card (phases A and C, and
-        phase B's inside its IF node where a lane was left after phase A: a
-        batch whose slowest lane needed more than compact_after passes), one
-        partition a batch, a gather and a scatter a batch with a lane to
-        move, and the compaction counter's reading of the same."""
+        """Each batch's loop-entry tests on the card (phase A's, and phase B's
+        inside its IF node where a lane was left after phase A: a batch whose
+        slowest lane needed more than compact_after passes; no batch of the
+        point overflows into the ladder), one partition a batch, a gather and
+        a scatter a batch with a lane to move, and the compaction counter's
+        reading of the same."""
         engaged = sum(w > compact_after for w in worst)
         got = [counts.get(name, 0) for name in (
             KE, device_loop.KERNEL_PARTITION, device_loop.KERNEL_GATHER,
             device_loop.KERNEL_SCATTER, "compaction_batches", "compaction_engaged")]
-        if got != [2 * N_BATCHES + engaged, N_BATCHES, engaged, engaged, N_BATCHES, engaged]:
+        if got != [N_BATCHES + engaged, N_BATCHES, engaged, engaged, N_BATCHES, engaged]:
             raise AssertionError(f"{path}: loop and compaction launches {counts}, "
                                  f"{engaged} batches with a lane past {compact_after}")
 

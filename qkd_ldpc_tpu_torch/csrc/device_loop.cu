@@ -26,9 +26,9 @@
 // any depth below it.
 //
 // compact_partition, compact_gather and compact_scatter (the end of this file)
-// are residency compaction's phase B: the lanes left unconverged after phase A,
-// moved into the compacted lanes and back, under an IF node that a batch with
-// no such lane skips.
+// are residency compaction's lane moves: the lanes left unconverged, moved into
+// a narrower rung of lanes and back, under an IF node that a batch with no such
+// lane skips.
 #include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -60,14 +60,15 @@ cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph, const cudaGraphNode
 }  // namespace
 
 // The test before a loop.  Returns cudaGetLastError().  `frozen` and `go` may
-// be null; `handle` is set only when `set_handle` (inside a graph).
+// be null; `handle` is set only when `set_handle` (inside a graph).  `floor`:
+// the loop runs only while more than `floor` frames are active (0: any).
 extern "C" int loop_entry(void* done, void* active, const void* frozen, void* it, void* go,
-                          int limit, int B, unsigned long long handle, int set_handle,
-                          void* stream) {
+                          int limit, int B, int floor, unsigned long long handle,
+                          int set_handle, void* stream) {
     const LoopStep step{static_cast<uint8_t*>(done), static_cast<uint8_t*>(active),
                         static_cast<const uint8_t*>(frozen), static_cast<int*>(it),
-                        nullptr, nullptr, static_cast<uint8_t*>(go), nullptr, handle,
-                        limit, B, set_handle};
+                        nullptr, nullptr, static_cast<uint8_t*>(go), nullptr, nullptr,
+                        handle, limit, B, set_handle, floor};
     const int threads = B < kThreads ? ((B + 31) / 32) * 32 : kThreads;
     loop_entry_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(step);
     return static_cast<int>(cudaGetLastError());
@@ -160,30 +161,36 @@ extern "C" int capture_nodes(void* stream, unsigned long long* count) {
 }
 
 // ---------------------------------------------------------------------------
-// Residency compaction's phase B (decoder/device_loop.py::run_schedule).  The
+// Residency compaction's lane moves (decoder/device_loop.py::run_schedule).  The
 // JAX package sorts the flags, takes the first B2 lanes of every state array
 // and sets them back (qkd_ldpc_tpu/decoder/bp.py:516-532: argsort, _take_lanes,
-// .at[idx].set); PyTorch ran that as a radix sort, an index_select of every
-// state tensor into B2 lanes and an index_copy_ back, every batch, whether or
-// not any lane was left to finish.  Here:
+// .at[idx].set), then runs the lanes past B2 on the full batch (phase C).  Here
+// the batch's lanes descend a ladder of widths that halve from the batch down
+// to B2: each rung's loop runs while its live lanes would not fit the next
+// rung (the loop tail's floor, loop_step.cuh), then a partition moves the live
+// lanes into the narrowest rung that holds them.  Each rung's lanes come from
+// the batch and go back to it, so every partition reads the batch's flags.
 //
-//   compact_partition  one block after phase A: the flags' stable order
-//                      (unconverged lanes first, each group in lane order) by
-//                      a ballot and a prefix count, its first B2 lanes as
-//                      idx, k = min(#unconverged, B2), the part's flags,
+//   compact_partition  one block: the flags' stable order (unconverged lanes
+//                      first, each group in lane order) by a ballot and a
+//                      prefix count, its first W lanes as idx (W the rung's
+//                      width), k = min(#unconverged, W), the rung's flags,
 //                      counts and loop state (what index_select and
-//                      LoopState's fills left), `frozen` (true on the k moved
-//                      lanes: a done lane is inert in phase C either way),
-//                      the engagement counts, and the condition of the IF
-//                      node around phase B (k > 0).  A batch with no lane
-//                      left runs this kernel alone.
-//   compact_gather     inside the IF node: lane idx[s] -> slot s, for s < k,
-//                      of every state tensor phase B reads.
-//   compact_scatter    inside the IF node, after phase B: slot s -> lane
-//                      idx[s], for s < k, of the state the decode returns and
-//                      the flags.
+//                      LoopState's fills left), the counts, and the condition
+//                      of the IF node around the rung: k lanes left, all of
+//                      them fit (n <= W) and not the next narrower rung (n >
+//                      below), and passes left (it < limit).  The partition
+//                      after phase A (`first`) also sets the condition of the
+//                      IF node around the ladder: more lanes left than B2.  A
+//                      batch with no lane left after phase A runs this kernel
+//                      alone, and one whose lanes fit B2 runs phase B as before.
+//   compact_gather     inside the rung's IF node: lane idx[s] -> slot s, for
+//                      s < k, of every state tensor the rung reads.
+//   compact_scatter    inside the IF node, after the rung's loop: slot s ->
+//                      lane idx[s], for s < k, of the state the next rung or
+//                      the decode reads, and the flags and counts.
 //
-// Slots k .. B2 are neither written nor read back: their lanes were done, and
+// Slots k .. W are neither written nor read back: their lanes were done, and
 // a done lane is inert in every pass (its flag never changes, its decisions
 // and counts never move), so copying it changed nothing.
 //
@@ -200,25 +207,36 @@ extern "C" int capture_nodes(void* stream, unsigned long long* count) {
 
 namespace {
 
+// The compaction counter's fields (decoder/device_loop.py COMPACTION_COUNTS).
+enum Count {
+    kBatches, kEngaged, kLanes, kOverflows,  // at the partition after phase A
+    kLadderBatches, kRungs, kRungLanes,      // the ladder's
+    kLanePasses,                             // the loop tails'
+};
+
 // decoder/device_loop.py's _PartitionArgs, field for field.
 struct Partition {
-    const uint8_t* done;         // [B] after phase A
+    const uint8_t* done;         // [B] the batch's flags
     const int* iters;            // [B]
     const int* it;               // [1] passes so far
-    int* idx;                    // [B2] the stable order's first B2 lanes
+    int* idx;                    // [W] the stable order's first W lanes
     int* k;                      // [1] lanes moved
-    uint8_t* go;                 // [1] k > 0 (the eager program reads it)
-    uint8_t* frozen;             // [B]
-    uint8_t* part_done;          // [B2] the part's loop state
-    int* part_iters;             // [B2]
-    int* part_it;                // [1]
-    uint8_t* part_ok;            // [B2]
-    uint8_t* part_active;        // [B2]
+    uint8_t* go;                 // [1] the rung's IF condition (the eager program reads it)
+    uint8_t* part_done;          // [W] the rung's loop state
+    int* part_iters;             // [W]
+    uint8_t* part_ok;            // [W]
+    uint8_t* part_active;        // [W]
     int* part_ticket;            // [1]
-    unsigned long long* counts;  // [4] or null: batches, batches with k > 0, lanes, overflows
-    unsigned long long handle;   // the IF node's condition (when set_handle)
+    uint8_t* over;               // [1] or null: (first) the ladder's IF condition
+    unsigned long long* counts;  // [8] or null: Count
+    long long* passes;           // [1] or null: the enclosing body's count
+    unsigned long long handle;   // the rung's IF node (when set_handle)
+    unsigned long long over_handle;  // the ladder's IF node (first, when set_handle)
     int B;
-    int B2;
+    int W;                       // the rung's lanes
+    int below;                   // the next narrower rung's lanes, 0 for the narrowest
+    int limit;                   // the decode's cap
+    int first;                   // the partition after phase A
     int set_handle;
 };
 
@@ -248,33 +266,45 @@ __global__ void __launch_bounds__(kThreads) compact_partition_kernel(const Parti
         if (b < p.B) {
             // b's place in the stable order: the unconverged lanes, then the done
             const int pos = u ? rank : n_u + (b - rank);
-            if (pos < p.B2) {
+            if (pos < p.W) {
                 p.idx[pos] = b;
                 p.part_done[pos] = u ? 0 : 1;
                 p.part_iters[pos] = p.iters[b];
             }
-            p.frozen[b] = (u && rank < p.B2) ? 1 : 0;
         }
         before += tile;
         __syncthreads();  // the next tile rewrites warp_u
     }
-    for (int s = t; s < p.B2; s += blockDim.x) {
+    for (int s = t; s < p.W; s += blockDim.x) {
         p.part_ok[s] = 1;
         p.part_active[s] = 0;
     }
     if (t == 0) {
-        const int k = min(n_u, p.B2);
+        const int k = min(n_u, p.W);
+        const bool engage = n_u > 0 && n_u <= p.W && n_u > p.below && *p.it < p.limit;
+        const bool over = p.first && n_u > p.W;
         *p.k = k;
-        *p.go = k > 0 ? 1 : 0;
-        *p.part_it = *p.it;
+        *p.go = engage ? 1 : 0;
         *p.part_ticket = 0;
-        if (p.counts != nullptr) {
-            atomicAdd(p.counts, 1ull);
-            if (k > 0) atomicAdd(p.counts + 1, 1ull);
-            atomicAdd(p.counts + 2, static_cast<unsigned long long>(k));
-            if (n_u > p.B2) atomicAdd(p.counts + 3, 1ull);
+        if (p.over != nullptr) *p.over = over ? 1 : 0;
+        if (p.passes != nullptr) *p.passes += 1;
+        unsigned long long* c = p.counts;
+        if (c != nullptr && p.first) {
+            atomicAdd(c + kBatches, 1ull);
+            if (k > 0) atomicAdd(c + kEngaged, 1ull);
+            atomicAdd(c + kLanes, static_cast<unsigned long long>(k));
+            if (over) {
+                atomicAdd(c + kOverflows, 1ull);
+                atomicAdd(c + kLadderBatches, 1ull);
+            }
+        } else if (c != nullptr && engage) {
+            atomicAdd(c + kRungs, 1ull);
+            atomicAdd(c + kRungLanes, static_cast<unsigned long long>(k));
         }
-        if (p.set_handle) cudaGraphSetConditional(p.handle, k > 0 ? 1u : 0u);
+        if (p.set_handle) {
+            cudaGraphSetConditional(p.handle, engage ? 1u : 0u);
+            if (p.first) cudaGraphSetConditional(p.over_handle, over ? 1u : 0u);
+        }
     }
 }
 
@@ -293,7 +323,7 @@ struct CopyRun {
     int unit;  // 16, 8, 4, 2 or 1
 };
 
-// decoder/device_loop.py's _CopyPlanArgs, field for field.
+// decoder/device_loop.py's _CopyPlanArgs, field for field.  B2: the rung's lanes.
 struct CopyPlan {
     CopyRun run[kMaxCopies];
     const int* idx;     // [B2]
@@ -369,7 +399,7 @@ compact_scatter_kernel(const __grid_constant__ CopyPlan plan) {
 
 }  // namespace
 
-// The partition after phase A (`args` a Partition).  Returns cudaGetLastError().
+// A partition (`args` a Partition).  Returns cudaGetLastError().
 extern "C" int compact_partition(const void* args, void* stream) {
     const Partition& p = *static_cast<const Partition*>(args);
     const int threads = p.B < kThreads ? ((p.B + 31) / 32) * 32 : kThreads;
@@ -377,7 +407,7 @@ extern "C" int compact_partition(const void* args, void* stream) {
     return static_cast<int>(cudaGetLastError());
 }
 
-// Phase B's gather (scatter = 0) or scatter (scatter = 1) of the tensors of
+// A rung's gather (scatter = 0) or scatter (scatter = 1) of the tensors of
 // `plan` (a CopyPlan).  Returns cudaGetLastError(), or cudaErrorInvalidValue
 // for a plan of no tensor or more than kMaxCopies.
 extern "C" int compact_copy(const void* plan, int scatter, void* stream) {

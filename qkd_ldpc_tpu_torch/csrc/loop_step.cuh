@@ -1,14 +1,21 @@
 // The bookkeeping of a decode loop: JAX's while_loop carry and condition
 // (qkd_ldpc_tpu/decoder/bp.py:434-452, layered.py:213-225), run by one block
 // over the B frames.
-//   ENTRY    active = ~done & ~frozen; go = it < limit && any(active)
-//            (JAX's `cond` before the first pass);
+//   ENTRY    active = ~done & ~frozen; go = it < limit && live > floor, live
+//            the count of active frames (JAX's `cond` before the first pass:
+//            floor 0 is its any(active));
 //   FLOODING the carry after a pass: done |= active & ok, it += 1 (the
 //            variable update already moved z and the frames' counts), then
 //            the ENTRY test;
 //   LAYERED  the same, and iters = it where a frame newly converged.
 // It writes `go` to a byte (the eager loop fetches it) and, inside a graph,
-// sets the WHILE node's condition with cudaGraphSetConditional.
+// sets the WHILE node's condition with cudaGraphSetConditional.  A floor above 0
+// is residency compaction's ladder (decoder/device_loop.py::run_schedule): a
+// rung's loop runs only while its live frames would not fit the next narrower
+// rung.  The count costs what any() cost: one __syncthreads_count a tile of
+// blockDim frames where __syncthreads_or was one barrier, the same for B up to
+// blockDim.  `lane_passes`, where given, gains B a pass (the ladder's counter
+// of lane-passes after phase A).
 //
 // ENTRY runs as a kernel of its own before the loop (device_loop.cu).  After a
 // pass the bookkeeping needs every frame's flag of the pass, which the pass's
@@ -43,10 +50,12 @@ struct LoopStep {
     long long* passes;         // [1] or null: the WHILE body's count
     uint8_t* go;               // [1] or null
     int* ticket;               // [1] blocks that finished this launch; 0 between launches
+    unsigned long long* lane_passes;  // [1] or null: gains B a pass
     unsigned long long handle;  // the WHILE node's condition (when set_handle)
     int limit;
     int B;
     int set_handle;
+    int floor;                 // go needs more than `floor` active frames
 };
 
 // The bookkeeping by the calling block (every thread calls it).  `ok` (not
@@ -56,30 +65,36 @@ struct LoopStep {
 // is used).
 template <int MODE>
 __device__ __forceinline__ void loop_step_block(const uint8_t* ok, const LoopStep& s) {
-    int any = 0;
+    int live = 0;
 #pragma unroll 1
-    for (int b = threadIdx.x; b < s.B; b += blockDim.x) {
-        // a frame's flags are loaded at once: one round trip
-        const bool was = s.done[b] != 0;
-        const bool act = s.active[b] != 0;
-        const bool conv = MODE != kLoopEntry && __ldcg(ok + b) != 0;
-        const bool frz = s.frozen != nullptr && s.frozen[b] != 0;
-        const bool d = was || (act && conv);
-        if (d && !was) {
-            s.done[b] = 1;
-            if (MODE == kLoopLayered) s.iters[b] = *s.it + 1;
+    for (int base = 0; base < s.B; base += blockDim.x) {  // every thread runs every tile
+        const int b = base + threadIdx.x;
+        bool a = false;
+        if (b < s.B) {
+            // a frame's flags are loaded at once: one round trip
+            const bool was = s.done[b] != 0;
+            const bool act = s.active[b] != 0;
+            const bool conv = MODE != kLoopEntry && __ldcg(ok + b) != 0;
+            const bool frz = s.frozen != nullptr && s.frozen[b] != 0;
+            const bool d = was || (act && conv);
+            if (d && !was) {
+                s.done[b] = 1;
+                if (MODE == kLoopLayered) s.iters[b] = *s.it + 1;
+            }
+            a = !d && !frz;
+            s.active[b] = a ? 1 : 0;
         }
-        const bool a = !d && !frz;
-        s.active[b] = a ? 1 : 0;
-        any |= a ? 1 : 0;
+        live += __syncthreads_count(a);  // the last: every thread has read *it
     }
-    any = __syncthreads_or(any);  // every thread has read *it
     if (threadIdx.x == 0) {
         const int it_new = *s.it + (MODE == kLoopEntry ? 0 : 1);
-        const bool go = any != 0 && it_new < s.limit;
+        const bool go = live > s.floor && it_new < s.limit;
         if (MODE != kLoopEntry) {
             *s.it = it_new;
             if (s.passes != nullptr) *s.passes += 1;
+            if (s.lane_passes != nullptr) {
+                atomicAdd(s.lane_passes, static_cast<unsigned long long>(s.B));
+            }
         }
         if (s.go != nullptr) *s.go = go ? 1 : 0;
         if (s.set_handle) cudaGraphSetConditional(s.handle, go ? 1u : 0u);

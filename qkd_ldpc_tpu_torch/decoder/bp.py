@@ -39,8 +39,8 @@ package's, restated for PyTorch:
   program once per batch inside its own graph (:func:`decode_program`).
   ``lax.while_loop`` becomes a WHILE node whose condition the pass's check
   update sets on the card (its last block runs the loop's bookkeeping),
-  ``lax.cond`` (phase C) a WHILE node whose entry test is the cond's
-  predicate (``decoder/device_loop.py``).
+  and the compaction's branches IF nodes whose conditions its partitions
+  set (``decoder/device_loop.py``).
   The same program runs eagerly on the CPU, under ``backend="xla"``, and in
   ``device_loop.eager_loops()`` (the eager kernel loop the graph is held
   against); there the loop fetches its condition after every pass.
@@ -249,11 +249,14 @@ class _Lanes(device_loop.Lanes):
     def compacted(self, n):
         like = device_loop.lanes_like
         return _Lanes(self.core, *(like(x, -1, n) for x in (self.llr, self.syn, self.Lr, self.z)),
-                      like(self.iters, 0, n), like(self.loop.done, 0, n),
-                      torch.empty_like(self.loop.it), fill=False)
+                      like(self.iters, 0, n), like(self.loop.done, 0, n), self.loop.it,
+                      fill=False)
 
     def gathered(self):
         return self.llr, self.syn, self.Lr, self.z
+
+    def carried(self):
+        return self.Lr, self.z
 
     def returned(self):
         return (self.z,)

@@ -4,15 +4,17 @@ and a decode captured as one CUDA graph whose loops are WHILE nodes.
 The JAX package runs a decode as one compiled device program:
 ``lax.while_loop`` around the iteration (``qkd_ldpc_tpu/decoder/bp.py:454``,
 ``layered.py:225``), ``lax.cond`` around the compaction's fallback phase
-(``bp.py:546``), ``fori_loop`` around the continuation's segment
-(``sim/continuation.py:235``).  The port's counterparts:
+(``bp.py:546``; here a ladder, :func:`run_schedule`), ``fori_loop`` around
+the continuation's segment (``sim/continuation.py:235``).  The port's
+counterparts:
 
 - :func:`loop_step_plain` — the loop's carry and condition
   (``csrc/loop_step.cuh``): after a pass ``done |= active & ok``, ``it += 1``
   (the layered carry also sets ``iters = it`` where a frame newly converged),
-  then ``active = ~done & ~frozen`` and the condition ``it < limit &&
-  any(active)``; the ENTRY mode only tests.  On the card the ENTRY test is a
-  kernel of its own (:func:`loop_step`, ``csrc/device_loop.cu``); the test
+  then ``active = ~done & ~frozen`` and the condition ``it < limit && live >
+  floor``, ``live`` the count of active frames (``floor`` 0: JAX's
+  ``any(active)``); the ENTRY mode only tests.  On the card the ENTRY test is
+  a kernel of its own (:func:`loop_step`, ``csrc/device_loop.cu``); the test
   after a pass is a :class:`LoopTail` handed to the pass's last kernel (the
   check update of a flooding pass, the sweep of a layered one), whose last
   block runs it, so a pass launches no bookkeeping kernel.  The plain
@@ -22,26 +24,34 @@ The JAX package runs a decode as one compiled device program:
   byte after every pass.  Inside a capture it is a conditional WHILE node:
   the entry kernel sets the node's condition before it and the pass's last
   kernel after every pass, so the card runs the loop with no host round
-  trip.  A ``lax.cond`` whose branches are "run the loop" and "nothing" (phase
-  C) is the same node with the cond's predicate as its entry test.
+  trip.  A ``lax.cond`` whose branches are "run this" and "nothing" is an IF
+  node whose condition a kernel sets before it.
 - :func:`run_schedule` — a decode's loops, for both decode schedules: one
-  early-exit loop, or the residency-compaction phases A, B and C (three
-  WHILE nodes; phase B's inside an IF node).  A schedule's state is a
+  early-exit loop, or residency compaction: phase A on the full batch, then
+  phase B (the lanes left, when they fit ``compact_lanes``, in that many
+  lanes to the cap) or, when they overflow it, a ladder of halving widths
+  (:func:`ladder`: 512 -> 256 -> 128) whose every rung runs while its live
+  lanes would not fit the next.  The JAX package runs the overflow as a
+  phase C of the full batch after phase B (``bp.py:546``), a second pass of
+  the iterations at full width; the ladder runs each iteration once, at a
+  width within a halving of the live lanes.  A schedule's state is a
   :class:`Lanes` that supplies one pass, its compacted twin and the tensors
-  that phase B moves in and back (``bp._Lanes``, ``layered._SweepLanes``).
-- Phase B's lanes (``csrc/device_loop.cu``): :func:`partition` (one block:
-  the flags' stable order, the moved count ``k``, the part's loop state,
-  ``frozen``, the IF node's condition ``k > 0``), then inside the IF node
-  :func:`compact_copy`'s gather of the ``k`` unconverged lanes, phase B's
+  a rung moves in and back (``bp._Lanes``, ``layered._SweepLanes``).
+- The lane moves (``csrc/device_loop.cu``): :func:`partition` (one block:
+  the flags' stable order, the moved count ``k``, the rung's loop state,
+  the condition of the IF node around the rung; after phase A also that of
+  the IF node around the ladder), then inside the rung's IF node
+  :func:`compact_copy`'s gather of the ``k`` unconverged lanes, the rung's
   loop and the scatter back.  A batch whose lanes all converged in phase A
-  runs the partition alone.  The device counter :data:`COMPACTION_COUNTS`
-  says how often the mechanism engages (:func:`compaction_counter`).
-  :func:`batch_last_decode` runs either schedule's decode of ``[N, B]``
-  tensors as a graph or eagerly.
+  runs the partition alone, one whose lanes fit ``compact_lanes`` phase B.
+  The device counter :data:`COMPACTION_COUNTS` says how often each branch
+  engages and how many lane-passes ran after phase A
+  (:func:`compaction_counter`).  :func:`batch_last_decode` runs either
+  schedule's decode of ``[N, B]`` tensors as a graph or eagerly.
 - :class:`Graph` — one program captured on a side stream with
   ``torch.cuda.CUDAGraph`` (``thread_local`` error mode, so shards in other
   threads may synchronise meanwhile): the buffers made between the loops
-  (phase B's lanes, the finalize's ``where``) take their memory from the
+  (the rungs' lanes, the finalize's ``where``) take their memory from the
   graph's pool; a conditional body allocates nothing and holds only the
   port's kernels, launched through ctypes into buffers made before it.
   The program runs once eagerly on a side stream before its capture (so the
@@ -84,22 +94,22 @@ from qkd_ldpc_tpu_torch.spans import span
 from qkd_ldpc_tpu_torch.utils import canonical_device
 
 ENTRY, FLOODING, LAYERED = 0, 1, 2
-# The names the launch counts use for the entry test's kernel and phase B's.
+# The names the launch counts use for the entry test's kernel and the lane moves'.
 KERNEL_ENTRY = "loop_entry"
 KERNEL_PARTITION = "compact_partition"
 KERNEL_GATHER = "compact_gather"
 KERNEL_SCATTER = "compact_scatter"
-# The compaction's device counter, read with the launch counts: batches that
-# reached phase B, those with a lane to move (k > 0), lanes moved, and
-# batches whose unconverged lanes overflowed the compacted ones (phase C).
+# The compaction's device counter, read with the launch counts.  At the
+# partition after phase A: batches, those with a lane left (k > 0), the lanes
+# k = min(#unconverged, compact_lanes), and batches whose unconverged lanes
+# overflowed compact_lanes.  The ladder's: batches that took it (every
+# overflow), rung compactions run inside it and the lanes they moved.  Every
+# loop after phase A: lane-passes run (a pass adds its width).
 COMPACTION_COUNTS = ("compaction_batches", "compaction_engaged", "compaction_lanes",
-                     "compaction_overflows")
+                     "compaction_overflows", "ladder_batches", "ladder_rungs",
+                     "ladder_lanes", "compaction_lane_passes")
 # Tensors one gather or scatter moves at most (csrc/device_loop.cu).
 MAX_COPIES = 6
-# Conditional bodies one decode holds (the WHILE nodes of phases A, B and C,
-# and the IF node around phase B); a program of several decodes (a trial
-# chunk) sizes its graph with LOOPS_PER_DECODE each.
-LOOPS_PER_DECODE = 4
 # Kinds of conditional node, and how deep they nest (the continuation: its
 # outer loop, the refill loop inside it, and the two IF nodes inside that).
 WHILE, IF = "while", "if"
@@ -157,9 +167,10 @@ class _LoopStepArgs(ctypes.Structure):
     """``struct LoopStep`` of ``csrc/loop_step.cuh``, field for field."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "done", "active", "frozen", "it", "iters", "passes", "go", "ticket")] + [
+        "done", "active", "frozen", "it", "iters", "passes", "go", "ticket",
+        "lane_passes")] + [
         ("handle", ctypes.c_ulonglong), ("limit", ctypes.c_int), ("B", ctypes.c_int),
-        ("set_handle", ctypes.c_int)]
+        ("set_handle", ctypes.c_int), ("floor", ctypes.c_int)]
 
 
 class LoopTail(NamedTuple):
@@ -167,7 +178,9 @@ class LoopTail(NamedTuple):
     pass's last kernel: its wrapper runs it over the pass's flags, in the
     kernel's last block on the card (the kernel's tail) or as
     :func:`loop_step_plain` after the plain pass.  ``passes`` (the WHILE
-    body's counter) and ``handle`` (its condition) inside a capture."""
+    body's counter) and ``handle`` (its condition) inside a capture; the
+    loop goes on only while more than ``floor`` frames are active, and
+    ``lane_passes`` (an int64 ``[1]`` counter) gains the width a pass."""
 
     mode: int
     done: torch.Tensor
@@ -180,11 +193,14 @@ class LoopTail(NamedTuple):
     ticket: torch.Tensor
     passes: torch.Tensor | None = None
     handle: int | None = None
+    floor: int = 0
+    lane_passes: torch.Tensor | None = None
 
     def plain(self, ok: torch.Tensor) -> None:
         """The bookkeeping over ``ok`` in plain PyTorch."""
         loop_step_plain(self.mode, ok, self.done, self.active, self.frozen, self.it,
-                        self.iters, self.limit, self.passes, self.go)
+                        self.iters, self.limit, self.passes, self.go, self.floor,
+                        self.lane_passes)
 
     def args(self, ok: torch.Tensor) -> _LoopStepArgs:
         """The kernel's argument, after checking that the tail's buffers fit
@@ -197,19 +213,25 @@ class LoopTail(NamedTuple):
         if self.ticket.shape != (1,) or self.ticket.dtype != torch.int32 or (
                 self.ticket.device != ok.device):
             raise ValueError("ticket must be int32 [1] on the device of ok")
+        lp = self.lane_passes
+        if lp is not None and (lp.numel() != 1 or lp.dtype != torch.int64
+                               or lp.device != ok.device):
+            raise ValueError("lane_passes must be an int64 counter on the device of ok")
 
         def ptr(t):
             return None if t is None else t.data_ptr()
 
         return _LoopStepArgs(ptr(self.done), ptr(self.active), ptr(self.frozen), ptr(self.it),
                              ptr(self.iters), ptr(self.passes), ptr(self.go), ptr(self.ticket),
-                             self.handle or 0, self.limit, B, int(self.handle is not None))
+                             ptr(lp), self.handle or 0, self.limit, B,
+                             int(self.handle is not None), self.floor)
 
 
 def loop_step_plain(mode, ok, done, active, frozen, it, iters, limit, passes=None,
-                    go=None):
+                    go=None, floor=0, lane_passes=None):
     """Plain version of the bookkeeping kernel (same arguments), in place on
-    ``done``, ``active``, ``it``, ``iters`` (LAYERED), ``passes`` and ``go``."""
+    ``done``, ``active``, ``it``, ``iters`` (LAYERED), ``passes``,
+    ``lane_passes`` and ``go``."""
     it_new = it + (0 if mode == ENTRY else 1)
     if mode != ENTRY:
         newly = active & ok & ~done
@@ -219,10 +241,12 @@ def loop_step_plain(mode, ok, done, active, frozen, it, iters, limit, passes=Non
         it.copy_(it_new)
         if passes is not None:
             passes += 1
+        if lane_passes is not None:
+            lane_passes += done.shape[0]
     act = ~done if frozen is None else ~done & ~frozen
     active.copy_(act)
     if go is not None:
-        go.copy_((it_new < limit) & act.any())
+        go.copy_((it_new < limit) & (act.sum() > floor))
 
 
 def _check_step(mode, ok, done, active, frozen, it, iters, passes, go):
@@ -243,7 +267,7 @@ def _check_step(mode, ok, done, active, frozen, it, iters, passes, go):
 
 
 def loop_step_cuda(mode, ok, done, active, frozen, it, iters, limit, passes=None,
-                   go=None, handle=None):
+                   go=None, handle=None, floor=0):
     """Launch the entry test's kernel on the current stream (``mode`` ENTRY:
     a pass's bookkeeping runs in the pass's last kernel, :class:`LoopTail`);
     ``handle`` (a WHILE node's condition, inside a capture) is set as well
@@ -253,7 +277,7 @@ def loop_step_cuda(mode, ok, done, active, frozen, it, iters, limit, passes=None
     _check_step(mode, ok, done, active, frozen, it, iters, passes, go)
     fn = _build.function(
         "device_loop", "loop_entry",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
         + [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p],
     )
 
@@ -262,38 +286,41 @@ def loop_step_cuda(mode, ok, done, active, frozen, it, iters, limit, passes=None
 
     with torch.cuda.device(done.device):
         err = fn(ptr(done), ptr(active), ptr(frozen), ptr(it), ptr(go), limit, done.shape[0],
-                 0 if handle is None else handle, int(handle is not None),
+                 floor, 0 if handle is None else handle, int(handle is not None),
                  torch.cuda.current_stream().cuda_stream)
     _build.check_launch(KERNEL_ENTRY, err)
 
 
 def loop_step(mode, ok, done, active, frozen, it, iters, limit, *, use_kernel,
-              passes=None, go=None, handle=None):
+              passes=None, go=None, handle=None, floor=0):
     """The entry test (the kernel when ``use_kernel``, which raises for a CPU
     tensor), or any mode's plain version."""
     if use_kernel:
-        loop_step_cuda(mode, ok, done, active, frozen, it, iters, limit, passes, go, handle)
+        loop_step_cuda(mode, ok, done, active, frozen, it, iters, limit, passes, go, handle,
+                       floor)
     else:
-        loop_step_plain(mode, ok, done, active, frozen, it, iters, limit, passes, go)
+        loop_step_plain(mode, ok, done, active, frozen, it, iters, limit, passes, go, floor)
 
 
 def run_loop(body, state: LoopState, limit: int, mode: int, *, use_kernel: bool,
-             frozen=None, iters=None, graph=None):
-    """``lax.while_loop``: while ``state.it < limit`` and some frame is
-    active (not done, not frozen), run ``body(tail)`` — one pass, which
-    writes its convergence flags into ``state.ok`` and hands ``tail`` (the
-    bookkeeping of ``mode``, a :class:`LoopTail`) to its last kernel.
+             frozen=None, iters=None, graph=None, floor=0, lane_passes=None):
+    """``lax.while_loop``: while ``state.it < limit`` and more than ``floor``
+    frames are active (not done, not frozen; ``floor`` 0: any), run
+    ``body(tail)`` — one pass, which writes its convergence flags into
+    ``state.ok`` and hands ``tail`` (the bookkeeping of ``mode``, a
+    :class:`LoopTail`, which adds the width to ``lane_passes`` where given)
+    to its last kernel.
 
     ``graph`` (a :class:`Graph` being captured) makes it a WHILE node;
     otherwise the loop fetches the condition byte after every pass."""
 
     def tail(handle=None, passes=None):
         return LoopTail(mode, state.done, state.active, frozen, state.it, iters, limit,
-                        state.go, state.ticket, passes, handle)
+                        state.go, state.ticket, passes, handle, floor, lane_passes)
 
     def entry(handle=None):
         loop_step(ENTRY, state.ok, state.done, state.active, frozen, state.it, iters, limit,
-                  use_kernel=use_kernel, go=state.go, handle=handle)
+                  use_kernel=use_kernel, go=state.go, handle=handle, floor=floor)
 
     if graph is not None:
         handle = graph.handle()
@@ -311,11 +338,12 @@ class Lanes:
     ``mode`` (its bookkeeping: FLOODING, or LAYERED, which also carries
     ``iters``), ``pass_(tail)`` (one pass over the active lanes, allocating
     nothing), ``compacted(n)`` (an instance of the same schedule over ``n``
-    lanes, its tensors and loop state unset: ``fill=False``),
-    ``gathered()`` (the tensors phase B reads, each with its lane axis) and
-    ``returned()`` (those of the decode's result that phase B changes, its
-    counts ``iters`` and flags apart), both in the same order on the
-    compacted instance."""
+    lanes, its tensors and loop state unset: ``fill=False``, sharing this
+    instance's pass count ``it``), ``gathered()`` (the tensors a rung
+    reads, each with its lane axis), ``carried()`` (those a pass changes,
+    its counts ``iters`` and flags apart: what a rung hands back for the
+    next) and ``returned()`` (those of the decode's result, its counts and
+    flags apart), each in the same order on the compacted instance."""
 
     mode: int
     iters: torch.Tensor
@@ -325,13 +353,13 @@ class Lanes:
         self.loop = LoopState(done, it, fill)
         self.use_kernel = use_kernel
 
-    def run(self, limit: int, graph, frozen=None) -> None:
+    def run(self, limit: int, graph, floor: int = 0, lane_passes=None) -> None:
         """The early-exit loop (``lax.while_loop``) up to ``limit`` passes in
-        all; ``frozen`` ([B] bool) marks lanes whose bookkeeping must not
-        change (phase C: the compacted lanes)."""
+        all, while more than ``floor`` lanes are active; ``lane_passes``
+        gains the width a pass."""
         run_loop(self.pass_, self.loop, limit, self.mode, use_kernel=self.use_kernel,
-                 frozen=frozen, iters=self.iters if self.mode == LAYERED else None,
-                 graph=graph)
+                 iters=self.iters if self.mode == LAYERED else None, graph=graph,
+                 floor=floor, lane_passes=lane_passes)
 
 
 def lanes_like(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
@@ -341,58 +369,127 @@ def lanes_like(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     return torch.empty(shape, dtype=x.dtype, device=x.device)
 
 
+def compacting(B: int, opts) -> bool:
+    """Whether a decode of ``B`` lanes under ``opts`` runs residency
+    compaction: ``0 < compact_lanes < B`` and ``compact_after <
+    max_iterations``."""
+    return 0 < opts.compact_lanes < B and opts.compact_after < opts.max_iterations
+
+
+def ladder(B: int, B2: int) -> list[int]:
+    """The rungs below a batch of ``B`` lanes, widest first: the width
+    halves while its half still exceeds ``B2``, then ``B2`` (512 -> 128:
+    ``[256, 128]``)."""
+    widths, w = [], B
+    while w // 2 > B2:
+        w //= 2
+        widths.append(w)
+    return widths + [B2]
+
+
+def loops_per_decode(B: int, opts) -> int:
+    """Conditional bodies one decode of ``B`` lanes holds: the early-exit
+    loop's WHILE node, or under compaction phase A's, the ladder's IF node
+    and its full-width loop, and an IF node and a loop for each rung.  A
+    program of several decodes (a trial chunk) sizes its graph with the
+    sum."""
+    return 3 + 2 * len(ladder(B, opts.compact_lanes)) if compacting(B, opts) else 1
+
+
 def run_schedule(lanes: Lanes, opts, graph) -> None:
     """A decode's loops over ``lanes`` under ``opts`` (``DecodeOptions``):
-    one early-exit loop up to ``max_iterations``, or the residency-compaction
-    schedule when ``0 < compact_lanes < B`` and ``compact_after <
-    max_iterations``.  Its phase A runs ``compact_after`` passes on the full
-    batch; the partition picks the unconverged lanes, at most
-    ``compact_lanes`` of them (``k``); phase B, an IF node that runs only
-    when ``k > 0``, gathers them into the compacted lanes, finishes them and
-    scatters them back; phase C (``lax.cond``: a loop whose entry test is the
-    overflow predicate) continues any lanes left over from their phase-A
-    state, the moved lanes frozen.  Every lane's trajectory is the plain
-    loop's, merely re-scheduled.  ``lanes.loop.done`` holds the flags
-    afterwards."""
-    B, B2 = lanes.loop.done.shape[0], opts.compact_lanes
-    if not (0 < B2 < B and opts.compact_after < opts.max_iterations):
-        lanes.run(opts.max_iterations, graph)
+    one early-exit loop up to ``max_iterations``, or residency compaction
+    (:func:`compacting`).  Its phase A runs ``compact_after`` passes on the
+    full batch, and a partition reads the lanes left unconverged.
+
+    Where they fit ``compact_lanes`` (B2), phase B, an IF node run only when
+    a lane is left, gathers them into B2 lanes, finishes them and scatters
+    them back.  Where they overflow B2, the batch descends a ladder of
+    halving widths (:func:`ladder`) inside an IF node instead: the full
+    batch goes on while its live lanes would not fit half of it (the loop's
+    floor); then each rung's partition moves the live lanes into the
+    narrowest rung that holds them, and that rung runs while they would not
+    fit the next (an IF node around its gather, loop and scatter back into
+    the batch); the partition for the narrowest rung, last in the ladder,
+    sets phase B's IF node anew, and that rung runs to the cap.  So a
+    converged lane gives up its slot within a halving of the batch, where
+    phase C used to run the overflow lanes at full width after phase B.
+    Every rung shares the batch's pass count, so the rungs run the plain
+    loop's passes one after another, and every lane's trajectory is the
+    plain loop's, merely re-scheduled.  The graph is a function of the
+    shapes alone: the data picks which IF nodes run.  ``lanes.loop.done``
+    holds the flags afterwards."""
+    B, cap = lanes.loop.done.shape[0], opts.max_iterations
+    if not compacting(B, opts):
+        lanes.run(cap, graph)
         return
     lanes.run(opts.compact_after, graph)
-    part = lanes.compacted(B2)
-    sel = Selection(B, B2, lanes.loop.done.device)
-    handle = None if graph is None else graph.handle()
-    kern = lanes.use_kernel
-    partition(lanes, part, sel, use_kernel=kern, handle=handle)
-    into = list(zip(lanes.gathered(), part.gathered()))
-    back = list(zip(lanes.returned(), part.returned())) + [
-        (lanes.iters, part.iters), (lanes.loop.done, part.loop.done)]
+    dev, kern = lanes.loop.done.device, lanes.use_kernel
+    widths = ladder(B, opts.compact_lanes)
+    below = widths[1:] + [0]
+    lane_passes = compaction_counter(dev).narrow(
+        0, COMPACTION_COUNTS.index("compaction_lane_passes"), 1)
 
-    def phase_b(passes=None):
-        compact_copy(into, sel, scatter=False, use_kernel=kern, passes=passes)
-        part.run(opts.max_iterations, graph)
+    def handle():
+        return None if graph is None else graph.handle()
+
+    # every rung's buffers and handles before the first conditional body
+    rungs = [(lanes.compacted(w), Selection(B, w, dev, below=f, limit=cap, handle=handle()))
+             for w, f in zip(widths, below)]
+    over = torch.empty((1,), dtype=torch.bool, device=dev)
+    over_handle = handle()
+
+    def rung(i, passes=None):
+        part, sel = rungs[i]
+        # a rung hands back what the next rung reads, the narrowest the result
+        handed = (lambda x: x.carried()) if below[i] else (lambda x: x.returned())
+        back = list(zip(handed(lanes), handed(part))) + [
+            (lanes.iters, part.iters), (lanes.loop.done, part.loop.done)]
+        compact_copy(list(zip(lanes.gathered(), part.gathered())), sel, scatter=False,
+                     use_kernel=kern, passes=passes)
+        part.run(cap, graph, floor=below[i], lane_passes=lane_passes)
         compact_copy(back, sel, scatter=True, use_kernel=kern)
 
+    def engage(i):
+        sel = rungs[i][1]
+        if graph is not None:
+            graph.conditional(IF, sel.handle, lambda passes: rung(i, passes))
+        elif bool(sel.go):  # the eager program's host read, one a rung
+            rung(i)
+
+    def descend(passes=None):
+        lanes.run(cap, graph, floor=widths[0], lane_passes=lane_passes)
+        for i in range(len(widths) - 1):
+            partition(lanes, *rungs[i], use_kernel=kern, first=False)
+            engage(i)
+        partition(lanes, *rungs[-1], use_kernel=kern, first=False, passes=passes)
+
+    partition(lanes, *rungs[-1], use_kernel=kern, over=over, over_handle=over_handle)
     if graph is not None:
-        graph.conditional(IF, handle, phase_b)
-    elif bool(sel.go):  # the eager program's host read, one a batch
-        phase_b()
-    lanes.run(opts.max_iterations, graph, frozen=sel.frozen)
+        graph.conditional(IF, over_handle, descend)
+    elif bool(over):
+        descend()
+    engage(len(widths) - 1)
 
 
 class Selection:
-    """Phase B's choice of lanes over a batch of ``B``: ``idx [B2]`` int32
-    (the flags' stable order, unconverged lanes first, cut to ``B2``), ``k``
-    ([1] int32: the lanes moved, ``min(#unconverged, B2)``), ``go`` ([1]
-    bool: ``k > 0``), ``frozen [B]`` bool (the moved lanes) and ``counts``
-    (:func:`compaction_counter`).  The partition writes every one of them."""
+    """A rung's choice of lanes over a batch of ``B``: ``idx [W]`` int32
+    (the flags' stable order, unconverged lanes first, cut to the rung's
+    ``W`` lanes), ``k`` ([1] int32: ``min(#unconverged, W)``), ``go`` ([1]
+    bool: the rung runs, when ``0 < #unconverged <= W``, more than
+    ``below`` (the next narrower rung's lanes) and the pass count under
+    ``limit``), ``handle`` (inside a capture, the condition of the IF node
+    around the rung) and ``counts`` (:func:`compaction_counter`).  A
+    partition writes ``idx``, ``k`` and ``go``."""
 
-    def __init__(self, B: int, B2: int, device):
+    def __init__(self, B: int, W: int, device, below: int = 0, limit: int = 2 ** 31 - 1,
+                 handle=None):
         def empty(n, dtype):
             return torch.empty((n,), dtype=dtype, device=device)
 
-        self.idx, self.k = empty(B2, torch.int32), empty(1, torch.int32)
-        self.go, self.frozen = empty(1, torch.bool), empty(B, torch.bool)
+        self.B, self.below, self.limit, self.handle = B, below, limit, handle
+        self.idx = empty(W, torch.int32)
+        self.k, self.go = empty(1, torch.int32), empty(1, torch.bool)
         self.counts = compaction_counter(device)
 
 
@@ -401,10 +498,11 @@ _counters_lock = threading.Lock()
 
 
 def compaction_counter(device) -> torch.Tensor:
-    """The device's int64 ``[4]`` counter of :data:`COMPACTION_COUNTS`, made
-    at first use (before any capture: :class:`Graph` asks for it) and read
-    with the launch counts (``_build.launch_counts``, which a reset zeroes).
-    Every partition on the device adds to it, in a graph or eagerly."""
+    """The device's int64 counter of :data:`COMPACTION_COUNTS`, made at
+    first use (before any capture: :class:`Graph` asks for it) and read with
+    the launch counts (``_build.launch_counts``, which a reset zeroes).
+    Every partition and every loop after phase A on the device adds to it,
+    in a graph or eagerly."""
     device = canonical_device(device)
     with _counters_lock:
         counter = _counters.get(device)
@@ -420,19 +518,20 @@ class _PartitionArgs(ctypes.Structure):
     """``struct Partition`` of ``csrc/device_loop.cu``, field for field."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "done", "iters", "it", "idx", "k", "go", "frozen", "part_done", "part_iters",
-        "part_it", "part_ok", "part_active", "part_ticket", "counts")] + [
-        ("handle", ctypes.c_ulonglong), ("B", ctypes.c_int), ("B2", ctypes.c_int),
-        ("set_handle", ctypes.c_int)]
+        "done", "iters", "it", "idx", "k", "go", "part_done", "part_iters", "part_ok",
+        "part_active", "part_ticket", "over", "counts", "passes")] + [
+        ("handle", ctypes.c_ulonglong), ("over_handle", ctypes.c_ulonglong)] + [
+        (name, ctypes.c_int) for name in ("B", "W", "below", "limit", "first", "set_handle")]
 
 
-def partition_plain(lanes: Lanes, part: Lanes, sel: Selection) -> None:
+def partition_plain(lanes: Lanes, part: Lanes, sel: Selection, first: bool = True,
+                    over=None, passes=None) -> None:
     """Plain version of the partition kernel, as the kernel computes it: each
     lane's place in the stable order from the count of unconverged lanes
-    before it; the order's first ``B2`` lanes into ``sel.idx``, their
-    flags and counts into the part's, ``k``, ``go``, ``frozen``, the part's
-    pass count and loop state, and the counter."""
-    done, B2 = lanes.loop.done, sel.idx.shape[0]
+    before it; the order's first ``W`` lanes into ``sel.idx``, their flags
+    and counts into the part's, ``k``, ``go``, the part's loop state, and the
+    counter; after phase A (``first``) also ``over``."""
+    done, W = lanes.loop.done, sel.idx.shape[0]
     B, device = done.shape[0], done.device
     u = ~done
     before = torch.cumsum(u, 0, dtype=torch.int32) - u.to(torch.int32)
@@ -440,43 +539,59 @@ def partition_plain(lanes: Lanes, part: Lanes, sel: Selection) -> None:
     pos = torch.where(u, before, n + torch.arange(B, dtype=torch.int32, device=device) - before)
     order = torch.empty((B,), dtype=torch.int32, device=device)
     order[pos.long()] = torch.arange(B, dtype=torch.int32, device=device)
-    idx = order[:B2]
-    k = n.clamp(max=B2)
+    idx = order[:W]
+    k = n.clamp(max=W)
+    engage = (n > 0) & (n <= W) & (n > sel.below) & (lanes.loop.it[0] < sel.limit)
+    overflow = (n > W) & first
     sel.idx.copy_(idx)
     sel.k.copy_(k.reshape(1))
-    sel.go.copy_((k > 0).reshape(1))
-    sel.frozen.copy_(u & (before < B2))
+    sel.go.copy_(engage.reshape(1))
     ploop = part.loop
     ploop.done.copy_(done[idx.long()])
     part.iters.copy_(lanes.iters[idx.long()])
-    ploop.it.copy_(lanes.loop.it)
     ploop.ok.fill_(True)
     ploop.active.zero_()
     ploop.ticket.zero_()
-    sel.counts += torch.stack([torch.ones_like(k), (k > 0).to(k.dtype), k,
-                               (n > B2).to(k.dtype)]).to(torch.int64)
+    if over is not None:
+        over.copy_(overflow.reshape(1))
+    if passes is not None:
+        passes += 1
+    zero = torch.zeros_like(k)
+    if first:
+        counts = [torch.ones_like(k), (k > 0).to(k.dtype), k, overflow.to(k.dtype),
+                  overflow.to(k.dtype), zero, zero]
+    else:
+        counts = [zero] * 5 + [engage.to(k.dtype), k * engage]
+    sel.counts += torch.stack(counts + [zero]).to(torch.int64)
 
 
-def partition_cuda(lanes: Lanes, part: Lanes, sel: Selection, handle=None) -> None:
+def partition_cuda(lanes: Lanes, part: Lanes, sel: Selection, first: bool = True, over=None,
+                   over_handle=None, passes=None) -> None:
     done, ploop = lanes.loop.done, part.loop
-    B, B2 = done.shape[0], sel.idx.shape[0]
-    flags = [(done, B), (sel.frozen, B), (ploop.done, B2), (ploop.ok, B2),
-             (ploop.active, B2), (sel.go, 1)]
-    ints = [(lanes.iters, B), (lanes.loop.it, 1), (sel.idx, B2), (sel.k, 1),
-            (part.iters, B2), (ploop.it, 1), (ploop.ticket, 1)]
+    B, W = done.shape[0], sel.idx.shape[0]
+    flags = [(done, B), (ploop.done, W), (ploop.ok, W), (ploop.active, W), (sel.go, 1)] + (
+        [] if over is None else [(over, 1)])
+    ints = [(lanes.iters, B), (lanes.loop.it, 1), (sel.idx, W), (sel.k, 1),
+            (part.iters, W), (ploop.ticket, 1)]
     if any(t.shape != (n,) or t.dtype != torch.bool for t, n in flags) or any(
             t.shape != (n,) or t.dtype != torch.int32 for t, n in ints):
-        raise ValueError("partition: bool flags and int32 counts of B, B2 or 1 lanes")
-    tensors = [t for t, _ in flags + ints] + [sel.counts]
+        raise ValueError("partition: bool flags and int32 counts of B, W or 1 lanes")
+    tensors = [t for t, _ in flags + ints] + [sel.counts] + ([] if passes is None else [passes])
     if done.device.type != "cuda" or any(
             t.device != done.device or not t.is_contiguous() for t in tensors):
         raise ValueError("partition needs contiguous CUDA tensors on one device")
+    if sel.handle is not None and first and over_handle is None:
+        raise ValueError("the partition after phase A sets the ladder's IF node too")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     args = _PartitionArgs(
         done.data_ptr(), lanes.iters.data_ptr(), lanes.loop.it.data_ptr(), sel.idx.data_ptr(),
-        sel.k.data_ptr(), sel.go.data_ptr(), sel.frozen.data_ptr(), ploop.done.data_ptr(),
-        part.iters.data_ptr(), ploop.it.data_ptr(), ploop.ok.data_ptr(),
-        ploop.active.data_ptr(), ploop.ticket.data_ptr(), sel.counts.data_ptr(),
-        handle or 0, B, B2, int(handle is not None))
+        sel.k.data_ptr(), sel.go.data_ptr(), ploop.done.data_ptr(), part.iters.data_ptr(),
+        ploop.ok.data_ptr(), ploop.active.data_ptr(), ploop.ticket.data_ptr(), ptr(over),
+        sel.counts.data_ptr(), ptr(passes), sel.handle or 0, over_handle or 0, B, W,
+        sel.below, sel.limit, int(first), int(sel.handle is not None))
     fn = _build.function("device_loop", KERNEL_PARTITION, [ctypes.c_void_p, ctypes.c_void_p])
     with torch.cuda.device(done.device):
         err = fn(ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
@@ -484,14 +599,17 @@ def partition_cuda(lanes: Lanes, part: Lanes, sel: Selection, handle=None) -> No
 
 
 def partition(lanes: Lanes, part: Lanes, sel: Selection, *, use_kernel: bool,
-              handle=None) -> None:
-    """Phase B's choice of lanes after phase A: the kernel when
-    ``use_kernel`` (``handle``, inside a capture, the IF node's condition),
-    else the plain version."""
+              first: bool = True, over=None, over_handle=None, passes=None) -> None:
+    """A rung's choice of lanes: the kernel when ``use_kernel`` (inside a
+    capture it sets ``sel.handle``, and after phase A ``over_handle``), else
+    the plain version.  ``first``: the partition after phase A, which counts
+    the batch and writes ``over`` ([1] bool, or None: the lanes left
+    overflow the rung); otherwise it counts a rung it engages.  ``passes``
+    (the enclosing body's counter) gains one."""
     if use_kernel:
-        partition_cuda(lanes, part, sel, handle)
+        partition_cuda(lanes, part, sel, first, over, over_handle, passes)
     else:
-        partition_plain(lanes, part, sel)
+        partition_plain(lanes, part, sel, first, over, passes)
 
 
 def lane_axis(full: torch.Tensor, part: torch.Tensor) -> int:
@@ -551,7 +669,7 @@ def compact_copy_plain(pairs, sel: Selection, scatter: bool, passes=None) -> Non
 
 
 def compact_copy_cuda(pairs, sel: Selection, scatter: bool, passes=None) -> None:
-    B, B2 = sel.frozen.shape[0], sel.idx.shape[0]
+    B, B2 = sel.B, sel.idx.shape[0]
     if not 0 < len(pairs) <= MAX_COPIES:
         raise ValueError(f"one launch moves 1 to {MAX_COPIES} tensors")
     plan = _CopyPlanArgs()
@@ -559,7 +677,7 @@ def compact_copy_cuda(pairs, sel: Selection, scatter: bool, passes=None) -> None
     for i, (full, part) in enumerate(pairs):
         d = lane_axis(full, part)
         if full.shape[d] != B or part.shape[d] != B2:
-            raise ValueError(f"phase B's tensors hold {B} and {B2} lanes")
+            raise ValueError(f"a rung's tensors hold {B} and {B2} lanes")
         if dev.type != "cuda" or any(t.device != dev or not t.is_contiguous()
                                      for t in (full, part)):
             raise ValueError("the compaction's copies need contiguous CUDA tensors on one device")
@@ -605,7 +723,7 @@ class Graph:
     conditional nodes (WHILE and IF, nested up to :data:`MAX_DEPTH` deep) and
     the kernel launches it stands for."""
 
-    def __init__(self, device, loops: int = LOOPS_PER_DECODE):
+    def __init__(self, device, loops: int):
         self.device = torch.device(device)
         self.graph = torch.cuda.CUDAGraph()
         self.stream = torch.cuda.Stream(self.device)
@@ -720,8 +838,8 @@ _caches: dict = {}
 _caches_lock = threading.Lock()
 
 
-def run_graph(key: tuple, program, inputs: tuple, keep=None, device=None,
-              loops: int = LOOPS_PER_DECODE, warmup=None) -> tuple:
+def run_graph(key: tuple, program, inputs: tuple, keep=None, device=None, *, loops: int,
+              warmup=None) -> tuple:
     """Run ``program(*static_inputs, graph)`` as a captured graph on
     ``device`` (default: the first input's): captured at the first call for
     ``key`` on this device, replayed after copying ``inputs`` (on the card,
@@ -774,6 +892,7 @@ def batch_last_decode(kind: str, build, code, llr: torch.Tensor, syndrome: torch
         raise ValueError("llr must be float32 [N, B]")
     syn = syndrome.to(torch.int8)
     if graphs_on(use_kernel, llr.device):
-        return run_graph((kind, code.fingerprint, llr.shape[1], opts), run, (llr, syn),
-                         keep=keep)
+        B = llr.shape[1]
+        return run_graph((kind, code.fingerprint, B, opts), run, (llr, syn), keep=keep,
+                         loops=loops_per_decode(B, opts))
     return run(llr.contiguous(), syn.contiguous(), None)

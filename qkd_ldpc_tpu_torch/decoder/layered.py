@@ -18,7 +18,8 @@ converged frames freeze, failures report ``max_iterations``; both message
 directions clip (there is no unclipped first iteration); storage type,
 min-sum alpha/beta and the int8 quantization points follow
 ``DecodeOptions``; residency compaction is the flooding schedule's
-(``device_loop.run_schedule``, phases A/B/C) and is bit-identical to the
+(``device_loop.run_schedule``: phase A, then phase B or the ladder of
+halving widths) and is bit-identical to the
 plain loop per lane.  Trajectories differ from flooding's by construction.
 
 State layout: ``t [nb, B, z]`` float32 totals, ``Lr [ncells, B, z]``
@@ -35,7 +36,7 @@ what runs for CPU tensors and under ``backend="xla"``.  The early-exit loop
 and the compaction are ``decoder.device_loop.run_schedule`` over the sweep's
 lanes (``_SweepLanes``), with the layered carry: on the card the
 kernel backend captures the whole decode as one CUDA graph (one WHILE node a
-phase, the carry and the condition kept by the sweep kernel's last block),
+loop, the carry and the condition kept by the sweep kernel's last block),
 elsewhere the same program runs eagerly and fetches the condition after
 every sweep.
 """
@@ -215,7 +216,7 @@ class _SweepLanes(device_loop.Lanes):
     def pass_(self, tail):
         """One sweep of the active lanes, in place; its flags land in
         ``loop.ok``, and the sweep runs the loop's bookkeeping ``tail`` after
-        them.  Allocates nothing on the kernel.  A frozen lane's ``t`` stays
+        them.  Allocates nothing on the kernel.  An inactive lane's ``t`` stays
         put too, because decisions derive from the final ``t``."""
         self.sweep(self.t, self.Lr, self.syn, self.loop.active, out=self.loop.ok,
                    scratch=self.scratch, step=tail)
@@ -224,16 +225,18 @@ class _SweepLanes(device_loop.Lanes):
         like = device_loop.lanes_like
         return _SweepLanes(self.sweep, self.make_scratch, self.use_kernel,
                            *(like(x, 1, n) for x in (self.t, self.Lr, self.syn)),
-                           like(self.iters, 0, n), like(self.loop.done, 0, n),
-                           torch.empty_like(self.loop.it), fill=False)
+                           like(self.iters, 0, n), like(self.loop.done, 0, n), self.loop.it,
+                           fill=False)
 
     def gathered(self):
         return self.t, self.Lr, self.syn
 
+    def carried(self):
+        return self.t, self.Lr
+
     def returned(self):
-        # Decisions derive from t, so the moved lanes' final t lands in the
-        # full slab, where phase C's frozen mask keeps it; phase C reads no
-        # moved lane's messages.
+        # Decisions derive from t, so the narrowest rung hands back its final
+        # t alone: no later pass reads its lanes' messages.
         return (self.t,)
 
 

@@ -517,7 +517,7 @@ class Reconciler:
                 runner = _Runner(_ServeProgram(self.code, self.opts, self.lanes, self.rates,
                                                self.shared_seed, self.device,
                                                blind=kind == "blind"),
-                                 self.device, device_loop.LOOPS_PER_DECODE)
+                                 self.device, device_loop.loops_per_decode(self.lanes, self.opts))
             else:
                 runner = _Runner(_SyndromeProgram(self.code, self.opts, self.lanes, self.device),
                                  self.device, 0)

@@ -382,7 +382,7 @@ def _point_chunk(code, point_key, num_errors, start_offset, total_valid,
     key = ("chunk", code.fingerprint, batch, stride, n_batches, opts, prng)
     return device_loop.run_graph(
         key, lambda v, graph: (program(v, graph),), (x,), keep=program, device=device,
-        loops=device_loop.LOOPS_PER_DECODE * n_batches,
+        loops=device_loop.loops_per_decode(batch, opts) * n_batches,
         warmup=lambda v: program.batch(v, 0, None, *program.buffers()))[0]
 
 

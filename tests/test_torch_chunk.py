@@ -188,7 +188,8 @@ def _fake_graphs(monkeypatch):
 def test_a_sweep_captures_once_per_code(monkeypatch):
     """Points that differ in QBER, key and offset share one graph key (the
     error count is an input, not part of the key); each chunk is one call;
-    the graph holds three loops a batch; results equal the eager path."""
+    the graph holds a decode's conditional bodies a batch; results equal
+    the eager path."""
     _, tc = code_pair("qc")
     _, to = _options("flooding", "min-sum")
     points = [(runner.fold_in(tkeys.master_key(5), i), q) for i, q in
@@ -197,7 +198,7 @@ def test_a_sweep_captures_once_per_code(monkeypatch):
     calls = _fake_graphs(monkeypatch)
     graphed = [_dispatch_point(tc, k, q, 40, BATCH, to, device=CPU) for k, q in points]
     assert len(calls) == 3 and len({key for key, _ in calls}) == 1
-    assert {loops for _, loops in calls} == {device_loop.LOOPS_PER_DECODE * 3}
+    assert {loops for _, loops in calls} == {device_loop.loops_per_decode(BATCH, to) * 3}
     for (fe, qe), (fg, qg) in zip(eager, graphed):
         assert qe == qg
         assert [f.get().tolist() for f in fe] == [f.get().tolist() for f in fg]

@@ -28,16 +28,21 @@ torch.set_num_threads(1)
 
 # (n_err, compact_after, compact_lanes, max_iterations) of 16 frames: the
 # plain loop; phase B only (the unconverged minority fits the compacted
-# lanes); a forced phase-C overflow (more unconverged lanes than compacted
-# ones at a high QBER); every lane
-# converged inside phase A (phase B and C run no pass).
+# lanes); a forced overflow (more unconverged lanes than compacted ones at a
+# high QBER: the ladder, which flooding leaves at its 8-lane rung and layered,
+# compacted to 3, takes down through 8 and 4); every lane converged inside
+# phase A (no rung runs a pass); the ladder through 8 and 4 lanes before the
+# cap; and an overflow whose live lanes never fall to 8, so the full batch
+# runs to the cap.
 REGIMES = {
     "flooding": {
         "plain": (16, 0, 0, 25), "phase-b": (14, 6, 8, 25),
-        "phase-c": (20, 8, 4, 25), "all-in-phase-a": (10, 6, 4, 25)},
+        "phase-c": (20, 8, 4, 25), "all-in-phase-a": (10, 6, 4, 25),
+        "ladder": (16, 6, 4, 25), "full-width": (24, 8, 4, 25)},
     "layered": {
         "plain": (28, 0, 0, 20), "phase-b": (24, 5, 8, 20),
-        "phase-c": (28, 4, 3, 20), "all-in-phase-a": (20, 5, 4, 20)},
+        "phase-c": (28, 4, 3, 20), "all-in-phase-a": (20, 5, 4, 20),
+        "ladder": (28, 3, 4, 20), "full-width": (32, 4, 4, 20)},
 }
 CODES = {"flooding": "irregular", "layered": "qc"}
 
@@ -90,21 +95,23 @@ def test_decode_program_equals_jax_per_lane(schedule, regime, algorithm, monkeyp
     if regime == "plain":
         assert len(loops) == 1
         return
-    if regime == "all-in-phase-a":
-        # no lane left after phase A: phase B's IF node skips its loop
-        assert len(loops) == 2  # phases A and C
-        (lim_a, _, it_a), (_, pass_c, _) = loops
-        assert lim_a == k1 and it_a <= k1
-        assert ok.all() and iters.max() <= k1 and pass_c == 0
-        return
-    assert len(loops) == 3  # phases A, B and C
-    (lim_a, _, it_a), (_, pass_b, _), (_, pass_c, _) = loops
+    (lim_a, _, it_a) = loops[0]
     assert lim_a == k1 and it_a <= k1
+    if regime == "all-in-phase-a":
+        # no lane left after phase A: phase B's IF node and the ladder's skip
+        assert len(loops) == 1
+        assert ok.all() and iters.max() <= k1
+        return
     unconverged_after_a = int(((iters > it_a) | ~ok).sum())
     if regime == "phase-b":
-        assert pass_b > 0 and pass_c == 0 and unconverged_after_a <= b2
-    else:
-        assert pass_c > 0 and int((iters > k1).sum()) > b2
+        assert len(loops) == 2  # phases A and B
+        assert loops[1][1] > 0 and unconverged_after_a <= b2
+    else:  # the ladder: the full batch's loop (none where half the batch is left),
+        # then a loop a rung engaged
+        assert len(loops) >= 3 and int((iters > k1).sum()) > b2
+        assert sum(passes for _, passes, _ in loops[1:]) > 0
+        # the rungs run the pass count on, one after another, to the end
+        assert all(a[2] <= b[2] - b[1] for a, b in zip(loops[1:], loops[2:]))
 
 
 # (B, B2, unconverged lanes after phase A): k = 0; 0 < k < B2; k = B2
@@ -123,17 +130,18 @@ def _lanes(done, iters, it, fill=True):
     return lanes
 
 
-def _partitioned(B, B2, n, seed):
+def _partitioned(B, B2, n, seed, below=0, limit=2 ** 31 - 1):
     """A batch of B lanes, n of them unconverged at random places, its
-    compacted twin of B2 lanes (unset) and the partition's choice."""
+    compacted twin of B2 lanes (unset, sharing the batch's pass count) and
+    the partition's choice."""
     g = torch.Generator().manual_seed(seed)
     done = torch.ones(B, dtype=torch.bool)
     done[torch.randperm(B, generator=g)[:n]] = False
     iters = torch.randint(0, 50, (B,), dtype=torch.int32, generator=g)
     lanes = _lanes(done, iters, torch.tensor([7], dtype=torch.int32))
     part = _lanes(torch.empty(B2, dtype=torch.bool), torch.empty(B2, dtype=torch.int32),
-                  torch.empty(1, dtype=torch.int32), fill=False)
-    sel = device_loop.Selection(B, B2, "cpu")
+                  lanes.loop.it, fill=False)
+    sel = device_loop.Selection(B, B2, "cpu", below=below, limit=limit)
     return lanes, part, sel
 
 
@@ -141,26 +149,36 @@ def _partitioned(B, B2, n, seed):
 def test_plain_partition_is_the_stable_argsort(case):
     """The partition's plain version (a prefix count, as the kernel) picks
     the lanes that the parent's ``argsort(done, stable=True)[:B2]`` picked,
-    moves k = min(#unconverged, B2) of them, freezes exactly those, gives
-    the part the flags, counts and pass count ``index_select`` gave it and
-    the loop state ``LoopState``'s fills gave it, and counts the batch."""
+    moves k = min(#unconverged, B2) of them, gives the part the flags and
+    counts ``index_select`` gave it and the loop state ``LoopState``'s
+    fills gave it, and counts the batch; after phase A it flags an
+    overflow, and a rung's partition (not the first) runs its rung only for
+    lanes that fit it and not the next, and counts the rung."""
     B, B2, n = PARTITIONS[case]
     lanes, part, sel = _partitioned(B, B2, n, seed=B + n)
     done = lanes.loop.done
     before = sel.counts.clone()
-    device_loop.partition(lanes, part, sel, use_kernel=False)
+    over = torch.empty(1, dtype=torch.bool)
+    device_loop.partition(lanes, part, sel, use_kernel=False, over=over)
     want = torch.argsort(done.to(torch.int32), stable=True)[:B2]
     k = min(n, B2)
     assert torch.equal(sel.idx.long(), want)
-    assert int(sel.k) == k and bool(sel.go) == (k > 0)
-    frozen = torch.zeros(B, dtype=torch.bool).index_fill_(0, want[:k], True)
-    assert torch.equal(sel.frozen, frozen)
+    assert int(sel.k) == k and bool(sel.go) == (0 < n <= B2) and bool(over) == (n > B2)
     assert torch.equal(part.loop.done, done[want])
     assert torch.equal(part.iters, lanes.iters[want])
     assert int(part.loop.it) == 7
     assert bool(part.loop.ok.all()) and not bool(part.loop.active.any())
     assert int(part.loop.ticket) == 0
-    assert (sel.counts - before).tolist() == [1, int(k > 0), k, int(n > B2)]
+    assert (sel.counts - before).tolist() == [1, int(k > 0), k, int(n > B2), int(n > B2),
+                                              0, 0, 0]
+    for below, limit in ((B2 // 3, 9), (B2 // 3, 7), (0, 9)):
+        lanes, part, sel = _partitioned(B, B2, n, seed=B + n, below=below, limit=limit)
+        before, passes = sel.counts.clone(), torch.zeros(1, dtype=torch.int64)
+        device_loop.partition(lanes, part, sel, use_kernel=False, first=False, passes=passes)
+        go = below < n <= B2 and 0 < n and 7 < limit
+        assert torch.equal(sel.idx.long(), want) and int(sel.k) == k and bool(sel.go) == go
+        assert int(passes) == 1
+        assert (sel.counts - before).tolist() == [0] * 5 + [int(go), k * go, 0]
 
 
 # Phase B's tensors in each layout: batch-last (the flooding state: [N, B],
@@ -219,15 +237,43 @@ def test_plain_gather_and_scatter_move_the_chosen_lanes(layout, dtype):
             assert torch.equal(full, w)
 
 
-@pytest.mark.parametrize("regime", ["plain", "phase-b", "phase-c", "all-in-phase-a"])
+def _schedule_counts(conv, B, k1, b2, cap):
+    """The compaction counter a batch adds, and the rungs that engage, from
+    each lane's converging pass ``conv`` (past ``cap`` for a failing lane):
+    the statement of ``run_schedule`` that the tests hold it to.  After a
+    pass ``t``, ``live(t)`` lanes are left; a loop on ``w`` lanes with floor
+    ``f`` runs passes while ``live > f`` and passes are left."""
+    def live(t):
+        return int((conv > t).sum())
+
+    n, t = live(k1), k1
+    counts = [1, int(n > 0), min(n, b2), int(n > b2), int(n > b2), 0, 0, 0]
+    widths = [b2] if n <= b2 else [B] + device_loop.ladder(B, b2)
+    floors = widths[1:] + [0]
+    for i, (w, f) in enumerate(zip(widths, floors)):
+        if i or n <= b2:  # a rung's partition, or phase B's
+            m = live(t)
+            if not (0 < m <= w and m > f and t < cap):
+                continue
+            if n > b2:
+                counts[5:7] = [counts[5] + 1, counts[6] + m]
+        while t < cap and live(t) > f:
+            t += 1
+            counts[7] += w
+    return counts
+
+
+@pytest.mark.parametrize("regime", ["plain", "phase-b", "phase-c", "all-in-phase-a", "ladder",
+                                    "full-width"])
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
 def test_compacted_decode_equals_the_plain_loop_per_lane(schedule, regime):
-    """Compaction through the partition, the gather of the unconverged
-    lanes alone and the scatter of the decode's result gives every lane the
-    plain loop's decisions, iterations and verdict bit for bit, and the
-    device counter counts what moved: one batch, engaged where a lane was
-    left after phase A, the lanes moved, an overflow past the compacted
-    lanes."""
+    """Compaction through the partitions, the gathers of the unconverged
+    lanes alone and the scatters back gives every lane the plain loop's
+    decisions, iterations and verdict bit for bit, whichever rungs of the
+    ladder the batch takes, and the device counter counts what moved: one
+    batch, engaged where a lane was left after phase A, the lanes moved, an
+    overflow past the compacted lanes (the ladder taken), the rungs the
+    ladder engaged and their lanes, and the lane-passes after phase A."""
     n_err, k1, b2, cap = REGIMES[schedule][regime]
     _, tc = code_pair(CODES[schedule])
     llr, syn = decode_frames(tc, n_err, 16, seed=40)  # REGIMES' frames
@@ -238,16 +284,20 @@ def test_compacted_decode_equals_the_plain_loop_per_lane(schedule, regime):
     got = tbp.decode(tc, llr, syn, tbp.DecodeOptions(**kw, compact_after=k1, compact_lanes=b2),
                      device="cpu")
     assert_equal(tuple(x.numpy() for x in got), tuple(x.numpy() for x in plain))
-    left = int(((got.iterations > k1) | ~got.syndromes_match).sum())
-    want = [0, 0, 0, 0] if regime == "plain" else [1, int(left > 0), min(left, b2),
-                                                   int(left > b2)]
+    conv = torch.where(plain.syndromes_match, plain.iterations, cap + 1)
+    left = int((conv > k1).sum())
+    want = [0] * 8 if regime == "plain" else _schedule_counts(conv, 16, k1, b2, cap)
     assert (counter - before).tolist() == want
-    assert {"plain": left >= 0, "phase-b": 0 < left <= b2, "phase-c": left > b2,
-            "all-in-phase-a": left == 0}[regime]
+    rungs = want[5]
+    assert {"plain": left >= 0, "phase-b": 0 < left <= b2, "phase-c": left > b2 and rungs > 0,
+            "all-in-phase-a": left == 0, "full-width": left > b2 and rungs == 0
+            and int((conv > cap - 1).sum()) > 8,
+            "ladder": left > 8 and rungs >= 2 and int((conv >= cap).sum()) <= b2}[regime]
 
 
-def _reference_step(mode, ok, done, active, frozen, it, iters, limit):
-    """numpy statement of the carry (JAX bp.py:434-452, layered.py:215-225)."""
+def _reference_step(mode, ok, done, active, frozen, it, iters, limit, floor=0):
+    """numpy statement of the carry (JAX bp.py:434-452, layered.py:215-225),
+    with the ladder's floor on the active frames (0: JAX's any)."""
     done, iters = done.copy(), iters.copy()
     if mode != device_loop.ENTRY:
         newly = active & ok & ~done
@@ -256,7 +306,7 @@ def _reference_step(mode, ok, done, active, frozen, it, iters, limit):
         if mode == device_loop.LAYERED:
             iters[newly] = it
     act = ~done if frozen is None else ~done & ~frozen
-    return done, act, it, iters, bool(it < limit and act.any())
+    return done, act, it, iters, bool(it < limit and act.sum() > floor)
 
 
 @pytest.mark.parametrize("with_frozen", [False, True])
@@ -269,21 +319,88 @@ def test_loop_step_plain_is_the_carry(mode, with_frozen):
     active &= ~done
     frozen = rng.random(B) < 0.2 if with_frozen else None
     iters = rng.integers(0, 9, B).astype(np.int32)
-    for it0, limit in ((3, 9), (8, 9)):
+    n_live = _reference_step(mode, ok, done, active, frozen, 3, iters, 9)[1].sum()
+    # the ladder's floors: just under the live frames (go), and at them (stop)
+    for it0, limit, floor in ((3, 9, 0), (8, 9, 0), (3, 9, n_live - 1), (3, 9, n_live)):
         t = {k: torch.from_numpy(np.array(v)) for k, v in dict(
             ok=ok, done=done, active=active, iters=iters).items()}
         it = torch.tensor([it0], dtype=torch.int32)
         go = torch.zeros(1, dtype=torch.bool)
         passes = torch.zeros((), dtype=torch.int64)
-        device_loop.loop_step(mode, t["ok"], t["done"], t["active"],
-                              None if frozen is None else torch.from_numpy(frozen), it,
-                              t["iters"], limit, use_kernel=False, passes=passes, go=go)
-        want = _reference_step(mode, ok, done, active, frozen, it0, iters, limit)
+        if mode == device_loop.ENTRY:
+            device_loop.loop_step(mode, t["ok"], t["done"], t["active"],
+                                  None if frozen is None else torch.from_numpy(frozen), it,
+                                  t["iters"], limit, use_kernel=False, passes=passes, go=go,
+                                  floor=int(floor))
+            lanes = 0
+        else:
+            lane_passes = torch.zeros(1, dtype=torch.int64)
+            device_loop.LoopTail(mode, t["done"], t["active"], None if frozen is None else
+                                 torch.from_numpy(frozen), it, t["iters"], limit, go,
+                                 torch.zeros(1, dtype=torch.int32), passes, None, int(floor),
+                                 lane_passes).plain(t["ok"])
+            lanes = int(lane_passes)
+        want = _reference_step(mode, ok, done, active, frozen, it0, iters, limit, floor)
         np.testing.assert_array_equal(t["done"].numpy(), want[0])
         np.testing.assert_array_equal(t["active"].numpy(), want[1])
         assert int(it) == want[2] and bool(go) == want[4]
         np.testing.assert_array_equal(t["iters"].numpy(), want[3])
         assert int(passes) == (mode != device_loop.ENTRY)
+        assert lanes == (0 if mode == device_loop.ENTRY else B)
+
+
+@pytest.mark.parametrize("B, B2, want", [(512, 128, [256, 128]), (16, 4, [8, 4]),
+                                         (16, 3, [8, 4, 3]), (101, 25, [50, 25]),
+                                         (512, 256, [256]), (10, 9, [9])])
+def test_ladder_halves_from_the_batch_to_compact_lanes(B, B2, want):
+    """The rungs below a batch halve while the half exceeds ``compact_lanes``,
+    then end at it; a decode's graph holds phase A's loop, the ladder's IF
+    node and full-width loop, and an IF node and a loop a rung (one loop
+    without compaction)."""
+    assert device_loop.ladder(B, B2) == want
+    opts = tbp.DecodeOptions(max_iterations=20, compact_after=4, compact_lanes=B2)
+    assert device_loop.loops_per_decode(B, opts) == 3 + 2 * len(want)
+    assert device_loop.loops_per_decode(B, tbp.DecodeOptions(max_iterations=20)) == 1
+    assert device_loop.loops_per_decode(B, tbp.DecodeOptions(
+        max_iterations=4, compact_after=4, compact_lanes=B2)) == 1
+
+
+class _BodyCounter:
+    """Stands in for a :class:`device_loop.Graph` under capture on the CPU: it
+    counts the conditional bodies and their depth, and runs each body once."""
+
+    def __init__(self):
+        self.bodies, self.depth, self.deepest = 0, 0, 0
+
+    def handle(self):
+        return 0
+
+    def conditional(self, kind, handle, body):
+        self.bodies += 1
+        self.depth += 1
+        self.deepest = max(self.deepest, self.depth)
+        try:
+            body(torch.zeros(1, dtype=torch.int64))
+        finally:
+            self.depth -= 1
+
+
+@pytest.mark.parametrize("b2", [4, 3])
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+def test_a_decode_captures_loops_per_decode_bodies(schedule, b2):
+    """The program a decode captures holds exactly ``loops_per_decode``
+    conditional bodies (the trial chunk sizes its graph's counters by it),
+    nested no deeper than a graph allows."""
+    n_err, k1, _, cap = REGIMES[schedule]["ladder"]
+    _, tc = code_pair(CODES[schedule])
+    llr, syn = decode_frames(tc, n_err, 16, seed=40)
+    opts = tbp.DecodeOptions(algorithm="min-sum", max_iterations=cap, schedule=schedule,
+                             compact_after=k1, compact_lanes=b2)
+    run, _, _ = tbp.decode_program(tc, opts, "cpu")
+    graph = _BodyCounter()
+    run(torch.from_numpy(llr).T.contiguous(), torch.from_numpy(syn).T.contiguous(), graph)
+    assert graph.bodies == device_loop.loops_per_decode(16, opts)
+    assert graph.deepest <= device_loop.MAX_DEPTH
 
 
 def test_run_loop_counts_passes_and_tests_before_the_first():
