@@ -3770,6 +3770,7 @@ def _compaction(torch, np, dev, flush, card, code, point_key):
     from qkd_ldpc_tpu_torch.channel import keys
     from qkd_ldpc_tpu_torch.decoder import DecodeOptions, device_loop, layered
     from qkd_ldpc_tpu_torch.decoder.bp import bp_decode_batch_last
+    from qkd_ldpc_tpu_torch.decoder.bp import lane_bytes as program_lane_bytes
     from qkd_ldpc_tpu_torch.decoder.reconcile import apriori_llr
     from qkd_ldpc_tpu_torch.decoder.syndrome import syndrome
     from qkd_ldpc_tpu_torch.sim import run_point
@@ -3819,8 +3820,9 @@ def _compaction(torch, np, dev, flush, card, code, point_key):
                         dl.partition(lanes, pp, sp, use_kernel=False, first=first,
                                      over=op_ if first else None, passes=pass_p)
                         go = 0 < n <= B2 and n > below and 8 < limit
-                        want = ([1, int(k > 0), k, int(n > B2), int(n > B2), 0, 0, 0] if first
-                                else [0] * 5 + [int(go), k * go, 0])
+                        want = ([1, int(k > 0), k, int(n > B2), int(n > B2), 0, 0, 0, 0]
+                                if first else [0] * 5 + [int(go), k * go, 0,
+                                                         k * go * (below == 0)])
                         outs = [(sk.idx, sp.idx), (sk.k, sp.k), (sk.go, sp.go),
                                 (pk.loop.done, pp.loop.done), (pk.iters, pp.iters),
                                 (pk.loop.ok, pp.loop.ok), (pk.loop.active, pp.loop.active),
@@ -3974,6 +3976,8 @@ def _compaction(torch, np, dev, flush, card, code, point_key):
                     batches + rungs * c["ladder_batches"]) or any(
                     counts.get(k, 0) != moves for k in (dl.KERNEL_GATHER, dl.KERNEL_SCATTER)):
                 raise AssertionError(f"compaction counts, {where}: {counts}")
+            c["compaction_bytes"] = dl.compaction_bytes(c, program_lane_bytes(code, o),
+                                                        o.compact_lanes)
             # one batch, per lane: the graph, the eager program, the plain loop
             ne = keys.num_errors_for(code.n_vars, q)
             alice, bob = keys.make_trial_batch(point_key, code.n_vars, BATCH, ne, 0)
@@ -4071,7 +4075,61 @@ def compaction_here() -> int:
     report, _ = _compaction(torch, np, dev, flush, card_name_and_power_limit(), code,
                             derive_point_key(MASTER_SEED, POINT_INDEX))
     print(json.dumps({"compaction": report}), flush=True)
+    del flush
+    print(json.dumps({"long_frame": _long_frame_point(torch, dev)}), flush=True)
     return 0
+
+
+# The long quasi-cyclic code of the frame-scale profile (N 262,144, rows of
+# degree 5 and 6) at QBER 0.07: one point of the benchmark's long-frame cell.
+LONG_CODE = dict(z=2048, nb=128, mb=65, dv=3, seed=1)
+LONG_QBER, LONG_TRIALS, LONG_BATCHES = 0.07, 8192, 16
+
+
+def _long_frame_point(torch, dev):
+    """``--compaction``'s long-frame point: one ``run_point`` of
+    ``LONG_TRIALS`` trials (one chunk of ``LONG_BATCHES`` batches of 512) on
+    the long code with the runner's compaction, after a warm point; its
+    statistics, the compaction counter and ``compaction_bytes`` (the counter's
+    lanes x the program's bytes a lane), the launches a batch, the wall and
+    the peak of device memory."""
+    from qkd_ldpc_tpu_torch import _build
+    from qkd_ldpc_tpu_torch.channel.keys import derive_point_key
+    from qkd_ldpc_tpu_torch.codes import make_qc_code
+    from qkd_ldpc_tpu_torch.decoder import DecodeOptions, device_loop
+    from qkd_ldpc_tpu_torch.decoder.bp import lane_bytes
+    from qkd_ldpc_tpu_torch.sim import run_point
+
+    code = make_qc_code(**LONG_CODE)
+    o = DecodeOptions(algorithm="sum-product", max_iterations=100, clip_messages=True,
+                      message_threshold=100.0, message_dtype="bfloat16", compact_after=8,
+                      compact_lanes=BATCH // 4)
+    key = derive_point_key(MASTER_SEED, POINT_INDEX)
+
+    def point():
+        return run_point(code, key, LONG_QBER, LONG_TRIALS, BATCH, o,
+                         max_batches_per_dispatch=LONG_BATCHES, device=dev)[0]
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    point()  # captures the chunk's graph
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = point()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    c = {name: counts.get(name, 0) for name in device_loop.COMPACTION_COUNTS}
+    lane = lane_bytes(code, o)
+    c["compaction_bytes"] = device_loop.compaction_bytes(c, lane, o.compact_lanes)
+    batches = LONG_TRIALS // BATCH
+    return {"code": dict(LONG_CODE, n_vars=code.n_vars, n_checks=code.n_checks,
+                         n_edges=code.n_edges), "qber": LONG_QBER,
+            "stats": dataclasses.asdict(stats), "wall_s": wall,
+            "trials_per_s": LONG_TRIALS / wall, "counter": c, "lane_bytes": lane._asdict(),
+            "lane_passes_a_batch": c["compaction_lane_passes"] / batches,
+            "launches_a_batch": {name: n / batches for name, n in sorted(counts.items())
+                                 if name not in c},
+            "memory_peak_bytes": torch.cuda.max_memory_allocated(dev)}
 
 
 def _serve_program(torch, np, dev, card, code, point_key, counted):

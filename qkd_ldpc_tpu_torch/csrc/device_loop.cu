@@ -212,6 +212,7 @@ enum Count {
     kBatches, kEngaged, kLanes, kOverflows,  // at the partition after phase A
     kLadderBatches, kRungs, kRungLanes,      // the ladder's
     kLanePasses,                             // the loop tails'
+    kLastRungLanes,                          // of kRungLanes, the narrowest rung's
 };
 
 // decoder/device_loop.py's _PartitionArgs, field for field.
@@ -228,7 +229,7 @@ struct Partition {
     uint8_t* part_active;        // [W]
     int* part_ticket;            // [1]
     uint8_t* over;               // [1] or null: (first) the ladder's IF condition
-    unsigned long long* counts;  // [8] or null: Count
+    unsigned long long* counts;  // [9] or null: Count
     long long* passes;           // [1] or null: the enclosing body's count
     unsigned long long handle;   // the rung's IF node (when set_handle)
     unsigned long long over_handle;  // the ladder's IF node (first, when set_handle)
@@ -300,6 +301,7 @@ __global__ void __launch_bounds__(kThreads) compact_partition_kernel(const Parti
         } else if (c != nullptr && engage) {
             atomicAdd(c + kRungs, 1ull);
             atomicAdd(c + kRungLanes, static_cast<unsigned long long>(k));
+            if (p.below == 0) atomicAdd(c + kLastRungLanes, static_cast<unsigned long long>(k));
         }
         if (p.set_handle) {
             cudaGraphSetConditional(p.handle, engage ? 1u : 0u);

@@ -262,6 +262,21 @@ class _Lanes(device_loop.Lanes):
         return (self.z,)
 
 
+def lane_bytes(code: LDPCCode, opts: DecodeOptions) -> device_loop.LaneBytes:
+    """The bytes of one lane the compaction's copies move in a decode of
+    ``code`` under ``opts``, from the shapes of the schedule's state: flooding
+    ``_Lanes`` (``llr`` float32, ``syn`` int8, ``Lr [dc, M]`` and decisions
+    ``z`` int8), layered ``_SweepLanes`` (``t`` float32, ``Lr`` a message an
+    edge, ``syn`` int8); the way back adds the lane's count and flag."""
+    N, M, w = code.n_vars, code.n_checks, cuda_kernels.STORAGE_DTYPES[opts.message_dtype].itemsize
+    flags = 4 + 1  # iters (int32) and done (bool)
+    if opts.schedule == "layered":
+        state = 4 * N + w * code.n_edges
+        return device_loop.LaneBytes(state + M, state + flags, 4 * N + flags)
+    messages = w * code.dc_max * M
+    return device_loop.LaneBytes(4 * N + M + messages + N, messages + N + flags, N + flags)
+
+
 def _flooding_program(core, llr, syn, opts, graph):
     """The flooding decode of ``llr [N, B]`` float32 toward ``syn [M, B]``
     int8: eagerly (``graph=None``) or as the capture into ``graph``.

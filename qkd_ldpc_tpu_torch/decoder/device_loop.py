@@ -104,10 +104,12 @@ KERNEL_SCATTER = "compact_scatter"
 # k = min(#unconverged, compact_lanes), and batches whose unconverged lanes
 # overflowed compact_lanes.  The ladder's: batches that took it (every
 # overflow), rung compactions run inside it and the lanes they moved.  Every
-# loop after phase A: lane-passes run (a pass adds its width).
+# loop after phase A: lane-passes run (a pass adds its width).  Of the
+# ladder's lanes, those its narrowest rung moved (they go back as the
+# decode's result, a wider rung's as the next rung's state).
 COMPACTION_COUNTS = ("compaction_batches", "compaction_engaged", "compaction_lanes",
                      "compaction_overflows", "ladder_batches", "ladder_rungs",
-                     "ladder_lanes", "compaction_lane_passes")
+                     "ladder_lanes", "compaction_lane_passes", "ladder_last_lanes")
 # Tensors one gather or scatter moves at most (csrc/device_loop.cu).
 MAX_COPIES = 6
 # Kinds of conditional node, and how deep they nest (the continuation: its
@@ -497,6 +499,31 @@ _counters: dict = {}
 _counters_lock = threading.Lock()
 
 
+class LaneBytes(NamedTuple):
+    """The bytes of one lane that the compaction's copies move: into a
+    rung (``compact_gather``: :meth:`Lanes.gathered`), and back
+    (``compact_scatter``, the counts and flags included) from a rung above
+    the narrowest (:meth:`Lanes.carried`) or from the narrowest
+    (:meth:`Lanes.returned`)."""
+
+    gathered: int
+    carried: int
+    returned: int
+
+
+def compaction_bytes(counts, lane: LaneBytes, compact_lanes: int) -> int:
+    """The bytes ``compact_gather`` and ``compact_scatter`` moved, from the
+    counter's lane counts (``counts``: :data:`COMPACTION_COUNTS` by name, as
+    ``_build.launch_counts()`` gives them) of decodes whose lanes weigh
+    ``lane`` and whose narrowest rung holds ``compact_lanes``.  A batch that
+    overflowed counted ``compact_lanes`` at the partition after phase A and
+    moved none there; every other lane counted there went to phase B."""
+    phase_b = counts["compaction_lanes"] - compact_lanes * counts["compaction_overflows"]
+    ladder_lanes, last = counts["ladder_lanes"], counts["ladder_last_lanes"]
+    return ((phase_b + ladder_lanes) * lane.gathered + (phase_b + last) * lane.returned
+            + (ladder_lanes - last) * lane.carried)
+
+
 def compaction_counter(device) -> torch.Tensor:
     """The device's int64 counter of :data:`COMPACTION_COUNTS`, made at
     first use (before any capture: :class:`Graph` asks for it) and read with
@@ -559,10 +586,11 @@ def partition_plain(lanes: Lanes, part: Lanes, sel: Selection, first: bool = Tru
     zero = torch.zeros_like(k)
     if first:
         counts = [torch.ones_like(k), (k > 0).to(k.dtype), k, overflow.to(k.dtype),
-                  overflow.to(k.dtype), zero, zero]
+                  overflow.to(k.dtype), zero, zero, zero, zero]
     else:
-        counts = [zero] * 5 + [engage.to(k.dtype), k * engage]
-    sel.counts += torch.stack(counts + [zero]).to(torch.int64)
+        counts = [zero] * 5 + [engage.to(k.dtype), k * engage, zero,
+                               k * engage * (sel.below == 0)]
+    sel.counts += torch.stack(counts).to(torch.int64)
 
 
 def partition_cuda(lanes: Lanes, part: Lanes, sel: Selection, first: bool = True, over=None,

@@ -13,6 +13,9 @@ CODE_SPECS = {
     # base rows of 15 cells (R = 0.8): above the unrolled sweep instances
     "qc15": ("make_qc_code", dict(z=32, nb=20, mb=4, dv=3, seed=5)),
     "dc12": ("make_code", dict(n=92, m=24, dv=3, seed=3)),  # rows 11 and 12
+    # the long code's base shape (make_qc_code(z=2048, nb=128, mb=65, dv=3,
+    # seed=1)) at a lift of 16: base rows of degree 5 and 6, masked slots
+    "qc_long": ("make_qc_code", dict(z=16, nb=128, mb=65, dv=3, seed=1)),
 }
 _cache = {}
 

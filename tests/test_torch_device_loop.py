@@ -170,7 +170,7 @@ def test_plain_partition_is_the_stable_argsort(case):
     assert bool(part.loop.ok.all()) and not bool(part.loop.active.any())
     assert int(part.loop.ticket) == 0
     assert (sel.counts - before).tolist() == [1, int(k > 0), k, int(n > B2), int(n > B2),
-                                              0, 0, 0]
+                                              0, 0, 0, 0]
     for below, limit in ((B2 // 3, 9), (B2 // 3, 7), (0, 9)):
         lanes, part, sel = _partitioned(B, B2, n, seed=B + n, below=below, limit=limit)
         before, passes = sel.counts.clone(), torch.zeros(1, dtype=torch.int64)
@@ -178,7 +178,8 @@ def test_plain_partition_is_the_stable_argsort(case):
         go = below < n <= B2 and 0 < n and 7 < limit
         assert torch.equal(sel.idx.long(), want) and int(sel.k) == k and bool(sel.go) == go
         assert int(passes) == 1
-        assert (sel.counts - before).tolist() == [0] * 5 + [int(go), k * go, 0]
+        assert (sel.counts - before).tolist() == [0] * 5 + [int(go), k * go, 0,
+                                                            k * go * (below == 0)]
 
 
 # Phase B's tensors in each layout: batch-last (the flooding state: [N, B],
@@ -247,7 +248,7 @@ def _schedule_counts(conv, B, k1, b2, cap):
         return int((conv > t).sum())
 
     n, t = live(k1), k1
-    counts = [1, int(n > 0), min(n, b2), int(n > b2), int(n > b2), 0, 0, 0]
+    counts = [1, int(n > 0), min(n, b2), int(n > b2), int(n > b2), 0, 0, 0, 0]
     widths = [b2] if n <= b2 else [B] + device_loop.ladder(B, b2)
     floors = widths[1:] + [0]
     for i, (w, f) in enumerate(zip(widths, floors)):
@@ -257,6 +258,7 @@ def _schedule_counts(conv, B, k1, b2, cap):
                 continue
             if n > b2:
                 counts[5:7] = [counts[5] + 1, counts[6] + m]
+                counts[8] += m if f == 0 else 0
         while t < cap and live(t) > f:
             t += 1
             counts[7] += w
@@ -266,14 +268,27 @@ def _schedule_counts(conv, B, k1, b2, cap):
 @pytest.mark.parametrize("regime", ["plain", "phase-b", "phase-c", "all-in-phase-a", "ladder",
                                     "full-width"])
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
-def test_compacted_decode_equals_the_plain_loop_per_lane(schedule, regime):
+def test_compacted_decode_equals_the_plain_loop_per_lane(monkeypatch, schedule, regime):
     """Compaction through the partitions, the gathers of the unconverged
     lanes alone and the scatters back gives every lane the plain loop's
     decisions, iterations and verdict bit for bit, whichever rungs of the
     ladder the batch takes, and the device counter counts what moved: one
     batch, engaged where a lane was left after phase A, the lanes moved, an
     overflow past the compacted lanes (the ladder taken), the rungs the
-    ladder engaged and their lanes, and the lane-passes after phase A."""
+    ladder engaged and their lanes, the lane-passes after phase A and the
+    lanes of the narrowest rung in the ladder.  ``compaction_bytes`` of those
+    counts and the program's bytes a lane (``bp.lane_bytes``) is what the
+    gathers and scatters moved: the ``k`` lanes of each tensor they copied."""
+    moved = []
+    real_copy = device_loop.compact_copy_plain
+
+    def copy(pairs, sel, scatter, passes=None):
+        for full, part in pairs:
+            lanes = full.shape[device_loop.lane_axis(full, part)]
+            moved.append(int(sel.k) * full.numel() * full.element_size() // lanes)
+        real_copy(pairs, sel, scatter, passes)
+
+    monkeypatch.setattr(device_loop, "compact_copy_plain", copy)
     n_err, k1, b2, cap = REGIMES[schedule][regime]
     _, tc = code_pair(CODES[schedule])
     llr, syn = decode_frames(tc, n_err, 16, seed=40)  # REGIMES' frames
@@ -281,13 +296,16 @@ def test_compacted_decode_equals_the_plain_loop_per_lane(schedule, regime):
     plain = tbp.decode(tc, llr, syn, tbp.DecodeOptions(**kw), device="cpu")
     counter = device_loop.compaction_counter("cpu")
     before = counter.clone()
-    got = tbp.decode(tc, llr, syn, tbp.DecodeOptions(**kw, compact_after=k1, compact_lanes=b2),
-                     device="cpu")
+    opts = tbp.DecodeOptions(**kw, compact_after=k1, compact_lanes=b2)
+    got = tbp.decode(tc, llr, syn, opts, device="cpu")
     assert_equal(tuple(x.numpy() for x in got), tuple(x.numpy() for x in plain))
     conv = torch.where(plain.syndromes_match, plain.iterations, cap + 1)
     left = int((conv > k1).sum())
-    want = [0] * 8 if regime == "plain" else _schedule_counts(conv, 16, k1, b2, cap)
+    want = ([0] * len(device_loop.COMPACTION_COUNTS) if regime == "plain"
+            else _schedule_counts(conv, 16, k1, b2, cap))
     assert (counter - before).tolist() == want
+    counts = dict(zip(device_loop.COMPACTION_COUNTS, want))
+    assert device_loop.compaction_bytes(counts, tbp.lane_bytes(tc, opts), b2) == sum(moved)
     rungs = want[5]
     assert {"plain": left >= 0, "phase-b": 0 < left <= b2, "phase-c": left > b2 and rungs > 0,
             "all-in-phase-a": left == 0, "full-width": left > b2 and rungs == 0
