@@ -58,7 +58,7 @@ import torch
 from qkd_ldpc_tpu_torch import _build
 from qkd_ldpc_tpu_torch.codes.ldpc_code import LDPCCode
 from qkd_ldpc_tpu_torch.decoder import cuda_kernels, device_loop
-from qkd_ldpc_tpu_torch.decoder.layered import layered_program
+from qkd_ldpc_tpu_torch.decoder.layered import layered_program, sweep_lanes
 from qkd_ldpc_tpu_torch.utils import resolve_device
 
 
@@ -263,36 +263,39 @@ class _Lanes(device_loop.Lanes):
 
 
 def lane_bytes(code: LDPCCode, opts: DecodeOptions) -> device_loop.LaneBytes:
-    """The bytes of one lane the compaction's copies move in a decode of
-    ``code`` under ``opts``, from the shapes of the schedule's state: flooding
-    ``_Lanes`` (``llr`` float32, ``syn`` int8, ``Lr [dc, M]`` and decisions
-    ``z`` int8), layered ``_SweepLanes`` (``t`` float32, ``Lr`` a message an
-    edge, ``syn`` int8); the way back adds the lane's count and flag."""
-    N, M, w = code.n_vars, code.n_checks, cuda_kernels.STORAGE_DTYPES[opts.message_dtype].itemsize
-    flags = 4 + 1  # iters (int32) and done (bool)
+    """The bytes of one lane that the compaction's copies move in a decode
+    of ``code`` under ``opts``: :meth:`device_loop.Lanes.lane_bytes` of one
+    lane of the schedule's state, made by the plain program on the CPU."""
+    opts = dataclasses.replace(opts, backend="xla")
+    llr = torch.zeros((code.n_vars, 1), dtype=torch.float32)
+    syn = torch.zeros((code.n_checks, 1), dtype=torch.int8)
     if opts.schedule == "layered":
-        state = 4 * N + w * code.n_edges
-        return device_loop.LaneBytes(state + M, state + flags, 4 * N + flags)
-    messages = w * code.dc_max * M
-    return device_loop.LaneBytes(4 * N + M + messages + N, messages + N + flags, N + flags)
+        return sweep_lanes(code, opts, llr, syn).lane_bytes()
+    return _flooding_lanes(_DecodeCore(code, opts, "cpu"), llr, syn).lane_bytes()
 
 
-def _flooding_program(core, llr, syn, opts, graph):
-    """The flooding decode of ``llr [N, B]`` float32 toward ``syn [M, B]``
-    int8: eagerly (``graph=None``) or as the capture into ``graph``.
-    Returns ``(z [N, B] int8, iters [B] int32, done [B] bool)``."""
+def _flooding_lanes(core, llr, syn) -> _Lanes:
+    """The flooding state of ``llr [N, B]`` float32 and ``syn [M, B]`` int8
+    after the peeled first check update: its inputs are the raw a-priori
+    LLRs (never clipped).  Every frame then runs iteration 1 in the loop."""
     N, B = llr.shape
     dev = llr.device
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    # ---- peeled first check update: its inputs are the raw a-priori LLRs
-    # (never clipped).  Every frame then runs iteration 1 in the loop.
     lanes = _Lanes(core, llr, syn, None, zeros((N, B), torch.int8),
                    zeros((B,), torch.int32), zeros((B,), torch.bool),
                    zeros((1,), torch.int32))
     lanes.Lr = core.check_update_first(core.to_storage(llr), syn, scratch=lanes.scratch)
+    return lanes
+
+
+def _flooding_program(core, llr, syn, opts, graph):
+    """The flooding decode of ``llr [N, B]`` float32 toward ``syn [M, B]``
+    int8: eagerly (``graph=None``) or as the capture into ``graph``.
+    Returns ``(z [N, B] int8, iters [B] int32, done [B] bool)``."""
+    lanes = _flooding_lanes(core, llr, syn)
     device_loop.run_schedule(lanes, opts, graph)
     done = lanes.loop.done
     # Frames that never converged report max_iterations.

@@ -355,6 +355,25 @@ class Lanes:
         self.loop = LoopState(done, it, fill)
         self.use_kernel = use_kernel
 
+    def handed_back(self, narrowest: bool) -> tuple:
+        """What a rung hands back into the batch: :meth:`carried` (what the
+        next rung reads) or, from the narrowest, :meth:`returned`, each with
+        the counts ``iters`` and the flags ``loop.done``."""
+        return ((self.returned() if narrowest else self.carried())
+                + (self.iters, self.loop.done))
+
+    def lane_bytes(self) -> "LaneBytes":
+        """The bytes of one lane that the compaction's copies move, from the
+        tensors they copy: :meth:`gathered` into a rung, :meth:`handed_back`
+        out of it."""
+        B = self.loop.done.shape[0]
+
+        def per_lane(tensors):
+            return sum(x.numel() * x.element_size() for x in tensors) // B
+
+        return LaneBytes(per_lane(self.gathered()), per_lane(self.handed_back(False)),
+                         per_lane(self.handed_back(True)))
+
     def run(self, limit: int, graph, floor: int = 0, lane_passes=None) -> None:
         """The early-exit loop (``lax.while_loop``) up to ``limit`` passes in
         all, while more than ``floor`` lanes are active; ``lane_passes``
@@ -443,10 +462,7 @@ def run_schedule(lanes: Lanes, opts, graph) -> None:
 
     def rung(i, passes=None):
         part, sel = rungs[i]
-        # a rung hands back what the next rung reads, the narrowest the result
-        handed = (lambda x: x.carried()) if below[i] else (lambda x: x.returned())
-        back = list(zip(handed(lanes), handed(part))) + [
-            (lanes.iters, part.iters), (lanes.loop.done, part.loop.done)]
+        back = list(zip(lanes.handed_back(not below[i]), part.handed_back(not below[i])))
         compact_copy(list(zip(lanes.gathered(), part.gathered())), sel, scatter=False,
                      use_kernel=kern, passes=passes)
         part.run(cap, graph, floor=below[i], lane_passes=lane_passes)
@@ -500,11 +516,10 @@ _counters_lock = threading.Lock()
 
 
 class LaneBytes(NamedTuple):
-    """The bytes of one lane that the compaction's copies move: into a
-    rung (``compact_gather``: :meth:`Lanes.gathered`), and back
-    (``compact_scatter``, the counts and flags included) from a rung above
-    the narrowest (:meth:`Lanes.carried`) or from the narrowest
-    (:meth:`Lanes.returned`)."""
+    """The bytes of one lane that the compaction's copies move
+    (:meth:`Lanes.lane_bytes`): into a rung (``compact_gather``), and back
+    (``compact_scatter``) from a rung above the narrowest or from the
+    narrowest."""
 
     gathered: int
     carried: int

@@ -317,11 +317,30 @@ def layered_decode_batch_last(
     return device_loop.batch_last_decode("layered", layered_program, code, llr, syndrome, opts)
 
 
+def sweep_lanes(code: LDPCCode, opts, llr, syndrome) -> _SweepLanes:
+    """The layered state of ``llr [N, B]`` and ``syndrome [M, B]`` on their
+    device before the first sweep."""
+    tables, use_kernel = _checked_tables(code, opts, llr.device)
+    mdt = cuda_kernels.STORAGE_DTYPES[opts.message_dtype]
+    return _sweep_lanes(tables, *initial_state(tables, llr, syndrome, mdt), opts, use_kernel)
+
+
 def _layered_program(tables, t0, Lr0, syn3, opts, use_kernel, graph):
     """The layered decode of ``t0 [nb, B, z]`` (updated in place) with
     messages ``Lr0`` (its working buffer) toward ``syn3 [mb, B, z]``,
     eagerly (``graph=None``) or as the capture into ``graph``: ``(t, iters,
     done)``."""
+    lanes = _sweep_lanes(tables, t0, Lr0, syn3, opts, use_kernel)
+    device_loop.run_schedule(lanes, opts, graph)
+    # A converged frame reports the sweep at which its decision syndrome
+    # first matched; failures report max_iterations.
+    done = lanes.loop.done
+    return lanes.t, torch.where(done, lanes.iters.clamp_min(1), opts.max_iterations), done
+
+
+def _sweep_lanes(tables, t0, Lr0, syn3, opts, use_kernel) -> _SweepLanes:
+    """The lanes over ``t0``, ``Lr0`` and ``syn3`` (:func:`_layered_program`),
+    with the sweep and its scratch bound to ``tables`` and ``opts``."""
     device = t0.device
     B = t0.shape[1]
     mdt = cuda_kernels.STORAGE_DTYPES[opts.message_dtype]
@@ -348,10 +367,5 @@ def _layered_program(tables, t0, Lr0, syn3, opts, use_kernel, graph):
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    lanes = _SweepLanes(sweep, scratch, use_kernel, t0, Lr0, syn3, zeros((B,), torch.int32),
-                        zeros((B,), torch.bool), zeros((1,), torch.int32))
-    device_loop.run_schedule(lanes, opts, graph)
-    # A converged frame reports the sweep at which its decision syndrome
-    # first matched; failures report max_iterations.
-    done = lanes.loop.done
-    return lanes.t, torch.where(done, lanes.iters.clamp_min(1), opts.max_iterations), done
+    return _SweepLanes(sweep, scratch, use_kernel, t0, Lr0, syn3, zeros((B,), torch.int32),
+                       zeros((B,), torch.bool), zeros((1,), torch.int32))

@@ -138,7 +138,16 @@ def long_base(tmp_path_factory):
 
 
 @pytest.mark.parametrize("control", [None, "int8"], ids=["sound", "int8-control"])
-def test_the_blocked_check_judges_a_tiny_long_cell(long_base, control):
+def test_the_blocked_check_judges_a_tiny_long_cell(long_base, control, monkeypatch):
+    """The new kind's check is ``mc_point``'s with the reference decoding a
+    batch of trials at a time, and it leaves ``stats.point`` as it was."""
+    widths, point = [], stats.point
+
+    def recorded(*args, width=4096, **kwargs):
+        widths.append(width)
+        return point(*args, width=width, **kwargs)
+
+    monkeypatch.setattr(stats, "point", recorded)
     bench = spec.benchmark()
     bench["workloads"].append({"name": "t_long", "chips": 1})
     for m in bench["end_to_end"]:
@@ -150,3 +159,4 @@ def test_the_blocked_check_judges_a_tiny_long_cell(long_base, control):
                              t_start=time.perf_counter())
     assert result["correct"] is (control is None), result["checks"]
     assert set(result["metrics"]) == {"trials_per_s", "setup_s"}
+    assert widths == [64] and stats.point is recorded
